@@ -20,7 +20,24 @@ the CUDA toolkit.  Phases, one line each (or a few):
    CPU, in FP and INT mode;
 5. engine: ``serve_engine`` at full depth in bf16, FP and INT mode, with
    the kernel launch counts of each run, and a repeat run that must give
-   the same greedy tokens.
+   the same greedy tokens;
+6. K5 (flash prefill over a dense cache) against its plain version at the
+   classic path's shapes and at one long prefill (held row by row, at a
+   tolerance a repeated kv tile fails), with the kernel's, the plain
+   version's and ``scaled_dot_product_attention``'s times;
+7. K6 (flash decode) the same way, at the path's positions and over one
+   long int8 cache;
+8. Algorithm-1 calibration of qwen3-1.7B at full width and 2 layers on
+   the card and on the CPU: the tables must agree, apart from declared
+   near-ties;
+9. the 2-layer dense model (prefill + 3 decode steps, flash attention)
+   on the card against the CPU: INT with an int8 cache (identical), FP
+   with an fp32 cache (phase 4's FP rule) and FP with an int8 cache, with
+   K5 / K6 launch counts;
+10. classic ``serve`` at full depth in bf16 with flash attention: INT with
+    calibration and an int8 cache, FP with a bf16 cache, each twice
+    (token-identical repeats) with the launch counts of every kernel;
+11. the W8A8 engine (``serve_engine(w8a8=True)``) at full depth, twice.
 
 It then prints the card line, a JSON line describing every kernel, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -63,6 +80,9 @@ K2_STEP_ROWS = 24          # the engine's full mixed-step stream bucket
 # rows, a 5-token tail, a fresh prefill — then padding rows and a slot
 K1_ITEMS = ((16, 144), (1, 131), (1, 47), (5, 37), (16, 16))
 K1_HEADS, K1_KV_HEADS, K1_DIM, K1_BS, K1_PAD_ROWS = 16, 8, 128, 16, 9
+# K5 / K6 at their long shapes: each output held within this share of its
+# row's largest |value| (``_close_rows``)
+LONG_ROW_TOL = 2e-2
 KV_FRAC_BITS = 4
 
 
@@ -517,7 +537,8 @@ def phase_engine(torch, out):
             check(launches["int8_matmul"] == k2_want,
                   f"engine {mode}: K2 launched {launches['int8_matmul']} "
                   f"times, want {k2_want}")
-            check(launches == rep_["kernel_launches"],
+            check({k: launches[k] for k in rep_["kernel_launches"]}
+                  == rep_["kernel_launches"],
                   f"engine {mode}: report launches {rep_['kernel_launches']}")
             for req in o["requests"]:
                 toks = o["outputs"][req.rid]
@@ -537,6 +558,510 @@ def phase_engine(torch, out):
         res[mode] = dict(launches=runs[0][1], report=runs[0][2],
                          peak_gib=runs[0][3], wall_s=runs[0][4])
     out["engine"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: K5 and K6 against their plain versions
+# ---------------------------------------------------------------------------
+
+def _dense_qkv(torch, gen, b, sq, skv, h, kvh, d, q_dt, kv_dt):
+    from repro_torch.core.qscheme import quant
+    q = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(q_dt)
+    k = torch.randn((b, skv, kvh, d), generator=gen, device="cuda")
+    v = torch.randn((b, skv, kvh, d), generator=gen, device="cuda")
+    if kv_dt == torch.int8:
+        return q, quant(k, KV_FRAC_BITS), quant(v, KV_FRAC_BITS), KV_FRAC_BITS
+    return q, k.to(kv_dt), v.to(kv_dt), None
+
+
+def _sdpa(torch):
+    """``scaled_dot_product_attention`` over (B, S, H, D) tensors with
+    grouped KV heads: ``enable_gqa`` where the installed PyTorch has it,
+    else K/V repeated per group.  Timed as the yardstick only."""
+    F = torch.nn.functional
+    probe = torch.zeros((1, 2, 1, 8), device="cuda")
+    try:
+        F.scaled_dot_product_attention(probe, probe[:, :1], probe[:, :1],
+                                       enable_gqa=True)
+        gqa = True
+    except TypeError:
+        gqa = False
+
+    def call(q, k, v, causal):
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        if gqa:
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  enable_gqa=True)
+        g = qt.shape[1] // kt.shape[1]
+        return F.scaled_dot_product_attention(
+            qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
+            is_causal=causal)
+    return call, ("enable_gqa" if gqa else "repeated K/V")
+
+
+def _deq(torch, k, nkv, dt):
+    from repro_torch.core.qscheme import dequant
+    return dequant(k, nkv, out_dtype=dt) if nkv is not None else k.to(dt)
+
+
+def _close(torch, got, want, tol, what):
+    err = float((got.float() - want.float()).abs().max())
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    check(torch.allclose(got.float(), want.float(), atol=tol, rtol=tol),
+          f"{what}: kernel vs plain max |diff| {err:.3e} > tol {tol}")
+    return err
+
+
+def _close_rows(torch, got, want, rel, what):
+    """Hold a long-shape output row by row at ``rel`` times the row's
+    largest |value| (a row is one (batch, query, head) of D values).  Its
+    outputs average thousands of V rows and are far below the path's
+    shapes' atol, so an absolute 2e-2 would pass a kernel that drops or
+    repeats a whole kv tile; this bound passes a bf16 rounding flip (at
+    most 2^-7 of a value) and fails such a tile."""
+    err = float((got.float() - want.float()).abs().max())
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    check(_rows_within(torch, got, want, rel),
+          f"{what}: kernel vs plain max |diff| {err:.3e} beyond {rel} of "
+          "its row's largest value")
+    return err
+
+
+def _rows_within(torch, got, want, rel):
+    w = want.float()
+    bound = rel * w.abs().amax(dim=-1, keepdim=True)
+    return bool(((got.float() - w).abs() <= bound).all())
+
+
+def _tile_fault_caught(torch, plain, q, k, v, want, rel, tile, **kw):
+    """The plain version over K/V whose kv tile ``tile`` (128 rows) holds
+    a copy of the tile before it (a kernel that repeats one tile and
+    skips the next) must fall outside the row tolerance."""
+    lo = tile * 128
+    kb, vb = k.clone(), v.clone()
+    kb[:, lo:lo + 128], vb[:, lo:lo + 128] = k[:, lo - 128:lo], \
+        v[:, lo - 128:lo]
+    bad = plain(q, kb, vb, **kw)
+    return not _rows_within(torch, bad, want, rel)
+
+
+def phase_k5(torch, out):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
+    sdpa, sdpa_how = _sdpa(torch)
+    # (name, B, Sq, Skv, q dtype, K/V dtype, tolerance): the classic path's
+    # shapes first — the prefill over the int8 max_seq cache (bf16 model,
+    # fp32 model phase) and the calibration forward over its own bf16 K/V
+    cases = [("prefill, int8 cache", 4, 32, 48, torch.bfloat16, torch.int8,
+              2e-2),
+             ("prefill, int8 cache, fp32 q", 4, 32, 48, torch.float32,
+              torch.int8, 1e-4),
+             ("prefill, bf16 cache", 4, 32, 48, torch.bfloat16,
+              torch.bfloat16, 2e-2),
+             ("forward, bf16 K/V", 4, 32, 32, torch.bfloat16, torch.bfloat16,
+              2e-2),
+             ("forward, fp32", 4, 32, 32, torch.float32, torch.float32,
+              1e-4),
+             ("long prefill", 1, 4096, 4096, torch.bfloat16, torch.bfloat16,
+              LONG_ROW_TOL)]
+    rows, max_err = [], 0.0
+    for name, b, sq, skv, q_dt, kv_dt, tol in cases:
+        q, k, v, nkv = _dense_qkv(torch, gen, b, sq, skv, h, kvh, d, q_dt,
+                                  kv_dt)
+        got = ops.flash_attention(q, k, v, kv_frac_bits=nkv)
+        want = ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv)
+        torch.cuda.synchronize()
+        if sq < 1024:
+            err = _close(torch, got, want, tol, f"K5 {name}")
+            held = f"atol=rtol={tol}"
+        else:
+            err = _close_rows(torch, got, want, tol, f"K5 {name}")
+            check(_tile_fault_caught(torch, ref.flash_attention_ref, q, k, v,
+                                     want, tol, sq // 256, kv_frac_bits=nkv),
+                  f"K5 {name}: the row tolerance passes a repeated kv tile")
+            held = (f"{tol} of each row's largest |value|, which a repeated "
+                    "kv tile fails")
+        if q_dt == torch.bfloat16 and kv_dt == torch.int8:
+            max_err = max(max_err, err)
+        line = (f"[6] K5 {name} (B {b}, Sq {sq}, Skv {skv}, {q_dt} q, "
+                f"{kv_dt} K/V): within {held} (max |diff| {err:.2e})")
+        if name in ("prefill, int8 cache", "long prefill"):
+            iters = 50 if sq < 1024 else 5
+            ms = time_ms(torch, lambda: ops.flash_attention(
+                q, k, v, kv_frac_bits=nkv), iters)
+            plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+                q, k, v, kv_frac_bits=nkv), 3, warmup=1)
+            kf, vf = _deq(torch, k, nkv, q_dt), _deq(torch, v, nkv, q_dt)
+            if skv > sq:     # SDPA's is_causal aligns the top-left corner
+                kf, vf = kf[:, :sq].contiguous(), vf[:, :sq].contiguous()
+            lib = sdpa(q, kf, vf, True).transpose(1, 2)
+            check(torch.allclose(lib.float(), want.float(), atol=5e-2,
+                                 rtol=5e-2), f"K5 {name}: SDPA disagrees")
+            lib_ms = time_ms(torch, lambda: sdpa(q, kf, vf, True), iters)
+            kv_rows = b * min(sq, skv)
+            n_bytes = (2 * q.numel() * q.element_size()
+                       + 2 * kv_rows * kvh * d * k.element_size())
+            n_ops = b * h * 4 * d * sum(min(i + 1, skv) for i in range(sq))
+            b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+            rows.append(dict(name=name, b=b, sq=sq, skv=skv, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                             bytes=n_bytes, ops=n_ops))
+            line += (f" | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+                     f"({sdpa_how}) {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
+                     f"({b_by})")
+        log(line)
+    # no kv row at all: l == 0 on every row, written as exactly 0
+    q, k, v, nkv = _dense_qkv(torch, gen, 2, 16, 16, h, kvh, d,
+                              torch.bfloat16, torch.int8)
+    empty = ops.flash_attention(q, k[:, :0], v[:, :0], kv_frac_bits=nkv)
+    torch.cuda.synchronize()
+    check(int(torch.count_nonzero(empty)) == 0,
+          "K5: rows with l == 0 are not exactly 0")
+    log("[6] K5 rows with l == 0 (no kv rows) exactly 0")
+    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how)
+    out["k5"] = res
+    return res
+
+
+def phase_k6(torch, out):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
+    sdpa, sdpa_how = _sdpa(torch)
+    cases = [("int8 cache", 4, 48, torch.bfloat16, torch.int8, 2e-2,
+              (0, 15, 32, 47)),
+             ("int8 cache, fp32 q", 4, 48, torch.float32, torch.int8, 1e-4,
+              (0, 15, 32, 47)),
+             ("bf16 cache", 4, 48, torch.bfloat16, torch.bfloat16, 2e-2,
+              (0, 15, 32, 47)),
+             ("long int8 cache", 4, 32768, torch.bfloat16, torch.int8,
+              LONG_ROW_TOL, (32767,))]
+    rows, max_err = [], 0.0
+    for name, b, s_max, q_dt, kv_dt, tol, positions in cases:
+        q, k, v, nkv = _dense_qkv(torch, gen, b, 1, s_max, h, kvh, d, q_dt,
+                                  kv_dt)
+        errs = []
+        for pos in positions:
+            got = ops.flash_decode(q, k, v, pos=pos, kv_frac_bits=nkv)
+            want = ref.flash_decode_ref(q, k, v, pos=pos, kv_frac_bits=nkv)
+            torch.cuda.synchronize()
+            if s_max < 1024:
+                errs.append(_close(torch, got, want, tol,
+                                   f"K6 {name} pos {pos}"))
+                held = f"atol=rtol={tol}"
+            else:
+                errs.append(_close_rows(torch, got, want, tol,
+                                        f"K6 {name} pos {pos}"))
+                check(_tile_fault_caught(torch, ref.flash_decode_ref, q, k, v,
+                                         want, tol, pos // 256, pos=pos,
+                                         kv_frac_bits=nkv),
+                      f"K6 {name}: the row tolerance passes a repeated kv "
+                      "tile")
+                held = (f"{tol} of each row's largest |value|, which a "
+                        "repeated kv tile fails")
+        # the kernels line reports the error at the path's shape
+        if q_dt == torch.bfloat16 and kv_dt == torch.int8 and s_max < 1024:
+            max_err = max(max_err, *errs)
+        line = (f"[7] K6 {name} (B {b}, S_max {s_max}, {q_dt} q, {kv_dt} "
+                f"cache), pos {list(positions)}: within {held} "
+                f"(max |diff| {max(errs):.2e})")
+        if kv_dt == torch.int8 and q_dt == torch.bfloat16:
+            pos = positions[-1]
+            ms = time_ms(torch, lambda: ops.flash_decode(
+                q, k, v, pos=pos, kv_frac_bits=nkv), 50)
+            plain_ms = time_ms(torch, lambda: ref.flash_decode_ref(
+                q, k, v, pos=pos, kv_frac_bits=nkv), 5, warmup=1)
+            kf = _deq(torch, k[:, :pos + 1], nkv, q_dt).contiguous()
+            vf = _deq(torch, v[:, :pos + 1], nkv, q_dt).contiguous()
+            lib_ms = time_ms(torch, lambda: sdpa(q, kf, vf, False), 50)
+            n_bytes = (2 * q.numel() * q.element_size()
+                       + 2 * b * (pos + 1) * kvh * d * k.element_size())
+            n_ops = b * h * 4 * d * (pos + 1)
+            b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+            rows.append(dict(name=name, b=b, s_max=s_max, pos=pos, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms,
+                             max_abs_err=max(errs),
+                             bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
+                             ops=n_ops))
+            line += (f" | at pos {pos}: kernel {ms:.4f} ms, plain "
+                     f"{plain_ms:.4f} ms, SDPA ({sdpa_how}) {lib_ms:.4f} ms, "
+                     f"bound {b_ms:.5f} ms ({b_by})")
+        log(line)
+        del q, k, v
+    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how)
+    out["k6"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 8 and 9: calibration and the dense model, card against CPU
+# ---------------------------------------------------------------------------
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 32, 16
+
+
+def _serve_tokens(vocab):
+    """The classic path's prompt batch (``launch.serve.serve``'s draw)."""
+    from repro_torch.data import SyntheticLMStream
+    return SyntheticLMStream(vocab, SERVE_PROMPT, SERVE_BATCH,
+                             seed=0).batch(0)["tokens"]
+
+
+def phase_calibrate(torch, out):
+    """Algorithm 1 on the card and on the CPU from the same weights and
+    batch.  Tolerance: the fp32 products and attention sums run in other
+    orders on the two devices, so a module whose best two candidates'
+    errors nearly tie may pick differently; that is accepted only where
+    the two chosen errors agree within 1e-4 relative."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.lm_calibrate import calibrate_lm
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=2,
+                              dtype="float32", kv_cache_bits=8,
+                              attn_kernel="flash")
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    tokens = torch.from_numpy(_serve_tokens(cfg.vocab_size))
+    res = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        ctx, rep = calibrate_lm(lambda p, b, c: M.forward(p, b, cfg, c),
+                                params, {"tokens": tokens.to(dev)})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (ctx, rep, time.perf_counter() - t0)
+    (cg, rg, tg), (cc, rc, tc) = res["cuda"], res["cpu"]
+    check(list(cg.table) == list(cc.table), "calibration: module lists")
+    ties = []
+    for name in cc.table:
+        a, b = cg.table[name], cc.table[name]
+        if a == b:
+            continue
+        eg, ec = rg.results[name].error, rc.results[name].error
+        rel = abs(eg - ec) / max(ec, 1e-30)
+        log(f"[8] calibration {name}: card {a} error {eg!r}, CPU {b} error "
+            f"{ec!r} (relative {rel:.2e})")
+        check(rel <= 1e-4, f"calibration {name}: card and CPU choose "
+              f"differently and their errors differ by {rel:.2e}")
+        ties.append(name)
+    log(f"[8] calibration ({len(cc.table)} modules, qwen3-1.7B full width, "
+        f"2 layers, fp32, {SERVE_BATCH}x{SERVE_PROMPT} tokens): tables "
+        f"{'identical' if not ties else f'identical apart from near-ties {ties}'}"
+        f"; card {tg:.2f} s, CPU {tc:.2f} s")
+    out["calibration"] = dict(card_s=tg, cpu_s=tc, near_ties=ties,
+                              table={k: dataclasses.astuple(v)
+                                     for k, v in cc.table.items()})
+    return cfg, p_cpu, p_gpu, cc
+
+
+def phase_dense_model(torch, out, cfg, p_cpu, p_gpu, cal_ctx):
+    """prefill + 3 decode steps, both devices fed the same tokens (the
+    CPU's greedy choices), in three cases.  Tolerances:
+
+    * INT mode, int8 cache: logits and every cache code identical, as
+      phase 4 found for the ragged path (every run so far agreed).
+    * FP mode, fp32 cache: phase 4's FP rule, logits within
+      atol=rtol=1e-3 in at least 99.9% of entries, all within 5e-2.  No
+      code can flip here, so only the fp32 summation orders differ.
+    * FP mode, int8 cache: the card and the CPU sum fp32 products and
+      softmaxes in different orders, so a K/V value within an ulp of a
+      rounding boundary may take the neighbouring code (on an H100, 112
+      of the 2x35-position cache's codes come out one step apart), and
+      each flipped code moves every later logit of its sequence by about
+      1e-3.  So here: every code within one step of the CPU's, at most
+      0.1% differing, and logits all within 5e-2; the 1e-3 share is
+      printed.  The fp32-cache case shows the rest of the path holds the
+      tighter rule."""
+    from repro_torch.core.qmodel import QuantMode, quantize_weight_tree
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    tokens = torch.from_numpy(_serve_tokens(cfg.vocab_size))
+    max_seq = SERVE_PROMPT + SERVE_GEN
+    res = {}
+    for mode, kv_bits in (("int", 8), ("fp", None), ("fp", 8)):
+        ctx = dataclasses.replace(cal_ctx, mode=QuantMode(mode))
+        ccfg = dataclasses.replace(cfg, kv_cache_bits=kv_bits)
+        case = f"{mode}, {'int8' if kv_bits else 'fp32'} cache"
+        pc, pg = p_cpu, p_gpu
+        if ctx.mode is QuantMode.INT:
+            pc, pg = quantize_weight_tree(p_cpu, ctx), \
+                quantize_weight_tree(p_gpu, ctx)
+        prefill = S.build_prefill_step(ccfg, ctx, max_seq=max_seq)
+        logits, caches, fed = {}, {}, []
+        for dev, params in (("cpu", pc), ("cuda", pg)):
+            ops.reset_launch_counts()
+            with torch.no_grad():
+                lg, cache = prefill(params, {"tokens": tokens.to(dev)})
+                seq = [lg.float().cpu()]
+                for i in range(3):
+                    if dev == "cpu":      # the CPU's greedy token, fed to both
+                        fed.append(torch.argmax(seq[-1], -1).to(
+                            torch.int32)[:, None])
+                    lg, cache = M.decode_step(params, fed[i].to(dev), cache,
+                                              SERVE_PROMPT + i, ccfg, ctx)
+                    seq.append(lg.float().cpu())
+            logits[dev], caches[dev] = seq, cache
+            launches = dict(ops.LAUNCHES)
+        check(launches["flash_prefill"] == cfg.n_layers
+              and launches["flash_decode"] == cfg.n_layers * 3,
+              f"dense model {case}: K5/K6 launched "
+              f"{launches['flash_prefill']}/{launches['flash_decode']} times, "
+              f"want {cfg.n_layers}/{cfg.n_layers * 3}")
+        worst_frac = worst_max = 0.0
+        for a, b in zip(logits["cuda"], logits["cpu"]):
+            check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+                  f"dense model {case}: non-finite or misshapen logits")
+            diff = (a - b).abs()
+            frac = float(((diff > 0) if mode == "int" else
+                          (diff > 1e-3 + 1e-3 * b.abs())).float().mean())
+            worst_frac, worst_max = max(worst_frac, frac), \
+                max(worst_max, float(diff.max()))
+        codes = []                  # (k/v, layer, entries differing, max diff)
+        for name, a, b in zip("kv", caches["cuda"]["kv"], caches["cpu"]["kv"]):
+            dd = (a.cpu().double() - b.double()).abs()
+            codes += [(name, layer, int((dd[layer] > 0).sum()),
+                       float(dd[layer].max())) for layer in range(cfg.n_layers)]
+        n_codes = 2 * caches["cpu"]["kv"].k.numel()
+        identical = worst_max == 0 and not any(c[2] for c in codes)
+        log(f"[9] dense model {case} (prefill {SERVE_BATCH}x{SERVE_PROMPT} + "
+            f"3 decode steps, 2 layers, full width, fp32, flash): logits max "
+            f"|diff| {worst_max:.3e}, {worst_frac:.2e} of entries "
+            f"{'differ' if mode == 'int' else 'beyond 1e-3'}; cache entries "
+            f"differing (k/v, layer, count, max |diff|) {codes} of "
+            f"{n_codes // 4} a layer; launches K5 {launches['flash_prefill']} "
+            f"K6 {launches['flash_decode']}"
+            + ("; identical" if identical else ""))
+        if mode == "int":
+            check(identical, f"dense model {case}: card and CPU differ "
+                  f"(logits max {worst_max}, cache {codes})")
+        elif kv_bits is None:
+            check(worst_frac <= 1e-3 and worst_max <= 5e-2,
+                  f"dense model {case}: logits beyond 1e-3 in "
+                  f"{worst_frac:.2e} of entries, max {worst_max}")
+        else:
+            check(max(c[3] for c in codes) <= 1
+                  and sum(c[2] for c in codes) <= 1e-3 * n_codes,
+                  f"dense model {case}: cache codes differ {codes}")
+            check(worst_max <= 5e-2, f"dense model {case}: logits differ by "
+                  f"up to {worst_max}")
+        res[case] = dict(logits_max_abs=worst_max, logits_frac=worst_frac,
+                         cache_diff=codes, launches=launches)
+    out["dense_model"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: classic serve and the W8A8 engine at full depth
+# ---------------------------------------------------------------------------
+
+def phase_serve(torch, out):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    cfg = get_config("qwen3_1_7b")
+    L, steps = cfg.n_layers, SERVE_GEN - 1
+    want = {"int": {"flash_prefill": 2 * L, "flash_decode": L * steps,
+                    "int8_matmul": (7 * L + 1) * SERVE_GEN,
+                    "ragged_attention": 0},
+            "fp": {"flash_prefill": L, "flash_decode": L * steps,
+                   "int8_matmul": 0, "ragged_attention": 0}}
+    res = {}
+    for mode, overrides in (("int", {"kv_cache_bits": 8}), ("fp", None)):
+        runs = []
+        for rep in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            o = serve("qwen3_1_7b", batch=SERVE_BATCH,
+                      prompt_len=SERVE_PROMPT, gen=SERVE_GEN, mode=mode,
+                      calibrate=True, smoke=False, attn_kernel="flash",
+                      cfg_overrides=overrides, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            toks = o["tokens"]
+            log(f"[10] serve {mode} run {rep}: tokens {toks.shape}, prefill "
+                f"{o['prefill_s']:.4f} s, decode "
+                f"{1e3 * o['decode_s_per_tok']:.2f} ms/token (first step "
+                f"{1e3 * o['compile_decode_s']:.2f} ms), launches K5 "
+                f"{launches['flash_prefill']} K6 {launches['flash_decode']} "
+                f"K2 {launches['int8_matmul']}, peak {peak:.2f} GiB, "
+                f"{wall:.1f} s")
+            check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_size,
+                  f"serve {mode}: tokens {toks}")
+            check(launches == want[mode], f"serve {mode}: launches "
+                  f"{launches}, want {want[mode]}")
+            runs.append(dict(tokens=toks, launches=launches,
+                             prefill_s=o["prefill_s"],
+                             decode_s_per_tok=o["decode_s_per_tok"],
+                             first_decode_s=o["compile_decode_s"],
+                             peak_gib=peak, wall_s=wall))
+            del o
+            torch.cuda.empty_cache()
+        check((runs[0]["tokens"] == runs[1]["tokens"]).all(),
+              f"serve {mode}: a repeated greedy run gave other tokens")
+        log(f"[10] serve {mode}: repeat run token-identical")
+        res[mode] = runs
+    out["serve"] = res
+    return res
+
+
+def phase_w8a8(torch, out):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    cfg = get_config("qwen3_1_7b")
+    runs = []
+    for rep in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        o = serve_engine("qwen3_1_7b", smoke=False, w8a8=True,
+                         n_requests=8, n_slots=4, rate=1e9, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        r = o["report"]
+        steps = r["ragged_steps"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[11] w8a8 engine run {rep}: {r['completed']} requests, "
+            f"{r['gen_tokens']} tokens, {r['tokens_per_s']} tok/s, {steps} "
+            f"ragged steps, launches K1 {launches['ragged_attention']} K2 "
+            f"{launches['int8_matmul']}, TTFT p50 {r['ttft_s']['p50']:.4f} "
+            f"s, TPOT p50 {r['tpot_s']['p50']:.4f} s, "
+            f"{len(o['quantized'].converted)} weight tensors as int8 codes, "
+            f"peak {peak:.2f} GiB, {wall:.1f} s")
+        check(r["completed"] == 8, "w8a8 engine: not all done")
+        check(launches["ragged_attention"] == cfg.n_layers * steps
+              and launches["int8_matmul"] == (7 * cfg.n_layers + 1) * steps
+              and r["kernel_launches"] == {
+                  k: launches[k] for k in r["kernel_launches"]},
+              f"w8a8 engine: launches {launches} over {steps} steps")
+        check(len(o["quantized"].converted) == 7 * cfg.n_layers + 1,
+              "w8a8 engine: not every matmul weight is int8 codes")
+        runs.append((o["outputs"], launches, r, peak, wall))
+        del o
+        torch.cuda.empty_cache()
+    (a, *_), (b, *_) = runs
+    check(sorted(a) == sorted(b)
+          and all(len(a[k]) == len(b[k]) and (a[k] == b[k]).all() for k in a),
+          "w8a8 engine: a repeated greedy run gave other tokens")
+    log("[11] w8a8 engine: repeat run token-identical")
+    res = dict(launches=runs[0][1], report=runs[0][2], peak_gib=runs[0][3],
+               wall_s=runs[0][4], report_repeat=runs[1][2])
+    out["w8a8_engine"] = res
     return res
 
 
@@ -565,6 +1090,14 @@ def main(argv=None) -> int:
         k1 = phase_k1(torch, out)
         phase_model(torch, out)
         eng = phase_engine(torch, out)
+        k5 = phase_k5(torch, out)
+        k6 = phase_k6(torch, out)
+        cal = phase_calibrate(torch, out)
+        phase_dense_model(torch, out, *cal)
+        del cal
+        torch.cuda.empty_cache()
+        srv = phase_serve(torch, out)
+        phase_w8a8(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -590,6 +1123,21 @@ def main(argv=None) -> int:
          "library_ms": k2["library_ms"],
          "per": f"engine step: 197 launches at M={K2_STEP_ROWS}"},
     ]
+    # K5 / K6: one launch at the classic path's shapes (K5: the prefill of
+    # the 4x32 prompt into the int8 48-position cache; K6: a decode step
+    # at position 47); launches from phase 10's INT serve run
+    srv_launches = srv["int"][0]["launches"]
+    for name, key, res, line in (
+            ("flash_prefill", "flash_prefill", k5, 68),
+            ("flash_decode", "flash_decode", k6, 184)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": srv_launches[key], "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": res["library_ms"], "per": "launch"})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -3,8 +3,8 @@
 A copy of the JAX package's ``ModelConfig`` for the family the PyTorch
 port serves so far, the dense pre-norm GQA transformers, holding the
 fields the port reads.  The MoE / MLA / SSM / enc-dec / hybrid
-sub-configs and the W8A8 / attention-kernel selectors are not ported
-yet.  Configs are frozen, hashable dataclasses.
+sub-configs are not ported yet.  Configs are frozen, hashable
+dataclasses.
 """
 from __future__ import annotations
 
@@ -36,6 +36,17 @@ class ModelConfig:
     # bit (post-rope/qk-norm K and V are O(1)-ranged; n=4 keeps |x|<8).
     kv_cache_bits: Optional[int] = None
     kv_cache_frac_bits: int = 4
+    # attention of the dense-cache paths (forward, prefill, decode_step):
+    #   'chunked' — the plain PyTorch versions of the flash kernels
+    #   'flash'   — K5 / K6 (``kernels.ops.flash_attention`` /
+    #               ``flash_decode``); int8 KV codes are dequantized in
+    #               registers.  The ragged serving path ignores it.
+    attn_kernel: str = "chunked"
+    # projection matmuls: 'dense' follows the QuantContext mode; 'int8' is
+    # the W8A8 deploy (weights pre-quantized by ``quantize_params``),
+    # which requires a calibrated INT-mode context (checked when a step
+    # is built, ``launch.steps``)
+    matmul_kernel: str = "dense"
 
     @property
     def resolved_head_dim(self) -> int:

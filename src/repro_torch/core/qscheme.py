@@ -10,6 +10,9 @@ JAX package's on every device.
 
 * ``quant(r, N, bits)``   — float → integer code.
 * ``dequant(q, N)``       — integer code → float.
+* ``fake_quant(r, N, bits)`` — Eq. 1 in float arithmetic, ``dequant(quant(r))``.
+* ``max_frac_bits(x)`` / ``search_window(x, tau)`` — Eq. 6 and the narrowed
+  window of Algorithm 1.
 * ``shift_requant(acc, s)`` — int32 accumulator → n-bit code by a
   round-half-away right shift (a negative ``s`` is a saturating left
   shift).
@@ -21,7 +24,8 @@ from typing import Optional
 import torch
 
 __all__ = ["int_bounds", "round_half_away", "quant", "dequant",
-           "shift_requant", "storage_dtype"]
+           "fake_quant", "max_frac_bits", "search_window", "shift_requant",
+           "storage_dtype"]
 
 
 def int_bounds(bits: int, unsigned: bool = False) -> tuple[int, int]:
@@ -62,6 +66,36 @@ def dequant(q: torch.Tensor, n: int,
             out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Integer code → float: ``q * 2^-n``."""
     return (q.to(torch.float32) * (2.0 ** (-int(n)))).to(out_dtype)
+
+
+def fake_quant(r: torch.Tensor, n: int, bits: int = 8,
+               unsigned: bool = False) -> torch.Tensor:
+    """Eq. (1) in float arithmetic: ``dequant(quant(r))`` in r's dtype.
+
+    The scales are exact powers of two.  (The reference's ``jnp.exp2`` is
+    exact only for |n| <= 12; Algorithm 1's windows stay inside that.)"""
+    lo, hi = int_bounds(bits, unsigned)
+    scaled = r.to(torch.float32) * (2.0 ** int(n))
+    q = torch.clamp(round_half_away(scaled), lo, hi)
+    return (q * (2.0 ** (-int(n)))).to(r.dtype)
+
+
+def max_frac_bits(x: torch.Tensor) -> int:
+    """Eq. (6): ``N^max = ceil(log2(max|x| + 1)) + 1`` integer bits.
+
+    ``max|x| + 1`` is rounded to fp32 as the reference does; its log2 is
+    then read exactly off the binary exponent (``frexp``), so no device's
+    ``log2`` rounding can move the ceiling at a power of two."""
+    t = torch.max(torch.abs(x.to(torch.float32))) + 1.0
+    mant, exp = torch.frexp(t)                   # t = mant * 2^exp, mant in [0.5, 1)
+    return int(exp) - (1 if float(mant) == 0.5 else 0) + 1
+
+
+def search_window(x: torch.Tensor, tau: int = 4) -> tuple[int, int]:
+    """Algorithm 1 lines 3-5: the narrowed window ``[N^max - tau, N^max]``
+    of integer bits, as Python ints (the grid search runs on the host)."""
+    nmax = max_frac_bits(x)
+    return nmax - tau, nmax
 
 
 def _right_shift_round(a: torch.Tensor, s: int) -> torch.Tensor:

@@ -4,7 +4,7 @@ Each wrapper takes the kernel's plain PyTorch version (``kernels.ref``)
 only because the tensor it was given lies on the CPU; for a CUDA tensor
 it launches the CUDA kernel or raises — there is no quiet fallback.  The
 TPU package's shape rules (small shapes to the reference, lane-multiple
-head dims for the ragged kernel) were TPU layout rules and do not carry
+head dims for the ragged and flash kernels) were TPU layout rules and do not carry
 over: on a CUDA tensor the kernel launches for every shape.
 
 ``LAUNCHES`` counts kernel launches per kernel, one per launch and
@@ -19,15 +19,18 @@ import torch
 
 from repro_torch.core.integer_ops import LinearQuantSpec
 from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import (flash_decode_cuda,
+                                                 flash_prefill_cuda)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.ragged_flash import ragged_attention_cuda
 
-__all__ = ["int8_matmul", "ragged_attention", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["int8_matmul", "ragged_attention", "flash_attention",
+           "flash_decode", "LAUNCHES", "reset_launch_counts"]
 
 # launches per kernel since the last reset (process-wide, like the
 # loaded kernel libraries themselves)
-LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0}
+LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "flash_prefill": 0,
+            "flash_decode": 0}
 
 
 def reset_launch_counts() -> None:
@@ -87,13 +90,7 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     codes on the 2^-``kv_frac_bits`` grid, or floats.  Scores are scaled
     by 1/sqrt(Dk).  Returns (T, H, Dv) with rows no descriptor covers
     exactly zero."""
-    if k_pool.dtype == torch.int8:
-        if kv_frac_bits is None:
-            raise ValueError("int8 KV codes require kv_frac_bits (the "
-                             "cache's static Eq.-1 fractional bit)")
-        nkv = int(kv_frac_bits)
-    else:
-        nkv = 0
+    nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
     if not _on_cuda(q, "ragged_attention"):
         return ref.ragged_attention_ref(
             q, k_pool, v_pool, block_tables, q_start, q_len, kv_len,
@@ -104,4 +101,42 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_start,
                                 q_len, kv_len, kv_frac_bits=nkv)
     LAUNCHES["ragged_attention"] += 1
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    kv_frac_bits: Optional[int] = None) -> torch.Tensor:
+    """Causal flash attention over a dense cache: q (B, Sq, H, Dk) at
+    positions 0..Sq-1 x K/V (B, Skv, KVH, D) -> (B, Sq, H, Dv), scores
+    scaled by 1/sqrt(Dk).  K/V may be int8 Eq.-1 codes on the
+    2^-``kv_frac_bits`` grid, dequantized in registers.  Kv rows past Sq
+    (an empty cache tail) are masked by causality and never read.
+
+    K5's backward belongs to the training slice: a CUDA ``q`` that
+    requires grad raises."""
+    nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
+    if not _on_cuda(q, "flash_attention"):
+        return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits)
+    if q.requires_grad:
+        raise NotImplementedError(
+            "flash_attention on CUDA is forward-only: K5's backward comes "
+            "with training (ROADMAP Queue 1 item 12)")
+    out = flash_prefill_cuda(q, k, v, kv_frac_bits=nkv)
+    LAUNCHES["flash_prefill"] += 1
+    return out
+
+
+def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 pos: int, kv_frac_bits: Optional[int] = None
+                 ) -> torch.Tensor:
+    """One-token decode over a dense cache: q (B, 1, H, Dk) at absolute
+    position ``pos`` (a host int) over (B, S_max, KVH, D), kv rows
+    ``<= pos`` visible -> (B, 1, H, Dv).  The cache is read in place, up
+    to ``pos`` only."""
+    nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
+    if not _on_cuda(q, "flash_decode"):
+        return ref.flash_decode_ref(q, k, v, pos=pos,
+                                    kv_frac_bits=kv_frac_bits)
+    out = flash_decode_cuda(q, k, v, pos=int(pos), kv_frac_bits=nkv)
+    LAUNCHES["flash_decode"] += 1
     return out

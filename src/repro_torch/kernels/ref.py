@@ -16,9 +16,25 @@ import torch
 
 from repro_torch.core.qscheme import dequant
 
-__all__ = ["int8_matmul_ref", "ragged_token_meta", "ragged_attention_ref"]
+__all__ = ["int8_matmul_ref", "ragged_token_meta", "ragged_attention_ref",
+           "flash_attention_ref", "flash_decode_ref", "kv_frac_bits_of",
+           "DEFAULT_MASK_VALUE"]
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+# the flash kernels' finite stand-in for -inf (the reference's value)
+DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def kv_frac_bits_of(k: torch.Tensor, kv_frac_bits: Optional[int]) -> int:
+    """The KV grid's fractional bits: ``kv_frac_bits`` for int8 codes
+    (required), 0 for float K/V."""
+    if k.dtype == torch.int8:
+        if kv_frac_bits is None:
+            raise ValueError("int8 KV codes require kv_frac_bits (the "
+                             "cache's static Eq.-1 fractional bit)")
+        return int(kv_frac_bits)
+    return 0
 
 
 def _requant(acc: torch.Tensor, shift: int, lo: int, hi: int) -> torch.Tensor:
@@ -88,17 +104,15 @@ def ragged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     dv = v_pool.shape[-1]
     g = h // kvh
     scale = 1.0 / math.sqrt(dk)
-    if k_pool.dtype == torch.int8 and kv_frac_bits is None:
-        raise ValueError("int8 KV codes require kv_frac_bits (the cache's "
-                         "static Eq.-1 fractional bit)")
+    nkv = kv_frac_bits_of(k_pool, kv_frac_bits)
     sid, valid, pos = ragged_token_meta(q_start, q_len, kv_len, t)
     bt_tok = block_tables.long()[sid]                       # (T, NBmax)
     s_len = block_tables.shape[1] * bs
     k = k_pool[bt_tok].reshape(t, s_len, kvh, dk)
     v = v_pool[bt_tok].reshape(t, s_len, kvh, dv)
     if k.dtype == torch.int8:
-        k = dequant(k, int(kv_frac_bits), out_dtype=q.dtype)
-        v = dequant(v, int(kv_frac_bits), out_dtype=q.dtype)
+        k = dequant(k, nkv, out_dtype=q.dtype)
+        v = dequant(v, nkv, out_dtype=q.dtype)
     else:
         k, v = k.to(q.dtype), v.to(q.dtype)
     qg = q.reshape(t, kvh, g, dk).float()
@@ -112,3 +126,57 @@ def ragged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     # fully-masked padding rows came out of the softmax as NaN — they are
     # no sequence's output, pin them to zero
     return torch.where(valid[:, None, None], out, torch.zeros_like(out))
+
+
+def _dense_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         q_pos: torch.Tensor,
+                         kv_frac_bits: Optional[int]) -> torch.Tensor:
+    """K5 / K6's function over a dense cache, whole rows at once: q
+    (B, Sq, H, Dk) at absolute positions ``q_pos`` (Sq,) attends to the kv
+    rows at positions <= its own.  K/V (B, Skv, KVH, D) are cast to q's
+    dtype (int8 codes exactly); scores are fp32, scaled by
+    2^-n / sqrt(Dk); a masked score is ``DEFAULT_MASK_VALUE``; P is cast to
+    q's dtype before P.V; the result is ``acc * (1 / l) * 2^-n``.  l is 0
+    only when there is no kv row, and such rows are 0.  The kernels' tiled online softmax computes
+    the same function up to the order of the fp32 sums (and, in bf16, of
+    where P is rounded)."""
+    b, sq, h, dk = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    dv = v.shape[-1]
+    g = h // kvh
+    nkv = kv_frac_bits_of(k, kv_frac_bits)
+    if skv == 0:                 # no kv row: l == 0 on every row
+        return q.new_zeros((b, sq, h, dv))
+    kc, vc = k.to(q.dtype).float(), v.to(q.dtype).float()
+    qg = q.reshape(b, sq, kvh, g, dk).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, kc) \
+        * (2.0 ** (-nkv) / math.sqrt(dk))
+    kv_pos = torch.arange(skv, device=q.device)
+    mask = kv_pos[None, :] <= q_pos[:, None]                 # (Sq, Skv)
+    s = torch.where(mask, s, torch.full_like(s, DEFAULT_MASK_VALUE))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1)                                        # (B, KVH, G, Sq)
+    acc = torch.einsum("bkgqs,bskd->bkgqd", p.to(q.dtype).float(), vc)
+    out = acc * (1.0 / l)[..., None] * (2.0 ** (-nkv))
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, kv_frac_bits: Optional[int] = None
+                        ) -> torch.Tensor:
+    """K5's function: causal attention of q (B, Sq, H, Dk) at positions
+    0..Sq-1 over K/V (B, Skv, KVH, D); (B, Sq, H, Dv) in q's dtype."""
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    return _dense_attention_ref(q, k, v, q_pos, kv_frac_bits)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     pos: int, kv_frac_bits: Optional[int] = None
+                     ) -> torch.Tensor:
+    """K6's function: q (B, 1, H, Dk) at absolute position ``pos`` over
+    the cache (B, S_max, KVH, D), kv rows <= ``pos`` visible.  Only those
+    rows are read (the masked ones would contribute exactly 0)."""
+    q_pos = torch.full((1,), int(pos), device=q.device)
+    return _dense_attention_ref(q, k[:, :pos + 1], v[:, :pos + 1], q_pos,
+                                kv_frac_bits)

@@ -1,17 +1,26 @@
-"""GQA attention on the unified ragged serving path (PyTorch counterpart
-of ``repro.models.attention``: ``PagedKVCache``, ``RaggedBatch``,
-``init_gqa`` and the ragged branch of ``gqa_attention``).
+"""GQA attention (PyTorch counterpart of ``repro.models.attention``:
+``KVCache``, ``PagedKVCache``, ``RaggedBatch``, ``init_gqa`` and the GQA
+branches of ``gqa_attention``).
 
 All projections run through ``qlinear`` (the paper's unified modules);
-softmax, rope and norms stay in float.  K and V are quantized ONCE to
-Eq.-1 int8 codes, scattered to their host-precomputed pool rows, and
-attention runs in one ``ops.ragged_attention`` launch for the whole
-mixed step.  The dense-cache, legacy paged and MLA paths are not ported
-yet.
+softmax, rope and norms stay in float.  Two families of paths:
+
+* ragged serving: the whole mixed step is one flattened stream, K and V
+  are quantized ONCE to Eq.-1 int8 codes, scattered to their
+  host-precomputed pool rows, and attention runs in one
+  ``ops.ragged_attention`` launch (K1).  ``cfg.attn_kernel`` is ignored,
+  as in the reference;
+* dense cache (classic prefill / decode, and the no-cache forward that
+  calibration runs): ``cfg.attn_kernel == 'flash'`` goes to
+  ``ops.flash_attention`` (K5) / ``ops.flash_decode`` (K6), ``'chunked'``
+  to their plain versions on any device (the reference computes that path
+  as jnp outside any kernel).
+
+The legacy paged and MLA paths are not ported yet.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -19,9 +28,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.core.qscheme import quant
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.models.common import linear, rmsnorm, rotate
 
-__all__ = ["PagedKVCache", "RaggedBatch", "init_gqa", "gqa_attention"]
+__all__ = ["KVCache", "PagedKVCache", "RaggedBatch", "init_gqa",
+           "gqa_attention"]
+
+
+class KVCache(NamedTuple):
+    """Dense per-layer KV cache of the classic serving path: int8 Eq.-1
+    codes (``cfg.kv_cache_bits == 8``) or the model dtype."""
+    k: torch.Tensor     # (B, S_max, KVH, D)
+    v: torch.Tensor     # (B, S_max, KVH, D)
 
 
 class PagedKVCache(NamedTuple):
@@ -67,40 +85,78 @@ def init_gqa(init, cfg: ModelConfig) -> dict:
 
 def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                   cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
-                  cache: PagedKVCache, ragged: RaggedBatch,
-                  name: str = "attn") -> tuple[torch.Tensor, PagedKVCache]:
-    """Ragged GQA over the paged pool: x (T, d) is the whole mixed step,
-    ``rope`` the (cos, sin) tables of its tokens' absolute positions
-    (``common.rope_tables``).
+                  cache=None, cache_pos: Optional[int] = None,
+                  ragged: Optional[RaggedBatch] = None,
+                  name: str = "attn"):
+    """GQA with qk_norm and rope; ``rope`` is the (cos, sin) table of the
+    tokens' absolute positions (``common.rope_tables``).  Returns
+    (output, cache).
 
-    The pool is updated IN PLACE (``index_copy_`` of each token's codes
-    into its ``dest`` row) where the JAX engine donates the buffer; the
-    returned cache holds the same tensors."""
-    t = x.shape[0]
+    * ``ragged`` given: x (T, d) is the whole mixed step and ``cache`` the
+      :class:`PagedKVCache`; each token's codes are written IN PLACE
+      (``index_copy_`` into its ``dest`` row) where the JAX engine donates
+      the pool.
+    * ``cache`` a :class:`KVCache`: x (B, S, d); the new K/V (Eq.-1 codes
+      when the cache is int8, quantized once) are written IN PLACE at
+      ``cache_pos`` (an int; the reference's ``dynamic_update_slice``
+      returns a new array).  ``S == 1`` is a decode step at position
+      ``cache_pos`` over the cache up to it; otherwise a prefill, which
+      starts at ``cache_pos == 0`` and attends causally over the cache.
+    * no cache: causal attention over x's own (B, S) sequence (the
+      forward that calibration captures).
+
+    The returned cache holds the same tensors as the given one."""
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
+    lead = x.shape[:-1]                    # (T,) ragged, (B, S) dense
 
-    q = linear(ctx, f"{name}/wq", x, p["wq"], p.get("bq")).reshape(t, h, hd)
-    k = linear(ctx, f"{name}/wk", x, p["wk"], p.get("bk")).reshape(t, kvh, hd)
+    q = linear(ctx, f"{name}/wq", x, p["wq"], p.get("bq")).reshape(*lead, h, hd)
+    k = linear(ctx, f"{name}/wk", x, p["wk"], p.get("bk")).reshape(*lead, kvh, hd)
     # wo's input grid is threaded from wv's output grid: attention rows
     # are softmax-convex combinations of V rows
-    v = linear(ctx, f"{name}/wv", x, p["wv"], p.get("bv")).reshape(t, kvh, hd)
+    v = linear(ctx, f"{name}/wv", x, p["wv"], p.get("bv")).reshape(*lead, kvh, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     q, k = rotate(q, *rope), rotate(k, *rope)
 
-    nb_pool, bs_blk = cache.k.shape[0], cache.k.shape[1]
     kv_frac_bits = None
-    if cache.k.dtype == torch.int8:
-        kv_frac_bits = cfg.kv_cache_frac_bits
-        k_c, v_c = quant(k, kv_frac_bits, 8), quant(v, kv_frac_bits, 8)
+    if cache is not None:
+        if cache.k.dtype == torch.int8:
+            kv_frac_bits = cfg.kv_cache_frac_bits
+            k, v = quant(k, kv_frac_bits, 8), quant(v, kv_frac_bits, 8)
+        else:
+            k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+
+    if ragged is not None:
+        nb_pool, bs_blk = cache.k.shape[0], cache.k.shape[1]
+        dest = ragged.dest.long()
+        cache.k.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, k)
+        cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, v)
+        out = kops.ragged_attention(
+            q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
+            ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits)
     else:
-        k_c, v_c = k.to(cache.k.dtype), v.to(cache.v.dtype)
-    dest = ragged.dest.long()
-    cache.k.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, k_c)
-    cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, v_c)
-    out = kops.ragged_attention(
-        q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
-        ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits)
-    return linear(ctx, f"{name}/wo", out.reshape(t, h * hd), p["wo"]), cache
+        flash = cfg.attn_kernel == "flash"
+        if cfg.attn_kernel not in ("flash", "chunked"):
+            raise ValueError(f"unknown attn_kernel={cfg.attn_kernel!r}; "
+                             "expected 'chunked' or 'flash'")
+        s = x.shape[1]
+        if cache is not None:
+            cache.k[:, cache_pos:cache_pos + s] = k
+            cache.v[:, cache_pos:cache_pos + s] = v
+            k, v = cache.k, cache.v
+        if cache is not None and s == 1:
+            decode = kops.flash_decode if flash else kref.flash_decode_ref
+            out = decode(q, k, v, pos=cache_pos, kv_frac_bits=kv_frac_bits)
+        else:
+            if cache is not None and cache_pos != 0:
+                raise NotImplementedError(
+                    "a multi-token step into a filled dense cache (a "
+                    "chunked prefill) has no caller yet; prefill starts at "
+                    "position 0")
+            prefill = kops.flash_attention if flash \
+                else kref.flash_attention_ref
+            out = prefill(q, k, v, kv_frac_bits=kv_frac_bits)
+    return (linear(ctx, f"{name}/wo", out.reshape(*lead, h * hd), p["wo"]),
+            cache)

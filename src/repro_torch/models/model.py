@@ -1,7 +1,8 @@
-"""Top-level model API for the ragged serving path (PyTorch counterpart of
-``repro.models.model``: ``init_params`` for the dense family,
-``init_paged_cache``, ``ragged_step``) and the weight bridge from the JAX
-package's param tree.
+"""Top-level model API (PyTorch counterpart of ``repro.models.model`` for
+the dense family: ``init_params``, the classic dense-cache path
+``init_cache`` / ``forward`` / ``prefill`` / ``decode_step``, the serving
+engine's ``init_paged_cache`` / ``ragged_step``) and the weight bridge from
+the JAX package's param tree.
 
 Parameters are a plain dict of tensors: ``embed`` (Vp, d), ``ln_f`` (d,),
 ``lm_head`` (d, Vp) and ``blocks``, a list with one dict per layer —
@@ -22,8 +23,9 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (Initializer, embed, rmsnorm,
                                        rope_tables, unembed)
 
-__all__ = ["init_params", "init_paged_cache", "ragged_step",
-           "from_jax_params", "model_dtype"]
+__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
+           "init_paged_cache", "ragged_step", "from_jax_params",
+           "model_dtype"]
 
 Device = Optional[Union[str, torch.device]]
 
@@ -60,6 +62,74 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     params["blocks"] = [tfm.init_dense_block(init, cfg)
                         for _ in range(cfg.n_layers)]
     return params
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
+               device: Device = None) -> dict:
+    """Dense KV cache of the classic serving path: one (L, B, S_max, KVH,
+    D) pair, int8 Eq.-1 codes when ``cfg.kv_cache_bits == 8``."""
+    _check_family(cfg, "init_cache")
+    dev = resolve_device(device)
+    kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else model_dtype(cfg)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
+             cfg.resolved_head_dim)
+    return {"kv": att.KVCache(k=torch.zeros(shape, dtype=kv_dt, device=dev),
+                              v=torch.zeros(shape, dtype=kv_dt, device=dev))}
+
+
+def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
+    dt = model_dtype(cfg)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
+    for layer, p_l in enumerate(params["blocks"]):
+        c_l = None if cache is None else att.KVCache(
+            cache["kv"].k[layer], cache["kv"].v[layer])
+        x, _ = tfm.dense_block(ctx, p_l, x, cfg, rope=rope, cache=c_l,
+                               cache_pos=cache_pos)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return unembed(ctx, x, head)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
+            *, cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
+    """Full-sequence forward of ``batch["tokens"]`` (B, S) from position 0.
+    With ``cache`` (prefill), every layer's K/V are written into it at
+    position 0 (in place).  Returns (logits (B, S, V) in the activation
+    dtype, cache).  ``params`` may be a ``QuantizedParams.tree`` when
+    ``ctx`` is the matching INT-mode context."""
+    _check_family(cfg, "forward")
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = embed(params["embed"], tokens, model_dtype(cfg))
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
+    return logits, cache
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
+            max_seq: Optional[int] = None) -> tuple[torch.Tensor, dict]:
+    """Prompt pass: a fresh cache of ``max_seq`` positions (default the
+    prompt length) filled by :func:`forward`; returns (last position's
+    logits (B, V), cache)."""
+    b, s = batch["tokens"].shape
+    cache = init_cache(cfg, b, max_seq or s, device=batch["tokens"].device)
+    logits, cache = forward(params, batch, cfg, ctx, cache=cache)
+    return logits[:, -1], cache
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos: int,
+                cfg: ModelConfig, ctx: QuantContext
+                ) -> tuple[torch.Tensor, dict]:
+    """One serving step: tokens (B, 1) at absolute position ``pos`` (a
+    host int), the cache from :func:`prefill`, written at ``pos`` in
+    place.  Returns (logits (B, V), cache)."""
+    _check_family(cfg, "decode_step")
+    b = tokens.shape[0]
+    x = embed(params["embed"], tokens, model_dtype(cfg))
+    positions = torch.full((b, 1), int(pos), dtype=torch.int64,
+                           device=tokens.device)
+    logits = _dense_layers(params, x, positions, cfg, ctx, cache, int(pos))
+    return logits[:, 0], cache
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,

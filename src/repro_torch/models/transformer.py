@@ -26,13 +26,16 @@ def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
 
 def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
                 cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
-                cache: att.PagedKVCache, ragged: att.RaggedBatch):
-    """One layer over the ragged stream x (T, d), ``rope`` the step's
-    (cos, sin) tables.  All quantization lives inside the qlinear modules;
-    residual adds and rmsnorms run in float between module grids."""
+                cache=None, cache_pos=None, ragged=None):
+    """One layer: x is the ragged stream (T, d) with ``ragged`` and the
+    pool as ``cache``, or a (B, S, d) batch with an optional dense
+    ``cache`` written at ``cache_pos`` (``attention.gqa_attention``).
+    ``rope`` is the step's (cos, sin) tables.  All quantization lives
+    inside the qlinear modules; residual adds and rmsnorms run in float
+    between module grids."""
     h, new_cache = att.gqa_attention(
         ctx, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-        rope=rope, cache=cache, ragged=ragged)
+        rope=rope, cache=cache, cache_pos=cache_pos, ragged=ragged)
     x = x + h
     x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg.act)

@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.kernels import ops as kops
+from repro_torch.launch.steps import check_matmul_kernel
 from repro_torch.models import model as M
 from repro_torch.models.attention import RaggedBatch
 from repro_torch.serving.kv_pool import TRASH_BLOCK, BlockPool
@@ -105,6 +106,7 @@ class ServingEngine:
             _unported("the legacy per-shape steps (ragged=False)", "8")
         if trace or record or slo is not None:
             _unported("tracing, the flight recorder and SLO monitoring", "6")
+        check_matmul_kernel(cfg, ctx)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -137,7 +139,9 @@ class ServingEngine:
         self.dispatched_tokens = 0
         self.padded_tokens = 0
         self.cache_hit_prefill_tokens = 0
-        self.launches = {name: 0 for name in kops.LAUNCHES}
+        # the kernels the ragged step launches (K1 per layer, K2 per INT
+        # projection)
+        self.launches = {"int8_matmul": 0, "ragged_attention": 0}
         self._step_times: dict[tuple, list] = {}
         self._t0 = time.perf_counter()
         self._skip = 0.0

@@ -54,13 +54,17 @@ def test_import_without_jax_loads_no_repro_module():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qmodel import QuantContext
-    from repro_torch.launch.serve import serve_engine
-    from repro_torch.models.model import init_params
+    from repro_torch.launch.serve import serve, serve_engine
+    from repro_torch.models.model import init_cache, init_params
     from repro_torch.serving.engine import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("qwen3_1_7b")
     with pytest.raises(RuntimeError, match="CUDA"):
         serve_engine("qwen3_1_7b", n_requests=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve("qwen3_1_7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, {}, QuantContext())
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -79,6 +83,7 @@ def test_unported_paths_raise():
                dict(record=True), dict(slo=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
-    for kw in (dict(calibrate=True), dict(w8a8=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            serve_engine("qwen3_1_7b", device="cpu", **kw)
+    # the scaling-factor baseline waits for the CNN path
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
+                     mode="fake_sf")

@@ -11,6 +11,10 @@
   with a shared prefix that hits the prefix cache and an undersized pool
   that forces preemption.  Requests all arrive at once so the schedule
   does not depend on either engine's wall clock.
+* W8A8: ``serve_engine(w8a8=True)`` (Algorithm-1 calibration, weights
+  pre-quantized to int8 codes) is token-identical to the JAX package's
+  through a prefix-sharing and a preemption scenario; ``matmul_kernel=
+  'int8'`` outside INT mode is refused when a step or engine is built.
 """
 import dataclasses
 
@@ -201,3 +205,60 @@ def test_sampling_matches_jax():
     hot = tsample(torch.from_numpy(logits), gen, torch.ones(6),
                   torch.from_numpy(top_k), k_cap=8).numpy()
     assert all(np.isfinite(jm[i, hot[i]]) for i in range(6))
+
+
+@pytest.mark.parametrize("scenario", ["prefix", "preempt"])
+def test_engine_w8a8_tokens_identical(scenario):
+    """The calibrated grids are finer than the defaults, so the rms
+    statistic's last-bit departure (``models.common.inv_rms``) moves a
+    code more often: with 6 requests on a 6-block pool a layer-0 K code
+    of request 5 moves and its last token differs.  The preemption case
+    here runs 5 requests on that pool (one preemption)."""
+    jcfg = dataclasses.replace(get_smoke_config("qwen3_1_7b"),
+                               kv_cache_bits=8, dtype="float32",
+                               matmul_kernel="int8")
+    tcfg = ModelConfig(**{f.name: getattr(jcfg, f.name)
+                          for f in dataclasses.fields(ModelConfig)})
+    kw = dict(rate=1e9, w8a8=True, kv_bits=8,
+              cfg_overrides={"dtype": "float32"})
+    kw.update(dict(n_requests=6, shared_prefix=16) if scenario == "prefix"
+              else dict(n_requests=5, num_blocks=6))
+    jo = jserve.serve_engine("qwen3_1_7b", **kw)
+    params = from_jax_params(
+        jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0))),
+        tcfg, device="cpu")
+    to = tserve.serve_engine("qwen3_1_7b", params=params, device="cpu", **kw)
+    assert {k: dataclasses.astuple(v) for k, v in to["ctx"].table.items()} \
+        == {k: dataclasses.astuple(v) for k, v in jo["ctx"].table.items()}
+    # every matmul weight converts: JAX stacks the layers, the port not
+    assert len(jo["quantized"].converted) == 8
+    assert len(to["quantized"].converted) == 7 * tcfg.n_layers + 1
+    n = kw["n_requests"]
+    assert sorted(to["outputs"]) == sorted(jo["outputs"]) == list(range(n))
+    for rid, toks in jo["outputs"].items():
+        assert np.array_equal(toks, to["outputs"][rid]), rid
+    tr, jr = to["report"], jo["report"]
+    if scenario == "prefix":
+        assert tr["prefix_cache"]["hits"] == jr["prefix_cache"]["hits"] > 0
+    else:
+        assert tr["preemptions"] == jr["preemptions"] > 0
+    assert tr["kernel_launches"]["int8_matmul"] == 0      # CPU: plain path
+
+
+def test_matmul_kernel_int8_requires_int_mode():
+    from repro_torch.configs import get_smoke_config as tsmoke
+    from repro_torch.core.qmodel import QuantContext, QuantMode
+    from repro_torch.launch import steps
+    from repro_torch.serving.engine import ServingEngine
+    cfg = dataclasses.replace(tsmoke("qwen3_1_7b"), matmul_kernel="int8")
+    for mode in ("fp", "fake"):
+        ctx = QuantContext(mode=QuantMode(mode))
+        for build in (steps.build_prefill_step, steps.build_serve_step):
+            with pytest.raises(NotImplementedError, match="INT mode"):
+                build(cfg, ctx)
+        with pytest.raises(NotImplementedError, match="INT mode"):
+            ServingEngine(cfg, {}, ctx, device="cpu")
+    steps.build_serve_step(cfg, QuantContext(mode=QuantMode.INT))
+    with pytest.raises(ValueError, match="matmul_kernel"):
+        steps.build_prefill_step(
+            dataclasses.replace(cfg, matmul_kernel="fp8"), QuantContext())
