@@ -37,7 +37,17 @@ the CUDA toolkit.  Phases, one line each (or a few):
 10. classic ``serve`` at full depth in bf16 with flash attention: INT with
     calibration and an int8 cache, FP with a bf16 cache, each twice
     (token-identical repeats) with the launch counts of every kernel;
-11. the W8A8 engine (``serve_engine(w8a8=True)``) at full depth, twice.
+11. the W8A8 engine (``serve_engine(w8a8=True)``) at full depth, twice;
+12. K3 (Eq.-1 quantize) and K7 (residual requant) against their plain
+    versions, bit-exact, at the ResNet path's shapes and one 64M-element
+    shape, and K2's uint8-activation variant at each im2col shape of the
+    path, with times and bounds;
+13. Algorithm-1 calibration of the paper's ResNet (``resnet_paper``
+    CONFIG width, batch 64) on the card and on the CPU: the tables must
+    agree, apart from declared near-ties;
+14. the ResNet's integer forward at batch 256 on the card against the
+    CPU's plain path: identical logits, exactly 16 K2, 6 K7 and 2 K3
+    launches, twice with identical logits, with images per second.
 
 It then prints the card line, a JSON line describing every kernel, and as
 its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
@@ -61,7 +71,9 @@ SRC = ROOT / "src"
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
-# the peak rate for their type
+# the peak rate for their type; elementwise integer and float work (K3,
+# K7) is counted against the CUDA cores' fp32 rate, the table's one rate
+# outside the tensor cores
 PEAK = {"bytes": 3.35e12, "int8": 1979e12, "bfloat16": 989e12,
         "float32": 67e12}
 # device clock cycles per second, at least the card's boost clock, for
@@ -80,6 +92,9 @@ K2_STEP_ROWS = 24          # the engine's full mixed-step stream bucket
 # rows, a 5-token tail, a fresh prefill — then padding rows and a slot
 K1_ITEMS = ((16, 144), (1, 131), (1, 47), (5, 37), (16, 16))
 K1_HEADS, K1_KV_HEADS, K1_DIM, K1_BS, K1_PAD_ROWS = 16, 8, 128, 16, 9
+# the ResNet path (configs/resnet_paper.py CONFIG): the integer forward's
+# batch, the calibration batch and the elementwise kernels' long shape
+RESNET_BATCH, RESNET_CALIB_BATCH, ELEMWISE_LONG = 256, 64, 64 * 2**20
 # K5 / K6 at their long shapes: each output held within this share of its
 # row's largest |value| (``_close_rows``)
 LONG_ROW_TOL = 2e-2
@@ -971,9 +986,11 @@ def phase_serve(torch, out):
     L, steps = cfg.n_layers, SERVE_GEN - 1
     want = {"int": {"flash_prefill": 2 * L, "flash_decode": L * steps,
                     "int8_matmul": (7 * L + 1) * SERVE_GEN,
-                    "ragged_attention": 0},
+                    "ragged_attention": 0, "quantize": 0,
+                    "residual_requant": 0},
             "fp": {"flash_prefill": L, "flash_decode": L * steps,
-                   "int8_matmul": 0, "ragged_attention": 0}}
+                   "int8_matmul": 0, "ragged_attention": 0, "quantize": 0,
+                   "residual_requant": 0}}
     res = {}
     for mode, overrides in (("int", {"kv_cache_bits": 8}), ("fp", None)):
         runs = []
@@ -1065,6 +1082,326 @@ def phase_w8a8(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phases 12-14: the paper's ResNet path (K3, K7, K2 on uint8 activations)
+# ---------------------------------------------------------------------------
+
+def _resnet_shapes(cfg, batch):
+    """The integer forward's shapes at ``batch``: the image, the head's
+    input, each residual add's (shape, branch dtype, shortcut dtype) and
+    each convolution's im2col product (M, K, N, activation dtype)."""
+    import torch
+    side, adds, convs = cfg.img_size, [], []
+    convs.append((batch * side * side, 27, cfg.stages[0], torch.int8))
+    cin = cfg.stages[0]
+    for si, ch in enumerate(cfg.stages):
+        for bi in range(cfg.blocks_per_stage):
+            stride = 2 if (bi == 0 and si > 0) else 1
+            side_o = -(-side // stride)
+            m = batch * side_o * side_o
+            convs += [(m, 9 * cin, ch, torch.uint8), (m, 9 * ch, ch,
+                                                      torch.uint8)]
+            if cin != ch:
+                convs.append((m, cin, ch, torch.uint8))
+            adds.append(((batch, side_o, side_o, ch), torch.int8,
+                         torch.int8 if cin != ch else torch.uint8))
+            side, cin = side_o, ch
+    convs.append((batch, cfg.stages[-1], cfg.n_classes, torch.int8))
+    return ((batch, cfg.img_size, cfg.img_size, 3), (batch, cfg.stages[-1]),
+            adds, convs)
+
+
+def _exact(got, want, what) -> int:
+    """The largest code difference of a kernel against its plain version,
+    which must be 0 with the same output type."""
+    check(got.dtype == want.dtype and got.shape == want.shape,
+          f"{what}: output {got.dtype} {tuple(got.shape)}, plain "
+          f"{want.dtype} {tuple(want.shape)}")
+    err = int((got.long() - want.long()).abs().max()) if got.numel() else 0
+    check(err == 0, f"{what}: kernel != plain (max |diff| {err})")
+    return err
+
+
+def _codes(torch, gen, shape, dtype):
+    lo, hi = (0, 256) if dtype == torch.uint8 else (-128, 128)
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int32).to(dtype)
+
+
+def phase_cnn_kernels(torch, out):
+    """K3 and K7 bit-exact against their plain versions at the ResNet
+    path's shapes (and misaligned views, which take the scalar loop) and
+    at one 64M-element shape; K2 on uint8 activations bit-exact at every
+    im2col shape of the path.  Times per forward at batch 256 sum the
+    path's launches, each shape timed alone."""
+    from repro_torch.configs.resnet_paper import CONFIG
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    img, head_in, adds, convs = _resnet_shapes(CONFIG, RESNET_BATCH)
+    res = {}
+
+    # K3: the image (fp32 in [0, 1) on the 2^-7 grid, as the path's n_in)
+    # and the pooled head input, plus .5 ties on the grid and bf16 input
+    def k3_case(shape, n, dtype=torch.float32):
+        x = torch.rand(shape, generator=gen, device="cuda") * 1.7
+        flat = x.view(-1)
+        k = min(flat.numel(), 4096)
+        flat[:k] = (torch.randint(-300, 300, (k,), generator=gen,
+                                  device="cuda") + 0.5) * 2.0 ** -n
+        return x.to(dtype)
+
+    k3 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "shapes": [],
+          "max_abs_err": 0}
+    for name, shape, n in (("image", img, 7), ("head input", head_in, 5)):
+        x = k3_case(shape, n)
+        for bits, uns, dt in ((8, False, torch.float32),
+                              (8, True, torch.float32),
+                              (12, False, torch.float32),
+                              (8, False, torch.bfloat16)):
+            xx = x.to(dt)
+            for v in (xx, xx.view(-1)[1:]):
+                k3["max_abs_err"] = max(k3["max_abs_err"], _exact(
+                    ops.quantize_act(v, n, bits, uns),
+                    ref.quantize_ref(v, n=n, bits=bits, unsigned=uns),
+                    f"K3 {name} {tuple(v.shape)} bits {bits} unsigned "
+                    f"{uns} {dt}"))
+        ms = time_ms(torch, lambda: ops.quantize_act(x, n, 8), 50)
+        plain_ms = time_ms(torch, lambda: ref.quantize_ref(x, n=n), 20)
+        n_bytes, n_ops = 5 * x.numel(), 4 * x.numel()
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "float32")
+        k3["ms"] += ms
+        k3["plain_ms"] += plain_ms
+        k3["bytes"] += n_bytes
+        k3["ops"] += n_ops
+        k3["shapes"].append(dict(name=name, shape=list(shape), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms))
+        log(f"[12] K3 {name} {tuple(shape)} fp32 -> int8: bit-exact (also "
+            f"uint8, 12 bits, bf16, a misaligned view) | kernel {ms:.4f} ms,"
+            f" plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    k3["bound_ms"], k3["bound_by"] = bound_ms(k3["bytes"], k3["ops"],
+                                              "float32")
+    x = k3_case((ELEMWISE_LONG,), 5)
+    _exact(ops.quantize_act(x, 5, 8), ref.quantize_ref(x, n=5), "K3 long")
+    ms = time_ms(torch, lambda: ops.quantize_act(x, 5, 8), 10)
+    plain_ms = time_ms(torch, lambda: ref.quantize_ref(x, n=5), 3, warmup=1)
+    b_ms, b_by = bound_ms(5 * x.numel(), 4 * x.numel(), "float32")
+    k3["long"] = dict(elements=x.numel(), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+    log(f"[12] K3 {x.numel()} fp32 -> int8: bit-exact | kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[12] K3 one forward (2 launches): kernel {k3['ms']:.4f} ms, plain "
+        f"{k3['plain_ms']:.4f} ms, bound {k3['bound_ms']:.5f} ms")
+    del x
+    res["k3"] = k3
+
+    # K7: each add's shapes and operand dtypes, both semantics, the
+    # path's grids and an overflowing negative shift; then one long shape
+    k7 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "shapes": [],
+          "max_abs_err": 0}
+    grids = ((7, 6, 7), (6, 7, 6), (0, 20, 30))
+    for i, (shape, da, db) in enumerate(adds):
+        a, b = _codes(torch, gen, shape, da), _codes(torch, gen, shape, db)
+        for grid in grids:
+            for relu in (True, False):
+                for sat in (True, False):
+                    kw = dict(n_a=grid[0], n_b=grid[1], n_o=grid[2],
+                              relu=relu, saturate=sat)
+                    for aa, bb in ((a, b), (a.view(-1)[1:], b.view(-1)[1:])):
+                        k7["max_abs_err"] = max(k7["max_abs_err"], _exact(
+                            ops.residual_requant(aa, bb, **kw),
+                            ref.residual_requant_ref(aa, bb, **kw),
+                            f"K7 add {i} {tuple(aa.shape)} {grid} relu "
+                            f"{relu} saturate {sat}"))
+        kw = dict(n_a=7, n_b=6, n_o=7, relu=True, saturate=True)
+        ms = time_ms(torch, lambda: ops.residual_requant(a, b, **kw), 50)
+        plain_ms = time_ms(torch, lambda: ref.residual_requant_ref(a, b, **kw),
+                           20)
+        n_bytes, n_ops = 3 * a.numel(), 10 * a.numel()
+        k7["ms"] += ms
+        k7["plain_ms"] += plain_ms
+        k7["bytes"] += n_bytes
+        k7["ops"] += n_ops
+        k7["shapes"].append(dict(shape=list(shape), a=str(da), b=str(db),
+                                 ms=ms, plain_ms=plain_ms))
+        log(f"[12] K7 add {i} {tuple(shape)} {str(da)[6:]} + {str(db)[6:]}: "
+            f"bit-exact (grids {list(grids)}, ReLU on/off, both left-shift "
+            f"semantics, misaligned) | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms")
+    k7["bound_ms"], k7["bound_by"] = bound_ms(k7["bytes"], k7["ops"],
+                                              "float32")
+    a = _codes(torch, gen, (ELEMWISE_LONG,), torch.int8)
+    b = _codes(torch, gen, (ELEMWISE_LONG,), torch.uint8)
+    kw = dict(n_a=7, n_b=6, n_o=7, relu=True, saturate=True)
+    _exact(ops.residual_requant(a, b, **kw),
+           ref.residual_requant_ref(a, b, **kw), "K7 long")
+    ms = time_ms(torch, lambda: ops.residual_requant(a, b, **kw), 10)
+    plain_ms = time_ms(torch, lambda: ref.residual_requant_ref(a, b, **kw), 3,
+                       warmup=1)
+    b_ms, b_by = bound_ms(3 * a.numel(), 10 * a.numel(), "float32")
+    k7["long"] = dict(elements=a.numel(), ms=ms, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by)
+    log(f"[12] K7 {a.numel()} int8 + uint8: bit-exact | kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    log(f"[12] K7 one forward (6 launches): kernel {k7['ms']:.4f} ms, plain "
+        f"{k7['plain_ms']:.4f} ms, bound {k7['bound_ms']:.5f} ms "
+        f"({k7['bound_by']}, {k7['bytes'] / 1e6:.1f} MB)")
+    del a, b
+    res["k7"] = k7
+
+    # K2 at every im2col product of the path (uint8 activations after the
+    # stem), both epilogue signs
+    k2 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "shapes": []}
+    for m, k, n, xdt in convs:
+        x = _codes(torch, gen, (m, k), xdt)
+        w = _codes(torch, gen, (k, n), torch.int8)
+        bias = _codes(torch, gen, (n,), torch.int8)
+        for relu, spec in ((True, LinearQuantSpec(n_x=7, n_w=8, n_b=9, n_o=6,
+                                                  out_unsigned=True)),
+                           (False, LinearQuantSpec(n_x=6, n_w=9, n_b=8,
+                                                   n_o=7))):
+            _exact(ops.int8_matmul(x, w, bias, spec, relu=relu),
+                   ref.int8_matmul_ref(
+                       x, w, bias, shift=spec.requant_shift,
+                       bias_shift=spec.bias_shift, relu=relu,
+                       lo=0 if relu else -128, hi=255 if relu else 127,
+                       out_dtype=torch.uint8 if relu else torch.int8),
+                   f"K2 M={m} K={k} N={n} {xdt} relu {relu}")
+        ms = time_ms(torch, lambda: ops.int8_matmul(x, w, bias, spec), 20)
+        plain_ms = time_ms(torch, lambda: ref.int8_matmul_ref(
+            x, w, bias, shift=spec.requant_shift,
+            bias_shift=spec.bias_shift), 5, warmup=1)
+        n_bytes, n_ops = m * k + k * n + n + m * n, 2 * m * k * n
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "int8")
+        k2["ms"] += ms
+        k2["plain_ms"] += plain_ms
+        k2["bytes"] += n_bytes
+        k2["ops"] += n_ops
+        k2["shapes"].append(dict(m=m, k=k, n=n, x=str(xdt), ms=ms,
+                                 plain_ms=plain_ms, bound_ms=b_ms,
+                                 bound_by=b_by))
+        log(f"[12] K2 conv M={m:<6} K={k:<3} N={n:<2} {str(xdt)[6:]:5}: "
+            f"bit-exact | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        del x
+    k2["bound_ms"], k2["bound_by"] = bound_ms(k2["bytes"], k2["ops"], "int8")
+    log(f"[12] K2 one forward ({len(convs)} launches): kernel "
+        f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.5f} ms ({k2['bound_by']}, "
+        f"{k2['bytes'] / 1e6:.1f} MB)")
+    res["k2_conv"] = k2
+    out["cnn_kernels"] = res
+    return res
+
+
+def _resnet_images(cfg, batch):
+    import numpy as np
+    return np.random.default_rng(13).uniform(
+        0, 1, size=(batch, cfg.img_size, cfg.img_size, 3)).astype(np.float32)
+
+
+def phase_resnet_calibrate(torch, out):
+    """Algorithm 1 on the card and on the CPU from the same weights and
+    images, with phase 8's near-tie rule: the card's cuDNN and the CPU's
+    convolutions sum in other orders, so a module whose best candidates
+    nearly tie may pick differently; that is accepted only where the two
+    chosen errors agree within 1e-4 relative."""
+    from repro_torch.configs.resnet_paper import CONFIG
+    from repro_torch.models import resnet as R
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    p_cpu = R.init_resnet(CONFIG, generator=gen, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    x = torch.from_numpy(_resnet_images(CONFIG, RESNET_CALIB_BATCH))
+    res = {}
+    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
+        t0 = time.perf_counter()
+        q = R.quantize_resnet(params, x.to(dev), CONFIG)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        res[dev] = (q, time.perf_counter() - t0)
+    (qg, tg), (qc, tc) = res["cuda"], res["cpu"]
+    check(list(qg.specs) == list(qc.specs), "resnet calibration: modules")
+    ties = []
+    for name in qc.specs:
+        if qg.specs[name] == qc.specs[name]:
+            continue
+        eg = qg.report.results[name].error
+        ec = qc.report.results[name].error
+        rel = abs(eg - ec) / max(ec, 1e-30)
+        log(f"[13] calibration {name}: card {qg.specs[name]} error {eg!r}, "
+            f"CPU {qc.specs[name]} error {ec!r} (relative {rel:.2e})")
+        check(rel <= 1e-4, f"resnet calibration {name}: card and CPU choose "
+              f"differently and their errors differ by {rel:.2e}")
+        ties.append(name)
+    log(f"[13] ResNet calibration ({len(qc.specs)} modules, CONFIG width, "
+        f"batch {RESNET_CALIB_BATCH}): tables "
+        f"{'identical' if not ties else f'identical apart from near-ties {ties}'}"
+        f"; card {tg:.2f} s, CPU {tc:.2f} s")
+    out["resnet_calibration"] = dict(
+        card_s=tg, cpu_s=tc, near_ties=ties,
+        table={k: v if isinstance(v, tuple) else dataclasses.astuple(v)
+               for k, v in qc.specs.items()})
+    return qg
+
+
+def phase_resnet_forward(torch, out, q_gpu):
+    """The card's calibration artifact, run by the integer forward on the
+    card (the kernels) and by the CPU's plain path: every integer op is
+    exact, so the logits must be identical.  Two card runs, each with the
+    launch counts reset just before and read just after."""
+    from repro_torch.configs.resnet_paper import CONFIG
+    from repro_torch.kernels import ops
+    from repro_torch.models import resnet as R
+    x = torch.from_numpy(_resnet_images(CONFIG, RESNET_BATCH))
+    q_cpu = R.QuantizedResNet(
+        weights={k: v.cpu() for k, v in q_gpu.weights.items()},
+        biases={k: v.cpu() for k, v in q_gpu.biases.items()},
+        specs=q_gpu.specs, report=q_gpu.report, n_in=q_gpu.n_in)
+    t0 = time.perf_counter()
+    want = R.resnet_int_forward(q_cpu, x, CONFIG)
+    cpu_s = time.perf_counter() - t0
+    xg = x.cuda()
+    want_launches = {"int8_matmul": 16, "residual_requant": 6, "quantize": 2,
+                     "ragged_attention": 0, "flash_prefill": 0,
+                     "flash_decode": 0}
+    runs = []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = R.resnet_int_forward(q_gpu, xg, CONFIG)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        got = logits.cpu()
+        check(got.shape == (RESNET_BATCH, CONFIG.n_classes)
+              and bool(torch.isfinite(got).all()),
+              f"resnet forward: logits {tuple(got.shape)} not finite")
+        check(torch.equal(got, want), f"resnet forward run {rep}: card "
+              f"logits differ from the CPU's (max |diff| "
+              f"{float((got - want).abs().max())})")
+        check(launches == want_launches,
+              f"resnet forward: launches {launches}, want {want_launches}")
+        runs.append(dict(logits=got, launches=launches, wall_s=wall,
+                         images_per_s=RESNET_BATCH / wall))
+        log(f"[14] ResNet int forward run {rep} (CONFIG, batch "
+            f"{RESNET_BATCH}): logits identical to the CPU's; launches K2 "
+            f"{launches['int8_matmul']} K7 {launches['residual_requant']} K3 "
+            f"{launches['quantize']}; {wall * 1e3:.2f} ms, "
+            f"{RESNET_BATCH / wall:.1f} images/s (CPU plain path "
+            f"{cpu_s:.2f} s, {RESNET_BATCH / cpu_s:.1f} images/s)")
+    check(torch.equal(runs[0]["logits"], runs[1]["logits"]),
+          "resnet forward: a repeated run gave other logits")
+    log("[14] ResNet int forward: repeat run identical")
+    res = dict(launches=runs[0]["launches"], cpu_s=cpu_s,
+               runs=[{k: v for k, v in r.items() if k != "logits"}
+                     for r in runs])
+    out["resnet_forward"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -1098,6 +1435,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         srv = phase_serve(torch, out)
         phase_w8a8(torch, out)
+        torch.cuda.empty_cache()
+        cnn = phase_cnn_kernels(torch, out)
+        q_resnet = phase_resnet_calibrate(torch, out)
+        rfwd = phase_resnet_forward(torch, out, q_resnet)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1138,6 +1479,23 @@ def main(argv=None) -> int:
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "per": "launch"})
+    # K3 / K7: one ResNet integer forward at batch 256 (each shape timed
+    # alone, summed over the forward's launches); launches from phase 14
+    for name, key, res, src, line in (
+            ("quantize", "quantize", cnn["k3"], "quantize", 19),
+            ("residual_requant", "residual_requant", cnn["k7"],
+             "residual_requant", 20)):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{src}.py:{line}",
+            "launches": rfwd["launches"][key],
+            "max_abs_err": res["max_abs_err"],
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
+            "library_ms": None,
+            "per": f"ResNet forward at batch {RESNET_BATCH}: "
+                   f"{rfwd['launches'][key]} launches"})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -1,17 +1,22 @@
 """Config registry: ``get_config(arch_id)`` and smoke-scale variants.
 
-Only the dense GQA architectures the port serves are registered; other
-architecture ids raise ``NotImplementedError`` naming the ROADMAP queue.
+Only the architectures the port serves are registered: the dense GQA
+transformers (a ``ModelConfig``) and the paper's ResNet (``resnet_paper``,
+a ``ResNetConfig``); other architecture ids raise ``NotImplementedError``
+naming the ROADMAP queue.
 """
 from __future__ import annotations
 
 import importlib
+from typing import Union
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.resnet_paper import ResNetConfig
 
-__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "ModelConfig", "ResNetConfig", "get_config",
+           "get_smoke_config"]
 
-ARCH_IDS = ["qwen3_1_7b"]
+ARCH_IDS = ["qwen3_1_7b", "resnet_paper"]
 
 # canonical CLI ids (dashes) -> module names
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
@@ -26,9 +31,9 @@ def _module(arch: str):
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
-def get_config(arch: str) -> ModelConfig:
+def get_config(arch: str) -> Union[ModelConfig, ResNetConfig]:
     return _module(arch).CONFIG
 
 
-def get_smoke_config(arch: str) -> ModelConfig:
+def get_smoke_config(arch: str) -> Union[ModelConfig, ResNetConfig]:
     return _module(arch).SMOKE_CONFIG

@@ -1,11 +1,17 @@
-"""Integer-arithmetic-only linear op — Eq. (2)-(4) of the paper.
+"""Integer-arithmetic-only inference ops — Eq. (2)-(4) of the paper.
 
-PyTorch counterpart of ``repro.core.integer_ops`` (``int_linear`` and its
-shift bookkeeping).  Every op takes and returns integer codes; the
-accumulator is exact: PyTorch has no int32 matrix product on CUDA and no
-BLAS behind its int64 one on the CPU, so the product runs in float64,
-which is exact for |acc| < 2^53 (K * 128 * 128 stays far below), and is
-then cast to int32.
+PyTorch counterpart of ``repro.core.integer_ops``: ``int_linear``,
+``int_conv2d`` (NHWC x HWIO, XLA's "SAME" padding), ``int_residual_add``
+and their shift bookkeeping.  Every op takes and returns integer codes.
+
+On a CPU tensor each op is plain PyTorch.  The product's accumulator is
+exact: PyTorch has no int32 matrix product on CUDA and no BLAS behind
+its int64 one on the CPU, so the product runs in float64, which is exact
+for |acc| < 2^53 (K * 255 * 128 stays far below), and is then cast to
+int32; a convolution is that product over an im2col gather.  On a CUDA
+tensor the ops launch the hand-written kernels through ``kernels.ops``:
+K2 for ``int_linear`` and ``int_conv2d`` (after the gather), K7 for
+``int_residual_add``.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import torch
 
 from repro_torch.core.qscheme import shift_requant
 
-__all__ = ["LinearQuantSpec", "bias_align", "int_linear"]
+__all__ = ["LinearQuantSpec", "bias_align", "int_linear", "int_conv2d",
+           "int_residual_add", "same_padding", "im2col_same"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +69,11 @@ def int_linear(x_int: torch.Tensor, w_int: torch.Tensor,
     x_int: (..., K) codes, w_int: (K, N) int8 codes, b_int: (N,) int8.
     ``apply_relu`` is Fig. 1(b): ReLU on the int32 accumulator before the
     single requantization (the output is then unsigned when
-    ``spec.out_unsigned``).
+    ``spec.out_unsigned``).  ``x_int`` may hold uint8 post-ReLU codes.
     """
+    if x_int.device.type == "cuda":
+        from repro_torch.kernels import ops
+        return ops.int8_matmul(x_int, w_int, b_int, spec, relu=apply_relu)
     acc = torch.matmul(x_int.to(torch.float64),
                        w_int.to(torch.float64)).to(torch.int32)
     if b_int is not None:
@@ -72,3 +82,74 @@ def int_linear(x_int: torch.Tensor, w_int: torch.Tensor,
         acc = torch.clamp(acc, min=0)
     return shift_requant(acc, spec.requant_shift, bits=spec.bits,
                          unsigned=spec.out_unsigned and apply_relu)
+
+
+def same_padding(size: int, k: int, stride: int) -> tuple[int, int]:
+    """XLA's "SAME" padding of one spatial axis: ``(lo, hi)`` with
+    ``out = ceil(size / stride)``, ``total = max((out - 1) * stride + k -
+    size, 0)``, ``lo = total // 2`` (a stride-2 3x3 convolution on an
+    even size pads (0, 1), not 1 on each side)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def im2col_same(x: torch.Tensor, kh: int, kw: int, stride: int
+                ) -> tuple[torch.Tensor, tuple[int, int, int]]:
+    """The im2col gather of an NHWC tensor under "SAME" padding (zeros):
+    a contiguous ``(B * H' * W', kh * kw * C)`` matrix whose columns are
+    ordered (kernel row, kernel column, channel), the row-major order of an
+    HWIO weight reshaped to ``(kh * kw * C, Cout)``; and ``(B, H', W')``."""
+    bsz, h, w, c = x.shape
+    ph, pw = same_padding(h, kh, stride), same_padding(w, kw, stride)
+    xp = torch.nn.functional.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+    win = xp.unfold(1, kh, stride).unfold(2, kw, stride)  # B,H',W',C,kh,kw
+    ho, wo = win.shape[1], win.shape[2]
+    cols = win.permute(0, 1, 2, 4, 5, 3).reshape(bsz * ho * wo, kh * kw * c)
+    return cols, (bsz, ho, wo)
+
+
+def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
+               b_int: Optional[torch.Tensor], spec: LinearQuantSpec,
+               stride: int = 1, padding: str = "SAME",
+               apply_relu: bool = False) -> torch.Tensor:
+    """Integer-only 2-D convolution (Eq. 2/3), NHWC x HWIO -> NHWC.
+
+    int8 (or uint8 post-ReLU) input codes, int8 weights, int32
+    accumulation, bias align + a single shift requant (+ optional fused
+    ReLU per Fig. 1(b)).  Only the reference's "SAME" padding is taken.
+    """
+    if padding != "SAME":
+        raise ValueError(f"int_conv2d takes padding='SAME', not {padding!r}")
+    if x_int.device.type == "cuda":
+        from repro_torch.kernels import ops
+        return ops.int_conv2d(x_int, w_int, b_int, spec, stride=stride,
+                              relu=apply_relu)
+    kh, kw, cin, cout = w_int.shape
+    cols, (bsz, ho, wo) = im2col_same(x_int, kh, kw, stride)
+    return int_linear(cols, w_int.reshape(kh * kw * cin, cout), b_int, spec,
+                      apply_relu).reshape(bsz, ho, wo, cout)
+
+
+def int_residual_add(a_int: torch.Tensor, n_a: int, b_int: torch.Tensor,
+                     n_b: int, n_o: int, bits: int = 8,
+                     apply_relu: bool = False) -> torch.Tensor:
+    """Fig. 1(c)/(d): residual addition of two codes on different grids.
+
+    Both operands are left-shifted onto the finer common grid
+    ``n_hi = max(n_a, n_b)`` (int32, wrapping as the reference's ``<<``),
+    added, then requantized once by ``n_hi - n_o`` with
+    ``qscheme.shift_requant`` (a negative shift saturates first).  With
+    ReLU (case c) the sign check happens on the int32 sum and the output
+    is unsigned.  On CUDA, K7 in its saturating form.
+    """
+    if a_int.device.type == "cuda":
+        from repro_torch.kernels import ops
+        return ops.residual_requant(a_int, b_int, n_a=n_a, n_b=n_b, n_o=n_o,
+                                    bits=bits, relu=apply_relu, saturate=True)
+    n_hi = max(n_a, n_b)
+    acc = (a_int.to(torch.int32) << (n_hi - n_a)) + \
+        (b_int.to(torch.int32) << (n_hi - n_b))
+    if apply_relu:
+        acc = torch.clamp(acc, min=0)
+    return shift_requant(acc, n_hi - n_o, bits=bits, unsigned=apply_relu)

@@ -13,7 +13,7 @@ PyTorch counterpart of ``repro.core.qmodel``:
   hand-written CUDA kernel on a CUDA tensor, its plain version on the
   CPU).
 
-``fake_sf`` (the scaling-factor baseline) waits for the CNN path.  The
+``fake_sf`` (the scaling-factor baseline) waits for ``core/baselines``.  The
 context carries the table (module name -> fractional bits) that
 ``core.lm_calibrate.calibrate_lm`` fills; uncalibrated modules use the
 static ``ModuleBits`` defaults.
@@ -47,7 +47,7 @@ DEFAULT_N_O = 4
 class QuantMode(enum.Enum):
     FP = "fp"
     FAKE = "fake"
-    FAKE_SF = "fake_sf"  # not ported yet (the CNN path's baseline)
+    FAKE_SF = "fake_sf"  # not ported yet (core/baselines.py)
     INT = "int"
 
 

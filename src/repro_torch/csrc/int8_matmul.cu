@@ -39,6 +39,13 @@
 // included: a right shift rounds half away from zero as
 // a >= 0 ? (a + half) >> s : -(((-a) + half) >> s), and a negative requant
 // shift saturates to +-(2^31 - 1) >> |s| before the left shift.
+//
+// Unsigned activations: the paper's ResNet feeds post-ReLU uint8 codes on
+// [0, 255] into every convolution after the stem (as an im2col matrix).
+// Both kernels take them in a compile-time variant (XU8) whose dot product
+// is PTX dp4a.u32.s32 (unsigned activation bytes, signed weight bytes), so
+// the codes go in as they are, with no offset; the int8 variant's code is
+// unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +80,18 @@ __device__ __forceinline__ int requant(int acc, int shift, int lo, int hi) {
     acc = (int)((unsigned)acc << ls);
   }
   return min(max(acc, lo), hi);
+}
+
+// four activation bytes (unsigned when XU8) . four int8 weight bytes + c
+template <bool XU8>
+__device__ __forceinline__ int dot4(int a, int b, int c) {
+  if constexpr (XU8) {
+    int d;
+    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
+    return d;
+  } else {
+    return __dp4a(a, b, c);
+  }
 }
 
 // bias align -> ReLU -> shift-requant -> clip, then the 8-bit store
@@ -116,6 +135,7 @@ __device__ __forceinline__ void transpose4x4(int r0, int r1, int r2, int r3, int
   c3 = __byte_perm(t2, t3, 0x7632);
 }
 
+template <bool XU8>
 __global__ void __launch_bounds__(RK_THREADS)
 int8_matmul_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                         const int8_t* __restrict__ bias, void* __restrict__ out, int M, int N,
@@ -162,7 +182,7 @@ int8_matmul_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
         if (m < rows) {
           const int a = __ldg(xw + (size_t)m * chunks + c);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = __dp4a(a, b[j], acc[m][j]);
+          for (int j = 0; j < 4; ++j) acc[m][j] = dot4<XU8>(a, b[j], acc[m][j]);
         }
       }
     }
@@ -184,6 +204,7 @@ int8_matmul_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__
   }
 }
 
+template <bool XU8>
 __global__ void __launch_bounds__(THREADS)
 int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
                    const int8_t* __restrict__ bias, void* __restrict__ out,
@@ -243,7 +264,7 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 4; ++j) acc[i][j] = dot4<XU8>(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -263,25 +284,36 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   }
 }
 
+template <bool XU8>
+void launch(const int8_t* xs, const int8_t* ws, const int8_t* bs, void* out, int M, int N, int K,
+            int shift, int bias_shift, int relu, int lo, int hi, int out_u8, int vec,
+            cudaStream_t st) {
+  if (vec && M <= RK_MAX_ROWS) {
+    const dim3 grid((N + RK_BN - 1) / RK_BN, (M + RK_BM - 1) / RK_BM);
+    int8_matmul_rows_kernel<XU8><<<grid, RK_THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift,
+                                                              bias_shift, relu, lo, hi, out_u8);
+  } else {
+    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+    int8_matmul_kernel<XU8><<<grid, THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift,
+                                                      bias_shift, relu, lo, hi, out_u8, vec);
+  }
+}
+
 }  // namespace
 
 // C entry: launches on `stream`; returns cudaGetLastError() (0 on success).
 // vec: K % 4 == 0, N % 4 == 0 and both operands 4-byte aligned.
+// x_u8: the activation codes are uint8 (else int8); weights are int8.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias, void* out,
                                   int M, int N, int K, int shift, int bias_shift, int relu,
-                                  int lo, int hi, int out_u8, int vec, void* stream) {
+                                  int lo, int hi, int out_u8, int vec, int x_u8, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xs = static_cast<const int8_t*>(x);
   const int8_t* ws = static_cast<const int8_t*>(w);
   const int8_t* bs = static_cast<const int8_t*>(bias);
-  if (vec && M <= RK_MAX_ROWS) {
-    const dim3 grid((N + RK_BN - 1) / RK_BN, (M + RK_BM - 1) / RK_BM);
-    int8_matmul_rows_kernel<<<grid, RK_THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift,
-                                                         bias_shift, relu, lo, hi, out_u8);
-  } else {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    int8_matmul_kernel<<<grid, THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift, bias_shift,
-                                                 relu, lo, hi, out_u8, vec);
-  }
+  if (x_u8)
+    launch<true>(xs, ws, bs, out, M, N, K, shift, bias_shift, relu, lo, hi, out_u8, vec, st);
+  else
+    launch<false>(xs, ws, bs, out, M, N, K, shift, bias_shift, relu, lo, hi, out_u8, vec, st);
   return (int)cudaGetLastError();
 }

@@ -17,20 +17,24 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.integer_ops import LinearQuantSpec
+from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
+from repro_torch.core.qscheme import int_bounds
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  flash_prefill_cuda)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.ragged_flash import ragged_attention_cuda
+from repro_torch.kernels.residual_requant import residual_requant_cuda
 
-__all__ = ["int8_matmul", "ragged_attention", "flash_attention",
-           "flash_decode", "LAUNCHES", "reset_launch_counts"]
+__all__ = ["int8_matmul", "int_conv2d", "quantize_act", "residual_requant",
+           "ragged_attention", "flash_attention", "flash_decode", "LAUNCHES",
+           "reset_launch_counts"]
 
 # launches per kernel since the last reset (process-wide, like the
 # loaded kernel libraries themselves)
 LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "flash_prefill": 0,
-            "flash_decode": 0}
+            "flash_decode": 0, "quantize": 0, "residual_requant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -52,8 +56,11 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
     """(..., K) int8 @ (K, N) int8 -> (..., N) int8 with fused requant.
 
     Leading dims (a ragged (T,) token stream, a (B, S) batch) flatten into
-    M.  Shift constants come from ``spec``.  With ``relu`` and
+    M.  ``x_int`` may hold uint8 post-ReLU codes.  Shift constants come
+    from ``spec``, whose ``bits`` is at most 8.  With ``relu`` and
     ``spec.out_unsigned`` the output is uint8 on [0, 2^bits - 1]."""
+    if spec.bits > 8:
+        raise ValueError(f"int8_matmul emits 8-bit codes, not {spec.bits}")
     *batch, k = x_int.shape
     n = w_int.shape[-1]
     unsigned = relu and spec.out_unsigned
@@ -74,6 +81,58 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                            hi=hi, out_dtype=out_dtype)
     LAUNCHES["int8_matmul"] += 1
     return out.reshape(*batch, n)
+
+
+def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
+               b_int: Optional[torch.Tensor], spec: LinearQuantSpec, *,
+               stride: int = 1, relu: bool = False) -> torch.Tensor:
+    """Integer NHWC x HWIO convolution with XLA's "SAME" padding: the
+    im2col gather (plain PyTorch, on the tensor's device) and one K2
+    launch over it, the requant epilogue fused.  ``x_int`` holds int8 or
+    uint8 codes; returns (B, H', W', Cout) codes as ``int8_matmul``."""
+    kh, kw, cin, cout = w_int.shape
+    cols, (bsz, ho, wo) = im2col_same(x_int, kh, kw, stride)
+    return int8_matmul(cols, w_int.reshape(kh * kw * cin, cout), b_int, spec,
+                       relu=relu).reshape(bsz, ho, wo, cout)
+
+
+def quantize_act(x: torch.Tensor, n: int, bits: int = 8,
+                 unsigned: bool = False) -> torch.Tensor:
+    """Elementwise Eq.-1 quantization of a float32 / bfloat16 tensor:
+    int8 or uint8 codes, int32 when ``bits > 8``."""
+    if not _on_cuda(x, "quantize_act"):
+        return ref.quantize_ref(x, n=n, bits=bits, unsigned=unsigned)
+    lo, hi = int_bounds(bits, unsigned)
+    out_dtype = ((torch.uint8 if unsigned else torch.int8) if bits <= 8
+                 else torch.int32)
+    out = quantize_cuda(x, n=int(n), lo=lo, hi=hi, out_dtype=out_dtype)
+    LAUNCHES["quantize"] += 1
+    return out
+
+
+def residual_requant(a_int: torch.Tensor, b_int: torch.Tensor, *, n_a: int,
+                     n_b: int, n_o: int, bits: int = 8, relu: bool = False,
+                     saturate: bool = False) -> torch.Tensor:
+    """Fused Fig. 1(c)/(d) residual add of two int8/uint8 code tensors on
+    grids ``n_a`` / ``n_b``, requantized to ``n_o``: uint8 with ``relu``,
+    else int8.  A negative requant shift wraps, as the TPU kernel's does,
+    or saturates first with ``saturate`` (``integer_ops.int_residual_add``)."""
+    if a_int.shape != b_int.shape:
+        raise ValueError(f"shape mismatch {tuple(a_int.shape)} + "
+                         f"{tuple(b_int.shape)}")
+    if not _on_cuda(a_int, "residual_requant"):
+        return ref.residual_requant_ref(a_int, b_int, n_a=n_a, n_b=n_b,
+                                        n_o=n_o, bits=bits, relu=relu,
+                                        saturate=saturate)
+    if bits > 8:
+        raise ValueError(f"residual_requant emits 8-bit codes, not {bits}")
+    n_hi = max(n_a, n_b)
+    lo, hi = int_bounds(bits, relu)
+    out = residual_requant_cuda(a_int, b_int, sa=n_hi - n_a, sb=n_hi - n_b,
+                                shift=n_hi - n_o, relu=relu, lo=lo, hi=hi,
+                                saturate=saturate)
+    LAUNCHES["residual_requant"] += 1
+    return out
 
 
 def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,

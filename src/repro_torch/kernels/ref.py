@@ -3,9 +3,12 @@
 The CPU path of every kernel wrapper in ``ops`` and the yardstick the
 CUDA kernels are held to on the card.  Kept independent of the kernel
 sources (no shared helper) so a bug cannot cancel itself out; semantics
-mirror ``repro.kernels.ref`` with one deliberate difference: a negative
-requant shift SATURATES before the left shift, as the TPU kernel and
-``int_linear`` do (the JAX ``ref._requant`` does not).
+mirror ``repro.kernels.ref``.  A negative requant shift is a left shift
+in two flavours, both kept: K2's (``int8_matmul_ref``) SATURATES to
+``+-(2^31-1) >> |s|`` first, as the TPU int8-matmul kernel and
+``int_linear`` do; K7's (``residual_requant_ref``) WRAPS by default, as the
+TPU residual kernel and the JAX ``ref._requant`` do, and saturates with
+``saturate=True``, the semantics of ``integer_ops.int_residual_add``.
 """
 from __future__ import annotations
 
@@ -14,9 +17,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.qscheme import dequant
+from repro_torch.core.qscheme import dequant, int_bounds
 
-__all__ = ["int8_matmul_ref", "ragged_token_meta", "ragged_attention_ref",
+__all__ = ["int8_matmul_ref", "quantize_ref", "residual_requant_ref",
+           "ragged_token_meta", "ragged_attention_ref",
            "flash_attention_ref", "flash_decode_ref", "kv_frac_bits_of",
            "DEFAULT_MASK_VALUE"]
 
@@ -37,15 +41,18 @@ def kv_frac_bits_of(k: torch.Tensor, kv_frac_bits: Optional[int]) -> int:
     return 0
 
 
-def _requant(acc: torch.Tensor, shift: int, lo: int, hi: int) -> torch.Tensor:
+def _requant(acc: torch.Tensor, shift: int, lo: int, hi: int,
+             saturate: bool = True) -> torch.Tensor:
     acc = acc.to(torch.int32)
     if shift > 0:
         half = 1 << (shift - 1)
         acc = torch.where(acc >= 0, (acc + half) >> shift,
                           -(((-acc) + half) >> shift))
     elif shift < 0:
-        bound = _I32_MAX >> (-shift)
-        acc = torch.clamp(acc, -bound, bound) << (-shift)
+        if saturate:
+            bound = _I32_MAX >> (-shift)
+            acc = torch.clamp(acc, -bound, bound)
+        acc = acc << (-shift)          # int32 wrap-around when unsaturated
     return torch.clamp(acc, lo, hi)
 
 
@@ -69,6 +76,37 @@ def int8_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
     if relu:
         acc = torch.clamp(acc, min=0)
     return _requant(acc, shift, lo, hi).to(out_dtype)
+
+
+def quantize_ref(x: torch.Tensor, *, n: int, bits: int = 8,
+                 unsigned: bool = False) -> torch.Tensor:
+    """Eq. 1: ``clip(trunc(x * 2^n +- 0.5))`` in fp32 (ties away from
+    zero), as int8 / uint8 codes, or int32 when ``bits > 8``."""
+    lo, hi = int_bounds(bits, unsigned)
+    s = x.to(torch.float32) * (2.0 ** int(n))
+    r = torch.trunc(s + torch.where(s >= 0, 0.5, -0.5))
+    out_dtype = ((torch.uint8 if unsigned else torch.int8) if bits <= 8
+                 else torch.int32)
+    return torch.clamp(r, lo, hi).to(out_dtype)
+
+
+def residual_requant_ref(a_int: torch.Tensor, b_int: torch.Tensor, *,
+                         n_a: int, n_b: int, n_o: int, bits: int = 8,
+                         relu: bool = False,
+                         saturate: bool = False) -> torch.Tensor:
+    """Fig. 1(c)/(d): codes ``a`` (grid n_a) and ``b`` (grid n_b) are
+    left-shifted onto ``max(n_a, n_b)`` in int32 (wrapping), added,
+    optionally ReLU'd, then requantized once to ``n_o`` and clipped:
+    uint8 with ``relu``, else int8.  A negative requant shift wraps unless
+    ``saturate``."""
+    n_hi = max(n_a, n_b)
+    acc = (a_int.to(torch.int32) << (n_hi - n_a)) + \
+        (b_int.to(torch.int32) << (n_hi - n_b))
+    if relu:
+        acc = torch.clamp(acc, min=0)
+    lo, hi = int_bounds(bits, relu)
+    return _requant(acc, n_hi - n_o, lo, hi, saturate=saturate).to(
+        torch.uint8 if relu else torch.int8)
 
 
 def ragged_token_meta(q_start: torch.Tensor, q_len: torch.Tensor,

@@ -54,8 +54,11 @@ def test_import_without_jax_loads_no_repro_module():
 def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qmodel import QuantContext
+    from repro_torch.launch import quickstart
     from repro_torch.launch.serve import serve, serve_engine
     from repro_torch.models.model import init_cache, init_params
+    from repro_torch.models.resnet import (from_jax_resnet_params,
+                                           init_resnet)
     from repro_torch.serving.engine import ServingEngine
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("qwen3_1_7b")
@@ -69,8 +72,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServingEngine(cfg, {}, QuantContext())
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params(cfg)
+    rcfg = get_smoke_config("resnet_paper")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_resnet(rcfg, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        from_jax_resnet_params({})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        quickstart.main([])
     # the CPU is taken only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
+    assert init_resnet(rcfg, generator=torch.Generator(),
+                       device="cpu")["stem"]["w"].device.type == "cpu"
 
 
 def test_unported_paths_raise():
@@ -83,7 +97,7 @@ def test_unported_paths_raise():
                dict(record=True), dict(slo=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
-    # the scaling-factor baseline waits for the CNN path
+    # the scaling-factor baseline waits for core/baselines.py
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
                      mode="fake_sf")
