@@ -47,10 +47,31 @@ the CUDA toolkit.  Phases, one line each (or a few):
     agree, apart from declared near-ties;
 14. the ResNet's integer forward at batch 256 on the card against the
     CPU's plain path: identical logits, exactly 16 K2, 6 K7 and 2 K3
-    launches, twice with identical logits, with images per second.
+    launches, twice with identical logits, with images per second;
+15. K4 (paged attention over the KV block pool) against its plain version
+    over a grid of query counts, GQA groups, pool types, head dims and
+    block sizes (shuffled tables with trash tails, a padded slot, the
+    speculative step's extra trash column), at the legacy engine's decode
+    shape and over one long int8 cache (held row by row, at a tolerance a
+    repeated pool block fails), with the kernel's, the plain version's
+    and gather + dequantize + SDPA's times;
+16. ``paged_step`` of qwen3-1.7B at full width and 2 layers in fp32, the
+    decode, prefill-chunk and (4, 4) verify shapes, kernels on the card
+    against the plain path on the CPU, in phase 9's three cases: INT with
+    an int8 pool and FP with an fp32 pool under phase 4's rules, FP with
+    an int8 pool under phase 9's (every pool block but the trash block
+    compared);
+17. the legacy per-shape engine (``serve_engine(ragged=False)``) at full
+    depth in bf16, FP and INT, twice each (token-identical repeats), with
+    K4 = 28 x its dispatches, K1 = 0 and K2 = 197 a dispatch in INT; then
+    the ragged engine once, and speculative decoding (``spec_k=3``) on the
+    legacy and the ragged engine (K1 = 28 x ragged steps, K4 = 0 there),
+    with tokens/s, TTFT, TPOT, the acceptance rate and the share of tokens
+    agreeing with the same engine's non-speculative run.
 
-It then prints the card line, a JSON line describing every kernel, and as
-its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
+It then prints the card line, a JSON line describing every kernel (K4's
+``library_ms`` is null: no single PyTorch call reads a block table), and
+as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
 package.
@@ -99,6 +120,11 @@ RESNET_BATCH, RESNET_CALIB_BATCH, ELEMWISE_LONG = 256, 64, 64 * 2**20
 # row's largest |value| (``_close_rows``)
 LONG_ROW_TOL = 2e-2
 KV_FRAC_BITS = 4
+# K4 at the legacy engine's decode shape (4 slots, qwen3-1.7B's heads, 16-row
+# blocks, tables of 5 blocks as the phase-17 workload's 80-position model
+# length) and over one long cache (2048 shuffled blocks a slot)
+K4_DECODE_POS = (40, 55, 23, 70)
+K4_NBMAX, K4_LONG_BLOCKS = 5, 2048
 
 
 class SmokeFailure(Exception):
@@ -986,10 +1012,11 @@ def phase_serve(torch, out):
     L, steps = cfg.n_layers, SERVE_GEN - 1
     want = {"int": {"flash_prefill": 2 * L, "flash_decode": L * steps,
                     "int8_matmul": (7 * L + 1) * SERVE_GEN,
-                    "ragged_attention": 0, "quantize": 0,
-                    "residual_requant": 0},
+                    "ragged_attention": 0, "paged_attention": 0,
+                    "quantize": 0, "residual_requant": 0},
             "fp": {"flash_prefill": L, "flash_decode": L * steps,
-                   "int8_matmul": 0, "ragged_attention": 0, "quantize": 0,
+                   "int8_matmul": 0, "ragged_attention": 0,
+                   "paged_attention": 0, "quantize": 0,
                    "residual_requant": 0}}
     res = {}
     for mode, overrides in (("int", {"kv_cache_bits": 8}), ("fp", None)):
@@ -1364,8 +1391,8 @@ def phase_resnet_forward(torch, out, q_gpu):
     cpu_s = time.perf_counter() - t0
     xg = x.cuda()
     want_launches = {"int8_matmul": 16, "residual_requant": 6, "quantize": 2,
-                     "ragged_attention": 0, "flash_prefill": 0,
-                     "flash_decode": 0}
+                     "ragged_attention": 0, "paged_attention": 0,
+                     "flash_prefill": 0, "flash_decode": 0}
     runs = []
     for rep in range(2):
         torch.cuda.synchronize()
@@ -1399,6 +1426,463 @@ def phase_resnet_forward(torch, out, q_gpu):
                runs=[{k: v for k, v in r.items() if k != "logits"}
                      for r in runs])
     out["resnet_forward"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 15-17: the legacy per-shape engine and speculative decoding (K4)
+# ---------------------------------------------------------------------------
+
+def _k4_case(torch, gen, b, c, h, kvh, d, bs, nbmax, last, q_dt, kv_dt,
+             spec=False, padded_slot=None):
+    """q (B, C, H, D) at positions ``last[b] - C + 1 .. last[b]`` (floored
+    at 0) over a shuffled pool whose tables hold only the blocks a slot's
+    positions need, trash after them; ``padded_slot`` gets an all-trash
+    table at position 0; with ``spec`` the table has one trash column more
+    and the last slot's last query sits on it (a padded draft row)."""
+    from repro_torch.core.qscheme import quant
+    nb = 1 + b * nbmax
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(q_dt)
+    kf = torch.randn((nb, bs, kvh, d), generator=gen, device="cuda")
+    vf = torch.randn((nb, bs, kvh, d), generator=gen, device="cuda")
+    if kv_dt == torch.int8:
+        kp, vp = quant(kf, KV_FRAC_BITS), quant(vf, KV_FRAC_BITS)
+    else:
+        kp, vp = kf.to(kv_dt), vf.to(kv_dt)
+    del kf, vf
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32).reshape(b, nbmax)
+    w = nbmax + 1 if spec else nbmax
+    bt = torch.zeros((b, w), dtype=torch.int32, device="cuda")
+    pos = torch.zeros((b, c), dtype=torch.int32, device="cuda")
+    for i in range(b):
+        if i == padded_slot:
+            continue
+        p = [max(last[i] - c + 1 + j, 0) for j in range(c)]
+        pos[i] = torch.tensor(p, dtype=torch.int32)
+        live = p[-1] // bs + 1
+        bt[i, :live] = perm[i, :live]
+    if spec:
+        pos[b - 1, -1] = nbmax * bs
+    nkv = KV_FRAC_BITS if kv_dt == torch.int8 else None
+    return (q, kp, vp, bt, pos), nkv
+
+
+def _k4_work(args):
+    """Bytes K4 must move (q in, out, the kv rows its queries see, tables,
+    positions) and its operations (QK and PV), from this case's data."""
+    q, kp, vp, bt, pos = args
+    b, c, h, d = q.shape
+    bs, kvh = kp.shape[1], kp.shape[2]
+    seen = (pos.max(dim=1).values.clamp(max=bt.shape[1] * bs - 1) + 1)
+    n_bytes = (2 * q.numel() * q.element_size()
+               + int(seen.sum()) * kvh * 2 * d * kp.element_size()
+               + 4 * (bt.numel() + pos.numel()))
+    n_ops = int((pos.clamp(max=bt.shape[1] * bs - 1) + 1).sum()) * h * 4 * d
+    return n_bytes, n_ops
+
+
+def _gather_sdpa(torch, args, nkv, mask, gqa):
+    """The yardstick, two calls: gather + dequantize every block the tables
+    name, then ``scaled_dot_product_attention`` under ``mask`` (B, 1, C,
+    W * bs), True where a kv row is visible: the same function as K4."""
+    F = torch.nn.functional
+    q, kp, vp, bt, pos = args
+    b, c, h, d = q.shape
+    w, bs, kvh = bt.shape[1], kp.shape[1], kp.shape[2]
+    k = _deq(torch, kp[bt.long()].reshape(b, w * bs, kvh, d), nkv, q.dtype)
+    v = _deq(torch, vp[bt.long()].reshape(b, w * bs, kvh, d), nkv, q.dtype)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if gqa:
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+    g = h // kvh
+    return F.scaled_dot_product_attention(
+        qt, kt.repeat_interleave(g, 1), vt.repeat_interleave(g, 1),
+        attn_mask=mask)
+
+
+def _table_fault_caught(torch, plain, args, want, rel, nkv, col):
+    """The plain version over tables whose column ``col`` names the block
+    of column ``col - 1`` (a kernel that reads one pool block twice and
+    skips the next) must fall outside the row tolerance."""
+    q, kp, vp, bt, pos = args
+    bad_bt = bt.clone()
+    bad_bt[:, col] = bt[:, col - 1]
+    bad = plain(q, kp, vp, bad_bt, pos, kv_frac_bits=nkv)
+    return not _rows_within(torch, bad, want, rel)
+
+
+def phase_k4(torch, out):
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    _, sdpa_how = _sdpa(torch)
+    # the CPU tests' grid: fp32 q, shuffled tables with trash tails, slot 2
+    # padded, a position at a block edge, the spec table at C = 4
+    n_grid, grid_err = 0, 0.0
+    for c in (1, 4, 16):
+        for groups in (1, 2, 4):
+            for kv_dt in (torch.int8, torch.float32):
+                for d, bs in ((64, 16), (128, 128)):
+                    last = (bs, 3 * bs - 1, 0, min(5, bs - 1))
+                    args, nkv = _k4_case(torch, gen, 4, c, 2 * groups, 2, d,
+                                         bs, 3, last, torch.float32, kv_dt,
+                                         spec=c == 4, padded_slot=2)
+                    got = ops.paged_attention(*args, kv_frac_bits=nkv)
+                    want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
+                    torch.cuda.synchronize()
+                    grid_err = max(grid_err, _close(
+                        torch, got, want, 1e-4,
+                        f"K4 C {c} G {groups} {kv_dt} D {d} bs {bs}"))
+                    n_grid += 1
+    log(f"[15] K4 grid ({n_grid} cases: C 1/4/16, GQA 1/2/4, int8/fp32 "
+        f"pools, D 64/128, bs 16/128, fp32 q): within atol=rtol=1e-4 (max "
+        f"|diff| {grid_err:.2e})")
+    h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
+    for c in (1, 4, 16):          # the engine's three shapes, bf16 q
+        b = 1 if c == 16 else 4
+        args, nkv = _k4_case(torch, gen, b, c, h, kvh, d, 16, K4_NBMAX,
+                             K4_DECODE_POS[:b], torch.bfloat16, torch.int8,
+                             spec=c == 4)
+        got = ops.paged_attention(*args, kv_frac_bits=nkv)
+        want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
+        torch.cuda.synchronize()
+        err = _close(torch, got, want, 2e-2, f"K4 engine shape ({b}, {c})")
+        log(f"[15] K4 engine shape (B {b}, C {c}, H {h}, KVH {kvh}, D {d}, "
+            f"bs 16, bf16 q, int8 pool): within atol=rtol=2e-2 (max |diff| "
+            f"{err:.2e})")
+    rows = []
+    cases = [("decode shape", 4, K4_NBMAX, K4_DECODE_POS, 2, 200),
+             ("long int8 cache", 4, K4_LONG_BLOCKS,
+              (K4_LONG_BLOCKS * 16 - 1,) * 4, K4_LONG_BLOCKS // 2, 20)]
+    for name, b, nbmax, last, col, iters in cases:
+        args, nkv = _k4_case(torch, gen, b, 1, h, kvh, d, 16, nbmax, last,
+                             torch.bfloat16, torch.int8)
+        got = ops.paged_attention(*args, kv_frac_bits=nkv)
+        want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
+        torch.cuda.synchronize()
+        err = _close_rows(torch, got, want, LONG_ROW_TOL, f"K4 {name}")
+        check(_table_fault_caught(torch, ref.paged_attention_ref, args, want,
+                                  LONG_ROW_TOL, nkv, col),
+              f"K4 {name}: the row tolerance passes a repeated pool block")
+        ms = time_ms(torch, lambda: ops.paged_attention(
+            *args, kv_frac_bits=nkv), iters)
+        plain_ms = time_ms(torch, lambda: ref.paged_attention_ref(
+            *args, kv_frac_bits=nkv), 5, warmup=1)
+        w_rows = args[3].shape[1] * args[1].shape[1]
+        mask = (torch.arange(w_rows, device="cuda")[None, None, None, :]
+                <= args[4][:, None, :, None])
+        gqa = sdpa_how == "enable_gqa"
+        gs = _gather_sdpa(torch, args, nkv, mask, gqa).transpose(1, 2)
+        check(_rows_within(torch, gs, want, LONG_ROW_TOL),
+              f"K4 {name}: gather + SDPA disagrees with the plain version")
+        gs_ms = time_ms(torch, lambda: _gather_sdpa(torch, args, nkv, mask,
+                                                    gqa), iters)
+        n_bytes, n_ops = _k4_work(args)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        rows.append(dict(name=name, b=b, positions=list(last), ms=ms,
+                         plain_ms=plain_ms, gather_sdpa_ms=gs_ms,
+                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                         bytes=n_bytes, ops=n_ops, library_ms=None))
+        log(f"[15] K4 {name} (B {b}, positions {list(last)[:4]}, {nbmax} "
+            f"blocks a table, bf16 q, int8 pool): within {LONG_ROW_TOL} of "
+            f"each row's largest |value|, which a repeated pool block fails "
+            f"(max |diff| {err:.2e}) | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, gather + dequantize + SDPA ({sdpa_how}, two "
+            f"calls) {gs_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, "
+            f"{n_bytes} B)")
+        del args, got, want
+        torch.cuda.empty_cache()
+    res = dict(rows[0], long=rows[1], grid_max_abs_err=grid_err,
+               sdpa=sdpa_how)
+    out["k4"] = res
+    return res
+
+
+def _paged_model_steps(vocab, bs, nbmax):
+    """Four legacy steps as (tokens, positions, tables, real rows): A's
+    16-token prefill chunk (blocks 1, 2); B's 12 tokens padded to a 16
+    chunk (block 3, trash after it); a (4, 1) decode of A at 16 and B at 12
+    with two padded slots; a (4, 4) verify of A's fed token + 3 drafts and
+    B's fed token + 1 draft, padded rows on the extra trash column.  The
+    real-row mask (B, C) marks the rows whose logits the engine reads."""
+    import numpy as np
+    rng = np.random.default_rng(16)
+    a = rng.integers(0, vocab, size=20).astype(np.int32)
+    b = rng.integers(0, vocab, size=14).astype(np.int32)
+    s1 = (a[None, :16], np.arange(16, dtype=np.int32)[None],
+          np.asarray([[1, 2]], np.int32), np.ones((1, 16), bool))
+    tok = np.zeros((1, 16), np.int32)
+    tok[0, :12] = b[:12]
+    s2 = (tok, np.arange(16, dtype=np.int32)[None],
+          np.asarray([[3, 0]], np.int32), np.arange(16)[None] < 12)
+    bt3 = np.zeros((4, nbmax), np.int32)
+    bt3[0], bt3[1] = (1, 2), (3, 0)
+    s3 = (np.asarray([[a[16]], [b[12]], [0], [0]], np.int32),
+          np.asarray([[16], [12], [0], [0]], np.int32), bt3,
+          np.asarray([[True], [True], [False], [False]]))
+    tok4 = np.zeros((4, 4), np.int32)
+    tok4[0], tok4[1, :2] = a[16:20], b[12:14]
+    pos4 = np.full((4, 4), nbmax * bs, np.int32)
+    pos4[0], pos4[1, :2] = 17 + np.arange(4), 13 + np.arange(2)
+    bt4 = np.zeros((4, nbmax + 1), np.int32)
+    bt4[0, :2], bt4[1, :2] = (1, 2), (3, 4)
+    real4 = np.zeros((4, 4), bool)
+    real4[0], real4[1, :2] = True, True
+    return s1, s2, s3, (tok4, pos4, bt4, real4)
+
+
+def phase_paged_model(torch, out):
+    """The legacy step card against CPU, fp32 on both sides, in phase 9's
+    three cases.  The trash block (0) is left out of every pool comparison
+    and padded rows out of every logits comparison: padded rows of several
+    slots write the trash block's rows with different values (from layer 1
+    on their inputs differ), in no fixed order on the card, and padded
+    rows read those rows back; no engine reads a padded row's logits.
+
+    * INT mode, int8 pool: phase 4's INT rule, the layer-0 pool identical,
+      every code within one step of the CPU's and at most 0.1% differing,
+      logits differing in at most 0.1% of entries by at most 0.25.
+    * FP mode, fp32 pool: phase 4's FP rule, logits within atol=rtol=1e-3
+      in at least 99.9% of entries and all within 5e-2; pool values within
+      atol=rtol=1e-4.  No code can flip, so only fp32 summation orders
+      differ.
+    * FP mode, int8 pool: phase 9's rule for an int8 cache in FP mode.  A
+      K/V value within an ulp of a rounding boundary may take the
+      neighbouring code (the float projections sum in another order on the
+      card; on an H100 one layer-0 K code of 114688 flipped, a place no
+      attention kernel reaches), and every later logit of its sequence
+      moves by about 1e-3.  So: every code within one step, at most 0.1%
+      differing, logits all within 5e-2, the 1e-3 share printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_paged_step
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=2,
+                              dtype="float32")
+    t0 = time.perf_counter()
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    p_gpu = _tree_to(p_cpu, "cuda")
+    bs, nb, nbmax = 16, 8, 2
+    steps = _paged_model_steps(cfg.vocab_size, bs, nbmax)
+    res = {}
+    for mode, kv_bits in (("int", 8), ("fp", None), ("fp", 8)):
+        ctx = QuantContext(mode=QuantMode(mode))
+        ccfg = dataclasses.replace(cfg, kv_cache_bits=kv_bits)
+        case = f"{mode}, {'int8' if kv_bits else 'fp32'} pool"
+        step_fn = build_paged_step(ccfg, ctx)
+        pc, pg = p_cpu, p_gpu
+        if ctx.mode is QuantMode.INT:
+            pc, pg = quantize_weight_tree(p_cpu, ctx), \
+                quantize_weight_tree(p_gpu, ctx)
+        caches = {dv: M.init_paged_cache(ccfg, nb, bs, device=dv)
+                  for dv in ("cpu", "cuda")}
+        worst = {"frac": 0.0, "max": 0.0}
+        ops.reset_launch_counts()
+        for tokens, positions, bt, real in steps:
+            logits = {}
+            for dv, params in (("cpu", pc), ("cuda", pg)):
+                with torch.no_grad():
+                    lg, caches[dv] = step_fn(
+                        params, torch.from_numpy(tokens).to(dv), caches[dv],
+                        torch.from_numpy(positions).to(dv),
+                        torch.from_numpy(bt).to(dv))
+                logits[dv] = lg.float().cpu()
+            a, b = logits["cuda"], logits["cpu"]
+            check(bool(torch.isfinite(a).all()) and a.shape == b.shape
+                  == (*tokens.shape, cfg.vocab_padded),
+                  f"paged model {case}: non-finite or misshapen logits")
+            a, b = a[torch.from_numpy(real)], b[torch.from_numpy(real)]
+            diff = (a - b).abs()
+            frac = float(((diff > 0) if mode == "int" else
+                          (diff > 1e-3 + 1e-3 * b.abs())).float().mean())
+            worst["frac"] = max(worst["frac"], frac)
+            worst["max"] = max(worst["max"], float(diff.max()))
+        launches = dict(ops.LAUNCHES)
+        check(launches["paged_attention"] == cfg.n_layers * len(steps)
+              and launches["ragged_attention"] == 0,
+              f"paged model {case}: K4 launched "
+              f"{launches['paged_attention']} times, want "
+              f"{cfg.n_layers} x {len(steps)}")
+        pools = []              # (k/v, layer, entries differing, max |diff|)
+        n_entries = 0
+        for name, arr_c, arr_g in zip(("k", "v"), caches["cpu"]["paged_kv"],
+                                      caches["cuda"]["paged_kv"]):
+            dd = (arr_g[:, 1:].cpu().double() - arr_c[:, 1:].double()).abs()
+            if kv_bits is None:         # float pools: beyond atol=rtol=1e-4
+                dd = dd * (dd > 1e-4 + 1e-4 * arr_c[:, 1:].double().abs())
+            for layer in range(cfg.n_layers):
+                pools.append((name, layer, int((dd[layer] > 0).sum()),
+                              float(dd[layer].max())))
+                n_entries += dd[layer].numel()
+        max_code = max(p[3] for p in pools)
+        frac_code = sum(p[2] for p in pools) / n_entries
+        log(f"[16] paged model {case} (prefill chunks (1, 16), decode (4, 1),"
+            f" verify (4, 4); 2 layers, full width, fp32): real rows' logits "
+            f"max |diff| {worst['max']:.3e}, {worst['frac']:.2e} of entries "
+            f"{'differ' if mode == 'int' else 'beyond 1e-3'}; pool entries "
+            f"{'differing' if kv_bits else 'beyond 1e-4'} outside the trash "
+            f"block (k/v, layer, count, max |diff|) {pools} of "
+            f"{n_entries // len(pools)} a layer; K4 launches "
+            f"{launches['paged_attention']}")
+        if kv_bits is None:
+            check(frac_code == 0, f"paged model {case}: pool values beyond "
+                  f"atol=rtol=1e-4 {pools}")
+            check(worst["frac"] <= 1e-3 and worst["max"] <= 5e-2,
+                  f"paged model {case}: logits beyond tolerance in "
+                  f"{worst['frac']:.2e} of entries, max {worst['max']}")
+        else:
+            check(max_code <= 1 and frac_code <= 1e-3,
+                  f"paged model {case}: pool codes differ by {max_code} steps"
+                  f" in {frac_code:.2e} of entries")
+            if ctx.mode is QuantMode.INT:
+                check(all(p[2] == 0 for p in pools if p[1] == 0),
+                      f"paged model {case}: the layer-0 pool differs from "
+                      "the CPU's")
+                check(worst["frac"] <= 1e-3 and worst["max"] <= 0.25,
+                      f"paged model {case}: logits differ in "
+                      f"{worst['frac']:.2e} of entries, max {worst['max']}")
+            else:
+                check(worst["max"] <= 5e-2, f"paged model {case}: logits "
+                      f"differ by up to {worst['max']}")
+        res[case] = dict(logits_max_abs=worst["max"],
+                         logits_frac=worst["frac"], pool_diff=pools,
+                         launches=launches)
+    log(f"[16] paged model phase {time.perf_counter() - t0:.1f} s")
+    out["paged_model"] = res
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+
+
+def _engine_run(torch, mode, ragged, spec_k):
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    o = serve_engine("qwen3_1_7b", smoke=False, mode=mode, calibrate=False,
+                     kv_bits=8, n_requests=8, n_slots=4, rate=1e9,
+                     ragged=ragged, spec_k=spec_k, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    return dict(outputs=o["outputs"], requests=o["requests"],
+                report=o["report"], launches=launches, wall_s=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _agree(a, b):
+    """Share of b's tokens that a reproduces position for position."""
+    same = 0
+    for r in b:
+        n = min(len(a[r]), len(b[r]))
+        same += int((a[r][:n] == b[r][:n]).sum())
+    return same / max(1, sum(len(b[r]) for r in b))
+
+
+def phase_legacy_engine(torch, out):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen3_1_7b")
+    L, per_dispatch_k2 = cfg.n_layers, 7 * cfg.n_layers + 1
+    res = {}
+
+    def summary(tag, r):
+        rep = r["report"]
+        sp = rep["speculative"]
+        return (f"[17] {tag}: {rep['completed']} requests, "
+                f"{rep['gen_tokens']} tokens, {rep['tokens_per_s']} tok/s, "
+                f"TTFT p50 {rep['ttft_s']['p50']:.4f} s, TPOT p50 "
+                f"{rep['tpot_s']['p50']:.4f} s, prefill chunks "
+                f"{rep['prefill_chunks']}, decode steps {rep['decode_steps']},"
+                f" verify steps {rep['spec_steps']}, ragged steps "
+                f"{rep['ragged_steps']}, launches K1 "
+                f"{r['launches']['ragged_attention']} K4 "
+                f"{r['launches']['paged_attention']} K2 "
+                f"{r['launches']['int8_matmul']}"
+                + ("" if sp is None else
+                   f", acceptance {sp['acceptance_rate']} "
+                   f"({sp['accepted_tokens']}/{sp['drafted_tokens']})")
+                + f", peak {r['peak_gib']:.2f} GiB, {r['wall_s']:.1f} s")
+
+    def check_done(tag, r):
+        check(r["report"]["completed"] == 8, f"{tag}: not all done")
+        for req in r["requests"]:
+            toks = r["outputs"][req.rid]
+            check(1 <= len(toks) <= req.max_new_tokens
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_size,
+                  f"{tag}: request {req.rid} tokens {toks}")
+        check({k: r["launches"][k] for k in r["report"]["kernel_launches"]}
+              == r["report"]["kernel_launches"],
+              f"{tag}: report launches {r['report']['kernel_launches']}")
+
+    def check_legacy(tag, r, mode):
+        rep = r["report"]
+        dispatches = (rep["decode_steps"] + rep["prefill_chunks"]
+                      + rep["spec_steps"])
+        want_k2 = per_dispatch_k2 * dispatches if mode == "int" else 0
+        check(rep["ragged_steps"] == 0
+              and r["launches"]["paged_attention"] == L * dispatches
+              and r["launches"]["ragged_attention"] == 0
+              and r["launches"]["int8_matmul"] == want_k2,
+              f"{tag}: launches {r['launches']} over {dispatches} dispatches "
+              f"(want K4 {L * dispatches}, K1 0, K2 {want_k2})")
+
+    for mode in ("fp", "int"):
+        runs = []
+        for rep_i in range(2):
+            r = _engine_run(torch, mode, False, 0)
+            tag = f"legacy engine {mode} run {rep_i}"
+            log(summary(tag, r))
+            check_done(tag, r)
+            check_legacy(tag, r, mode)
+            runs.append(r)
+        a, b = runs[0]["outputs"], runs[1]["outputs"]
+        check(sorted(a) == sorted(b)
+              and all(len(a[k]) == len(b[k]) and (a[k] == b[k]).all()
+                      for k in a),
+              f"legacy engine {mode}: a repeated greedy run gave other tokens")
+        log(f"[17] legacy engine {mode}: repeat run token-identical")
+        res[f"legacy_{mode}"] = {k: v for k, v in runs[0].items()
+                                 if k not in ("outputs", "requests")}
+        # each engine's speculative run against its own plain run
+        plain = {False: runs[0]["outputs"]}
+        r = _engine_run(torch, mode, True, 0)
+        plain[True] = r["outputs"]
+        share = _agree(r["outputs"], plain[False])
+        log(summary(f"ragged engine {mode}", r) + f"; {share:.4f} of the "
+            f"tokens agree with the legacy engine's")
+        check_done(f"ragged engine {mode}", r)
+        res[f"ragged_{mode}"] = dict(
+            {k: v for k, v in r.items() if k not in ("outputs", "requests")},
+            agree_with_legacy=share)
+        for ragged in (False, True):
+            r = _engine_run(torch, mode, ragged, 3)
+            name = "ragged" if ragged else "legacy"
+            tag = f"{name} engine {mode} spec_k=3"
+            share = _agree(r["outputs"], plain[ragged])
+            log(summary(tag, r) + f"; {share:.4f} of the tokens agree with "
+                f"the same engine's non-speculative run")
+            check_done(tag, r)
+            check(r["report"]["speculative"]["drafted_tokens"] > 0,
+                  f"{tag}: nothing was drafted")
+            if ragged:
+                steps = r["report"]["ragged_steps"]
+                check(r["launches"]["ragged_attention"] == L * steps
+                      and r["launches"]["paged_attention"] == 0,
+                      f"{tag}: launches {r['launches']} over {steps} ragged "
+                      f"steps (want K1 {L * steps}, K4 0)")
+            else:
+                check_legacy(tag, r, mode)
+            entry = {k: v for k, v in r.items()
+                     if k not in ("outputs", "requests")}
+            entry["agree_with_plain"] = share
+            res[f"{name}_spec_{mode}"] = entry
+        torch.cuda.empty_cache()
+    out["legacy_engine"] = res
     return res
 
 
@@ -1439,6 +1923,11 @@ def main(argv=None) -> int:
         cnn = phase_cnn_kernels(torch, out)
         q_resnet = phase_resnet_calibrate(torch, out)
         rfwd = phase_resnet_forward(torch, out, q_resnet)
+        del q_resnet
+        torch.cuda.empty_cache()
+        k4 = phase_k4(torch, out)
+        phase_paged_model(torch, out)
+        legacy = phase_legacy_engine(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1496,6 +1985,20 @@ def main(argv=None) -> int:
             "library_ms": None,
             "per": f"ResNet forward at batch {RESNET_BATCH}: "
                    f"{rfwd['launches'][key]} launches"})
+    # K4: one launch at the legacy engine's decode shape; launches from
+    # phase 17's first INT legacy run.  No single PyTorch call reads a
+    # block table: gather + dequantize + SDPA (two calls) is kept beside it
+    kernels.append({
+        "name": "paged_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/paged_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:285",
+        "launches": legacy["legacy_int"]["launches"]["paged_attention"],
+        "max_abs_err": k4["max_abs_err"], "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"], "bound_ms": k4["bound_ms"],
+        "bound_by": k4["bound_by"], "library_ms": None, "per": "launch",
+        "library_note": "no single PyTorch call reads a block table; gather "
+                        f"+ dequantize + SDPA (two calls) "
+                        f"{k4['gather_sdpa_ms']:.4f} ms"})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

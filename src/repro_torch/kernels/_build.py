@@ -25,7 +25,7 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "build_log"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("int8_matmul", "ragged_attention", "flash_attention",
-                  "quantize", "residual_requant")
+                  "paged_attention", "quantize", "residual_requant")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

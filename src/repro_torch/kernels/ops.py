@@ -21,20 +21,22 @@ from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
 from repro_torch.core.qscheme import int_bounds
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_decode_cuda,
-                                                 flash_prefill_cuda)
+                                                 flash_prefill_cuda,
+                                                 paged_attention_cuda)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.ragged_flash import ragged_attention_cuda
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
 __all__ = ["int8_matmul", "int_conv2d", "quantize_act", "residual_requant",
-           "ragged_attention", "flash_attention", "flash_decode", "LAUNCHES",
-           "reset_launch_counts"]
+           "ragged_attention", "paged_attention", "flash_attention",
+           "flash_decode", "LAUNCHES", "reset_launch_counts"]
 
 # launches per kernel since the last reset (process-wide, like the
 # loaded kernel libraries themselves)
-LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "flash_prefill": 0,
-            "flash_decode": 0, "quantize": 0, "residual_requant": 0}
+LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "paged_attention": 0,
+            "flash_prefill": 0, "flash_decode": 0, "quantize": 0,
+            "residual_requant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -160,6 +162,35 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_start,
                                 q_len, kv_len, kv_frac_bits=nkv)
     LAUNCHES["ragged_attention"] += 1
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    q_positions: torch.Tensor, *,
+                    kv_frac_bits: Optional[int] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention over the serving engine's paged KV block pool (the
+    legacy per-shape engine's steps).
+
+    q (B, C, H, Dk): C == 1 is a decode row per slot, C > 1 a prefill
+    chunk or a speculative verify chunk.  Pools (NB, bs, KVH, D) hold
+    every sequence's blocks, int8 Eq.-1 codes on the 2^-``kv_frac_bits``
+    grid or floats; ``block_tables`` (B, W) maps each slot's logical
+    blocks to pool blocks (any width: unused tail entries name the trash
+    block and are masked); ``q_positions`` (B, C) are the queries'
+    absolute positions, and a query attends to kv rows ``<=`` its own.
+    Scores are scaled by ``scale`` (default 1/sqrt(Dk)).  Returns
+    (B, C, H, Dv) in q's dtype."""
+    nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
+    if not _on_cuda(q, "paged_attention"):
+        return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
+                                       q_positions, kv_frac_bits=kv_frac_bits,
+                                       scale=scale)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    out = paged_attention_cuda(q, k_pool, v_pool, block_tables, q_positions,
+                               kv_frac_bits=nkv, scale=scale)
+    LAUNCHES["paged_attention"] += 1
     return out
 
 

@@ -21,8 +21,8 @@ from repro_torch.core.qscheme import dequant, int_bounds
 
 __all__ = ["int8_matmul_ref", "quantize_ref", "residual_requant_ref",
            "ragged_token_meta", "ragged_attention_ref",
-           "flash_attention_ref", "flash_decode_ref", "kv_frac_bits_of",
-           "DEFAULT_MASK_VALUE"]
+           "paged_attention_ref", "flash_attention_ref", "flash_decode_ref",
+           "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
@@ -164,6 +164,44 @@ def ragged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     # fully-masked padding rows came out of the softmax as NaN — they are
     # no sequence's output, pin them to zero
     return torch.where(valid[:, None, None], out, torch.zeros_like(out))
+
+
+def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                        v_pool: torch.Tensor, block_tables: torch.Tensor,
+                        q_positions: torch.Tensor, *,
+                        kv_frac_bits: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """K4's function by gathering: every slot gathers all ``W`` blocks
+    its table (B, W) names from the pool (NB, bs, KVH, D), dequantizes
+    them to q's type (int8 codes on the 2^-``kv_frac_bits`` grid), and q
+    (B, C, H, Dk) attends with fp32 scores times ``scale`` (default
+    1/sqrt(Dk)) under the per-(slot, query) mask ``kv_pos <=
+    q_positions[b, c]`` (-inf); the fp32 softmax is cast to V's type
+    before an fp32 P.V; (B, C, H, Dv) in q's dtype.  Any table width is
+    taken: the speculative step's has a trailing trash column."""
+    b, c, h, dk = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    dv = v_pool.shape[-1]
+    g = h // kvh
+    scale = 1.0 / math.sqrt(dk) if scale is None else scale
+    nkv = kv_frac_bits_of(k_pool, kv_frac_bits)
+    bt = block_tables.long()
+    s_len = bt.shape[1] * bs
+    k = k_pool[bt].reshape(b, s_len, kvh, dk)
+    v = v_pool[bt].reshape(b, s_len, kvh, dv)
+    if k.dtype == torch.int8:
+        k = dequant(k, nkv, out_dtype=q.dtype)
+        v = dequant(v, nkv, out_dtype=q.dtype)
+    else:
+        k, v = k.to(q.dtype), v.to(q.dtype)
+    qg = q.reshape(b, c, kvh, g, dk).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * scale
+    kv_pos = torch.arange(s_len, device=q.device)
+    mask = kv_pos[None, None, :] <= q_positions.long()[:, :, None]  # (B,C,S)
+    s = torch.where(mask[:, None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    return out.reshape(b, c, h, dv).to(q.dtype)
 
 
 def _dense_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

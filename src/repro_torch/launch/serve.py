@@ -10,10 +10,14 @@ greedy decode steps:
 Engine (``--engine``, ``serve_engine``): the continuous-batching engine on
 the paged int8-KV pool against a synthetic Poisson workload; ``--w8a8``
 calibrates, pre-quantizes the weights to int8 codes and serves every
-projection through the int8 shift-requant kernel:
+projection through the int8 shift-requant kernel; ``--spec-k K`` drafts up
+to K tokens a slot (``--drafter ngram``) and verifies them in the same
+step; ``--no-ragged`` serves through the legacy per-shape steps (paged
+attention, K4) instead of the unified ragged step (K1):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
-        --engine [--w8a8 | --mode fp | --mode int --no-calibrate]
+        --engine [--w8a8 | --mode fp | --mode int --no-calibrate] \
+        [--spec-k 3] [--no-ragged]
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--attn-kernel
 flash`` sends the classic path's attention through the flash prefill and
@@ -163,7 +167,7 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  gen_lens=(4, 8, 16, 24), requests=None,
                  cfg_overrides: dict | None = None, shared_prefix: int = 0,
                  prefix_cache: bool | None = None, spec_k: int = 0,
-                 ragged: bool = True, w8a8: bool = False,
+                 drafter="ngram", ragged: bool = True, w8a8: bool = False,
                  params=None, device=None) -> dict:
     """Continuous-batching serving on the paged int8-KV block pool.
     Returns {"report", "outputs", "requests", "engine", "quantized",
@@ -177,8 +181,11 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     quantizes the float matmul weights once, here, on the context's grids
     (bit-identical to quantizing in every call).  ``params`` overrides the
     seeded random weights (the tests pass the JAX package's weights
-    through ``models.model.from_jax_params``).  ``device`` defaults to
-    ``cuda``."""
+    through ``models.model.from_jax_params``).  ``spec_k > 0`` drafts up
+    to K tokens a slot with ``drafter`` ('ngram', or any object with a
+    ``draft(history, k)`` method) and verifies them in the same step;
+    ``ragged=False`` serves through the legacy per-shape steps.
+    ``device`` defaults to ``cuda``."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.device import resolve_device
@@ -229,7 +236,7 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                            max_model_len=max_model_len,
                            num_blocks=num_blocks, top_k=top_k, seed=seed,
                            prefix_cache=prefix_cache, spec_k=spec_k,
-                           ragged=ragged, device=dev)
+                           drafter=drafter, ragged=ragged, device=dev)
     with torch.no_grad():
         report = engine.run(requests)
     return {"report": report, "outputs": engine.outputs(),
@@ -267,6 +274,18 @@ def main(argv=None):
                          "the weights to int8 codes and run every "
                          "projection through the int8 shift-requant kernel "
                          "(implies --mode int)")
+    ap.add_argument("--spec-k", type=int, default=0, metavar="K",
+                    help="[--engine] speculative decoding: draft up to K "
+                         "tokens per slot and verify them in the same step; "
+                         "accepted tokens commit, the rejected tail's blocks "
+                         "retract (0 = off)")
+    ap.add_argument("--drafter", default="ngram", choices=["ngram"],
+                    help="[--engine --spec-k] draft proposer: the model-free "
+                         "prompt-lookup self-drafter")
+    ap.add_argument("--no-ragged", action="store_true",
+                    help="[--engine] serve through the legacy per-shape "
+                         "steps (prefill chunk / decode / verify, paged "
+                         "attention) instead of the unified ragged step")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -282,14 +301,26 @@ def main(argv=None):
                 seed=args.seed, temperature=args.temperature,
                 top_k=args.top_k, shared_prefix=args.shared_prefix,
                 prefix_cache=False if args.no_prefix_cache else None,
-                w8a8=args.w8a8, device=args.device)
+                spec_k=args.spec_k, drafter=args.drafter,
+                ragged=not args.no_ragged, w8a8=args.w8a8,
+                device=args.device)
         except ValueError as e:
             ap.exit(2, f"error: {e}\n")
         print(json.dumps(out["report"], indent=2))
         if out["quantized"] is not None:
             print(f"w8a8: {len(out['quantized'].converted)} weight tensors "
                   f"pre-quantized to int8 codes")
+        sp = out["report"]["speculative"]
+        if sp is not None:
+            print(f"speculative (K={sp['spec_k']}, {sp['drafter']}): "
+                  f"acceptance {sp['acceptance_rate']}, "
+                  f"{sp['tokens_per_step']} tokens/step over "
+                  f"{sp['verify_steps']} verify steps "
+                  f"({sp['fallback_decode_steps']} plain decode steps), "
+                  f"{sp['retracted_blocks']} blocks retracted")
         return
+    if args.spec_k or args.no_ragged:
+        ap.error("--spec-k and --no-ragged are engine options: pass --engine")
     if args.w8a8:
         ap.error("--w8a8 is an engine option: pass --engine")
     out = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,

@@ -1,6 +1,7 @@
-"""Step builders of the classic dense-cache serving path (PyTorch
-counterpart of ``repro.launch.steps``: ``build_prefill_step``,
-``build_serve_step`` and the build-time W8A8 check).
+"""Step builders of the classic dense-cache serving path and of the legacy
+per-shape engine (PyTorch counterpart of ``repro.launch.steps``:
+``build_prefill_step``, ``build_serve_step``, ``build_paged_step`` and the
+build-time W8A8 check).
 
 The builders validate the configuration once and return plain closures:
 PyTorch runs eagerly, so there is nothing to trace or compile.
@@ -15,7 +16,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
 from repro_torch.models import model as M
 
-__all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step"]
+__all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
+           "build_paged_step"]
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
@@ -56,3 +58,18 @@ def build_serve_step(cfg: ModelConfig, ctx: QuantContext):
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
 
     return serve_step
+
+
+def build_paged_step(cfg: ModelConfig, ctx: QuantContext):
+    """One step of the legacy per-shape engine over the paged KV block
+    pool: ``paged_step(params, tokens (B, C), cache, positions (B, C),
+    block_tables (B, W)) -> (logits (B, C, V), cache)``.  The same step
+    serves the decode (n_slots, 1), prefill-chunk (1, C) and verify
+    (n_slots, K + 1) shapes."""
+    check_matmul_kernel(cfg, ctx)
+
+    def paged_step(params, tokens, cache, positions, block_tables):
+        return M.paged_step(params, tokens, cache, positions, block_tables,
+                            cfg, ctx)
+
+    return paged_step

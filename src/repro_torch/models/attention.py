@@ -3,20 +3,23 @@
 branches of ``gqa_attention``).
 
 All projections run through ``qlinear`` (the paper's unified modules);
-softmax, rope and norms stay in float.  Two families of paths:
+softmax, rope and norms stay in float.  Three families of paths:
 
 * ragged serving: the whole mixed step is one flattened stream, K and V
   are quantized ONCE to Eq.-1 int8 codes, scattered to their
   host-precomputed pool rows, and attention runs in one
   ``ops.ragged_attention`` launch (K1).  ``cfg.attn_kernel`` is ignored,
   as in the reference;
+* paged serving (the legacy per-shape engine): a (B, C) batch at per-token
+  positions, its codes written into the pool rows its block tables name,
+  then one ``ops.paged_attention`` launch (K4);
 * dense cache (classic prefill / decode, and the no-cache forward that
   calibration runs): ``cfg.attn_kernel == 'flash'`` goes to
   ``ops.flash_attention`` (K5) / ``ops.flash_decode`` (K6), ``'chunked'``
   to their plain versions on any device (the reference computes that path
   as jnp outside any kernel).
 
-The legacy paged and MLA paths are not ported yet.
+The MLA path is not ported yet.
 """
 from __future__ import annotations
 
@@ -85,8 +88,9 @@ def init_gqa(init, cfg: ModelConfig) -> dict:
 
 def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                   cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
-                  cache=None, cache_pos: Optional[int] = None,
+                  cache=None, cache_pos=None,
                   ragged: Optional[RaggedBatch] = None,
+                  block_tables: Optional[torch.Tensor] = None,
                   name: str = "attn"):
     """GQA with qk_norm and rope; ``rope`` is the (cos, sin) table of the
     tokens' absolute positions (``common.rope_tables``).  Returns
@@ -96,6 +100,10 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
       :class:`PagedKVCache`; each token's codes are written IN PLACE
       (``index_copy_`` into its ``dest`` row) where the JAX engine donates
       the pool.
+    * ``cache`` a :class:`PagedKVCache` with ``block_tables`` (B, W):
+      x (B, S, d) at the per-token positions ``cache_pos`` (B, S); each
+      token's codes go IN PLACE to pool row ``block_tables[b, pos // bs]
+      * bs + pos % bs``, then K4 attends over the tables.
     * ``cache`` a :class:`KVCache`: x (B, S, d); the new K/V (Eq.-1 codes
       when the cache is int8, quantized once) are written IN PLACE at
       ``cache_pos`` (an int; the reference's ``dynamic_update_slice``
@@ -136,6 +144,20 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         out = kops.ragged_attention(
             q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
             ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits)
+    elif isinstance(cache, PagedKVCache):
+        if block_tables is None or cache_pos is None:
+            raise ValueError("the paged path takes block_tables and (B, S) "
+                             "per-token positions as cache_pos")
+        nb_pool, bs_blk = cache.k.shape[0], cache.k.shape[1]
+        pos = cache_pos.long()
+        blk = block_tables.long().gather(1, pos // bs_blk)
+        idx = (blk * bs_blk + pos % bs_blk).reshape(-1)          # (B*S,)
+        cache.k.view(nb_pool * bs_blk, kvh, hd).index_copy_(
+            0, idx, k.reshape(-1, kvh, hd))
+        cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(
+            0, idx, v.reshape(-1, kvh, hd))
+        out = kops.paged_attention(q, cache.k, cache.v, block_tables,
+                                   cache_pos, kv_frac_bits=kv_frac_bits)
     else:
         flash = cfg.attn_kernel == "flash"
         if cfg.attn_kernel not in ("flash", "chunked"):

@@ -1,8 +1,8 @@
 """Top-level model API (PyTorch counterpart of ``repro.models.model`` for
 the dense family: ``init_params``, the classic dense-cache path
 ``init_cache`` / ``forward`` / ``prefill`` / ``decode_step``, the serving
-engine's ``init_paged_cache`` / ``ragged_step``) and the weight bridge from
-the JAX package's param tree.
+engine's ``init_paged_cache`` / ``ragged_step`` / ``paged_step``) and the
+weight bridge from the JAX package's param tree.
 
 Parameters are a plain dict of tensors: ``embed`` (Vp, d), ``ln_f`` (d,),
 ``lm_head`` (d, Vp) and ``blocks``, a list with one dict per layer —
@@ -24,8 +24,8 @@ from repro_torch.models.common import (Initializer, embed, rmsnorm,
                                        rope_tables, unembed)
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
-           "init_paged_cache", "ragged_step", "from_jax_params",
-           "model_dtype"]
+           "init_paged_cache", "ragged_step", "paged_step",
+           "from_jax_params", "model_dtype"]
 
 Device = Optional[Union[str, torch.device]]
 
@@ -172,6 +172,33 @@ def ragged_step(params: dict, tokens: torch.Tensor, cache: dict,
         x, _ = tfm.dense_block(
             ctx, p_l, x, cfg, rope=rope,
             cache=att.PagedKVCache(kv.k[layer], kv.v[layer]), ragged=ragged)
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return unembed(ctx, x, head), cache
+
+
+def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
+               positions: torch.Tensor, block_tables: torch.Tensor,
+               cfg: ModelConfig, ctx: QuantContext
+               ) -> tuple[torch.Tensor, dict]:
+    """One step of the legacy per-shape engine over the paged KV block
+    pool: tokens (B, C) at per-token absolute ``positions`` (B, C), with
+    ``block_tables`` (B, W) mapping each slot's logical blocks to pool
+    blocks.  Serves the continuous-batching decode (B = n_slots, C = 1),
+    a chunked-prefill chunk (B = 1, C = chunk bucket) and a speculative
+    verify chunk (B = n_slots, C = K + 1, one extra trash column in the
+    table).  Returns (logits (B, C, V) in the activation dtype, cache);
+    the pool tensors are updated in place."""
+    _check_family(cfg, "paged_step")
+    dt = model_dtype(cfg)
+    x = embed(params["embed"], tokens, dt)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
+    kv = cache["paged_kv"]
+    for layer, p_l in enumerate(params["blocks"]):
+        x, _ = tfm.dense_block(
+            ctx, p_l, x, cfg, rope=rope,
+            cache=att.PagedKVCache(kv.k[layer], kv.v[layer]),
+            cache_pos=positions, block_tables=block_tables)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return unembed(ctx, x, head), cache

@@ -26,16 +26,19 @@ def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
 
 def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
                 cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
-                cache=None, cache_pos=None, ragged=None):
+                cache=None, cache_pos=None, ragged=None, block_tables=None):
     """One layer: x is the ragged stream (T, d) with ``ragged`` and the
-    pool as ``cache``, or a (B, S, d) batch with an optional dense
-    ``cache`` written at ``cache_pos`` (``attention.gqa_attention``).
+    pool as ``cache``; a (B, S, d) batch over the pool with
+    ``block_tables`` and per-token positions ``cache_pos``; or a (B, S, d)
+    batch with an optional dense ``cache`` written at ``cache_pos``
+    (``attention.gqa_attention``).
     ``rope`` is the step's (cos, sin) tables.  All quantization lives
     inside the qlinear modules; residual adds and rmsnorms run in float
     between module grids."""
     h, new_cache = att.gqa_attention(
         ctx, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-        rope=rope, cache=cache, cache_pos=cache_pos, ragged=ragged)
+        rope=rope, cache=cache, cache_pos=cache_pos, ragged=ragged,
+        block_tables=block_tables)
     x = x + h
     x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg.act)

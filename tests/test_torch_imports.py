@@ -40,6 +40,8 @@ def test_import_without_jax_loads_no_repro_module():
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
+        "from repro_torch.kernels.flash_attention import paged_attention_cuda\n"
+        "from repro_torch.serving.spec import NgramDrafter, verify_tokens\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -93,10 +95,13 @@ def test_unported_paths_raise():
     from repro_torch.launch.serve import serve_engine
     from repro_torch.serving.engine import ServingEngine
     cfg = get_smoke_config("qwen3_1_7b")
-    for kw in (dict(spec_k=2), dict(ragged=False), dict(trace=True),
-               dict(record=True), dict(slo=True)):
+    for kw in (dict(trace=True), dict(record=True), dict(slo=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
+    # speculative decoding and the legacy per-shape steps are ported
+    for kw in (dict(spec_k=2), dict(ragged=False),
+               dict(spec_k=2, ragged=False)):
+        ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
     # the scaling-factor baseline waits for core/baselines.py
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
