@@ -2,7 +2,10 @@
 """Chip smoke test of the PyTorch / CUDA port (``src/repro_torch``) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--only 6,7]
+
+(``--only`` runs the build and the named kernel phases alone, for
+iterating on a kernel; the check is the run without it.)
 
 Run from a checkout of the repository on a machine with a CUDA device and
 the CUDA toolkit.  Phases, one line each (or a few):
@@ -22,11 +25,16 @@ the CUDA toolkit.  Phases, one line each (or a few):
    the kernel launch counts of each run, and a repeat run that must give
    the same greedy tokens;
 6. K5 (flash prefill over a dense cache) against its plain version at the
-   classic path's shapes and at one long prefill (held row by row, at a
-   tolerance a repeated kv tile fails), with the kernel's, the plain
-   version's and ``scaled_dot_product_attention``'s times;
-7. K6 (flash decode) the same way, at the path's positions and over one
-   long int8 cache;
+   classic path's shapes, over a grid of GQA groups, head dims (one
+   zero-padded), query counts and cache tails on both of its paths (bf16
+   q on the tensor cores, fp32 q on the CUDA cores), and at one long
+   prefill (held row by row, at a tolerance a repeated kv tile fails),
+   with the kernel's, the plain version's and
+   ``scaled_dot_product_attention``'s times;
+7. K6 (split-KV flash decode) the same way: a grid of GQA groups, head
+   dims and cache types at positions 0, on and beside split boundaries
+   and 32767, the path's positions, and one long int8 cache, with the
+   split count it used;
 8. Algorithm-1 calibration of qwen3-1.7B at full width and 2 layers on
    the card and on the CPU: the tables must agree, apart from declared
    near-ties;
@@ -690,6 +698,37 @@ def _tile_fault_caught(torch, plain, q, k, v, want, rel, tile, **kw):
     return not _rows_within(torch, bad, want, rel)
 
 
+def _k5_grid(torch, gen):
+    """K5 against its plain version over GQA groups (up to the largest it
+    takes), head dims (one not a multiple of 16), query counts and cache
+    tails, on both of its paths: bf16 q (tensor cores) and fp32 q (CUDA
+    cores)."""
+    from repro_torch.kernels import ops, ref
+    n, worst = 0, 0.0
+    for groups in (1, 2, 4, 64):
+        for d in (64, 100, 128):
+            for sq in (1, 17, 32, 100):
+                for skv in (sq, sq + 27):
+                    for q_dt, kv_dt, tol in (
+                            (torch.bfloat16, torch.int8, 2e-2),
+                            (torch.bfloat16, torch.bfloat16, 2e-2),
+                            (torch.float32, torch.int8, 1e-4),
+                            (torch.float32, torch.float32, 1e-4)):
+                        q, k, v, nkv = _dense_qkv(torch, gen, 2, sq, skv,
+                                                  2 * groups, 2, d, q_dt,
+                                                  kv_dt)
+                        got = ops.flash_attention(q, k, v, kv_frac_bits=nkv)
+                        want = ref.flash_attention_ref(q, k, v,
+                                                       kv_frac_bits=nkv)
+                        torch.cuda.synchronize()
+                        worst = max(worst, _close(
+                            torch, got, want, tol,
+                            f"K5 grid G {groups} D {d} Sq {sq} Skv {skv} "
+                            f"{q_dt} q {kv_dt} K/V"))
+                        n += 1
+    return n, worst
+
+
 def phase_k5(torch, out):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
@@ -758,6 +797,11 @@ def phase_k5(torch, out):
                      f"({sdpa_how}) {lib_ms:.4f} ms, bound {b_ms:.5f} ms "
                      f"({b_by})")
         log(line)
+    grid_n, grid_err = _k5_grid(torch, gen)
+    log(f"[6] K5 grid ({grid_n} cases: GQA 1/2/4/64, D 64/100/128 (100 "
+        f"zero-padded), Sq 1/17/32/100 over Skv = Sq and Sq + 27, bf16 q "
+        f"(tensor cores) over int8 / bf16 K/V within atol=rtol=2e-2, fp32 q "
+        f"over int8 / fp32 K/V within 1e-4): max |diff| {grid_err:.2e}")
     # no kv row at all: l == 0 on every row, written as exactly 0
     q, k, v, nkv = _dense_qkv(torch, gen, 2, 16, 16, h, kvh, d,
                               torch.bfloat16, torch.int8)
@@ -766,17 +810,61 @@ def phase_k5(torch, out):
     check(int(torch.count_nonzero(empty)) == 0,
           "K5: rows with l == 0 are not exactly 0")
     log("[6] K5 rows with l == 0 (no kv rows) exactly 0")
-    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how)
+    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how,
+               grid_cases=grid_n, grid_max_abs_err=grid_err)
     out["k5"] = res
     return res
 
 
+def _k6_grid(torch, gen):
+    """K6 against its plain version over GQA groups (16: two row tiles a
+    split), head dims, cache and q types, at positions 0, inside one split, at split boundaries (a full
+    last split and a last split of one or two rows) and 32767, each held
+    at its type's tolerance and, past 1024 rows, row by row."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import plan_decode_splits
+    b, kvh, s_max = 2, 2, 32768
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    positions = (0, 63, 255, 256, 257, 1023, 1024, 1025, s_max - 1)
+    splits = [plan_decode_splits(p, b, kvh, sms)[0] for p in positions]
+    n, worst = 0, 0.0
+    for groups in (1, 2, 4, 16):
+        for d in (64, 128):
+            for q_dt, kv_dt, tol in ((torch.bfloat16, torch.int8, 2e-2),
+                                     (torch.bfloat16, torch.bfloat16, 2e-2),
+                                     (torch.float32, torch.int8, 1e-4),
+                                     (torch.float32, torch.float32, 1e-4)):
+                q, k, v, nkv = _dense_qkv(torch, gen, b, 1, s_max,
+                                          kvh * groups, kvh, d, q_dt, kv_dt)
+                for pos in positions:
+                    got = ops.flash_decode(q, k, v, pos=pos, kv_frac_bits=nkv)
+                    want = ref.flash_decode_ref(q, k, v, pos=pos,
+                                                kv_frac_bits=nkv)
+                    torch.cuda.synchronize()
+                    what = (f"K6 grid G {groups} D {d} {q_dt} q {kv_dt} "
+                            f"cache pos {pos}")
+                    worst = max(worst, _close(torch, got, want, tol, what))
+                    if pos >= 1024:
+                        _close_rows(torch, got, want, LONG_ROW_TOL, what)
+                    n += 1
+                del q, k, v
+    return n, worst, dict(zip(positions, splits))
+
+
 def phase_k6(torch, out):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import plan_decode_splits
     gen = torch.Generator(device="cuda")
     gen.manual_seed(6)
     h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
     sdpa, sdpa_how = _sdpa(torch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid_n, grid_err, grid_splits = _k6_grid(torch, gen)
+    log(f"[7] K6 grid ({grid_n} cases: GQA 1/2/4/16, D 64/128, bf16 q over "
+        f"int8 / bf16 caches within atol=rtol=2e-2, fp32 q over int8 / fp32 "
+        f"within 1e-4, from 1024 rows also within {LONG_ROW_TOL} of each "
+        f"row's largest |value|; B 2, KVH 2, splits by position "
+        f"{grid_splits}): max |diff| {grid_err:.2e}")
     cases = [("int8 cache", 4, 48, torch.bfloat16, torch.int8, 2e-2,
               (0, 15, 32, 47)),
              ("int8 cache, fp32 q", 4, 48, torch.float32, torch.int8, 1e-4,
@@ -827,17 +915,22 @@ def phase_k6(torch, out):
                        + 2 * b * (pos + 1) * kvh * d * k.element_size())
             n_ops = b * h * 4 * d * (pos + 1)
             b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+            n_splits, chunk = plan_decode_splits(pos, b, kvh, sms)
             rows.append(dict(name=name, b=b, s_max=s_max, pos=pos, ms=ms,
+                             splits=n_splits, chunk=chunk,
                              plain_ms=plain_ms, library_ms=lib_ms,
                              max_abs_err=max(errs),
                              bound_ms=b_ms, bound_by=b_by, bytes=n_bytes,
                              ops=n_ops))
-            line += (f" | at pos {pos}: kernel {ms:.4f} ms, plain "
+            line += (f" | at pos {pos}: {n_splits} split(s) of {chunk} "
+                     f"rows, kernel {ms:.4f} ms, plain "
                      f"{plain_ms:.4f} ms, SDPA ({sdpa_how}) {lib_ms:.4f} ms, "
                      f"bound {b_ms:.5f} ms ({b_by})")
         log(line)
         del q, k, v
-    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how)
+    res = dict(rows[0], max_abs_err=max_err, long=rows[1], sdpa=sdpa_how,
+               grid_cases=grid_n, grid_max_abs_err=grid_err,
+               grid_splits=grid_splits)
     out["k6"] = res
     return res
 
@@ -1890,6 +1983,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--only", default=None, metavar="PHASES",
+                    help="run only these kernel phases after the build, "
+                         "comma-separated (2, 3, 6, 7, 12, 15); prints no "
+                         "kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
@@ -1905,6 +2002,28 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     out: dict = {}
+    if args.only:
+        alone = {2: phase_k2, 3: phase_k1, 6: phase_k5, 7: phase_k6,
+                 12: phase_cnn_kernels, 15: phase_k4}
+        try:
+            picked = [alone[int(n)] for n in args.only.split(",")]
+        except (KeyError, ValueError) as e:
+            print(f"chip_smoke: --only takes phases {sorted(alone)}: {e}",
+                  file=sys.stderr)
+            return 2
+        try:
+            phase_device(torch)
+            for phase in picked:
+                phase(torch, out)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        if args.out:
+            Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+            Path(args.out).write_text(json.dumps(out, indent=1, default=str))
+        log(f"partial run (phases {args.only}) passed in "
+            f"{time.perf_counter() - t_start:.1f} s")
+        return 0
     try:
         smi, build_s = phase_device(torch)
         k2 = phase_k2(torch, out)

@@ -26,8 +26,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("int8_matmul", "ragged_attention", "flash_attention",
                   "paged_attention", "quantize", "residual_requant")
+# -split-compile 0: nvcc optimises a source's kernels on every core (the
+# flash source's 56 instantiations build in under half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile", "0")
 
 # process-wide: a shared library is loaded once per process
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -4,13 +4,25 @@ a dense (B, S, KVH, D) KV cache, hand-written in CUDA C++ for Hopper
 engine's KV block pool (``csrc/paged_attention.cu``), as the JAX file
 keeps the paged decode kernel beside the dense ones.
 
-Replace the TPU kernels ``repro/kernels/flash_attention.py::
-_flash_prefill_kernel`` (K5) and ``_flash_decode_kernel`` (K6).  K5 serves
-the dense-cache prefill and calibration's forward, K6 every decode step of
-the classic serve path, both under ``attn_kernel='flash'``.  The cache may
-hold int8 Eq.-1 codes (dequantized in registers, the grid's 2^-n folded
-into the score scale and the final 1/l) or floats.  The source's header
-note gives the design and what bounds each kernel.
+K5 replaces the TPU kernel ``repro/kernels/flash_attention.py::
+_flash_prefill_kernel`` and K6 ``_flash_decode_kernel``.  K5 serves the
+dense-cache prefill and calibration's forward, K6 every decode step of the
+classic serve path, both under ``attn_kernel='flash'``.  The cache may
+hold int8 Eq.-1 codes (converted exactly on their way to the products,
+the grid's 2^-n folded into the score scale and the final 1/l) or floats.
+
+- K5 on bf16 q runs both products on the tensor cores (``mma.sync``
+  m16n8k16, bf16 in, fp32 accumulate); a long prefill is bound by those
+  operations.  K5 on fp32 q keeps the CUDA-core kernel (TF32 would miss
+  the fp32 tolerance).
+- K6 is bound by the bytes of the cache up to ``pos``.  It splits those
+  rows into chunks, one block each, and a second small kernel merges the
+  blocks' partial softmax states.  :func:`plan_decode_splits` chooses the
+  chunks on the host from ``pos``, ``B * KVH`` and the SM count, so the
+  workspace is allocated here and ``pos`` stays a host int.
+
+The source's header note gives each design, what bounds it and what is
+left.
 
 K4 replaces ``_paged_flash_decode_kernel``: q (B, C, H, Dk) at per-token
 positions attends over the pool blocks each slot's table names, for every
@@ -24,6 +36,7 @@ Called through ``kernels.ops.flash_attention`` / ``flash_decode`` /
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 
@@ -32,26 +45,56 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import DEFAULT_MASK_VALUE
 
-__all__ = ["flash_prefill_cuda", "flash_decode_cuda", "paged_attention_cuda"]
+__all__ = ["flash_prefill_cuda", "flash_decode_cuda", "paged_attention_cuda",
+           "plan_decode_splits"]
 
 _NAME = "flash_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_prefill_launch": (ctypes.c_int, [_P] * 4 + [_I] * 12 + [_P]),
-    "flash_decode_launch": (ctypes.c_int, [_P] * 4 + [_I] * 13 + [_P]),
+    "flash_decode_launch": (ctypes.c_int, [_P] * 5 + [_I] * 14 + [_P]),
 }
 _PAGED_NAME = "paged_attention"
 _PAGED_SIGNATURES = {"paged_attention_launch": (
     ctypes.c_int, [_P] * 6 + [_I] * 12 + [_P])}
 MAX_HEAD_DIM = 256
-PREFILL_ROWS = 64          # (position, head) rows a K5 block carries
+PREFILL_MAX_GROUPS = 64    # query heads per KV head K5 carries
 DECODE_MAX_GROUPS = 16     # query heads per KV head K6 carries
+# K6's split of the kv axis: a block's chunk is a multiple of its 4 warps'
+# 32-row slices, at least SPLIT_MIN_ROWS rows (fewer would leave a warp one
+# slice to amortise its start), and the grid aims at SPLIT_BLOCKS_PER_SM
+# blocks an SM
+SPLIT_ROW_ALIGN = 128
+SPLIT_MIN_ROWS = 256
+SPLIT_BLOCKS_PER_SM = 8
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _f32_bits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", x))[0]
+
+
+def plan_decode_splits(pos: int, batch: int, kv_heads: int,
+                       sm_count: int = 132) -> tuple[int, int]:
+    """K6's split of the kv rows ``0..pos``: ``(splits, chunk)``, split i
+    covering rows ``[i * chunk, min((i + 1) * chunk, pos + 1))``.  Enough
+    splits that ``batch * kv_heads * splits`` blocks fill ``sm_count`` SMs
+    SPLIT_BLOCKS_PER_SM times over, no split shorter than SPLIT_MIN_ROWS
+    unless it is the only one (so one split, and no combine pass, up to
+    256 rows), chunks rounded up to SPLIT_ROW_ALIGN rows, and no empty
+    split."""
+    rows = int(pos) + 1
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // (batch * kv_heads))
+    n = max(1, min(want, -(-rows // SPLIT_MIN_ROWS)))
+    chunk = -(-rows // n)
+    chunk = -(-chunk // SPLIT_ROW_ALIGN) * SPLIT_ROW_ALIGN
+    return -(-rows // chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check(name, q, k, v, max_groups):
@@ -88,7 +131,7 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Skv, KVH, D) with q at positions 0..Sq-1; returns (B, Sq, H, Dv)
     in q's dtype.  ``kv_frac_bits`` is the int8 cache's fractional bit (0
     for floats)."""
-    _check("flash_prefill_cuda", q, k, v, PREFILL_ROWS)
+    _check("flash_prefill_cuda", q, k, v, PREFILL_MAX_GROUPS)
     b, sq, h, dk = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -109,7 +152,9 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch K6: q (B, 1, H, Dk) at absolute position ``pos`` over the
     cache (B, S_max, KVH, D), kv rows ``<= pos`` visible; returns
     (B, 1, H, Dv) in q's dtype.  The kernel reads the cache only up to
-    ``pos``."""
+    ``pos``; with more than one split its blocks write fp32 partials
+    (m, l, acc) to a workspace allocated here, merged by the combine
+    kernel in the same call."""
     _check("flash_decode_cuda", q, k, v, DECODE_MAX_GROUPS)
     b, sq, h, dk = q.shape
     s_max, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -120,15 +165,21 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
-    bk = 128 if max(dk, dv) <= 128 else 64     # kv rows a tile
+    splits, chunk = plan_decode_splits(pos, b, kvh,
+                                       _sm_count(q.device.index or 0))
+    ws_ptr = 0
+    if splits > 1:
+        ws = torch.empty((b, kvh, splits, h // kvh, dv + 2),
+                         dtype=torch.float32, device=q.device)
+        ws_ptr = ws.data_ptr()
     score_scale = 2.0 ** (-kv_frac_bits) / math.sqrt(dk)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("flash_decode_launch", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), b, s_max, h, kvh, dk, dv, bk,
-                int(pos), _f32_bits(score_scale), int(kv_frac_bits),
-                _f32_bits(DEFAULT_MASK_VALUE), _Q_CODES[q.dtype],
-                _KV_CODES[k.dtype], stream)
+                v.data_ptr(), out.data_ptr(), ws_ptr, b, s_max, h, kvh, dk,
+                dv, int(pos), splits, chunk, _f32_bits(score_scale),
+                int(kv_frac_bits), _f32_bits(DEFAULT_MASK_VALUE),
+                _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream)
     return out
 
 

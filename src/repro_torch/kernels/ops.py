@@ -199,8 +199,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal flash attention over a dense cache: q (B, Sq, H, Dk) at
     positions 0..Sq-1 x K/V (B, Skv, KVH, D) -> (B, Sq, H, Dv), scores
     scaled by 1/sqrt(Dk).  K/V may be int8 Eq.-1 codes on the
-    2^-``kv_frac_bits`` grid, dequantized in registers.  Kv rows past Sq
-    (an empty cache tail) are masked by causality and never read.
+    2^-``kv_frac_bits`` grid, converted exactly on the card.  Kv rows past
+    Sq (an empty cache tail) are masked by causality and never read.
 
     K5's backward belongs to the training slice: a CUDA ``q`` that
     requires grad raises."""

@@ -22,7 +22,7 @@ from repro_torch.core.qscheme import dequant, int_bounds
 __all__ = ["int8_matmul_ref", "quantize_ref", "residual_requant_ref",
            "ragged_token_meta", "ragged_attention_ref",
            "paged_attention_ref", "flash_attention_ref", "flash_decode_ref",
-           "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
+           "flash_decode_split_ref", "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
@@ -256,3 +256,41 @@ def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_pos = torch.full((1,), int(pos), device=q.device)
     return _dense_attention_ref(q, k[:, :pos + 1], v[:, :pos + 1], q_pos,
                                 kv_frac_bits)
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, pos: int, chunk: int,
+                           kv_frac_bits: Optional[int] = None
+                           ) -> torch.Tensor:
+    """K6's split-KV arithmetic, for the tests: the kv rows ``<= pos`` are
+    cut into chunks of ``chunk`` rows; chunk i gives the partials
+    (m_i, l_i, acc_i) one block of the kernel writes (its own max, the
+    unrounded sum of P, and P rounded to q's dtype times V), and the
+    combine merges them: m = max m_i, l = sum l_i e^(m_i - m),
+    out = sum acc_i e^(m_i - m) / l * 2^-n.  Same function as
+    ``flash_decode_ref`` up to the order of the fp32 sums."""
+    b, _, h, dk = q.shape
+    kvh, dv = k.shape[2], v.shape[-1]
+    g = h // kvh
+    nkv = kv_frac_bits_of(k, kv_frac_bits)
+    qg = q.reshape(b, kvh, g, dk).float()
+    ms, ls, accs = [], [], []
+    for lo in range(0, int(pos) + 1, chunk):
+        hi = min(lo + chunk, int(pos) + 1)
+        kc = k[:, lo:hi].to(q.dtype).float()
+        vc = v[:, lo:hi].to(q.dtype).float()
+        s = torch.einsum("bkgd,bskd->bkgs", qg, kc) \
+            * (2.0 ** (-nkv) / math.sqrt(dk))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None])
+        ms.append(m)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
+                                 vc))
+    m_all = torch.stack(ms)                                  # (n, B, KVH, G)
+    m = m_all.amax(dim=0)
+    w = torch.exp(m_all - m)
+    l = (torch.stack(ls) * w).sum(dim=0)
+    acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
+    out = acc * (1.0 / l)[..., None] * (2.0 ** (-nkv))
+    return out.reshape(b, 1, h, dv).to(q.dtype)
