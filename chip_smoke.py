@@ -14,10 +14,23 @@ the CUDA toolkit.  Phases, one line each (or a few):
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
    parallel);
 2. K2 (int8 shift-requant matmul) against its plain PyTorch version on the
-   card, bit-exact, at the serving path's shapes, with the kernel's, the
-   plain version's and ``torch._int_mm``'s times beside the bound;
+   card, bit-exact: its epilogue variants, then a grid of M in {1, 4, 8,
+   16, 23, 24, 25, 64, 127, 128} x every serving (K, N) and the split-K
+   boundary shapes, and large-M shapes on every tile, x int8 / uint8
+   activations x four epilogue variants;
+   at the serving path's shapes each with its tile and K splits, and the
+   kernel's, the plain version's and ``torch._int_mm``'s times beside the
+   bound;
 3. K1 (ragged paged attention) against its plain version on a mixed
-   work-list, int8 and bf16 pools, with padding rows exactly 0;
+   work-list, int8 and bf16 pools, with padding rows exactly 0; a grid of
+   work-lists (decode-only with kv_len on and beside the split
+   boundaries, prefill-only, speculative tails, mixed) x GQA 1/2/4/16 x
+   D 64/128 (and 100, 256 on the mixed list) x blocks of 16/128 rows x
+   both q types and pool types, with padding rows and slots; the mixed work-list timed (its work list
+   planned once, as the engine plans it); and a long case at qwen3-1.7B's
+   heads (a decode row over 32768 positions, a 16-row chunk over 4096
+   resident rows, two short decodes), held row by row at a tolerance a
+   repeated pool block fails, timed beside its bound;
 4. model: a two-step mixed ``ragged_step`` of qwen3-1.7B at full width and
    2 layers in fp32, kernels on the card against the plain path on the
    CPU, in FP and INT mode;
@@ -49,7 +62,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
 12. K3 (Eq.-1 quantize) and K7 (residual requant) against their plain
     versions, bit-exact, at the ResNet path's shapes and one 64M-element
     shape, and K2's uint8-activation variant at each im2col shape of the
-    path, with times and bounds;
+    path, with its tile, times and bounds;
 13. Algorithm-1 calibration of the paper's ResNet (``resnet_paper``
     CONFIG width, batch 64) on the card and on the CPU: the tables must
     agree, apart from declared near-ties;
@@ -115,12 +128,42 @@ K2_SHAPES = {(2048, 2048): 56, (2048, 1024): 56, (2048, 6144): 56,
              (6144, 2048): 28, (2048, 151936): 1}
 K2_ROWS = (8, 16, 24, 64, 128)
 K2_STEP_ROWS = 24          # the engine's full mixed-step stream bucket
+# K2's bit-exactness grid: rows on and beside the one-block-row sizes (16,
+# 32, 64, 128) and the engine's 24 bucket; (K, N) where the K splits end
+# short, K ends inside a 64-row pipeline step, K is one split, N is one
+# 8-column group; the epilogue variants (name, spec, ReLU)
+K2_GRID_ROWS = (1, 4, 8, 16, 23, 24, 25, 64, 127, 128)
+K2_SPLIT_EDGES = ((2112, 1024), (2064, 1024), (128, 1024), (16, 8),
+                  (6144, 8), (4096, 264))
+# large-M products, one per tall / narrow tile (the ResNet's tiles, and
+# those a long prefill or a calibration batch would take), an N that ends
+# inside a column tile, the first row count past one block row
+K2_LARGE_M = ((4096, 256, 2048), (300, 256, 2048), (40000, 64, 64),
+              (1000, 144, 32), (70000, 32, 32), (129, 2048, 1024),
+              (3000, 96, 72))
+K2_GRID_SPECS = (("bias<<", dict(n_x=4, n_w=8, n_b=7, n_o=4), False),
+                 ("bias>>", dict(n_x=2, n_w=3, n_b=9, n_o=4), False),
+                 ("relu-u8", dict(n_x=2, n_w=3, n_b=9, n_o=4,
+                                  out_unsigned=True), True),
+                 ("shift<0", dict(n_x=0, n_w=1, n_b=1, n_o=6), False))
 
 # K1 work-list at qwen3-1.7B's attention shape: (q_len, kv_len) per
 # sequence — a prefill chunk continuing 128 resident rows, two decode
 # rows, a 5-token tail, a fresh prefill — then padding rows and a slot
 K1_ITEMS = ((16, 144), (1, 131), (1, 47), (5, 37), (16, 16))
 K1_HEADS, K1_KV_HEADS, K1_DIM, K1_BS, K1_PAD_ROWS = 16, 8, 128, 16, 9
+# K1's grid of work-lists ((q_len, kv_len) per sequence): kv_len on and
+# beside the 512-row split threshold and twice it
+K1_GRID_LISTS = {
+    "decode-only": ((1, 1), (1, 64), (1, 511), (1, 512), (1, 513),
+                    (1, 1024), (1, 1025)),
+    "prefill-only": ((16, 16), (16, 80), (7, 7), (16, 600)),
+    "spec tails": ((4, 40), (4, 516), (2, 130), (4, 4)),
+    "mixed": K1_ITEMS + ((1, 1030),),
+}
+# the long case at qwen3-1.7B's heads: a decode row over 32768 positions,
+# a 16-row chunk over 4096 resident rows, two short decodes
+K1_LONG_ITEMS = ((1, 32768), (16, 4112), (1, 100), (1, 37))
 # the ResNet path (configs/resnet_paper.py CONFIG): the integer forward's
 # batch, the calibration batch and the elementwise kernels' long shape
 RESNET_BATCH, RESNET_CALIB_BATCH, ELEMWISE_LONG = 256, 64, 64 * 2**20
@@ -212,11 +255,58 @@ def _k2_operands(torch, gen, m, k, n, copies=1):
     return x, ws
 
 
+def _plan_str(plan) -> str:
+    if plan.cfg < 0:
+        return f"dp4a tile {plan.bm}x{plan.bn}"
+    return (f"mma tile {plan.bm}x{plan.bn}, {plan.splits} split"
+            f"{'s' if plan.splits > 1 else ''} of K")
+
+
+def _k2_grid(torch, gen, pair, max_diff) -> int:
+    """K2 bit-exact against its plain version over the grid's rows x every
+    serving (K, N) and the split-K boundary shapes (a short last split, a
+    K tail inside a pipeline step, the smallest split, narrow N, one
+    weight row step), and over the large-M shapes (every tile), int8 and
+    uint8 activations, every epilogue variant."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels.int8_matmul import plan_int8_matmul
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(m, k, nn) for k, nn in list(K2_SHAPES) + list(K2_SPLIT_EDGES)
+             for m in K2_GRID_ROWS] + list(K2_LARGE_M)
+    n, plans, wkn, w, b = 0, {}, None, None, None
+    for m, k, nn in cases:
+        plans[(m, k, nn)] = _plan_str(plan_int8_matmul(m, k, nn, sms))
+        if wkn != (k, nn):         # one weight matrix at a time (LM head 311 MB)
+            del w
+            wkn, (_, (w,)) = (k, nn), _k2_operands(torch, gen, 1, k, nn)
+            b = torch.randint(-128, 128, (nn,), generator=gen,
+                              device="cuda", dtype=torch.int8)
+        for x_dt in (torch.int8, torch.uint8):
+            lo, hi = (0, 256) if x_dt == torch.uint8 else (-128, 128)
+            x = torch.randint(lo, hi, (m, k), generator=gen, device="cuda",
+                              dtype=torch.int32).to(x_dt)
+            for name, spec_kw, relu in K2_GRID_SPECS:
+                got, want = pair(x, w, b, LinearQuantSpec(**spec_kw), relu)
+                err = max_diff(got, want)
+                check(got.dtype == want.dtype and err == 0,
+                      f"K2 grid {name} M={m} K={k} N={nn} {x_dt}: kernel "
+                      f"!= plain ({err} max diff)")
+                n += 1
+    log("    K2 large M: " + "; ".join(
+        f"M={m} K={k} N={nn} {plans[(m, k, nn)]}" for m, k, nn in K2_LARGE_M))
+    for (k, nn) in K2_SPLIT_EDGES:
+        log(f"    K2 split-K edge K={k} N={nn}: "
+            + "; ".join(f"M={m} {plans[(m, k, nn)]}" for m in (1, 24, 128)))
+    return n
+
+
 def phase_k2(torch, out):
     from repro_torch.core.integer_ops import LinearQuantSpec
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.int8_matmul import plan_int8_matmul
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def pair(x, w, b, spec, relu=False):
         """The wrapper ``qlinear`` calls (kernel on these CUDA tensors)
@@ -260,6 +350,11 @@ def phase_k2(torch, out):
               f"diff)")
     log(f"[2] K2 epilogue variants bit-exact: "
         f"{', '.join(v[0] for v in variants)}")
+    n_grid = _k2_grid(torch, gen, pair, max_diff)
+    log(f"[2] K2 grid bit-exact ({n_grid} cases: M {list(K2_GRID_ROWS)} x "
+        f"every serving (K, N) and the split-K boundary shapes, and "
+        f"{len(K2_LARGE_M)} large-M shapes, x int8 / uint8 activations x "
+        f"the {len(K2_GRID_SPECS)} epilogue variants)")
 
     spec = LinearQuantSpec(n_x=4, n_w=8, n_b=8, n_o=4)   # the serving grid
     rows, step = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -294,10 +389,12 @@ def phase_k2(torch, out):
             n_bytes = m * k + k * n + m * n
             n_ops = 2 * m * k * n
             b_ms, b_by = bound_ms(n_bytes, n_ops, "int8")
+            plan = plan_int8_matmul(m, k, n, sms)
             rows.append(dict(m=m, k=k, n=n, ms=ms, plain_ms=plain_ms,
-                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-            log(f"    K2 M={m:<3} K={k:<4} N={n:<6} exact | kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, _int_mm "
+                             library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                             tile=[plan.bm, plan.bn], splits=plan.splits))
+            log(f"    K2 M={m:<3} K={k:<4} N={n:<6} exact, {_plan_str(plan)} "
+                f"| kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, _int_mm "
                 f"{'n/a' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
                 f"bound {b_ms:.4f} ms ({b_by})")
             if m == K2_STEP_ROWS:
@@ -322,32 +419,32 @@ def phase_k2(torch, out):
 # phase 3: K1
 # ---------------------------------------------------------------------------
 
-def _k1_case(torch, gen, q_dtype, kv_dtype, kvh=K1_KV_HEADS, bs=K1_BS):
-    """The K1 work-list over a shuffled pool, as CUDA tensors."""
+def _k1_build(torch, gen, items, h, kvh, d, bs, q_dtype, kv_dtype,
+              pad_rows=K1_PAD_ROWS):
+    """A K1 work-list ((q_len, kv_len) per sequence, packed into one
+    stream) over a shuffled pool, as CUDA tensors: padding rows at the end
+    of the stream and a trailing padding slot whose table names the trash
+    block."""
     from repro_torch.core.qscheme import quant
-    h, d = K1_HEADS, K1_DIM
-    ns = len(K1_ITEMS)
-    nbmax = -(-max(kl for _, kl in K1_ITEMS) // bs)
-    t_real = sum(q for q, _ in K1_ITEMS)
-    t = t_real + K1_PAD_ROWS
+    ns = len(items)
+    nbmax = -(-max(kl for _, kl in items) // bs)
+    t_real = sum(q for q, _ in items)
+    t = t_real + pad_rows
     q = torch.randn((t, h, d), generator=gen, device="cuda").to(q_dtype)
-    kf = torch.randn((ns, nbmax * bs, kvh, d), generator=gen, device="cuda")
-    vf = torch.randn((ns, nbmax * bs, kvh, d), generator=gen, device="cuda")
-    if kv_dtype == torch.int8:
-        kc, vc = quant(kf, KV_FRAC_BITS), quant(vf, KV_FRAC_BITS)
-    else:
-        kc, vc = kf.to(kv_dtype), vf.to(kv_dtype)
     nb = 1 + ns * nbmax
+    kf = torch.randn((nb, bs, kvh, d), generator=gen, device="cuda")
+    vf = torch.randn((nb, bs, kvh, d), generator=gen, device="cuda")
+    if kv_dtype == torch.int8:
+        kp, vp = quant(kf, KV_FRAC_BITS), quant(vf, KV_FRAC_BITS)
+    else:
+        kp, vp = kf.to(kv_dtype), vf.to(kv_dtype)
+    del kf, vf
     perm = torch.randperm(nb - 1, generator=gen, device="cuda") + 1
     bt = torch.zeros((ns + 1, nbmax), dtype=torch.int32, device="cuda")
     bt[:ns] = perm.reshape(ns, nbmax).to(torch.int32)
-    kp = torch.zeros((nb, bs, kvh, d), dtype=kc.dtype, device="cuda")
-    vp = torch.zeros_like(kp)
-    kp[bt[:ns].long()] = kc.reshape(ns, nbmax, bs, kvh, d)
-    vp[bt[:ns].long()] = vc.reshape(ns, nbmax, bs, kvh, d)
-    q_len = torch.tensor([ql for ql, _ in K1_ITEMS] + [0], dtype=torch.int32,
+    q_len = torch.tensor([ql for ql, _ in items] + [0], dtype=torch.int32,
                          device="cuda")
-    kv_len = torch.tensor([kl for _, kl in K1_ITEMS] + [0],
+    kv_len = torch.tensor([kl for _, kl in items] + [0],
                           dtype=torch.int32, device="cuda")
     q_start = torch.zeros_like(q_len)
     q_start[1:ns] = torch.cumsum(q_len[:ns - 1], 0).to(torch.int32)
@@ -356,8 +453,70 @@ def _k1_case(torch, gen, q_dtype, kv_dtype, kvh=K1_KV_HEADS, bs=K1_BS):
     return (q, kp, vp, bt, q_start, q_len, kv_len), nkv, t_real
 
 
+def _k1_work(args, h, d, q_bytes):
+    """Bytes K1 must move (q in, out, the kv rows each sequence's last
+    token sees, descriptors) and its operations (QK and PV, causal)."""
+    q, kp, _, bt, q_start, q_len, kv_len = args
+    kvh = kp.shape[2]
+    items = list(zip(q_len.tolist(), kv_len.tolist()))
+    t_real = sum(ql for ql, _ in items)
+    kv_rows = sum(kl for _, kl in items)
+    n_bytes = (t_real * h * d * q_bytes * 2 + kv_rows * kvh * 2 * d
+               * kp.element_size() + 4 * (bt.numel() + 3 * q_start.numel()))
+    pairs = sum(sum(kl - ql + i + 1 for i in range(ql)) for ql, kl in items)
+    return n_bytes, pairs * h * 4 * d
+
+
+def _k1_grid(torch, gen):
+    """K1 against its plain version over work-lists (decode-only with
+    kv_len on and beside the split boundaries, prefill-only, speculative
+    tails, mixed), GQA 1/2/4/16, pool blocks of 16 and 128 rows, head dims
+    64 and 128 (and on the mixed list 100, staged value by value, and
+    256, the widest), int8 and float pools, bf16 q (tensor cores) and fp32
+    q (CUDA cores); every list has padding rows and a padding slot, which
+    must be exactly 0."""
+    from repro_torch.kernels import ops, ref
+    shapes = [(lname, groups, d, bs) for lname in K1_GRID_LISTS
+              for groups in (1, 2, 4, 16) for d in (64, 128)
+              for bs in (16, 128)]
+    shapes += [("mixed", 2, d, 16) for d in (100, 256)]
+    n, worst = 0, 0.0
+    for lname, groups, d, bs in shapes:
+        for q_dt, kv_dt, tol in ((torch.bfloat16, torch.int8, 2e-2),
+                                 (torch.bfloat16, torch.bfloat16, 2e-2),
+                                 (torch.float32, torch.int8, 1e-4),
+                                 (torch.float32, torch.float32, 1e-4)):
+            args, nkv, t_real = _k1_build(torch, gen, K1_GRID_LISTS[lname],
+                                          2 * groups, 2, d, bs, q_dt, kv_dt,
+                                          pad_rows=3)
+            got = ops.ragged_attention(*args, kv_frac_bits=nkv)
+            want = ref.ragged_attention_ref(*args, kv_frac_bits=nkv)
+            torch.cuda.synchronize()
+            what = (f"K1 grid {lname} G {groups} D {d} bs {bs} {q_dt} q "
+                    f"{kv_dt} pool")
+            worst = max(worst, _close(torch, got, want, tol, what))
+            check(int(torch.count_nonzero(got[t_real:])) == 0,
+                  f"{what}: padding rows are not exactly 0")
+            n += 1
+    return n, worst
+
+
+def _k1_table_fault_caught(torch, args, want, nkv, seq, col):
+    """The plain version over a table whose column ``col`` of sequence
+    ``seq`` names the block of column ``col - 1`` (a kernel that reads one
+    pool block twice and skips the next) must fall outside the row
+    tolerance."""
+    from repro_torch.kernels import ref
+    bad_bt = args[3].clone()
+    bad_bt[seq, col] = args[3][seq, col - 1]
+    bad = ref.ragged_attention_ref(*args[:3], bad_bt, *args[4:],
+                                   kv_frac_bits=nkv)
+    return not _rows_within(torch, bad, want, LONG_ROW_TOL)
+
+
 def phase_k1(torch, out):
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.ragged_flash import plan_from_descriptors
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     # (name, q dtype, pool dtype, tolerance, KV heads, block size): the
@@ -371,7 +530,8 @@ def phase_k1(torch, out):
               torch.bfloat16, 2e-2, 4, 128)]
     main = None
     for name, q_dt, kv_dt, tol, kvh, bs in cases:
-        args, nkv, t_real = _k1_case(torch, gen, q_dt, kv_dt, kvh, bs)
+        args, nkv, t_real = _k1_build(torch, gen, K1_ITEMS, K1_HEADS, kvh,
+                                      K1_DIM, bs, q_dt, kv_dt)
         got = ops.ragged_attention(*args, kv_frac_bits=nkv)
         want = ref.ragged_attention_ref(*args, kv_frac_bits=nkv)
         torch.cuda.synchronize()
@@ -386,26 +546,64 @@ def phase_k1(torch, out):
             f"{K1_PAD_ROWS} padding rows exactly 0")
         if main is None and kv_dt == torch.int8 and q_dt == torch.bfloat16:
             main = (args, nkv, err)
-    args, nkv, err = main
-    ms = time_ms(torch, lambda: ops.ragged_attention(*args, kv_frac_bits=nkv),
-                 50)
-    plain_ms = time_ms(torch, lambda: ref.ragged_attention_ref(
-        *args, kv_frac_bits=nkv), 10)
-    q = args[0]
+    grid_n, grid_err = _k1_grid(torch, gen)
+    log(f"[3] K1 grid ({grid_n} cases: work-lists "
+        f"{', '.join(K1_GRID_LISTS)} x GQA 1/2/4/16 x D 64/128 x bs 16/128, "
+        f"the mixed list at D 100 and 256, x bf16 q over int8 / bf16 pools "
+        f"within atol=rtol=2e-2, fp32 q over int8 / fp32 pools within 1e-4; "
+        f"padding rows and slots exactly 0): max |diff| {grid_err:.2e}")
     h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
-    t_real = sum(ql for ql, _ in K1_ITEMS)
-    kv_rows = sum(kl for _, kl in K1_ITEMS)
-    n_bytes = (t_real * h * d * q.element_size() * 2     # q in, out
-               + kv_rows * kvh * 2 * d                    # int8 K and V
-               + 4 * (args[3].numel() + 3 * args[4].numel()))
-    pairs = sum(sum(kl - ql + i + 1 for i in range(ql)) for ql, kl in K1_ITEMS)
-    n_ops = pairs * h * 4 * d                             # QK^T and PV
+    groups = h // kvh
+
+    def timed(args, nkv, iters):
+        """Kernel and plain times, the work list planned once as the
+        engine plans it (not inside the timed calls)."""
+        work = plan_from_descriptors(*args[4:7], groups, "cuda")
+        ms = time_ms(torch, lambda: ops.ragged_attention(
+            *args, kv_frac_bits=nkv, work=work), iters)
+        plain_ms = time_ms(torch, lambda: ref.ragged_attention_ref(
+            *args, kv_frac_bits=nkv), 3 if iters < 50 else 10, warmup=1)
+        return work, ms, plain_ms
+
+    args, nkv, err = main
+    work, ms, plain_ms = timed(args, nkv, 50)
+    n_bytes, n_ops = _k1_work(args, h, d, args[0].element_size())
     b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    t_real = sum(ql for ql, _ in K1_ITEMS)
     log(f"[3] K1 main-path case (bf16 q, int8 pool, H={h} KVH={kvh} D={d} "
-        f"bs={K1_BS}, {t_real}+{K1_PAD_ROWS} rows): kernel {ms:.4f} ms, plain "
+        f"bs={K1_BS}, {t_real}+{K1_PAD_ROWS} rows, {work.n_items} items, "
+        f"{work.n_combine} split): kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {n_bytes} B)")
     res = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               max_abs_err=err, bytes=n_bytes, ops=n_ops)
+               max_abs_err=err, bytes=n_bytes, ops=n_ops,
+               grid_cases=grid_n, grid_max_abs_err=grid_err)
+
+    # the long case, held row by row
+    args, nkv, _ = _k1_build(torch, gen, K1_LONG_ITEMS, h, kvh, d, K1_BS,
+                             torch.bfloat16, torch.int8)
+    got = ops.ragged_attention(*args, kv_frac_bits=nkv)
+    want = ref.ragged_attention_ref(*args, kv_frac_bits=nkv)
+    torch.cuda.synchronize()
+    err = _close_rows(torch, got, want, LONG_ROW_TOL, "K1 long case")
+    col = K1_LONG_ITEMS[0][1] // K1_BS // 2
+    check(_k1_table_fault_caught(torch, args, want, nkv, 0, col),
+          "K1 long case: the row tolerance passes a repeated pool block")
+    del want
+    work, ms, plain_ms = timed(args, nkv, 20)
+    n_bytes, n_ops = _k1_work(args, h, d, args[0].element_size())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    log(f"[3] K1 long case ((q_len, kv_len) {list(K1_LONG_ITEMS)}, bf16 q, "
+        f"int8 pool, H={h} KVH={kvh} D={d} bs={K1_BS}; {work.n_items} items, "
+        f"{work.n_combine} split into {work.n_parts} chunks): within "
+        f"{LONG_ROW_TOL} of each row's largest |value|, which a repeated "
+        f"pool block fails (max |diff| {err:.2e}) | kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, {n_bytes} "
+        f"B), {ms / b_ms:.2f}x the bound")
+    res["long"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       max_abs_err=err, bytes=n_bytes, ops=n_ops,
+                       items=work.n_items, splits=work.n_parts)
+    del args, got
+    torch.cuda.empty_cache()
     out["k1"] = res
     return res
 
@@ -1257,8 +1455,10 @@ def phase_cnn_kernels(torch, out):
     from repro_torch.configs.resnet_paper import CONFIG
     from repro_torch.core.integer_ops import LinearQuantSpec
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.int8_matmul import plan_int8_matmul
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     img, head_in, adds, convs = _resnet_shapes(CONFIG, RESNET_BATCH)
     res = {}
 
@@ -1401,9 +1601,11 @@ def phase_cnn_kernels(torch, out):
         k2["shapes"].append(dict(m=m, k=k, n=n, x=str(xdt), ms=ms,
                                  plain_ms=plain_ms, bound_ms=b_ms,
                                  bound_by=b_by))
+        plan = plan_int8_matmul(m, k, n, sms)
+        k2["shapes"][-1].update(tile=[plan.bm, plan.bn], splits=plan.splits)
         log(f"[12] K2 conv M={m:<6} K={k:<3} N={n:<2} {str(xdt)[6:]:5}: "
-            f"bit-exact | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.5f} ms ({b_by})")
+            f"bit-exact, {_plan_str(plan)} | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         del x
     k2["bound_ms"], k2["bound_by"] = bound_ms(k2["bytes"], k2["ops"], "int8")
     log(f"[12] K2 one forward ({len(convs)} launches): kernel "

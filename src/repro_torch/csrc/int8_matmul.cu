@@ -2,60 +2,68 @@
 //
 // Replaces the TPU kernel repro/kernels/int8_matmul.py::int8_matmul_kernel
 // (built by make_int8_matmul, reached through kernels/ops.py::int8_matmul
-// from every qlinear in INT mode: 7 projections per layer plus the LM head).
+// from every qlinear in INT / W8A8 mode: 7 projections per layer plus the
+// LM head; and from every ResNet convolution as one im2col product).
 //
-// What bounds it on an H100: at the serving shapes (M = 8..128 stream rows,
-// K = 2048/6144, N = 1024..151936) the product is bound by the bytes of the
-// int8 weight codes, read once (a decode step's 197 launches read 1.72 GB,
-// about 0.51 ms at 3.35 TB/s).  This kernel does not reach that bound yet:
-// see the rows kernel's note on repeated weight passes.  The int32
-// accumulator never reaches device memory: bias align, ReLU, shift-requant
-// and clip run in registers before a single int8/uint8 store, which is the
-// paper's requant unit placed between the MAC array and memory.
+// What bounds it on an H100: bytes.  At the serving shapes (M = 1..128
+// stream rows, K = 2048 / 6144, N = 1024..151936) the product does at most
+// 2M = 256 int8 operations per weight byte, under the card's int8 ridge of
+// 1979e12 / 3.35e12 ~ 590, so the work is to stream the (K, N) weight codes
+// once at full bandwidth on every SM (one engine step's 197 launches read
+// 1.75 GB, 0.52 ms at 3.35 TB/s).  The ResNet's im2col products do 2N <=
+// 128 operations per activation byte: there the activation rows are the
+// stream.  The int32 accumulator never reaches device memory unsplit: bias
+// align, ReLU, shift-requant and clip run in registers before one 8-byte
+// store of eight int8/uint8 codes, the paper's requant unit between the
+// MAC array and memory.
 //
-// Design (simple first), two kernels sharing one epilogue:
-// * rows kernel, for up to 64 stream rows with K and N multiples of 4 (every
-//   serving shape): a 256-thread block owns 32 output columns and 16 rows,
-//   and splits K over 32 groups of 8 lanes; each lane streams 4x4-byte
-//   weight words (four K rows of its four columns, 128 contiguous bytes per
-//   K row across the group), transposes them in registers with __byte_perm
-//   so four K codes pack into one word, and accumulates with __dp4a.  Eight
-//   such loads are in flight per lane.  The 32 partial sums are added in
-//   shared memory (integer adds: exact in any order) before the epilogue.
-//   The grid is (N/32, ceil(M/16)): each 16-row slice reads the whole
-//   weight matrix again, so the engine's 24-row step bucket makes 2 passes
-//   over the codes and a 64-row stream 4 (from L2 where the matrix fits
-//   there, from device memory for the 311 MB LM head).  At 192 registers a
-//   block fills an SM, so the extra slices also add waves.  Covering the
-//   bucket's rows in one block row (fewer accumulator registers per lane,
-//   or tensor-core mma) is later work.
-// * tiled kernel, for everything else: one block per 64x64 output tile, K
-//   walked in 32-deep steps through shared-memory operand tiles (the weight
-//   tile transposed), a 4x4 __dp4a sub-tile per thread.  Ragged edges in
-//   M, N and K are zero-filled; zero codes add nothing.
-// Tensor cores (mma/wgmma) and TMA pipelining are later work.
+// Design (mma_kernel).  Tensor cores through mma.sync.aligned.m16n8k32
+// (s8.s8, or u8.s8 for the ResNet's post-ReLU uint8 activations, no
+// .satfinite: the reference's int32 sum wraps).  wgmma was not chosen: it
+// needs 64-row tiles while the serving path's rows are 1..128 (the
+// engine's bucket is 24), the products are bound by bytes, not by the
+// tensor cores' rate, and the warp-level product keeps the weight
+// operand's byte transpose in registers.  A block is WM x WN warps; a warp
+// owns MT 16-row m-tiles and 32 columns (four n8 tiles), so a block tile is
+// BM = 16 MT WM rows by BN = 32 WN columns.  K is walked in 64-deep steps
+// through a ring of NSTAGE shared-memory stages filled by cp.async (16-byte
+// copies of activation rows, 8-byte copies of weight rows), so NSTAGE - 1
+// stages are in flight while one is multiplied.
+// * The weights stay in their public (K, N) row-major layout: no second
+//   copy exists (the LM head alone is 311 MB).  The mma B operand wants
+//   four K-consecutive bytes of one column, so a lane reads four 4-byte
+//   words (four K rows of four columns) and transposes them with
+//   __byte_perm.  The four columns become the four n8 tiles, so n-tile j's
+//   column g is the tile's column 4g + j; the accumulator fragment then
+//   holds eight CONSECUTIVE columns a row, stored as one 8-byte word.
+//   Weight rows are padded to BN + 8 bytes, so the four lanes' rows of a
+//   fragment load fall on distinct banks.
+// * Activation fragments come by ldmatrix (an int8 16x32 A fragment is the
+//   b16 ldmatrix layout), rows padded to 80 bytes (conflict-free).
+// * Serving (M <= 128): one block row covers every stream row (M padded to
+//   16 / 32 / 64 / 128 inside the block), so each launch streams the weight
+//   codes once; BN = 128.  Where the column tiles are fewer than about two
+//   waves the host splits K (kernels/int8_matmul.py::plan_int8_matmul, from
+//   the shapes alone): each split writes its int32 partial sums to a
+//   workspace the wrapper allocated, and finish_kernel adds them (integer
+//   adds: exact and order-free) and runs the epilogue once on the full sum
+//   (shift-requant is not linear, so it never runs per split).
+// * Large M (the ResNet's im2col rows): a tall tile (BM 64..256) and a
+//   narrow BN of 32 / 64 matched to Cout, so the N = 16 / 32 / 64 products
+//   waste at most half an n-tile; K = 16..576 is zero-filled to the step.
+// * Anything else (K % 16 != 0, N % 8 != 0 or misaligned operands: the
+//   ResNet stem's K 27, its head's N 10) takes dp4a_kernel: one block per
+//   64x64 output tile, K walked in 32-deep steps through shared memory, a
+//   4x4 __dp4a sub-tile per thread.  Ragged edges are zero-filled.
 //
 // Integer semantics mirror the reference bit for bit, int32 wrap-around
 // included: a right shift rounds half away from zero as
 // a >= 0 ? (a + half) >> s : -(((-a) + half) >> s), and a negative requant
 // shift saturates to +-(2^31 - 1) >> |s| before the left shift.
-//
-// Unsigned activations: the paper's ResNet feeds post-ReLU uint8 codes on
-// [0, 255] into every convolution after the stem (as an im2col matrix).
-// Both kernels take them in a compile-time variant (XU8) whose dot product
-// is PTX dp4a.u32.s32 (unsigned activation bytes, signed weight bytes), so
-// the codes go in as they are, with no offset; the int8 variant's code is
-// unchanged.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BM = 64;
-constexpr int BN = 64;
-constexpr int BK = 32;
-constexpr int THREADS = 256;
-constexpr int LDS = BK + 4;  // shared row stride in bytes (multiple of 4)
 
 __device__ __forceinline__ int wrap_add(int a, int b) {
   return (int)((unsigned)a + (unsigned)b);
@@ -82,6 +90,249 @@ __device__ __forceinline__ int requant(int acc, int shift, int lo, int hi) {
   return min(max(acc, lo), hi);
 }
 
+struct Epi {
+  const int8_t* bias;
+  int shift, bias_shift, relu, lo, hi;
+};
+
+// bias align -> ReLU -> shift-requant -> clip; the code's low byte is the
+// int8 / uint8 output
+__device__ __forceinline__ int epilogue(int acc, const Epi& e, int gn) {
+  if (e.bias != nullptr) {
+    int bb = e.bias[gn];
+    bb = e.bias_shift >= 0 ? (int)((unsigned)bb << e.bias_shift) : shift_round(bb, -e.bias_shift);
+    acc = wrap_add(acc, bb);
+  }
+  if (e.relu) acc = max(acc, 0);
+  return requant(acc, e.shift, e.lo, e.hi);
+}
+
+// ---------------------------------------------------------------------------
+// mma_kernel (see the header)
+// ---------------------------------------------------------------------------
+constexpr int BK = 64;       // K rows a stage
+constexpr int NSTAGE = 4;    // ring depth
+constexpr int LDA = BK + 16; // bytes a staged activation row (80: ldmatrix rows on distinct banks)
+
+__device__ __forceinline__ void copy_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy_async8(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+
+template <int N>
+__device__ __forceinline__ void copies_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// c += a (16x32, row) * b (32x8, col), int32 accumulate, wrapping
+template <bool XU8>
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  if constexpr (XU8) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// r_i holds K row i's codes of four columns; c_j gets column j's codes of
+// the four K rows, K row 0 in the low byte (an mma B register)
+__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+template <int MT, int WM, int WN>
+struct Tile {
+  static constexpr int BM = 16 * MT * WM;
+  static constexpr int BN = 32 * WN;
+  static constexpr int THREADS = 32 * WM * WN;
+  static constexpr int LDB = BN + 8;  // bytes a staged weight row
+  static constexpr int A_BYTES = BM * LDA;
+  static constexpr int B_BYTES = BK * LDB;
+  static constexpr int SMEM = NSTAGE * (A_BYTES + B_BYTES);
+};
+
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) computes output columns
+// [BN x, BN x + BN), rows [BM y, BM y + BM) over K rows [k_chunk z,
+// min(K, k_chunk (z + 1))).  One split (gridDim.z == 1): the epilogue and
+// the 8-bit store; else int32 partials to ws[z] (M x N).  K % 16 == 0,
+// N % 8 == 0, x 16-byte and w 8-byte aligned, k_chunk a multiple of BK.
+template <int MT, int WM, int WN, bool XU8>
+__global__ void __launch_bounds__(Tile<MT, WM, WN>::THREADS)
+mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __restrict__ out,
+           int* __restrict__ ws, int M, int N, int K, int k_chunk, Epi epi) {
+  using T = Tile<MT, WM, WN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* a_s = smem;                          // [NSTAGE][BM][LDA]
+  unsigned char* b_s = smem + NSTAGE * T::A_BYTES;    // [NSTAGE][BK][LDB]
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int warp_m = warp / WN, warp_n = warp % WN;
+  const int gid = lane / 4, tig = lane % 4;
+  const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
+  const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
+  const int n_tiles = (ke - kb + BK - 1) / BK;
+
+  auto load = [&](int t, int slot) {
+    const int k0 = kb + t * BK;
+    unsigned char* as = a_s + slot * T::A_BYTES;
+    unsigned char* bs = b_s + slot * T::B_BYTES;
+#pragma unroll
+    for (int i = tid; i < T::BM * (BK / 16); i += T::THREADS) {
+      const int r = i / (BK / 16), c = i % (BK / 16);
+      const int gm = m0 + r, gk = k0 + 16 * c;
+      const bool ok = gm < M && gk < ke;
+      copy_async16(as + r * LDA + 16 * c, ok ? x + (size_t)gm * K + gk : x, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < BK * (T::BN / 8); i += T::THREADS) {
+      const int r = i / (T::BN / 8), c = i % (T::BN / 8);
+      const int gk = k0 + r, gn = n0 + 8 * c;
+      const bool ok = gk < ke && gn < N;
+      copy_async8(bs + r * T::LDB + 8 * c, ok ? w + (size_t)gk * N + gn : w, ok);
+    }
+  };
+
+  int acc[MT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < n_tiles) load(s, s);
+    copies_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    copies_wait<NSTAGE - 2>();
+    __syncthreads();  // stage t visible; the slot refilled below was consumed at t - 1
+    if (t + NSTAGE - 1 < n_tiles) load(t + NSTAGE - 1, (t + NSTAGE - 1) % NSTAGE);
+    copies_commit();
+    const int slot = t % NSTAGE;
+    const unsigned char* as = a_s + slot * T::A_BYTES + (warp_m * MT * 16) * LDA;
+    const unsigned char* bs = b_s + slot * T::B_BYTES + warp_n * 32 + 4 * gid;
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk) {
+      uint32_t r0[4], r1[4], b0[4], b1[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        r0[r] = *reinterpret_cast<const uint32_t*>(bs + (kk * 32 + 4 * tig + r) * T::LDB);
+        r1[r] = *reinterpret_cast<const uint32_t*>(bs + (kk * 32 + 16 + 4 * tig + r) * T::LDB);
+      }
+      transpose4x4(r0, b0);
+      transpose4x4(r1, b1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        uint32_t a[4];
+        ldsm_x4(a, as + (mt * 16 + lane % 16) * LDA + kk * 32 + (lane / 16) * 16);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_s8<XU8>(acc[mt][j], a, b0[j], b1[j]);
+      }
+    }
+  }
+  copies_wait<0>();
+
+  // n-tile j's fragment element (row gid + 8h, column 2 tig + e) is the
+  // block column 32 warp_n + 8 tig + 4e + j: eight consecutive columns
+  const int gc = n0 + warp_n * 32 + 8 * tig;
+  if (gc >= N) return;  // N % 8 == 0: all eight in, or out
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int gm = m0 + warp_m * MT * 16 + mt * 16 + gid + 8 * h;
+      if (gm >= M) continue;
+      int v[8];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) v[4 * e + j] = acc[mt][j][2 * h + e];
+      if (gridDim.z == 1) {
+        uint32_t lo = 0, hi = 0;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          lo |= ((uint32_t)epilogue(v[i], epi, gc + i) & 0xffu) << (8 * i);
+          hi |= ((uint32_t)epilogue(v[4 + i], epi, gc + 4 + i) & 0xffu) << (8 * i);
+        }
+        *reinterpret_cast<uint2*>(static_cast<int8_t*>(out) + (size_t)gm * N + gc) =
+            make_uint2(lo, hi);
+      } else {
+        int4* p = reinterpret_cast<int4*>(ws + ((size_t)blockIdx.z * M + gm) * N + gc);
+        p[0] = make_int4(v[0], v[1], v[2], v[3]);
+        p[1] = make_int4(v[4], v[5], v[6], v[7]);
+      }
+    }
+}
+
+// split-K's second pass: four outputs a thread, the splits' partials added
+// in int32 (wrapping, exact in any order), then the epilogue once
+__global__ void __launch_bounds__(256)
+finish_kernel(const int* __restrict__ ws, void* __restrict__ out, int M, int N, int splits,
+              Epi epi) {
+  const size_t quads = (size_t)M * N / 4;
+  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= quads) return;
+  int4 s = reinterpret_cast<const int4*>(ws)[q];
+  for (int z = 1; z < splits; ++z) {
+    const int4 p = reinterpret_cast<const int4*>(ws)[(size_t)z * quads + q];
+    s.x = wrap_add(s.x, p.x);
+    s.y = wrap_add(s.y, p.y);
+    s.z = wrap_add(s.z, p.z);
+    s.w = wrap_add(s.w, p.w);
+  }
+  const int gn = (int)((4 * q) % N);
+  const uint32_t word = ((uint32_t)epilogue(s.x, epi, gn) & 0xffu) |
+                        ((uint32_t)epilogue(s.y, epi, gn + 1) & 0xffu) << 8 |
+                        ((uint32_t)epilogue(s.z, epi, gn + 2) & 0xffu) << 16 |
+                        ((uint32_t)epilogue(s.w, epi, gn + 3) & 0xffu) << 24;
+  reinterpret_cast<uint32_t*>(out)[q] = word;
+}
+
+// ---------------------------------------------------------------------------
+// dp4a_kernel: any shape and alignment (see the header)
+// ---------------------------------------------------------------------------
+constexpr int DBM = 64;
+constexpr int DBN = 64;
+constexpr int DBK = 32;
+constexpr int DTHREADS = 256;
+constexpr int DLDS = DBK + 4;  // shared row stride in bytes (multiple of 4)
+
 // four activation bytes (unsigned when XU8) . four int8 weight bytes + c
 template <bool XU8>
 __device__ __forceinline__ int dot4(int a, int b, int c) {
@@ -94,128 +345,16 @@ __device__ __forceinline__ int dot4(int a, int b, int c) {
   }
 }
 
-// bias align -> ReLU -> shift-requant -> clip, then the 8-bit store
-__device__ __forceinline__ void epilogue_store(int acc, const int8_t* __restrict__ bias, int gn,
-                                               size_t o, void* __restrict__ out, int shift,
-                                               int bias_shift, int relu, int lo, int hi,
-                                               int out_u8) {
-  if (bias != nullptr) {
-    int bb = bias[gn];
-    bb = bias_shift >= 0 ? (int)((unsigned)bb << bias_shift) : shift_round(bb, -bias_shift);
-    acc = wrap_add(acc, bb);
-  }
-  if (relu) acc = max(acc, 0);
-  acc = requant(acc, shift, lo, hi);
-  if (out_u8)
-    static_cast<uint8_t*>(out)[o] = (uint8_t)acc;
-  else
-    static_cast<int8_t*>(out)[o] = (int8_t)acc;
-}
-
-// rows kernel (see the header): K % 4 == 0, N % 4 == 0, 4-byte aligned
-constexpr int RK_THREADS = 256;
-constexpr int RK_BN = 32;      // columns per block: 8 lanes x 4 columns
-constexpr int RK_BM = 16;      // stream rows per block
-constexpr int RK_GROUPS = 32;  // K groups per block: 8 warps x 4 lane rows
-constexpr int RK_UNROLL = 8;   // weight words in flight per lane and K row
-constexpr int RK_MAX_ROWS = 64;
-
-// r_i holds K row i's codes of four columns; c_j gets column j's codes of
-// the four K rows, K row 0 in the low byte (the layout __dp4a pairs with
-// four consecutive K codes of an activation row)
-__device__ __forceinline__ void transpose4x4(int r0, int r1, int r2, int r3, int& c0, int& c1,
-                                             int& c2, int& c3) {
-  const int t0 = __byte_perm(r0, r1, 0x5140);
-  const int t1 = __byte_perm(r2, r3, 0x5140);
-  const int t2 = __byte_perm(r0, r1, 0x7362);
-  const int t3 = __byte_perm(r2, r3, 0x7362);
-  c0 = __byte_perm(t0, t1, 0x5410);
-  c1 = __byte_perm(t0, t1, 0x7632);
-  c2 = __byte_perm(t2, t3, 0x5410);
-  c3 = __byte_perm(t2, t3, 0x7632);
-}
-
 template <bool XU8>
-__global__ void __launch_bounds__(RK_THREADS)
-int8_matmul_rows_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                        const int8_t* __restrict__ bias, void* __restrict__ out, int M, int N,
-                        int K, int shift, int bias_shift, int relu, int lo, int hi, int out_u8) {
-  __shared__ int red[RK_BM][RK_BN];
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int col4 = lane % 8;
-  const int g = warp * 4 + lane / 8;  // this lane's K group
-  const int n0 = blockIdx.x * RK_BN;
-  const int n = n0 + 4 * col4;        // first of this lane's four columns
-  const int m0 = blockIdx.y * RK_BM;
-  const int rows = min(RK_BM, M - m0);
-  const bool col_ok = n < N;          // N % 4 == 0: all four in, or out
-  const int chunks = K / 4;           // groups of four K rows
-  const int* xw = reinterpret_cast<const int*>(x) + (size_t)m0 * chunks;
-
-  for (int i = tid; i < RK_BM * RK_BN; i += RK_THREADS) red[i / RK_BN][i % RK_BN] = 0;
-
-  int acc[RK_BM][4];
-#pragma unroll
-  for (int m = 0; m < RK_BM; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j] = 0;
-
-  for (int c0 = g; c0 < chunks; c0 += RK_GROUPS * RK_UNROLL) {
-    int wv[RK_UNROLL][4];
-#pragma unroll
-    for (int u = 0; u < RK_UNROLL; ++u) {
-      const int c = c0 + u * RK_GROUPS;
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        wv[u][r] = (col_ok && c < chunks)
-                       ? __ldg(reinterpret_cast<const int*>(w + (size_t)(4 * c + r) * N + n))
-                       : 0;
-    }
-#pragma unroll
-    for (int u = 0; u < RK_UNROLL; ++u) {
-      const int c = c0 + u * RK_GROUPS;
-      if (c >= chunks) break;
-      int b[4];
-      transpose4x4(wv[u][0], wv[u][1], wv[u][2], wv[u][3], b[0], b[1], b[2], b[3]);
-#pragma unroll
-      for (int m = 0; m < RK_BM; ++m) {
-        if (m < rows) {
-          const int a = __ldg(xw + (size_t)m * chunks + c);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[m][j] = dot4<XU8>(a, b[j], acc[m][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // red is zeroed
-  if (col_ok) {
-#pragma unroll
-    for (int m = 0; m < RK_BM; ++m)
-      if (m < rows)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) atomicAdd(&red[m][4 * col4 + j], acc[m][j]);
-  }
-  __syncthreads();
-  for (int i = tid; i < rows * RK_BN; i += RK_THREADS) {
-    const int m = i / RK_BN, gn = n0 + i % RK_BN;
-    if (gn < N)
-      epilogue_store(red[m][i % RK_BN], bias, gn, (size_t)(m0 + m) * N + gn, out, shift,
-                     bias_shift, relu, lo, hi, out_u8);
-  }
-}
-
-template <bool XU8>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
-                   const int8_t* __restrict__ bias, void* __restrict__ out,
-                   int M, int N, int K, int shift, int bias_shift, int relu,
-                   int lo, int hi, int out_u8, int vec) {
-  __shared__ __align__(16) int8_t xs[BM][LDS];  // [m][k]
-  __shared__ __align__(16) int8_t ws[BN][LDS];  // [n][k]: transposed tile
+__global__ void __launch_bounds__(DTHREADS)
+dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __restrict__ out,
+            int M, int N, int K, int vec, Epi epi) {
+  __shared__ __align__(16) int8_t xs[DBM][DLDS];  // [m][k]
+  __shared__ __align__(16) int8_t ws[DBN][DLDS];  // [n][k]: transposed tile
 
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * DBM, n0 = blockIdx.x * DBN;
 
   int acc[4][4];
 #pragma unroll
@@ -223,18 +362,18 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0;
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  for (int k0 = 0; k0 < K; k0 += DBK) {
     if (vec) {
       // K % 4 == 0 and N % 4 == 0: 4-byte chunks are wholly in or out
-      for (int i = tid; i < BM * (BK / 4); i += THREADS) {
-        const int r = i / (BK / 4), c = i % (BK / 4);
+      for (int i = tid; i < DBM * (DBK / 4); i += DTHREADS) {
+        const int r = i / (DBK / 4), c = i % (DBK / 4);
         const int gm = m0 + r, gk = k0 + 4 * c;
         int v = 0;
         if (gm < M && gk < K) v = *reinterpret_cast<const int*>(x + (size_t)gm * K + gk);
         *reinterpret_cast<int*>(&xs[r][4 * c]) = v;
       }
-      for (int i = tid; i < BK * (BN / 4); i += THREADS) {
-        const int kk = i / (BN / 4), c = i % (BN / 4);
+      for (int i = tid; i < DBK * (DBN / 4); i += DTHREADS) {
+        const int kk = i / (DBN / 4), c = i % (DBN / 4);
         const int gk = k0 + kk, gn = n0 + 4 * c;
         int v = 0;
         if (gk < K && gn < N) v = *reinterpret_cast<const int*>(w + (size_t)gk * N + gn);
@@ -242,20 +381,20 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
         for (int e = 0; e < 4; ++e) ws[4 * c + e][kk] = (int8_t)(v >> (8 * e));
       }
     } else {
-      for (int i = tid; i < BM * BK; i += THREADS) {
-        const int r = i / BK, kk = i % BK;
+      for (int i = tid; i < DBM * DBK; i += DTHREADS) {
+        const int r = i / DBK, kk = i % DBK;
         const int gm = m0 + r, gk = k0 + kk;
         xs[r][kk] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : (int8_t)0;
       }
-      for (int i = tid; i < BK * BN; i += THREADS) {
-        const int kk = i / BN, c = i % BN;
+      for (int i = tid; i < DBK * DBN; i += DTHREADS) {
+        const int kk = i / DBN, c = i % DBN;
         const int gk = k0 + kk, gn = n0 + c;
         ws[c][kk] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : (int8_t)0;
       }
     }
     __syncthreads();
 #pragma unroll
-    for (int kq = 0; kq < BK / 4; ++kq) {
+    for (int kq = 0; kq < DBK / 4; ++kq) {
       int a[4], b[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = *reinterpret_cast<const int*>(&xs[ty + 16 * i][4 * kq]);
@@ -278,42 +417,86 @@ int8_matmul_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     for (int i = 0; i < 4; ++i) {
       const int gm = m0 + ty + 16 * i;
       if (gm < M)
-        epilogue_store(acc[i][j], bias, gn, (size_t)gm * N + gn, out, shift, bias_shift, relu,
-                       lo, hi, out_u8);
+        static_cast<int8_t*>(out)[(size_t)gm * N + gn] = (int8_t)epilogue(acc[i][j], epi, gn);
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
+template <int MT, int WM, int WN, bool XU8>
+int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N, int K,
+               int splits, int k_chunk, const Epi& epi, cudaStream_t st) {
+  using T = Tile<MT, WM, WN>;
+  auto kernel = mma_kernel<MT, WM, WN, XU8>;
+  // the limit is raised once per instantiation, not per launch
+  static const int smem_err = (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (smem_err != 0) return smem_err;
+  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
+  kernel<<<grid, T::THREADS, T::SMEM, st>>>(x, w, out, ws, M, N, K, k_chunk, epi);
+  int err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  const size_t quads = (size_t)M * N / 4;
+  finish_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(ws, out, M, N, splits, epi);
+  return (int)cudaGetLastError();
+}
+
+// the tile configurations, by the index plan_int8_matmul returns
+// (kernels/int8_matmul.py::MMA_TILES mirrors this table)
 template <bool XU8>
-void launch(const int8_t* xs, const int8_t* ws, const int8_t* bs, void* out, int M, int N, int K,
-            int shift, int bias_shift, int relu, int lo, int hi, int out_u8, int vec,
-            cudaStream_t st) {
-  if (vec && M <= RK_MAX_ROWS) {
-    const dim3 grid((N + RK_BN - 1) / RK_BN, (M + RK_BM - 1) / RK_BM);
-    int8_matmul_rows_kernel<XU8><<<grid, RK_THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift,
-                                                              bias_shift, relu, lo, hi, out_u8);
-  } else {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    int8_matmul_kernel<XU8><<<grid, THREADS, 0, st>>>(xs, ws, bs, out, M, N, K, shift,
-                                                      bias_shift, relu, lo, hi, out_u8, vec);
+int launch_cfg(int cfg, const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N,
+               int K, int splits, int k_chunk, const Epi& epi, cudaStream_t st) {
+#define K2_ARGS x, w, out, ws, M, N, K, splits, k_chunk, epi, st
+  switch (cfg) {
+    case 0: return launch_mma<1, 1, 4, XU8>(K2_ARGS);  // M <= 16:  16 x 128
+    case 1: return launch_mma<2, 1, 4, XU8>(K2_ARGS);  // M <= 32:  32 x 128
+    case 2: return launch_mma<4, 1, 4, XU8>(K2_ARGS);  // M <= 64:  64 x 128
+    case 3: return launch_mma<8, 1, 4, XU8>(K2_ARGS);  // M <= 128: 128 x 128
+    case 4: return launch_mma<2, 8, 1, XU8>(K2_ARGS);  // 256 x 32
+    case 5: return launch_mma<1, 8, 1, XU8>(K2_ARGS);  // 128 x 32
+    case 6: return launch_mma<2, 4, 2, XU8>(K2_ARGS);  // 128 x 64
+    case 7: return launch_mma<1, 4, 2, XU8>(K2_ARGS);  // 64 x 64
+    case 8: return launch_mma<4, 2, 4, XU8>(K2_ARGS);  // 128 x 128
+    case 9: return launch_mma<2, 2, 4, XU8>(K2_ARGS);  // 64 x 128
   }
+#undef K2_ARGS
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // C entry: launches on `stream`; returns cudaGetLastError() (0 on success).
-// vec: K % 4 == 0, N % 4 == 0 and both operands 4-byte aligned.
+// cfg: a tile configuration of the mma kernel (0..9), or -1 for the dp4a
+// kernel.  The mma kernel takes K % 16 == 0, N % 8 == 0, x 16-byte and w
+// 8-byte aligned, k_chunk a multiple of 64 with every one of `splits`
+// splits nonempty, and ws (splits x M x N int32) when splits > 1.
 // x_u8: the activation codes are uint8 (else int8); weights are int8.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias, void* out,
-                                  int M, int N, int K, int shift, int bias_shift, int relu,
-                                  int lo, int hi, int out_u8, int vec, int x_u8, void* stream) {
+                                  void* ws, int M, int N, int K, int shift, int bias_shift,
+                                  int relu, int lo, int hi, int x_u8, int cfg, int splits,
+                                  int k_chunk, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xs = static_cast<const int8_t*>(x);
-  const int8_t* ws = static_cast<const int8_t*>(w);
-  const int8_t* bs = static_cast<const int8_t*>(bias);
-  if (x_u8)
-    launch<true>(xs, ws, bs, out, M, N, K, shift, bias_shift, relu, lo, hi, out_u8, vec, st);
-  else
-    launch<false>(xs, ws, bs, out, M, N, K, shift, bias_shift, relu, lo, hi, out_u8, vec, st);
-  return (int)cudaGetLastError();
+  const int8_t* wt = static_cast<const int8_t*>(w);
+  const Epi epi{static_cast<const int8_t*>(bias), shift, bias_shift, relu, lo, hi};
+  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (cfg < 0) {
+    const int vec =
+        K % 4 == 0 && N % 4 == 0 && ((uintptr_t)x & 3u) == 0 && ((uintptr_t)w & 3u) == 0;
+    const dim3 grid((N + DBN - 1) / DBN, (M + DBM - 1) / DBM);
+    if (x_u8)
+      dp4a_kernel<true><<<grid, DTHREADS, 0, st>>>(xs, wt, out, M, N, K, vec, epi);
+    else
+      dp4a_kernel<false><<<grid, DTHREADS, 0, st>>>(xs, wt, out, M, N, K, vec, epi);
+    return (int)cudaGetLastError();
+  }
+  if (K % 16 || N % 8 || ((uintptr_t)x & 15u) || ((uintptr_t)w & 7u) || splits <= 0 ||
+      k_chunk <= 0 || k_chunk % BK || (long long)(splits - 1) * k_chunk >= K ||
+      (long long)splits * k_chunk < K || (splits > 1 && ws == nullptr))
+    return (int)cudaErrorInvalidValue;
+  int* wsi = static_cast<int*>(ws);
+  if (x_u8) return launch_cfg<true>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
+  return launch_cfg<false>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
 }

@@ -3,36 +3,104 @@ requant epilogue, hand-written in CUDA C++ for Hopper
 (``csrc/int8_matmul.cu``).
 
 Replaces the TPU kernel ``repro/kernels/int8_matmul.py::int8_matmul_kernel``.
-On an H100 it is bound by the bytes of the int8 weight codes at the
-serving shapes; the epilogue (bias align, optional ReLU, round-half-away
-shift-requant with a saturating negative shift, clip) runs in registers,
-so the int32 accumulator never reaches device memory.  The source's
-header note gives the design, and why it does not reach the weight-byte
-bound yet (one pass over the weights per 16 stream rows).
+On an H100 it is bound by bytes: the int8 weight codes at the serving
+shapes, the activation rows at the ResNet's im2col products.  The
+products run on the tensor cores (``mma.sync`` m16n8k32, s8 or u8 x s8);
+the epilogue (bias align, optional ReLU, round-half-away shift-requant
+with a saturating negative shift, clip) runs in registers.
+
+:func:`plan_int8_matmul` chooses, on the host and from the shapes alone,
+the kernel's tile (one block row covers every stream row up to 128 rows,
+so the weights are read once a launch) and how many splits of K keep the
+card full when the column tiles are few.  A split launch adds its int32
+partial sums in a workspace allocated here and runs the epilogue once on
+the full sum; it is still one launch of ``int8_matmul``.  Shapes the
+tensor-core kernel does not take (K % 16 != 0, N % 8 != 0, misaligned
+operands) go to the kernel's ``dp4a`` tile.
 
 Activations are int8 codes, or uint8 post-ReLU codes (the ResNet's
-convolutions), which take the kernel's unsigned-dot variant.  The kernel
-takes the weight codes in their public (K, N) layout and
-transposes each tile in shared memory, so no second copy of the weights
-exists.  Called through ``kernels.ops.int8_matmul``, which counts the
-launches and takes the plain version (``kernels.ref.int8_matmul_ref``)
-for CPU tensors.
+convolutions).  The weight codes stay in their public (K, N) layout, so
+no second copy of the weights exists.  Called through
+``kernels.ops.int8_matmul``, which counts the launches and takes the plain
+version (``kernels.ref.int8_matmul_ref``) for CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["int8_matmul_cuda"]
+__all__ = ["int8_matmul_cuda", "plan_int8_matmul", "Int8MatmulPlan",
+           "MMA_TILES", "DP4A_TILE", "K_STEP"]
 
 _NAME = "int8_matmul"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_matmul_launch": (
-    ctypes.c_int, [_P, _P, _P, _P] + [_I] * 11 + [_P])}
+    ctypes.c_int, [_P] * 5 + [_I] * 12 + [_P])}
+
+# (rows, columns) of the tensor-core kernel's block tile, by configuration
+# index (csrc/int8_matmul.cu::launch_cfg): 0-3 cover M <= 16 / 32 / 64 /
+# 128 in one block row; 4-9 are tall tiles for large M, narrow ones (32,
+# 64 columns) for the ResNet's Cout
+MMA_TILES = ((16, 128), (32, 128), (64, 128), (128, 128),
+             (256, 32), (128, 32), (128, 64), (64, 64),
+             (128, 128), (64, 128))
+DP4A_TILE = (64, 64)
+K_STEP = 64               # K rows a pipeline stage; a split is a multiple
+SMALL_M = 128             # rows one block row covers
+# split K only while the grid is under SPLIT_BLOCKS_PER_SM blocks an SM;
+# a split keeps at least SPLIT_MIN_ROWS K rows and 8 x its tile's rows (so
+# its int32 partials stay under half the weight bytes it reads)
+SPLIT_BLOCKS_PER_SM = 2
+SPLIT_MIN_ROWS = 128
+
+
+class Int8MatmulPlan(NamedTuple):
+    """``cfg`` indexes MMA_TILES (-1: the dp4a kernel); ``splits`` pieces
+    of K, piece i covering rows ``[i * k_chunk, min(K, (i + 1) *
+    k_chunk))``."""
+    cfg: int
+    bm: int
+    bn: int
+    splits: int
+    k_chunk: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_int8_matmul(m: int, k: int, n: int, sm_count: int = 132, *,
+                     aligned: bool = True) -> Int8MatmulPlan:
+    """K2's launch for an (m, k) x (k, n) product, from the shapes alone
+    (``aligned``: the operands' addresses suit the tensor-core kernel's
+    16- / 8-byte copies)."""
+    if not (k % 16 == 0 and n % 8 == 0 and aligned):
+        return Int8MatmulPlan(-1, *DP4A_TILE, 1, k)
+    want = SPLIT_BLOCKS_PER_SM * sm_count
+    if m <= SMALL_M:
+        cfg = (0, 1, 2, 2, 3, 3, 3, 3)[_cdiv(m, 16) - 1]
+    else:
+        big, small = (4, 5) if n <= 32 else (6, 7) if n <= 64 else (8, 9)
+        tiles = _cdiv(m, MMA_TILES[big][0]) * _cdiv(n, MMA_TILES[big][1])
+        cfg = big if tiles >= want else small
+    bm, bn = MMA_TILES[cfg]
+    tiles = _cdiv(m, bm) * _cdiv(n, bn)
+    splits = 1
+    if m <= SMALL_M and tiles < want:
+        cap = max(1, k // max(SPLIT_MIN_ROWS, 8 * bm))
+        splits = min(_cdiv(want, tiles), cap)
+    chunk = _cdiv(_cdiv(k, splits), K_STEP) * K_STEP
+    return Int8MatmulPlan(cfg, bm, bn, _cdiv(k, chunk), chunk)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
@@ -61,16 +129,20 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
             raise ValueError("bias must be (N,) int8 codes on the same device")
         b = b.contiguous()
     out = torch.empty((m, n), dtype=out_dtype, device=x2.device)
-    vec = int(k % 4 == 0 and n % 4 == 0 and x2.data_ptr() % 4 == 0
-              and w.data_ptr() % 4 == 0)
+    plan = plan_int8_matmul(
+        m, k, n, _sm_count(x2.device.index or 0),
+        aligned=x2.data_ptr() % 16 == 0 and w.data_ptr() % 8 == 0)
+    ws = (torch.empty((plan.splits, m, n), dtype=torch.int32,
+                      device=x2.device) if plan.splits > 1 else None)
     lib = _build.load(_NAME, _SIGNATURES)
     with torch.cuda.device(x2.device):
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         err = lib.int8_matmul_launch(
             x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
-            out.data_ptr(), m, n, k, int(shift), int(bias_shift), int(relu),
-            int(lo), int(hi), int(out_dtype == torch.uint8), vec,
-            int(x2.dtype == torch.uint8), stream)
+            out.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
+            int(shift), int(bias_shift), int(relu), int(lo), int(hi),
+            int(x2.dtype == torch.uint8), plan.cfg, plan.splits,
+            plan.k_chunk, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
     return out

@@ -25,7 +25,9 @@ from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  paged_attention_cuda)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import quantize_cuda
-from repro_torch.kernels.ragged_flash import ragged_attention_cuda
+from repro_torch.kernels.ragged_flash import (RaggedWork,
+                                             plan_from_descriptors,
+                                             ragged_attention_cuda)
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
 __all__ = ["int8_matmul", "int_conv2d", "quantize_act", "residual_requant",
@@ -141,7 +143,8 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      q_start: torch.Tensor, q_len: torch.Tensor,
                      kv_len: torch.Tensor, *,
-                     kv_frac_bits: Optional[int] = None) -> torch.Tensor:
+                     kv_frac_bits: Optional[int] = None,
+                     work: Optional[RaggedWork] = None) -> torch.Tensor:
     """Unified ragged-batch attention over the paged KV pool.
 
     q (T, H, Dk) is the flattened mixed stream; ``q_start`` / ``q_len``
@@ -149,18 +152,23 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     belong to which sequence and how much KV each sees (contract in
     ``kernels.ragged_flash``).  Pools are (NB, bs, KVH, D): int8 Eq.-1
     codes on the 2^-``kv_frac_bits`` grid, or floats.  Scores are scaled
-    by 1/sqrt(Dk).  Returns (T, H, Dv) with rows no descriptor covers
-    exactly zero."""
+    by 1/sqrt(Dk).  ``work`` is the kernel's work list for these
+    descriptors (``ragged_flash.plan_ragged_work``, on q's device); without
+    it one is planned from the descriptors, read back to the host.
+    Returns (T, H, Dv) with rows no descriptor covers exactly zero."""
     nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
     if not _on_cuda(q, "ragged_attention"):
         return ref.ragged_attention_ref(
             q, k_pool, v_pool, block_tables, q_start, q_len, kv_len,
             kv_frac_bits=kv_frac_bits)
-    if q.shape[0] == 0 or block_tables.shape[0] == 0:
+    if work is None and q.shape[0] and block_tables.shape[0]:
+        work = plan_from_descriptors(q_start, q_len, kv_len,
+                                     q.shape[1] // k_pool.shape[2], q.device)
+    if work is None or work.n_items == 0:
         return torch.zeros((*q.shape[:2], v_pool.shape[-1]), dtype=q.dtype,
                            device=q.device)
     out = ragged_attention_cuda(q, k_pool, v_pool, block_tables, q_start,
-                                q_len, kv_len, kv_frac_bits=nkv)
+                                q_len, kv_len, kv_frac_bits=nkv, work=work)
     LAUNCHES["ragged_attention"] += 1
     return out
 

@@ -5,12 +5,20 @@ Replaces the TPU kernel
 ``repro/kernels/ragged_flash.py::_ragged_paged_flash_kernel``.  One launch
 serves a whole mixed serving step (prefill chunks, decode rows,
 speculative tails) from a flattened (T, H, Dk) stream and per-sequence
-descriptors.  On an H100 it is bound by the KV bytes each sequence reads,
-which at the serving sizes is small enough that the launch itself is the
-cost.  The source's header note gives the design: one thread block per
-(sequence, KV head, q tile) carrying the whole GQA group, the block table
-walked by pointer up to ``kv_len``, int8 codes dequantized in registers
-with 2^-n folded into the score scale and the final 1/l.
+descriptors.  On an H100 it is bound by the KV bytes each sequence reads.
+
+:func:`plan_ragged_work` turns the step's descriptors into the kernel's
+work list on the host: items of up to 16 (token, head) rows of one KV head
+(``16 // groups`` tokens times the GQA group) over a kv range, a long
+range cut into chunks whose partial softmax states a second small kernel
+merges (split-KV).  The serving engine plans once per step from the numpy
+descriptors it already holds and every layer shares the uploaded list
+(``RaggedBatch.work``); a caller without a plan gets one built here from
+the descriptors, which only then are read back to the host.  The source's
+header note gives the design: the block table walked up to ``kv_len``,
+pages staged by 16-byte ``cp.async``, bf16 q on the tensor cores, fp32 q
+on the CUDA cores, int8 codes converted exactly with 2^-n folded into the
+score scale and the final 1/l.
 
 Descriptor contract (host-built, as ``repro.kernels.ragged_flash``):
 ``q_start`` nondecreasing, row windows disjoint, ``q_len <= kv_len``,
@@ -24,24 +32,91 @@ from __future__ import annotations
 import ctypes
 import math
 import struct
+from typing import NamedTuple, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["ragged_attention_cuda"]
+__all__ = ["ragged_attention_cuda", "plan_ragged_work", "plan_from_descriptors",
+           "RaggedWork"]
 
 _NAME = "ragged_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"ragged_paged_attention_launch": (
-    ctypes.c_int, [_P] * 8 + [_I] * 13 + [_P])}
+    ctypes.c_int, [_P] * 7 + [_I] * 14 + [_P])}
 
-ROWS_PER_BLOCK = 16        # (token, head) rows one block carries
+ROWS_PER_ITEM = 16         # (token, head) rows one item (one block) carries
 MAX_HEAD_DIM = 256
 MAX_BLOCK_SIZE = 128       # kv rows per pool block
-MAX_SMEM = 227 * 1024      # dynamic shared memory a block may use
+STAGE_ROWS = 64            # kv rows a pipeline stage: a split is a multiple
+SPLIT_ROWS = 512           # an item seeing more kv rows than this is split
+# chunks an item is cut into, at most: a longer context gets longer chunks
+# (a 32768-row decode ran faster as 32 chunks of 1024 rows than as 64 of
+# 512, a 4104-row prefill tile faster as 9 of 512 than as 5 of 832)
+MAX_SPLITS = 32
+ITEM_COLS = 8
 _Q_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+
+
+class RaggedWork(NamedTuple):
+    """K1's work list for one step.  ``table`` (n_items + n_combine, 8)
+    int32 holds the items — (sequence, first token, tokens, kv begin, kv
+    end, partial slot or -1, the first token's stream row, its causal
+    limit), longest kv range first — then the combine entries (sequence,
+    first token, tokens, first slot, slots, 0, stream row, 0): a host numpy
+    array from :func:`plan_ragged_work`, or that array on the card
+    (:meth:`to`).  ``max_splits`` is the most slots one entry lists and
+    ``max_rows`` the longest item kv range."""
+    table: Union[np.ndarray, torch.Tensor]
+    n_items: int
+    n_combine: int
+    n_parts: int
+    max_splits: int
+    max_rows: int
+
+    def to(self, device) -> "RaggedWork":
+        return self._replace(table=torch.from_numpy(self.table).to(device))
+
+
+def plan_ragged_work(q_start, q_len, kv_len, *, groups: int) -> RaggedWork:
+    """The work list of a step whose descriptors are the host arrays
+    ``q_start`` / ``q_len`` / ``kv_len``, for ``groups`` query heads per
+    KV head.  Each sequence's tokens go in items of ``16 // groups``; an
+    item whose last token sees more than SPLIT_ROWS kv rows is cut into
+    equal chunks of a multiple of STAGE_ROWS rows (the last one shorter,
+    none empty; at most MAX_SPLITS, so chunks grow past SPLIT_ROWS on very
+    long contexts), each with its own partial slot."""
+    if not 1 <= groups <= ROWS_PER_ITEM:
+        raise ValueError(f"K1 carries 1..{ROWS_PER_ITEM} query heads per KV "
+                         f"head, not {groups}")
+    q_start, q_len, kv_len = (np.asarray(a, dtype=np.int64)
+                              for a in (q_start, q_len, kv_len))
+    tq = ROWS_PER_ITEM // groups
+    items, combines, n_parts = [], [], 0
+    for s in range(len(q_len)):
+        ql, kl = int(q_len[s]), int(kv_len[s])
+        for t0 in range(0, max(ql, 0), tq):
+            nt = min(tq, ql - t0)
+            row0, lim0 = int(q_start[s]) + t0, kl - ql + t0
+            vis = lim0 + nt                # kv rows the item's last token sees
+            if vis <= SPLIT_ROWS:
+                items.append((s, t0, nt, 0, vis, -1, row0, lim0))
+                continue
+            n = min(-(-vis // SPLIT_ROWS), MAX_SPLITS)
+            chunk = -(-(-(-vis // n)) // STAGE_ROWS) * STAGE_ROWS
+            n = -(-vis // chunk)
+            combines.append((s, t0, nt, n_parts, n, 0, row0, 0))
+            items += [(s, t0, nt, i * chunk, min(vis, (i + 1) * chunk),
+                       n_parts + i, row0, lim0) for i in range(n)]
+            n_parts += n
+    items.sort(key=lambda it: it[3] - it[4])   # longest kv range first
+    table = np.array(items + combines, dtype=np.int32).reshape(-1, ITEM_COLS)
+    return RaggedWork(table, len(items), len(combines), n_parts,
+                      max((c[4] for c in combines), default=0),
+                      max((it[4] - it[3] for it in items), default=0))
 
 
 def _f32_bits(x: float) -> int:
@@ -51,12 +126,12 @@ def _f32_bits(x: float) -> int:
 def ragged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_tables: torch.Tensor,
                           q_start: torch.Tensor, q_len: torch.Tensor,
-                          kv_len: torch.Tensor, *,
-                          kv_frac_bits: int) -> torch.Tensor:
-    """Launch K1; returns (T, H, Dv) in q's dtype, scores scaled by
-    1/sqrt(Dk).  ``kv_frac_bits`` is the int8 pool's fractional bit (0 for
-    a float pool).  The grid covers T rows per sequence, so every q_len a
-    valid descriptor can hold is served."""
+                          kv_len: torch.Tensor, *, kv_frac_bits: int,
+                          work: RaggedWork) -> torch.Tensor:
+    """Launch K1 over ``work`` (:func:`plan_ragged_work` of these
+    descriptors, at least one item); returns (T, H, Dv) in q's dtype,
+    scores scaled by 1/sqrt(Dk).  ``kv_frac_bits`` is the int8 pool's
+    fractional bit (0 for a float pool)."""
     t, h, dk = q.shape
     nb, bs, kvh, dk_pool = k_pool.shape
     dv = v_pool.shape[-1]
@@ -75,33 +150,51 @@ def ragged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
     groups = h // kvh
-    if groups > ROWS_PER_BLOCK or max(dk, dv) > MAX_HEAD_DIM \
+    if groups > ROWS_PER_ITEM or max(dk, dv) > MAX_HEAD_DIM \
             or bs > MAX_BLOCK_SIZE:
-        raise ValueError(f"K1 carries at most {ROWS_PER_BLOCK} query heads "
+        raise ValueError(f"K1 carries at most {ROWS_PER_ITEM} query heads "
                          f"per KV head, head dims <= {MAX_HEAD_DIM} and pool "
                          f"blocks <= {MAX_BLOCK_SIZE}; got groups={groups}, "
                          f"dk={dk}, dv={dv}, bs={bs}")
-    # staged per block: q rows, one K page (padded rows), one V page
-    if (ROWS_PER_BLOCK * dk + bs * (dk + 1 + dv)) * 4 > MAX_SMEM:
-        raise ValueError(f"block size {bs} x head dims ({dk}+{dv}) exceeds "
-                         f"the shared memory a block can stage")
-    desc = [a.to(torch.int32).contiguous()
-            for a in (block_tables, q_start, q_len, kv_len)]
+    if work.n_items <= 0:
+        raise ValueError("K1's work list has no item")
+    table = work.table
+    if not isinstance(table, torch.Tensor) or table.device != dev \
+            or table.dtype != torch.int32 or not table.is_contiguous() \
+            or table.shape != (work.n_items + work.n_combine, ITEM_COLS):
+        raise ValueError(f"the work list must be a contiguous (items + "
+                         f"combines, {ITEM_COLS}) int32 tensor on q's device "
+                         f"(RaggedWork.to)")
+    bt = block_tables.to(torch.int32).contiguous()
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
     out = torch.zeros((t, h, dv), dtype=q.dtype, device=dev)
-    tq = max(1, ROWS_PER_BLOCK // groups)
-    n_tiles = -(-t // tq)
+    ws = (torch.empty((work.n_parts, kvh, ROWS_PER_ITEM, dv + 2),
+                      dtype=torch.float32, device=dev)
+          if work.n_combine else None)
     score_scale = 2.0 ** (-kv_frac_bits) / math.sqrt(dk)
     lib = _build.load(_NAME, _SIGNATURES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ragged_paged_attention_launch(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-            *(a.data_ptr() for a in desc), out.data_ptr(),
-            h, kvh, dk, dv, s, nbmax, bs, n_tiles, tq,
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), bt.data_ptr(),
+            table.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(), h, kvh, dk, dv, nbmax, bs,
+            work.n_items, work.n_combine, work.max_splits,
+            (work.max_rows - 1) // bs + 2,      # pool blocks a range touches
             _f32_bits(score_scale), int(kv_frac_bits), _Q_CODES[q.dtype],
             _KV_CODES[k_pool.dtype], stream)
     if err != 0:
         raise RuntimeError(f"ragged attention kernel launch failed: CUDA "
                            f"error {err}")
     return out
+
+
+def plan_from_descriptors(q_start: torch.Tensor, q_len: torch.Tensor,
+                          kv_len: torch.Tensor, groups: int,
+                          device: Optional[torch.device] = None
+                          ) -> RaggedWork:
+    """The work list of descriptors held as tensors, read back to the
+    host (a device sync): for callers that pass no plan."""
+    work = plan_ragged_work(q_start.cpu().numpy(), q_len.cpu().numpy(),
+                            kv_len.cpu().numpy(), groups=groups)
+    return work if device is None else work.to(device)

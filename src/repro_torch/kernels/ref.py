@@ -19,10 +19,11 @@ import torch
 
 from repro_torch.core.qscheme import dequant, int_bounds
 
-__all__ = ["int8_matmul_ref", "quantize_ref", "residual_requant_ref",
-           "ragged_token_meta", "ragged_attention_ref",
-           "paged_attention_ref", "flash_attention_ref", "flash_decode_ref",
-           "flash_decode_split_ref", "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
+__all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "quantize_ref",
+           "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
+           "ragged_attention_split_ref", "paged_attention_ref",
+           "flash_attention_ref", "flash_decode_ref", "flash_decode_split_ref",
+           "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
 
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
@@ -68,6 +69,38 @@ def int8_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
     int64 one on the CPU."""
     acc = torch.matmul(x_int.to(torch.float64),
                        w_int.to(torch.float64)).to(torch.int32)
+    return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
+                          relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
+
+
+def int8_matmul_split_ref(x_int: torch.Tensor, w_int: torch.Tensor,
+                          b_int: Optional[torch.Tensor], *, k_chunk: int,
+                          shift: int, bias_shift: int = 0,
+                          relu: bool = False, lo: int = -128, hi: int = 127,
+                          out_dtype: torch.dtype = torch.int8
+                          ) -> torch.Tensor:
+    """K2's split-K arithmetic, for the tests: K is cut into pieces of
+    ``k_chunk`` rows, each piece's int32 partial product is taken alone,
+    the partials are added in int32, and the epilogue runs once on the
+    sum.  Bit-identical to ``int8_matmul_ref`` (integer addition is exact
+    in any order)."""
+    k = x_int.shape[-1]
+    acc = None
+    for k0 in range(0, k, k_chunk):
+        part = torch.matmul(x_int[..., k0:k0 + k_chunk].to(torch.float64),
+                            w_int[k0:k0 + k_chunk].to(torch.float64)
+                            ).to(torch.int32)
+        acc = part if acc is None else acc + part
+    return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
+                          relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
+
+
+def _int8_epilogue(acc: torch.Tensor, b_int: Optional[torch.Tensor], *,
+                   shift: int, bias_shift: int, relu: bool, lo: int, hi: int,
+                   out_dtype: torch.dtype) -> torch.Tensor:
+    """K2's epilogue on the int32 sum: bias aligned onto the accumulator
+    grid (left shift, or round-half-away right shift), ReLU, requant with
+    a saturating negative shift, clip, cast."""
     if b_int is not None:
         b = b_int.to(torch.int32)
         b = (b << bias_shift) if bias_shift >= 0 else _requant(
@@ -164,6 +197,66 @@ def ragged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     # fully-masked padding rows came out of the softmax as NaN — they are
     # no sequence's output, pin them to zero
     return torch.where(valid[:, None, None], out, torch.zeros_like(out))
+
+
+def ragged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               block_tables: torch.Tensor,
+                               q_start: torch.Tensor, q_len: torch.Tensor,
+                               kv_len: torch.Tensor, *, work,
+                               kv_frac_bits: Optional[int] = None
+                               ) -> torch.Tensor:
+    """K1's work-list arithmetic, for the tests: ``work`` (a
+    ``ragged_flash.RaggedWork`` with a host table) lists items (sequence,
+    first token, tokens, kv begin, kv end, partial slot).  Each item
+    gathers its kv range through the block table, casts K / V to q's type,
+    scores its tokens' rows in fp32 at 2^-n / sqrt(Dk) under the causal
+    rule, and forms (m, l, acc) — its own max, the unrounded sum of P, and
+    P rounded to q's type times V; an unsplit item writes acc / l * 2^-n,
+    a split one keeps its partials, and each combine entry merges its
+    slots: m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i e^(m_i -
+    m) / l * 2^-n.  Same function as ``ragged_attention_ref`` up to the
+    order of the fp32 sums; rows no item covers are exactly 0."""
+    t, h, dk = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    dv = v_pool.shape[-1]
+    g = h // kvh
+    nkv = kv_frac_bits_of(k_pool, kv_frac_bits)
+    scale = 2.0 ** (-nkv) / math.sqrt(dk)
+    table = torch.as_tensor(work.table).cpu().tolist()
+    qs, ql, kl = (a.cpu().tolist() for a in (q_start, q_len, kv_len))
+    out = torch.zeros((t, h, dv), dtype=torch.float32, device=q.device)
+    parts = {}
+    for s, t0, nt, c0, c1, part, _, _ in table[:work.n_items]:
+        rows = slice(qs[s] + t0, qs[s] + t0 + nt)
+        qg = q[rows].reshape(nt, kvh, g, dk).float()
+        pos = torch.arange(c0, c1, device=q.device)
+        blk = block_tables[s].long()[pos // bs]
+        k = k_pool[blk, pos % bs].to(q.dtype).float()        # (n, KVH, Dk)
+        v = v_pool[blk, pos % bs].to(q.dtype).float()
+        sc = torch.einsum("tkgd,nkd->tkgn", qg, k) * scale
+        lim = kl[s] - ql[s] + t0 + torch.arange(nt, device=q.device)
+        mask = pos[None, :] <= lim[:, None]                 # (nt, n)
+        sc = torch.where(mask[:, None, None], sc, float("-inf"))
+        m = sc.amax(dim=-1)
+        p = torch.where(mask[:, None, None], torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        l = p.sum(dim=-1)
+        acc = torch.einsum("tkgn,nkd->tkgd", p.to(q.dtype).float(), v)
+        if part < 0:
+            out[rows] = (acc / l[..., None] * 2.0 ** (-nkv)).reshape(nt, h, dv)
+        else:
+            parts[part] = (m, l, acc)
+    for s, t0, nt, first, n, _, _, _ in table[work.n_items:]:
+        ms = torch.stack([parts[first + i][0] for i in range(n)])
+        m = ms.amax(dim=0)
+        w = torch.where(ms == float("-inf"), torch.zeros_like(ms),
+                        torch.exp(ms - m))
+        l = sum(parts[first + i][1] * w[i] for i in range(n))
+        acc = sum(parts[first + i][2] * w[i][..., None] for i in range(n))
+        out[qs[s] + t0:qs[s] + t0 + nt] = (
+            acc / l[..., None] * 2.0 ** (-nkv)).reshape(nt, h, dv)
+    return out.to(q.dtype)
 
 
 def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,

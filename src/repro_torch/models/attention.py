@@ -32,6 +32,7 @@ from repro_torch.core.qmodel import QuantContext
 from repro_torch.core.qscheme import quant
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.ragged_flash import RaggedWork
 from repro_torch.models.common import linear, rmsnorm, rotate
 
 __all__ = ["KVCache", "PagedKVCache", "RaggedBatch", "init_gqa",
@@ -60,12 +61,16 @@ class RaggedBatch(NamedTuple):
     and sees ``kv_len[s]`` KV rows; ``dest`` is each token's flattened
     pool row (``block * block_size + pos % block_size``), padding rows
     point at the trash block.  All int32 tensors on the model's device.
+    ``work`` is K1's work list for these descriptors
+    (``kernels.ragged_flash.plan_ragged_work``, planned once per step and
+    shared by every layer); without it K1 plans from the descriptors.
     """
     dest: torch.Tensor          # (T,)
     block_tables: torch.Tensor  # (S, NBmax)
     q_start: torch.Tensor       # (S,)
     q_len: torch.Tensor         # (S,)
     kv_len: torch.Tensor        # (S,)
+    work: Optional[RaggedWork] = None
 
 
 def init_gqa(init, cfg: ModelConfig) -> dict:
@@ -143,7 +148,8 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, v)
         out = kops.ragged_attention(
             q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
-            ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits)
+            ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits,
+            work=ragged.work)
     elif isinstance(cache, PagedKVCache):
         if block_tables is None or cache_pos is None:
             raise ValueError("the paged path takes block_tables and (B, S) "

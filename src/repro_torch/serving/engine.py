@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ragged_flash import plan_ragged_work
 from repro_torch.launch.steps import build_paged_step, check_matmul_kernel
 from repro_torch.models import model as M
 from repro_torch.models.attention import RaggedBatch
@@ -362,9 +363,15 @@ class ServingEngine:
         (out (S, K+1), n_accepted (S,)) on the host."""
         t0 = time.perf_counter()
         put = self._put
+        # K1's work list, planned once from the host descriptors for every
+        # layer (the plain CPU path needs none)
+        work = (plan_ragged_work(q_start, q_len, kv_len,
+                                 groups=self.cfg.n_heads // self.cfg.n_kv_heads
+                                 ).to(self.device)
+                if self.device.type == "cuda" else None)
         rb = RaggedBatch(dest=put(dest), block_tables=put(bt),
                          q_start=put(q_start), q_len=put(q_len),
-                         kv_len=put(kv_len))
+                         kv_len=put(kv_len), work=work)
         tok_t = put(tokens)
         logits, self.cache = M.ragged_step(self.params, tok_t, self.cache,
                                            put(positions), rb, self.cfg,
