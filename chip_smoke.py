@@ -4,15 +4,16 @@ NVIDIA GPU.
 
     python3 chip_smoke.py [--out results.json] [--only 6,7]
 
-(``--only`` runs the build and the named kernel phases alone, for
-iterating on a kernel; the check is the run without it.)
+(``--only`` runs the build and the named phases alone, for iterating on
+a kernel or a path; the check is the run without it.)
 
 Run from a checkout of the repository on a machine with a CUDA device and
 the CUDA toolkit.  Phases, one line each (or a few):
 
-1. device: the card's name and power limit, and the build of every CUDA
+1. device: the card's name and power limit, the build of every CUDA
    kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per source, in
-   parallel);
+   parallel), and the launch floor: the device time of a one-element K3
+   launch and of a one-element PyTorch ``add_``, timed as every kernel;
 2. K2 (int8 shift-requant matmul) against its plain PyTorch version on the
    card, bit-exact: its epilogue variants, then a grid of M in {1, 4, 8,
    16, 23, 24, 25, 64, 127, 128} x every serving (K, N) and the split-K
@@ -69,13 +70,18 @@ the CUDA toolkit.  Phases, one line each (or a few):
 14. the ResNet's integer forward at batch 256 on the card against the
     CPU's plain path: identical logits, exactly 16 K2, 6 K7 and 2 K3
     launches, twice with identical logits, with images per second;
-15. K4 (paged attention over the KV block pool) against its plain version
-    over a grid of query counts, GQA groups, pool types, head dims and
-    block sizes (shuffled tables with trash tails, a padded slot, the
-    speculative step's extra trash column), at the legacy engine's decode
-    shape and over one long int8 cache (held row by row, at a tolerance a
-    repeated pool block fails), with the kernel's, the plain version's
-    and gather + dequantize + SDPA's times;
+15. K4 (paged attention over the KV block pool, on the work list its
+    positions plan) against its plain version and its split-and-combine
+    twin over a grid of query counts, GQA groups, pool types, head dims
+    and block sizes (shuffled tables with trash tails, a padded slot, the
+    speculative step's extra trash column); split cases (positions before,
+    at and after the 512-row split edge and 4095, head dims 12, 100 and
+    128, bf16 and fp32 q) and a 16-query chunk with a planned chunk edge
+    among its rows; the legacy engine's decode, prefill-chunk and verify
+    shapes and one long int8 cache (held row by row, at a tolerance a
+    repeated pool block fails), each with its items and chunks and the
+    kernel's, the plain version's and gather + dequantize + SDPA's times
+    beside its bound;
 16. ``paged_step`` of qwen3-1.7B at full width and 2 layers in fp32, the
     decode, prefill-chunk and (4, 4) verify shapes, kernels on the card
     against the plain path on the CPU, in phase 9's three cases: INT with
@@ -87,8 +93,11 @@ the CUDA toolkit.  Phases, one line each (or a few):
     K4 = 28 x its dispatches, K1 = 0 and K2 = 197 a dispatch in INT; then
     the ragged engine once, and speculative decoding (``spec_k=3``) on the
     legacy and the ragged engine (K1 = 28 x ragged steps, K4 = 0 there),
-    with tokens/s, TTFT, TPOT, the acceptance rate and the share of tokens
-    agreeing with the same engine's non-speculative run.
+    with tokens/s, TTFT, TPOT and the acceptance rate, every speculative
+    run token-identical to the same engine's non-speculative run; for each
+    request on which the two engines' plain runs differ, the top-2 logit
+    margin (in bf16 ulps) at the first divergent token, from the classic
+    dense prefill of the agreed prefix (printed, not gated).
 
 It then prints the card line, a JSON line describing every kernel (K4's
 ``library_ms`` is null: no single PyTorch call reads a block table), and
@@ -176,6 +185,11 @@ KV_FRAC_BITS = 4
 # length) and over one long cache (2048 shuffled blocks a slot)
 K4_DECODE_POS = (40, 55, 23, 70)
 K4_NBMAX, K4_LONG_BLOCKS = 5, 2048
+# K4's split cases: each slot's last position before, at and after the
+# 512-row split edge, and a 4096-row range; and a 16-query chunk ending at
+# K4_EDGE_LAST, whose second item's 33733-row range ends in a 5-row chunk
+K4_SPLIT_LAST = (511, 512, 513, 4095)
+K4_EDGE_LAST = 33732
 
 
 class SmokeFailure(Exception):
@@ -227,12 +241,13 @@ def bound_ms(n_bytes: float, n_ops: float, op_type: str):
 # phase 1: device and build
 # ---------------------------------------------------------------------------
 
-def phase_device(torch):
+def phase_device(torch, out):
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0].strip()
     from repro_torch.kernels import _build
+    from repro_torch.kernels.quantize import quantize_cuda
     secs = _build.build()
     log(f"[1] device: {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | kernels built in {secs:.1f} s")
@@ -240,6 +255,18 @@ def phase_device(torch):
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    {name}: {line.strip()}")
+    # what one launch of a kernel with nothing to do costs the device,
+    # timed as every kernel below is: a one-element K3 launch through the
+    # port's ctypes binding (uncounted), and PyTorch's own add_
+    one = torch.ones(1, device="cuda")
+    floor_ms = time_ms(torch, lambda: quantize_cuda(
+        one, n=0, lo=-128, hi=127, out_dtype=torch.int8), 500)
+    torch_ms = time_ms(torch, lambda: one.add_(1.0), 500)
+    log(f"[1] launch floor: {floor_ms:.5f} ms a one-element K3 launch, "
+        f"{torch_ms:.5f} ms a one-element PyTorch add_ (device time, "
+        f"launches queued behind the sleep kernel)")
+    out["device"] = dict(card=smi, build_s=secs, launch_floor_ms=floor_ms,
+                         torch_launch_floor_ms=torch_ms)
     return smi, secs
 
 
@@ -1808,6 +1835,30 @@ def _table_fault_caught(torch, plain, args, want, rel, nkv, col):
     return not _rows_within(torch, bad, want, rel)
 
 
+def _k4_held(torch, args, nkv, tol, what, rows=False):
+    """K4 on the plan of its positions (planned once, as the engine
+    plans) against its plain version and the split-and-combine twin on the
+    same plan, within atol = rtol = ``tol`` (and, with ``rows``, within
+    LONG_ROW_TOL of each row's largest |value|).  Returns (max |diff|,
+    host plan, kernel output, plain output)."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import paged_plan_from_positions
+    q, kp, _, bt, pos = args
+    work = paged_plan_from_positions(pos, table_width=bt.shape[1],
+                                     block_size=kp.shape[1],
+                                     groups=q.shape[2] // kp.shape[2])
+    got = ops.paged_attention(*args, kv_frac_bits=nkv, work=work.to("cuda"))
+    want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
+    split = ref.paged_attention_split_ref(*args, work=work, kv_frac_bits=nkv)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, plain in (("plain", want), ("split plain", split)):
+        err = max(err, _close(torch, got, plain, tol, f"{what} vs {name}"))
+        if rows:
+            _close_rows(torch, got, plain, LONG_ROW_TOL, f"{what} vs {name}")
+    return err, work, got, want
+
+
 def phase_k4(torch, out):
     from repro_torch.kernels import ops, ref
     gen = torch.Generator(device="cuda")
@@ -1824,45 +1875,85 @@ def phase_k4(torch, out):
                     args, nkv = _k4_case(torch, gen, 4, c, 2 * groups, 2, d,
                                          bs, 3, last, torch.float32, kv_dt,
                                          spec=c == 4, padded_slot=2)
-                    got = ops.paged_attention(*args, kv_frac_bits=nkv)
-                    want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
-                    torch.cuda.synchronize()
-                    grid_err = max(grid_err, _close(
-                        torch, got, want, 1e-4,
-                        f"K4 C {c} G {groups} {kv_dt} D {d} bs {bs}"))
+                    err, *_ = _k4_held(torch, args, nkv, 1e-4,
+                                       f"K4 C {c} G {groups} {kv_dt} D {d} "
+                                       f"bs {bs}")
+                    grid_err = max(grid_err, err)
                     n_grid += 1
     log(f"[15] K4 grid ({n_grid} cases: C 1/4/16, GQA 1/2/4, int8/fp32 "
-        f"pools, D 64/128, bs 16/128, fp32 q): within atol=rtol=1e-4 (max "
-        f"|diff| {grid_err:.2e})")
-    h, kvh, d = K1_HEADS, K1_KV_HEADS, K1_DIM
-    for c in (1, 4, 16):          # the engine's three shapes, bf16 q
-        b = 1 if c == 16 else 4
-        args, nkv = _k4_case(torch, gen, b, c, h, kvh, d, 16, K4_NBMAX,
-                             K4_DECODE_POS[:b], torch.bfloat16, torch.int8,
-                             spec=c == 4)
-        got = ops.paged_attention(*args, kv_frac_bits=nkv)
-        want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
-        torch.cuda.synchronize()
-        err = _close(torch, got, want, 2e-2, f"K4 engine shape ({b}, {c})")
-        log(f"[15] K4 engine shape (B {b}, C {c}, H {h}, KVH {kvh}, D {d}, "
-            f"bs 16, bf16 q, int8 pool): within atol=rtol=2e-2 (max |diff| "
-            f"{err:.2e})")
-    rows = []
-    cases = [("decode shape", 4, K4_NBMAX, K4_DECODE_POS, 2, 200),
-             ("long int8 cache", 4, K4_LONG_BLOCKS,
-              (K4_LONG_BLOCKS * 16 - 1,) * 4, K4_LONG_BLOCKS // 2, 20)]
-    for name, b, nbmax, last, col, iters in cases:
-        args, nkv = _k4_case(torch, gen, b, 1, h, kvh, d, 16, nbmax, last,
-                             torch.bfloat16, torch.int8)
-        got = ops.paged_attention(*args, kv_frac_bits=nkv)
-        want = ref.paged_attention_ref(*args, kv_frac_bits=nkv)
-        torch.cuda.synchronize()
-        err = _close_rows(torch, got, want, LONG_ROW_TOL, f"K4 {name}")
-        check(_table_fault_caught(torch, ref.paged_attention_ref, args, want,
-                                  LONG_ROW_TOL, nkv, col),
-              f"K4 {name}: the row tolerance passes a repeated pool block")
+        f"pools, D 64/128, bs 16/128, fp32 q): within atol=rtol=1e-4 of the "
+        f"plain version and of the split-and-combine twin (max |diff| "
+        f"{grid_err:.2e})")
+    h, kvh = K1_HEADS, K1_KV_HEADS
+    # split cases at qwen3-1.7B's heads: positions before, at and after the
+    # 512-row split edge and a 4096-row range, at C 1 and 4 (a 4-query run
+    # ending there), head dims 12, 100 and 128, both q types over an int8
+    # pool and q's own type as the pool
+    n_split, split_err = 0, 0.0
+    nbmax = K4_SPLIT_LAST[-1] // 16 + 1
+    for c in (1, 4):
+        for d in (12, 100, 128):
+            for q_dt, kv_dt, tol in ((torch.bfloat16, torch.int8, 2e-2),
+                                     (torch.float32, torch.int8, 1e-4),
+                                     (torch.bfloat16, torch.bfloat16, 2e-2),
+                                     (torch.float32, torch.float32, 1e-4)):
+                args, nkv = _k4_case(torch, gen, 4, c, h, kvh, d, 16, nbmax,
+                                     K4_SPLIT_LAST, q_dt, kv_dt)
+                err, work, *_ = _k4_held(torch, args, nkv, tol,
+                                         f"K4 split C {c} D {d} {q_dt} q "
+                                         f"{kv_dt} pool")
+                check(work.n_combine == 3, f"K4 split C {c}: "
+                      f"{work.n_combine} combine entries, not 3")
+                split_err = max(split_err, err)
+                n_split += 1
+    log(f"[15] K4 split cases ({n_split}: last positions "
+        f"{list(K4_SPLIT_LAST)} x C 1/4 x D 12/100/128 x bf16/fp32 q over "
+        f"int8 and q-typed pools, H {h} KVH {kvh}): within atol=rtol=2e-2 "
+        f"(bf16 q) / 1e-4 (fp32 q) of the plain version and the split twin "
+        f"(max |diff| {split_err:.2e})")
+    # a 16-query chunk whose second item sees 33733 rows: 31 chunks of 1088
+    # and a last one of 5, so 3 of its 8 queries see nothing of the last
+    # chunk (a partial with m = -inf) and 5 see part of it
+    for q_dt, kv_dt, tol in ((torch.bfloat16, torch.int8, 2e-2),
+                             (torch.float32, torch.int8, 1e-4)):
+        args, nkv = _k4_case(torch, gen, 1, 16, h, kvh, 128, 16,
+                             K4_EDGE_LAST // 16 + 1, (K4_EDGE_LAST,), q_dt,
+                             kv_dt)
+        err, work, *_ = _k4_held(torch, args, nkv, tol,
+                                 f"K4 chunk edge {q_dt} q", rows=True)
+        starts = sorted(work.table[:work.n_items, 3].tolist())
+        check(K4_EDGE_LAST - 7 < starts[-1] <= K4_EDGE_LAST,
+              f"K4 chunk edge: no chunk starts among the queries "
+              f"({starts[-3:]})")
+        log(f"[15] K4 chunk edge (C 16 at positions {K4_EDGE_LAST - 15}.."
+            f"{K4_EDGE_LAST}, a chunk from {starts[-1]}, {q_dt} q, int8 pool, "
+            f"{work.n_items} items, {work.n_combine} split): within "
+            f"atol=rtol={tol} and {LONG_ROW_TOL} of each row's largest "
+            f"|value| (max |diff| {err:.2e})")
+        del args
+    rows = {}
+    # the engine's three shapes (decode, prefill chunk, verify with a
+    # padded draft row on the trash column) and one long int8 cache
+    cases = [("decode shape", 4, 1, K4_NBMAX, K4_DECODE_POS, False, 200),
+             ("prefill chunk", 1, 16, K4_NBMAX, K4_DECODE_POS[:1], False, 200),
+             ("verify", 4, 4, K4_NBMAX, K4_DECODE_POS, True, 200),
+             ("long int8 cache", 4, 1, K4_LONG_BLOCKS,
+              (K4_LONG_BLOCKS * 16 - 1,) * 4, False, 20)]
+    for name, b, c, nbmax, last, spec, iters in cases:
+        args, nkv = _k4_case(torch, gen, b, c, h, kvh, K1_DIM, 16, nbmax,
+                             last, torch.bfloat16, torch.int8, spec=spec)
+        long = name.startswith("long")
+        err, work, got, want = _k4_held(torch, args, nkv, 2e-2, f"K4 {name}",
+                                        rows=long)
+        if long:
+            check(work.n_combine == b and _table_fault_caught(
+                      torch, ref.paged_attention_ref, args, want,
+                      LONG_ROW_TOL, nkv, K4_LONG_BLOCKS // 2),
+                  f"K4 {name}: not split, or the row tolerance passes a "
+                  f"repeated pool block")
+        work_d = work.to("cuda")
         ms = time_ms(torch, lambda: ops.paged_attention(
-            *args, kv_frac_bits=nkv), iters)
+            *args, kv_frac_bits=nkv, work=work_d), iters)
         plain_ms = time_ms(torch, lambda: ref.paged_attention_ref(
             *args, kv_frac_bits=nkv), 5, warmup=1)
         w_rows = args[3].shape[1] * args[1].shape[1]
@@ -1876,20 +1967,26 @@ def phase_k4(torch, out):
                                                     gqa), iters)
         n_bytes, n_ops = _k4_work(args)
         b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        rows.append(dict(name=name, b=b, positions=list(last), ms=ms,
-                         plain_ms=plain_ms, gather_sdpa_ms=gs_ms,
-                         bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                         bytes=n_bytes, ops=n_ops, library_ms=None))
-        log(f"[15] K4 {name} (B {b}, positions {list(last)[:4]}, {nbmax} "
-            f"blocks a table, bf16 q, int8 pool): within {LONG_ROW_TOL} of "
-            f"each row's largest |value|, which a repeated pool block fails "
-            f"(max |diff| {err:.2e}) | kernel {ms:.4f} ms, plain "
+        rows[name] = dict(b=b, c=c, positions=args[4].tolist(), ms=ms,
+                          plain_ms=plain_ms, gather_sdpa_ms=gs_ms,
+                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                          bytes=n_bytes, ops=n_ops, library_ms=None,
+                          items=work.n_items, splits=work.n_parts)
+        log(f"[15] K4 {name} (B {b}, C {c}, last positions {list(last)[:4]}, "
+            f"{args[3].shape[1]} blocks a table, bf16 q, int8 pool; "
+            f"{work.n_items} items, {work.n_combine} split into "
+            f"{work.n_parts} chunks): within atol=rtol=2e-2"
+            + (f" and {LONG_ROW_TOL} of each row's largest |value|, which a "
+               f"repeated pool block fails" if long else "")
+            + f" (max |diff| {err:.2e}) | kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, gather + dequantize + SDPA ({sdpa_how}, two "
             f"calls) {gs_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, "
-            f"{n_bytes} B)")
+            f"{n_bytes} B), {ms / b_ms:.1f}x the bound")
         del args, got, want
         torch.cuda.empty_cache()
-    res = dict(rows[0], long=rows[1], grid_max_abs_err=grid_err,
+    res = dict(rows["decode shape"], prefill=rows["prefill chunk"],
+               verify=rows["verify"], long=rows["long int8 cache"],
+               grid_max_abs_err=grid_err, split_max_abs_err=split_err,
                sdpa=sdpa_how)
     out["k4"] = res
     return res
@@ -2066,7 +2163,42 @@ def _engine_run(torch, mode, ragged, spec_k):
     launches = dict(ops.LAUNCHES)
     return dict(outputs=o["outputs"], requests=o["requests"],
                 report=o["report"], launches=launches, wall_s=wall,
-                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                engine=o["engine"])
+
+
+def _divergence_margins(torch, legacy, ragged):
+    """For each request whose tokens differ between the two engines'
+    runs, the agreed prefix (prompt and the tokens both generated) replayed
+    through the classic dense prefill on the card: the top-2 logit margin
+    at the first divergent position, in units of the top logit's bf16 ulp
+    (2^(floor(log2 |top|) - 7)), and which engine's token the replay
+    takes.  Returns [(rid, index, legacy token, ragged token, replay's
+    token, margin in ulps)]."""
+    import numpy as np
+    from repro_torch.models import model as M
+    eng = legacy["engine"]
+    rows = []
+    for req in legacy["requests"]:
+        a, b = legacy["outputs"][req.rid], ragged["outputs"][req.rid]
+        n = min(len(a), len(b))
+        diff = [i for i in range(n) if a[i] != b[i]]
+        if not diff:
+            continue
+        i = diff[0]
+        prefix = torch.from_numpy(np.concatenate(
+            [np.asarray(req.prompt, np.int64), np.asarray(a[:i], np.int64)]
+        )).to("cuda")[None]
+        with torch.no_grad():
+            logits, _ = M.prefill(eng.params, {"tokens": prefix}, eng.cfg,
+                                  eng.ctx)
+        top = torch.topk(logits[0].float(), 2)
+        t1, t2 = (float(v) for v in top.values)
+        ulp = (2.0 ** (math.floor(math.log2(abs(t1))) - 7) if t1
+               else 2.0 ** -133)
+        rows.append((req.rid, i, int(a[i]), int(b[i]),
+                     int(top.indices[0]), (t1 - t2) / ulp))
+    return rows
 
 
 def _agree(a, b):
@@ -2151,9 +2283,20 @@ def phase_legacy_engine(torch, out):
         log(summary(f"ragged engine {mode}", r) + f"; {share:.4f} of the "
             f"tokens agree with the legacy engine's")
         check_done(f"ragged engine {mode}", r)
+        margins = _divergence_margins(torch, runs[0], r)
+        for run in (*runs, r):     # the engines' weights and pools go
+            run.pop("engine")
+        for rid, i, ta, tb, tr, ulps in margins:
+            log(f"[17]   request {rid}: first divergence at generated token "
+                f"{i} (legacy {ta}, ragged {tb}); the dense prefill of the "
+                f"agreed prefix picks {tr}, top-2 margin {ulps:.2f} bf16 ulp")
+        log(f"[17] {mode}: {len(margins)} requests diverge between the "
+            f"engines; largest top-2 margin at a first divergence "
+            + (f"{max(m[-1] for m in margins):.2f} bf16 ulp" if margins
+               else "none"))
         res[f"ragged_{mode}"] = dict(
             {k: v for k, v in r.items() if k not in ("outputs", "requests")},
-            agree_with_legacy=share)
+            agree_with_legacy=share, divergence_margins_ulp=margins)
         for ragged in (False, True):
             r = _engine_run(torch, mode, ragged, 3)
             name = "ragged" if ragged else "legacy"
@@ -2162,6 +2305,8 @@ def phase_legacy_engine(torch, out):
             log(summary(tag, r) + f"; {share:.4f} of the tokens agree with "
                 f"the same engine's non-speculative run")
             check_done(tag, r)
+            check(share == 1.0, f"{tag}: {share:.4f} of the tokens agree "
+                  f"with the same engine's non-speculative run, not all")
             check(r["report"]["speculative"]["drafted_tokens"] > 0,
                   f"{tag}: nothing was drafted")
             if ragged:
@@ -2172,6 +2317,7 @@ def phase_legacy_engine(torch, out):
                       f"steps (want K1 {L * steps}, K4 0)")
             else:
                 check_legacy(tag, r, mode)
+            r.pop("engine")
             entry = {k: v for k, v in r.items()
                      if k not in ("outputs", "requests")}
             entry["agree_with_plain"] = share
@@ -2186,9 +2332,10 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None,
                     help="also write every measurement to this JSON file")
     ap.add_argument("--only", default=None, metavar="PHASES",
-                    help="run only these kernel phases after the build, "
-                         "comma-separated (2, 3, 6, 7, 12, 15); prints no "
-                         "kernels or ok line")
+                    help="run only these phases after the build (1, the "
+                         "build and launch floor, always runs), "
+                         "comma-separated (1, 2, 3, 6, 7, 12, 15, 17); "
+                         "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
@@ -2205,8 +2352,9 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     out: dict = {}
     if args.only:
-        alone = {2: phase_k2, 3: phase_k1, 6: phase_k5, 7: phase_k6,
-                 12: phase_cnn_kernels, 15: phase_k4}
+        alone = {1: lambda torch, out: None, 2: phase_k2, 3: phase_k1,
+                 6: phase_k5, 7: phase_k6, 12: phase_cnn_kernels,
+                 15: phase_k4, 17: phase_legacy_engine}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -2214,7 +2362,7 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         try:
-            phase_device(torch)
+            phase_device(torch, out)
             for phase in picked:
                 phase(torch, out)
         except SmokeFailure as e:
@@ -2227,7 +2375,7 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     try:
-        smi, build_s = phase_device(torch)
+        smi, build_s = phase_device(torch, out)
         k2 = phase_k2(torch, out)
         k1 = phase_k1(torch, out)
         phase_model(torch, out)

@@ -3,9 +3,10 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), at first use, and loaded with
-``ctypes``.  Library names carry a hash of the source and flags, so an
-edited source is rebuilt.  :func:`build` starts one ``nvcc`` per missing
-source, all at once, and waits for them together.
+``ctypes``.  Library names carry a hash of the source, of every header
+in ``csrc/`` (``*.cuh``, shared by K1 and K4) and of the flags, so an
+edited source or header is rebuilt.  :func:`build` starts one ``nvcc``
+per missing source, all at once, and waits for them together.
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on a machine without ``nvcc``.
@@ -30,7 +31,7 @@ KERNEL_SOURCES = ("int8_matmul", "ragged_attention", "flash_attention",
 # flash source's 56 instantiations build in under half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              "-split-compile", "0")
+              "-split-compile", "0", "-I", str(CSRC))
 
 # process-wide: a shared library is loaded once per process
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -47,8 +48,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    # the flags without the checkout's own path, which -I names
+    h.update(" ".join(f for f in NVCC_FLAGS if f != str(CSRC)).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

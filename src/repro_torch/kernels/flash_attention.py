@@ -27,7 +27,13 @@ left.
 K4 replaces ``_paged_flash_decode_kernel``: q (B, C, H, Dk) at per-token
 positions attends over the pool blocks each slot's table names, for every
 C (the legacy engine's decode, prefill-chunk and speculative-verify
-shapes), the table walked by pointer, never gathered.
+shapes), the table walked by pointer, never gathered.  It runs K1's body
+(``csrc/paged_kv_attention.cuh``) on K1's work-list layout:
+:func:`plan_paged_work` lists the items from the host positions, a long
+range split into chunks merged by a combine kernel.  The legacy engine
+plans once per dispatch and every layer shares the list; a caller without
+a plan gets one from :func:`paged_plan_from_positions`, which reads the
+positions back to the host.
 
 Called through ``kernels.ops.flash_attention`` / ``flash_decode`` /
 ``paged_attention``, which count the launches and take the plain versions
@@ -39,14 +45,20 @@ import ctypes
 import functools
 import math
 import struct
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ragged_flash import (ITEM_COLS, MAX_BLOCK_SIZE,
+                                              ROWS_PER_ITEM, RaggedWork,
+                                              _Planner)
 from repro_torch.kernels.ref import DEFAULT_MASK_VALUE
 
 __all__ = ["flash_prefill_cuda", "flash_decode_cuda", "paged_attention_cuda",
-           "plan_decode_splits"]
+           "plan_decode_splits", "plan_paged_work",
+           "paged_plan_from_positions"]
 
 _NAME = "flash_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -56,7 +68,7 @@ _SIGNATURES = {
 }
 _PAGED_NAME = "paged_attention"
 _PAGED_SIGNATURES = {"paged_attention_launch": (
-    ctypes.c_int, [_P] * 6 + [_I] * 12 + [_P])}
+    ctypes.c_int, [_P] * 8 + [_I] * 14 + [_P])}
 MAX_HEAD_DIM = 256
 PREFILL_MAX_GROUPS = 64    # query heads per KV head K5 carries
 DECODE_MAX_GROUPS = 16     # query heads per KV head K6 carries
@@ -90,6 +102,60 @@ def plan_decode_splits(pos: int, batch: int, kv_heads: int,
     chunk = -(-rows // n)
     chunk = -(-chunk // SPLIT_ROW_ALIGN) * SPLIT_ROW_ALIGN
     return -(-rows // chunk), chunk
+
+
+def plan_paged_work(positions, *, table_width: int, block_size: int,
+                    groups: int) -> RaggedWork:
+    """K4's work list for queries at the host ``positions`` (B, C) over
+    block tables of ``table_width`` blocks of ``block_size`` rows, for
+    ``groups`` query heads per KV head: K1's layout (``RaggedWork``), each
+    item's column 0 its slot b, column 6 the stream row b * C + c of its
+    first token in q read as (B * C, H, D), column 7 0 (the kernel reads
+    every row's causal limit from the positions on the device).
+
+    A slot's tokens go in items of consecutive c, at most 16 // groups
+    (16 (token, head) rows); a token joins its predecessor's item only
+    when its position is the predecessor's or one more, so an item's
+    rows see at most ``nt - 1`` kv rows fewer than its range.  A decode
+    row, a prefill chunk, a verify chunk's fed token and drafts are each
+    one run.  A padded verify row, which the engine puts on the table's
+    extra trash column (position ``nbmax * bs``, past every real row),
+    starts an item of its own with the padded rows after it, so it never
+    widens a real row's range (unless the real row is at ``nbmax * bs -
+    1``, where it adds the one row an ordinary next token would).  An item
+    sees kv rows ``[0, largest position + 1)`` clipped to ``table_width *
+    block_size``; past SPLIT_ROWS rows it is split as K1's items are."""
+    if not 1 <= groups <= ROWS_PER_ITEM:
+        raise ValueError(f"K4 carries 1..{ROWS_PER_ITEM} query heads per KV "
+                         f"head, not {groups}")
+    pos = np.asarray(positions, dtype=np.int64)
+    if pos.ndim != 2 or (pos < 0).any():
+        raise ValueError(f"K4 takes (B, C) positions >= 0, got shape "
+                         f"{pos.shape}")
+    b, c = pos.shape
+    rows = int(table_width) * int(block_size)
+    tq = ROWS_PER_ITEM // groups
+    plan = _Planner()
+    step = np.diff(pos, axis=1)
+    for slot in range(b):
+        t0 = 0
+        for t in range(1, c + 1):
+            if t == c or t - t0 == tq or not 0 <= step[slot, t - 1] <= 1:
+                vis = min(int(pos[slot, t0:t].max()) + 1, rows)
+                plan.add(slot, t0, t - t0, slot * c + t0, 0, vis)
+                t0 = t
+    return plan.work()
+
+
+def paged_plan_from_positions(positions: torch.Tensor, *, table_width: int,
+                              block_size: int, groups: int,
+                              device: Optional[torch.device] = None
+                              ) -> RaggedWork:
+    """K4's work list from positions held as a tensor, read back to the
+    host (a device sync): for callers that pass no plan."""
+    work = plan_paged_work(positions.cpu().numpy(), table_width=table_width,
+                           block_size=block_size, groups=groups)
+    return work if device is None else work.to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -186,12 +252,15 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          v_pool: torch.Tensor, block_tables: torch.Tensor,
                          q_positions: torch.Tensor, *, kv_frac_bits: int,
-                         scale: float) -> torch.Tensor:
-    """Launch K4: q (B, C, H, Dk) at positions ``q_positions`` (B, C) over
-    the pool (NB, bs, KVH, D) through ``block_tables`` (B, W), kv rows
-    ``<= position`` visible, scores times ``scale``; returns (B, C, H, Dv)
-    in q's dtype.  The table's width is read from its shape.  Head dims
-    are multiples of 16 (16-byte rows for every pool type)."""
+                         scale: float, work: RaggedWork) -> torch.Tensor:
+    """Launch K4 over ``work`` (:func:`plan_paged_work` of these positions
+    and this table width, on q's device): q (B, C, H, Dk) at positions
+    ``q_positions`` (B, C) over the pool (NB, bs, KVH, D) through
+    ``block_tables`` (B, W), kv rows ``<= position`` visible, scores times
+    ``scale``; returns (B, C, H, Dv) in q's dtype.  Any head dim up to
+    256.  The (n_parts, KVH, 16, Dv + 2) fp32 workspace of the split
+    items' partial states is allocated only when the list has combine
+    entries."""
     dev = q.device
     if dev.type != "cuda" or any(a.device != dev for a in (
             k_pool, v_pool, block_tables, q_positions)):
@@ -212,10 +281,27 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}, "
                          f"tables {tuple(block_tables.shape)}, positions "
                          f"{tuple(q_positions.shape)}")
-    if dk % 16 or dv % 16 or max(dk, dv) > MAX_HEAD_DIM:
-        raise ValueError(f"K4 takes head dims that are multiples of 16 up to "
-                         f"{MAX_HEAD_DIM}; got dk={dk}, dv={dv}")
+    groups = h // kvh
+    if groups > ROWS_PER_ITEM or max(dk, dv) > MAX_HEAD_DIM \
+            or bs > MAX_BLOCK_SIZE or w < 1:
+        raise ValueError(f"K4 carries at most {ROWS_PER_ITEM} query heads "
+                         f"per KV head, head dims <= {MAX_HEAD_DIM}, pool "
+                         f"blocks <= {MAX_BLOCK_SIZE} and a table of at "
+                         f"least one block; got groups={groups}, dk={dk}, "
+                         f"dv={dv}, bs={bs}, W={w}")
+    if work.n_items <= 0:
+        raise ValueError("K4's work list has no item")
+    table = work.table
+    if not isinstance(table, torch.Tensor) or table.device != dev \
+            or table.dtype != torch.int32 or not table.is_contiguous() \
+            or table.shape != (work.n_items + work.n_combine, ITEM_COLS):
+        raise ValueError(f"the work list must be a contiguous (items + "
+                         f"combines, {ITEM_COLS}) int32 tensor on q's device "
+                         f"(RaggedWork.to)")
     out = torch.empty((b, c, h, dv), dtype=q.dtype, device=dev)
+    ws = (torch.empty((work.n_parts, kvh, ROWS_PER_ITEM, dv + 2),
+                      dtype=torch.float32, device=dev)
+          if work.n_combine else None)
     bt = block_tables.to(torch.int32).contiguous()
     pos = q_positions.to(torch.int32).contiguous()
     q, k_pool, v_pool = q.contiguous(), k_pool.contiguous(), v_pool.contiguous()
@@ -224,7 +310,10 @@ def paged_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch("paged_attention_launch", q.data_ptr(), k_pool.data_ptr(),
                 v_pool.data_ptr(), bt.data_ptr(), pos.data_ptr(),
-                out.data_ptr(), b, c, h, kvh, dk, dv, w, bs,
+                table.data_ptr(), out.data_ptr(),
+                None if ws is None else ws.data_ptr(), h, kvh, dk, dv, w, bs,
+                work.n_items, work.n_combine, work.max_splits,
+                (work.max_rows - 1) // bs + 2,  # pool blocks a range touches
                 _f32_bits(score_scale), int(kv_frac_bits), _Q_CODES[q.dtype],
                 _KV_CODES[k_pool.dtype], stream, name=_PAGED_NAME,
                 signatures=_PAGED_SIGNATURES)

@@ -22,7 +22,8 @@ from repro_torch.core.qscheme import int_bounds
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  flash_prefill_cuda,
-                                                 paged_attention_cuda)
+                                                 paged_attention_cuda,
+                                                 paged_plan_from_positions)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
 from repro_torch.kernels.quantize import quantize_cuda
 from repro_torch.kernels.ragged_flash import (RaggedWork,
@@ -177,7 +178,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     q_positions: torch.Tensor, *,
                     kv_frac_bits: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    work: Optional[RaggedWork] = None) -> torch.Tensor:
     """Attention over the serving engine's paged KV block pool (the
     legacy per-shape engine's steps).
 
@@ -188,16 +190,24 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     blocks to pool blocks (any width: unused tail entries name the trash
     block and are masked); ``q_positions`` (B, C) are the queries'
     absolute positions, and a query attends to kv rows ``<=`` its own.
-    Scores are scaled by ``scale`` (default 1/sqrt(Dk)).  Returns
-    (B, C, H, Dv) in q's dtype."""
+    Scores are scaled by ``scale`` (default 1/sqrt(Dk)).  ``work`` is
+    K4's work list for these positions and this table width
+    (``flash_attention.plan_paged_work``, on q's device); without it one
+    is planned from the positions, read back to the host.  The CPU path
+    takes no plan.  Returns (B, C, H, Dv) in q's dtype."""
     nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
     if not _on_cuda(q, "paged_attention"):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
                                        q_positions, kv_frac_bits=kv_frac_bits,
                                        scale=scale)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if work is None:
+        work = paged_plan_from_positions(
+            q_positions, table_width=block_tables.shape[1],
+            block_size=k_pool.shape[1], groups=q.shape[2] // k_pool.shape[2],
+            device=q.device)
     out = paged_attention_cuda(q, k_pool, v_pool, block_tables, q_positions,
-                               kv_frac_bits=nkv, scale=scale)
+                               kv_frac_bits=nkv, scale=scale, work=work)
     LAUNCHES["paged_attention"] += 1
     return out
 

@@ -95,28 +95,51 @@ def plan_ragged_work(q_start, q_len, kv_len, *, groups: int) -> RaggedWork:
     q_start, q_len, kv_len = (np.asarray(a, dtype=np.int64)
                               for a in (q_start, q_len, kv_len))
     tq = ROWS_PER_ITEM // groups
-    items, combines, n_parts = [], [], 0
+    plan = _Planner()
     for s in range(len(q_len)):
         ql, kl = int(q_len[s]), int(kv_len[s])
         for t0 in range(0, max(ql, 0), tq):
             nt = min(tq, ql - t0)
             row0, lim0 = int(q_start[s]) + t0, kl - ql + t0
-            vis = lim0 + nt                # kv rows the item's last token sees
-            if vis <= SPLIT_ROWS:
-                items.append((s, t0, nt, 0, vis, -1, row0, lim0))
-                continue
-            n = min(-(-vis // SPLIT_ROWS), MAX_SPLITS)
-            chunk = -(-(-(-vis // n)) // STAGE_ROWS) * STAGE_ROWS
-            n = -(-vis // chunk)
-            combines.append((s, t0, nt, n_parts, n, 0, row0, 0))
-            items += [(s, t0, nt, i * chunk, min(vis, (i + 1) * chunk),
-                       n_parts + i, row0, lim0) for i in range(n)]
-            n_parts += n
-    items.sort(key=lambda it: it[3] - it[4])   # longest kv range first
-    table = np.array(items + combines, dtype=np.int32).reshape(-1, ITEM_COLS)
-    return RaggedWork(table, len(items), len(combines), n_parts,
-                      max((c[4] for c in combines), default=0),
-                      max((it[4] - it[3] for it in items), default=0))
+            # over the kv rows the item's last token sees
+            plan.add(s, t0, nt, row0, lim0, lim0 + nt)
+    return plan.work()
+
+
+class _Planner:
+    """Items and combine entries of a work list, as K1's and K4's
+    planners add them."""
+
+    def __init__(self):
+        self.items, self.combines, self.n_parts = [], [], 0
+
+    def add(self, s: int, t0: int, nt: int, row0: int, lim0: int,
+            vis: int) -> None:
+        """Tokens ``t0 .. t0 + nt`` of sequence ``s`` (stream rows from
+        ``row0``) over kv rows ``[0, vis)``: one item up to SPLIT_ROWS
+        rows, else equal chunks of a multiple of STAGE_ROWS rows (the last
+        one shorter, none empty, at most MAX_SPLITS) and their combine
+        entry."""
+        if vis <= SPLIT_ROWS:
+            self.items.append((s, t0, nt, 0, vis, -1, row0, lim0))
+            return
+        n = min(-(-vis // SPLIT_ROWS), MAX_SPLITS)
+        chunk = -(-(-(-vis // n)) // STAGE_ROWS) * STAGE_ROWS
+        n = -(-vis // chunk)
+        self.combines.append((s, t0, nt, self.n_parts, n, 0, row0, 0))
+        self.items += [(s, t0, nt, i * chunk, min(vis, (i + 1) * chunk),
+                        self.n_parts + i, row0, lim0) for i in range(n)]
+        self.n_parts += n
+
+    def work(self) -> RaggedWork:
+        # longest kv range first
+        items = sorted(self.items, key=lambda it: it[3] - it[4])
+        table = np.array(items + self.combines,
+                         dtype=np.int32).reshape(-1, ITEM_COLS)
+        return RaggedWork(table, len(items), len(self.combines),
+                          self.n_parts,
+                          max((c[4] for c in self.combines), default=0),
+                          max((it[4] - it[3] for it in items), default=0))
 
 
 def _f32_bits(x: float) -> int:

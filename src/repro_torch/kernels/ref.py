@@ -22,6 +22,7 @@ from repro_torch.core.qscheme import dequant, int_bounds
 __all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "quantize_ref",
            "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
            "ragged_attention_split_ref", "paged_attention_ref",
+           "paged_attention_split_ref",
            "flash_attention_ref", "flash_decode_ref", "flash_decode_split_ref",
            "kv_frac_bits_of", "DEFAULT_MASK_VALUE"]
 
@@ -295,6 +296,69 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, c, h, dv).to(q.dtype)
+
+
+def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor,
+                              block_tables: torch.Tensor,
+                              q_positions: torch.Tensor, *, work,
+                              kv_frac_bits: Optional[int] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """K4's work-list arithmetic, for the tests: ``work`` (a
+    ``ragged_flash.RaggedWork`` with a host table, from
+    ``flash_attention.plan_paged_work``) lists items (slot, first token,
+    tokens, kv begin, kv end, partial slot).  Each item gathers its kv
+    range through its slot's block table, casts K / V to q's type, scores
+    its tokens' rows in fp32 at ``scale`` (default 1/sqrt(Dk)) times 2^-n
+    under each row's own ``q_positions`` entry, and forms (m, l, acc) —
+    its own max, the unrounded sum of P, and P rounded to q's type times
+    V; an unsplit item writes acc / l * 2^-n, a split one keeps its
+    partials, and each combine entry merges its slots: m = max m_i, l =
+    sum l_i e^(m_i - m), out = sum acc_i e^(m_i - m) / l * 2^-n.  Same
+    function as ``paged_attention_ref`` up to the order of the fp32 sums;
+    a row no item covers, or whose l is 0, is 0."""
+    b, c, h, dk = q.shape
+    bs, kvh = k_pool.shape[1], k_pool.shape[2]
+    dv = v_pool.shape[-1]
+    g = h // kvh
+    nkv = kv_frac_bits_of(k_pool, kv_frac_bits)
+    scale = (1.0 / math.sqrt(dk) if scale is None else scale) * 2.0 ** (-nkv)
+    table = torch.as_tensor(work.table).cpu().tolist()
+    qpos = q_positions.long()
+    out = torch.zeros((b, c, h, dv), dtype=torch.float32, device=q.device)
+
+    def finish(acc, l):
+        l = torch.where(l == 0, torch.ones_like(l), l)
+        return (acc / l[..., None] * 2.0 ** (-nkv)).reshape(-1, h, dv)
+
+    parts = {}
+    for slot, t0, nt, c0, c1, part, _, _ in table[:work.n_items]:
+        qg = q[slot, t0:t0 + nt].reshape(nt, kvh, g, dk).float()
+        pos = torch.arange(c0, c1, device=q.device)
+        blk = block_tables[slot].long()[pos // bs]
+        k = k_pool[blk, pos % bs].to(q.dtype).float()        # (n, KVH, Dk)
+        v = v_pool[blk, pos % bs].to(q.dtype).float()
+        sc = torch.einsum("tkgd,nkd->tkgn", qg, k) * scale
+        mask = pos[None, :] <= qpos[slot, t0:t0 + nt, None]  # (nt, n)
+        sc = torch.where(mask[:, None, None], sc, float("-inf"))
+        m = sc.amax(dim=-1)
+        p = torch.where(mask[:, None, None], torch.exp(sc - m[..., None]),
+                        torch.zeros_like(sc))
+        l = p.sum(dim=-1)
+        acc = torch.einsum("tkgn,nkd->tkgd", p.to(q.dtype).float(), v)
+        if part < 0:
+            out[slot, t0:t0 + nt] = finish(acc, l)
+        else:
+            parts[part] = (m, l, acc)
+    for slot, t0, nt, first, n, _, _, _ in table[work.n_items:]:
+        ms = torch.stack([parts[first + i][0] for i in range(n)])
+        m = ms.amax(dim=0)
+        w = torch.where(ms == float("-inf"), torch.zeros_like(ms),
+                        torch.exp(ms - m))
+        l = sum(parts[first + i][1] * w[i] for i in range(n))
+        acc = sum(parts[first + i][2] * w[i][..., None] for i in range(n))
+        out[slot, t0:t0 + nt] = finish(acc, l)
+    return out.to(q.dtype)
 
 
 def _dense_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -63,13 +63,15 @@ def build_serve_step(cfg: ModelConfig, ctx: QuantContext):
 def build_paged_step(cfg: ModelConfig, ctx: QuantContext):
     """One step of the legacy per-shape engine over the paged KV block
     pool: ``paged_step(params, tokens (B, C), cache, positions (B, C),
-    block_tables (B, W)) -> (logits (B, C, V), cache)``.  The same step
-    serves the decode (n_slots, 1), prefill-chunk (1, C) and verify
-    (n_slots, K + 1) shapes."""
+    block_tables (B, W), work=None) -> (logits (B, C, V), cache)``, with
+    ``work`` K4's work list for the positions (planned once per step).
+    The same step serves the decode (n_slots, 1), prefill-chunk (1, C)
+    and verify (n_slots, K + 1) shapes."""
     check_matmul_kernel(cfg, ctx)
 
-    def paged_step(params, tokens, cache, positions, block_tables):
+    def paged_step(params, tokens, cache, positions, block_tables,
+                   work=None):
         return M.paged_step(params, tokens, cache, positions, block_tables,
-                            cfg, ctx)
+                            cfg, ctx, work=work)
 
     return paged_step

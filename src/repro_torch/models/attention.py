@@ -96,6 +96,7 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                   cache=None, cache_pos=None,
                   ragged: Optional[RaggedBatch] = None,
                   block_tables: Optional[torch.Tensor] = None,
+                  paged_work: Optional[RaggedWork] = None,
                   name: str = "attn"):
     """GQA with qk_norm and rope; ``rope`` is the (cos, sin) table of the
     tokens' absolute positions (``common.rope_tables``).  Returns
@@ -108,7 +109,9 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     * ``cache`` a :class:`PagedKVCache` with ``block_tables`` (B, W):
       x (B, S, d) at the per-token positions ``cache_pos`` (B, S); each
       token's codes go IN PLACE to pool row ``block_tables[b, pos // bs]
-      * bs + pos % bs``, then K4 attends over the tables.
+      * bs + pos % bs``, then K4 attends over the tables, on
+      ``paged_work`` (``kernels.flash_attention.plan_paged_work`` of these
+      positions, planned once per step) where given.
     * ``cache`` a :class:`KVCache`: x (B, S, d); the new K/V (Eq.-1 codes
       when the cache is int8, quantized once) are written IN PLACE at
       ``cache_pos`` (an int; the reference's ``dynamic_update_slice``
@@ -163,7 +166,8 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(
             0, idx, v.reshape(-1, kvh, hd))
         out = kops.paged_attention(q, cache.k, cache.v, block_tables,
-                                   cache_pos, kv_frac_bits=kv_frac_bits)
+                                   cache_pos, kv_frac_bits=kv_frac_bits,
+                                   work=paged_work)
     else:
         flash = cfg.attn_kernel == "flash"
         if cfg.attn_kernel not in ("flash", "chunked"):

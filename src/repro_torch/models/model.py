@@ -179,7 +179,7 @@ def ragged_step(params: dict, tokens: torch.Tensor, cache: dict,
 
 def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
                positions: torch.Tensor, block_tables: torch.Tensor,
-               cfg: ModelConfig, ctx: QuantContext
+               cfg: ModelConfig, ctx: QuantContext, work=None
                ) -> tuple[torch.Tensor, dict]:
     """One step of the legacy per-shape engine over the paged KV block
     pool: tokens (B, C) at per-token absolute ``positions`` (B, C), with
@@ -187,8 +187,11 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     blocks.  Serves the continuous-batching decode (B = n_slots, C = 1),
     a chunked-prefill chunk (B = 1, C = chunk bucket) and a speculative
     verify chunk (B = n_slots, C = K + 1, one extra trash column in the
-    table).  Returns (logits (B, C, V) in the activation dtype, cache);
-    the pool tensors are updated in place."""
+    table).  ``work`` is K4's work list for these positions
+    (``kernels.flash_attention.plan_paged_work``, on the device), shared
+    by every layer; without it each layer's K4 plans from the positions.
+    Returns (logits (B, C, V) in the activation dtype, cache); the pool
+    tensors are updated in place."""
     _check_family(cfg, "paged_step")
     dt = model_dtype(cfg)
     x = embed(params["embed"], tokens, dt)
@@ -198,7 +201,8 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
         x, _ = tfm.dense_block(
             ctx, p_l, x, cfg, rope=rope,
             cache=att.PagedKVCache(kv.k[layer], kv.v[layer]),
-            cache_pos=positions, block_tables=block_tables)
+            cache_pos=positions, block_tables=block_tables,
+            paged_work=work)
     x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return unembed(ctx, x, head), cache

@@ -26,10 +26,12 @@ def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
 
 def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
                 cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
-                cache=None, cache_pos=None, ragged=None, block_tables=None):
+                cache=None, cache_pos=None, ragged=None, block_tables=None,
+                paged_work=None):
     """One layer: x is the ragged stream (T, d) with ``ragged`` and the
     pool as ``cache``; a (B, S, d) batch over the pool with
-    ``block_tables`` and per-token positions ``cache_pos``; or a (B, S, d)
+    ``block_tables``, per-token positions ``cache_pos`` and K4's
+    ``paged_work``; or a (B, S, d)
     batch with an optional dense ``cache`` written at ``cache_pos``
     (``attention.gqa_attention``).
     ``rope`` is the step's (cos, sin) tables.  All quantization lives
@@ -38,7 +40,7 @@ def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
     h, new_cache = att.gqa_attention(
         ctx, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
         rope=rope, cache=cache, cache_pos=cache_pos, ragged=ragged,
-        block_tables=block_tables)
+        block_tables=block_tables, paged_work=paged_work)
     x = x + h
     x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg.act)

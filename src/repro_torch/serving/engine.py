@@ -40,6 +40,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.flash_attention import plan_paged_work
 from repro_torch.kernels.ragged_flash import plan_ragged_work
 from repro_torch.launch.steps import build_paged_step, check_matmul_kernel
 from repro_torch.models import model as M
@@ -368,7 +369,7 @@ class ServingEngine:
         work = (plan_ragged_work(q_start, q_len, kv_len,
                                  groups=self.cfg.n_heads // self.cfg.n_kv_heads
                                  ).to(self.device)
-                if self.device.type == "cuda" else None)
+                if self._plans_work() else None)
         rb = RaggedBatch(dest=put(dest), block_tables=put(bt),
                          q_start=put(q_start), q_len=put(q_len),
                          kv_len=put(kv_len), work=work)
@@ -401,6 +402,11 @@ class ServingEngine:
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _plans_work(self) -> bool:
+        """Whether a step plans its attention kernel's work list on the
+        host: on the card; the plain CPU path takes none."""
+        return self.device.type == "cuda"
+
     # -- legacy per-shape steps (ragged=False) ---------------------------
 
     def _dispatch(self, tokens, positions, bt, temps, topks, *,
@@ -411,10 +417,17 @@ class ServingEngine:
         decode and prefill steps); with them the whole (B, C) chunk is a
         speculative verify.  Returns (out (B, K+1), n_accepted (B,))."""
         t0 = time.perf_counter()
+        # K4's work list, planned once from the host positions for every
+        # layer
+        work = (plan_paged_work(positions, table_width=bt.shape[1],
+                                block_size=self.pool.block_size,
+                                groups=self.cfg.n_heads // self.cfg.n_kv_heads
+                                ).to(self.device)
+                if self._plans_work() else None)
         tok_t = self._put(tokens)
         logits, self.cache = self._paged_fn(self.params, tok_t, self.cache,
                                             self._put(positions),
-                                            self._put(bt))
+                                            self._put(bt), work=work)
         if n_drafts is None:
             logits = logits[:, last_idx:last_idx + 1]
             tok_t = tok_t[:, last_idx:last_idx + 1]

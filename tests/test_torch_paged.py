@@ -44,6 +44,7 @@ from repro_torch.core.qmodel import QuantContext as TCtx  # noqa: E402
 from repro_torch.core.qmodel import QuantMode as TMode  # noqa: E402
 from repro_torch.core.qmodel import quantize_weight_tree  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from repro_torch.kernels.flash_attention import plan_paged_work  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving.kv_pool import TRASH_BLOCK  # noqa: E402
@@ -118,7 +119,9 @@ def test_paged_attention_requires_frac_bits_for_codes():
 
 def test_paged_attention_cuda_takes_no_plain_fallback(monkeypatch):
     """On a CUDA tensor the wrapper reaches K4's binding (here a stand-in
-    that records the call) and never the plain version."""
+    that records the call) and never the plain version; without a plan it
+    hands the binding ``plan_paged_work`` of the positions and the table
+    width."""
     calls = []
 
     def fake(*args, **kw):
@@ -136,7 +139,13 @@ def test_paged_attention_cuda_takes_no_plain_fallback(monkeypatch):
         tops.paged_attention(*(torch.from_numpy(a)
                                for a in (q, kp, vp, bt, pos)),
                              kv_frac_bits=NKV)
+    assert len(calls) == 1
+    work = calls[0].pop("work")
     assert calls == [{"kv_frac_bits": NKV, "scale": 1 / 8.0}]
+    want = plan_paged_work(pos, table_width=bt.shape[1], block_size=16,
+                           groups=2)
+    assert np.array_equal(work.table.numpy(), want.table)
+    assert work[1:] == want[1:]
 
 
 # ---------------------------------------------------------------------------
