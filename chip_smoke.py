@@ -97,7 +97,24 @@ the CUDA toolkit.  Phases, one line each (or a few):
     run token-identical to the same engine's non-speculative run; for each
     request on which the two engines' plain runs differ, the top-2 logit
     margin (in bf16 ulps) at the first divergent token, from the classic
-    dense prefill of the agreed prefix (printed, not gated).
+    dense prefill of the agreed prefix (printed, not gated);
+18. the engine's observability at full depth on phase 5's workload: the
+    ragged INT engine with obs off and with ``trace=True, slo=True`` and a
+    metrics export, interleaved (off, on, on, off) for tokens/s, TPOT and
+    TTFT, every run token-identical with the same launches; an obs-on
+    INT and W8A8 run each held to K1 = 28 x steps and K2 = 197 x steps,
+    a clean schema diff and Chrome trace (one dispatch span a step), the
+    energy proxy reconciled exactly with the hwcost counters, and the
+    requant ops performed (and, W8A8, forward) equal to the rows each
+    step's descriptors scatter into the pool, counted independently;
+    the trace's split of the run's wall time into dispatch spans by shape
+    and the host time between them; a ``record=True`` run of the legacy
+    engine with ``spec_k=3`` (INT) and of the ragged engine (FP), each
+    through the JSON round trip and replayed on a fresh engine with
+    identical tokens, an empty decision diff and a matching fingerprint;
+    and a ``profile_dir`` run whose ``torch.profiler`` trace holds one
+    ``ragged_step#N`` annotation per dispatch, each with K1's launches
+    inside.
 
 It then prints the card line, a JSON line describing every kernel (K4's
 ``library_ms`` is null: no single PyTorch call reads a block table), and
@@ -2327,6 +2344,298 @@ def phase_legacy_engine(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the engine's observability at full depth
+# ---------------------------------------------------------------------------
+
+OBS_DIR = ROOT / "build" / "obs"
+
+
+def _obs_run(torch, count_rows=False, **kw):
+    """One full-depth engine run on phase 5's workload (8 requests at
+    once, 4 slots, the int8 pool); with ``count_rows`` the rows each
+    ragged step scatters into the pool (its ``dest`` outside the trash
+    block) are counted from the step's own descriptors, independently of
+    the engine's requant counters."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    from repro_torch.models import model as M
+    from repro_torch.serving.kv_pool import TRASH_BLOCK
+    rows = []
+    real_step = M.ragged_step
+    if count_rows:
+        def counting_step(params, tokens, cache, positions, rb, cfg, ctx):
+            bs = cache["paged_kv"][0].shape[2]
+            rows.append(int((rb.dest // bs != TRASH_BLOCK).sum()))
+            return real_step(params, tokens, cache, positions, rb, cfg, ctx)
+        M.ragged_step = counting_step
+    args = dict(smoke=False, kv_bits=8, n_requests=8, n_slots=4, rate=1e9,
+                device="cuda")
+    args.update(kw)
+    if not args.get("w8a8"):
+        args.setdefault("calibrate", False)
+    try:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        o = serve_engine("qwen3_1_7b", **args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        M.ragged_step = real_step
+    o.update(launches=dict(ops.LAUNCHES), wall_s=wall, rows=sum(rows))
+    return o
+
+
+def _same_tokens(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(
+        len(a[r]) == len(b[r]) and (a[r] == b[r]).all() for r in a)
+
+
+def _trace_split(chrome, wall_s):
+    """Wall time into dispatch spans by shape, and the host time between
+    them (wall minus the spans' sum)."""
+    by = {}
+    for e in chrome["traceEvents"]:
+        if e.get("cat") == "dispatch" and e["ph"] == "X":
+            key = f"{e['name']} {e['args']['shape']}"
+            n, us = by.get(key, (0, 0.0))
+            by[key] = (n + 1, us + e["dur"])
+    span_s = sum(us for _, us in by.values()) / 1e6
+    return {k: {"calls": n, "s": us / 1e6} for k, (n, us) in sorted(
+        by.items())}, span_s, wall_s - span_s
+
+
+def _profile_check(path, n_dispatch):
+    """Every ragged dispatch has its ``ragged_step#N`` annotation, and
+    every annotation holds at least one launch of K1's kernel (its
+    runtime launch call, matched to the kernel by correlation id, lies
+    inside the annotation's range).  Returns the annotations, K1's
+    kernels, the kernels launched inside each annotation and the summed
+    device time of every kernel in the trace (s)."""
+    import bisect
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    ann = [e for e in events if str(e.get("name", "")).startswith(
+        "ragged_step#") and e.get("cat") == "user_annotation"]
+    launch_ts = {}
+    for e in events:
+        corr = (e.get("args") or {}).get("correlation")
+        if e.get("cat") == "cuda_runtime" and corr is not None:
+            launch_ts[corr] = e["ts"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1 = [e for e in kernels if "RelLimit" in str(e.get("name", ""))]
+
+    def launches(evs):
+        return sorted(launch_ts[c] for c in
+                      ((e.get("args") or {}).get("correlation")
+                       for e in evs) if c in launch_ts)
+
+    k1_ts, all_ts = launches(k1), launches(kernels)
+    empty, per = [], []
+    for a in ann:
+        lo, hi = a["ts"], a["ts"] + a["dur"]
+        i = bisect.bisect_left(k1_ts, lo)
+        if i == len(k1_ts) or k1_ts[i] > hi:
+            empty.append(a["name"])
+        per.append(bisect.bisect_right(all_ts, hi)
+                   - bisect.bisect_left(all_ts, lo))
+    check(len(ann) == n_dispatch,
+          f"profile: {len(ann)} ragged_step annotations for {n_dispatch} "
+          f"dispatches")
+    check(k1 and len(k1_ts) == len(k1) and len(all_ts) == len(kernels),
+          f"profile: {len(k1)} K1 kernels and {len(kernels)} kernels in the "
+          f"trace, {len(k1_ts)} and {len(all_ts)} matched to their launches")
+    check(not empty, f"profile: no K1 launch inside {empty[:5]}")
+    return len(ann), len(k1), per, sum(e["dur"] for e in kernels) / 1e6
+
+
+def phase_obs(torch, out):
+    from repro_torch.configs import get_config
+    from repro_torch.core import hwcost
+    from repro_torch.obs.replay import (WorkloadRecord, build_requests,
+                                        engine_fingerprint, replay_workload)
+    from repro_torch.obs.schema import diff_schema, schema_of
+    from repro_torch.obs.trace import validate_chrome_trace
+    from repro_torch.serving.engine import ServingEngine
+    cfg = get_config("qwen3_1_7b")
+    L = cfg.n_layers
+    per_step_k2 = 7 * L + 1
+    kv_elems = L * cfg.n_kv_heads * cfg.resolved_head_dim * 2
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    res = {}
+
+    def obs_checks(tag, on, off, fwd_elems):
+        rep, eng = on["report"], on["engine"]
+        steps = rep["ragged_steps"]
+        check(_same_tokens(on["outputs"], off["outputs"]),
+              f"{tag}: obs-on tokens differ from the obs-off run's")
+        check(on["launches"] == off["launches"],
+              f"{tag}: launches {on['launches']} with obs on, "
+              f"{off['launches']} off")
+        check(on["launches"]["ragged_attention"] == L * steps
+              and on["launches"]["int8_matmul"] == per_step_k2 * steps
+              and rep["kernel_launches"] == {
+                  k: on["launches"][k] for k in rep["kernel_launches"]},
+              f"{tag}: launches {on['launches']} over {steps} steps (want "
+              f"K1 {L * steps}, K2 {per_step_k2 * steps})")
+        errs = diff_schema(schema_of(eng.metrics), spec=False, cache=True,
+                           slo=True)
+        check(not errs, f"{tag}: schema drift {errs[:5]}")
+        chrome = eng.tracer.to_chrome()
+        faults = validate_chrome_trace(chrome)
+        check(not faults, f"{tag}: chrome trace faults {faults[:5]}")
+        spans = [e for e in chrome["traceEvents"]
+                 if e.get("cat") == "dispatch" and e["ph"] == "X"]
+        check(len(spans) == steps and rep["obs"]["trace_dropped"] == 0,
+              f"{tag}: {len(spans)} dispatch spans for {steps} steps")
+        en, hw = rep["energy"], rep["hwcost"]
+        check(en["total_quant_ops"] == sum(
+            en[p]["quant_ops"] for p in ("prefill", "decode", "spec_wasted"))
+            == hw["requant_ops_performed"] + hw["requant_ops_forward"],
+            f"{tag}: energy {en['total_quant_ops']} != hwcost "
+            f"{hw['requant_ops_performed']} + {hw['requant_ops_forward']}")
+        check(en["total_energy_uj"] == round(hwcost.estimate(
+            "bit_shifting", hw["requant_ops_performed"]
+            + hw["requant_ops_forward"]).energy_uj, 6),
+            f"{tag}: energy uJ {en['total_energy_uj']}")
+        check(hw["requant_ops_performed"] == on["rows"] * kv_elems
+              and hw["requant_ops_forward"] == on["rows"] * fwd_elems
+              and on["rows"] == rep["dispatched_tokens"]
+              - rep["padded_tokens"] > 0,
+              f"{tag}: requant ops performed {hw['requant_ops_performed']}"
+              f", forward {hw['requant_ops_forward']}, for {on['rows']} "
+              f"rows scattered into the pool ({kv_elems} and {fwd_elems} "
+              f"a row)")
+        split, span_s, host_s = _trace_split(chrome, rep["wall_s"])
+        log(f"[18] {tag}: {steps} steps, {on['rows']} rows scattered, "
+            f"requant ops {hw['requant_ops_performed']} performed / "
+            f"{hw['requant_ops_avoided']} avoided / "
+            f"{hw['requant_ops_avoided_prefix_cache']} prefix-cache / "
+            f"{hw['requant_ops_forward']} forward, energy proxy "
+            f"{en['proxy_uj_per_token']} uJ/token, slo alerts "
+            f"{rep['slo']['alerts_fired']}; schema clean, trace clean")
+        log(f"[18] {tag}: wall {rep['wall_s']:.4f} s = dispatch spans "
+            f"{span_s:.4f} s + host between {host_s:.4f} s; "
+            + ", ".join(f"{k} {v['calls']}x {v['s']:.4f} s"
+                        for k, v in split.items()))
+        return dict(steps=steps, rows=on["rows"], hwcost=hw, energy=en,
+                    wall_s=rep["wall_s"], span_s=span_s, host_s=host_s,
+                    split=split, slo=rep["slo"]["alerts_fired"])
+
+    # INT: obs off and on interleaved (off, on, on, off) for tokens/s,
+    # then an obs-on run that counts the rows scattered into the pool
+    timed = {"off": [], "on": []}
+    runs = []
+    for i, on in enumerate((False, True, True, False)):
+        kw = dict(trace=True, slo=True) if on else {}
+        if on and i == 1:
+            kw["metrics_path"] = str(OBS_DIR / "int.prom")
+        r = _obs_run(torch, mode="int", **kw)
+        rep = r["report"]
+        timed["on" if on else "off"].append(
+            (rep["tokens_per_s"], rep["tpot_s"]["p50"], rep["ttft_s"]["p50"]))
+        r.pop("engine")
+        runs.append(r)
+        del r
+        torch.cuda.empty_cache()
+    for r in runs[1:]:
+        check(_same_tokens(r["outputs"], runs[0]["outputs"])
+              and r["launches"] == runs[0]["launches"],
+              "int: the four timing runs differ in tokens or launches")
+    text = (OBS_DIR / "int.prom").read_text()
+    check("# TYPE hwcost_requant_ops_performed counter" in text
+          and "kernel_launches" in text, "int: metrics export incomplete")
+    for k in ("off", "on"):
+        log(f"[18] int obs {k}: tokens/s "
+            + ", ".join(f"{t[0]}" for t in timed[k]) + "; TPOT p50 "
+            + ", ".join(f"{t[1]:.5f}" for t in timed[k]) + " s; TTFT p50 "
+            + ", ".join(f"{t[2]:.5f}" for t in timed[k]) + " s")
+    res["timed_int"] = timed
+    off = runs[0]
+    int_off = dict(outputs=off["outputs"], launches=off["launches"])
+    on = _obs_run(torch, count_rows=True, mode="int", trace=True, slo=True)
+    res["int"] = obs_checks("int", on, off, 0)
+    del on, runs
+    torch.cuda.empty_cache()
+
+    # W8A8: obs off, then obs on with the row count
+    off = _obs_run(torch, w8a8=True)
+    off.pop("engine")
+    on = _obs_run(torch, count_rows=True, w8a8=True, trace=True, slo=True,
+                  metrics_path=str(OBS_DIR / "w8a8.prom"))
+    fwd = hwcost.forward_quant_ops_per_token(
+        dataclasses.replace(cfg, matmul_kernel="int8"))
+    res["w8a8"] = obs_checks("w8a8", on, off, fwd)
+    del on, off
+    torch.cuda.empty_cache()
+
+    # the flight recorder: record, JSON round trip, replay on a fresh
+    # engine (the capture's weights and context, a new pool)
+    for tag, kw in (("legacy int spec_k=3", dict(mode="int", ragged=False,
+                                                  spec_k=3)),
+                    ("ragged fp", dict(mode="fp"))):
+        r = _obs_run(torch, record=True, **kw)
+        eng = r["engine"]
+        rec = WorkloadRecord.from_json(json.loads(json.dumps(
+            r["record"].to_json())))
+        es = rec.engine
+        fresh = ServingEngine(
+            eng.cfg, eng.params, eng.ctx, n_slots=es["n_slots"],
+            block_size=es["block_size"], max_model_len=es["max_model_len"],
+            num_blocks=es["num_blocks"], chunk=es["chunk"],
+            prefill_token_budget=es["prefill_token_budget"],
+            top_k=es["default_top_k"], seed=es["seed"],
+            prefix_cache=es["prefix_cache"], spec_k=es["spec_k"],
+            ragged=es["ragged"], record=True, virtual_dt=es["virtual_dt"],
+            device="cuda")
+        with torch.no_grad():
+            rr = replay_workload(rec, fresh, strict_fingerprint=True)
+        rep = r["report"]
+        dispatches = rep["ragged_steps"] if es["ragged"] else (
+            rep["prefill_chunks"] + rep["decode_steps"] + rep["spec_steps"])
+        log(f"[18] {tag} record: {len(rec.requests)} requests, "
+            f"{len(rec.decisions)} decisions, {dispatches} dispatches, "
+            f"fingerprint {rec.fingerprint}; replay on a fresh engine: "
+            f"tokens {'identical' if rr.token_identical else 'DIFFER'}, "
+            f"decision diff {len(rr.decision_diff)} lines, fingerprint "
+            f"{'match' if rr.fingerprint_match else 'MISMATCH'}")
+        check(rr.ok and rr.fingerprint_match
+              and rr.outputs == rec.outputs
+              and engine_fingerprint(fresh) == rec.fingerprint,
+              f"{tag}: replay differs {rr.mismatched_rids} "
+              f"{rr.decision_diff[:10]}")
+        check(build_requests(rec)[0].prompt == list(rec.requests[0]["prompt"]),
+              f"{tag}: record requests")
+        res[f"record {tag}"] = dict(decisions=len(rec.decisions),
+                                    dispatches=dispatches)
+        del r, eng, fresh, rr
+        torch.cuda.empty_cache()
+
+    # torch.profiler capture: one annotation per dispatch, K1 inside
+    prof_dir = OBS_DIR / "profile"
+    r = _obs_run(torch, mode="int", profile_dir=str(prof_dir))
+    rep = r["report"]
+    (path,) = rep["profile"]["trace_files"]
+    n_ann, n_k1, per, dev_s = _profile_check(path, rep["ragged_steps"])
+    check(_same_tokens(r["outputs"], int_off["outputs"])
+          and r["launches"] == int_off["launches"],
+          "profile: tokens or launches differ from the obs-off run's")
+    log(f"[18] profile: {n_ann} ragged_step annotations for "
+        f"{rep['ragged_steps']} dispatches, {n_k1} K1 kernels, each "
+        f"annotation holding K1 launches -> {path}")
+    log(f"[18] profile: kernels launched a dispatch min {min(per)} / mean "
+        f"{sum(per) / len(per):.1f} / max {max(per)} ({sum(per) / len(per) / L:.1f}"
+        f" a layer); device time of all kernels {dev_s:.4f} s over a "
+        f"profiled wall of {rep['wall_s']:.4f} s (busy share "
+        f"{dev_s / rep['wall_s']:.3f})")
+    res["profile"] = dict(annotations=n_ann, k1_kernels=n_k1,
+                          kernels_per_dispatch=per, device_s=dev_s,
+                          wall_s=rep["wall_s"])
+    del r
+    torch.cuda.empty_cache()
+    out["obs"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -2334,7 +2643,8 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None, metavar="PHASES",
                     help="run only these phases after the build (1, the "
                          "build and launch floor, always runs), "
-                         "comma-separated (1, 2, 3, 6, 7, 12, 15, 17); "
+                         "comma-separated (1, 2, 3, 6, 7, 12, 15, 17, "
+                         "18); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -2354,7 +2664,7 @@ def main(argv=None) -> int:
     if args.only:
         alone = {1: lambda torch, out: None, 2: phase_k2, 3: phase_k1,
                  6: phase_k5, 7: phase_k6, 12: phase_cnn_kernels,
-                 15: phase_k4, 17: phase_legacy_engine}
+                 15: phase_k4, 17: phase_legacy_engine, 18: phase_obs}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -2397,6 +2707,8 @@ def main(argv=None) -> int:
         k4 = phase_k4(torch, out)
         phase_paged_model(torch, out)
         legacy = phase_legacy_engine(torch, out)
+        torch.cuda.empty_cache()
+        phase_obs(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

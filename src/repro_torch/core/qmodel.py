@@ -124,7 +124,8 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     if ctx.mode is QuantMode.FAKE_SF:
         raise NotImplementedError(
             "QuantMode 'fake_sf' (the scaling-factor baseline) is not ported "
-            "yet (ROADMAP Queue 1 item 11: core/baselines.py)")
+            "yet (ROADMAP Queue 1 item 3, 'The paper's tables and their "
+            "baselines': core/baselines.py)")
 
     mb = ctx.bits_for(name)
     n_b = mb.n_b if mb.n_b is not None else mb.n_w

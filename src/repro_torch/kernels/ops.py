@@ -228,7 +228,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.requires_grad:
         raise NotImplementedError(
             "flash_attention on CUDA is forward-only: K5's backward comes "
-            "with training (ROADMAP Queue 1 item 12)")
+            "with training (ROADMAP Queue 1 item 7, 'Training and "
+            "infrastructure')")
     out = flash_prefill_cuda(q, k, v, kv_frac_bits=nkv)
     LAUNCHES["flash_prefill"] += 1
     return out

@@ -17,13 +17,22 @@ attention, K4) instead of the unified ragged step (K1):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
         --engine [--w8a8 | --mode fp | --mode int --no-calibrate] \
-        [--spec-k 3] [--no-ragged]
+        [--spec-k 3] [--no-ragged] [--trace OUT.json] [--metrics OUT.prom] \
+        [--profile-dir DIR] [--record OUT.json] [--slo]
+
+Observability: ``--trace`` exports the run's Chrome trace (Perfetto),
+``--metrics`` the registry's Prometheus text, ``--profile-dir`` a
+``torch.profiler`` trace with one annotation per dispatch, ``--record``
+a workload record on the virtual clock, ``--slo`` the stock SLO
+objectives' burn-rate alerts; ``--replay IN.json`` re-runs a record (from
+either package) and exits non-zero unless its tokens and scheduler
+decisions are identical.
 
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--attn-kernel
 flash`` sends the classic path's attention through the flash prefill and
 decode kernels (K5, K6); ``chunked`` (the default) through their plain
-versions.  The JAX CLI's ``--mesh``, tracing, recording and replay options
-are not ported yet.
+versions.  The JAX CLI's ``--mesh`` and ``--profile-cost`` options are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -168,10 +177,14 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  cfg_overrides: dict | None = None, shared_prefix: int = 0,
                  prefix_cache: bool | None = None, spec_k: int = 0,
                  drafter="ngram", ragged: bool = True, w8a8: bool = False,
-                 params=None, device=None) -> dict:
+                 trace: str | bool = False, trace_capacity: int = 65536,
+                 metrics_path: str | None = None,
+                 profile_dir: str | None = None,
+                 record: str | bool = False, virtual_dt: float = 1e-3,
+                 slo=None, params=None, device=None) -> dict:
     """Continuous-batching serving on the paged int8-KV block pool.
     Returns {"report", "outputs", "requests", "engine", "quantized",
-    "ctx"}.
+    "ctx", "record"}.
 
     ``calibrate`` (INT / FAKE modes) runs Algorithm 1 on one 4-row batch
     of the longest prompt length.  ``w8a8=True`` is the W8A8 deploy: it
@@ -185,7 +198,18 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     to K tokens a slot with ``drafter`` ('ngram', or any object with a
     ``draft(history, k)`` method) and verifies them in the same step;
     ``ragged=False`` serves through the legacy per-shape steps.
-    ``device`` defaults to ``cuda``."""
+    ``device`` defaults to ``cuda``.
+
+    Observability: ``trace`` turns on the ring-buffered event tracer (a
+    path string also exports the Chrome trace there); ``metrics_path``
+    writes the registry's Prometheus text after the run; ``profile_dir``
+    captures the run with ``torch.profiler`` into that directory, one
+    ``record_function`` annotation per dispatch; ``record`` runs on the
+    deterministic virtual clock (``virtual_dt`` a step) and returns the
+    run's :class:`repro_torch.obs.replay.WorkloadRecord` under "record"
+    (a path string also saves it as JSON); ``slo`` attaches the SLO
+    burn-rate monitor (``True`` for the stock objectives, or a list of
+    ``SLObjective``)."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.device import resolve_device
@@ -236,12 +260,27 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                            max_model_len=max_model_len,
                            num_blocks=num_blocks, top_k=top_k, seed=seed,
                            prefix_cache=prefix_cache, spec_k=spec_k,
-                           drafter=drafter, ragged=ragged, device=dev)
-    with torch.no_grad():
+                           drafter=drafter, ragged=ragged,
+                           trace=bool(trace), trace_capacity=trace_capacity,
+                           profile_dir=profile_dir, record=bool(record),
+                           virtual_dt=virtual_dt, slo=slo, device=dev)
+    with torch.no_grad(), engine.profiler.capture():
         report = engine.run(requests)
+    if profile_dir is not None:
+        report = engine.report()        # names the exported trace file
+    if isinstance(trace, str) and trace:
+        engine.tracer.export(trace)
+    if metrics_path is not None:
+        with open(metrics_path, "w") as fh:
+            fh.write(engine.metrics.to_prometheus())
+    rec = None
+    if record:
+        rec = engine.workload_record(requests)
+        if isinstance(record, str):
+            rec.save(record)
     return {"report": report, "outputs": engine.outputs(),
             "requests": requests, "engine": engine, "quantized": quantized,
-            "ctx": ctx}
+            "ctx": ctx, "record": rec}
 
 
 def main(argv=None):
@@ -286,11 +325,36 @@ def main(argv=None):
                     help="[--engine] serve through the legacy per-shape "
                          "steps (prefill chunk / decode / verify, paged "
                          "attention) instead of the unified ragged step")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="[--engine] structured event tracing; export the "
+                         "run as Chrome trace-event JSON (Perfetto)")
+    ap.add_argument("--trace-capacity", type=int, default=65536,
+                    help="[--engine --trace] trace ring size (oldest "
+                         "events drop first; the export counts them)")
+    ap.add_argument("--metrics", default=None, metavar="OUT.prom",
+                    help="[--engine] write the metrics registry as "
+                         "Prometheus text after the run")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="[--engine] capture a torch.profiler trace of the "
+                         "run into DIR (one annotation per dispatch)")
+    ap.add_argument("--record", default=None, metavar="OUT.json",
+                    help="[--engine] flight recorder: run on the virtual "
+                         "clock and save a workload record for --replay")
+    ap.add_argument("--replay", default=None, metavar="IN.json",
+                    help="(implies --engine) replay a workload record, "
+                         "taken on either package, with the record's "
+                         "engine settings; exits non-zero unless tokens "
+                         "and scheduler decisions are identical")
+    ap.add_argument("--slo", action="store_true",
+                    help="[--engine] attach the stock SLO objectives with "
+                         "burn-rate alerting")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.replay:
+        raise SystemExit(_replay(args))
     if args.engine:
         try:
             out = serve_engine(
@@ -303,10 +367,15 @@ def main(argv=None):
                 prefix_cache=False if args.no_prefix_cache else None,
                 spec_k=args.spec_k, drafter=args.drafter,
                 ragged=not args.no_ragged, w8a8=args.w8a8,
-                device=args.device)
+                trace=args.trace or False,
+                trace_capacity=args.trace_capacity,
+                metrics_path=args.metrics, profile_dir=args.profile_dir,
+                record=args.record or False,
+                slo=True if args.slo else None, device=args.device)
         except ValueError as e:
             ap.exit(2, f"error: {e}\n")
         print(json.dumps(out["report"], indent=2))
+        _print_obs(args, out)
         if out["quantized"] is not None:
             print(f"w8a8: {len(out['quantized'].converted)} weight tensors "
                   f"pre-quantized to int8 codes")
@@ -319,8 +388,10 @@ def main(argv=None):
                   f"({sp['fallback_decode_steps']} plain decode steps), "
                   f"{sp['retracted_blocks']} blocks retracted")
         return
-    if args.spec_k or args.no_ragged:
-        ap.error("--spec-k and --no-ragged are engine options: pass --engine")
+    if args.spec_k or args.no_ragged or args.trace or args.metrics \
+            or args.profile_dir or args.record or args.slo:
+        ap.error("--spec-k, --no-ragged and the observability options are "
+                 "engine options: pass --engine")
     if args.w8a8:
         ap.error("--w8a8 is an engine option: pass --engine")
     out = serve(args.arch, batch=args.batch, prompt_len=args.prompt_len,
@@ -333,6 +404,76 @@ def main(argv=None):
           f"prefill {out['prefill_s']:.2f}s | "
           f"decode {1e3 * out['decode_s_per_tok']:.1f} ms/tok")
     print("sample:", out["tokens"][0][:16])
+
+
+def _print_obs(args, out) -> None:
+    """The observability lines after an engine run."""
+    rep = out["report"]
+    if args.record:
+        rec = out["record"]
+        print(f"record: {len(rec.requests)} requests, "
+              f"{len(rec.decisions)} scheduler decisions, fingerprint "
+              f"{rec.fingerprint} -> {args.record} (replay with --replay "
+              f"{args.record})")
+    if args.slo:
+        mon = out["engine"].slo
+        state = "ALERT" if mon.alerts_active else "ok"
+        print(f"slo: {state} — {mon.alerts_fired} alert(s) fired over "
+              f"{mon.evaluations} evaluations; worst burn rate "
+              f"{mon.worst_burn_rate()}")
+        for a in mon.alerts:
+            print(f"  alert {a['objective']}: burn {a['burn_rate']} "
+                  f"({a['window_bad']}/{a['window_total']} over window) "
+                  f"at t={a['t']:.3f}s")
+    if args.trace:
+        obs = rep["obs"]
+        print(f"trace: {obs['trace_events']} events ({obs['trace_dropped']}"
+              f" dropped, ring {obs['trace_capacity']}) -> {args.trace}")
+    if args.metrics:
+        print(f"metrics: prometheus exposition -> {args.metrics}")
+    if args.profile_dir:
+        prof = rep["profile"]
+        print(f"profile: {prof['annotated_dispatches']} annotated "
+              f"dispatches -> {', '.join(prof['trace_files'])}")
+    en, hw = rep["energy"], rep["hwcost"]
+    print(f"energy proxy ({en['unit']}): {en['proxy_uj_per_token']} uJ/token"
+          f" [prefill {en['prefill']['uj_per_token']}, decode "
+          f"{en['decode']['uj_per_token']}, spec-wasted "
+          f"{en['spec_wasted']['uj_per_token']}]; requant ops performed "
+          f"{hw['requant_ops_performed']}, avoided "
+          f"{hw['requant_ops_avoided']}, forward {hw['requant_ops_forward']}")
+
+
+def _replay(args) -> int:
+    """``--replay``: rebuild the record's engine and workload, replay it,
+    and return 0 iff the tokens and the decision stream are identical."""
+    from repro_torch.obs.replay import (WorkloadRecord, build_requests,
+                                        replay_workload)
+    rec = WorkloadRecord.load(args.replay)
+    es = rec.engine
+    out = serve_engine(args.arch, requests=build_requests(rec),
+                       n_slots=es["n_slots"], block_size=es["block_size"],
+                       chunk=es["chunk"], max_model_len=es["max_model_len"],
+                       num_blocks=es["num_blocks"], mode=args.mode,
+                       calibrate=not args.no_calibrate, smoke=not args.full,
+                       top_k=es["default_top_k"], seed=es["seed"],
+                       prefix_cache=es["prefix_cache"], spec_k=es["spec_k"],
+                       drafter=args.drafter, ragged=es["ragged"],
+                       w8a8=args.w8a8, record=True,
+                       virtual_dt=es["virtual_dt"], device=args.device)
+    import torch
+    with torch.no_grad():
+        res = replay_workload(rec, out["engine"])
+    print(f"replay {args.replay}: fingerprint "
+          f"{'match' if res.fingerprint_match else 'MISMATCH'} (record "
+          f"{res.record_fingerprint}, engine {res.engine_fingerprint})")
+    print("tokens: " + ("identical" if res.token_identical else
+                        f"MISMATCH rids={res.mismatched_rids}"))
+    print(f"scheduler-decision diff: {len(res.decision_diff)} lines"
+          + ("" if res.decision_diff else " (empty — identical)"))
+    for line in res.decision_diff[:40]:
+        print("  " + line)
+    return 0 if res.ok else 1
 
 
 if __name__ == "__main__":

@@ -38,7 +38,8 @@ def _check_family(cfg: ModelConfig, what: str) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"{what} covers the dense GQA family; got family="
-            f"{cfg.family!r} (other families: ROADMAP Queue 1 items 9-10)")
+            f"{cfg.family!r} (other families: ROADMAP Queue 1 items 5-6, "
+            f"'Recurrent and hybrid substrate' and 'Other families')")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,

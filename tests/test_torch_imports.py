@@ -42,6 +42,10 @@ def test_import_without_jax_loads_no_repro_module():
         "    importlib.import_module(m.name)\n"
         "from repro_torch.kernels.flash_attention import paged_attention_cuda\n"
         "from repro_torch.serving.spec import NgramDrafter, verify_tokens\n"
+        "from repro_torch.obs import (MetricsRegistry, Tracer, SLOMonitor,\n"
+        "    GOLDEN_SCHEMA, PORT_EXTRAS, EnergyAccount, Profiler,\n"
+        "    WorkloadRecord, replay_workload)\n"
+        "Profiler(); EnergyAccount()\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -90,18 +94,30 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
+    import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qmodel import QuantContext
     from repro_torch.launch.serve import serve_engine
     from repro_torch.serving.engine import ServingEngine
     cfg = get_smoke_config("qwen3_1_7b")
-    for kw in (dict(trace=True), dict(record=True), dict(slo=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
-    # speculative decoding and the legacy per-shape steps are ported
-    for kw in (dict(spec_k=2), dict(ragged=False),
+    # observability is ported: tracing, the flight recorder and SLO
+    # monitoring construct, as do speculative decoding and the legacy
+    # per-shape steps
+    for kw in (dict(trace=True), dict(record=True), dict(slo=True),
+               dict(trace=True, record=True, slo=True, spec_k=2,
+                    ragged=False),
+               dict(spec_k=2), dict(ragged=False),
                dict(spec_k=2, ragged=False)):
         ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
+    # the recurrent and hybrid substrates are not
+    for family in ("ssm", "hybrid"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServingEngine(dataclasses.replace(cfg, family=family), {},
+                          QuantContext(), device="cpu")
+    # nor is XLA's per-shape cost analysis
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(cfg, {}, QuantContext(), device="cpu",
+                      profile_cost=True)
     # the scaling-factor baseline waits for core/baselines.py
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
