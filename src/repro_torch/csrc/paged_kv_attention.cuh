@@ -16,6 +16,10 @@
 // times the GQA group, so each K/V row is read once for the group; an item
 // seeing more than 512 kv rows is cut into at most 32 chunks, one block
 // each.  The grid is (items, KVH); q and out are (stream rows, H, D).
+// A list may be padded to a fixed capacity (ragged_flash.py::pad_work, so
+// that a step replayed from a CUDA graph keeps one grid and one shared
+// memory size): a padding item has no token and a padding combine entry no
+// slot, and their blocks return before touching memory.
 //
 // Staging: a block of 4 warps walks its kv range in stages of 64 rows (32
 // where a row is wider than 256 bytes), several pool blocks a stage,
@@ -460,6 +464,7 @@ paged_kv_tc_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k
 
   const int kvh = blockIdx.y, groups = H / KVH;
   const Item it(work, groups);
+  if (it.nr == 0) return;  // a padding item: the whole block leaves
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int gid = lane / 4, t4 = lane % 4;
   const size_t row_k = (size_t)KVH * Dk, row_v = (size_t)KVH * Dv;
@@ -654,6 +659,7 @@ paged_kv_simt_kernel(const float* __restrict__ q, const KT* __restrict__ k_pool,
 
   const int kvh = blockIdx.y, groups = H / KVH;
   const Item it(work, groups);
+  if (it.nr == 0) return;  // a padding item: the whole block leaves
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int jr = lane % 16, half = lane / 16;  // scores: kv row jr, rows 8 half .. + 7
   const size_t row_k = (size_t)KVH * Dk, row_v = (size_t)KVH * Dv;
@@ -805,6 +811,7 @@ combine_kernel(const float* __restrict__ ws, const int* __restrict__ combines,
   extern __shared__ float wgt[];  // [ROWS][n]: e^(m_i - m) / l * 2^-n
   const int* c = combines + (size_t)blockIdx.x * ITEM_COLS;
   const int first = c[3], n = c[4], row0 = c[6];
+  if (n == 0) return;  // a padding combine entry
   const int kvh = blockIdx.y, groups = H / KVH;
   const int nr = c[2] * groups;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;

@@ -31,9 +31,10 @@ shapes), the table walked by pointer, never gathered.  It runs K1's body
 (``csrc/paged_kv_attention.cuh``) on K1's work-list layout:
 :func:`plan_paged_work` lists the items from the host positions, a long
 range split into chunks merged by a combine kernel.  The legacy engine
-plans once per dispatch and every layer shares the list; a caller without
-a plan gets one from :func:`paged_plan_from_positions`, which reads the
-positions back to the host.
+plans once per dispatch and every layer shares the list (padded to
+:func:`paged_capacity` when the step is replayed from a CUDA graph); a
+caller without a plan gets one from :func:`paged_plan_from_positions`,
+which reads the positions back to the host.
 
 Called through ``kernels.ops.flash_attention`` / ``flash_decode`` /
 ``paged_attention``, which count the launches and take the plain versions
@@ -53,11 +54,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.ragged_flash import (ITEM_COLS, MAX_BLOCK_SIZE,
                                               ROWS_PER_ITEM, RaggedWork,
+                                              WorkCapacity, _capacity,
                                               _Planner)
 from repro_torch.kernels.ref import DEFAULT_MASK_VALUE
 
 __all__ = ["flash_prefill_cuda", "flash_decode_cuda", "paged_attention_cuda",
-           "plan_decode_splits", "plan_paged_work",
+           "plan_decode_splits", "plan_paged_work", "paged_capacity",
            "paged_plan_from_positions"]
 
 _NAME = "flash_attention"
@@ -145,6 +147,23 @@ def plan_paged_work(positions, *, table_width: int, block_size: int,
                 plan.add(slot, t0, t - t0, slot * c + t0, 0, vis)
                 t0 = t
     return plan.work()
+
+
+def paged_capacity(batch: int, chunk: int, *, groups: int,
+                   table_width: int, block_size: int) -> WorkCapacity:
+    """The capacity (``ragged_flash.pad_work``) of every work list
+    :func:`plan_paged_work` makes of the legacy engine's (B, C) steps over
+    tables of ``table_width`` blocks: a slot's positions are one run of
+    consecutive positions (a decode row, a prefill chunk), or one run and
+    the padded verify rows on the trash column after it, so a slot gives
+    at most ``min(C, ceil(C / (16 // groups)) + 1)`` q tiles, each seeing
+    at most ``table_width * block_size`` kv rows."""
+    if not 1 <= groups <= ROWS_PER_ITEM:
+        raise ValueError(f"K4 carries 1..{ROWS_PER_ITEM} query heads per KV "
+                         f"head, not {groups}")
+    tq = ROWS_PER_ITEM // groups
+    return _capacity(batch * min(chunk, -(-chunk // tq) + 1),
+                     int(table_width) * int(block_size))
 
 
 def paged_plan_from_positions(positions: torch.Tensor, *, table_width: int,

@@ -14,11 +14,14 @@ range cut into chunks whose partial softmax states a second small kernel
 merges (split-KV).  The serving engine plans once per step from the numpy
 descriptors it already holds and every layer shares the uploaded list
 (``RaggedBatch.work``); a caller without a plan gets one built here from
-the descriptors, which only then are read back to the host.  The source's
-header note gives the design: the block table walked up to ``kv_len``,
-pages staged by 16-byte ``cp.async``, bf16 q on the tensor cores, fp32 q
-on the CUDA cores, int8 codes converted exactly with 2^-n folded into the
-score scale and the final 1/l.
+the descriptors, which only then are read back to the host.  A step
+replayed from a CUDA graph launches with one grid and one shared-memory
+size for its whole step shape: :func:`pad_work` pads its list to the
+shape's capacity (:func:`ragged_capacity`) with entries the kernels skip.
+The source's header note gives the design: the block table walked up to
+``kv_len``, pages staged by 16-byte ``cp.async``, bf16 q on the tensor
+cores, fp32 q on the CUDA cores, int8 codes converted exactly with 2^-n
+folded into the score scale and the final 1/l.
 
 Descriptor contract (host-built, as ``repro.kernels.ragged_flash``):
 ``q_start`` nondecreasing, row windows disjoint, ``q_len <= kv_len``,
@@ -30,6 +33,7 @@ plain version for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
 from typing import NamedTuple, Optional, Union
@@ -40,7 +44,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["ragged_attention_cuda", "plan_ragged_work", "plan_from_descriptors",
-           "RaggedWork"]
+           "RaggedWork", "WorkCapacity", "ragged_capacity", "pad_work"]
 
 _NAME = "ragged_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -106,6 +110,18 @@ def plan_ragged_work(q_start, q_len, kv_len, *, groups: int) -> RaggedWork:
     return plan.work()
 
 
+def _split(vis: int) -> tuple[int, int]:
+    """``(chunks, rows a chunk)`` of an item over kv rows ``[0, vis)``:
+    one item up to SPLIT_ROWS rows, else equal chunks of a multiple of
+    STAGE_ROWS rows (the last one shorter, none empty, at most
+    MAX_SPLITS)."""
+    if vis <= SPLIT_ROWS:
+        return 1, vis
+    n = min(-(-vis // SPLIT_ROWS), MAX_SPLITS)
+    chunk = -(-(-(-vis // n)) // STAGE_ROWS) * STAGE_ROWS
+    return -(-vis // chunk), chunk
+
+
 class _Planner:
     """Items and combine entries of a work list, as K1's and K4's
     planners add them."""
@@ -116,16 +132,12 @@ class _Planner:
     def add(self, s: int, t0: int, nt: int, row0: int, lim0: int,
             vis: int) -> None:
         """Tokens ``t0 .. t0 + nt`` of sequence ``s`` (stream rows from
-        ``row0``) over kv rows ``[0, vis)``: one item up to SPLIT_ROWS
-        rows, else equal chunks of a multiple of STAGE_ROWS rows (the last
-        one shorter, none empty, at most MAX_SPLITS) and their combine
-        entry."""
-        if vis <= SPLIT_ROWS:
+        ``row0``) over kv rows ``[0, vis)``, cut as :func:`_split` says;
+        a cut range gets a combine entry over its chunks' slots."""
+        n, chunk = _split(vis)
+        if n == 1:
             self.items.append((s, t0, nt, 0, vis, -1, row0, lim0))
             return
-        n = min(-(-vis // SPLIT_ROWS), MAX_SPLITS)
-        chunk = -(-(-(-vis // n)) // STAGE_ROWS) * STAGE_ROWS
-        n = -(-vis // chunk)
         self.combines.append((s, t0, nt, self.n_parts, n, 0, row0, 0))
         self.items += [(s, t0, nt, i * chunk, min(vis, (i + 1) * chunk),
                         self.n_parts + i, row0, lim0) for i in range(n)]
@@ -140,6 +152,74 @@ class _Planner:
                           self.n_parts,
                           max((c[4] for c in self.combines), default=0),
                           max((it[4] - it[3] for it in items), default=0))
+
+
+class WorkCapacity(NamedTuple):
+    """The fixed launch of a padded work list: items, combine entries and
+    partial slots it holds, and the largest ``max_splits`` and
+    ``max_rows`` any list it pads may have."""
+    n_items: int
+    n_combine: int
+    n_parts: int
+    max_splits: int
+    max_rows: int
+
+
+@functools.lru_cache(maxsize=None)
+def _worst_split(rows: int) -> tuple[int, int]:
+    """The most chunks any item over at most ``rows`` kv rows is cut
+    into, and the longest range such an item or chunk spans."""
+    splits = [_split(v) for v in range(1, max(rows, 1) + 1)]
+    return (max(n for n, _ in splits),
+            max(v if n == 1 else c for v, (n, c) in enumerate(splits, 1)))
+
+
+def _capacity(tiles: int, rows: int) -> WorkCapacity:
+    """The capacity of ``tiles`` q tiles, each over at most ``rows`` kv
+    rows."""
+    n, max_rows = _worst_split(rows)
+    if n == 1:
+        return WorkCapacity(tiles, 0, 0, 0, max_rows)
+    return WorkCapacity(tiles * n, tiles, tiles * n, n, max_rows)
+
+
+def ragged_capacity(t_pad: int, s_pad: int, *, groups: int,
+                    rows: int) -> WorkCapacity:
+    """The capacity of every work list :func:`plan_ragged_work` makes of
+    a step of at most ``t_pad`` tokens over ``s_pad`` sequence slots,
+    ``groups`` query heads per KV head, no sequence seeing more than
+    ``rows`` kv rows (the engine's longest context, ``nbmax *
+    block_size``).  A sequence's first token opens a q tile and every
+    ``16 // groups`` more tokens another, so ``m = min(s_pad, t_pad)``
+    sequences give at most ``m + (t_pad - m) // (16 // groups)`` tiles;
+    each is cut into at most as many chunks as the longest range is."""
+    if not 1 <= groups <= ROWS_PER_ITEM:
+        raise ValueError(f"K1 carries 1..{ROWS_PER_ITEM} query heads per KV "
+                         f"head, not {groups}")
+    m = min(s_pad, t_pad)
+    return _capacity(m + (t_pad - m) // (ROWS_PER_ITEM // groups), rows)
+
+
+def pad_work(work: RaggedWork, cap: WorkCapacity) -> RaggedWork:
+    """``work`` (a host table) padded to ``cap``: its items, padding items
+    (no token, no kv row, no slot), its combine entries, padding combine
+    entries (no slot), and the capacity's counts and maxima, so that
+    every step of one step shape launches the kernels with the same grid,
+    shared memory and arguments.  The kernels return at once on a padding
+    entry: the output is the unpadded list's, bit for bit.  Raises when
+    ``work`` does not fit."""
+    if (work.n_items > cap.n_items or work.n_combine > cap.n_combine
+            or work.n_parts > cap.n_parts or work.max_splits > cap.max_splits
+            or work.max_rows > cap.max_rows):
+        raise ValueError(f"work list ({work.n_items} items, {work.n_combine} "
+                         f"combines, {work.n_parts} slots, max_splits "
+                         f"{work.max_splits}, max_rows {work.max_rows}) "
+                         f"exceeds its capacity {tuple(cap)}")
+    table = np.zeros((cap.n_items + cap.n_combine, ITEM_COLS), np.int32)
+    table[:work.n_items] = work.table[:work.n_items]
+    table[work.n_items:cap.n_items, 5] = -1
+    table[cap.n_items:cap.n_items + work.n_combine] = work.table[work.n_items:]
+    return RaggedWork(table, *cap)
 
 
 def _f32_bits(x: float) -> int:

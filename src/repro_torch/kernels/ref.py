@@ -216,8 +216,10 @@ def ragged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     P rounded to q's type times V; an unsplit item writes acc / l * 2^-n,
     a split one keeps its partials, and each combine entry merges its
     slots: m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i e^(m_i -
-    m) / l * 2^-n.  Same function as ``ragged_attention_ref`` up to the
-    order of the fp32 sums; rows no item covers are exactly 0."""
+    m) / l * 2^-n.  Padding entries (``ragged_flash.pad_work``: no
+    token, no slot) are skipped, as the kernel skips them.  Same function
+    as ``ragged_attention_ref`` up to the order of the fp32 sums; rows no
+    item covers are exactly 0."""
     t, h, dk = q.shape
     bs, kvh = k_pool.shape[1], k_pool.shape[2]
     dv = v_pool.shape[-1]
@@ -229,6 +231,8 @@ def ragged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.zeros((t, h, dv), dtype=torch.float32, device=q.device)
     parts = {}
     for s, t0, nt, c0, c1, part, _, _ in table[:work.n_items]:
+        if nt == 0:
+            continue                    # a padding item (``pad_work``)
         rows = slice(qs[s] + t0, qs[s] + t0 + nt)
         qg = q[rows].reshape(nt, kvh, g, dk).float()
         pos = torch.arange(c0, c1, device=q.device)
@@ -249,6 +253,8 @@ def ragged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
         else:
             parts[part] = (m, l, acc)
     for s, t0, nt, first, n, _, _, _ in table[work.n_items:]:
+        if n == 0:
+            continue                    # a padding combine entry
         ms = torch.stack([parts[first + i][0] for i in range(n)])
         m = ms.amax(dim=0)
         w = torch.where(ms == float("-inf"), torch.zeros_like(ms),
@@ -314,9 +320,10 @@ def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
     its own max, the unrounded sum of P, and P rounded to q's type times
     V; an unsplit item writes acc / l * 2^-n, a split one keeps its
     partials, and each combine entry merges its slots: m = max m_i, l =
-    sum l_i e^(m_i - m), out = sum acc_i e^(m_i - m) / l * 2^-n.  Same
-    function as ``paged_attention_ref`` up to the order of the fp32 sums;
-    a row no item covers, or whose l is 0, is 0."""
+    sum l_i e^(m_i - m), out = sum acc_i e^(m_i - m) / l * 2^-n.  Padding
+    entries (``ragged_flash.pad_work``) are skipped.  Same function as
+    ``paged_attention_ref`` up to the order of the fp32 sums; a row no
+    item covers, or whose l is 0, is 0."""
     b, c, h, dk = q.shape
     bs, kvh = k_pool.shape[1], k_pool.shape[2]
     dv = v_pool.shape[-1]
@@ -333,6 +340,8 @@ def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
 
     parts = {}
     for slot, t0, nt, c0, c1, part, _, _ in table[:work.n_items]:
+        if nt == 0:
+            continue                    # a padding item (``pad_work``)
         qg = q[slot, t0:t0 + nt].reshape(nt, kvh, g, dk).float()
         pos = torch.arange(c0, c1, device=q.device)
         blk = block_tables[slot].long()[pos // bs]
@@ -351,6 +360,8 @@ def paged_attention_split_ref(q: torch.Tensor, k_pool: torch.Tensor,
         else:
             parts[part] = (m, l, acc)
     for slot, t0, nt, first, n, _, _, _ in table[work.n_items:]:
+        if n == 0:
+            continue                    # a padding combine entry
         ms = torch.stack([parts[first + i][0] for i in range(n)])
         m = ms.amax(dim=0)
         w = torch.where(ms == float("-inf"), torch.zeros_like(ms),

@@ -181,7 +181,8 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  metrics_path: str | None = None,
                  profile_dir: str | None = None,
                  record: str | bool = False, virtual_dt: float = 1e-3,
-                 slo=None, params=None, device=None) -> dict:
+                 slo=None, params=None, graphs: bool | None = None,
+                 device=None) -> dict:
     """Continuous-batching serving on the paged int8-KV block pool.
     Returns {"report", "outputs", "requests", "engine", "quantized",
     "ctx", "record"}.
@@ -198,7 +199,10 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     to K tokens a slot with ``drafter`` ('ngram', or any object with a
     ``draft(history, k)`` method) and verifies them in the same step;
     ``ragged=False`` serves through the legacy per-shape steps.
-    ``device`` defaults to ``cuda``.
+    ``device`` defaults to ``cuda``; there the engine runs each step
+    key's first call eagerly, captures the key as a CUDA graph at its
+    second and replays it from then on, unless ``graphs=False`` (every
+    step eager, the comparison the graphs are held to).
 
     Observability: ``trace`` turns on the ring-buffered event tracer (a
     path string also exports the Chrome trace there); ``metrics_path``
@@ -263,7 +267,8 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                            drafter=drafter, ragged=ragged,
                            trace=bool(trace), trace_capacity=trace_capacity,
                            profile_dir=profile_dir, record=bool(record),
-                           virtual_dt=virtual_dt, slo=slo, device=dev)
+                           virtual_dt=virtual_dt, slo=slo, graphs=graphs,
+                           device=dev)
     with torch.no_grad(), engine.profiler.capture():
         report = engine.run(requests)
     if profile_dir is not None:
@@ -325,6 +330,9 @@ def main(argv=None):
                     help="[--engine] serve through the legacy per-shape "
                          "steps (prefill chunk / decode / verify, paged "
                          "attention) instead of the unified ragged step")
+    ap.add_argument("--no-graphs", action="store_true",
+                    help="[--engine] run every step eagerly instead of "
+                         "replaying each step key's CUDA graph")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="[--engine] structured event tracing; export the "
                          "run as Chrome trace-event JSON (Perfetto)")
@@ -371,7 +379,9 @@ def main(argv=None):
                 trace_capacity=args.trace_capacity,
                 metrics_path=args.metrics, profile_dir=args.profile_dir,
                 record=args.record or False,
-                slo=True if args.slo else None, device=args.device)
+                slo=True if args.slo else None,
+                graphs=False if args.no_graphs else None,
+                device=args.device)
         except ValueError as e:
             ap.exit(2, f"error: {e}\n")
         print(json.dumps(out["report"], indent=2))

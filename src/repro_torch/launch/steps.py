@@ -1,23 +1,31 @@
-"""Step builders of the classic dense-cache serving path and of the legacy
-per-shape engine (PyTorch counterpart of ``repro.launch.steps``:
-``build_prefill_step``, ``build_serve_step``, ``build_paged_step`` and the
-build-time W8A8 check).
+"""Step builders of the classic dense-cache serving path and of the
+serving engine (PyTorch counterpart of ``repro.launch.steps``:
+``build_prefill_step``, ``build_serve_step``, ``build_paged_step``,
+``build_ragged_step`` and the build-time W8A8 check), and the engine's
+compiled step, :class:`StepGraphs`.
 
-The builders validate the configuration once and return plain closures:
-PyTorch runs eagerly, so there is nothing to trace or compile.
+The builders validate the configuration once and return plain closures
+that run eagerly.  Where the JAX engine ``jax.jit``-compiles each serving
+step once per shape, the port's engine captures each step's whole device
+program (the model step, the fused sampling and draft verification, the
+in-place pool scatter) as one CUDA graph per step key and replays it:
+:class:`StepGraphs`.
 """
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Callable, Hashable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
+from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 
 __all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
-           "build_paged_step"]
+           "build_paged_step", "build_ragged_step", "StepGraphs"]
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
@@ -75,3 +83,215 @@ def build_paged_step(cfg: ModelConfig, ctx: QuantContext):
                             cfg, ctx, work=work)
 
     return paged_step
+
+
+def build_ragged_step(cfg: ModelConfig, ctx: QuantContext):
+    """One UNIFIED serving step over the flattened mixed stream:
+    ``ragged_step(params, tokens (T,), cache, positions (T,), ragged
+    RaggedBatch) -> (logits (T, V), cache)``, the pool updated in place.
+    The engine captures it, with its sampling, once per (T_pad, S_pad)
+    and sampling key (:class:`StepGraphs`), as the JAX engine's jit
+    specializes per (T_pad, S_pad) only."""
+    check_matmul_kernel(cfg, ctx)
+
+    def ragged_step(params, tokens, cache, positions, ragged):
+        return M.ragged_step(params, tokens, cache, positions, ragged, cfg,
+                             ctx)
+
+    return ragged_step
+
+
+# ---------------------------------------------------------------------------
+# the compiled serving step
+# ---------------------------------------------------------------------------
+
+_DTYPES = {np.dtype(np.int32): torch.int32,
+           np.dtype(np.float32): torch.float32}
+
+
+class _Staged:
+    """A step's host arrays (int32 or float32) in static buffers, one per
+    array: a host tensor (pinned on the card) and a device tensor, which
+    :meth:`stage` fills with a queued copy.  ``inputs`` are the device
+    tensors; on the CPU the host tensors are the step's inputs."""
+
+    def __init__(self, arrays: dict, device: torch.device, pinned: bool):
+        self.host, self.inputs = {}, {}
+        for name, a in arrays.items():
+            if a.dtype not in _DTYPES:
+                raise TypeError(f"staged array {name!r} is {a.dtype}: the "
+                                f"step stages int32 and float32 arrays")
+            h = torch.empty(a.shape, dtype=_DTYPES[a.dtype],
+                            pin_memory=pinned)
+            self.host[name] = h
+            self.inputs[name] = (h if device.type == "cpu" else
+                                 torch.empty_like(h, device=device))
+
+    def stage(self, arrays: dict) -> None:
+        """Copy ``arrays`` (this step's names, shapes and types) in; the
+        transfers are queued on the current stream."""
+        layout = [(n, tuple(h.shape), h.dtype) for n, h in self.host.items()]
+        got = [(n, a.shape, _DTYPES.get(a.dtype)) for n, a in arrays.items()]
+        if got != layout:
+            raise ValueError(f"staged arrays {got} do not match the step's "
+                             f"layout {layout}")
+        for name, a in arrays.items():
+            h = self.host[name]
+            h.numpy()[...] = a
+            d = self.inputs[name]
+            if d is not h:
+                d.copy_(h, non_blocking=True)
+
+
+class _CUDAStepGraph:
+    """One step captured by ``torch.cuda.graph`` on the helper's side
+    stream into the memory pool every key shares, with the engine's
+    generator registered, so that a replay advances it as the eager step
+    does (the default CUDA generator is registered by ``torch.cuda.graph``
+    itself)."""
+
+    def __init__(self, generator, pool, stream):
+        self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            register = getattr(self.graph, "register_generator_state", None)
+            if register is None:
+                raise RuntimeError(
+                    f"torch {torch.__version__} cannot register a generator "
+                    f"with a CUDA graph (CUDAGraph.register_generator_state)"
+                    f": the sampled step cannot be captured")
+            register(generator)
+        self.pool, self.stream = pool, stream
+        self.output: Optional[torch.Tensor] = None
+
+    def capture(self, fn: Callable[[], torch.Tensor]) -> None:
+        with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
+            self.output = fn()
+
+    def replay(self) -> None:
+        self.graph.replay()
+
+
+class _Entry:
+    """A step key's static buffers and, from its second call, its graph
+    and the launches each kernel wrapper counted while it was captured."""
+
+    def __init__(self, staged: _Staged):
+        self.staged = staged
+        self.graph = None
+        self.launches: dict = {}
+
+
+class StepGraphs:
+    """The compiled serving step: one CUDA graph per step key, replayed.
+
+    :meth:`run` takes a step key (the engine's: ``("ragged", T_pad, S_pad,
+    k_cap, has_top_k, sampled)`` or ``(B, C, verify, k_cap, has_top_k,
+    sampled)``, everything a step's device program depends on beyond its
+    staged arrays), the step function ``fn(inputs) -> output`` over the
+    staged arrays' device tensors, and the step's host arrays.
+
+    * Without capture (``capture=False``: the CPU, or an engine built with
+      ``graphs=False``) the arrays are staged into fresh buffers and
+      ``fn`` runs eagerly over them.
+    * The first call of a key stages the arrays into the key's own static
+      buffers (pinned on the host) and runs ``fn`` eagerly over them on
+      the capture stream: the real step, which also warms the key up for
+      its capture (first-use builds, the kernels' one-time attributes).
+    * The second call stages its arrays, captures ``fn`` as a graph into
+      the pool every key shares, and replays it; every later call stages
+      its arrays and replays the graph.
+
+    Every launch that runs on the card is counted once in
+    ``kernels.ops.LAUNCHES``: an eager call's by its kernel wrappers; a
+    capture launches nothing, so its counts are taken back out and kept
+    with the key, and each replay adds them.  Nothing is caught: a failed
+    capture or replay raises, the step never runs eagerly in its place.
+    ``fn`` may read nothing back to the host and its launches must depend
+    only on the key and the arrays' shapes (the padded work lists of
+    ``kernels.ragged_flash.pad_work``).  ``graph_factory(generator, pool,
+    stream)`` makes a graph object with ``capture(fn)``, ``replay()`` and
+    ``output`` (the tests pass a stand-in); its default is a CUDA graph."""
+
+    def __init__(self, device, generator: Optional[torch.Generator] = None,
+                 *, capture: bool, graph_factory=None):
+        self.device = torch.device(device)
+        self.generator = generator
+        self.capture = capture
+        if capture and graph_factory is None and self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs capture steps on a CUDA device, "
+                             f"not {self.device}")
+        self._factory = graph_factory or _CUDAStepGraph
+        self._entries: dict[Hashable, _Entry] = {}
+        self._pool = self._stream = None
+        self.first_calls = 0        # since start / reset_counts
+        self.captures = 0
+        self.replays = 0
+        self.last = None            # how the last run ran its key: "eager",
+        #                             "capture" (and replay) or "replay"
+
+    @property
+    def keys(self) -> list:
+        return list(self._entries)
+
+    def reset_counts(self) -> None:
+        self.first_calls = self.captures = self.replays = 0
+
+    @torch.no_grad()
+    def run(self, key: Hashable, fn: Callable[[dict], torch.Tensor],
+            arrays: dict) -> torch.Tensor:
+        """One step: ``fn``'s output on the device (on a replay, the
+        graph's static output, valid until the key's next replay)."""
+        if not self.capture:
+            self.last = "eager"
+            staged = _Staged(arrays, self.device, pinned=False)
+            staged.stage(arrays)
+            return fn(staged.inputs)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = _Entry(_Staged(
+                arrays, self.device, pinned=self.device.type == "cuda"))
+            entry.staged.stage(arrays)
+            self.first_calls += 1
+            self.last = "eager"
+            with self._on_side_stream():
+                return fn(entry.staged.inputs)
+        entry.staged.stage(arrays)
+        if entry.graph is None:
+            self._capture(entry, fn)
+            self.last = "capture"
+        else:
+            self.last = "replay"
+        entry.graph.replay()
+        for name, n in entry.launches.items():
+            kops.LAUNCHES[name] += n
+        self.replays += 1
+        return entry.graph.output
+
+    def _capture(self, entry: _Entry, fn) -> None:
+        if self.device.type == "cuda" and self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        counts = dict(kops.LAUNCHES)
+        graph = self._factory(self.generator, self._pool, self._stream)
+        graph.capture(lambda: fn(entry.staged.inputs))
+        entry.launches = {k: n - counts.get(k, 0)
+                          for k, n in kops.LAUNCHES.items()
+                          if n != counts.get(k, 0)}
+        for k in entry.launches:            # a capture launches nothing
+            kops.LAUNCHES[k] = counts.get(k, 0)
+        entry.graph = graph
+        self.captures += 1
+
+    @contextlib.contextmanager
+    def _on_side_stream(self):
+        """The capture stream (on the card) as the current stream, after
+        the work queued so far; the caller's stream waits on it after."""
+        if self.device.type != "cuda":
+            yield
+            return
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        cur = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(cur)
+        with torch.cuda.stream(self._stream):
+            yield
+        cur.wait_stream(self._stream)

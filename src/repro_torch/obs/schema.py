@@ -12,7 +12,8 @@ undeclared drift, which is the whole point: a renamed or retyped report
 field must be a reviewed schema change, not a silent bench breakage.
 
 The port reports the reference's schema unchanged plus the keys in
-``PORT_EXTRAS`` (the device it ran on and each kernel's launch count);
+``PORT_EXTRAS`` (the device it ran on, each kernel's launch count and
+the compiled step's first calls, captures and replays);
 ``diff_schema`` takes those as declared and reports any other drift.
 The ``state_pool.*`` section stays off: the port serves the attention
 substrate only.
@@ -39,6 +40,7 @@ DYNAMIC_KEYS = ("step_shapes", "profile", "slo.status", "kernel_launches")
 PORT_EXTRAS = {
     "device": {"kind": "gauge", "type": "str"},
     "kernel_launches": {"kind": "gauge", "type": "dict"},
+    "step_graphs": {"kind": "gauge", "type": "dict"},
 }
 
 # prefix -> engine feature that must be on for the section to register

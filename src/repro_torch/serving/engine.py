@@ -24,6 +24,20 @@ numpy modules, copied unchanged.  The device pool is updated in place:
 the scatter writes each token's codes into its row and copy-on-write
 duplicates one block's rows, where the JAX engine donates the buffer.
 
+The compiled step: where the JAX engine runs each step as one
+``jax.jit`` executable per shape, the port's engine on a CUDA device
+captures each step's whole device program (every layer, the fused
+sampling and draft verification, the pool scatter) as one CUDA graph per
+step key and replays it (``launch.steps.StepGraphs``: a key's first call
+runs eagerly, its second captures); the host only stages the step's
+arrays into the key's static buffers and reads back the sampled tokens.
+The attention kernels' work lists are padded to a fixed capacity per key
+(``kernels.ragged_flash.pad_work``), so one graph serves every step of
+its shape.  ``graphs=False`` runs every step eagerly (unpadded lists),
+the comparison the graphs are held to; on the CPU the same staging runs
+without capture.  Copy-on-write copies stay eager, between steps, as the
+reference jits them apart.
+
 Observability (``repro_torch.obs``) is the reference's: one tracer
 threaded through the pool, the prefix cache and the scheduler (ring
 events with ``trace=True``; per-request timelines always), one dispatch
@@ -52,9 +66,12 @@ from repro_torch.core import hwcost
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.flash_attention import plan_paged_work
-from repro_torch.kernels.ragged_flash import plan_ragged_work
-from repro_torch.launch.steps import build_paged_step, check_matmul_kernel
+from repro_torch.kernels.flash_attention import (paged_capacity,
+                                                 plan_paged_work)
+from repro_torch.kernels.ragged_flash import (pad_work, plan_ragged_work,
+                                              ragged_capacity)
+from repro_torch.launch.steps import (StepGraphs, build_paged_step,
+                                      build_ragged_step, check_matmul_kernel)
 from repro_torch.models import model as M
 from repro_torch.models.attention import RaggedBatch
 from repro_torch.obs.metrics import MetricsRegistry
@@ -138,7 +155,7 @@ class ServingEngine:
                  profile_dir: Optional[str] = None,
                  profile_cost: bool = False,
                  record: bool = False, virtual_dt: float = 1e-3,
-                 slo=None, device=None):
+                 slo=None, graphs: Optional[bool] = None, device=None):
         sub = substrate_for(cfg)
         if sub.kind != "attention":
             _unported(f"the {sub.kind} substrate",
@@ -214,6 +231,13 @@ class ServingEngine:
         self.drafter = resolve_drafter(drafter)
         self.ragged = ragged
         self._paged_fn = build_paged_step(cfg, ctx)
+        self._ragged_fn = build_ragged_step(cfg, ctx)
+        self._groups = cfg.n_heads // cfg.n_kv_heads
+        # the compiled step: on by default on a CUDA device
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        self.graphs = StepGraphs(self.device, self.generator,
+                                 capture=bool(graphs))
         budget = self.sched.prefill_token_budget
         # worst-case stream: the full prefill budget plus every slot
         # verifying a K-token tail
@@ -313,6 +337,7 @@ class ServingEngine:
             self.pool.cache.stats = CacheStats()
         self._zero_counters()
         self.launches = dict.fromkeys(self.launches, 0)
+        self.graphs.reset_counts()
         self._step_times.clear()
         self._wall_s = 0.0
         if self.record:
@@ -522,13 +547,16 @@ class ServingEngine:
                          kv_len, temps, topks, sample_start, n_drafts,
                          t_real: int):
         """One unified step + on-device sampling and draft verification +
-        the host sync, timed under the work-list shape key
-        ``("ragged", T_pad, S_pad)`` and, with tracing on, one
-        ``ragged_step`` span (stream shape, real vs padded tokens, first
-        call of the shape).  Every sequence gathers K+1 logit rows from
-        its ``sample_start``; a prefill or decode row rides with
-        ``n_drafts == 0``, which is plain sampling of its row.  Returns
-        (out (S, K+1), n_accepted (S,)) on the host."""
+        the host sync, run through the compiled step under the key
+        ``("ragged", T_pad, S_pad)`` and the sampling key, timed under
+        the work-list shape key ``("ragged", T_pad, S_pad)`` and, with
+        tracing on, one ``ragged_step`` span (stream shape, real vs padded
+        tokens, and ``compile``: the key's eager first call or its
+        capture, or without graphs the shape's first call).  Every
+        sequence gathers K+1 logit rows from its ``sample_start``; a
+        prefill or decode row rides with ``n_drafts == 0``, which is plain
+        sampling of its row.  Returns (out (S, K+1), n_accepted (S,)) on
+        the host."""
         t_start = self._now()
         t0 = time.perf_counter()
         self._step_counter += 1
@@ -536,27 +564,28 @@ class ServingEngine:
         first_call = shape_key not in self._step_times
         with self.profiler.step_annotation("ragged_step",
                                            self._step_counter):
-            put = self._put
-            # K1's work list, planned once from the host descriptors for
-            # every layer (the plain CPU path needs none)
-            work = (plan_ragged_work(
-                q_start, q_len, kv_len,
-                groups=self.cfg.n_heads // self.cfg.n_kv_heads
-            ).to(self.device) if self._plans_work() else None)
-            rb = RaggedBatch(dest=put(dest), block_tables=put(bt),
-                             q_start=put(q_start), q_len=put(q_len),
-                             kv_len=put(kv_len), work=work)
-            tok_t = put(tokens)
-            logits, self.cache = M.ragged_step(self.params, tok_t,
-                                               self.cache, put(positions),
-                                               rb, self.cfg, self.ctx)
-            t = logits.shape[0]
-            kp1 = self.spec_k + 1
-            idx = torch.clamp(
-                put(sample_start).long()[:, None]
-                + torch.arange(kp1, device=self.device)[None, :], 0, t - 1)
-            out, n_acc = self._verify(logits[idx], tok_t[idx], n_drafts,
-                                      temps, topks)
+            arrays = dict(tokens=tokens, positions=positions, dest=dest,
+                          block_tables=bt, q_start=q_start, q_len=q_len,
+                          kv_len=kv_len, temps=temps, topks=topks,
+                          sample_start=sample_start, n_drafts=n_drafts)
+            work = None
+            if self._plans_work():
+                # K1's work list, planned once from the host descriptors
+                # for every layer (the plain CPU path needs none); padded
+                # to the step shape's capacity when steps are captured
+                work = plan_ragged_work(q_start, q_len, kv_len,
+                                        groups=self._groups)
+                if self.graphs.capture:
+                    work = pad_work(work, ragged_capacity(
+                        len(tokens), len(temps), groups=self._groups,
+                        rows=self.sched.nbmax * self.pool.block_size))
+                arrays["work"] = work.table
+            sampling = self._sampling(temps, topks)
+            res = self.graphs.run(
+                shape_key + tuple(sampling.values()),
+                lambda inp: self._ragged_sampled(inp, work, **sampling),
+                arrays)
+            out, n_acc = self._host(res)
         dt = time.perf_counter() - t0
         self._step_times.setdefault(shape_key, []).append(dt)
         tr = self.tracer
@@ -565,22 +594,67 @@ class ServingEngine:
                 "shape": f"T{len(tokens)}xS{len(temps)}",
                 "real_tokens": t_real,
                 "padded_tokens": len(tokens) - t_real,
-                "compile": first_call})
+                "compile": self._compiled(first_call)})
         return out, n_acc
 
-    def _verify(self, logits, tokens, n_drafts, temps, topks):
-        """On-device sampling / draft verification of (B, K+1, V) logits
-        fed by ``tokens`` (B, K+1), then the host sync."""
-        put = self._put
-        cap = int(topks.max()) if topks.any() else None
-        topks_arg = put(topks) if topks.any() else None
-        out, n_acc = verify_tokens(logits, tokens, put(n_drafts),
-                                   self.generator, put(temps), topks_arg,
-                                   k_cap=cap)
-        return out.cpu().numpy(), n_acc.cpu().numpy()      # host sync
+    def _ragged_sampled(self, inp: dict, work, *, k_cap, has_top_k,
+                        sampled) -> torch.Tensor:
+        """The ragged step's device program over the staged ``inp``:
+        every layer (the pool updated in place), then sampling and draft
+        verification of each sequence's K+1 rows from its
+        ``sample_start``."""
+        rb = RaggedBatch(dest=inp["dest"], block_tables=inp["block_tables"],
+                         q_start=inp["q_start"], q_len=inp["q_len"],
+                         kv_len=inp["kv_len"],
+                         work=None if work is None
+                         else work._replace(table=inp["work"]))
+        tok = inp["tokens"]
+        logits, _ = self._ragged_fn(self.params, tok, self.cache,
+                                    inp["positions"], rb)
+        kp1 = self.spec_k + 1
+        idx = torch.clamp(
+            inp["sample_start"].long()[:, None]
+            + torch.arange(kp1, device=self.device)[None, :], 0,
+            logits.shape[0] - 1)
+        return self._verify(logits[idx], tok[idx], inp, inp["n_drafts"],
+                            k_cap=k_cap, has_top_k=has_top_k,
+                            sampled=sampled)
 
-    def _put(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def _verify(self, logits, tokens, inp, n_drafts, *, k_cap, has_top_k,
+                sampled) -> torch.Tensor:
+        """On-device sampling / draft verification of (B, K+1, V) logits
+        fed by ``tokens`` (B, K+1): (out | n_accepted) as one (B, K+2)
+        int32 tensor, read back by :meth:`_host`."""
+        out, n_acc = verify_tokens(
+            logits, tokens, n_drafts, self.generator, inp["temps"],
+            inp["topks"] if has_top_k else None, k_cap=k_cap,
+            any_sampled=sampled)
+        return torch.cat([out, n_acc[:, None]], dim=1)
+
+    @staticmethod
+    def _host(res: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
+        """The step's one host sync: (out, n_accepted) of :meth:`_verify`
+        on the host."""
+        res = res.cpu().numpy()
+        return res[:, :-1], res[:, -1]
+
+    @staticmethod
+    def _sampling(temps: np.ndarray, topks: np.ndarray) -> dict:
+        """The host-known sampling key of a step, static in its device
+        program as ``k_cap`` is in the JAX jit: the largest top-k (None
+        without one), whether any row takes top-k, whether any row
+        samples (temperature > 0)."""
+        has_top_k = bool(topks.any())
+        return dict(k_cap=int(topks.max()) if has_top_k else None,
+                    has_top_k=has_top_k, sampled=bool((temps > 0).any()))
+
+    def _compiled(self, first_call: bool) -> bool:
+        """The dispatch span's ``compile`` field: the call did its key's
+        one-time work, the eager first call or the capture (between them
+        the JAX engine's first-call compile); without graphs, the shape's
+        first call."""
+        return (self.graphs.last != "replay" if self.graphs.capture
+                else first_call)
 
     def _plans_work(self) -> bool:
         """Whether a step plans its attention kernel's work list on the
@@ -592,35 +666,49 @@ class ServingEngine:
     def _dispatch(self, tokens, positions, bt, temps, topks, *, name: str,
                   n_real: int, last_idx: int = 0, n_drafts=None):
         """One legacy step: ``paged_step`` at (B, C), then on-device
-        sampling and the host sync, timed under the shape key (B, C) and,
-        with tracing on, one span ``name`` ('prefill', 'decode' or
-        'spec_verify') with ``n_real`` of its B x C tokens real.  Without
-        ``n_drafts`` each slot samples its row ``last_idx`` (the decode
-        and prefill steps); with them the whole (B, C) chunk is a
-        speculative verify.  Returns (out (B, K+1), n_accepted (B,))."""
+        sampling and the host sync, run through the compiled step under
+        the key (B, C) and the sampling key, timed under the shape key
+        (B, C) and, with tracing on, one span ``name`` ('prefill',
+        'decode' or 'spec_verify') with ``n_real`` of its B x C tokens
+        real.  Without ``n_drafts`` each slot samples its row
+        ``last_idx`` (the decode and prefill steps; staged, so one graph
+        serves every chunk of a shape); with them the whole (B, C) chunk
+        is a speculative verify.  Returns (out (B, K+1), n_accepted
+        (B,))."""
         t_start = self._now()
         t0 = time.perf_counter()
         self._step_counter += 1
         shape_key = tuple(tokens.shape)
         first_call = shape_key not in self._step_times
+        verify = n_drafts is not None
         with self.profiler.step_annotation(name, self._step_counter):
-            # K4's work list, planned once from the host positions for
-            # every layer
-            work = (plan_paged_work(
-                positions, table_width=bt.shape[1],
-                block_size=self.pool.block_size,
-                groups=self.cfg.n_heads // self.cfg.n_kv_heads
-            ).to(self.device) if self._plans_work() else None)
-            tok_t = self._put(tokens)
-            logits, self.cache = self._paged_fn(self.params, tok_t,
-                                                self.cache,
-                                                self._put(positions),
-                                                self._put(bt), work=work)
-            if n_drafts is None:
-                logits = logits[:, last_idx:last_idx + 1]
-                tok_t = tok_t[:, last_idx:last_idx + 1]
-                n_drafts = np.zeros(len(tokens), np.int32)
-            out, n_acc = self._verify(logits, tok_t, n_drafts, temps, topks)
+            arrays = dict(tokens=tokens, positions=positions,
+                          block_tables=bt, temps=temps, topks=topks)
+            if verify:
+                arrays["n_drafts"] = n_drafts
+            else:
+                arrays["last_idx"] = np.asarray([last_idx], np.int32)
+            work = None
+            if self._plans_work():
+                # K4's work list, planned once from the host positions for
+                # every layer; padded to the shape's capacity when steps
+                # are captured
+                work = plan_paged_work(
+                    positions, table_width=bt.shape[1],
+                    block_size=self.pool.block_size, groups=self._groups)
+                if self.graphs.capture:
+                    work = pad_work(work, paged_capacity(
+                        *tokens.shape, groups=self._groups,
+                        table_width=bt.shape[1],
+                        block_size=self.pool.block_size))
+                arrays["work"] = work.table
+            sampling = self._sampling(temps, topks)
+            res = self.graphs.run(
+                shape_key + (verify,) + tuple(sampling.values()),
+                lambda inp: self._paged_sampled(inp, work, verify,
+                                                **sampling),
+                arrays)
+            out, n_acc = self._host(res)
         dt = time.perf_counter() - t0
         self._step_times.setdefault(shape_key, []).append(dt)
         tr = self.tracer
@@ -630,8 +718,28 @@ class ServingEngine:
                 "shape": "x".join(map(str, tokens.shape)),
                 "real_tokens": n_real,
                 "padded_tokens": n_disp - n_real,
-                "compile": first_call})
+                "compile": self._compiled(first_call)})
         return out, n_acc
+
+    def _paged_sampled(self, inp: dict, work, verify: bool, *, k_cap,
+                       has_top_k, sampled) -> torch.Tensor:
+        """The legacy step's device program over the staged ``inp``:
+        ``paged_step`` (the pool updated in place), then sampling of each
+        slot's row ``last_idx``, or verification of the whole chunk."""
+        tok = inp["tokens"]
+        logits, _ = self._paged_fn(
+            self.params, tok, self.cache, inp["positions"],
+            inp["block_tables"],
+            work=None if work is None else work._replace(table=inp["work"]))
+        if verify:
+            n_drafts = inp["n_drafts"]
+        else:
+            idx = inp["last_idx"].long()
+            logits, tok = logits.index_select(1, idx), tok.index_select(1, idx)
+            n_drafts = torch.zeros(tok.shape[0], dtype=torch.int32,
+                                   device=self.device)
+        return self._verify(logits, tok, inp, n_drafts, k_cap=k_cap,
+                            has_top_k=has_top_k, sampled=sampled)
 
     def _run_prefills(self) -> None:
         # one shared token budget per engine step
@@ -949,7 +1057,8 @@ class ServingEngine:
         """Declare every report field on the metrics registry, in report
         order — the reference's registry without the unported
         ``state_pool.*`` section, plus the port's ``device`` and
-        ``kernel_launches`` (``obs.schema.PORT_EXTRAS``).  All metrics
+        ``kernel_launches`` and ``step_graphs``
+        (``obs.schema.PORT_EXTRAS``).  All metrics
         are bound (FuncMetric): the engine's counters, the pool's and
         cache's stats and the request lists stay the source of truth."""
         m = self.metrics
@@ -1025,6 +1134,14 @@ class ServingEngine:
         f("kernel_launches", "launches of each kernel on this engine's "
           "path during its runs (dynamic keys: one per kernel)",
           lambda: dict(self.launches), typ=dict)
+        f("step_graphs", "the compiled step: whether steps run as CUDA "
+          "graphs, the step keys seen, and the keys' eager first calls, "
+          "captures and replays since start/reset",
+          lambda: {"enabled": self.graphs.capture,
+                   "keys": len(self.graphs.keys),
+                   "first_calls": self.graphs.first_calls,
+                   "captures": self.graphs.captures,
+                   "replays": self.graphs.replays}, typ=dict)
         self._register_pool_metrics()
         if self.pool.cache is not None:
             self._register_cache_metrics()

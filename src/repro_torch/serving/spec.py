@@ -15,7 +15,9 @@
   of row 0, the unified ragged step's spec-off shape.
 
 Random draws come from a ``torch.Generator``: the same distribution as the
-JAX verifier, not the same bits.
+JAX verifier, not the same bits.  The verifier reads nothing back to the
+host and gives every tensor a shape known from its inputs' shapes, so a
+CUDA graph can capture it (the serving engine's compiled step).
 """
 from __future__ import annotations
 
@@ -151,11 +153,21 @@ def apply_top_k(logits: torch.Tensor, top_k: torch.Tensor,
     return out.reshape(logits.shape)
 
 
+def _draw(probs: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """One index per row of ``probs`` (..., V) drawn from it, as
+    ``torch.multinomial(probs, 1)`` draws it (argmax of p / E, E ~ Exp(1):
+    the same stream of the generator), without multinomial's checks of
+    the probabilities, which read them back to the host."""
+    e = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return torch.argmax(probs / e, dim=-1)
+
+
 def verify_tokens(logits: torch.Tensor, tokens: torch.Tensor,
                   n_drafts: torch.Tensor, generator: torch.Generator,
                   temperatures: torch.Tensor,
                   top_k: Optional[torch.Tensor] = None,
-                  k_cap: Optional[int] = None
+                  k_cap: Optional[int] = None,
+                  any_sampled: Optional[bool] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """Resolve one verify chunk on the device.
 
@@ -163,6 +175,9 @@ def verify_tokens(logits: torch.Tensor, tokens: torch.Tensor,
     ``[last committed token, d_1, ..., d_K]`` (positions past
     ``n_drafts[b]`` are padding and ignored); temperatures (B,), 0 for a
     greedy row; top_k (B,) with ``k_cap`` as in :func:`apply_top_k`.
+    ``any_sampled`` says on the host whether some row has a temperature
+    above 0 (None: read from ``temperatures``, a device sync); with it the
+    generator is used, one uniform per draft and one draw per row.
 
     Returns ``(out (B, K+1) int32, n_accepted (B,) int32)``: row ``b``
     emits ``out[b, :n_accepted[b] + 1]``, the accepted draft prefix plus
@@ -179,7 +194,8 @@ def verify_tokens(logits: torch.Tensor, tokens: torch.Tensor,
     valid = torch.arange(k, device=dev)[None, :] < n_drafts[:, None]
     accept = drafts == greedy[:, :k]
     sampled = temperatures > 0
-    any_sampled = bool(sampled.any())
+    if any_sampled is None:
+        any_sampled = bool(sampled.any())
     if any_sampled:
         proc = apply_top_k(logits, top_k[:, None], k_cap) \
             if top_k is not None else logits
@@ -192,8 +208,9 @@ def verify_tokens(logits: torch.Tensor, tokens: torch.Tensor,
     n_acc = torch.cumprod(ok, dim=1).sum(dim=1)             # (B,)
     rep = greedy[rows, n_acc]
     if any_sampled:
-        # one draw per sampled row: the residual (p minus the rejected
-        # draft) at the first rejection, else the bonus row n_acc
+        # one draw per row, kept on the sampled rows: the residual (p
+        # minus the rejected draft) at the first rejection, else the
+        # bonus row n_acc
         dist = logp[rows, n_acc]                            # (B, V)
         if k:
             rejected = n_acc < n_drafts
@@ -201,10 +218,8 @@ def verify_tokens(logits: torch.Tensor, tokens: torch.Tensor,
             res = logp[rows, at].scatter(
                 -1, drafts[rows, at][:, None], float("-inf"))
             dist = torch.where(rejected[:, None], res, dist)
-        draw = torch.multinomial(torch.softmax(dist[sampled], dim=-1), 1,
-                                 generator=generator)[:, 0]
-        rep = rep.clone()
-        rep[sampled] = draw
+        draw = _draw(torch.softmax(dist, dim=-1), generator)
+        rep = torch.where(sampled, draw, rep)
     j = torch.arange(kp1, device=dev)[None, :]
     d_pad = torch.cat([drafts, torch.zeros((b, 1), dtype=drafts.dtype,
                                            device=dev)], dim=1)
