@@ -79,9 +79,12 @@ the CUDA toolkit.  Phases, one line each (or a few):
     128, bf16 and fp32 q) and a 16-query chunk with a planned chunk edge
     among its rows; the legacy engine's decode, prefill-chunk and verify
     shapes and one long int8 cache (held row by row, at a tolerance a
-    repeated pool block fails), each with its items and chunks and the
-    kernel's, the plain version's and gather + dequantize + SDPA's times
-    beside its bound;
+    repeated pool block fails), and zamba2-2.7b's shared block in the
+    recurrent engine's (4, 64) step (32 heads, GQA 1, head dim 80, padded
+    positions on the trash column; a mixed and a decode step over a bf16
+    and an int8 pool), each with its items and chunks and the kernel's,
+    the plain version's and gather + dequantize + SDPA's times beside its
+    bound;
 16. ``paged_step`` of qwen3-1.7B at full width and 2 layers in fp32, the
     decode, prefill-chunk and (4, 4) verify shapes, kernels on the card
     against the plain path on the CPU, in phase 9's three cases: INT with
@@ -128,6 +131,22 @@ the CUDA toolkit.  Phases, one line each (or a few):
     of each run; and the busy share of a profiled warm INT run eager and
     with graphs (``launch/profile_engine.py``), the K1 kernels in its
     profile equal to the engine's count eager and not above it with graphs.
+20. the recurrent and hybrid substrate: ``paged_recurrent_step`` of
+    rwkv6-3b (2 layers) and zamba2-2.7b (one group: 6 Mamba blocks and the
+    shared block) at full width in fp32, two (4, 64) steps with an idle
+    lane, kernels on the card against the plain path on the CPU, FP and
+    INT x fp32 and int8 slabs (zamba2's pool int8 with int8 slabs); then
+    ``serve_engine`` at full depth in bf16 on phase 5's workload with
+    chunk 64 (rwkv6-3b FP, FP with int8 slabs, INT; zamba2-2.7b FP on a
+    bf16 pool, FP with int8 pool and slabs, INT), each with CUDA graphs and
+    eagerly, cold and warm, in turns: identical tokens and launches, K1 0,
+    K4 = 9 x dispatches on zamba2 (0 on rwkv6), K2 = 257 / 181 a dispatch
+    in INT, one step key (first calls + replays = dispatches), the state
+    requant ops equal to one slab's elements (from the arenas) x the
+    dispatches' live rows (counted on the host side of the dispatch), with
+    tokens/s, TTFT and TPOT p50, peak memory and the slabs' bytes; and
+    rwkv6-3b on 3 slabs for 4 slots and with a forced mid-decode snapshot
+    preemption, both on the full-slab run's tokens.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -150,6 +169,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -239,6 +259,15 @@ K4_EDGE_LAST = 33732
 # decode rows, 6 padding rows and a padding slot, over tables of 4 blocks
 ENGINE_ROWS = 4 * K1_BS
 K1_STEP_ITEMS, K1_STEP_T = ((16, 48), (1, 64), (1, 57)), 24
+# the recurrent engine's step (phase 20): 4 slots x chunk 64, tables of
+# nbmax = 4 blocks (the workload's 64-row model length) and the trash
+# column.  K4 at zamba2's shared block, rows (start, real tokens): a
+# prompt's first chunk beside decode rows and an idle lane, then every
+# row decoding, the last one at the table's last row
+HYBRID_CHUNK, HYBRID_NBMAX = 64, 4
+HYBRID_K4_CASES = {"mixed step": ((0, 24), (40, 1), (0, 0), (0, 7)),
+                   "decode step": ((40, 1), (55, 1), (23, 1), (63, 1))}
+K4_HYBRID_TIMED = "hybrid decode step int8 pool"
 
 
 class SmokeFailure(Exception):
@@ -2000,6 +2029,101 @@ def _k4_held(torch, args, nkv, tol, what, rows=False):
     return err, work, got, want
 
 
+def _k4_timed(torch, name, args, nkv, iters, sdpa_how, long=False):
+    """One K4 shape held (``_k4_held``, atol = rtol = 2e-2 for bf16 q, and
+    with ``long`` the row tolerance a repeated pool block fails), then
+    timed: the list padded to its shape's capacity (the launch a captured
+    engine step makes) and unpadded, the plain version, gather +
+    dequantize + SDPA, and the bound of this case's work."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import paged_capacity
+    from repro_torch.kernels.ragged_flash import pad_work
+    q, kp, _, bt, pos = args
+    b, c, h, _ = q.shape
+    err, work, got, want = _k4_held(torch, args, nkv, 2e-2, f"K4 {name}",
+                                    rows=long)
+    if long:
+        check(work.n_combine == b and _table_fault_caught(
+                  torch, ref.paged_attention_ref, args, want,
+                  LONG_ROW_TOL, nkv, bt.shape[1] // 2),
+              f"K4 {name}: not split, or the row tolerance passes a "
+              f"repeated pool block")
+    work_d = work.to("cuda")
+    padded = pad_work(work, paged_capacity(
+        b, c, groups=h // kp.shape[2], table_width=bt.shape[1],
+        block_size=kp.shape[1]))
+    padded_d = padded.to("cuda")
+    ms = time_ms(torch, lambda: ops.paged_attention(
+        *args, kv_frac_bits=nkv, work=work_d), iters)
+    padded_ms = time_ms(torch, lambda: ops.paged_attention(
+        *args, kv_frac_bits=nkv, work=padded_d), iters)
+    plain_ms = time_ms(torch, lambda: ref.paged_attention_ref(
+        *args, kv_frac_bits=nkv), 5, warmup=1)
+    w_rows = bt.shape[1] * kp.shape[1]
+    mask = (torch.arange(w_rows, device="cuda")[None, None, None, :]
+            <= pos[:, None, :, None])
+    gqa = sdpa_how == "enable_gqa"
+    gs = _gather_sdpa(torch, args, nkv, mask, gqa).transpose(1, 2)
+    check(_rows_within(torch, gs, want, LONG_ROW_TOL),
+          f"K4 {name}: gather + SDPA disagrees with the plain version")
+    gs_ms = time_ms(torch, lambda: _gather_sdpa(torch, args, nkv, mask,
+                                                gqa), iters)
+    n_bytes, n_ops = _k4_work(args)
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    log(f"[15] K4 {name} (B {b}, C {c}, H {h}, KVH {kp.shape[2]}, D "
+        f"{q.shape[3]}, last positions {pos.max(dim=1).values.tolist()}, "
+        f"{bt.shape[1]} blocks a table, {q.dtype} q, {kp.dtype} pool; "
+        f"{work.n_items} items, {work.n_combine} split into "
+        f"{work.n_parts} chunks; padded to {padded.n_items} items and "
+        f"{padded.n_combine} combine entries): within atol=rtol=2e-2"
+        + (f" and {LONG_ROW_TOL} of each row's largest |value|, which a "
+           f"repeated pool block fails" if long else "")
+        + f", padded list bit-identical (max |diff| {err:.2e}) | kernel "
+        f"padded (the engine's launch) {padded_ms:.4f} ms, unpadded "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, gather + dequantize + SDPA "
+        f"({sdpa_how}, two calls) {gs_ms:.4f} ms, bound {b_ms:.5f} ms "
+        f"({b_by}, {n_bytes} B), {padded_ms / b_ms:.1f}x the bound")
+    return dict(b=b, c=c, positions=pos.tolist(), ms=padded_ms,
+                unpadded_ms=ms, plain_ms=plain_ms, gather_sdpa_ms=gs_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+                bytes=n_bytes, ops=n_ops, library_ms=None,
+                items=work.n_items, splits=work.n_parts,
+                padded_items=padded.n_items,
+                padded_combine=padded.n_combine)
+
+
+def _k4_hybrid_case(torch, gen, rows, kv_dt):
+    """K4 at zamba2-2.7b's shared block in the recurrent engine's (4, 64)
+    step: bf16 q (4, 64, 32, 80) over a shuffled pool of 16-row blocks,
+    tables of HYBRID_NBMAX + 1 blocks (the last the trash column); row b
+    feeds ``rows[b] = (start, n)`` real tokens at positions start ..
+    start + n - 1 (n = 0: an idle lane, its table all trash) and the rest
+    of its 64 positions point at the trash column (HYBRID_NBMAX * 16)."""
+    from repro_torch.core.qscheme import quant
+    b, c, h, d, bs, nbmax = 4, HYBRID_CHUNK, 32, 80, 16, HYBRID_NBMAX
+    nb = 1 + b * nbmax
+    q = torch.randn((b, c, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    kf = torch.randn((nb, bs, h, d), generator=gen, device="cuda")
+    vf = torch.randn((nb, bs, h, d), generator=gen, device="cuda")
+    if kv_dt == torch.int8:
+        kp, vp = quant(kf, KV_FRAC_BITS), quant(vf, KV_FRAC_BITS)
+    else:
+        kp, vp = kf.to(kv_dt), vf.to(kv_dt)
+    del kf, vf
+    perm = (torch.randperm(nb - 1, generator=gen, device="cuda") + 1).to(
+        torch.int32).reshape(b, nbmax)
+    bt = torch.zeros((b, nbmax + 1), dtype=torch.int32, device="cuda")
+    pos = torch.full((b, c), nbmax * bs, dtype=torch.int32, device="cuda")
+    for i, (start, n) in enumerate(rows):
+        if n == 0:
+            continue
+        pos[i, :n] = torch.arange(start, start + n, dtype=torch.int32)
+        bt[i, :nbmax] = perm[i]
+    nkv = KV_FRAC_BITS if kv_dt == torch.int8 else None
+    return (q, kp, vp, bt, pos), nkv
+
+
 def phase_k4(torch, out):
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import paged_capacity
@@ -2086,65 +2210,28 @@ def phase_k4(torch, out):
     for name, b, c, nbmax, last, spec, iters in cases:
         args, nkv = _k4_case(torch, gen, b, c, h, kvh, K1_DIM, 16, nbmax,
                              last, torch.bfloat16, torch.int8, spec=spec)
-        long = name.startswith("long")
-        err, work, got, want = _k4_held(torch, args, nkv, 2e-2, f"K4 {name}",
-                                        rows=long)
-        if long:
-            check(work.n_combine == b and _table_fault_caught(
-                      torch, ref.paged_attention_ref, args, want,
-                      LONG_ROW_TOL, nkv, K4_LONG_BLOCKS // 2),
-                  f"K4 {name}: not split, or the row tolerance passes a "
-                  f"repeated pool block")
-        # the unpadded list, and the list padded to the shape's capacity,
-        # the launch the engine makes with graphs
-        work_d = work.to("cuda")
-        padded = pad_work(work, paged_capacity(
-            b, c, groups=h // kvh, table_width=args[3].shape[1],
-            block_size=16))
-        padded_d = padded.to("cuda")
-        ms = time_ms(torch, lambda: ops.paged_attention(
-            *args, kv_frac_bits=nkv, work=work_d), iters)
-        padded_ms = time_ms(torch, lambda: ops.paged_attention(
-            *args, kv_frac_bits=nkv, work=padded_d), iters)
-        plain_ms = time_ms(torch, lambda: ref.paged_attention_ref(
-            *args, kv_frac_bits=nkv), 5, warmup=1)
-        w_rows = args[3].shape[1] * args[1].shape[1]
-        mask = (torch.arange(w_rows, device="cuda")[None, None, None, :]
-                <= args[4][:, None, :, None])
-        gqa = sdpa_how == "enable_gqa"
-        gs = _gather_sdpa(torch, args, nkv, mask, gqa).transpose(1, 2)
-        check(_rows_within(torch, gs, want, LONG_ROW_TOL),
-              f"K4 {name}: gather + SDPA disagrees with the plain version")
-        gs_ms = time_ms(torch, lambda: _gather_sdpa(torch, args, nkv, mask,
-                                                    gqa), iters)
-        n_bytes, n_ops = _k4_work(args)
-        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
-        rows[name] = dict(b=b, c=c, positions=args[4].tolist(),
-                          ms=padded_ms, unpadded_ms=ms,
-                          plain_ms=plain_ms, gather_sdpa_ms=gs_ms,
-                          bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
-                          bytes=n_bytes, ops=n_ops, library_ms=None,
-                          items=work.n_items, splits=work.n_parts,
-                          padded_items=padded.n_items,
-                          padded_combine=padded.n_combine)
-        log(f"[15] K4 {name} (B {b}, C {c}, last positions {list(last)[:4]}, "
-            f"{args[3].shape[1]} blocks a table, bf16 q, int8 pool; "
-            f"{work.n_items} items, {work.n_combine} split into "
-            f"{work.n_parts} chunks; padded to {padded.n_items} items and "
-            f"{padded.n_combine} combine entries): within atol=rtol=2e-2"
-            + (f" and {LONG_ROW_TOL} of each row's largest |value|, which a "
-               f"repeated pool block fails" if long else "")
-            + f" (max |diff| {err:.2e}) | kernel padded (the engine's "
-            f"launch) {padded_ms:.4f} ms, unpadded {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, gather + dequantize + SDPA ({sdpa_how}, two "
-            f"calls) {gs_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, "
-            f"{n_bytes} B), {padded_ms / b_ms:.1f}x the bound")
-        del args, got, want
+        rows[name] = _k4_timed(torch, name, args, nkv, iters, sdpa_how,
+                               long=name.startswith("long"))
+        del args
         torch.cuda.empty_cache()
+    # zamba2-2.7b's shared attention block: 32 query heads over 32 KV
+    # heads (GQA 1) at head dim 80, the recurrent engine's (4, 64) step
+    # over tables of nbmax + 1 blocks, padded positions on the trash
+    # column, over a bf16 and an int8 pool
+    hybrid = {}
+    for case, hrows in HYBRID_K4_CASES.items():
+        for kv_dt in (torch.bfloat16, torch.int8):
+            name = (f"hybrid {case} "
+                    f"{'int8' if kv_dt == torch.int8 else 'bf16'} pool")
+            args, nkv = _k4_hybrid_case(torch, gen, hrows, kv_dt)
+            hybrid[name] = _k4_timed(torch, name, args, nkv, 100,
+                                     sdpa_how)
+            del args
+            torch.cuda.empty_cache()
     res = dict(rows["decode shape"], prefill=rows["prefill chunk"],
                verify=rows["verify"], long=rows["long int8 cache"],
-               grid_max_abs_err=grid_err, split_max_abs_err=split_err,
-               sdpa=sdpa_how)
+               hybrid=hybrid, grid_max_abs_err=grid_err,
+               split_max_abs_err=split_err, sdpa=sdpa_how)
     out["k4"] = res
     return res
 
@@ -2996,6 +3083,556 @@ def phase_graphs(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the recurrent and hybrid substrate (fixed state slabs)
+# ---------------------------------------------------------------------------
+
+# the two-step batches of the model comparison, one (slab, start, real
+# tokens) per row: a 24-token prompt, a full 64-token chunk, an idle lane
+# on the trash slab and a 7-token prompt; then two decode rows beside the
+# chunked prompt's next 30 tokens.  Tables of REC_MODEL_NBMAX 16-row blocks
+# and the trash column
+REC_MODEL_ROWS = (((1, 0, 24), (2, 0, 64), (0, 0, 0), (3, 0, 7)),
+                  ((1, 24, 1), (2, 64, 30), (0, 0, 0), (3, 7, 1)))
+REC_MODEL_NBMAX = 6
+# the engine cases: (tag, arch, serve_engine options)
+REC_CASES = (("rwkv fp", "rwkv6_3b", dict(mode="fp")),
+             ("rwkv fp int8 slabs", "rwkv6_3b", dict(mode="fp",
+                                                     state_bits=8)),
+             ("rwkv int", "rwkv6_3b", dict(mode="int")),
+             ("zamba fp", "zamba2_2_7b", dict(mode="fp", kv_bits=None)),
+             ("zamba fp int8 pool + slabs", "zamba2_2_7b",
+              dict(mode="fp", kv_bits=8, state_bits=8)),
+             ("zamba int", "zamba2_2_7b", dict(mode="int", kv_bits=8)))
+
+
+def _rec_per_dispatch(cfg) -> dict:
+    """Launches of one recurrent dispatch: K2 in INT mode (RWKV6: 8 a layer
+    -- r, k, v, g, o and the channel mix's k, v, r -- and the head;
+    zamba2: 2 a Mamba block, 8 a shared-block application -- in_proj, q,
+    k, v, o, w1, w3, w2 -- and the head), K4 once a shared-block
+    application."""
+    if cfg.family == "ssm":
+        return {"int8_matmul": 8 * cfg.n_layers + 1, "paged_attention": 0}
+    groups = cfg.n_layers // cfg.hybrid.attn_every
+    return {"int8_matmul": 2 * cfg.n_layers + 8 * groups + 1,
+            "paged_attention": groups}
+
+
+def _slab_arrays(cache):
+    """(arena, slab axis) of every state arena of a recurrent cache."""
+    if "state" in cache:
+        return [(a, 1) for a in cache["state"].values()]
+    return [(a, 2) for a in cache["ssm"]]
+
+
+def _rec_model_batch(torch, step, vocab, hybrid, gen):
+    import numpy as np
+    b, c, bs = len(step), HYBRID_CHUNK, 16
+    tokens = torch.randint(0, vocab, (b, c), generator=gen).to(torch.int32)
+    ids = torch.tensor([r[0] for r in step], dtype=torch.int32)
+    q_len = torch.tensor([r[2] for r in step], dtype=torch.int32)
+    pos = bt = None
+    if hybrid:
+        pos = np.full((b, c), REC_MODEL_NBMAX * bs, np.int32)
+        bt = np.zeros((b, REC_MODEL_NBMAX + 1), np.int32)
+        for i, (slab, start, n) in enumerate(step):
+            if n:
+                pos[i, :n] = start + np.arange(n)
+                bt[i, :REC_MODEL_NBMAX] = (slab - 1) * REC_MODEL_NBMAX + 1 \
+                    + np.arange(REC_MODEL_NBMAX)
+    return tokens, ids, q_len, pos, bt
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _tree_leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _tree_leaves(v)]
+    return [tree]
+
+
+def _rec_state_diff(torch, cpu, gpu, acc):
+    """Card against CPU state after one step, added into ``acc``: int8
+    slab codes (differing, largest step, entries), fp32 slab values
+    (entries beyond 1e-4 of the arena's largest |value|, the largest
+    |diff| over that value), and the pool outside its trash block (int8
+    codes differing, or float entries beyond atol=rtol=1e-4; largest
+    |diff|; entries)."""
+    for (ac, _), (ag, _) in zip(_slab_arrays(cpu), _slab_arrays(gpu)):
+        dd = (ag.cpu().double() - ac.double()).abs()
+        if ac.dtype == torch.int8:
+            key, bad, top = "slab codes", dd > 0, 1.0
+        else:
+            top = max(1.0, float(ac.abs().max()))
+            key, bad = "slab fp32", dd > 1e-4 * top
+        n, m, e = acc.get(key, (0, 0.0, 0))
+        acc[key] = (n + int(bad.sum()), max(m, float(dd.max()) / top),
+                    e + dd.numel())
+    if "paged_kv" in cpu:
+        for ac, ag in zip(cpu["paged_kv"], gpu["paged_kv"]):
+            c_, g_ = ac[:, 1:].double(), ag[:, 1:].cpu().double()
+            dd = (g_ - c_).abs()
+            bad = dd > 0 if ac.dtype == torch.int8 else \
+                dd > 1e-4 + 1e-4 * c_.abs()
+            n, m, e = acc.get("pool", (0, 0.0, 0))
+            acc["pool"] = (n + int(bad.sum()), max(m, float(dd.max())),
+                           e + dd.numel())
+
+
+class _ModuleSync:
+    """INT-mode comparison module by module: on the card every ``qlinear``
+    call's input and output are recorded; on the CPU each call runs on
+    the card's input for the same call (``on``), its output compared with
+    the card's.  Disabled, ``on`` changes nothing."""
+
+    def __init__(self, enabled: bool):
+        import repro_torch.models.common as common
+        self.enabled, self.common = enabled, common
+        self.card, self.calls, self.x_diff, self.y_diff = [], 0, 0.0, 0
+
+    def on(self, device):
+        if not self.enabled:
+            return contextlib.nullcontext()
+        common, real = self.common, self.common.qlinear
+
+        def card(ctx, name, x, w, b=None):
+            y = real(ctx, name, x, w, b)
+            self.card.append((x.cpu(), y.cpu()))
+            return y
+
+        def cpu(ctx, name, x, w, b=None):
+            xc, yc = self.card.pop(0)
+            check(xc.shape == x.shape, f"module {name}: the CPU's call "
+                  f"order differs from the card's")
+            self.x_diff = max(self.x_diff, float((xc - x).abs().max()))
+            y = real(ctx, name, xc, w, b)
+            self.y_diff += int((y != yc).sum())
+            self.calls += 1
+            return y
+
+        @contextlib.contextmanager
+        def patched():
+            common.qlinear = card if device == "cuda" else cpu
+            try:
+                yield
+            finally:
+                common.qlinear = real
+            check(device == "cuda" or not self.card,
+                  f"{len(self.card)} card module calls the CPU never made")
+        return patched()
+
+
+def phase_recurrent_model(torch, out):
+    """``paged_recurrent_step`` at full width and reduced depth (RWKV6: 2
+    layers; zamba2: one group, 6 Mamba blocks and the shared block) in
+    fp32, kernels on the card against the plain path on the CPU, two
+    steps over REC_MODEL_ROWS, K4's list planned and padded as the
+    engine's.  Each step starts from the same state on both devices (the
+    card's state is copied to the CPU after the comparison), so a code
+    flipped in one step is not counted again through the next.
+    Tolerances, as phases 4, 9 and 16 set them: the two devices sum fp32
+    products in other orders, so a float within an ulp of a rounding
+    boundary may take the neighbouring code.  FP: the real rows' logits
+    within atol=rtol=1e-3 in at least 99.9% of entries, all within 5e-2.
+    INT: a flipped r / k / v (or Mamba input) code feeds the recurrence
+    and moves every later token of its row, so the devices are held
+    module by module: the CPU's step runs each ``qlinear`` on the card's
+    input for that call (the largest input difference printed: padded
+    rows of the hybrid attend over the trash block, whose rows the two
+    devices fill in other orders), and every module's output codes and
+    the logits must be identical.  Both:
+    every real row's greedy token identical;
+    int8 slab codes (all arenas together, as phase 9 pools its layers)
+    and pool codes (the trash block left out) within one step, at most
+    0.1% differing; fp32 slab values within 1e-2 of the arena's largest
+    |value|; float pools beyond atol=rtol=1e-4 in at most 0.1% of
+    entries; K4 launched once a group and step, K2 as
+    ``_rec_per_dispatch`` says in INT."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import (paged_capacity,
+                                                     plan_paged_work)
+    from repro_torch.kernels.ragged_flash import pad_work
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    res = {}
+    for arch, depth in (("rwkv6_3b", 2), ("zamba2_2_7b", 6)):
+        hybrid = arch.startswith("zamba")
+        base = dataclasses.replace(get_config(arch), n_layers=depth,
+                                   dtype="float32")
+        p_gpu = M.init_params(base, 0, device="cuda")
+        p_cpu = _tree_to(p_gpu, "cpu")
+        for mode, bits in (("fp", None), ("fp", 8), ("int", None),
+                           ("int", 8)):
+            cfg = dataclasses.replace(base, state_bits=bits,
+                                      kv_cache_bits=bits if hybrid else None)
+            ctx = QuantContext(mode=QuantMode(mode))
+            case = (f"{arch} {mode}, {'int8' if bits else 'fp32'} slabs"
+                    + (f", {'int8' if bits else 'fp32'} pool" if hybrid
+                       else ""))
+            pc, pg = p_cpu, p_gpu
+            if ctx.mode is QuantMode.INT:
+                pc = quantize_weight_tree(p_cpu, ctx,
+                                          name_fn=M.qlinear_weight)
+                pg = quantize_weight_tree(p_gpu, ctx,
+                                          name_fn=M.qlinear_weight)
+            kw = dict(num_blocks=1 + 3 * REC_MODEL_NBMAX, block_size=16) \
+                if hybrid else {}
+            caches = {dv: M.init_paged_state(cfg, 4, device=dv, **kw)
+                      for dv in ("cpu", "cuda")}
+            gen = torch.Generator().manual_seed(20)
+            worst = {"frac": 0.0, "max": 0.0}
+            state = {}
+            tokens_same = True
+            sync = _ModuleSync(ctx.mode is QuantMode.INT)
+            ops.reset_launch_counts()
+            for step in REC_MODEL_ROWS:
+                tokens, ids, q_len, pos, bt = _rec_model_batch(
+                    torch, step, cfg.vocab_size, hybrid, gen)
+                logits = {}
+                for dv, params in (("cuda", pg), ("cpu", pc)):
+                    work = None
+                    if hybrid and dv == "cuda":
+                        work = pad_work(plan_paged_work(
+                            pos, table_width=bt.shape[1], block_size=16,
+                            groups=1), paged_capacity(
+                            *pos.shape, groups=1, table_width=bt.shape[1],
+                            block_size=16)).to("cuda")
+                    with torch.no_grad(), sync.on(dv):
+                        lg, caches[dv] = M.paged_recurrent_step(
+                            params, tokens.to(dv), caches[dv], ids.to(dv),
+                            q_len.to(dv),
+                            None if pos is None
+                            else torch.from_numpy(pos).to(dv),
+                            None if bt is None
+                            else torch.from_numpy(bt).to(dv), cfg, ctx,
+                            work=work)
+                    logits[dv] = lg.float().cpu()
+                real = q_len > 0
+                a, b = logits["cuda"][real], logits["cpu"][real]
+                check(bool(torch.isfinite(a).all()) and a.shape == b.shape
+                      == (int(real.sum()), cfg.vocab_padded),
+                      f"recurrent model {case}: non-finite or misshapen "
+                      f"logits")
+                tokens_same &= torch.equal(a.argmax(-1), b.argmax(-1))
+                diff = (a - b).abs()
+                frac = float(((diff > 0) if mode == "int" else
+                              (diff > 1e-3 + 1e-3 * b.abs())).float().mean())
+                worst["frac"] = max(worst["frac"], frac)
+                worst["max"] = max(worst["max"], float(diff.max()))
+                _rec_state_diff(torch, caches["cpu"], caches["cuda"], state)
+                for c_, g_ in zip(_tree_leaves(caches["cpu"]),
+                                  _tree_leaves(caches["cuda"])):
+                    c_.copy_(g_.cpu())
+            launches = {k: ops.LAUNCHES[k] for k in
+                        ("int8_matmul", "paged_attention",
+                         "ragged_attention")}
+            want = {k: v * len(REC_MODEL_ROWS) * (k != "int8_matmul"
+                                                  or mode == "int")
+                    for k, v in _rec_per_dispatch(cfg).items()}
+            log(f"[20] recurrent model {case} ({depth} layers, full width, "
+                f"fp32, 2 steps of (4, {HYBRID_CHUNK}) with an idle lane, "
+                f"each from the same state): real rows' greedy tokens "
+                f"{'identical' if tokens_same else 'DIFFER'}; logits max "
+                f"|diff| {worst['max']:.3e}, {worst['frac']:.2e} of "
+                f"entries {'differ' if mode == 'int' else 'beyond 1e-3'}; "
+                f"state over both steps (differing, max |diff| (fp32 slabs:"
+                f" over the largest |value|), entries) {state}; launches "
+                f"{launches}" + (f"; module by module ({sync.calls} calls): "
+                                 f"largest input |diff| {sync.x_diff:.3e}, "
+                                 f"output codes differing {sync.y_diff}"
+                                 if sync.enabled else ""))
+            check(tokens_same, f"recurrent model {case}: greedy tokens "
+                  f"differ")
+            check(launches == dict(want, ragged_attention=0),
+                  f"recurrent model {case}: launches {launches}, want "
+                  f"{want}")
+            for key, (n, m, e) in state.items():
+                if key == "slab fp32":
+                    check(m <= 1e-2, f"recurrent model {case}: fp32 slab "
+                          f"values differ by {m:.2e} of the largest |value|")
+                else:
+                    check(n <= 1e-3 * e and (m <= 1 or key == "pool"
+                                             and not bits),
+                          f"recurrent model {case}: {key} differ in {n} of "
+                          f"{e}, max {m}")
+            if mode == "int":
+                check(sync.y_diff == 0 and worst["max"] == 0,
+                      f"recurrent model {case}: {sync.y_diff} module output "
+                      f"codes and logits by up to {worst['max']} differ on "
+                      f"the same inputs")
+            else:
+                check(worst["frac"] <= 1e-3 and worst["max"] <= 5e-2,
+                      f"recurrent model {case}: logits beyond tolerance in "
+                      f"{worst['frac']:.2e} of entries, max {worst['max']}")
+            res[case] = dict(logits_max_abs=worst["max"],
+                             logits_frac=worst["frac"], state=state,
+                             launches=launches, module_input_diff=sync.x_diff)
+            del caches, pc, pg
+        del p_cpu, p_gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[20] recurrent model phase {time.perf_counter() - t0:.1f} s")
+    out["recurrent_model"] = res
+
+
+def _live_rows_of(fn):
+    """``fn()`` with every recurrent dispatch's live rows (q_len > 0)
+    counted on the host side of the dispatch, independently of the
+    engine's counters: (fn's result, the rows' sum)."""
+    from repro_torch.serving.engine import ServingEngine
+    rows = []
+    real = ServingEngine._dispatch_recurrent
+
+    def counting(self, tokens, slab_ids, q_len, *a, **k):
+        rows.append(int((q_len > 0).sum()))
+        return real(self, tokens, slab_ids, q_len, *a, **k)
+
+    ServingEngine._dispatch_recurrent = counting
+    try:
+        return fn(), sum(rows)
+    finally:
+        ServingEngine._dispatch_recurrent = real
+
+
+def _rec_engine(torch, arch, params, graphs, kw, num_slabs=None):
+    """A cold run of phase 5's workload (8 requests at once, 4 slots) with
+    chunk 64 on a fresh recurrent engine at full depth, traced."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    o, rows = _live_rows_of(lambda: serve_engine(
+        arch, smoke=False, params=params, n_requests=8, n_slots=4,
+        chunk=HYBRID_CHUNK, rate=1e9, calibrate=False, trace=True,
+        graphs=graphs, num_slabs=num_slabs, device="cuda", **kw))
+    torch.cuda.synchronize()
+    return o["engine"], _rec_result(torch, o["engine"], o["report"], rows,
+                                    time.perf_counter() - t0)
+
+
+def _rec_warm(torch, eng):
+    """The same engine again after ``reset_metrics``, the same requests."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import poisson_workload
+    eng.reset_metrics()
+    reqs = poisson_workload(eng.cfg.vocab_size, n_requests=8, rate=1e9)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        rep, rows = _live_rows_of(lambda: eng.run(reqs))
+    torch.cuda.synchronize()
+    return _rec_result(torch, eng, rep, rows, time.perf_counter() - t0)
+
+
+def _rec_result(torch, eng, rep, rows, wall):
+    from repro_torch.kernels import ops
+    return dict(report=rep, outputs=eng.outputs(), rows=rows,
+                launches={k: ops.LAUNCHES[k] for k in
+                          ("int8_matmul", "paged_attention",
+                           "ragged_attention")},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                wall_s=wall)
+
+
+def _slab_elems(eng) -> int:
+    """Elements of one sequence's whole state, from the engine's arenas."""
+    return sum(a.numel() // a.shape[ax] for a, ax in _slab_arrays(eng.cache))
+
+
+def _cache_bytes(cache) -> int:
+    if isinstance(cache, dict):
+        return sum(_cache_bytes(v) for v in cache.values())
+    if isinstance(cache, tuple):
+        return sum(_cache_bytes(v) for v in cache)
+    return cache.numel() * cache.element_size()
+
+
+def _rec_check(tag, r, ref_run, per, mode, slab_elems, graphs, warm,
+               cold_captures=None):
+    rep = r["report"]
+    n = rep["recurrent_steps"]
+    what = (f"{tag} {'graphs' if graphs else 'eager'} "
+            f"{'warm' if warm else 'cold'}")
+    check(rep["completed"] == 8, f"{what}: not all done")
+    check(_same_tokens(r["outputs"], ref_run["outputs"]),
+          f"{what}: tokens differ from the eager cold run's")
+    check(r["launches"] == ref_run["launches"]
+          and rep["kernel_launches"] == {
+              k: r["launches"][k] for k in rep["kernel_launches"]},
+          f"{what}: launches {r['launches']} (engine "
+          f"{rep['kernel_launches']}), eager cold {ref_run['launches']}")
+    want = {k: v * n * (k != "int8_matmul" or mode == "int")
+            for k, v in per.items()}
+    check(r["launches"] == dict(want, ragged_attention=0),
+          f"{what}: launches {r['launches']}, want {want} over {n} "
+          f"dispatches")
+    st = rep["state_pool"]
+    check(st["state_quant_ops_per_step"] == slab_elems
+          and st["requant_ops_state"] == slab_elems * r["rows"],
+          f"{what}: state requant ops {st['requant_ops_state']} "
+          f"({st['state_quant_ops_per_step']} a step), counted "
+          f"{slab_elems} x {r['rows']} live rows")
+    g = rep["step_graphs"]
+    if graphs:
+        check(g["enabled"] and g["keys"] == 1
+              and g["first_calls"] == (0 if warm else 1)
+              and g["first_calls"] + g["replays"] == n
+              and (not warm or g["captures"] + cold_captures == 1),
+              f"{what}: step graphs {g} over {n} dispatches")
+    else:
+        check(not g["enabled"] and g["replays"] == g["first_calls"]
+              == g["captures"] == 0, f"{what}: graphs {g}")
+
+
+def _rec_preempt_run(torch, params, ref_outputs):
+    """RWKV6 FP with graphs, the request with the longest generation
+    preempted once after 4 decoded tokens: its slab is copied to the host
+    and restored at readmission; every request's tokens must equal the
+    uninterrupted run's.  Returns (the report, the preempted rid)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.launch.serve import poisson_workload
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import RequestState
+    cfg = get_config("rwkv6_3b")
+    reqs = poisson_workload(cfg.vocab_size, n_requests=8, rate=1e9)
+    need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+    eng = ServingEngine(cfg, params, QuantContext(), n_slots=4,
+                        chunk=HYBRID_CHUNK, max_model_len=-(-need // 16) * 16,
+                        device="cuda")
+    victim = max(reqs, key=lambda r: (r.max_new_tokens, -r.rid))
+    snapped = False
+    with torch.no_grad():
+        for r in reqs:
+            eng.submit(r)
+        while not eng.sched.idle:
+            if (not snapped and victim.state is RequestState.DECODE
+                    and len(victim.generated) >= 4):
+                eng.sched.preempt(victim, eng._now())
+                check(victim.snapshot is not None,
+                      "recurrent preemption took no snapshot")
+                snapped = True
+            eng.step()
+    check(snapped and eng.state_pool.stats.seq_evictions == 1
+          and victim.preemptions == 1,
+          f"rwkv snapshot run: request {victim.rid} was not preempted once")
+    check(_same_tokens(eng.outputs(), ref_outputs),
+          "rwkv snapshot run: tokens differ from the uninterrupted run's")
+    return eng.report(), victim.rid
+
+
+def phase_recurrent_engine(torch, out):
+    """serve_engine on rwkv6-3b and zamba2-2.7b at full width and depth in
+    bf16 (REC_CASES), each with CUDA graphs and eagerly, cold and warm,
+    in turns; after RWKV6's FP case, RWKV6 on an undersized slab pool and
+    with a forced snapshot preemption."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    res = {}
+    params = {}
+    for i, (tag, arch, kw) in enumerate(REC_CASES):
+        cfg = get_config(arch)
+        if arch not in params:         # one model's weights at a time
+            params.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            params[arch] = M.init_params(cfg, 0, device="cuda")
+        per = _rec_per_dispatch(cfg)
+        runs = {}
+        for graphs in ((False, True) if i % 2 == 0 else (True, False)):
+            eng, cold = _rec_engine(torch, arch, params[arch], graphs, kw)
+            warm = _rec_warm(torch, eng)
+            if graphs:
+                # the device time of one replay of the step (the engine is
+                # drained: a replay rewrites its last step's slabs)
+                warm["replay_ms"] = list(_replay_ms(torch, eng).values())
+            slab = _slab_elems(eng)
+            slab_bytes = _cache_bytes(eng.cache)
+            runs[graphs] = (cold, warm)
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref_run = runs[False][0]
+        rows = {}
+        for graphs, (cold, warm) in sorted(runs.items()):
+            for w, r in enumerate((cold, warm)):
+                _rec_check(tag, r, ref_run, per, kw["mode"], slab, graphs,
+                           bool(w), cold["report"]["step_graphs"]["captures"])
+                rep = r["report"]
+                name = (f"{'graphs' if graphs else 'eager'} "
+                        f"{'warm' if w else 'cold'}")
+                rows[name] = dict(
+                    tokens_per_s=rep["tokens_per_s"],
+                    ttft_p50=rep["ttft_s"]["p50"],
+                    tpot_p50=rep["tpot_s"]["p50"], wall_s=rep["wall_s"],
+                    dispatches=rep["recurrent_steps"],
+                    peak_gib=r["peak_gib"], launches=r["launches"],
+                    step_graphs=rep["step_graphs"],
+                    gen_tokens=rep["gen_tokens"],
+                    replay_ms=r.get("replay_ms"))
+                log(f"[20] {tag} {name}: {rep['tokens_per_s']} tok/s, TTFT "
+                    f"p50 {rep['ttft_s']['p50']:.5f} s, TPOT p50 "
+                    f"{rep['tpot_s']['p50']:.5f} s, {rep['gen_tokens']} "
+                    f"tokens over {rep['recurrent_steps']} dispatches, "
+                    f"launches {r['launches']}, step graphs "
+                    f"{rep['step_graphs']}, peak {r['peak_gib']:.3f} GiB"
+                    + (f", device time of one replay (events) "
+                       f"{r['replay_ms'][0]:.3f} ms" if "replay_ms" in r
+                       else ""))
+        log(f"[20] {tag}: tokens and launches identical with and without "
+            f"graphs, cold and warm; K1 0, K4 {per['paged_attention']} a "
+            f"dispatch, K2 "
+            f"{per['int8_matmul'] if kw['mode'] == 'int' else 0} a dispatch;"
+            f" state requant ops = {slab} a live row and step (counted "
+            f"from the arenas) x the dispatches' live rows; state slabs + "
+            f"pool {slab_bytes / 2**20:.1f} MiB "
+            f"({ref_run['report']['state_pool']['num_slabs']} slabs)")
+        rows["slab_elems"], rows["cache_bytes"] = slab, slab_bytes
+        res[tag] = rows
+        if tag == "rwkv fp":
+            res["undersized slabs"] = _rec_extra_runs(
+                torch, params[arch], ref_run["outputs"])
+    params.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["recurrent_engine"] = res
+    return res
+
+
+def _rec_extra_runs(torch, params, ref_outputs) -> dict:
+    """RWKV6 FP on 3 slabs for 4 slots (admission waits for a slab), and
+    with a forced mid-decode snapshot preemption: both on the full-slab
+    run's tokens."""
+    eng, small = _rec_engine(torch, "rwkv6_3b", params, None,
+                             dict(mode="fp"), num_slabs=3)
+    del eng
+    gc.collect()
+    check(_same_tokens(small["outputs"], ref_outputs),
+          "rwkv on 3 slabs: tokens differ from the full-slab run's")
+    snap, rid = _rec_preempt_run(torch, params, ref_outputs)
+    st = small["report"]["state_pool"]
+    log(f"[20] rwkv fp on 3 slabs for 4 slots: tokens identical to the "
+        f"full-slab run, peak live slabs {st['peak_live_slabs']}, "
+        f"{small['report']['tokens_per_s']} tok/s; a forced mid-decode "
+        f"preemption copied request {rid}'s slab to the host and resumed "
+        f"on the uninterrupted run's tokens "
+        f"({snap['state_pool']['seq_evictions']} eviction)")
+    return dict(peak_live_slabs=st["peak_live_slabs"],
+                tokens_per_s=small["report"]["tokens_per_s"],
+                snapshot_rid=rid)
+
+
+def phase_recurrent(torch, out):
+    phase_recurrent_model(torch, out)
+    return phase_recurrent_engine(torch, out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3004,7 +3641,7 @@ def main(argv=None) -> int:
                     help="run only these phases after the build (1, the "
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 6, 7, 12, 15, 17, "
-                         "18, 19); "
+                         "18, 19, 20); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -3025,7 +3662,8 @@ def main(argv=None) -> int:
         alone = {1: lambda torch, out: None, 2: phase_k2, 3: phase_k1,
                  5: phase_engine, 6: phase_k5, 7: phase_k6,
                  12: phase_cnn_kernels, 15: phase_k4,
-                 17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs}
+                 17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
+                 20: phase_recurrent}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -3072,6 +3710,8 @@ def main(argv=None) -> int:
         phase_obs(torch, out)
         torch.cuda.empty_cache()
         phase_graphs(torch, out)
+        torch.cuda.empty_cache()
+        rec = phase_recurrent(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3101,7 +3741,10 @@ def main(argv=None) -> int:
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
-         "per": f"engine step: 197 launches at M={K2_STEP_ROWS}"},
+         "per": f"engine step: 197 launches at M={K2_STEP_ROWS}",
+         "recurrent_launches": {
+             tag: rec[tag]["graphs cold"]["launches"]["int8_matmul"]
+             for tag, _, kw in REC_CASES if kw["mode"] == "int"}},
     ]
     # K5 / K6: one launch at the classic path's shapes (K5: the prefill of
     # the 4x32 prompt into the int8 48-position cache; K6: a decode step
@@ -3151,6 +3794,15 @@ def main(argv=None) -> int:
         "per": "launch at the decode shape, work list padded to its "
                "capacity",
         "unpadded_ms": k4["unpadded_ms"],
+        "hybrid": dict(
+            {k: v for k, v in k4["hybrid"][K4_HYBRID_TIMED].items()
+             if k in ("ms", "unpadded_ms", "plain_ms", "bound_ms",
+                      "bound_by", "max_abs_err")},
+            launches=rec["zamba int"]["graphs cold"]["launches"][
+                "paged_attention"],
+            per=f"launch at zamba2-2.7b's {K4_HYBRID_TIMED} (4, "
+                f"{HYBRID_CHUNK}), work list padded to its capacity; "
+                f"launches from phase 20's zamba int graphs run"),
         "library_note": "no single PyTorch call reads a block table; gather "
                         f"+ dequantize + SDPA (two calls) "
                         f"{k4['gather_sdpa_ms']:.4f} ms"})

@@ -1,8 +1,9 @@
 """Config registry: ``get_config(arch_id)`` and smoke-scale variants.
 
 Only the architectures the port serves are registered: the dense GQA
-transformers (a ``ModelConfig``) and the paper's ResNet (``resnet_paper``,
-a ``ResNetConfig``); other architecture ids raise ``NotImplementedError``
+transformers, the recurrent RWKV6 and the hybrid zamba2 (each a
+``ModelConfig``) and the paper's ResNet (``resnet_paper``, a
+``ResNetConfig``); other architecture ids raise ``NotImplementedError``
 naming the ROADMAP queue.
 """
 from __future__ import annotations
@@ -16,7 +17,7 @@ from repro_torch.configs.resnet_paper import ResNetConfig
 __all__ = ["ARCH_IDS", "ModelConfig", "ResNetConfig", "get_config",
            "get_smoke_config"]
 
-ARCH_IDS = ["qwen3_1_7b", "resnet_paper"]
+ARCH_IDS = ["qwen3_1_7b", "rwkv6_3b", "zamba2_2_7b", "resnet_paper"]
 
 # canonical CLI ids (dashes) -> module names
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}

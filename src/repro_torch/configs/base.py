@@ -1,23 +1,46 @@
-"""Architecture configuration schema (dense GQA family).
+"""Architecture configuration schema.
 
-A copy of the JAX package's ``ModelConfig`` for the family the PyTorch
-port serves so far, the dense pre-norm GQA transformers, holding the
-fields the port reads.  The MoE / MLA / SSM / enc-dec / hybrid
-sub-configs are not ported yet.  Configs are frozen, hashable
-dataclasses.
+A copy of the JAX package's ``ModelConfig`` for the families the PyTorch
+port serves, holding the fields the port reads: the dense pre-norm GQA
+transformers, and the recurrent (``ssm``: RWKV6) and hybrid (Mamba2
+groups plus one shared attention block) families with their
+``SSMConfig`` / ``HybridConfig``.  The MoE / MLA / enc-dec sub-configs
+are not ported yet.  Configs are frozen, hashable dataclasses.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["ModelConfig"]
+__all__ = ["SSMConfig", "HybridConfig", "ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / RWKV6 recurrence dims."""
+
+    kind: str = "mamba2"           # 'mamba2' | 'rwkv6'
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 256               # SSD / chunked-linear-attention chunk len
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style: shared attention block every ``attn_every`` SSM blocks."""
+
+    attn_every: int = 6
+    n_shared_blocks: int = 1
+    concat_embedding: bool = True  # shared block sees concat(h, h_embed)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense (the only family ported so far)
+    family: str                    # dense | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -28,14 +51,22 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
-    act: str = "silu"              # silu (SwiGLU)
+    act: str = "silu"              # silu (SwiGLU) | relu_sq (rwkv)
     tie_embeddings: bool = False
     attn_bias: bool = False
+    ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
     # int8 KV cache: Eq. 1 applied to the cache with a static fractional
     # bit (post-rope/qk-norm K and V are O(1)-ranged; n=4 keeps |x|<8).
     kv_cache_bits: Optional[int] = None
     kv_cache_frac_bits: int = 4
+    # int8 recurrent-state slabs: Eq. 1 applied to the RWKV / Mamba
+    # sequence state on the fixed-slab substrate, the whole slab
+    # requantized once per engine step on a per-slab po2 grid (the decay
+    # math stays fp32).  None keeps fp32 slabs.
+    state_bits: Optional[int] = None
+    state_frac_bits: int = 4
     # attention of the dense-cache paths (forward, prefill, decode_step):
     #   'chunked' — the plain PyTorch versions of the flash kernels
     #   'flash'   — K5 / K6 (``kernels.ops.flash_attention`` /

@@ -171,20 +171,27 @@ def _map_leaves(node, fn, path=""):
     return fn(path, node)
 
 
-def quantize_weight_tree(params: Any, ctx: QuantContext) -> Any:
+def quantize_weight_tree(params: Any, ctx: QuantContext,
+                         name_fn=None) -> Any:
     """Convert float matmul weights to int8 codes ONCE, at model build.
 
     Leaves with ndim >= 2 whose path holds neither 'norm' nor 'embed'
-    become ``quant(w, n_w)`` on their module's grid (the table entry for
-    the longest matching path suffix, else the defaults) — bit-identical
-    to the per-call quantization in :func:`qlinear`'s INT branch, so the
-    step then reads int8 weights instead of float ones.  Embeddings and
-    norm gains stay float.  Returns a new tree; the input is untouched.
+    (or, with ``name_fn``, those for which ``name_fn(path, leaf)`` is
+    true) become ``quant(w, n_w)`` on their module's grid (the table entry
+    for the longest matching path suffix, else the defaults) —
+    bit-identical to the per-call quantization in :func:`qlinear`'s INT
+    branch, so the step then reads int8 weights instead of float ones.
+    Embeddings and norm gains stay float.  Returns a new tree; the input
+    is untouched.
     """
+    def is_weight(path, leaf):
+        if name_fn is not None:
+            return name_fn(path, leaf)
+        return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+                and "norm" not in path and "embed" not in path)
+
     def conv(path, leaf):
-        if (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
-                and leaf.dtype != torch.int8
-                and "norm" not in path and "embed" not in path):
+        if is_weight(path, leaf) and leaf.dtype != torch.int8:
             mod = module_name_for_path(path, ctx.table)
             mb = ctx.bits_for(mod) if mod is not None else ModuleBits()
             return quant(leaf, mb.n_w, ctx.bits)

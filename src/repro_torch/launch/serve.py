@@ -13,12 +13,18 @@ calibrates, pre-quantizes the weights to int8 codes and serves every
 projection through the int8 shift-requant kernel; ``--spec-k K`` drafts up
 to K tokens a slot (``--drafter ngram``) and verifies them in the same
 step; ``--no-ragged`` serves through the legacy per-shape steps (paged
-attention, K4) instead of the unified ragged step (K1):
+attention, K4) instead of the unified ragged step (K1).  The recurrent
+archs (``rwkv6_3b``, ``zamba2_2_7b``) serve from fixed-size state slabs,
+``--slabs N`` of them (default one a slot plus the trash slab), fp32 or
+with ``--state-bits 8`` int8 codes requantized once a step; zamba2's
+shared attention block also keeps a paged KV pool (K4):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
         --engine [--w8a8 | --mode fp | --mode int --no-calibrate] \
         [--spec-k 3] [--no-ragged] [--trace OUT.json] [--metrics OUT.prom] \
         [--profile-dir DIR] [--record OUT.json] [--slo]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
+        --engine --mode fp [--state-bits 8] [--slabs 3]
 
 Observability: ``--trace`` exports the run's Chrome trace (Perfetto),
 ``--metrics`` the registry's Prometheus text, ``--profile-dir`` a
@@ -175,7 +181,9 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  top_k: int = 0, prompt_lens=(8, 16, 24, 32),
                  gen_lens=(4, 8, 16, 24), requests=None,
                  cfg_overrides: dict | None = None, shared_prefix: int = 0,
-                 prefix_cache: bool | None = None, spec_k: int = 0,
+                 prefix_cache: bool | None = None,
+                 num_slabs: int | None = None,
+                 state_bits: int | None = None, spec_k: int = 0,
                  drafter="ngram", ragged: bool = True, w8a8: bool = False,
                  trace: str | bool = False, trace_capacity: int = 65536,
                  metrics_path: str | None = None,
@@ -199,6 +207,13 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     to K tokens a slot with ``drafter`` ('ngram', or any object with a
     ``draft(history, k)`` method) and verifies them in the same step;
     ``ragged=False`` serves through the legacy per-shape steps.
+    Recurrent / hybrid archs (``rwkv6_3b``, ``zamba2_2_7b``) serve from the
+    fixed-slab substrate: ``num_slabs`` sizes the state pool (default one
+    slab a slot plus the trash slab) and ``state_bits=8`` stores the slabs
+    as int8 Eq.-1 codes requantized once a step (``None``: fp32 slabs).
+    They refuse ``spec_k > 0`` and ``prefix_cache=True``, and calibration
+    (its Algorithm 1 runs ``model.forward``, not ported for them): INT
+    mode runs on the context's default bits with ``calibrate=False``.
     ``device`` defaults to ``cuda``; there the engine runs each step
     key's first call eagerly, captures the key as a CUDA graph at its
     second and replays it from then on, unless ``graphs=False`` (every
@@ -227,12 +242,22 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     overrides = dict(cfg_overrides or {})
     if kv_bits is not None:
         overrides.setdefault("kv_cache_bits", kv_bits)
+    if state_bits is not None:
+        overrides.setdefault("state_bits", state_bits)
     if w8a8:
         mode, calibrate = "int", True
         overrides["matmul_kernel"] = "int8"
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
+    recurrent = cfg.family in ("ssm", "hybrid")
+    if recurrent and calibrate and mode in ("fake", "int"):
+        raise NotImplementedError(
+            f"calibration of the {cfg.family!r} family is not ported yet: "
+            f"Algorithm 1 runs model.forward, which the port serves for "
+            f"the dense family only (ROADMAP Queue 1 item 5's remainder); "
+            f"pass calibrate=False (INT mode then runs on the default "
+            f"bits)")
     if params is None:
         params = M.init_params(cfg, seed, device=dev)
     ctx = QuantContext(mode=QuantMode(mode))
@@ -249,7 +274,10 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
         quantized = quantize_params(params, ctx)
         params = quantized.tree
     elif ctx.mode is QuantMode.INT:
-        params = quantize_weight_tree(params, ctx)
+        # the recurrent blocks' other matrices (LoRA and token-shift mixes,
+        # conv taps) are float operands outside any unified module
+        params = quantize_weight_tree(
+            params, ctx, name_fn=M.qlinear_weight if recurrent else None)
     if requests is None:
         requests = poisson_workload(
             cfg.vocab_size, n_requests=n_requests, rate=rate,
@@ -262,7 +290,8 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     engine = ServingEngine(cfg, params, ctx, n_slots=n_slots,
                            block_size=block_size, chunk=chunk,
                            max_model_len=max_model_len,
-                           num_blocks=num_blocks, top_k=top_k, seed=seed,
+                           num_blocks=num_blocks, num_slabs=num_slabs,
+                           top_k=top_k, seed=seed,
                            prefix_cache=prefix_cache, spec_k=spec_k,
                            drafter=drafter, ragged=ragged,
                            trace=bool(trace), trace_capacity=trace_capacity,
@@ -313,6 +342,15 @@ def main(argv=None):
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N")
     ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--slabs", type=int, default=None, metavar="N",
+                    help="[--engine] recurrent-state pool size in slabs "
+                         "(default 1 trash + one per slot); ignored on "
+                         "pure-attention archs")
+    ap.add_argument("--state-bits", type=int, default=None, choices=[8],
+                    help="[--engine] store recurrent state slabs as int8 "
+                         "Eq.-1 codes, requantized once per engine step "
+                         "(default: fp32 slabs); ignored on pure-attention "
+                         "archs")
     ap.add_argument("--w8a8", action="store_true",
                     help="[--engine] W8A8 deploy: calibrate, pre-quantize "
                          "the weights to int8 codes and run every "
@@ -373,6 +411,7 @@ def main(argv=None):
                 seed=args.seed, temperature=args.temperature,
                 top_k=args.top_k, shared_prefix=args.shared_prefix,
                 prefix_cache=False if args.no_prefix_cache else None,
+                num_slabs=args.slabs, state_bits=args.state_bits,
                 spec_k=args.spec_k, drafter=args.drafter,
                 ragged=not args.no_ragged, w8a8=args.w8a8,
                 trace=args.trace or False,
@@ -467,7 +506,10 @@ def _replay(args) -> int:
                        num_blocks=es["num_blocks"], mode=args.mode,
                        calibrate=not args.no_calibrate, smoke=not args.full,
                        top_k=es["default_top_k"], seed=es["seed"],
-                       prefix_cache=es["prefix_cache"], spec_k=es["spec_k"],
+                       prefix_cache=es["prefix_cache"],
+                       num_slabs=es.get("num_slabs"),
+                       state_bits=es["model"].get("state_bits"),
+                       spec_k=es["spec_k"],
                        drafter=args.drafter, ragged=es["ragged"],
                        w8a8=args.w8a8, record=True,
                        virtual_dt=es["virtual_dt"], device=args.device)

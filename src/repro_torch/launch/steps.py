@@ -1,8 +1,8 @@
 """Step builders of the classic dense-cache serving path and of the
 serving engine (PyTorch counterpart of ``repro.launch.steps``:
 ``build_prefill_step``, ``build_serve_step``, ``build_paged_step``,
-``build_ragged_step`` and the build-time W8A8 check), and the engine's
-compiled step, :class:`StepGraphs`.
+``build_ragged_step``, ``build_recurrent_step`` and the build-time W8A8
+check), and the engine's compiled step, :class:`StepGraphs`.
 
 The builders validate the configuration once and return plain closures
 that run eagerly.  Where the JAX engine ``jax.jit``-compiles each serving
@@ -25,7 +25,8 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 
 __all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
-           "build_paged_step", "build_ragged_step", "StepGraphs"]
+           "build_paged_step", "build_ragged_step", "build_recurrent_step",
+           "StepGraphs"]
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
@@ -99,6 +100,28 @@ def build_ragged_step(cfg: ModelConfig, ctx: QuantContext):
                              ctx)
 
     return ragged_step
+
+
+def build_recurrent_step(cfg: ModelConfig, ctx: QuantContext):
+    """One serving step on the fixed-slab recurrent substrate:
+    ``recurrent_step(params, tokens (B, C), cache, slab_ids (B,), q_len
+    (B,), positions, block_tables, work=None) -> (logits (B, V), cache)``,
+    the slabs (and the hybrid's KV pool) updated in place.  ONE fixed
+    shape (B = n_slots, C = chunk) covers prefill chunks, decode rows and
+    idle lanes at once (per-row ``q_len`` does the bucketing), so the
+    engine captures it once per sampling key, as the JAX engine jits it
+    once.  ``positions`` / ``block_tables`` are None for the pure
+    recurrent family; the hybrid threads them, and K4's ``work`` list for
+    the positions, into the shared attention block."""
+    check_matmul_kernel(cfg, ctx)
+
+    def recurrent_step(params, tokens, cache, slab_ids, q_len,
+                       positions=None, block_tables=None, work=None):
+        return M.paged_recurrent_step(params, tokens, cache, slab_ids, q_len,
+                                      positions, block_tables, cfg, ctx,
+                                      work=work)
+
+    return recurrent_step
 
 
 # ---------------------------------------------------------------------------
@@ -185,9 +208,10 @@ class StepGraphs:
     """The compiled serving step: one CUDA graph per step key, replayed.
 
     :meth:`run` takes a step key (the engine's: ``("ragged", T_pad, S_pad,
-    k_cap, has_top_k, sampled)`` or ``(B, C, verify, k_cap, has_top_k,
-    sampled)``, everything a step's device program depends on beyond its
-    staged arrays), the step function ``fn(inputs) -> output`` over the
+    k_cap, has_top_k, sampled)``, ``(B, C, verify, k_cap, has_top_k,
+    sampled)`` or ``("recurrent", B, C, k_cap, has_top_k, sampled)``,
+    everything a step's device program depends on beyond its staged
+    arrays), the step function ``fn(inputs) -> output`` over the
     staged arrays' device tensors, and the step's host arrays.
 
     * Without capture (``capture=False``: the CPU, or an engine built with

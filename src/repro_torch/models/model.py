@@ -1,12 +1,17 @@
-"""Top-level model API (PyTorch counterpart of ``repro.models.model`` for
-the dense family: ``init_params``, the classic dense-cache path
-``init_cache`` / ``forward`` / ``prefill`` / ``decode_step``, the serving
-engine's ``init_paged_cache`` / ``ragged_step`` / ``paged_step``) and the
-weight bridge from the JAX package's param tree.
+"""Top-level model API (PyTorch counterpart of ``repro.models.model``):
+``init_params``; for the dense family the classic dense-cache path
+``init_cache`` / ``forward`` / ``prefill`` / ``decode_step`` and the
+serving engine's ``init_paged_cache`` / ``ragged_step`` / ``paged_step``;
+for the recurrent (``ssm``) and hybrid families the fixed-slab serving
+substrate ``init_paged_state`` / ``paged_recurrent_step``; and the weight
+bridge from the JAX package's param tree.
 
 Parameters are a plain dict of tensors: ``embed`` (Vp, d), ``ln_f`` (d,),
 ``lm_head`` (d, Vp) and ``blocks``, a list with one dict per layer —
-where the JAX package stacks the layers on a leading axis and scans.
+where the JAX package stacks the layers on a leading axis and scans (the
+hybrid's Mamba blocks on two axes, group and block; here group ``i``
+holds ``blocks[i * attn_every:(i + 1) * attn_every]``) — and, for the
+hybrid, ``shared``, the one shared attention block.
 """
 from __future__ import annotations
 
@@ -18,13 +23,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
+from repro_torch.core.qscheme import round_half_away
 from repro_torch.models import attention as att
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (Initializer, embed, rmsnorm,
                                        rope_tables, unembed)
 
 __all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
            "init_paged_cache", "ragged_step", "paged_step",
+           "init_paged_state", "paged_recurrent_step", "qlinear_weight",
            "from_jax_params", "model_dtype"]
 
 Device = Optional[Union[str, torch.device]]
@@ -34,12 +43,27 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
-def _check_family(cfg: ModelConfig, what: str) -> None:
-    if cfg.family != "dense":
+_RECURRENT = ("ssm", "hybrid")
+
+
+def _check_family(cfg: ModelConfig, what: str,
+                  families: tuple = ("dense",)) -> None:
+    if cfg.family in families:
+        return
+    if families == _RECURRENT:
         raise NotImplementedError(
-            f"{what} covers the dense GQA family; got family="
-            f"{cfg.family!r} (other families: ROADMAP Queue 1 items 5-6, "
-            f"'Recurrent and hybrid substrate' and 'Other families')")
+            f"{what} covers the recurrent families (ssm, hybrid); got "
+            f"family={cfg.family!r}")
+    if cfg.family in _RECURRENT:
+        raise NotImplementedError(
+            f"{what} covers the dense GQA family; the {cfg.family!r} family "
+            f"is served by the fixed-slab substrate (init_paged_state, "
+            f"paged_recurrent_step) only: its classic forward / prefill / "
+            f"decode path is ROADMAP Queue 1 item 5's remainder")
+    raise NotImplementedError(
+        f"{what} covers the dense GQA, ssm and hybrid families; got "
+        f"family={cfg.family!r} (other families: ROADMAP Queue 1 "
+        f"'Other families')")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -48,7 +72,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     (default ``cuda``).  Not the JAX package's numbers — its PRNG cannot
     be reproduced; tests carry JAX weights over with
     :func:`from_jax_params`."""
-    _check_family(cfg, "init_params")
+    _check_family(cfg, "init_params", ("dense",) + _RECURRENT)
     dev = resolve_device(device)
     dt = model_dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -60,9 +84,39 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init.dense((cfg.d_model, cfg.vocab_padded))
-    params["blocks"] = [tfm.init_dense_block(init, cfg)
-                        for _ in range(cfg.n_layers)]
+    if cfg.family == "dense":
+        params["blocks"] = [tfm.init_dense_block(init, cfg)
+                            for _ in range(cfg.n_layers)]
+    elif cfg.family == "ssm":
+        params["blocks"] = [tfm.init_rwkv_block(init, cfg)
+                            for _ in range(cfg.n_layers)]
+    else:
+        params["blocks"] = [tfm.init_mamba_block(init, cfg)
+                            for _ in range(_n_groups(cfg)
+                                           * cfg.hybrid.attn_every)]
+        params["shared"] = tfm.init_shared_attn(init, cfg)
     return params
+
+
+def _n_groups(cfg: ModelConfig) -> int:
+    return cfg.n_layers // cfg.hybrid.attn_every
+
+
+# leaves that reach ``qlinear`` as a weight (the other matrices of the
+# recurrent blocks -- LoRA mixes, token-shift mixes, the bonus, the conv
+# taps -- are float operands outside any unified module)
+_QLINEAR_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "lm_head",
+                   "wr", "wg", "wk_ffn", "wv_ffn", "wr_ffn", "w_in",
+                   "w_out", "in_proj"}
+
+
+def qlinear_weight(path: str, leaf) -> bool:
+    """Whether the params leaf at ``path`` (``blocks/3/rwkv/wr``) is a
+    matmul weight that runs through ``qlinear``: the leaves INT mode
+    quantizes to int8 codes once (``quantize_weight_tree``'s
+    ``name_fn``)."""
+    return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
+            and path.split("/")[-1] in _QLINEAR_LEAVES)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
@@ -210,6 +264,190 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
 
 
 # ---------------------------------------------------------------------------
+# the fixed-slab recurrent substrate
+# ---------------------------------------------------------------------------
+
+def init_paged_state(cfg: ModelConfig, num_slabs: int, *,
+                     num_blocks: Optional[int] = None,
+                     block_size: Optional[int] = None,
+                     device: Device = None) -> dict:
+    """STATE SLAB arenas of the fixed-slab recurrent substrate: one
+    (L, S, ...) arena per state component, S = ``num_slabs``, which the
+    host-side ``serving.state_pool.StateSlabPool`` hands out one slab per
+    live sequence.  Slab 0 is the trash slab idle lanes read and write
+    (their q_len is 0, so the step passes it through bit for bit), so
+    ``num_slabs`` >= 2.
+
+    With ``cfg.state_bits == 8`` the slabs hold Eq.-1 int8 codes on a
+    per-slab power-of-two grid (``exp``, (S,) int32); ``None`` keeps fp32
+    slabs.  RWKV6 (``ssm``): ``state`` = {x_att, x_ffn (L, S, d), wkv (L,
+    S, H, 64, 64)}.  Hybrid: ``ssm``, an ``SSMState`` of (G, g, S, ...)
+    arenas (G groups of g Mamba blocks), and the shared attention block's
+    KV pool ``paged_kv`` (G, NB, bs, KVH, D), sized by ``num_blocks`` /
+    ``block_size`` as :func:`init_paged_cache` (int8 codes when
+    ``cfg.kv_cache_bits == 8``)."""
+    _check_family(cfg, "init_paged_state", _RECURRENT)
+    if num_slabs < 2:
+        raise ValueError("state pool needs >= 2 slabs (slab 0 is the trash "
+                         "slab idle lanes read and write)")
+    dev = resolve_device(device)
+    st_dt = torch.int8 if cfg.state_bits == 8 else torch.float32
+    exp = torch.full((num_slabs,),
+                     cfg.state_frac_bits if cfg.state_bits == 8 else 0,
+                     dtype=torch.int32, device=dev)
+
+    def zeros(*shape, dtype=st_dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family == "ssm":
+        h, hd = cfg.d_model // rwkv_lib.HEAD_DIM, rwkv_lib.HEAD_DIM
+        ls = (cfg.n_layers, num_slabs)
+        return {"state": {"x_att": zeros(*ls, cfg.d_model),
+                          "x_ffn": zeros(*ls, cfg.d_model),
+                          "wkv": zeros(*ls, h, hd, hd)},
+                "exp": exp}
+    if num_blocks is None or block_size is None:
+        raise ValueError("hybrid slabs need num_blocks/block_size for the "
+                         "shared attention block's KV pool")
+    if num_blocks < 2:
+        raise ValueError("pool needs >= 2 blocks (block 0 is the trash "
+                         "block inactive slots write to)")
+    g, n_groups = cfg.hybrid.attn_every, _n_groups(cfg)
+    st = ssm_lib.zero_state(cfg, num_slabs)
+    kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else model_dtype(cfg)
+    kv_shape = (n_groups, num_blocks, block_size, cfg.n_kv_heads,
+                cfg.resolved_head_dim)
+    return {"ssm": ssm_lib.SSMState(
+                conv=zeros(n_groups, g, *st.conv.shape),
+                ssm=zeros(n_groups, g, *st.ssm.shape)),
+            "exp": exp,
+            "paged_kv": att.PagedKVCache(k=zeros(*kv_shape, dtype=kv_dt),
+                                         v=zeros(*kv_shape, dtype=kv_dt))}
+
+
+def _pow2(n: torch.Tensor) -> torch.Tensor:
+    """2^n for an integer tensor, exact, as fp32."""
+    return torch.pow(2.0, n.to(torch.float64)).to(torch.float32)
+
+
+def _slab_load(codes: torch.Tensor, n: Optional[torch.Tensor],
+               dtype: torch.dtype) -> torch.Tensor:
+    """Gathered slabs in the compute ``dtype``: int8 codes dequantized on
+    their slabs' grids ``n`` (broadcast over the slab axis), fp32 slabs
+    cast."""
+    if n is None:
+        return codes.to(dtype)
+    return (codes.to(torch.float32) * _pow2(-n)).to(dtype)
+
+
+def _slab_store(new: torch.Tensor, n: Optional[torch.Tensor],
+                dtype: torch.dtype) -> torch.Tensor:
+    """New state as slab contents: Eq.-1 int8 codes on the grids ``n``
+    (``clip(round(x * 2^n))``), or cast to the fp32 slab."""
+    if n is None:
+        return new.to(dtype)
+    scaled = new.to(torch.float32) * _pow2(n)
+    return torch.clamp(round_half_away(scaled), -128, 127).to(torch.int8)
+
+
+def paged_recurrent_step(params: dict, tokens: torch.Tensor, cache: dict,
+                         slab_ids: torch.Tensor, q_len: torch.Tensor,
+                         positions: Optional[torch.Tensor],
+                         block_tables: Optional[torch.Tensor],
+                         cfg: ModelConfig, ctx: QuantContext, work=None
+                         ) -> tuple[torch.Tensor, dict]:
+    """One serving step on the fixed-slab recurrent substrate.
+
+    ``tokens`` (B, C) right-padded; ``q_len`` (B,) real tokens a row
+    (a prefill chunk's c_real <= C, a decode row 1, an idle lane 0 on the
+    trash slab); ``slab_ids`` (B,) each row's slab.  The gathered state is
+    dequantized ONCE on its per-slab po2 grid (``cache['exp']``), the
+    masked forward advances every row by its own q_len in one fixed
+    shape, and the new state is requantized ONCE and scattered back IN
+    PLACE (``index_copy_``, where the JAX engine donates the state).  So
+    the requant count a token is independent of context length.  Idle
+    lanes pass their slab through bit for bit, which keeps several lanes'
+    writes to the trash slab deterministic (they carry identical values).
+
+    For the hybrid family, per-token ``positions`` (B, C) (invalid entries
+    pointed past the last real block) and ``block_tables`` (B, NBmax + 1,
+    the last column the trash block) drive the shared attention block's
+    KV pool as :func:`paged_step`'s do, on K4's ``work`` list for these
+    positions (planned once a step, shared by every group) where given;
+    the pure recurrent family ignores all three.  Returns (logits (B, V)
+    in the activation dtype at each row's last real token, cache)."""
+    _check_family(cfg, "paged_recurrent_step", _RECURRENT)
+    b, c = tokens.shape
+    dt = model_dtype(cfg)
+    dev = tokens.device
+    x = embed(params["embed"], tokens, dt)
+    valid = torch.arange(c, device=dev)[None, :] < q_len[:, None]
+    ids = slab_ids.long()
+    exps = cache["exp"].index_select(0, ids) if cfg.state_bits == 8 \
+        else None
+
+    def grid(lead: int, ndim: int):
+        # the rows' exponents broadcast over (lead axes, B, state dims)
+        if exps is None:
+            return None
+        return exps.reshape((1,) * lead + (b,) + (1,) * (ndim - lead - 1))
+
+    if cfg.family == "ssm":
+        st = cache["state"]
+        gathered = {k: v.index_select(1, ids) for k, v in st.items()}
+        loaded = {k: _slab_load(v, grid(1, v.ndim),
+                                torch.float32 if k == "wkv" else dt)
+                  for k, v in gathered.items()}
+        new = {"x_att": [], "x_ffn": [], "wkv": []}
+        for layer, p_l in enumerate(params["blocks"]):
+            state = rwkv_lib.RWKVState(
+                x_prev_att=loaded["x_att"][layer][:, None],
+                x_prev_ffn=loaded["x_ffn"][layer][:, None],
+                wkv=loaded["wkv"][layer])
+            x, ns = tfm.rwkv_block_paged(ctx, p_l, x, cfg, state, valid)
+            new["x_att"].append(ns.x_prev_att[:, 0])
+            new["x_ffn"].append(ns.x_prev_ffn[:, 0])
+            new["wkv"].append(ns.wkv)
+        for k, arr in st.items():
+            stacked = torch.stack(new[k])                   # (L, B, ...)
+            arr.index_copy_(1, ids, _slab_store(
+                stacked, grid(1, stacked.ndim), arr.dtype))
+    else:
+        st = cache["ssm"]
+        g = cfg.hybrid.attn_every
+        conv = _slab_load(st.conv.index_select(2, ids),
+                          grid(2, st.conv.ndim), dt)
+        ssm = _slab_load(st.ssm.index_select(2, ids),
+                         grid(2, st.ssm.ndim), torch.float32)
+        rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta,
+                           dt)
+        kv = cache["paged_kv"]
+        x_embed = x
+        new_conv, new_ssm = [], []
+        for gi in range(_n_groups(cfg)):
+            x, ns = tfm.hybrid_group_paged(
+                ctx, params["blocks"][gi * g:(gi + 1) * g], params["shared"],
+                x, x_embed, cfg,
+                states=[ssm_lib.SSMState(conv[gi, j], ssm[gi, j])
+                        for j in range(g)],
+                rope=rope, cache=att.PagedKVCache(kv.k[gi], kv.v[gi]),
+                positions=positions, block_tables=block_tables,
+                valid=valid, paged_work=work)
+            new_conv.append(torch.stack([s_.conv for s_ in ns]))
+            new_ssm.append(torch.stack([s_.ssm for s_ in ns]))
+        for arr, new in ((st.conv, torch.stack(new_conv)),
+                         (st.ssm, torch.stack(new_ssm))):
+            arr.index_copy_(2, ids, _slab_store(new, grid(2, new.ndim),
+                                                arr.dtype))
+
+    last = torch.clamp(q_len.long() - 1, min=0)
+    xe = x[torch.arange(b, device=dev), last][:, None, :]   # (B, 1, d)
+    xe = rmsnorm(xe, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return unembed(ctx, xe, head)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
 # weight bridge from the JAX package
 # ---------------------------------------------------------------------------
 
@@ -234,13 +472,21 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     params)``, or a ``QuantizedParams.tree``) as the port's params.
 
     Scanned ``(L, ...)`` block leaves are unstacked into one dict per
-    layer; dtypes are kept (bf16 stays bf16, int8 codes stay int8).
-    Nothing here imports JAX."""
-    _check_family(cfg, "from_jax_params")
+    layer (the hybrid's ``blocks/mamba`` (G, g, ...) leaves into one dict
+    per Mamba block, group-major); dtypes are kept (bf16 stays bf16, int8
+    codes stay int8).  Nothing here imports JAX."""
+    _check_family(cfg, "from_jax_params", ("dense",) + _RECURRENT)
     dev = resolve_device(device)
     out = {k: _tree(v, lambda a: _to_tensor(a, dev))
            for k, v in np_tree.items() if k != "blocks"}
     blocks = np_tree["blocks"]
-    out["blocks"] = [_tree(blocks, lambda a, i=i: _to_tensor(a[i], dev))
-                     for i in range(cfg.n_layers)]
+    if cfg.family == "hybrid":
+        g = cfg.hybrid.attn_every
+        out["blocks"] = [
+            _tree(blocks["mamba"],
+                  lambda a, i=i: _to_tensor(a[i // g][i % g], dev))
+            for i in range(_n_groups(cfg) * g)]
+    else:
+        out["blocks"] = [_tree(blocks, lambda a, i=i: _to_tensor(a[i], dev))
+                         for i in range(cfg.n_layers)]
     return out

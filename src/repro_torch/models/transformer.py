@@ -1,7 +1,10 @@
-"""Block assembly (PyTorch counterpart of ``repro.models.transformer`` for
-the dense family): pre-norm GQA + SwiGLU.  Blocks are plain functions
-over one layer's dict of tensors; the model loops over layers where the
-JAX package scans stacked parameters."""
+"""Block assembly (PyTorch counterpart of ``repro.models.transformer``):
+the dense family's pre-norm GQA + SwiGLU block, the RWKV6 block, and
+zamba2's hybrid group (``attn_every`` Mamba2 blocks, then the one shared
+attention block on concat(h, embedding)), the last two in the batched
+paged form of the serving engine.  Blocks are plain functions over one
+layer's dict of tensors; the model loops over layers where the JAX
+package scans stacked parameters."""
 from __future__ import annotations
 
 import torch
@@ -10,9 +13,13 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.models import attention as att
 from repro_torch.models import mlp as mlp_lib
-from repro_torch.models.common import Initializer, rmsnorm
+from repro_torch.models import rwkv as rwkv_lib
+from repro_torch.models import ssm as ssm_lib
+from repro_torch.models.common import Initializer, linear, rmsnorm
 
-__all__ = ["init_dense_block", "dense_block"]
+__all__ = ["init_dense_block", "dense_block", "init_rwkv_block",
+           "rwkv_block_paged", "init_mamba_block", "init_shared_attn",
+           "hybrid_group_paged"]
 
 
 def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
@@ -45,3 +52,101 @@ def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
     x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg.act)
     return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# rwkv6 block
+# ---------------------------------------------------------------------------
+
+def init_rwkv_block(init: Initializer, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": init.ones((cfg.d_model,)),
+        "ln2": init.ones((cfg.d_model,)),
+        "rwkv": rwkv_lib.init_rwkv6(init, cfg),
+    }
+
+
+def rwkv_block_paged(ctx: QuantContext, p: dict, x: torch.Tensor,
+                     cfg: ModelConfig, state: rwkv_lib.RWKVState,
+                     valid: torch.Tensor):
+    """Right-padded batched RWKV block of the serving engine.
+
+    Every row advances by its own ``q_len = sum(valid)`` tokens in one
+    fixed-shape call: invalid positions are inert inside the chunked WKV,
+    and the token-shift streams are taken per row at the last VALID
+    position.  Rows with ``q_len == 0`` (empty slots, trash-slab lanes)
+    carry their state through bit for bit."""
+    b = x.shape[0]
+    att_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    att_out, _, st = rwkv_lib.rwkv6_block(ctx, p["rwkv"], att_in, cfg,
+                                          state=state, valid=valid)
+    x = x + att_out
+    ffn_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + rwkv_lib.rwkv6_channel_mix(ctx, p["rwkv"], ffn_in, cfg,
+                                       x_prev=state.x_prev_ffn)
+    q_len = valid.to(torch.int64).sum(dim=1)
+    last = torch.clamp(q_len - 1, min=0)
+    rows = torch.arange(b, device=x.device)
+    keep = (q_len > 0)[:, None, None]
+    new_state = rwkv_lib.RWKVState(
+        x_prev_att=torch.where(keep, att_in[rows, last][:, None],
+                               state.x_prev_att.to(att_in.dtype)),
+        x_prev_ffn=torch.where(keep, ffn_in[rows, last][:, None],
+                               state.x_prev_ffn.to(ffn_in.dtype)),
+        wkv=st.wkv)
+    return x, new_state
+
+
+# ---------------------------------------------------------------------------
+# zamba2 hybrid group: ``attn_every`` mamba blocks + the shared GQA block
+# ---------------------------------------------------------------------------
+
+def init_mamba_block(init: Initializer, cfg: ModelConfig) -> dict:
+    return {"ln": init.ones((cfg.d_model,)),
+            "ssm": ssm_lib.init_mamba2(init, cfg)}
+
+
+def init_shared_attn(init: Initializer, cfg: ModelConfig) -> dict:
+    """The ONE shared transformer block (zamba2): sees concat(h, embed)."""
+    d = cfg.d_model
+    return {
+        "in_proj": init.dense((2 * d, d), fan_in=2 * d),
+        "ln1": init.ones((d,)),
+        "ln2": init.ones((d,)),
+        "attn": att.init_gqa(init, cfg),
+        "mlp": mlp_lib.init_mlp(init, d, cfg.d_ff, cfg.act),
+    }
+
+
+def hybrid_group_paged(ctx: QuantContext, group_p: list, shared_p: dict,
+                       x: torch.Tensor, x_embed: torch.Tensor,
+                       cfg: ModelConfig, *, states: list,
+                       rope: tuple[torch.Tensor, torch.Tensor],
+                       cache: att.PagedKVCache, positions: torch.Tensor,
+                       block_tables: torch.Tensor, valid: torch.Tensor,
+                       paged_work=None):
+    """One group of the serving engine's batched step: the group's Mamba
+    blocks (``group_p``, one dict each, with their ``states``) with
+    ``valid`` (B, S) threaded in, then the shared attention block over
+    the group's KV pool ``cache``, each token's codes written IN PLACE at
+    its per-token ``positions`` through ``block_tables`` (K4 over
+    ``paged_work``).  Returns (x, the Mamba blocks' new states)."""
+    new_states = []
+    for p_l, st_l in zip(group_p, states):
+        h, st = ssm_lib.mamba2(ctx, p_l["ssm"],
+                               rmsnorm(x, p_l["ln"], cfg.norm_eps), cfg,
+                               init_state=st_l, valid=valid)
+        x = x + h
+        new_states.append(st)
+    # shared attention block on concat(h, embedding) (zamba2 dataflow)
+    z = linear(ctx, "shared/in_proj", torch.cat([x, x_embed], dim=-1),
+               shared_p["in_proj"])
+    h, _ = att.gqa_attention(
+        ctx, shared_p["attn"], rmsnorm(z, shared_p["ln1"], cfg.norm_eps),
+        cfg, rope=rope, cache=cache, cache_pos=positions,
+        block_tables=block_tables, paged_work=paged_work, name="shared/attn")
+    z = z + h
+    z = z + mlp_lib.mlp(ctx, shared_p["mlp"],
+                        rmsnorm(z, shared_p["ln2"], cfg.norm_eps), cfg.act,
+                        name="shared/mlp")
+    return x + z, new_states

@@ -15,8 +15,9 @@ The port reports the reference's schema unchanged plus the keys in
 ``PORT_EXTRAS`` (the device it ran on, each kernel's launch count and
 the compiled step's first calls, captures and replays);
 ``diff_schema`` takes those as declared and reports any other drift.
-The ``state_pool.*`` section stays off: the port serves the attention
-substrate only.
+Its ``kv`` / ``slab`` flags follow the substrate, as in the reference:
+``pool.*`` on the attention and hybrid substrates, ``state_pool.*`` on
+the recurrent and hybrid ones (a pure recurrent engine has no KV pool).
 
 Conditional sections: ``speculative.*`` metrics exist only when
 ``spec_k > 0``, ``prefix_cache.*`` only when the cache is on (the report

@@ -1,6 +1,6 @@
-"""Continuous-batching step loop over the paged int8-KV block pool
-(PyTorch counterpart of ``repro.serving.engine`` for the attention
-substrate).
+"""Continuous-batching step loop over the paged int8-KV block pool and
+the fixed-slab recurrent substrate (PyTorch counterpart of
+``repro.serving.engine``).
 
 By default (``ragged=True``) every engine step flattens the whole mixed
 work-list — prefill chunks under the shared token budget, one decode row
@@ -19,7 +19,19 @@ of two from 8 up to the step's worst case, so step shapes stay O(few).
 * speculative verify: (n_slots, K+1) when drafting is on and some slot
   drafted — only accepted tokens commit, the rejected tail retracts.
 
-The host-side pool, prefix cache and scheduler are the JAX package's
+The recurrent substrates (RWKV6's ``ssm`` family and zamba2's hybrid,
+``serving.substrate``) serve every step as ONE fixed-shape (n_slots,
+chunk) ``models.model.paged_recurrent_step``: prefill rows feed their
+next chunk, decode rows their last token, idle lanes ride along inert on
+the trash slab.  Each live sequence owns one fixed-size state slab
+(``serving.state_pool``), fp32 or int8 Eq.-1 codes requantized once a
+step; the hybrid also grows block tables in the pool for its shared
+attention block (K4 once a group).  Speculative decoding and the prefix
+cache are refused there, and the ragged step is off; preemption on the
+pure recurrent substrate copies the slab to the host and restores it at
+readmission.
+
+The host-side pools, prefix cache and scheduler are the JAX package's
 numpy modules, copied unchanged.  The device pool is updated in place:
 the scatter writes each token's codes into its row and copy-on-write
 duplicates one block's rows, where the JAX engine donates the buffer.
@@ -50,8 +62,8 @@ and passes the reference's golden schema (``obs.schema``), plus the
 port's ``device`` and ``kernel_launches``.  None of it changes a token,
 a launch or a scheduling decision.
 
-Not ported yet, and raising ``NotImplementedError``: the recurrent /
-hybrid substrates, and ``profile_cost`` (XLA's cost analysis).
+Not ported yet, and raising ``NotImplementedError``: ``profile_cost``
+(XLA's cost analysis).
 """
 from __future__ import annotations
 
@@ -71,18 +83,22 @@ from repro_torch.kernels.flash_attention import (paged_capacity,
 from repro_torch.kernels.ragged_flash import (pad_work, plan_ragged_work,
                                               ragged_capacity)
 from repro_torch.launch.steps import (StepGraphs, build_paged_step,
-                                      build_ragged_step, check_matmul_kernel)
+                                      build_ragged_step,
+                                      build_recurrent_step,
+                                      check_matmul_kernel)
 from repro_torch.models import model as M
 from repro_torch.models.attention import RaggedBatch
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.profile import EnergyAccount, Profiler
 from repro_torch.obs.slo import SLOMonitor, default_slos
 from repro_torch.obs.trace import Tracer
-from repro_torch.serving.kv_pool import TRASH_BLOCK, BlockPool
+from repro_torch.serving.kv_pool import (TRASH_BLOCK, BlockPool,
+                                         BlockPoolError)
 from repro_torch.serving.scheduler import (Request, RequestState, Scheduler,
                                            chunk_bucket)
 from repro_torch.serving.spec import (apply_top_k, resolve_drafter,
                                       verify_tokens)
+from repro_torch.serving.state_pool import TRASH_SLAB, StateSlabPool
 from repro_torch.serving.substrate import substrate_for
 
 __all__ = ["ServingEngine", "sample_tokens", "summarize_step_times"]
@@ -112,7 +128,8 @@ def _pct(xs, q):
 def summarize_step_times(step_times: dict) -> dict:
     """Per-shape first-call vs steady step time, keyed by the dispatched
     shape: ragged work-lists ``("ragged", T_pad, S_pad)`` as
-    ``ragged_{T}xS{S}`` at the top level, the legacy per-shape steps'
+    ``ragged_{T}xS{S}`` and the recurrent step ``("recurrent", B, C)`` as
+    ``recurrent_{B}xC{C}`` at the top level, the legacy per-shape steps'
     ``(B, C)`` as ``BxC`` under ``legacy_shapes``.  ``p99_s`` needs at
     least two steady samples."""
     shapes: dict = {}
@@ -127,6 +144,8 @@ def summarize_step_times(step_times: dict) -> dict:
                  "p99_s": round(p99, 4) if p99 is not None else None}
         if shape[0] == "ragged":
             shapes[f"ragged_{shape[1]}xS{shape[2]}"] = entry
+        elif shape[0] == "recurrent":
+            shapes[f"recurrent_{shape[1]}xC{shape[2]}"] = entry
         else:
             legacy["x".join(map(str, shape))] = entry
     if legacy:
@@ -134,20 +153,19 @@ def summarize_step_times(step_times: dict) -> dict:
     return shapes
 
 
-def _unported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to repro_torch yet "
-                              f"(ROADMAP Queue 1 item {item})")
-
-
 class ServingEngine:
     """Continuous-batching serving engine: the unified ragged step, or the
-    legacy per-shape trio with ``ragged=False``."""
+    legacy per-shape trio with ``ragged=False``, on the attention
+    substrate; the fixed-shape recurrent step on the recurrent and hybrid
+    substrates (``num_slabs`` state slabs, default one a slot plus the
+    trash slab)."""
 
     def __init__(self, cfg: ModelConfig, params: Any, ctx: QuantContext, *,
                  n_slots: int = 4, block_size: int = 16,
                  max_model_len: int = 128,
                  num_blocks: Optional[int] = None, chunk: int = 16,
                  prefill_token_budget: Optional[int] = None,
+                 num_slabs: Optional[int] = None,
                  top_k: int = 0, seed: int = 0,
                  prefix_cache: Optional[bool] = None, spec_k: int = 0,
                  drafter="ngram", ragged: bool = True,
@@ -156,10 +174,22 @@ class ServingEngine:
                  profile_cost: bool = False,
                  record: bool = False, virtual_dt: float = 1e-3,
                  slo=None, graphs: Optional[bool] = None, device=None):
+        # substrate routing: the config's layer mix decides which pools
+        # back the sequences — growing block tables (attention), one fixed
+        # state slab (recurrent), or both (hybrid)
         sub = substrate_for(cfg)
-        if sub.kind != "attention":
-            _unported(f"the {sub.kind} substrate",
-                      "5, 'Recurrent and hybrid substrate'")
+        if spec_k > 0 and not sub.supports_spec:
+            raise ValueError(
+                f"spec_k={spec_k} is unsupported on the {sub.kind} "
+                "substrate: speculative decoding must retract rejected "
+                "draft tokens, but fixed-size recurrent state cannot be "
+                "rolled back (use spec_k=0 for recurrent/hybrid models)")
+        if prefix_cache and not sub.supports_prefix_cache:
+            raise ValueError(
+                f"prefix_cache=True is unsupported on the {sub.kind} "
+                "substrate: recurrent state is a running summary, not an "
+                "addressable token range, so there is no prefix to share "
+                "(leave prefix_cache unset for auto, or pass False)")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if virtual_dt <= 0.0:
@@ -174,17 +204,30 @@ class ServingEngine:
         self.max_model_len = max_model_len
         if prefix_cache is None:
             prefix_cache = sub.supports_prefix_cache
+        ragged = ragged and sub.supports_ragged
         nbmax = -(-max_model_len // block_size)
-        if num_blocks is None:
-            # full residency; callers undersize this to force preemption
-            num_blocks = 1 + n_slots * nbmax
-        scale_exp = cfg.kv_cache_frac_bits if cfg.kv_cache_bits == 8 else 0
-        self.pool = BlockPool(num_blocks, block_size, scale_exp=scale_exp,
-                              prefix_cache=prefix_cache)
+        self.pool: Optional[BlockPool] = None
+        if sub.grows:
+            if num_blocks is None:
+                # full residency; callers undersize this to force
+                # preemption
+                num_blocks = 1 + n_slots * nbmax
+            scale_exp = cfg.kv_cache_frac_bits if cfg.kv_cache_bits == 8 \
+                else 0
+            self.pool = BlockPool(num_blocks, block_size,
+                                  scale_exp=scale_exp,
+                                  prefix_cache=prefix_cache)
+        self.state_pool: Optional[StateSlabPool] = None
+        if sub.fixed_state:
+            if num_slabs is None:
+                num_slabs = 1 + n_slots      # one a slot + the trash slab
+            self.state_pool = StateSlabPool(
+                num_slabs, scale_exp=cfg.state_frac_bits
+                if cfg.state_bits == 8 else 0)
         self.sched = Scheduler(self.pool, n_slots=n_slots, chunk=chunk,
                                max_model_len=max_model_len,
                                prefill_token_budget=prefill_token_budget,
-                               substrate=sub)
+                               state_pool=self.state_pool, substrate=sub)
         self._t0 = time.perf_counter()
         self._skip = 0.0
         self._wall_s = 0.0
@@ -193,10 +236,18 @@ class ServingEngine:
         # timelines are always on (the report's timeline section).
         self.tracer = Tracer(capacity=trace_capacity, clock=self._now,
                              enabled=trace)
-        self.pool.tracer = self.tracer
-        if self.pool.cache is not None:
-            self.pool.cache.tracer = self.tracer
+        if self.pool is not None:
+            self.pool.tracer = self.tracer
+            if self.pool.cache is not None:
+                self.pool.cache.tracer = self.tracer
+        if self.state_pool is not None:
+            self.state_pool.tracer = self.tracer
         self.sched.tracer = self.tracer
+        if sub.snapshot_preempt:
+            # pure-recurrent preemption copies the sequence's whole slab
+            # to the host (no token range to recompute from a pool); the
+            # scheduler calls this hook, admission restores it
+            self.sched.snapshot_fn = self._snapshot_slab
         # flight recorder: record mode runs on a deterministic VIRTUAL
         # clock (virtual_dt seconds a step, idle gaps jump to the next
         # arrival) and tees the scheduler-decision events into an
@@ -221,8 +272,15 @@ class ServingEngine:
         # live Table-5 energy proxy, split prefill / decode / spec_wasted;
         # reconciles exactly with the requant counters below
         self.energy = EnergyAccount("bit_shifting")
-        self.cache = M.init_paged_cache(cfg, num_blocks, block_size,
-                                        device=self.device)
+        if sub.kind == "attention":
+            self.cache = M.init_paged_cache(cfg, num_blocks, block_size,
+                                            device=self.device)
+        else:                   # slabs (+ the hybrid's shared-block pool)
+            self.cache = M.init_paged_state(
+                cfg, self.state_pool.num_slabs,
+                num_blocks=num_blocks if sub.grows else None,
+                block_size=block_size if sub.grows else None,
+                device=self.device)
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -230,8 +288,11 @@ class ServingEngine:
         self.spec_k = spec_k
         self.drafter = resolve_drafter(drafter)
         self.ragged = ragged
-        self._paged_fn = build_paged_step(cfg, ctx)
-        self._ragged_fn = build_ragged_step(cfg, ctx)
+        if sub.kind == "attention":
+            self._paged_fn = build_paged_step(cfg, ctx)
+            self._ragged_fn = build_ragged_step(cfg, ctx)
+        else:
+            self._rec_fn = build_recurrent_step(cfg, ctx)
         self._groups = cfg.n_heads // cfg.n_kv_heads
         # the compiled step: on by default on a CUDA device
         if graphs is None:
@@ -244,9 +305,23 @@ class ServingEngine:
         self._t_max = max(8, -(-(budget + n_slots * (spec_k + 1)) // 8) * 8)
         self._step_counter = 0
         # one requant op per KV element written (the paper's Table-5
-        # unit): every layer writes K and V for each token
-        self._elems_per_token = (cfg.n_layers * cfg.n_kv_heads
+        # unit): every layer writes K and V for each token on attention,
+        # the shared attention block (once a group) on the hybrid, no
+        # layer on pure recurrent
+        if sub.kind == "hybrid":
+            n_kv_layers = cfg.n_layers // cfg.hybrid.attn_every
+        elif sub.kind == "recurrent":
+            n_kv_layers = 0
+        else:
+            n_kv_layers = cfg.n_layers
+        self._elems_per_token = (n_kv_layers * cfg.n_kv_heads
                                  * cfg.resolved_head_dim * 2)
+        # the fixed-slab counterpart: ops to requantize one sequence's
+        # WHOLE recurrent state, paid once a step whatever the context
+        # (performed with int8 slabs, the counterfactual 'avoided' bucket
+        # with fp32 ones)
+        self._state_elems_per_step = hwcost.state_quant_ops_per_step(cfg) \
+            if sub.fixed_state else 0
         # W8A8 forward accounting: per-token dynamic quant ops at every
         # module boundary, only under matmul_kernel='int8'; kept apart
         # from the KV counters so those compare across runs
@@ -255,9 +330,12 @@ class ServingEngine:
             if cfg.matmul_kernel == "int8" else 0)
         self._zero_counters()
         # the kernels this engine's steps launch: K2 per INT projection,
-        # and per layer K1 (ragged step) or K4 (legacy per-shape steps)
-        attn = "ragged_attention" if self.ragged else "paged_attention"
-        self.launches = {"int8_matmul": 0, attn: 0}
+        # and per layer K1 (ragged step) or K4 (legacy per-shape steps; the
+        # hybrid's shared block, once a group); none on pure recurrent
+        self.launches = {"int8_matmul": 0}
+        if sub.grows:
+            attn = "ragged_attention" if self.ragged else "paged_attention"
+            self.launches[attn] = 0
         self._step_times: dict[tuple, list] = {}
         # the registry is the single source of report naming and typing:
         # report() is its nested view
@@ -265,6 +343,9 @@ class ServingEngine:
         self._register_metrics()
 
     def _zero_counters(self) -> None:
+        # the whole-slab state requant ops, apart from the merged buckets
+        # below, so a hybrid run reports the recurrent share on its own
+        self.requant_ops_state = 0
         self.requant_ops_performed = 0
         # the dataflow the int8-resident pool deletes: dequantizing each
         # slot's whole live cache before attending, every step
@@ -321,7 +402,9 @@ class ServingEngine:
         reused engine replays the same random stream; by default the
         prefix cache is flushed too, so every pass starts cold (pass
         ``flush_cache=False`` to keep it warm)."""
-        assert self.sched.idle and self.pool.n_live == 0, \
+        assert self.sched.idle \
+            and (self.pool is None or self.pool.n_live == 0) \
+            and (self.state_pool is None or self.state_pool.n_live == 0), \
             "reset_metrics on a non-drained engine"
         from repro_torch.serving.kv_pool import PoolStats
         from repro_torch.serving.prefix_cache import CacheStats
@@ -329,12 +412,16 @@ class ServingEngine:
         self.generator.manual_seed(self.seed)
         self.sched.done.clear()
         self.sched.admission_log.clear()
-        if flush_cache:
-            self.pool.flush_cache()
-        self.pool.reset_free_order()
-        self.pool.stats = PoolStats()
-        if self.pool.cache is not None:
-            self.pool.cache.stats = CacheStats()
+        if self.pool is not None:
+            if flush_cache:
+                self.pool.flush_cache()
+            self.pool.reset_free_order()
+            self.pool.stats = PoolStats()
+            if self.pool.cache is not None:
+                self.pool.cache.stats = CacheStats()
+        if self.state_pool is not None:
+            self.state_pool.reset_free_order()
+            self.state_pool.stats = PoolStats()
         self._zero_counters()
         self.launches = dict.fromkeys(self.launches, 0)
         self.graphs.reset_counts()
@@ -395,8 +482,20 @@ class ServingEngine:
         dispatch over the mixed work-list.  Legacy (``ragged=False``):
         admit, chunked prefill, then decode (a speculative verify step
         when drafting is on and produced drafts, else the plain (B, 1)
-        decode)."""
+        decode).  Recurrent / hybrid: admit (a fresh slab zeroed, or a
+        preempted sequence's snapshot restored), then ONE fixed-shape
+        recurrent dispatch."""
         for req in self.sched.admit(self._now()):
+            if self.substrate.fixed_state:
+                if req.snapshot is not None:
+                    # the saved state drops back into the fresh slab: these
+                    # tokens were paid for before eviction, not cache hits
+                    self._restore_snapshot(req)
+                else:
+                    # slabs recycle LIFO: a fresh sequence must not
+                    # inherit the previous owner's final state
+                    self._reset_slab(req)
+                continue
             # cached-prefix hit: those tokens' KV is already resident, so
             # neither their KV quantization nor (W8A8) their forward runs
             self.cache_hit_prefill_tokens += req.n_prefilled
@@ -404,7 +503,9 @@ class ServingEngine:
                 req.n_prefilled * self._elems_per_token
             self.requant_ops_forward_avoided_cache += \
                 req.n_prefilled * self._fwd_elems_per_token
-        if self.ragged:
+        if self.substrate.fixed_state:
+            self._run_recurrent_step()
+        elif self.ragged:
             self._run_ragged_step()
         else:
             self._run_prefills()
@@ -912,6 +1013,228 @@ class ServingEngine:
                               int(n_acc[s]), now)
         return True
 
+    # -- the fixed-slab recurrent step ------------------------------------
+
+    def _snapshot_slab(self, req: Request) -> dict:
+        """Scheduler preemption hook (pure recurrent substrate): copy the
+        sequence's whole state slab to the host, codes as codes (int8
+        slabs) or raw fp32, so the resume is bit-exact.  Runs between
+        steps."""
+        slab = self.state_pool.slab_of(req.rid)
+        state = {k: v[:, slab].to("cpu", copy=True)
+                 for k, v in self.cache["state"].items()}
+        return {"n_ctx": req.n_ctx, "state": state}
+
+    def _restore_snapshot(self, req: Request) -> None:
+        """Drop a preemption snapshot back into the freshly allocated slab,
+        in place.  Admission already resumed the token bookkeeping from
+        ``snapshot['n_ctx']``; the slab grid is the engine's fixed one,
+        so the codes read back identically."""
+        slab = self.state_pool.slab_of(req.rid)
+        st = self.cache["state"]
+        for k, v in req.snapshot["state"].items():
+            st[k][:, slab] = v.to(self.device)
+        req.snapshot = None
+
+    def _reset_slab(self, req: Request) -> None:
+        """Zero a freshly allocated slab, in place: slabs recycle LIFO still
+        holding their previous owner's final state."""
+        slab = self.state_pool.slab_of(req.rid)
+        if "state" in self.cache:               # pure recurrent
+            for arr in self.cache["state"].values():
+                arr[:, slab] = 0
+        else:                                   # the hybrid's Mamba slabs
+            for arr in self.cache["ssm"]:
+                arr[:, :, slab] = 0
+
+    def _charge_recurrent(self, phase: str, n_tok: int,
+                          int8_state: bool) -> None:
+        """Table-5 accounting of one sequence's share of a recurrent step:
+        ``n_tok`` per-token KV appends (the hybrid's shared attention
+        blocks; none on pure recurrent) plus ONE whole-slab state requant,
+        context-free.  int8 slabs PERFORM the state ops; fp32 slabs book
+        the same count as the dequantize-per-step counterfactual
+        ``avoided``, so the ops/token gauge compares across storage
+        modes."""
+        kv = n_tok * self._elems_per_token
+        st = self._state_elems_per_step
+        fwd = n_tok * self._fwd_elems_per_token
+        self.requant_ops_state += st
+        if int8_state:
+            self.requant_ops_performed += kv + st
+            self.energy.charge(phase, kv + st + fwd, n_tok)
+        else:
+            self.requant_ops_performed += kv
+            self.requant_ops_avoided += st
+            self.energy.charge(phase, kv + fwd, n_tok)
+        self.requant_ops_forward += fwd
+
+    def _run_recurrent_step(self) -> None:
+        """Serve the whole mixed work-list in ONE fixed-shape dispatch
+        (n_slots, chunk): prefill rows feed their next chunk (q_len = c),
+        decode rows their last sampled token (q_len = 1), idle lanes ride
+        along inert (q_len = 0 on the trash slab).  On the hybrid substrate
+        the same dispatch carries per-row positions and block tables (one
+        trash column past nbmax, where padded positions point) for the
+        shared attention blocks."""
+        sub = self.substrate
+        now = self._now()
+        if sub.grows:
+            # the hybrid's KV half: decode rows append one KV row a step,
+            # so tables may grow, and growth may preempt a peer
+            for req in list(self.sched.decode_reqs()):
+                if req.slot is not None \
+                        and req.state is RequestState.DECODE:
+                    self.sched.grow_for_decode(req, now)
+        prefills = []
+        for req in self.sched.prefill_jobs():
+            start = req.n_prefilled
+            prefills.append((req, start, min(self.sched.chunk,
+                                             len(req.feed) - start)))
+        decodes = self.sched.decode_reqs()
+        if not prefills and not decodes:
+            return
+        b, c = self.n_slots, self.sched.chunk
+        tokens = np.zeros((b, c), np.int32)
+        q_len = np.zeros((b,), np.int32)
+        slab_ids = np.full((b,), TRASH_SLAB, np.int32)   # idle lanes
+        temps = np.zeros((b,), np.float32)
+        topks = np.zeros((b,), np.int32)
+        positions = bt = None
+        if sub.grows:
+            nbmax = self.sched.nbmax
+            positions = np.full((b, c), nbmax * self.pool.block_size,
+                                np.int32)
+            bt = np.full((b, nbmax + 1), TRASH_BLOCK, np.int32)
+        rows = [(req, start, c_real) for req, start, c_real in prefills] \
+            + [(req, req.n_ctx, 1) for req in decodes]
+        for i, (req, start, n) in enumerate(rows):
+            s = req.slot
+            if i < len(prefills):
+                tokens[s, :n] = req.feed[start:start + n]
+            else:
+                tokens[s, 0] = req.generated[-1]
+            q_len[s] = n
+            slab_ids[s] = self.state_pool.slab_of(req.rid)
+            temps[s] = req.temperature
+            topks[s] = self._req_top_k(req)
+            if sub.grows:
+                positions[s, :n] = start + np.arange(n, dtype=np.int32)
+                bt[s, :nbmax] = self.pool.table_row(req.rid, nbmax)
+        n_real = int(q_len.sum())
+        toks = self._dispatch_recurrent(tokens, slab_ids, q_len, positions,
+                                        bt, temps, topks, n_real)
+        self.recurrent_steps += 1
+        self.dispatched_tokens += b * c
+        self.padded_tokens += b * c - n_real
+        int8_state = self.cfg.state_bits == 8
+        now = self._now()
+        tr = self.tracer
+        for req, start, c_real in prefills:
+            req.n_prefilled += c_real
+            req.n_ctx = req.n_prefilled
+            if sub.grows:
+                self.pool.commit(req.rid, start,
+                                 req.feed[start:start + c_real])
+            self.prefill_chunks += 1
+            self._charge_recurrent("prefill", c_real, int8_state)
+            if tr.enabled:
+                tr.event("sched.prefill_chunk", "sched", ts=now, args={
+                    "rid": req.rid, "start": start, "tokens": c_real})
+            tr.req_mark(req.rid, "first_chunk", now)
+            if req.n_prefilled == len(req.feed):
+                tok = int(toks[req.slot])
+                if req.t_first is None:
+                    req.t_first = now
+                tr.req_mark(req.rid, "first_token", now)
+                tr.req_token(req.rid, now)
+                done = req.finished_by(tok, self.max_model_len)
+                req.generated.append(tok)
+                if done:
+                    self.sched.finish(req, now)
+                else:
+                    req.state = RequestState.DECODE
+        for req in decodes:
+            if sub.grows:
+                self.pool.commit(req.rid, req.n_ctx, [req.generated[-1]])
+            req.n_ctx += 1
+            if sub.grows:
+                # the hybrid's KV half still avoids the dequantize-the-
+                # cache-every-step counterfactual, as attention does
+                self.requant_ops_avoided += req.n_ctx * self._elems_per_token
+            self._charge_recurrent("decode", 1, int8_state)
+            tok = int(toks[req.slot])
+            done = req.finished_by(tok, self.max_model_len)
+            req.generated.append(tok)
+            tr.req_token(req.rid, now)
+            if done:
+                self.sched.finish(req, now)
+
+    def _dispatch_recurrent(self, tokens, slab_ids, q_len, positions, bt,
+                            temps, topks, n_real: int) -> np.ndarray:
+        """One recurrent step + on-device sampling + the host sync, run
+        through the compiled step under the key ``("recurrent", B, C)`` and
+        the sampling key, timed under ``("recurrent", B, C)`` and, with
+        tracing on, one ``recurrent`` span.  On the hybrid, K4's work list
+        is planned once from the host positions for every group (on the
+        card), padded to the shape's capacity when steps are captured.
+        Returns each row's sampled token (B,) on the host."""
+        t_start = self._now()
+        t0 = time.perf_counter()
+        self._step_counter += 1
+        shape_key = ("recurrent",) + tuple(tokens.shape)
+        first_call = shape_key not in self._step_times
+        with self.profiler.step_annotation("recurrent", self._step_counter):
+            arrays = dict(tokens=tokens, slab_ids=slab_ids, q_len=q_len,
+                          temps=temps, topks=topks)
+            work = None
+            if positions is not None:
+                arrays.update(positions=positions, block_tables=bt)
+                if self._plans_work():
+                    work = plan_paged_work(
+                        positions, table_width=bt.shape[1],
+                        block_size=self.pool.block_size,
+                        groups=self._groups)
+                    if self.graphs.capture:
+                        work = pad_work(work, paged_capacity(
+                            *tokens.shape, groups=self._groups,
+                            table_width=bt.shape[1],
+                            block_size=self.pool.block_size))
+                    arrays["work"] = work.table
+            sampling = self._sampling(temps, topks)
+            res = self.graphs.run(
+                shape_key + tuple(sampling.values()),
+                lambda inp: self._recurrent_sampled(inp, work, **sampling),
+                arrays)
+            out, _ = self._host(res)
+        dt = time.perf_counter() - t0
+        self._step_times.setdefault(shape_key, []).append(dt)
+        tr = self.tracer
+        if tr.enabled:
+            n_disp = int(np.prod(tokens.shape))
+            tr.span("recurrent", "dispatch", t_start, dt, {
+                "shape": "x".join(map(str, tokens.shape)),
+                "real_tokens": n_real,
+                "padded_tokens": n_disp - n_real,
+                "compile": self._compiled(first_call)})
+        return out[:, 0]
+
+    def _recurrent_sampled(self, inp: dict, work, *, k_cap, has_top_k,
+                           sampled) -> torch.Tensor:
+        """The recurrent step's device program over the staged ``inp``:
+        ``paged_recurrent_step`` (slabs and pool updated in place), then
+        sampling of each row's logits at its last real token."""
+        tok = inp["tokens"]
+        logits, _ = self._rec_fn(
+            self.params, tok, self.cache, inp["slab_ids"], inp["q_len"],
+            inp.get("positions"), inp.get("block_tables"),
+            work=None if work is None else work._replace(table=inp["work"]))
+        n_drafts = torch.zeros(tok.shape[0], dtype=torch.int32,
+                               device=self.device)
+        return self._verify(logits[:, None], tok[:, :1], inp, n_drafts,
+                            k_cap=k_cap, has_top_k=has_top_k,
+                            sampled=sampled)
+
     # -- commit points shared by both paths -------------------------------
 
     def _prefill_done(self, req: Request, start: int, c_real: int, tok: int,
@@ -1014,6 +1337,11 @@ class ServingEngine:
         blocks: the pool moves the map, and block ``src``'s rows (all
         layers, K and V) are copied into ``dst`` in place on the device.
         Returns False iff ``req`` itself was preempted."""
+        if self.substrate.fixed_state:
+            raise BlockPoolError(
+                f"copy-on-write on the {self.substrate.kind} substrate: "
+                f"sequence {req.rid} keeps fixed-size recurrent state and "
+                f"never shares a block (no prefix cache to COW from)")
         bs = self.pool.block_size
         for idx in range(start // bs, -(-end // bs)):
             if idx >= self.pool.n_blocks_of(req.rid):
@@ -1055,8 +1383,7 @@ class ServingEngine:
 
     def _register_metrics(self) -> None:
         """Declare every report field on the metrics registry, in report
-        order — the reference's registry without the unported
-        ``state_pool.*`` section, plus the port's ``device`` and
+        order — the reference's registry, plus the port's ``device`` and
         ``kernel_launches`` and ``step_graphs``
         (``obs.schema.PORT_EXTRAS``).  All metrics
         are bound (FuncMetric): the engine's counters, the pool's and
@@ -1104,10 +1431,10 @@ class ServingEngine:
           lambda: self.ragged, typ=bool)
         f("ragged_steps", "unified ragged dispatches",
           lambda: self.ragged_steps, kind="counter", typ=int)
-        f("substrate", "sequence-state substrate serving this model",
-          lambda: self.substrate.kind, typ=str)
-        f("recurrent_steps", "fixed-shape recurrent dispatches (the "
-          "recurrent substrate is not ported: always 0)",
+        f("substrate", "sequence-state substrate serving this model: "
+          "attention block tables, recurrent state slabs, or the hybrid "
+          "of both", lambda: self.substrate.kind, typ=str)
+        f("recurrent_steps", "fixed-shape recurrent dispatches",
           lambda: self.recurrent_steps, kind="counter", typ=int)
         f("dispatched_tokens", "token rows dispatched incl. padding",
           lambda: self.dispatched_tokens, kind="counter", typ=int)
@@ -1142,8 +1469,11 @@ class ServingEngine:
                    "first_calls": self.graphs.first_calls,
                    "captures": self.graphs.captures,
                    "replays": self.graphs.replays}, typ=dict)
-        self._register_pool_metrics()
-        if self.pool.cache is not None:
+        if self.pool is not None:
+            self._register_pool_metrics()
+        if self.state_pool is not None:
+            self._register_state_pool_metrics()
+        if self.pool is not None and self.pool.cache is not None:
             self._register_cache_metrics()
         self._register_hwcost_metrics()
         self._register_energy_metrics()
@@ -1280,6 +1610,44 @@ class ServingEngine:
         f("pool.alloc_failures", "alloc/extend requests refused",
           lambda: pool.stats.alloc_failures, kind="counter", typ=int)
 
+    def _register_state_pool_metrics(self) -> None:
+        """The fixed-slab substrate's section, the recurrent counterpart
+        of ``pool.*``."""
+        f, sp = self.metrics.func, self.state_pool
+        f("state_pool.num_slabs", "slab capacity (incl. trash slab 0)",
+          lambda: sp.num_slabs, typ=int)
+        f("state_pool.scale_exp", "fixed Eq.-1 scale exponent slabs are "
+          "allocated with (0 when slabs store fp32 state)",
+          lambda: sp.default_scale_exp, typ=int)
+        f("state_pool.state_quant_ops_per_step", "ops to requantize one "
+          "sequence's WHOLE state once — paid per step, context-free",
+          lambda: self._state_elems_per_step, typ=int)
+        f("state_pool.requant_ops_state", "whole-slab state requant ops "
+          "booked so far (performed when slabs are int8, counterfactual "
+          "otherwise) — the recurrent share of hwcost totals",
+          lambda: self.requant_ops_state, kind="counter", typ=int)
+
+        def state_ops_per_token():
+            tok = self.energy.tokens["prefill"] + self.energy.tokens[
+                "decode"]
+            return round(self.requant_ops_state / tok, 2) if tok else None
+
+        f("state_pool.state_ops_per_token", "recurrent-substrate share "
+          "of hwcost.requant_ops_per_token — context-free by "
+          "construction", state_ops_per_token, typ=float, optional=True)
+        f("state_pool.peak_live_slabs", "max simultaneously-live slabs",
+          lambda: sp.stats.peak_live, typ=int)
+        f("state_pool.utilization", "live slabs / allocatable slabs now",
+          lambda: round(sp.utilization, 3), typ=float)
+        f("state_pool.allocs", "slabs handed out",
+          lambda: sp.stats.allocs, kind="counter", typ=int)
+        f("state_pool.frees", "slab references released",
+          lambda: sp.stats.frees, kind="counter", typ=int)
+        f("state_pool.seq_evictions", "sequences preempted off slabs",
+          lambda: sp.stats.seq_evictions, kind="counter", typ=int)
+        f("state_pool.alloc_failures", "slab allocations refused",
+          lambda: sp.stats.alloc_failures, kind="counter", typ=int)
+
     def _register_cache_metrics(self) -> None:
         f, pool = self.metrics.func, self.pool
         f("prefix_cache.hits", "full-block lookups served from cache",
@@ -1334,8 +1702,8 @@ class ServingEngine:
             return round(ops / tok, 2) if tok else None
 
         f("hwcost.requant_ops_per_token",
-          "KV requant ops (performed + avoided counterfactual) per "
-          "useful token",
+          "KV+state requant ops (performed + avoided counterfactual) "
+          "per useful token",
           requant_ops_per_token, typ=float, optional=True)
         f("hwcost.energy_uj_bit_shift",
           "Table-5 bit-shift energy of the ops performed",

@@ -94,7 +94,6 @@ def test_entry_points_raise_without_cuda(monkeypatch):
 
 
 def test_unported_paths_raise():
-    import dataclasses
     from repro_torch.configs import get_smoke_config
     from repro_torch.core.qmodel import QuantContext
     from repro_torch.launch.serve import serve_engine
@@ -109,12 +108,14 @@ def test_unported_paths_raise():
                dict(spec_k=2), dict(ragged=False),
                dict(spec_k=2, ragged=False)):
         ServingEngine(cfg, {}, QuantContext(), device="cpu", **kw)
-    # the recurrent and hybrid substrates are not
-    for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(dataclasses.replace(cfg, family=family), {},
-                          QuantContext(), device="cpu")
-    # nor is XLA's per-shape cost analysis
+    # the recurrent and hybrid substrates construct, and refuse
+    # speculative decoding (fixed-size state cannot retract a draft)
+    for arch in ("rwkv6_3b", "zamba2_2_7b"):
+        rcfg = get_smoke_config(arch)
+        ServingEngine(rcfg, {}, QuantContext(), device="cpu")
+        with pytest.raises(ValueError, match="speculative decoding"):
+            ServingEngine(rcfg, {}, QuantContext(), device="cpu", spec_k=2)
+    # XLA's per-shape cost analysis is not ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, {}, QuantContext(), device="cpu",
                       profile_cost=True)
