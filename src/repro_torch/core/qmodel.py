@@ -8,10 +8,14 @@ PyTorch counterpart of ``repro.core.qmodel``:
   bias) is recorded for Algorithm-1 calibration.
 * ``fake`` — Eq. (1) in float arithmetic at every quant point.
 * ``int``  — deploy path: activations quantized at unified-module
-  boundaries, int8 x int8 -> int32 products with a single bit-shift
-  requantization per module through ``kernels.ops.int8_matmul`` (the
-  hand-written CUDA kernel on a CUDA tensor, its plain version on the
-  CPU).
+  boundaries (``kernels.ops.quantize_multi``, K3: one launch a module
+  input), int8 x int8 -> int32 products with a single bit-shift
+  requantization per module through ``kernels.ops.int8_matmul`` (K2),
+  whose epilogue writes the module's dequantized float output itself
+  (the hand-written CUDA kernels on a CUDA tensor, their plain versions
+  on the CPU).
+  :func:`qlinears` takes modules that read one activation and quantizes
+  it once, in one launch, for all of them.
 
 ``fake_sf`` (the scaling-factor baseline) waits for ``core/baselines``.  The
 context carries the table (module name -> fractional bits) that
@@ -29,9 +33,9 @@ from typing import Any, Mapping, Optional
 import torch
 
 from repro_torch.core import integer_ops
-from repro_torch.core.qscheme import dequant, fake_quant, quant
+from repro_torch.core.qscheme import fake_quant, quant
 
-__all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear",
+__all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear", "qlinears",
            "capture_activations", "module_name_for_path",
            "quantize_weight_tree", "QuantizedParams", "quantize_params",
            "DEFAULT_N_W", "DEFAULT_N_X", "DEFAULT_N_O"]
@@ -135,16 +139,48 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
         bq = None if b is None else fake_quant(b, n_b, ctx.bits).to(x.dtype)
         return _fp_linear(xq, wq, bq)
 
-    x_int = quant(x, mb.n_x, ctx.bits)
-    w_int = w if w.dtype == torch.int8 else quant(w, mb.n_w, ctx.bits)
-    b_int = None
-    if b is not None:
-        b_int = b if b.dtype == torch.int8 else quant(b, n_b, ctx.bits)
-    spec = integer_ops.LinearQuantSpec(
-        n_x=mb.n_x, n_w=mb.n_w, n_b=n_b, n_o=mb.n_o, bits=ctx.bits)
+    return _int_linears(ctx, [name], x, [w], [b])[0]
+
+
+def qlinears(ctx: QuantContext, names, x: torch.Tensor, ws,
+             bs=None) -> list[torch.Tensor]:
+    """Unified modules that read the same activation ``x``: ``[qlinear(ctx,
+    names[i], x, ws[i], bs[i]) ...]``, each output identical to that call.
+
+    In ``int`` mode ``x`` is quantized ONCE for all of them (at most three
+    distinct input grids ``n_x``; calibration may give them different
+    ones).  In the other modes it is the loop over :func:`qlinear`, so a
+    capture records the same names in the same order."""
+    bs = [None] * len(names) if bs is None else list(bs)
+    if ctx.mode is not QuantMode.INT:
+        return [qlinear(ctx, n, x, w, b) for n, w, b in zip(names, ws, bs)]
+    return _int_linears(ctx, names, x, ws, bs)
+
+
+def _int_linears(ctx: QuantContext, names, x: torch.Tensor, ws,
+                 bs) -> list[torch.Tensor]:
+    """INT mode: one K3 launch writes ``x``'s codes on every distinct input
+    grid of the modules, then one K2 launch a module, its epilogue writing
+    the module's float output (x's dtype) on the module's output grid.
+    Float weights and biases (not pre-quantized) are quantized here by K3,
+    to the codes ``quantize_weight_tree`` would give."""
     from repro_torch.kernels import ops as kops
-    o_int = kops.int8_matmul(x_int, w_int, b_int, spec)
-    return dequant(o_int, mb.n_o, out_dtype=x.dtype)
+    mbs = [ctx.bits_for(n) for n in names]
+    codes = kops.quantize_multi(x, [mb.n_x for mb in mbs], ctx.bits)
+    out = []
+    for mb, x_int, w, b in zip(mbs, codes, ws, bs):
+        n_b = mb.n_b if mb.n_b is not None else mb.n_w
+        w_int = w if w.dtype == torch.int8 else kops.quantize_act(
+            w, mb.n_w, ctx.bits)
+        b_int = None
+        if b is not None:
+            b_int = b if b.dtype == torch.int8 else kops.quantize_act(
+                b, n_b, ctx.bits)
+        spec = integer_ops.LinearQuantSpec(
+            n_x=mb.n_x, n_w=mb.n_w, n_b=n_b, n_o=mb.n_o, bits=ctx.bits)
+        out.append(kops.int8_matmul(x_int, w_int, b_int, spec,
+                                    out_float=x.dtype))
+    return out
 
 
 def module_name_for_path(path_name: str, table: Mapping[str, ModuleBits]

@@ -15,7 +15,12 @@
 // stream.  The int32 accumulator never reaches device memory unsplit: bias
 // align, ReLU, shift-requant and clip run in registers before one 8-byte
 // store of eight int8/uint8 codes, the paper's requant unit between the
-// MAC array and memory.
+// MAC array and memory.  The LM path's projections store the dequantized
+// activation instead (out_kind bf16 or fp32): each code times 2^-n_o,
+// written as the activation's float type.  That value is exact in both
+// (an 8-bit code times a power of two fits bf16's 8-bit significand), so
+// it equals qscheme.dequant of the codes bit for bit, and the module's
+// output needs no second pass over the codes.
 //
 // Design (mma_kernel).  Tensor cores through mma.sync.aligned.m16n8k32
 // (s8.s8, or u8.s8 for the ResNet's post-ReLU uint8 activations, no
@@ -60,6 +65,7 @@
 // included: a right shift rounds half away from zero as
 // a >= 0 ? (a + half) >> s : -(((-a) + half) >> s), and a negative requant
 // shift saturates to +-(2^31 - 1) >> |s| before the left shift.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -90,9 +96,14 @@ __device__ __forceinline__ int requant(int acc, int shift, int lo, int hi) {
   return min(max(acc, lo), hi);
 }
 
+// what a store writes: one byte a code, or the code times deq (2^-n_o) as
+// bf16 / fp32
+enum OutKind { OUT_CODES = 0, OUT_BF16 = 1, OUT_F32 = 2 };
+
 struct Epi {
   const int8_t* bias;
-  int shift, bias_shift, relu, lo, hi;
+  int shift, bias_shift, relu, lo, hi, out_kind;
+  float deq;
 };
 
 // bias align -> ReLU -> shift-requant -> clip; the code's low byte is the
@@ -105,6 +116,62 @@ __device__ __forceinline__ int epilogue(int acc, const Epi& e, int gn) {
   }
   if (e.relu) acc = max(acc, 0);
   return requant(acc, e.shift, e.lo, e.hi);
+}
+
+__device__ __forceinline__ float deq_code(int code, const Epi& e) {
+  return __fmul_rn((float)code, e.deq);
+}
+
+__device__ __forceinline__ uint32_t bf16_pair(int c0, int c1, const Epi& e) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(deq_code(c0, e))) |
+         (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(deq_code(c1, e))) << 16;
+}
+
+// NC (4 or 8) consecutive outputs c from element offset off: one 4- / 8-byte
+// word of codes, or 8- / 16-byte words of bf16, or 16-byte words of fp32
+// (off a multiple of NC, the output 16-byte aligned)
+template <int NC>
+__device__ __forceinline__ void store_out(void* out, size_t off, const int (&c)[NC],
+                                          const Epi& e) {
+  if (e.out_kind == OUT_CODES) {
+    uint32_t w[NC / 4];
+#pragma unroll
+    for (int q = 0; q < NC / 4; ++q) {
+      w[q] = 0;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) w[q] |= ((uint32_t)c[4 * q + i] & 0xffu) << (8 * i);
+    }
+    int8_t* p = static_cast<int8_t*>(out) + off;
+    if constexpr (NC == 8)
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    else
+      *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else if (e.out_kind == OUT_BF16) {
+    uint32_t w[NC / 2];
+#pragma unroll
+    for (int q = 0; q < NC / 2; ++q) w[q] = bf16_pair(c[2 * q], c[2 * q + 1], e);
+    uint16_t* p = static_cast<uint16_t*>(out) + off;
+    if constexpr (NC == 8)
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    else
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else {
+    float4* p = reinterpret_cast<float4*>(static_cast<float*>(out) + off);
+#pragma unroll
+    for (int q = 0; q < NC / 4; ++q)
+      p[q] = make_float4(deq_code(c[4 * q], e), deq_code(c[4 * q + 1], e),
+                         deq_code(c[4 * q + 2], e), deq_code(c[4 * q + 3], e));
+  }
+}
+
+// one output, for the dp4a tile's scalar stores
+__device__ __forceinline__ void store_one(void* out, size_t off, int c, const Epi& e) {
+  if (e.out_kind == OUT_CODES)
+    static_cast<int8_t*>(out)[off] = (int8_t)c;
+  else if (e.out_kind == OUT_BF16)
+    static_cast<uint16_t*>(out)[off] = __bfloat16_as_ushort(__float2bfloat16_rn(deq_code(c, e)));
+  else
+    static_cast<float*>(out)[off] = deq_code(c, e);
 }
 
 // ---------------------------------------------------------------------------
@@ -284,14 +351,10 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
 #pragma unroll
         for (int j = 0; j < 4; ++j) v[4 * e + j] = acc[mt][j][2 * h + e];
       if (gridDim.z == 1) {
-        uint32_t lo = 0, hi = 0;
+        int c[8];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          lo |= ((uint32_t)epilogue(v[i], epi, gc + i) & 0xffu) << (8 * i);
-          hi |= ((uint32_t)epilogue(v[4 + i], epi, gc + 4 + i) & 0xffu) << (8 * i);
-        }
-        *reinterpret_cast<uint2*>(static_cast<int8_t*>(out) + (size_t)gm * N + gc) =
-            make_uint2(lo, hi);
+        for (int i = 0; i < 8; ++i) c[i] = epilogue(v[i], epi, gc + i);
+        store_out<8>(out, (size_t)gm * N + gc, c, epi);
       } else {
         int4* p = reinterpret_cast<int4*>(ws + ((size_t)blockIdx.z * M + gm) * N + gc);
         p[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -317,11 +380,9 @@ finish_kernel(const int* __restrict__ ws, void* __restrict__ out, int M, int N, 
     s.w = wrap_add(s.w, p.w);
   }
   const int gn = (int)((4 * q) % N);
-  const uint32_t word = ((uint32_t)epilogue(s.x, epi, gn) & 0xffu) |
-                        ((uint32_t)epilogue(s.y, epi, gn + 1) & 0xffu) << 8 |
-                        ((uint32_t)epilogue(s.z, epi, gn + 2) & 0xffu) << 16 |
-                        ((uint32_t)epilogue(s.w, epi, gn + 3) & 0xffu) << 24;
-  reinterpret_cast<uint32_t*>(out)[q] = word;
+  const int c[4] = {epilogue(s.x, epi, gn), epilogue(s.y, epi, gn + 1),
+                    epilogue(s.z, epi, gn + 2), epilogue(s.w, epi, gn + 3)};
+  store_out<4>(out, 4 * q, c, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -416,8 +477,7 @@ dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gm = m0 + ty + 16 * i;
-      if (gm < M)
-        static_cast<int8_t*>(out)[(size_t)gm * N + gn] = (int8_t)epilogue(acc[i][j], epi, gn);
+      if (gm < M) store_one(out, (size_t)gm * N + gn, epilogue(acc[i][j], epi, gn), epi);
     }
   }
 }
@@ -473,15 +533,20 @@ int launch_cfg(int cfg, const int8_t* x, const int8_t* w, void* out, int* ws, in
 // 8-byte aligned, k_chunk a multiple of 64 with every one of `splits`
 // splits nonempty, and ws (splits x M x N int32) when splits > 1.
 // x_u8: the activation codes are uint8 (else int8); weights are int8.
+// out_kind: 0 one byte a code, 1 bf16 / 2 fp32 values code * deq (deq =
+// 2^-n_o), the output 16-byte aligned.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias, void* out,
                                   void* ws, int M, int N, int K, int shift, int bias_shift,
                                   int relu, int lo, int hi, int x_u8, int cfg, int splits,
-                                  int k_chunk, void* stream) {
+                                  int k_chunk, int out_kind, float deq, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int8_t* xs = static_cast<const int8_t*>(x);
   const int8_t* wt = static_cast<const int8_t*>(w);
-  const Epi epi{static_cast<const int8_t*>(bias), shift, bias_shift, relu, lo, hi};
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  const Epi epi{static_cast<const int8_t*>(bias), shift, bias_shift, relu, lo, hi, out_kind,
+                deq};
+  if (M <= 0 || N <= 0 || K <= 0 || out_kind < OUT_CODES || out_kind > OUT_F32 ||
+      (out_kind != OUT_CODES && ((uintptr_t)out & 15u)))
+    return (int)cudaErrorInvalidValue;
   if (cfg < 0) {
     const int vec =
         K % 4 == 0 && N % 4 == 0 && ((uintptr_t)x & 3u) == 0 && ((uintptr_t)w & 3u) == 0;

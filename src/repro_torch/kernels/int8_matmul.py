@@ -7,7 +7,10 @@ On an H100 it is bound by bytes: the int8 weight codes at the serving
 shapes, the activation rows at the ResNet's im2col products.  The
 products run on the tensor cores (``mma.sync`` m16n8k32, s8 or u8 x s8);
 the epilogue (bias align, optional ReLU, round-half-away shift-requant
-with a saturating negative shift, clip) runs in registers.
+with a saturating negative shift, clip) runs in registers, and stores the
+8-bit codes or, for the LM path's projections, the dequantized activation
+``code * 2^-n_o`` as bf16 / fp32 (exact in both, so equal to
+``qscheme.dequant`` of the codes bit for bit).
 
 :func:`plan_int8_matmul` chooses, on the host and from the shapes alone,
 the kernel's tile (one block row covers every stream row up to 128 rows,
@@ -40,7 +43,10 @@ __all__ = ["int8_matmul_cuda", "plan_int8_matmul", "Int8MatmulPlan",
 _NAME = "int8_matmul"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_matmul_launch": (
-    ctypes.c_int, [_P] * 5 + [_I] * 12 + [_P])}
+    ctypes.c_int, [_P] * 5 + [_I] * 13 + [ctypes.c_float, _P])}
+# the kernel's out_kind, by output dtype
+_OUT_KIND = {torch.int8: 0, torch.uint8: 0, torch.bfloat16: 1,
+             torch.float32: 2}
 
 # (rows, columns) of the tensor-core kernel's block tile, by configuration
 # index (csrc/int8_matmul.cu::launch_cfg): 0-3 cover M <= 16 / 32 / 64 /
@@ -106,9 +112,11 @@ def _sm_count(index: int) -> int:
 def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
                      b: Optional[torch.Tensor], *, shift: int,
                      bias_shift: int, relu: bool, lo: int, hi: int,
-                     out_dtype: torch.dtype) -> torch.Tensor:
+                     out_dtype: torch.dtype,
+                     n_o: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on (M, K) int8 or uint8 x (K, N) int8 (+ (N,) int8 bias)
-    CUDA tensors; returns (M, N) ``out_dtype`` (int8 or uint8) codes."""
+    CUDA tensors; returns (M, N) ``out_dtype`` (int8 or uint8) codes, or
+    with ``out_dtype`` bfloat16 / float32 the codes times ``2^-n_o``."""
     if x2.device.type != "cuda" or w.device != x2.device:
         raise ValueError("int8_matmul_cuda takes CUDA tensors on one device")
     if x2.dtype not in (torch.int8, torch.uint8) or w.dtype != torch.int8:
@@ -116,8 +124,13 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
                         f"{x2.dtype} x {w.dtype}")
     if x2.ndim != 2 or w.ndim != 2 or x2.shape[1] != w.shape[0]:
         raise ValueError(f"shape mismatch {tuple(x2.shape)} x {tuple(w.shape)}")
-    if out_dtype not in (torch.int8, torch.uint8):
-        raise TypeError(f"K2 emits int8 or uint8 codes, not {out_dtype}")
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"K2 emits int8 / uint8 codes or their bf16 / fp32 "
+                        f"values, not {out_dtype}")
+    if (n_o is None) != (_OUT_KIND[out_dtype] == 0):
+        raise ValueError("a float output takes its grid n_o; codes take none")
+    if n_o is not None and not -126 <= n_o <= 126:
+        raise ValueError(f"output grid {n_o} outside fp32's exponent range")
     for s in (shift, bias_shift):
         if not -31 <= s <= 31:
             raise ValueError(f"shift {s} outside the int32 range [-31, 31]")
@@ -142,7 +155,8 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
             out.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
             int(shift), int(bias_shift), int(relu), int(lo), int(hi),
             int(x2.dtype == torch.uint8), plan.cfg, plan.splits,
-            plan.k_chunk, stream)
+            plan.k_chunk, _OUT_KIND[out_dtype],
+            2.0 ** -int(n_o or 0), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
     return out

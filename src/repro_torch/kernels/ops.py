@@ -25,13 +25,15 @@ from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  paged_attention_cuda,
                                                  paged_plan_from_positions)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
-from repro_torch.kernels.quantize import quantize_cuda
+from repro_torch.kernels.quantize import (quantize_multi_cuda,
+                                          quantize_scatter_cuda)
 from repro_torch.kernels.ragged_flash import (RaggedWork,
                                              plan_from_descriptors,
                                              ragged_attention_cuda)
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
-__all__ = ["int8_matmul", "int_conv2d", "quantize_act", "residual_requant",
+__all__ = ["int8_matmul", "int_conv2d", "quantize_act", "quantize_multi",
+           "quantize_scatter", "residual_requant",
            "ragged_attention", "paged_attention", "flash_attention",
            "flash_decode", "LAUNCHES", "reset_launch_counts"]
 
@@ -57,13 +59,17 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
 
 def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                 b_int: Optional[torch.Tensor], spec: LinearQuantSpec,
-                *, relu: bool = False) -> torch.Tensor:
+                *, relu: bool = False,
+                out_float: Optional[torch.dtype] = None) -> torch.Tensor:
     """(..., K) int8 @ (K, N) int8 -> (..., N) int8 with fused requant.
 
     Leading dims (a ragged (T,) token stream, a (B, S) batch) flatten into
     M.  ``x_int`` may hold uint8 post-ReLU codes.  Shift constants come
     from ``spec``, whose ``bits`` is at most 8.  With ``relu`` and
-    ``spec.out_unsigned`` the output is uint8 on [0, 2^bits - 1]."""
+    ``spec.out_unsigned`` the output is uint8 on [0, 2^bits - 1].  With
+    ``out_float`` (bfloat16 or float32) the epilogue writes the codes'
+    values ``code * 2^-spec.n_o`` in that type instead (the module's
+    dequantized output, ``qscheme.dequant`` of the codes bit for bit)."""
     if spec.bits > 8:
         raise ValueError(f"int8_matmul emits 8-bit codes, not {spec.bits}")
     *batch, k = x_int.shape
@@ -72,18 +78,24 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
     lo, hi = ((0, (1 << spec.bits) - 1) if unsigned
               else (-(1 << (spec.bits - 1)), (1 << (spec.bits - 1)) - 1))
     out_dtype = torch.uint8 if unsigned else torch.int8
+    n_o = None
+    if out_float is not None:
+        if out_float not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"K2's float epilogue writes bfloat16 or "
+                            f"float32, not {out_float}")
+        out_dtype, n_o = out_float, spec.n_o
     if not _on_cuda(x_int, "int8_matmul"):
         return ref.int8_matmul_ref(x_int, w_int, b_int,
                                    shift=spec.requant_shift,
                                    bias_shift=spec.bias_shift, relu=relu,
-                                   lo=lo, hi=hi, out_dtype=out_dtype)
+                                   lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
     m = math.prod(batch)
     if m == 0 or n == 0:
         return torch.empty((*batch, n), dtype=out_dtype, device=x_int.device)
     out = int8_matmul_cuda(x_int.reshape(m, k), w_int, b_int,
                            shift=spec.requant_shift,
                            bias_shift=spec.bias_shift, relu=relu, lo=lo,
-                           hi=hi, out_dtype=out_dtype)
+                           hi=hi, out_dtype=out_dtype, n_o=n_o)
     LAUNCHES["int8_matmul"] += 1
     return out.reshape(*batch, n)
 
@@ -104,15 +116,57 @@ def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
 def quantize_act(x: torch.Tensor, n: int, bits: int = 8,
                  unsigned: bool = False) -> torch.Tensor:
     """Elementwise Eq.-1 quantization of a float32 / bfloat16 tensor:
-    int8 or uint8 codes, int32 when ``bits > 8``."""
+    int8 or uint8 codes (int32 when ``bits > 8``, on the CPU only: no
+    path of the card quantizes wider than 8 bits).  On the card, K3's
+    multi-grid form with one grid."""
     if not _on_cuda(x, "quantize_act"):
         return ref.quantize_ref(x, n=n, bits=bits, unsigned=unsigned)
+    if bits > 8:
+        raise ValueError(f"K3 emits 8-bit codes on the card, not {bits}")
     lo, hi = int_bounds(bits, unsigned)
-    out_dtype = ((torch.uint8 if unsigned else torch.int8) if bits <= 8
-                 else torch.int32)
-    out = quantize_cuda(x, n=int(n), lo=lo, hi=hi, out_dtype=out_dtype)
-    LAUNCHES["quantize"] += 1
+    (out,) = quantize_multi_cuda(
+        x, [int(n)], lo=lo, hi=hi,
+        out_dtype=torch.uint8 if unsigned else torch.int8)
+    if x.numel():                   # an empty tensor launches nothing
+        LAUNCHES["quantize"] += 1
     return out
+
+
+def quantize_multi(x: torch.Tensor, ns, bits: int = 8
+                   ) -> tuple[torch.Tensor, ...]:
+    """Eq.-1 int8 codes of one float32 / bfloat16 tensor on each grid of
+    ``ns`` (the inputs of modules that read the same activation), in ONE
+    launch over x; equal grids share one codes tensor (one entry per
+    ``ns`` entry).  At most three distinct grids."""
+    if bits > 8:
+        raise ValueError(f"quantize_multi emits 8-bit codes, not {bits}")
+    if not _on_cuda(x, "quantize_multi"):
+        return ref.quantize_multi_ref(x, ns, bits=bits)
+    distinct = list(dict.fromkeys(int(n) for n in ns))
+    lo, hi = int_bounds(bits)
+    codes = dict(zip(distinct, quantize_multi_cuda(x, distinct, lo=lo,
+                                                   hi=hi)))
+    if x.numel():                   # an empty tensor launches nothing
+        LAUNCHES["quantize"] += 1
+    return tuple(codes[int(n)] for n in ns)
+
+
+def quantize_scatter(k: torch.Tensor, v: torch.Tensor, index: torch.Tensor,
+                     k_rows: torch.Tensor, v_rows: torch.Tensor, *,
+                     n: int) -> None:
+    """The int8 K/V write: K and V (R, W) float32 / bfloat16 rows quantized
+    on the pool's grid ``n`` and stored IN PLACE to rows ``index`` (R,)
+    (int32 or int64, on the pools' device) of the pools viewed as (P, W)
+    int8 rows, in ONE launch for both.  Rows that share an index (padding
+    rows on the trash block) race, as with ``index_copy_``."""
+    if not _on_cuda(k, "quantize_scatter"):
+        ref.quantize_scatter_ref(k, v, index, k_rows, v_rows, n=n)
+        return
+    lo, hi = int_bounds(8)
+    quantize_scatter_cuda(k, v, index, k_rows, v_rows, n=int(n), lo=lo,
+                          hi=hi)
+    if k.numel():
+        LAUNCHES["quantize"] += 1
 
 
 def residual_requant(a_int: torch.Tensor, b_int: torch.Tensor, *, n_a: int,

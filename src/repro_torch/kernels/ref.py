@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.qscheme import dequant, int_bounds
 
 __all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "quantize_ref",
+           "quantize_multi_ref", "quantize_scatter_ref",
            "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
            "ragged_attention_split_ref", "paged_attention_ref",
            "paged_attention_split_ref",
@@ -62,16 +63,25 @@ def int8_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
                     b_int: Optional[torch.Tensor], *, shift: int,
                     bias_shift: int = 0, relu: bool = False,
                     lo: int = -128, hi: int = 127,
-                    out_dtype: torch.dtype = torch.int8) -> torch.Tensor:
-    """(..., K) x (K, N) int8 codes -> (..., N) requantized codes.
+                    out_dtype: torch.dtype = torch.int8,
+                    n_o: Optional[int] = None) -> torch.Tensor:
+    """(..., K) x (K, N) int8 codes -> (..., N) requantized codes, or,
+    with a float ``out_dtype`` (K2's float epilogue), the codes' values
+    ``code * 2^-n_o`` in that type.
 
     The int32 accumulator is computed in float64 (exact below 2^53) and
     cast, since PyTorch has no int32 matmul on CUDA and no BLAS behind its
     int64 one on the CPU."""
     acc = torch.matmul(x_int.to(torch.float64),
                        w_int.to(torch.float64)).to(torch.int32)
-    return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
-                          relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
+    if not out_dtype.is_floating_point:
+        return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
+                              relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
+    if n_o is None:
+        raise ValueError("a float output takes its grid n_o")
+    codes = _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
+                           relu=relu, lo=lo, hi=hi, out_dtype=torch.int32)
+    return (codes.to(torch.float32) * (2.0 ** -int(n_o))).to(out_dtype)
 
 
 def int8_matmul_split_ref(x_int: torch.Tensor, w_int: torch.Tensor,
@@ -122,6 +132,30 @@ def quantize_ref(x: torch.Tensor, *, n: int, bits: int = 8,
     out_dtype = ((torch.uint8 if unsigned else torch.int8) if bits <= 8
                  else torch.int32)
     return torch.clamp(r, lo, hi).to(out_dtype)
+
+
+def quantize_multi_ref(x: torch.Tensor, ns, *,
+                       bits: int = 8) -> tuple[torch.Tensor, ...]:
+    """K3's multi-grid form: ``quantize_ref(x, n)`` for each ``n`` in
+    ``ns``, one codes tensor a distinct grid; equal grids share one tensor
+    (the result has one entry per ``ns`` entry)."""
+    codes = {}
+    for n in ns:
+        if int(n) not in codes:
+            codes[int(n)] = quantize_ref(x, n=int(n), bits=bits)
+    return tuple(codes[int(n)] for n in ns)
+
+
+def quantize_scatter_ref(k: torch.Tensor, v: torch.Tensor,
+                         index: torch.Tensor, k_rows: torch.Tensor,
+                         v_rows: torch.Tensor, *, n: int) -> None:
+    """K3's quantize-and-scatter form: K and V (R, W) quantized to int8 on
+    the grid ``n`` and copied IN PLACE to rows ``index`` (R,) of the
+    (P, W) int8 pools (``index_copy_``: of rows that share an index, one's
+    codes land)."""
+    idx = index.long()
+    k_rows.index_copy_(0, idx, quantize_ref(k, n=n))
+    v_rows.index_copy_(0, idx, quantize_ref(v, n=n))
 
 
 def residual_requant_ref(a_int: torch.Tensor, b_int: torch.Tensor, *,

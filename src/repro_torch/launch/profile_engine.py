@@ -13,17 +13,21 @@ replay; ``--no-graphs``: every step eager).  Prints the profiled run's
 wall time, the summed device time of its kernels, copies and fills (one
 stream: they do not overlap; the operators' rows, which repeat their
 kernels' time, are left out), the device busy share (that time / wall;
-the rest is host time the card waits on), and the kernels with the most
-device time and their launch counts.  Exits non-zero when no device time
-was recorded.
+the rest is host time the card waits on), the kernels with the most
+device time and their launch counts, and K1's kernels as
+``key_averages()`` and the profiler's Kineto events count them beside the
+engine's own count.  Exits non-zero when no device time was recorded.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+from collections import Counter
 
 WORKLOAD = dict(n_requests=8, rate=1e9)
+# K1's kernel names carry its causal-limit policy (csrc/ragged_attention.cu)
+K1_TAG = "RelLimit"
 
 
 def _device_us(evt) -> float:
@@ -38,7 +42,10 @@ def profile_run(mode: str = "int", graphs=None) -> dict:
     """The profiled second run of :mod:`this module <repro_torch.launch.
     profile_engine>`'s workload: its report, wall time (s), summed kernel
     device time (s), busy share and ``(kernel, device us, launches)``
-    rows, most device time first."""
+    rows, most device time first (from ``key_averages()``); and
+    ``raw_counts``, the device events by name as the profiler's Kineto
+    result holds them (``prof.profiler.kineto_results``, the one view of
+    the records before ``key_averages()`` builds its table)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -65,8 +72,10 @@ def profile_run(mode: str = "int", graphs=None) -> dict:
             if e.device_type == DeviceType.CUDA]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     dev_s = sum(r[1] for r in rows) / 1e6
+    raw = Counter(e.name() for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA)
     return dict(report=rep, wall_s=wall, device_s=dev_s,
-                busy=dev_s / wall, rows=rows,
+                busy=dev_s / wall, rows=rows, raw_counts=dict(raw),
                 card=torch.cuda.get_device_name(0))
 
 
@@ -79,10 +88,19 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     r = profile_run(args.mode, graphs=False if args.no_graphs else None)
     rep = r["report"]
-    print(f"profile {args.mode} ({'eager' if args.no_graphs else 'graphs'})"
-          f": {rep['ragged_steps']} steps, {rep['gen_tokens']} tokens, wall "
-          f"{r['wall_s']:.3f} s (profiled), device time "
-          f"{r['device_s']:.3f} s, busy share {r['busy']:.3f}, {r['card']}")
+    steps = rep["ragged_steps"]
+    events = sum(c for _, _, c in r["rows"])
+    k1 = [sum(c for k, _, c in r["rows"] if K1_TAG in k),
+          sum(c for k, c in r["raw_counts"].items() if K1_TAG in k)]
+    print(f"profile {args.mode} "
+          f"({'eager' if args.no_graphs else 'graphs'}): {steps} steps, "
+          f"{rep['gen_tokens']} tokens, wall {r['wall_s']:.3f} s "
+          f"(profiled), device time {r['device_s']:.3f} s, busy share "
+          f"{r['busy']:.3f}, {events / max(steps, 1):.1f} kernels, "
+          f"copies and fills a step; K1 kernels: {k1[0]} in "
+          f"key_averages(), {k1[1]} in the Kineto events, "
+          f"{rep['kernel_launches'].get('ragged_attention')} launched "
+          f"(the engine's count); {r['card']}")
     if not r["rows"]:
         print("no device time recorded", file=sys.stderr)
         return 1

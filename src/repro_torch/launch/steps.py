@@ -14,6 +14,7 @@ in-place pool scatter) as one CUDA graph per step key and replays it:
 from __future__ import annotations
 
 import contextlib
+import gc
 from typing import Callable, Hashable, Optional
 
 import numpy as np
@@ -187,8 +188,18 @@ class _CUDAStepGraph:
         self.output: Optional[torch.Tensor] = None
 
     def capture(self, fn: Callable[[], torch.Tensor]) -> None:
-        with torch.cuda.graph(self.graph, pool=self.pool, stream=self.stream):
-            self.output = fn()
+        # no cyclic garbage collection while capturing: it may destroy a
+        # dead engine's CUDA graphs, which a capture does not permit (the
+        # capture fails, cudaErrorStreamCaptureInvalidated)
+        enabled = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, pool=self.pool,
+                                  stream=self.stream):
+                self.output = fn()
+        finally:
+            if enabled:
+                gc.enable()
 
     def replay(self) -> None:
         self.graph.replay()

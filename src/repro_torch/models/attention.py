@@ -2,17 +2,19 @@
 ``KVCache``, ``PagedKVCache``, ``RaggedBatch``, ``init_gqa`` and the GQA
 branches of ``gqa_attention``).
 
-All projections run through ``qlinear`` (the paper's unified modules);
-softmax, rope and norms stay in float.  Three families of paths:
+All projections run through ``qlinear`` (the paper's unified modules;
+``wq`` / ``wk`` / ``wv`` through ``qlinears``, which in INT mode quantizes
+their shared input once); softmax, rope and norms stay in float.  Three
+families of paths:
 
 * ragged serving: the whole mixed step is one flattened stream, K and V
-  are quantized ONCE to Eq.-1 int8 codes, scattered to their
-  host-precomputed pool rows, and attention runs in one
-  ``ops.ragged_attention`` launch (K1).  ``cfg.attn_kernel`` is ignored,
-  as in the reference;
+  are quantized ONCE to Eq.-1 int8 codes and stored straight to their
+  host-precomputed pool rows (``ops.quantize_scatter``, one K3 launch for
+  both), and attention runs in one ``ops.ragged_attention`` launch (K1).
+  ``cfg.attn_kernel`` is ignored, as in the reference;
 * paged serving (the legacy per-shape engine): a (B, C) batch at per-token
-  positions, its codes written into the pool rows its block tables name,
-  then one ``ops.paged_attention`` launch (K4);
+  positions, its codes written by the same K3 launch into the pool rows
+  its block tables name, then one ``ops.paged_attention`` launch (K4);
 * dense cache (classic prefill / decode, and the no-cache forward that
   calibration runs): ``cfg.attn_kernel == 'flash'`` goes to
   ``ops.flash_attention`` (K5) / ``ops.flash_decode`` (K6), ``'chunked'``
@@ -29,10 +31,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext
-from repro_torch.core.qscheme import quant
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ragged_flash import RaggedWork
+from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm, rotate
 
 __all__ = ["KVCache", "PagedKVCache", "RaggedBatch", "init_gqa",
@@ -103,9 +105,9 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     (output, cache).
 
     * ``ragged`` given: x (T, d) is the whole mixed step and ``cache`` the
-      :class:`PagedKVCache`; each token's codes are written IN PLACE
-      (``index_copy_`` into its ``dest`` row) where the JAX engine donates
-      the pool.
+      :class:`PagedKVCache`; each token's codes are written IN PLACE to
+      its ``dest`` row (``ops.quantize_scatter``; ``index_copy_`` into a
+      float pool) where the JAX engine donates the pool.
     * ``cache`` a :class:`PagedKVCache` with ``block_tables`` (B, W):
       x (B, S, d) at the per-token positions ``cache_pos`` (B, S); each
       token's codes go IN PLACE to pool row ``block_tables[b, pos // bs]
@@ -113,9 +115,9 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
       ``paged_work`` (``kernels.flash_attention.plan_paged_work`` of these
       positions, planned once per step) where given.
     * ``cache`` a :class:`KVCache`: x (B, S, d); the new K/V (Eq.-1 codes
-      when the cache is int8, quantized once) are written IN PLACE at
-      ``cache_pos`` (an int; the reference's ``dynamic_update_slice``
-      returns a new array).  ``S == 1`` is a decode step at position
+      when the cache is int8, quantized on the way by one K3 launch) are
+      written IN PLACE at ``cache_pos`` (an int; the reference's
+      ``dynamic_update_slice`` returns a new array).  ``S == 1`` is a decode step at position
       ``cache_pos`` over the cache up to it; otherwise a prefill, which
       starts at ``cache_pos == 0`` and attends causally over the cache.
     * no cache: causal attention over x's own (B, S) sequence (the
@@ -126,11 +128,14 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     lead = x.shape[:-1]                    # (T,) ragged, (B, S) dense
 
-    q = linear(ctx, f"{name}/wq", x, p["wq"], p.get("bq")).reshape(*lead, h, hd)
-    k = linear(ctx, f"{name}/wk", x, p["wk"], p.get("bk")).reshape(*lead, kvh, hd)
-    # wo's input grid is threaded from wv's output grid: attention rows
-    # are softmax-convex combinations of V rows
-    v = linear(ctx, f"{name}/wv", x, p["wv"], p.get("bv")).reshape(*lead, kvh, hd)
+    # one quant point for the three (qlinears); wo's input grid is threaded
+    # from wv's output grid: attention rows are softmax-convex combinations
+    # of V rows
+    q, k, v = common.linears(
+        ctx, [f"{name}/wq", f"{name}/wk", f"{name}/wv"], x,
+        [p["wq"], p["wk"], p["wv"]], [p.get("bq"), p.get("bk"), p.get("bv")])
+    q, k, v = (q.reshape(*lead, h, hd), k.reshape(*lead, kvh, hd),
+               v.reshape(*lead, kvh, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -140,15 +145,27 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     if cache is not None:
         if cache.k.dtype == torch.int8:
             kv_frac_bits = cfg.kv_cache_frac_bits
-            k, v = quant(k, kv_frac_bits, 8), quant(v, kv_frac_bits, 8)
         else:
             k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
 
+    def write_rows(index: torch.Tensor) -> None:
+        """The new K/V rows to rows ``index`` of the cache viewed as (rows,
+        KVH * D): int8 codes quantized on the way (one K3 launch), or
+        floats by ``index_copy_``."""
+        pool_rows = cache.k.numel() // (kvh * hd)
+        k_rows = cache.k.view(pool_rows, kvh * hd)
+        v_rows = cache.v.view(pool_rows, kvh * hd)
+        kk, vv = k.reshape(-1, kvh * hd), v.reshape(-1, kvh * hd)
+        if kv_frac_bits is not None:
+            kops.quantize_scatter(kk, vv, index, k_rows, v_rows,
+                                  n=kv_frac_bits)
+        else:
+            index = index.long()
+            k_rows.index_copy_(0, index, kk)
+            v_rows.index_copy_(0, index, vv)
+
     if ragged is not None:
-        nb_pool, bs_blk = cache.k.shape[0], cache.k.shape[1]
-        dest = ragged.dest.long()
-        cache.k.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, k)
-        cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(0, dest, v)
+        write_rows(ragged.dest)
         out = kops.ragged_attention(
             q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
             ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits,
@@ -157,14 +174,10 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         if block_tables is None or cache_pos is None:
             raise ValueError("the paged path takes block_tables and (B, S) "
                              "per-token positions as cache_pos")
-        nb_pool, bs_blk = cache.k.shape[0], cache.k.shape[1]
+        bs_blk = cache.k.shape[1]
         pos = cache_pos.long()
         blk = block_tables.long().gather(1, pos // bs_blk)
-        idx = (blk * bs_blk + pos % bs_blk).reshape(-1)          # (B*S,)
-        cache.k.view(nb_pool * bs_blk, kvh, hd).index_copy_(
-            0, idx, k.reshape(-1, kvh, hd))
-        cache.v.view(nb_pool * bs_blk, kvh, hd).index_copy_(
-            0, idx, v.reshape(-1, kvh, hd))
+        write_rows((blk * bs_blk + pos % bs_blk).reshape(-1))    # (B*S,)
         out = kops.paged_attention(q, cache.k, cache.v, block_tables,
                                    cache_pos, kv_frac_bits=kv_frac_bits,
                                    work=paged_work)
@@ -173,10 +186,17 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         if cfg.attn_kernel not in ("flash", "chunked"):
             raise ValueError(f"unknown attn_kernel={cfg.attn_kernel!r}; "
                              "expected 'chunked' or 'flash'")
-        s = x.shape[1]
-        if cache is not None:
+        bsz, s = x.shape[0], x.shape[1]
+        if cache is not None and kv_frac_bits is None:
             cache.k[:, cache_pos:cache_pos + s] = k
             cache.v[:, cache_pos:cache_pos + s] = v
+        elif cache is not None:
+            # row b * S_max + cache_pos + i of the (B * S_max) cache rows
+            s_max = cache.k.shape[1]
+            write_rows((torch.arange(bsz, device=x.device)[:, None] * s_max
+                        + torch.arange(cache_pos, cache_pos + s,
+                                       device=x.device)).reshape(-1))
+        if cache is not None:
             k, v = cache.k, cache.v
         if cache is not None and s == 1:
             decode = kops.flash_decode if flash else kref.flash_decode_ref

@@ -17,10 +17,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.qmodel import QuantContext, qlinear
+from repro_torch.core.qmodel import QuantContext, qlinear, qlinears
 
 __all__ = ["inv_rms", "rmsnorm", "rope_freqs", "rope_tables", "rotate", "apply_rope",
-           "linear", "embed", "unembed", "Initializer"]
+           "linear", "linears", "embed", "unembed", "Initializer"]
 
 
 def inv_rms(x: torch.Tensor, eps: float) -> torch.Tensor:
@@ -96,6 +96,13 @@ def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Unified-module linear — alias keeping model code terse."""
     return qlinear(ctx, name, x, w, b)
+
+
+def linears(ctx: QuantContext, names, x: torch.Tensor, ws,
+            bs=None) -> list[torch.Tensor]:
+    """Unified-module linears that read the same ``x`` (``qlinears``: in
+    INT mode ``x`` is quantized once for all of them)."""
+    return qlinears(ctx, names, x, ws, bs)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,

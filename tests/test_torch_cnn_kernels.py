@@ -180,13 +180,13 @@ def test_cuda_paths_take_no_plain_fallback(monkeypatch):
             raise RuntimeError(f"{name} reached")
         return f
 
-    for mod, name in ((tops, "quantize_cuda"),
+    for mod, name in ((tops, "quantize_multi_cuda"),
                       (tops, "residual_requant_cuda"),
                       (tops, "int8_matmul_cuda")):
         monkeypatch.setattr(mod, name, fake(name))
     monkeypatch.setattr(tops, "_on_cuda", lambda t, what: True)
     x = torch.zeros((2, 4, 4, 3))
-    with pytest.raises(RuntimeError, match="quantize_cuda reached"):
+    with pytest.raises(RuntimeError, match="quantize_multi_cuda reached"):
         tops.quantize_act(x, 3)
     codes = torch.zeros((2, 4, 4, 3), dtype=torch.int8)
     with pytest.raises(RuntimeError, match="residual_requant_cuda reached"):
@@ -194,5 +194,5 @@ def test_cuda_paths_take_no_plain_fallback(monkeypatch):
     w = torch.zeros((3, 3, 3, 4), dtype=torch.int8)
     with pytest.raises(RuntimeError, match="int8_matmul_cuda reached"):
         tops.int_conv2d(codes, w, None, tio.LinearQuantSpec(1, 2, 3, 4))
-    assert calls == ["quantize_cuda", "residual_requant_cuda",
+    assert calls == ["quantize_multi_cuda", "residual_requant_cuda",
                      "int8_matmul_cuda"]
