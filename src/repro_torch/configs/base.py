@@ -2,9 +2,9 @@
 
 A copy of the JAX package's ``ModelConfig`` for the families the PyTorch
 port serves, holding the fields the port reads: the dense pre-norm GQA
-transformers, and the recurrent (``ssm``: RWKV6) and hybrid (Mamba2
-groups plus one shared attention block) families with their
-``SSMConfig`` / ``HybridConfig``.  The MoE / MLA / enc-dec sub-configs
+transformers (families ``dense`` and ``vlm``), and the recurrent
+(``ssm``: RWKV6) and hybrid (Mamba2 groups plus one shared attention
+block) families with their ``SSMConfig`` / ``HybridConfig``.  The MoE / MLA / enc-dec sub-configs
 are not ported yet.  Configs are frozen, hashable dataclasses.
 """
 from __future__ import annotations
@@ -40,7 +40,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | ssm | hybrid
+    family: str                    # dense | vlm | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int

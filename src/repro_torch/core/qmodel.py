@@ -7,6 +7,10 @@ PyTorch counterpart of ``repro.core.qmodel``:
   Inside :func:`capture_activations` every module's (input, weight,
   bias) is recorded for Algorithm-1 calibration.
 * ``fake`` — Eq. (1) in float arithmetic at every quant point.
+* ``fake_sf`` — the scaling-factor baseline of the paper's Tables 1 and 3
+  (``core.baselines.scale_quant``: per-tensor float scales on weights
+  AND activations, rounded half to even), float arithmetic; it needs no
+  calibration table.
 * ``int``  — deploy path: activations quantized at unified-module
   boundaries (``kernels.ops.quantize_multi``, K3: one launch a module
   input), int8 x int8 -> int32 products with a single bit-shift
@@ -17,8 +21,7 @@ PyTorch counterpart of ``repro.core.qmodel``:
   :func:`qlinears` takes modules that read one activation and quantizes
   it once, in one launch, for all of them.
 
-``fake_sf`` (the scaling-factor baseline) waits for ``core/baselines``.  The
-context carries the table (module name -> fractional bits) that
+The context carries the table (module name -> fractional bits) that
 ``core.lm_calibrate.calibrate_lm`` fills; uncalibrated modules use the
 static ``ModuleBits`` defaults.
 """
@@ -33,6 +36,7 @@ from typing import Any, Mapping, Optional
 import torch
 
 from repro_torch.core import integer_ops
+from repro_torch.core.baselines import scale_quant
 from repro_torch.core.qscheme import fake_quant, quant
 
 __all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear", "qlinears",
@@ -51,7 +55,7 @@ DEFAULT_N_O = 4
 class QuantMode(enum.Enum):
     FP = "fp"
     FAKE = "fake"
-    FAKE_SF = "fake_sf"  # not ported yet (core/baselines.py)
+    FAKE_SF = "fake_sf"  # scaling-factor baseline (IOA/TensorRT-style W8A8)
     INT = "int"
 
 
@@ -126,10 +130,12 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
             store[name] = (x, w, b)
         return _fp_linear(x, w, b)
     if ctx.mode is QuantMode.FAKE_SF:
-        raise NotImplementedError(
-            "QuantMode 'fake_sf' (the scaling-factor baseline) is not ported "
-            "yet (ROADMAP Queue 1 item 3, 'The paper's tables and their "
-            "baselines': core/baselines.py)")
+        # the competing scheme: per-tensor float scales, accuracy
+        # reference of costly requant hardware
+        return _fp_linear(scale_quant(x, ctx.bits),
+                          scale_quant(w, ctx.bits).to(x.dtype),
+                          None if b is None else
+                          scale_quant(b, ctx.bits).to(x.dtype))
 
     mb = ctx.bits_for(name)
     n_b = mb.n_b if mb.n_b is not None else mb.n_w

@@ -15,14 +15,21 @@
 // -inf.  The softmax is fp32, K/V values and P are rounded to the q type
 // before their products (int8 codes and bf16 values convert exactly), l
 // sums the unrounded P, and a row whose l is 0 is written as 0.  Kv rows
-// past Sq (K5) or past pos (K6) are never read; pos is a host int.
+// past Sq (K5) or past pos (K6) are never read.  K6 reads pos from the
+// card (an int32 every block loads, as the TPU kernel takes it by scalar
+// prefetch), so one captured launch serves every decode position.
 //
 // K6, split-KV decode.  Bound on an H100 by the bytes of the cache up to
 // pos (KVH * (Dk + Dv) bytes a position for int8: 268 MB at B 4 over 32768
 // rows, 0.08 ms at 3.35 TB/s).  One (KV head, batch) pair is far too
 // little work for a block (32 of them at the serving batch, on 132 SMs),
-// so the host cuts rows 0..pos into chunks (flash_attention.py::
-// plan_decode_splits) and the grid is (splits x row tiles, KVH, B).  A
+// so the host cuts the cache's S_max rows into chunks (flash_attention.py
+// ::plan_decode_splits; the host never sees pos) and the grid is (splits
+// x row tiles, KVH, B).  A block whose chunk starts past pos reads
+// nothing: it writes the empty partial state (l = 0, m at the mask value)
+// and exits, and the combine weighs it by 0 (split 0 always holds row 0,
+// so the merged maximum is a real score).  A pos outside [0, S_max) reads
+// nothing and writes NaN outputs.  A
 // block of 4 warps carries the GQA group's query heads (up to 8 rows a
 // block) over one chunk; its warps take the chunk's 32-row slices in turn,
 // each with its own online-softmax state, so a tile needs no block-wide
@@ -646,8 +653,9 @@ template <typename QT, typename KT, int DPL, int RB>
 __global__ void __launch_bounds__(D_WARPS * 32)
 flash_decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                           const KT* __restrict__ v, QT* __restrict__ out, float* __restrict__ ws,
-                          int S_max, int H, int KVH, int Dk, int Dv, int pos, int splits,
-                          int chunk, float score_scale, float v_scale, float mask_value, bool vec) {
+                          const int* __restrict__ pos_ptr, int S_max, int H, int KVH, int Dk,
+                          int Dv, int splits, int chunk, float score_scale, float v_scale,
+                          float mask_value, bool vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int n_warps = blockDim.x / 32;
   const DecodeLayout lay(Dk, Dv, (int)sizeof(KT), n_warps, RB);
@@ -662,7 +670,22 @@ flash_decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int r0 = tile * RB;
   const int nr = min(RB, groups - r0);  // live rows of this block (>= 1)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int c0 = split * chunk, c1 = min(c0 + chunk, pos + 1);
+  const int pos = __ldg(pos_ptr);
+  const bool bad_pos = pos < 0 || pos >= S_max;
+  const int c0 = split * chunk, c1 = bad_pos ? c0 : min(c0 + chunk, pos + 1);
+  if (c1 <= c0) {  // no row of this chunk is visible: nothing to read
+    for (int e = threadIdx.x; e < nr * 2; e += blockDim.x) {
+      const int r = e / 2, h = kvh * groups + r0 + r;
+      if (splits > 1) {
+        float* prow =
+            ws + ((((size_t)b * KVH + kvh) * splits + split) * groups + r0 + r) * (Dv + 2);
+        prow[e % 2] = e % 2 == 0 ? mask_value : 0.f;
+      } else {
+        for (int d = e % 2; d < Dv; d += 2) out[((size_t)b * H + h) * Dv + d] = from_f<QT>(NAN);
+      }
+    }
+    return;
+  }
   const int n_slices = (c1 - c0 + D_SLICE - 1) / D_SLICE;
 
   const size_t row_k = (size_t)KVH * Dk, row_v = (size_t)KVH * Dv;
@@ -835,10 +858,12 @@ flash_decode_split_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   }
 }
 
-// K6's second pass: one block per (head, batch) merges the splits' partials
+// K6's second pass: one block per (head, batch) merges the splits'
+// partials; an empty split (l = 0) weighs 0 and its acc is not read
 template <typename QT>
 __global__ void __launch_bounds__(128)
-flash_combine_kernel(const float* __restrict__ ws, QT* __restrict__ out, int H, int KVH, int Dv,
+flash_combine_kernel(const float* __restrict__ ws, QT* __restrict__ out,
+                     const int* __restrict__ pos_ptr, int S_max, int H, int KVH, int Dv,
                      int splits, float v_scale) {
   extern __shared__ float wgt[];  // [splits]: e^(m_i - m)
   __shared__ float red[2];
@@ -853,20 +878,22 @@ flash_combine_kernel(const float* __restrict__ ws, QT* __restrict__ out, int H, 
     mt = warp_max(mt);
     float lt = 0.f;
     for (int i = lane; i < splits; i += 32) {
-      const float mi = base[i * stride];
-      const float w = mi == -INFINITY ? 0.f : expf(mi - mt);
+      const float mi = base[i * stride], li = base[i * stride + 1];
+      const float w = li == 0.f || mi == -INFINITY ? 0.f : expf(mi - mt);
       wgt[i] = w;
-      lt += base[i * stride + 1] * w;
+      lt += li * w;
     }
     lt = warp_sum(lt);
     if (lane == 0) red[0] = lt == 0.f ? 1.f : 1.f / lt;
   }
   __syncthreads();
-  const float scale = red[0] * v_scale;
+  const int pos = __ldg(pos_ptr);
+  const float scale = pos < 0 || pos >= S_max ? NAN : red[0] * v_scale;
   QT* orow = out + ((size_t)b * H + h) * Dv;
   for (int d = threadIdx.x; d < Dv; d += blockDim.x) {
     float o = 0.f;
-    for (int i = 0; i < splits; ++i) o += base[i * stride + 2 + d] * wgt[i];
+    for (int i = 0; i < splits; ++i)
+      if (wgt[i] != 0.f) o += base[i * stride + 2 + d] * wgt[i];
     orow[d] = from_f<QT>(o * scale);
   }
 }
@@ -934,9 +961,10 @@ int launch_prefill(const void* q, const void* k, const void* v, void* out, int B
 }
 
 template <typename QT, typename KT, int DPL, int RB>
-int launch_decode_rb(const void* q, const void* k, const void* v, void* out, void* ws, int B,
-                     int S_max, int H, int KVH, int Dk, int Dv, int pos, int splits, int chunk,
-                     float score_scale, float v_scale, float mask_value, cudaStream_t stream) {
+int launch_decode_rb(const void* q, const void* k, const void* v, void* out, void* ws,
+                     const int* pos, int B, int S_max, int H, int KVH, int Dk, int Dv, int splits,
+                     int chunk, float score_scale, float v_scale, float mask_value,
+                     cudaStream_t stream) {
   auto kernel = flash_decode_split_kernel<QT, KT, DPL, RB>;
   static const int smem_err = raise_smem_limit(kernel);
   if (smem_err != 0) return smem_err;
@@ -951,24 +979,25 @@ int launch_decode_rb(const void* q, const void* k, const void* v, void* out, voi
   const dim3 grid(splits * n_tiles, KVH, B);
   kernel<<<grid, n_warps * 32, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<QT*>(out), static_cast<float*>(ws), S_max, H, KVH, Dk, Dv, pos, splits, chunk,
+      static_cast<QT*>(out), static_cast<float*>(ws), pos, S_max, H, KVH, Dk, Dv, splits, chunk,
       score_scale, v_scale, mask_value, vec);
   int err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
   flash_combine_kernel<QT><<<dim3(H, B), 128, splits * sizeof(float), stream>>>(
-      static_cast<const float*>(ws), static_cast<QT*>(out), H, KVH, Dv, splits, v_scale);
+      static_cast<const float*>(ws), static_cast<QT*>(out), pos, S_max, H, KVH, Dv, splits,
+      v_scale);
   return (int)cudaGetLastError();
 }
 
 // rows a block carries: the GQA group, up to 8 (a larger group is cut into
 // row tiles, each reading its chunk of the cache)
 template <typename QT, typename KT, int DPL>
-int launch_decode_groups(const void* q, const void* k, const void* v, void* out, void* ws, int B,
-                         int S_max, int H, int KVH, int Dk, int Dv, int pos, int splits,
-                         int chunk, float score_scale, float v_scale, float mask_value,
-                         cudaStream_t stream) {
+int launch_decode_groups(const void* q, const void* k, const void* v, void* out, void* ws,
+                         const int* pos, int B, int S_max, int H, int KVH, int Dk, int Dv,
+                         int splits, int chunk, float score_scale, float v_scale,
+                         float mask_value, cudaStream_t stream) {
 #define FD_ARGS \
-  q, k, v, out, ws, B, S_max, H, KVH, Dk, Dv, pos, splits, chunk, score_scale, v_scale, mask_value, stream
+  q, k, v, out, ws, pos, B, S_max, H, KVH, Dk, Dv, splits, chunk, score_scale, v_scale, mask_value, stream
   const int groups = H / KVH;
   if (groups <= 2) return launch_decode_rb<QT, KT, DPL, 2>(FD_ARGS);
   if (groups <= 4) return launch_decode_rb<QT, KT, DPL, 4>(FD_ARGS);
@@ -976,9 +1005,10 @@ int launch_decode_groups(const void* q, const void* k, const void* v, void* out,
 }
 
 template <typename QT, typename KT>
-int launch_decode(const void* q, const void* k, const void* v, void* out, void* ws, int B,
-                  int S_max, int H, int KVH, int Dk, int Dv, int pos, int splits, int chunk,
-                  float score_scale, float v_scale, float mask_value, cudaStream_t stream) {
+int launch_decode(const void* q, const void* k, const void* v, void* out, void* ws,
+                  const int* pos, int B, int S_max, int H, int KVH, int Dk, int Dv, int splits,
+                  int chunk, float score_scale, float v_scale, float mask_value,
+                  cudaStream_t stream) {
   if (Dv <= 128) return launch_decode_groups<QT, KT, 4>(FD_ARGS);
   return launch_decode_groups<QT, KT, 8>(FD_ARGS);
 #undef FD_ARGS
@@ -1022,23 +1052,24 @@ extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-// K6: rows 0..pos in `splits` chunks of `chunk` rows (the last shorter, none
-// empty); ws holds (B, KVH, splits, H / KVH, Dv + 2) floats when splits > 1
+// K6: the cache's S_max rows in `splits` chunks of `chunk` rows (the last
+// shorter, none empty); pos is one int32 on the card, read by every block;
+// ws holds (B, KVH, splits, H / KVH, Dv + 2) floats when splits > 1
 extern "C" int flash_decode_launch(const void* q, const void* k, const void* v, void* out,
-                                   void* ws, int B, int S_max, int H, int KVH, int Dk, int Dv,
-                                   int pos, int splits, int chunk, int score_scale_bits,
+                                   void* ws, const int* pos, int B, int S_max, int H, int KVH,
+                                   int Dk, int Dv, int splits, int chunk, int score_scale_bits,
                                    int kv_frac_bits, int mask_bits, int q_dtype, int kv_dtype,
                                    void* stream) {
   if (KVH <= 0 || H % KVH || H / KVH > D_MAX_GROUPS || Dk <= 0 || Dv <= 0 || Dk > MAX_DIM ||
-      Dv > MAX_DIM || pos < 0 || pos >= S_max || splits <= 0 || chunk <= 0 ||
-      (long long)(splits - 1) * chunk > pos || (long long)splits * chunk <= pos ||
+      Dv > MAX_DIM || S_max <= 0 || pos == nullptr || splits <= 0 || chunk <= 0 ||
+      (long long)(splits - 1) * chunk >= S_max || (long long)splits * chunk < S_max ||
       (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const float score_scale = from_bits(score_scale_bits), mask_value = from_bits(mask_bits);
   const float v_scale = ldexpf(1.f, -kv_frac_bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define FD_ARGS \
-  q, k, v, out, ws, B, S_max, H, KVH, Dk, Dv, pos, splits, chunk, score_scale, v_scale, mask_value, st
+  q, k, v, out, ws, pos, B, S_max, H, KVH, Dk, Dv, splits, chunk, score_scale, v_scale, mask_value, st
   if (q_dtype == 0) {
     if (kv_dtype == 0) return launch_decode<float, float>(FD_ARGS);
     if (kv_dtype == 1) return launch_decode<float, __nv_bfloat16>(FD_ARGS);

@@ -15,11 +15,15 @@ the grid's 2^-n folded into the score scale and the final 1/l) or floats.
   m16n8k16, bf16 in, fp32 accumulate); a long prefill is bound by those
   operations.  K5 on fp32 q keeps the CUDA-core kernel (TF32 would miss
   the fp32 tolerance).
-- K6 is bound by the bytes of the cache up to ``pos``.  It splits those
-  rows into chunks, one block each, and a second small kernel merges the
-  blocks' partial softmax states.  :func:`plan_decode_splits` chooses the
-  chunks on the host from ``pos``, ``B * KVH`` and the SM count, so the
-  workspace is allocated here and ``pos`` stays a host int.
+- K6 is bound by the bytes of the cache up to ``pos``.  It splits the
+  cache's rows into chunks, one block each, and a second small kernel
+  merges the blocks' partial softmax states.  ``pos`` is a 0-d int32
+  tensor on the card that every block reads, as the TPU kernel takes it
+  by scalar prefetch, so the host never reads it and one launch captured
+  in a CUDA graph serves every position.  :func:`plan_decode_splits`
+  chooses the chunks on the host from the cache length S_max, ``B * KVH``
+  and the SM count; a block whose chunk starts past ``pos`` reads nothing
+  and its (empty) partial weighs 0.
 
 The source's header note gives each design, what bounds it and what is
 left.
@@ -66,7 +70,7 @@ _NAME = "flash_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "flash_prefill_launch": (ctypes.c_int, [_P] * 4 + [_I] * 12 + [_P]),
-    "flash_decode_launch": (ctypes.c_int, [_P] * 5 + [_I] * 14 + [_P]),
+    "flash_decode_launch": (ctypes.c_int, [_P] * 6 + [_I] * 13 + [_P]),
 }
 _PAGED_NAME = "paged_attention"
 _PAGED_SIGNATURES = {"paged_attention_launch": (
@@ -89,16 +93,17 @@ def _f32_bits(x: float) -> int:
     return struct.unpack("<i", struct.pack("<f", x))[0]
 
 
-def plan_decode_splits(pos: int, batch: int, kv_heads: int,
+def plan_decode_splits(rows: int, batch: int, kv_heads: int,
                        sm_count: int = 132) -> tuple[int, int]:
-    """K6's split of the kv rows ``0..pos``: ``(splits, chunk)``, split i
-    covering rows ``[i * chunk, min((i + 1) * chunk, pos + 1))``.  Enough
-    splits that ``batch * kv_heads * splits`` blocks fill ``sm_count`` SMs
+    """K6's split of a cache of ``rows`` (S_max) kv rows: ``(splits,
+    chunk)``, split i covering rows ``[i * chunk, min((i + 1) * chunk,
+    rows))``, of which a launch reads those ``<= pos``.  Enough splits
+    that ``batch * kv_heads * splits`` blocks fill ``sm_count`` SMs
     SPLIT_BLOCKS_PER_SM times over, no split shorter than SPLIT_MIN_ROWS
     unless it is the only one (so one split, and no combine pass, up to
     256 rows), chunks rounded up to SPLIT_ROW_ALIGN rows, and no empty
-    split."""
-    rows = int(pos) + 1
+    split of the cache."""
+    rows = int(rows)
     want = -(-SPLIT_BLOCKS_PER_SM * sm_count // (batch * kv_heads))
     n = max(1, min(want, -(-rows // SPLIT_MIN_ROWS)))
     chunk = -(-rows // n)
@@ -233,24 +238,29 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      pos: int, kv_frac_bits: int) -> torch.Tensor:
-    """Launch K6: q (B, 1, H, Dk) at absolute position ``pos`` over the
-    cache (B, S_max, KVH, D), kv rows ``<= pos`` visible; returns
-    (B, 1, H, Dv) in q's dtype.  The kernel reads the cache only up to
-    ``pos``; with more than one split its blocks write fp32 partials
-    (m, l, acc) to a workspace allocated here, merged by the combine
-    kernel in the same call."""
+                      pos: torch.Tensor, kv_frac_bits: int) -> torch.Tensor:
+    """Launch K6: q (B, 1, H, Dk) at absolute position ``pos`` (a 0-d int32
+    tensor on q's device, read by the kernel and never by the host) over
+    the cache (B, S_max, KVH, D), kv rows ``<= pos`` visible; returns
+    (B, 1, H, Dv) in q's dtype, NaN where ``pos`` lies outside
+    ``[0, S_max)`` (the caller, which knows the position, checks it).  The
+    kernel reads the cache only up to ``pos``; with more than one split
+    its blocks write fp32 partials (m, l, acc) to a workspace from the
+    caching allocator (inside a capture, the graph's pool), merged by the
+    combine kernel in the same call."""
     _check("flash_decode_cuda", q, k, v, DECODE_MAX_GROUPS)
     b, sq, h, dk = q.shape
     s_max, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
     if sq != 1:
         raise ValueError(f"flash_decode_cuda is the q_len=1 kernel, got "
                          f"q_len={sq}")
-    if not 0 <= pos < s_max:
-        raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
+    if not isinstance(pos, torch.Tensor) or pos.device != q.device \
+            or pos.dtype != torch.int32 or pos.numel() != 1:
+        raise TypeError("flash_decode_cuda takes pos as one int32 on q's "
+                        "device (a 0-d tensor)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
-    splits, chunk = plan_decode_splits(pos, b, kvh,
+    splits, chunk = plan_decode_splits(s_max, b, kvh,
                                        _sm_count(q.device.index or 0))
     ws_ptr = 0
     if splits > 1:
@@ -261,8 +271,8 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         _launch("flash_decode_launch", q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), out.data_ptr(), ws_ptr, b, s_max, h, kvh, dk,
-                dv, int(pos), splits, chunk, _f32_bits(score_scale),
+                v.data_ptr(), out.data_ptr(), ws_ptr, pos.data_ptr(), b,
+                s_max, h, kvh, dk, dv, splits, chunk, _f32_bits(score_scale),
                 int(kv_frac_bits), _f32_bits(DEFAULT_MASK_VALUE),
                 _Q_CODES[q.dtype], _KV_CODES[k.dtype], stream)
     return out

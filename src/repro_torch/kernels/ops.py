@@ -290,16 +290,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 pos: int, kv_frac_bits: Optional[int] = None
-                 ) -> torch.Tensor:
+                 pos, kv_frac_bits: Optional[int] = None) -> torch.Tensor:
     """One-token decode over a dense cache: q (B, 1, H, Dk) at absolute
-    position ``pos`` (a host int) over (B, S_max, KVH, D), kv rows
-    ``<= pos`` visible -> (B, 1, H, Dv).  The cache is read in place, up
-    to ``pos`` only."""
+    position ``pos`` over (B, S_max, KVH, D), kv rows ``<= pos`` visible
+    -> (B, 1, H, Dv).  On the card ``pos`` is a 0-d int32 tensor on q's
+    device, which K6 reads there (the plain version also takes a host
+    int).  The cache is read in place, up to ``pos`` only."""
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_decode"):
         return ref.flash_decode_ref(q, k, v, pos=pos,
                                     kv_frac_bits=kv_frac_bits)
-    out = flash_decode_cuda(q, k, v, pos=int(pos), kv_frac_bits=nkv)
+    out = flash_decode_cuda(q, k, v, pos=pos, kv_frac_bits=nkv)
     LAUNCHES["flash_decode"] += 1
     return out

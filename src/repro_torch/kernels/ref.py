@@ -449,50 +449,69 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _dense_attention_ref(q, k, v, q_pos, kv_frac_bits)
 
 
+def _decode_pos(pos, device) -> torch.Tensor:
+    """The decode position as a (1,) int64 tensor on ``device``: from a
+    host int, or from a 0-d integer tensor without reading it back."""
+    if isinstance(pos, torch.Tensor):
+        if pos.numel() != 1 or pos.dtype.is_floating_point:
+            raise ValueError(f"pos must be one integer, got a {pos.dtype} "
+                             f"tensor of shape {tuple(pos.shape)}")
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), int(pos), dtype=torch.int64, device=device)
+
+
 def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                     pos: int, kv_frac_bits: Optional[int] = None
+                     pos, kv_frac_bits: Optional[int] = None
                      ) -> torch.Tensor:
-    """K6's function: q (B, 1, H, Dk) at absolute position ``pos`` over
-    the cache (B, S_max, KVH, D), kv rows <= ``pos`` visible.  Only those
-    rows are read (the masked ones would contribute exactly 0)."""
-    q_pos = torch.full((1,), int(pos), device=q.device)
-    return _dense_attention_ref(q, k[:, :pos + 1], v[:, :pos + 1], q_pos,
+    """K6's function: q (B, 1, H, Dk) at absolute position ``pos`` (a host
+    int or a 0-d integer tensor) over the cache (B, S_max, KVH, D), kv
+    rows <= ``pos`` visible.  The whole cache is scored and the rows past
+    ``pos`` masked by comparing their indices with it (they contribute
+    exactly 0), so a tensor ``pos`` is never read on the host."""
+    return _dense_attention_ref(q, k, v, _decode_pos(pos, q.device),
                                 kv_frac_bits)
 
 
 def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, pos: int, chunk: int,
+                           *, pos, chunk: int,
                            kv_frac_bits: Optional[int] = None
                            ) -> torch.Tensor:
-    """K6's split-KV arithmetic, for the tests: the kv rows ``<= pos`` are
-    cut into chunks of ``chunk`` rows; chunk i gives the partials
-    (m_i, l_i, acc_i) one block of the kernel writes (its own max, the
-    unrounded sum of P, and P rounded to q's dtype times V), and the
-    combine merges them: m = max m_i, l = sum l_i e^(m_i - m),
-    out = sum acc_i e^(m_i - m) / l * 2^-n.  Same function as
-    ``flash_decode_ref`` up to the order of the fp32 sums."""
+    """K6's split-KV arithmetic, for the tests: the cache's S_max rows are
+    cut into chunks of ``chunk`` rows, as the kernel's splits are planned
+    for the cache length.  Chunk i gives the partials (m_i, l_i, acc_i)
+    one block of the kernel writes over its rows ``<= pos`` (its own max,
+    the unrounded sum of P, and P rounded to q's dtype times V); a chunk
+    that starts past ``pos`` is empty and writes l_i = 0 with m_i at the
+    mask value.  The combine merges them, weighing an empty chunk by 0:
+    m = max m_i, l = sum l_i e^(m_i - m), out = sum acc_i e^(m_i - m) / l
+    * 2^-n.  Same function as ``flash_decode_ref`` up to the order of the
+    fp32 sums."""
     b, _, h, dk = q.shape
-    kvh, dv = k.shape[2], v.shape[-1]
+    s_max, kvh, dv = k.shape[1], k.shape[2], v.shape[-1]
     g = h // kvh
     nkv = kv_frac_bits_of(k, kv_frac_bits)
+    p_last = _decode_pos(pos, q.device)
     qg = q.reshape(b, kvh, g, dk).float()
     ms, ls, accs = [], [], []
-    for lo in range(0, int(pos) + 1, chunk):
-        hi = min(lo + chunk, int(pos) + 1)
+    for lo in range(0, s_max, chunk):
+        hi = min(lo + chunk, s_max)
+        live = torch.arange(lo, hi, device=q.device) <= p_last     # (rows,)
         kc = k[:, lo:hi].to(q.dtype).float()
         vc = v[:, lo:hi].to(q.dtype).float()
         s = torch.einsum("bkgd,bskd->bkgs", qg, kc) \
             * (2.0 ** (-nkv) / math.sqrt(dk))
+        s = torch.where(live, s, torch.full_like(s, DEFAULT_MASK_VALUE))
         m = s.amax(dim=-1)
-        p = torch.exp(s - m[..., None])
+        p = torch.where(live, torch.exp(s - m[..., None]),
+                        torch.zeros_like(s))
         ms.append(m)
         ls.append(p.sum(dim=-1))
         accs.append(torch.einsum("bkgs,bskd->bkgd", p.to(q.dtype).float(),
                                  vc))
-    m_all = torch.stack(ms)                                  # (n, B, KVH, G)
+    m_all, l_all = torch.stack(ms), torch.stack(ls)         # (n, B, KVH, G)
     m = m_all.amax(dim=0)
-    w = torch.exp(m_all - m)
-    l = (torch.stack(ls) * w).sum(dim=0)
+    w = torch.where(l_all > 0, torch.exp(m_all - m), torch.zeros_like(m_all))
+    l = (l_all * w).sum(dim=0)
     acc = (torch.stack(accs) * w[..., None]).sum(dim=0)
     out = acc * (1.0 / l)[..., None] * (2.0 ** (-nkv))
     return out.reshape(b, 1, h, dv).to(q.dtype)

@@ -2,10 +2,14 @@
 
 Classic path (``serve``): Algorithm-1 calibration on one batch (INT and
 FAKE modes, by default), then a batched prefill into a dense KV cache and
-greedy decode steps:
+greedy decode steps, on the card each decode step after the first
+replayed from one CUDA graph (``--no-graphs``: every step eager);
+``--mode fake_sf`` is the paper's scaling-factor baseline (per-tensor
+float scales, no calibration):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
-        [--mode int] [--attn-kernel flash] [--full] [--device cpu]
+        [--mode int|fake|fake_sf|fp] [--attn-kernel flash] [--full] \
+        [--no-graphs] [--device cpu]
 
 Engine (``--engine``, ``serve_engine``): the continuous-batching engine on
 the paged int8-KV pool against a synthetic Poisson workload; ``--w8a8``
@@ -73,21 +77,37 @@ def _calibrated(cfg, params, mode: str, tokens):
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           mode: str = "int", calibrate: bool = True, smoke: bool = True,
           seed: int = 0, params=None, attn_kernel: str | None = None,
-          cfg_overrides: dict | None = None, device=None) -> dict:
+          cfg_overrides: dict | None = None, graphs: bool | None = None,
+          device=None, _graph_factory=None) -> dict:
     """Classic serving: calibrate (``mode`` 'int' / 'fake' with
-    ``calibrate``), prefill a ``batch`` x ``prompt_len`` synthetic prompt
-    into a dense cache of ``prompt_len + gen`` positions, and decode
-    ``gen - 1`` greedy steps.
+    ``calibrate``; 'fp' and the scaling-factor baseline 'fake_sf' take
+    none), prefill a ``batch`` x ``prompt_len`` synthetic prompt into a
+    dense cache of ``prompt_len + gen`` positions, and decode ``gen - 1``
+    greedy steps, each through ``launch.steps.run_serve_step``: the
+    tokens and the position staged, the position read only on the device.
+
+    With ``graphs`` (the default on a CUDA device; the CPU runs eagerly)
+    the first decode step runs eagerly, the second is captured as one CUDA
+    graph (key ``("decode", B, S_max)``) and replayed, and every later
+    step is a replay; ``graphs=False`` runs every step eagerly.  Prefill
+    runs once a call and stays eager.
 
     Returns {"tokens" (B, gen) numpy, "prefill_s", "decode_s_per_tok",
-    "compile_prefill_s", "compile_decode_s", "report", "ctx"}.  There is
-    nothing to compile: ``compile_prefill_s`` / ``compile_decode_s`` hold
-    the time of the first prefill / decode call (kernel builds and lazy
-    initialisation included), and that call is also part of ``prefill_s``
-    / ``decode_s_per_tok``.  ``params`` overrides the seeded random
+    "compile_prefill_s", "compile_decode_s", "report", "ctx", "graphs"}
+    (the last the :class:`launch.steps.StepGraphs` counts).
+    ``compile_prefill_s`` holds the time of the prefill call (kernel
+    builds and lazy initialisation included), which is also
+    ``prefill_s``.  With graphs ``compile_decode_s`` holds the eager first
+    decode call plus the capture (and its replay), and ``decode_s_per_tok``
+    the mean of the later steps, all replays (0.0 when there are none), as
+    the JAX package leaves compiling out of its decode time; without,
+    ``compile_decode_s`` holds the first decode call, which is also part
+    of ``decode_s_per_tok``.  ``params`` overrides the seeded random
     weights; in INT mode float matmul weights are quantized to int8 codes
     once, here, on the calibrated grids (bit-identical to quantizing in
-    every call).  ``device`` defaults to ``cuda``."""
+    every call).  ``device`` defaults to ``cuda``.  ``_graph_factory`` is
+    for the tests: a stand-in for the CUDA graph (``StepGraphs``'
+    ``graph_factory``) that drives the capture bookkeeping on the CPU."""
     import torch
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.device import resolve_device
@@ -117,6 +137,10 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if ctx.mode is QuantMode.INT:
         params = quantize_weight_tree(params, ctx)
 
+    if graphs is None:
+        graphs = dev.type == "cuda"
+    step_graphs = S.StepGraphs(dev, capture=graphs,
+                               graph_factory=_graph_factory)
     prefill_fn = S.build_prefill_step(cfg, ctx, max_seq=prompt_len + gen)
     serve_fn = S.build_serve_step(cfg, ctx)
     with torch.no_grad():
@@ -125,22 +149,28 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         _sync(dev)
         t_prefill = time.perf_counter() - t0
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        out_tokens = [tok]
-        t_first = 0.0
-        t0 = time.perf_counter()
+        out_tokens = [tok.cpu().numpy()]
+        step_s = []
         for i in range(gen - 1):
-            tok, cache = serve_fn(params, tok, cache, prompt_len + i)
-            out_tokens.append(tok)
-            if i == 0:
-                _sync(dev)
-                t_first = time.perf_counter() - t0
-        _sync(dev)
-        t_decode = time.perf_counter() - t0
-    gen_tokens = torch.cat(out_tokens, dim=1).cpu().numpy()
-    return {"tokens": gen_tokens, "prefill_s": t_prefill,
-            "decode_s_per_tok": t_decode / max(gen - 1, 1),
-            "compile_prefill_s": t_prefill, "compile_decode_s": t_first,
-            "report": report, "ctx": ctx}
+            t0 = time.perf_counter()
+            nxt = S.run_serve_step(step_graphs, serve_fn, params,
+                                   out_tokens[-1], cache, prompt_len + i)
+            # a copy that waits for the step (a replay's output is the
+            # graph's static buffer)
+            out_tokens.append(np.array(nxt.cpu()))
+            step_s.append(time.perf_counter() - t0)
+    n_first = 2 if graphs else 1        # eager first call (and capture)
+    replayed = step_s[n_first:] if graphs else step_s
+    return {"tokens": np.concatenate(out_tokens, axis=1),
+            "prefill_s": t_prefill,
+            "decode_s_per_tok": sum(replayed) / max(len(replayed), 1),
+            "compile_prefill_s": t_prefill,
+            "compile_decode_s": sum(step_s[:n_first]),
+            "report": report, "ctx": ctx,
+            "graphs": dict(enabled=graphs,
+                           first_calls=step_graphs.first_calls,
+                           captures=step_graphs.captures,
+                           replays=step_graphs.replays)}
 
 
 def poisson_workload(vocab_size: int, *, n_requests: int, rate: float,
@@ -323,7 +353,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--mode", default="int", choices=["fp", "fake", "int"])
+    ap.add_argument("--mode", default="int",
+                    choices=["fp", "fake", "fake_sf", "int"])
     ap.add_argument("--no-calibrate", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="full-size config instead of the smoke config")
@@ -369,8 +400,8 @@ def main(argv=None):
                          "steps (prefill chunk / decode / verify, paged "
                          "attention) instead of the unified ragged step")
     ap.add_argument("--no-graphs", action="store_true",
-                    help="[--engine] run every step eagerly instead of "
-                         "replaying each step key's CUDA graph")
+                    help="run every step (engine) or decode step (classic "
+                         "path) eagerly instead of replaying its CUDA graph")
     ap.add_argument("--trace", default=None, metavar="OUT.json",
                     help="[--engine] structured event tracing; export the "
                          "run as Chrome trace-event JSON (Perfetto)")
@@ -447,6 +478,7 @@ def main(argv=None):
                 gen=args.gen, mode=args.mode,
                 calibrate=not args.no_calibrate, smoke=not args.full,
                 seed=args.seed, attn_kernel=args.attn_kernel,
+                graphs=False if args.no_graphs else None,
                 device=args.device)
     print(f"generated {out['tokens'].shape} tokens | first calls "
           f"{out['compile_prefill_s']:.2f}s+{out['compile_decode_s']:.2f}s | "

@@ -5,11 +5,12 @@ serving engine (PyTorch counterpart of ``repro.launch.steps``:
 check), and the engine's compiled step, :class:`StepGraphs`.
 
 The builders validate the configuration once and return plain closures
-that run eagerly.  Where the JAX engine ``jax.jit``-compiles each serving
-step once per shape, the port's engine captures each step's whole device
-program (the model step, the fused sampling and draft verification, the
-in-place pool scatter) as one CUDA graph per step key and replays it:
-:class:`StepGraphs`.
+that run eagerly.  Where the JAX package ``jax.jit``-compiles each serving
+step once per shape, the port captures each step's whole device program
+(the model step, the fused sampling and draft verification, the in-place
+pool or cache writes) as one CUDA graph per step key and replays it:
+:class:`StepGraphs`, which the engine and the classic path's decode loop
+(:func:`run_serve_step`) share.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ from repro_torch.models import model as M
 
 __all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
            "build_paged_step", "build_ragged_step", "build_recurrent_step",
-           "StepGraphs"]
+           "StepGraphs", "run_serve_step"]
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
@@ -59,8 +60,10 @@ def build_prefill_step(cfg: ModelConfig, ctx: QuantContext,
 
 def build_serve_step(cfg: ModelConfig, ctx: QuantContext):
     """One batched greedy decode step: ``serve_step(params, tokens (B, 1),
-    cache, pos) -> (next tokens (B, 1) int32, cache)``; ties take the
-    first index, as ``jnp.argmax`` does."""
+    cache, pos) -> (next tokens (B, 1) int32, cache)``, ``pos`` a host int
+    or a 0-d integer tensor on the device (the form a captured step takes,
+    :func:`run_serve_step`); ties take the first index, as ``jnp.argmax``
+    does."""
     check_matmul_kernel(cfg, ctx)
 
     def serve_step(params, tokens, cache, pos):
@@ -220,10 +223,11 @@ class StepGraphs:
 
     :meth:`run` takes a step key (the engine's: ``("ragged", T_pad, S_pad,
     k_cap, has_top_k, sampled)``, ``(B, C, verify, k_cap, has_top_k,
-    sampled)`` or ``("recurrent", B, C, k_cap, has_top_k, sampled)``,
-    everything a step's device program depends on beyond its staged
-    arrays), the step function ``fn(inputs) -> output`` over the
-    staged arrays' device tensors, and the step's host arrays.
+    sampled)`` or ``("recurrent", B, C, k_cap, has_top_k, sampled)``; the
+    classic path's ``("decode", B, S_max)``: everything a step's device
+    program depends on beyond its staged arrays), the step function
+    ``fn(inputs) -> output`` over the staged arrays' device tensors, and
+    the step's host arrays.
 
     * Without capture (``capture=False``: the CPU, or an engine built with
       ``graphs=False``) the arrays are staged into fresh buffers and
@@ -330,3 +334,26 @@ class StepGraphs:
         with torch.cuda.stream(self._stream):
             yield
         cur.wait_stream(self._stream)
+
+
+def run_serve_step(graphs: StepGraphs, serve_step, params, tokens,
+                   cache: dict, pos: int) -> torch.Tensor:
+    """One decode step of the classic path through ``graphs``:
+    ``serve_step`` (:func:`build_serve_step`) over the tokens (B, 1) int32
+    (a numpy array) and the position ``pos``, both staged into the step
+    key ``("decode", B, S_max)``'s buffers, ``pos`` as a 0-d int32 that
+    the step reads only on the device.  Returns the next tokens (B, 1)
+    int32 on the device (on a replay the graph's static output, valid
+    until the key's next replay).  The cache is written in place, so a
+    captured step's static memory is the cache prefill allocated: one
+    ``graphs`` serves one (params, cache) pair."""
+    b, s_max = tokens.shape[0], cache["kv"].k.shape[2]
+    if not 0 <= pos < s_max:
+        raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
+
+    def step(inputs):
+        return serve_step(params, inputs["tokens"], cache, inputs["pos"])[0]
+
+    return graphs.run(("decode", b, s_max), step,
+                      {"tokens": np.asarray(tokens, dtype=np.int32),
+                       "pos": np.asarray(pos, dtype=np.int32)})

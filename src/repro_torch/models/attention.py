@@ -116,10 +116,14 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
       positions, planned once per step) where given.
     * ``cache`` a :class:`KVCache`: x (B, S, d); the new K/V (Eq.-1 codes
       when the cache is int8, quantized on the way by one K3 launch) are
-      written IN PLACE at ``cache_pos`` (an int; the reference's
-      ``dynamic_update_slice`` returns a new array).  ``S == 1`` is a decode step at position
-      ``cache_pos`` over the cache up to it; otherwise a prefill, which
-      starts at ``cache_pos == 0`` and attends causally over the cache.
+      written IN PLACE at ``cache_pos`` (the reference's
+      ``dynamic_update_slice`` returns a new array).  ``S == 1`` is a
+      decode step at position ``cache_pos``, a host int or a 0-d integer
+      tensor on x's device that is never read on the host (the rows are
+      written by ``index_copy_`` or K3 from indices built on the device,
+      and K6 reads the position there), over the cache up to it; otherwise
+      a prefill, which starts at ``cache_pos == 0`` and attends causally
+      over the cache.
     * no cache: causal attention over x's own (B, S) sequence (the
       forward that calibration captures).
 
@@ -187,22 +191,25 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
             raise ValueError(f"unknown attn_kernel={cfg.attn_kernel!r}; "
                              "expected 'chunked' or 'flash'")
         bsz, s = x.shape[0], x.shape[1]
-        if cache is not None and kv_frac_bits is None:
-            cache.k[:, cache_pos:cache_pos + s] = k
-            cache.v[:, cache_pos:cache_pos + s] = v
-        elif cache is not None:
-            # row b * S_max + cache_pos + i of the (B * S_max) cache rows
-            s_max = cache.k.shape[1]
-            write_rows((torch.arange(bsz, device=x.device)[:, None] * s_max
-                        + torch.arange(cache_pos, cache_pos + s,
-                                       device=x.device)).reshape(-1))
+        on_card = isinstance(cache_pos, torch.Tensor)
         if cache is not None:
+            # rows cache_pos + i, the offset read on the card when it is
+            # a tensor there
+            rows = (cache_pos.to(device=x.device, dtype=torch.int64)
+                    + torch.arange(s, device=x.device) if on_card else
+                    torch.arange(cache_pos, cache_pos + s, device=x.device))
+            if kv_frac_bits is None:
+                cache.k.index_copy_(1, rows, k)
+                cache.v.index_copy_(1, rows, v)
+            else:       # row b * S_max + cache_pos + i of the cache's rows
+                write_rows((torch.arange(bsz, device=x.device)[:, None]
+                            * cache.k.shape[1] + rows).reshape(-1))
             k, v = cache.k, cache.v
         if cache is not None and s == 1:
             decode = kops.flash_decode if flash else kref.flash_decode_ref
             out = decode(q, k, v, pos=cache_pos, kv_frac_bits=kv_frac_bits)
         else:
-            if cache is not None and cache_pos != 0:
+            if cache is not None and (on_card or cache_pos != 0):
                 raise NotImplementedError(
                     "a multi-token step into a filled dense cache (a "
                     "chunked prefill) has no caller yet; prefill starts at "

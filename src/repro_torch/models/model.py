@@ -1,5 +1,7 @@
 """Top-level model API (PyTorch counterpart of ``repro.models.model``):
-``init_params``; for the dense family the classic dense-cache path
+``init_params``; for the dense GQA families (``dense``, and ``vlm``,
+whose early-fusion image tokens share the text vocabulary and run the
+same blocks) the classic dense-cache path
 ``init_cache`` / ``forward`` / ``prefill`` / ``decode_step`` and the
 serving engine's ``init_paged_cache`` / ``ragged_step`` / ``paged_step``;
 for the recurrent (``ssm``) and hybrid families the fixed-slab serving
@@ -43,11 +45,12 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+_DENSE = ("dense", "vlm")
 _RECURRENT = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig, what: str,
-                  families: tuple = ("dense",)) -> None:
+                  families: tuple = _DENSE) -> None:
     if cfg.family in families:
         return
     if families == _RECURRENT:
@@ -56,14 +59,15 @@ def _check_family(cfg: ModelConfig, what: str,
             f"family={cfg.family!r}")
     if cfg.family in _RECURRENT:
         raise NotImplementedError(
-            f"{what} covers the dense GQA family; the {cfg.family!r} family "
-            f"is served by the fixed-slab substrate (init_paged_state, "
-            f"paged_recurrent_step) only: its classic forward / prefill / "
-            f"decode path is ROADMAP Queue 1 item 5's remainder")
+            f"{what} covers the dense GQA families; the {cfg.family!r} "
+            f"family is served by the fixed-slab substrate "
+            f"(init_paged_state, paged_recurrent_step) only: its classic "
+            f"forward / prefill / decode path is ROADMAP Queue 1 item 5's "
+            f"remainder")
     raise NotImplementedError(
-        f"{what} covers the dense GQA, ssm and hybrid families; got "
-        f"family={cfg.family!r} (other families: ROADMAP Queue 1 "
-        f"'Other families')")
+        f"{what} covers the dense GQA (dense, vlm), ssm and hybrid "
+        f"families; got family={cfg.family!r} (other families: ROADMAP "
+        f"Queue 1 'Other families')")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -72,7 +76,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     (default ``cuda``).  Not the JAX package's numbers — its PRNG cannot
     be reproduced; tests carry JAX weights over with
     :func:`from_jax_params`."""
-    _check_family(cfg, "init_params", ("dense",) + _RECURRENT)
+    _check_family(cfg, "init_params", _DENSE + _RECURRENT)
     dev = resolve_device(device)
     dt = model_dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -84,7 +88,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init.dense((cfg.d_model, cfg.vocab_padded))
-    if cfg.family == "dense":
+    if cfg.family in _DENSE:
         params["blocks"] = [tfm.init_dense_block(init, cfg)
                             for _ in range(cfg.n_layers)]
     elif cfg.family == "ssm":
@@ -172,18 +176,29 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     return logits[:, -1], cache
 
 
-def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos: int,
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
                 cfg: ModelConfig, ctx: QuantContext
                 ) -> tuple[torch.Tensor, dict]:
-    """One serving step: tokens (B, 1) at absolute position ``pos`` (a
-    host int), the cache from :func:`prefill`, written at ``pos`` in
-    place.  Returns (logits (B, V), cache)."""
+    """One serving step: tokens (B, 1) at absolute position ``pos``, the
+    cache from :func:`prefill`, written at ``pos`` in place.  ``pos`` is a
+    host int (checked against the cache here) or a 0-d integer tensor on
+    the step's device, which nothing reads back to the host: the step's
+    launches do not depend on it, so one CUDA graph of the step serves
+    every position (``launch.steps.StepGraphs``).  Returns (logits (B, V),
+    cache), the cache the same tensors as given (a captured step's static
+    memory is the cache prefill allocated)."""
     _check_family(cfg, "decode_step")
     b = tokens.shape[0]
+    dev = tokens.device
+    if not isinstance(pos, torch.Tensor):
+        s_max = cache["kv"].k.shape[2]
+        if not 0 <= int(pos) < s_max:
+            raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
+        pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
+    pos = pos.to(device=dev, dtype=torch.int32).reshape(())
     x = embed(params["embed"], tokens, model_dtype(cfg))
-    positions = torch.full((b, 1), int(pos), dtype=torch.int64,
-                           device=tokens.device)
-    logits = _dense_layers(params, x, positions, cfg, ctx, cache, int(pos))
+    positions = pos.expand(b, 1)
+    logits = _dense_layers(params, x, positions, cfg, ctx, cache, pos)
     return logits[:, 0], cache
 
 
@@ -475,7 +490,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     layer (the hybrid's ``blocks/mamba`` (G, g, ...) leaves into one dict
     per Mamba block, group-major); dtypes are kept (bf16 stays bf16, int8
     codes stay int8).  Nothing here imports JAX."""
-    _check_family(cfg, "from_jax_params", ("dense",) + _RECURRENT)
+    _check_family(cfg, "from_jax_params", _DENSE + _RECURRENT)
     dev = resolve_device(device)
     out = {k: _tree(v, lambda a: _to_tensor(a, dev))
            for k, v in np_tree.items() if k != "blocks"}

@@ -203,7 +203,25 @@ def test_quantize_params_matches_jax(lm):
 
 
 def test_fake_sf_raises_naming_roadmap():
-    x = torch.ones(2, 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tqm.qlinear(tqm.QuantContext(mode=tqm.QuantMode.FAKE_SF), "m", x,
-                    torch.ones(4, 3))
+    """FAKE_SF no longer raises: the scaling-factor baseline's ``qlinear``
+    (``core.baselines.scale_quant`` on input, weight and bias) against the
+    JAX one, with and without a bias, within 1e-5 (the fp32 products sum
+    in other orders); the quantized operands themselves are bit-exact
+    (``tests/test_torch_baselines.py``)."""
+    rng = np.random.default_rng(21)
+    x = (rng.standard_normal((16, 48)) * 3).astype(np.float32)
+    w = (rng.standard_normal((48, 24)) * 0.05).astype(np.float32)
+    b = (rng.standard_normal(24) * 0.1).astype(np.float32)
+    jctx = jqm.QuantContext(mode=jqm.QuantMode.FAKE_SF)
+    tctx = tqm.QuantContext(mode=tqm.QuantMode.FAKE_SF)
+    for bias in (None, b):
+        want = jqm.qlinear(jctx, "m", jnp.asarray(x), jnp.asarray(w),
+                           None if bias is None else jnp.asarray(bias))
+        got = tqm.qlinear(tctx, "m", torch.from_numpy(x), torch.from_numpy(w),
+                          None if bias is None else torch.from_numpy(bias))
+        assert got.dtype == torch.float32 and got.shape == (16, 24)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+    with pytest.raises(ValueError, match="INT mode"):
+        tqm.qlinear(tctx, "m", torch.from_numpy(x),
+                    torch.zeros((48, 24), dtype=torch.int8))

@@ -7,13 +7,15 @@ package's, on the same numpy inputs and the JAX package's own weights.
   interpreted, at the shapes of ``tests/test_flash_attention.py`` the
   port's causal q_offset-0 prefill covers, within 2e-5 (fp32 sums in
   other orders);
-* ``model.forward`` (no cache) logits in FP, FAKE and INT mode within
-  1e-5, and ``prefill`` plus four ``decode_step``s for attn_kernel
+* ``model.forward`` (no cache) logits in FP, FAKE, FAKE_SF (the
+  scaling-factor baseline) and INT mode within 1e-5 (FAKE_SF with the
+  reference's rms statistic patched in, see ``_xla_rms``), and ``prefill`` plus four ``decode_step``s for attn_kernel
   {chunked, flash} x KV {float, int8} x mode {fp, int}: logits within
   1e-5, int8 caches identical;
 * ``launch.serve.serve(device="cpu")`` gives the JAX ``serve``'s greedy
-  tokens exactly, uncalibrated FP and Algorithm-1-calibrated FAKE / INT,
-  over both attention kernels and both cache types.
+  tokens exactly, uncalibrated FP and FAKE_SF (the rms statistic
+  patched as above) and Algorithm-1-calibrated FAKE / INT, over both
+  attention kernels and both cache types.
 All on the fp32 qwen3 smoke config.
 """
 import dataclasses
@@ -40,6 +42,7 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from tests.test_torch_model import _xla_inv_rms  # noqa: E402
 
 jnp = jax.numpy
 NKV = 4
@@ -121,6 +124,20 @@ def weights():
     return dict(npt=npt, tokens=tokens, jtable=jctx.table, table=table)
 
 
+def _xla_rms(monkeypatch, mode):
+    """FAKE_SF's per-tensor scale is max|x| / 127, so the known last-bit
+    departure of the port's rms statistic (``models.common.inv_rms``,
+    ROADMAP Queue 3) moves the scale of every normed activation whose
+    largest element it touches, and with it codes all over the tensor:
+    on this forward 1791 of 9216 logits move beyond 1e-5 (max 0.057).
+    The FAKE_SF cases therefore run with the reference's statistic, which
+    isolates the baseline's own arithmetic (bit-exact,
+    ``tests/test_torch_baselines.py``)."""
+    if mode == "fake_sf":
+        from repro_torch.models import common
+        monkeypatch.setattr(common, "inv_rms", _xla_inv_rms)
+
+
 def _ctxs(weights, mode):
     if mode == "fp":
         return JCtx(), TCtx()
@@ -128,8 +145,9 @@ def _ctxs(weights, mode):
             TCtx(mode=TMode(mode), table=weights["table"]))
 
 
-@pytest.mark.parametrize("mode", ["fp", "fake", "int"])
-def test_forward_matches_jax(weights, mode):
+@pytest.mark.parametrize("mode", ["fp", "fake", "fake_sf", "int"])
+def test_forward_matches_jax(weights, mode, monkeypatch):
+    _xla_rms(monkeypatch, mode)
     jcfg, tcfg = _cfgs()
     jctx, tctx = _ctxs(weights, mode)
     jl, _ = JM.forward(jax.tree.map(jnp.asarray, weights["npt"]),
@@ -186,11 +204,17 @@ def test_prefill_decode_matches_jax(weights, mode, kv_bits, attn_kernel):
 
 SERVE_CASES = [("fp", "chunked", None), ("fp", "flash", 8),
                ("fake", "chunked", 8), ("fake", "flash", None),
-               ("int", "chunked", None), ("int", "flash", 8)]
+               ("int", "chunked", None), ("int", "flash", 8),
+               ("fake_sf", "chunked", 8), ("fake_sf", "flash", 8)]
+# FAKE_SF over an fp32 cache has no case: there a last-bit difference in
+# the attention output flips a code on its per-tensor grid at the first
+# decode steps, and the JAX package's own chunked and flash paths give 38
+# different tokens of 64 (ROADMAP Queue 3); over the int8 cache they agree
 
 
 @pytest.mark.parametrize("mode,attn_kernel,kv_bits", SERVE_CASES)
-def test_serve_tokens_identical(mode, attn_kernel, kv_bits):
+def test_serve_tokens_identical(mode, attn_kernel, kv_bits, monkeypatch):
+    _xla_rms(monkeypatch, mode)
     overrides = {"dtype": "float32", "kv_cache_bits": kv_bits}
     jcfg, tcfg = _cfgs(attn_kernel=attn_kernel, kv_cache_bits=kv_bits)
     kw = dict(mode=mode, attn_kernel=attn_kernel, cfg_overrides=overrides)
@@ -201,7 +225,7 @@ def test_serve_tokens_identical(mode, attn_kernel, kv_bits):
     to = tserve.serve("qwen3_1_7b", params=params, device="cpu", **kw)
     assert to["tokens"].shape == (4, 16)
     assert np.array_equal(to["tokens"], np.asarray(jo["tokens"]))
-    if mode == "fp":
+    if mode in ("fp", "fake_sf"):
         assert to["report"] is None
     else:
         assert {k: dataclasses.astuple(v) for k, v in to["ctx"].table.items()} \

@@ -1,16 +1,17 @@
 """K6's split-KV decode on the CPU: the host-side planner and the
 split-and-combine arithmetic.
 
-* ``plan_decode_splits`` (the chunks K6's blocks take): over positions in
-  [0, 65535], batch {1, 4, 8} and KV heads {1, 8}, the chunks cover rows
-  0..pos exactly once, none is empty, there is one split below 64 rows,
-  and chunks are whole multiples of a block's 128-row pass;
+* ``plan_decode_splits`` (the chunks K6's blocks take, planned for the
+  cache's rows): over caches of 1 to 65536 rows, batch {1, 4, 8} and KV
+  heads {1, 8}, the chunks cover the rows exactly once, none is empty,
+  there is one split below 64 rows, and chunks are whole multiples of a
+  block's 128-row pass;
 * ``ref.flash_decode_split_ref`` (the kernel's partials (m, l, acc) per
-  chunk, then the combine pass, in plain PyTorch) against the unsplit
-  ``ref.flash_decode_ref`` and the JAX package's ``ops.flash_decode`` with
-  its Pallas body interpreted, in fp32 within 2e-5 (fp32 sums in other
-  orders), at positions on and beside split boundaries, over an int8 and
-  a float cache.
+  chunk of the cache, the chunks past ``pos`` empty, then the combine
+  pass, in plain PyTorch) against the unsplit ``ref.flash_decode_ref`` and
+  the JAX package's ``ops.flash_decode`` with its Pallas body interpreted,
+  in fp32 within 2e-5 (fp32 sums in other orders), at positions on and
+  beside split boundaries, over an int8 and a float cache.
 """
 import numpy as np
 import pytest
@@ -37,7 +38,8 @@ NKV = 4
 @given(pos=st.integers(0, 65535), batch=st.sampled_from([1, 4, 8]),
        kv_heads=st.sampled_from([1, 8]))
 def test_plan_covers_rows_once_without_empty_split(pos, batch, kv_heads):
-    splits, chunk = plan_decode_splits(pos, batch, kv_heads)
+    # a cache of pos + 1 rows
+    splits, chunk = plan_decode_splits(pos + 1, batch, kv_heads)
     assert splits >= 1 and chunk % SPLIT_ROW_ALIGN == 0
     bounds = [(i * chunk, min((i + 1) * chunk, pos + 1))
               for i in range(splits)]
@@ -54,8 +56,8 @@ def test_plan_covers_rows_once_without_empty_split(pos, batch, kv_heads):
 def test_plan_split_counts(pos, batch, kv_heads, want):
     """The serving shape's long cache fills the card (32 splits x 32
     (batch, KV head) pairs = 1024 blocks on 132 SMs); short caches take
-    one split and no combine pass."""
-    assert plan_decode_splits(pos, batch, kv_heads)[0] == want
+    one split and no combine pass (caches of pos + 1 rows)."""
+    assert plan_decode_splits(pos + 1, batch, kv_heads)[0] == want
 
 
 def _cache(seed, b, s_max, h, kvh, d, int8_kv):
@@ -98,7 +100,7 @@ def test_split_combine_at_planned_chunks(pos, int8_kv):
     """The planner's own chunks for a (2, KVH 2) batch, where positions
     from 256 rows on split, held against the unsplit plain version."""
     b, h, kvh, d = 2, 4, 2, 64
-    splits, chunk = plan_decode_splits(pos, b, kvh)
+    splits, chunk = plan_decode_splits(pos + 1, b, kvh)
     assert splits == -(-(pos + 1) // chunk) and (pos < 256) == (splits == 1)
     q, k, v = (torch.from_numpy(a) for a in _cache(pos, b, pos + 1, h, kvh,
                                                     d, int8_kv))

@@ -119,7 +119,9 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServingEngine(cfg, {}, QuantContext(), device="cpu",
                       profile_cost=True)
-    # the scaling-factor baseline waits for core/baselines.py
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
-                     mode="fake_sf")
+    # the scaling-factor baseline is ported: a fake_sf engine serves,
+    # uncalibrated (the reference calibrates only fake and int)
+    out = serve_engine("qwen3_1_7b", device="cpu", n_requests=1,
+                       mode="fake_sf", calibrate=True)
+    assert out["report"]["completed"] == 1
+    assert out["ctx"].mode.value == "fake_sf" and not out["ctx"].table
