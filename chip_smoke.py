@@ -70,16 +70,26 @@ the CUDA toolkit.  Phases, one line each (or a few):
     capture, and peak memory;
 11. the W8A8 engine (``serve_engine(w8a8=True)``) at full depth, twice,
     K3 141 a step;
-12. K3 (Eq.-1 quantize) and K7 (residual requant) against their plain
-    versions, bit-exact, at the ResNet path's shapes and one 64M-element
-    shape, and K2's uint8-activation variant at each im2col shape of the
-    path, with its tile, times and bounds;
+12. K3 (Eq.-1 quantize) and K7 (residual requant, standalone) against
+    their plain versions, bit-exact, at the ResNet path's shapes and one
+    64M-element shape; the convolution kernel (``csrc/int_conv.cu``,
+    implicit GEMM with K7's arithmetic as its residual epilogue) bit-exact
+    against its plain version and against the im2col + K2 (+ K7) chain it
+    replaced at every convolution of the path (batch 256), through K2's
+    four epilogue variants and the residual epilogue with an int8 and a
+    uint8 shortcut on two grids (one saturating), and on odd cases (batch
+    1, size 7, the stem alone, Cout 8 / 10 / 96, misaligned operands); each
+    path convolution timed in its path form (the kernel, the old chain,
+    the plain version), conv2 also without its residual epilogue, beside
+    its bound, with its tile;
 13. Algorithm-1 calibration of the paper's ResNet (``resnet_paper``
     CONFIG width, batch 64) on the card and on the CPU: the tables must
     agree, apart from declared near-ties;
 14. the ResNet's integer forward at batch 256 on the card against the
-    CPU's plain path: identical logits, exactly 16 K2, 6 K7 and 2 K3
-    launches, twice with identical logits, with images per second;
+    CPU's plain path: identical logits, exactly 15 convolution kernel, 1
+    K2 (the head), 0 K7 and 2 K3 launches, twice cold with identical
+    logits, then five warm forwards (median and spread on the host clock,
+    images per second) and one forward's device time (CUDA events);
 15. K4 (paged attention over the KV block pool, on the work list its
     positions plan) against its plain version and its split-and-combine
     twin over a grid of query counts, GQA groups, pool types, head dims
@@ -208,7 +218,9 @@ ran).
 It then prints the card line, a JSON line describing every kernel (K4's
 ``library_ms`` is null: no single PyTorch call reads a block table; K3's
 and K2's times are one engine step's launches, K3's ResNet launches
-beside them), and
+beside them; K7's its standalone launches at the ResNet's adds, which
+the forward no longer makes, and the convolution kernel's one forward's,
+its old chain beside), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -286,6 +298,25 @@ K1_LONG_ITEMS = ((1, 32768), (16, 4112), (1, 100), (1, 37))
 # the ResNet path (configs/resnet_paper.py CONFIG): the integer forward's
 # batch, the calibration batch and the elementwise kernels' long shape
 RESNET_BATCH, RESNET_CALIB_BATCH, ELEMWISE_LONG = 256, 64, 64 * 2**20
+# warm forwards timed in phase 14 (median and spread)
+RESNET_WARM = 5
+# the convolution kernel's residual grids (n_a, n_b, n_o): the path's kind
+# (the shortcut coarser), and an add whose shifted sum overflows int32
+# under a negative requant shift (the saturating form decides)
+CONV_RES_GRIDS = ((7, 6, 7), (0, 20, 30))
+# its odd cases (label, input (B, H, W, Cin), Cout, k, stride, input
+# dtype): M not a multiple of the tile (batch 1, size 7, odd padding), the
+# stem's byte gather alone, Cout 10 (byte weight copies and stores), Cout
+# 8 (SMOKE width, Cin 8 gathered byte by byte), Cout 96 (two column
+# tiles, the second half empty), a 1x1 on 48 channels
+CONV_ODD = (("batch 1 size 7", (1, 7, 7, 16), 16, 3, 1, "u8"),
+            ("batch 1 size 7 stride 2", (1, 7, 7, 32), 64, 3, 2, "u8"),
+            ("1x1 stride 2 size 7", (1, 7, 7, 32), 64, 1, 2, "u8"),
+            ("stem batch 1", (1, 32, 32, 3), 16, 3, 1, "i8"),
+            ("Cout 10", (2, 9, 9, 16), 10, 3, 1, "u8"),
+            ("Cout 8", (3, 16, 16, 8), 8, 3, 1, "u8"),
+            ("Cout 96", (2, 8, 8, 64), 96, 3, 1, "i8"),
+            ("1x1 Cin 48", (2, 8, 8, 48), 32, 1, 1, "u8"))
 # K5 / K6 at their long shapes: each output held within this share of its
 # row's largest |value| (``_close_rows``)
 LONG_ROW_TOL = 2e-2
@@ -1618,7 +1649,7 @@ def _serve_want(cfg, mode, kv_int8, gen=SERVE_GEN):
             "flash_decode": L * (gen - 1),
             "int8_matmul": (7 * L + 1) * forwards if mode == "int" else 0,
             "ragged_attention": 0, "paged_attention": 0, "quantize": k3,
-            "residual_requant": 0}
+            "residual_requant": 0, "int_conv": 0}
 
 
 def phase_serve(torch, out):
@@ -1743,24 +1774,26 @@ def phase_w8a8(torch, out):
 def _resnet_shapes(cfg, batch):
     """The integer forward's shapes at ``batch``: the image, the head's
     input, each residual add's (shape, branch dtype, shortcut dtype) and
-    each convolution's im2col product (M, K, N, activation dtype)."""
+    each convolution's (name, input (B, H, W, Cin), Cout, k, stride, input
+    dtype, shortcut dtype or None), the latter for each block's conv2,
+    which carries the add as its epilogue; in the forward's order."""
     import torch
-    side, adds, convs = cfg.img_size, [], []
-    convs.append((batch * side * side, 27, cfg.stages[0], torch.int8))
-    cin = cfg.stages[0]
+    u8, i8 = torch.uint8, torch.int8
+    side, adds = cfg.img_size, []
+    convs = [("stem", (batch, side, side, 3), cfg.stages[0], 3, 1, i8, None)]
+    cin, bi = cfg.stages[0], 0
     for si, ch in enumerate(cfg.stages):
-        for bi in range(cfg.blocks_per_stage):
-            stride = 2 if (bi == 0 and si > 0) else 1
+        for blk in range(cfg.blocks_per_stage):
+            stride = 2 if (blk == 0 and si > 0) else 1
             side_o = -(-side // stride)
-            m = batch * side_o * side_o
-            convs += [(m, 9 * cin, ch, torch.uint8), (m, 9 * ch, ch,
-                                                      torch.uint8)]
+            x_in, h1 = (batch, side, side, cin), (batch, side_o, side_o, ch)
+            convs.append((f"b{bi}/conv1", x_in, ch, 3, stride, u8, None))
             if cin != ch:
-                convs.append((m, cin, ch, torch.uint8))
-            adds.append(((batch, side_o, side_o, ch), torch.int8,
-                         torch.int8 if cin != ch else torch.uint8))
-            side, cin = side_o, ch
-    convs.append((batch, cfg.stages[-1], cfg.n_classes, torch.int8))
+                convs.append((f"b{bi}/proj", x_in, ch, 1, stride, u8, None))
+            sc = i8 if cin != ch else u8
+            convs.append((f"b{bi}/conv2", h1, ch, 3, 1, u8, sc))
+            adds.append((h1, i8, sc))
+            side, cin, bi = side_o, ch, bi + 1
     return ((batch, cfg.img_size, cfg.img_size, 3), (batch, cfg.stages[-1]),
             adds, convs)
 
@@ -1785,13 +1818,13 @@ def _codes(torch, gen, shape, dtype):
 def phase_cnn_kernels(torch, out):
     """K3 and K7 bit-exact against their plain versions at the ResNet
     path's shapes (and misaligned views, which take the scalar loop) and
-    at one 64M-element shape; K2 on uint8 activations bit-exact at every
-    im2col shape of the path.  Times per forward at batch 256 sum the
-    path's launches, each shape timed alone."""
+    at one 64M-element shape; the convolution kernel bit-exact against its
+    plain version and the im2col + K2 (+ K7) chain it replaced at every
+    convolution of the path and the odd cases (``_conv_kernel_checks``).
+    Times per forward at batch 256 sum the path's launches, each shape
+    timed alone; K7's standalone launches are no longer the path's."""
     from repro_torch.configs.resnet_paper import CONFIG
-    from repro_torch.core.integer_ops import LinearQuantSpec
     from repro_torch.kernels import ops, ref
-    from repro_torch.kernels.int8_matmul import plan_int8_matmul
     gen = torch.Generator(device="cuda")
     gen.manual_seed(12)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1905,51 +1938,180 @@ def phase_cnn_kernels(torch, out):
     del a, b
     res["k7"] = k7
 
-    # K2 at every im2col product of the path (uint8 activations after the
-    # stem), both epilogue signs
-    k2 = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0, "shapes": []}
-    for m, k, n, xdt in convs:
-        x = _codes(torch, gen, (m, k), xdt)
-        w = _codes(torch, gen, (k, n), torch.int8)
-        bias = _codes(torch, gen, (n,), torch.int8)
-        for relu, spec in ((True, LinearQuantSpec(n_x=7, n_w=8, n_b=9, n_o=6,
-                                                  out_unsigned=True)),
-                           (False, LinearQuantSpec(n_x=6, n_w=9, n_b=8,
-                                                   n_o=7))):
-            _exact(ops.int8_matmul(x, w, bias, spec, relu=relu),
-                   ref.int8_matmul_ref(
-                       x, w, bias, shift=spec.requant_shift,
-                       bias_shift=spec.bias_shift, relu=relu,
-                       lo=0 if relu else -128, hi=255 if relu else 127,
-                       out_dtype=torch.uint8 if relu else torch.int8),
-                   f"K2 M={m} K={k} N={n} {xdt} relu {relu}")
-        ms = time_ms(torch, lambda: ops.int8_matmul(x, w, bias, spec), 20)
-        plain_ms = time_ms(torch, lambda: ref.int8_matmul_ref(
-            x, w, bias, shift=spec.requant_shift,
-            bias_shift=spec.bias_shift), 5, warmup=1)
-        n_bytes, n_ops = m * k + k * n + n + m * n, 2 * m * k * n
-        b_ms, b_by = bound_ms(n_bytes, n_ops, "int8")
-        k2["ms"] += ms
-        k2["plain_ms"] += plain_ms
-        k2["bytes"] += n_bytes
-        k2["ops"] += n_ops
-        k2["shapes"].append(dict(m=m, k=k, n=n, x=str(xdt), ms=ms,
-                                 plain_ms=plain_ms, bound_ms=b_ms,
-                                 bound_by=b_by))
-        plan = plan_int8_matmul(m, k, n, sms)
-        k2["shapes"][-1].update(tile=[plan.bm, plan.bn], splits=plan.splits)
-        log(f"[12] K2 conv M={m:<6} K={k:<3} N={n:<2} {str(xdt)[6:]:5}: "
-            f"bit-exact, {_plan_str(plan)} | kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        del x
-    k2["bound_ms"], k2["bound_by"] = bound_ms(k2["bytes"], k2["ops"], "int8")
-    log(f"[12] K2 one forward ({len(convs)} launches): kernel "
-        f"{k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
-        f"{k2['bound_ms']:.5f} ms ({k2['bound_by']}, "
-        f"{k2['bytes'] / 1e6:.1f} MB)")
-    res["k2_conv"] = k2
+    res["conv"] = _conv_kernel_checks(torch, gen, convs, sms)
     out["cnn_kernels"] = res
     return res
+
+
+def _conv_chain(torch, x, w, b, spec, stride, relu, residual):
+    """The design the convolution kernel replaced: the im2col gather in
+    plain PyTorch, K2 over it, then K7 for a residual add."""
+    from repro_torch.core.integer_ops import im2col_same
+    from repro_torch.kernels import ops
+    kh, kw, cin, cout = w.shape
+    cols, (bsz, ho, wo) = im2col_same(x, kh, kw, stride)
+    h = ops.int8_matmul(cols, w.reshape(kh * kw * cin, cout), b, spec,
+                        relu=relu).reshape(bsz, ho, wo, cout)
+    if residual is None:
+        return h
+    sc, n_a, n_b, n_o = residual
+    return ops.residual_requant(h, sc, n_a=n_a, n_b=n_b, n_o=n_o, relu=True,
+                                saturate=True)
+
+
+def _conv_held(torch, acc, x, w, b, spec, stride, relu, residual, what):
+    """The convolution kernel against its plain version and the old chain
+    (im2col + K2 (+ K7)), bit for bit; adds its checks to ``acc["checks"]``
+    and its largest code difference to ``acc["max_abs_err"]``; returns the
+    kernel's output."""
+    from repro_torch.kernels import ops, ref
+    got = ops.int_conv2d(x, w, b, spec, stride=stride, relu=relu,
+                         residual=residual)
+    errs = (_exact(got, ref.int_conv2d_ref(x, w, b, spec, stride=stride,
+                                           relu=relu, residual=residual),
+                   f"{what} vs plain"),
+            _exact(got, _conv_chain(torch, x, w, b, spec, stride, relu,
+                                    residual),
+                   f"{what} vs im2col + K2" + (" + K7" if residual else "")))
+    acc["checks"] += len(errs)
+    acc["max_abs_err"] = max(acc["max_abs_err"], *errs)
+    return got
+
+
+def _conv_variants(torch, acc, gen, shape, cout, k, stride, xdt, what,
+                   x=None):
+    """One convolution shape through every epilogue: K2_GRID_SPECS' four
+    plain epilogues, then the residual epilogue with an int8 and a uint8
+    shortcut on each of CONV_RES_GRIDS; accumulates into ``acc`` as
+    ``_conv_held``."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    x = _codes(torch, gen, shape, xdt) if x is None else x
+    w = _codes(torch, gen, (k, k, shape[3], cout), torch.int8)
+    b = _codes(torch, gen, (cout,), torch.int8)
+    ho = -(-shape[1] // stride)
+    for sname, skw, relu in K2_GRID_SPECS:
+        spec = LinearQuantSpec(**skw)
+        _conv_held(torch, acc, x, w, b, spec, stride, relu, None,
+                   f"{what} {sname}")
+    spec = LinearQuantSpec(**K2_GRID_SPECS[1][1])
+    for scdt in (torch.int8, torch.uint8):
+        sc = _codes(torch, gen, (shape[0], ho, ho, cout), scdt)
+        for grid in CONV_RES_GRIDS:
+            _conv_held(torch, acc, x, w, b, spec, stride, False, (sc, *grid),
+                       f"{what} + {str(scdt)[6:]} shortcut {grid}")
+
+
+def _conv_kernel_checks(torch, gen, convs, sms):
+    """The convolution kernel bit-exact against its plain version and the
+    im2col + K2 (+ K7) chain at every convolution of the path (batch 256)
+    and the odd cases; each path convolution timed in its path form (the
+    kernel, the old chain, the plain version) beside its bound, conv2 also
+    without its residual epilogue; sums per forward."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.int_conv import plan_int_conv
+    conv = {"ms": 0.0, "chain_ms": 0.0, "plain_ms": 0.0, "bytes": 0,
+            "ops": 0, "checks": 0, "shapes": [], "conv2_ms": 0.0,
+            "conv2_plain_epilogue_ms": 0.0, "max_abs_err": 0}
+    relu_spec = LinearQuantSpec(**K2_GRID_SPECS[2][1])
+    signed_spec = LinearQuantSpec(**K2_GRID_SPECS[1][1])
+    for name, shape, cout, k, stride, xdt, scdt in convs:
+        what = f"conv {name} {shape}->{cout} k{k} s{stride}"
+        checks0 = conv["checks"]
+        _conv_variants(torch, conv, gen, shape, cout, k, stride, xdt, what)
+        # the path's form: ReLU + uint8 out on conv1 and the stem, signed on
+        # the projection, the residual epilogue on conv2
+        x = _codes(torch, gen, shape, xdt)
+        w = _codes(torch, gen, (k, k, shape[3], cout), torch.int8)
+        b = _codes(torch, gen, (cout,), torch.int8)
+        plan = plan_int_conv(*shape, cout, k, k, stride, sms)
+        relu = name == "stem" or name.endswith("conv1")
+        spec = relu_spec if relu else signed_spec
+        residual = None
+        if scdt is not None:
+            residual = (_codes(torch, gen, (shape[0], plan.ho, plan.wo, cout),
+                               scdt), *CONV_RES_GRIDS[0])
+        args = (x, w, b, spec, stride, relu, residual)
+        _conv_held(torch, conv, *args, f"{what} path form")
+        n = conv["checks"] - checks0
+
+        def kernel(res=residual):
+            return ops.int_conv2d(x, w, b, spec, stride=stride, relu=relu,
+                                  residual=res)
+        ms = time_ms(torch, kernel, 20)
+        chain_ms = time_ms(torch, lambda: _conv_chain(torch, *args), 10)
+        plain_ms = time_ms(torch, lambda: ref.int_conv2d_ref(
+            x, w, b, spec, stride=stride, relu=relu, residual=residual), 3,
+            warmup=1)
+        n_bytes = (x.numel() + w.numel() + cout + plan.m * cout
+                   * (1 if residual is None else 2))
+        n_ops = 2 * plan.m * plan.k * cout
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "int8")
+        row = dict(name=name, shape=list(shape), cout=cout, k=k,
+                   stride=stride, x=str(xdt), shortcut=str(scdt), ms=ms,
+                   chain_ms=chain_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                   bound_by=b_by, tile=[plan.bm, plan.bn],
+                   grid=list(plan.grid), checks=n)
+        extra = ""
+        if residual is not None:
+            row["plain_epilogue_ms"] = time_ms(torch, lambda: kernel(None),
+                                               20)
+            conv["conv2_ms"] += ms
+            conv["conv2_plain_epilogue_ms"] += row["plain_epilogue_ms"]
+            extra = (f" (without the residual epilogue "
+                     f"{row['plain_epilogue_ms']:.4f} ms)")
+        for key, v in (("ms", ms), ("chain_ms", chain_ms),
+                       ("plain_ms", plain_ms), ("bytes", n_bytes),
+                       ("ops", n_ops)):
+            conv[key] += v
+        conv["shapes"].append(row)
+        log(f"[12] {what} {str(xdt)[6:]}"
+            f"{'' if scdt is None else ' + ' + str(scdt)[6:] + ' shortcut'}:"
+            f" bit-exact ({n} checks vs plain and im2col + K2"
+            f"{' + K7' if scdt is not None else ''}), tile {plan.bm}x"
+            f"{plan.bn}, grid {plan.grid} | kernel {ms:.4f} ms{extra}, old "
+            f"chain {chain_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        del x, w, b, residual, args
+    for label, shape, cout, k, stride, xdt in CONV_ODD:
+        _conv_variants(torch, conv, gen, shape, cout, k, stride,
+                       torch.uint8 if xdt == "u8" else torch.int8,
+                       f"conv {label}")
+    # misaligned operands (a view one byte into its buffer): the byte
+    # gather for the input, byte loads and stores for the shortcut / output
+    shape = (2, 9, 9, 16)
+    buf = _codes(torch, gen, (math.prod(shape) + 1,), torch.uint8)
+    x = buf[1:].view(shape)
+    check(x.data_ptr() % 16 != 0, "misaligned case is aligned")
+    _conv_variants(torch, conv, gen, shape, 16, 3, 1, torch.uint8,
+                   "conv misaligned input", x=x)
+    w = _codes(torch, gen, (3, 3, 16, 16), torch.int8)
+    scb = _codes(torch, gen, (math.prod(shape) + 1,), torch.int8)
+    _conv_held(torch, conv, x, w, None, signed_spec, 1, False,
+               (scb[1:].view(shape), *CONV_RES_GRIDS[0]),
+               "conv misaligned input and shortcut, no bias")
+    # Table 4's 7 bits: the branch clipped to 7-bit codes, the add still
+    # emitting 8-bit ones (the reference's int_residual_add default)
+    spec7 = LinearQuantSpec(**{**K2_GRID_SPECS[1][1], "bits": 7})
+    got = _conv_held(torch, conv, x, w, _codes(torch, gen, (16,), torch.int8),
+                     spec7, 1, False,
+                     (_codes(torch, gen, shape, torch.uint8), 7, 7, 7),
+                     "conv 7-bit branch, 8-bit residual add")
+    check(int(got.max()) > 127, "7-bit case: no add output past 127")
+    conv["bound_ms"], conv["bound_by"] = bound_ms(conv["bytes"], conv["ops"],
+                                                  "int8")
+    log(f"[12] conv kernel: {conv['checks']} checks bit-exact (max |diff| "
+        f"{conv['max_abs_err']}) "
+        f"at the path's {len(convs)} convolutions and {len(CONV_ODD) + 3} "
+        f"odd cases")
+    log(f"[12] conv kernel one forward ({len(convs)} launches): kernel "
+        f"{conv['ms']:.4f} ms, old chain (im2col + K2, + K7 at conv2) "
+        f"{conv['chain_ms']:.4f} ms, plain {conv['plain_ms']:.4f} ms, bound "
+        f"{conv['bound_ms']:.5f} ms ({conv['bound_by']}, "
+        f"{conv['bytes'] / 1e6:.1f} MB, {conv['ops'] / 1e9:.2f} G int8 "
+        f"operations); the conv2s {conv['conv2_ms']:.4f} ms with the "
+        f"residual epilogue, {conv['conv2_plain_epilogue_ms']:.4f} without")
+    return conv
 
 
 def _resnet_images(cfg, batch):
@@ -2006,8 +2168,13 @@ def phase_resnet_calibrate(torch, out):
 def phase_resnet_forward(torch, out, q_gpu):
     """The card's calibration artifact, run by the integer forward on the
     card (the kernels) and by the CPU's plain path: every integer op is
-    exact, so the logits must be identical.  Two card runs, each with the
-    launch counts reset just before and read just after."""
+    exact, so the logits must be identical.  Two cold card runs, each with
+    the launch counts reset just before and read just after (the
+    convolution kernel 15, K2 1 (the head), K3 2, K7 0: every residual add
+    is a conv2's epilogue); then RESNET_WARM warm forwards on the host
+    clock (median and spread) and the device time of one forward (CUDA
+    events, the launches queued behind a sleep kernel), which tells the
+    host's share from the card's."""
     from repro_torch.configs.resnet_paper import CONFIG
     from repro_torch.kernels import ops
     from repro_torch.models import resnet as R
@@ -2020,9 +2187,10 @@ def phase_resnet_forward(torch, out, q_gpu):
     want = R.resnet_int_forward(q_cpu, x, CONFIG)
     cpu_s = time.perf_counter() - t0
     xg = x.cuda()
-    want_launches = {"int8_matmul": 16, "residual_requant": 6, "quantize": 2,
-                     "ragged_attention": 0, "paged_attention": 0,
-                     "flash_prefill": 0, "flash_decode": 0}
+    want_launches = {"int_conv": 15, "int8_matmul": 1, "residual_requant": 0,
+                     "quantize": 2, "ragged_attention": 0,
+                     "paged_attention": 0, "flash_prefill": 0,
+                     "flash_decode": 0}
     runs = []
     for rep in range(2):
         torch.cuda.synchronize()
@@ -2044,17 +2212,37 @@ def phase_resnet_forward(torch, out, q_gpu):
         runs.append(dict(logits=got, launches=launches, wall_s=wall,
                          images_per_s=RESNET_BATCH / wall))
         log(f"[14] ResNet int forward run {rep} (CONFIG, batch "
-            f"{RESNET_BATCH}): logits identical to the CPU's; launches K2 "
-            f"{launches['int8_matmul']} K7 {launches['residual_requant']} K3 "
-            f"{launches['quantize']}; {wall * 1e3:.2f} ms, "
-            f"{RESNET_BATCH / wall:.1f} images/s (CPU plain path "
-            f"{cpu_s:.2f} s, {RESNET_BATCH / cpu_s:.1f} images/s)")
+            f"{RESNET_BATCH}, cold): logits identical to the CPU's; launches"
+            f" conv {launches['int_conv']} K2 {launches['int8_matmul']} K7 "
+            f"{launches['residual_requant']} K3 {launches['quantize']}; "
+            f"{wall * 1e3:.2f} ms, {RESNET_BATCH / wall:.1f} images/s (CPU "
+            f"plain path {cpu_s:.2f} s, {RESNET_BATCH / cpu_s:.1f} images/s)")
     check(torch.equal(runs[0]["logits"], runs[1]["logits"]),
           "resnet forward: a repeated run gave other logits")
-    log("[14] ResNet int forward: repeat run identical")
+    warm = []
+    for _ in range(RESNET_WARM):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = R.resnet_int_forward(q_gpu, xg, CONFIG)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(torch.equal(logits.cpu(), want),
+              "resnet forward: a warm run gave other logits")
+    warm.sort()
+    med = warm[len(warm) // 2]
+    device_ms = time_ms(torch, lambda: R.resnet_int_forward(q_gpu, xg,
+                                                            CONFIG), 10)
+    log(f"[14] ResNet int forward, {RESNET_WARM} warm runs: median "
+        f"{med * 1e3:.3f} ms ({RESNET_BATCH / med:.1f} images/s), spread "
+        f"{warm[0] * 1e3:.3f}-{warm[-1] * 1e3:.3f} ms; device time of one "
+        f"forward {device_ms:.4f} ms ({RESNET_BATCH / device_ms * 1e3:.1f} "
+        f"images/s at the card's pace); host share of the warm median "
+        f"{1 - device_ms / (med * 1e3):.3f}; logits identical every run")
     res = dict(launches=runs[0]["launches"], cpu_s=cpu_s,
                runs=[{k: v for k, v in r.items() if k != "logits"}
-                     for r in runs])
+                     for r in runs],
+               warm_s=warm, warm_median_s=med,
+               warm_images_per_s=RESNET_BATCH / med, device_ms=device_ms)
     out["resnet_forward"] = res
     return res
 
@@ -4540,7 +4728,8 @@ def main(argv=None) -> int:
                     help="run only these phases after the build (1, the "
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
-                         "15, 17, 18, 19, 20, 21, 22); "
+                         "13, 14 (after 13's calibration), 15, 17, 18, 19, "
+                         "20, 21, 22); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -4560,7 +4749,11 @@ def main(argv=None) -> int:
     if args.only:
         alone = {1: lambda torch, out: None, 2: phase_k2, 3: phase_k1,
                  5: phase_engine, 6: phase_k5, 7: phase_k6, 10: phase_serve,
-                 11: phase_w8a8, 12: phase_cnn_kernels, 15: phase_k4,
+                 11: phase_w8a8, 12: phase_cnn_kernels,
+                 13: phase_resnet_calibrate,
+                 14: lambda torch, out: phase_resnet_forward(
+                     torch, out, phase_resnet_calibrate(torch, out)),
+                 15: phase_k4,
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs}
@@ -4681,9 +4874,7 @@ def main(argv=None) -> int:
         for tag in ("long", "long_early")}
     kernels[-1]["replay_max_abs_err"] = k6["replay_max_abs_err"]
     # K3: one engine step's 141 launches (phase 21; launches from phase 5's
-    # INT run), its ResNet launches beside; K7: one ResNet integer forward
-    # at batch 256 (each shape timed alone, summed over the forward's
-    # launches); ResNet launches from phase 14
+    # INT run), its ResNet launches beside; ResNet launches from phase 14
     k3r, k7 = cnn["k3"], cnn["k7"]
     kernels.append({
         "name": "quantize", "route": "cuda",
@@ -4701,6 +4892,10 @@ def main(argv=None) -> int:
                        ms=k3r["ms"], plain_ms=k3r["plain_ms"],
                        bound_ms=k3r["bound_ms"], bound_by=k3r["bound_by"],
                        per=f"ResNet forward at batch {RESNET_BATCH}")})
+    # K7: the forward's six adds timed standalone (each shape alone); the
+    # forward launches it 0 times since each add became conv2's epilogue,
+    # whose cost is the fused conv2s' time with and without it
+    cv = cnn["conv"]
     kernels.append({
         "name": "residual_requant", "route": "cuda",
         "source": "src/repro_torch/csrc/residual_requant.cu",
@@ -4710,8 +4905,32 @@ def main(argv=None) -> int:
         "ms": k7["ms"], "plain_ms": k7["plain_ms"],
         "bound_ms": k7["bound_ms"], "bound_by": k7["bound_by"],
         "library_ms": None,
+        "per": f"the ResNet forward's {len(k7['shapes'])} adds at batch "
+               f"{RESNET_BATCH}, standalone launches; the forward launches "
+               f"none (the adds are its conv2s' epilogue)",
+        "fused_epilogue": dict(
+            conv2_ms=cv["conv2_ms"],
+            conv2_plain_epilogue_ms=cv["conv2_plain_epilogue_ms"],
+            per="the forward's conv2 launches with the residual epilogue and "
+                "without it")})
+    # the convolution kernel: one ResNet forward's 15 launches (each shape
+    # timed alone, in its path form), beside the chain it replaced
+    kernels.append({
+        "name": "int_conv", "route": "cuda",
+        "source": "src/repro_torch/csrc/int_conv.cu",
+        "replaces": "src/repro/core/integer_ops.py:106 (XLA's integer "
+                    "convolution, lax.conv_general_dilated: no Pallas "
+                    "kernel) and, as its residual epilogue, "
+                    "src/repro/kernels/residual_requant.py:20",
+        "launches": rfwd["launches"]["int_conv"],
+        "max_abs_err": cv["max_abs_err"], "ms": cv["ms"],
+        "plain_ms": cv["plain_ms"], "bound_ms": cv["bound_ms"],
+        "bound_by": cv["bound_by"], "library_ms": None,
+        "library_note": "PyTorch has no int8 convolution on CUDA",
+        "old_chain_ms": cv["chain_ms"],
         "per": f"ResNet forward at batch {RESNET_BATCH}: "
-               f"{rfwd['launches']['residual_requant']} launches"})
+               f"{len(cv['shapes'])} launches, conv2 with its residual "
+               f"epilogue; old chain im2col + K2 (+ K7)"})
     # K4: one launch at the legacy engine's decode shape, its work list
     # padded as the engine launches it (the unpadded list's time beside
     # it); launches from phase 17's first INT legacy run.  No single

@@ -10,7 +10,8 @@ its int64 one on the CPU, so the product runs in float64, which is exact
 for |acc| < 2^53 (K * 255 * 128 stays far below), and is then cast to
 int32; a convolution is that product over an im2col gather.  On a CUDA
 tensor the ops launch the hand-written kernels through ``kernels.ops``:
-K2 for ``int_linear`` and ``int_conv2d`` (after the gather), K7 for
+K2 for ``int_linear``, the convolution kernel for ``int_conv2d`` (no
+gather; a residual add behind it in the same launch), K7 for
 ``int_residual_add``.
 """
 from __future__ import annotations
@@ -112,23 +113,35 @@ def im2col_same(x: torch.Tensor, kh: int, kw: int, stride: int
 def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
                b_int: Optional[torch.Tensor], spec: LinearQuantSpec,
                stride: int = 1, padding: str = "SAME",
-               apply_relu: bool = False) -> torch.Tensor:
+               apply_relu: bool = False,
+               residual: Optional[tuple] = None) -> torch.Tensor:
     """Integer-only 2-D convolution (Eq. 2/3), NHWC x HWIO -> NHWC.
 
     int8 (or uint8 post-ReLU) input codes, int8 weights, int32
     accumulation, bias align + a single shift requant (+ optional fused
     ReLU per Fig. 1(b)).  Only the reference's "SAME" padding is taken.
+
+    ``residual = (shortcut, n_a, n_b, n_o)`` fuses Fig. 1(c) behind it:
+    the convolution's codes (grid ``n_a``) and the shortcut's (``n_b``)
+    through :func:`int_residual_add` with ReLU at its default 8 bits (as
+    the reference's forward calls it), uint8 codes on ``n_o``.
+    On the CPU those are the two calls; on CUDA one launch of the
+    convolution kernel, its residual epilogue doing the add.
     """
     if padding != "SAME":
         raise ValueError(f"int_conv2d takes padding='SAME', not {padding!r}")
     if x_int.device.type == "cuda":
         from repro_torch.kernels import ops
         return ops.int_conv2d(x_int, w_int, b_int, spec, stride=stride,
-                              relu=apply_relu)
+                              relu=apply_relu, residual=residual)
     kh, kw, cin, cout = w_int.shape
     cols, (bsz, ho, wo) = im2col_same(x_int, kh, kw, stride)
-    return int_linear(cols, w_int.reshape(kh * kw * cin, cout), b_int, spec,
-                      apply_relu).reshape(bsz, ho, wo, cout)
+    y = int_linear(cols, w_int.reshape(kh * kw * cin, cout), b_int, spec,
+                   apply_relu).reshape(bsz, ho, wo, cout)
+    if residual is None:
+        return y
+    shortcut, n_a, n_b, n_o = residual
+    return int_residual_add(y, n_a, shortcut, n_b, n_o, apply_relu=True)
 
 
 def int_residual_add(a_int: torch.Tensor, n_a: int, b_int: torch.Tensor,

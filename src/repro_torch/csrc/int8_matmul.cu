@@ -3,16 +3,17 @@
 // Replaces the TPU kernel repro/kernels/int8_matmul.py::int8_matmul_kernel
 // (built by make_int8_matmul, reached through kernels/ops.py::int8_matmul
 // from every qlinear in INT / W8A8 mode: 7 projections per layer plus the
-// LM head; and from every ResNet convolution as one im2col product).
+// LM head; and from the ResNet's head, whose convolutions run in
+// int_conv.cu).
 //
 // What bounds it on an H100: bytes.  At the serving shapes (M = 1..128
 // stream rows, K = 2048 / 6144, N = 1024..151936) the product does at most
 // 2M = 256 int8 operations per weight byte, under the card's int8 ridge of
 // 1979e12 / 3.35e12 ~ 590, so the work is to stream the (K, N) weight codes
 // once at full bandwidth on every SM (one engine step's 197 launches read
-// 1.75 GB, 0.52 ms at 3.35 TB/s).  The ResNet's im2col products do 2N <=
-// 128 operations per activation byte: there the activation rows are the
-// stream.  The int32 accumulator never reaches device memory unsplit: bias
+// 1.75 GB, 0.52 ms at 3.35 TB/s).  Large-M products (a long prefill, a
+// calibration batch) stream their activation rows instead.  The int32
+// accumulator never reaches device memory unsplit: bias
 // align, ReLU, shift-requant and clip run in registers before one 8-byte
 // store of eight int8/uint8 codes, the paper's requant unit between the
 // MAC array and memory.  The LM path's projections store the dequantized
@@ -53,70 +54,30 @@
 //   workspace the wrapper allocated, and finish_kernel adds them (integer
 //   adds: exact and order-free) and runs the epilogue once on the full sum
 //   (shift-requant is not linear, so it never runs per split).
-// * Large M (the ResNet's im2col rows): a tall tile (BM 64..256) and a
-//   narrow BN of 32 / 64 matched to Cout, so the N = 16 / 32 / 64 products
-//   waste at most half an n-tile; K = 16..576 is zero-filled to the step.
+// * Large M: a tall tile (BM 64..256) and a narrow BN of 32 / 64 for
+//   narrow N, so an N = 16 / 32 / 64 product wastes at most half an
+//   n-tile; K is zero-filled to the step.
 // * Anything else (K % 16 != 0, N % 8 != 0 or misaligned operands: the
-//   ResNet stem's K 27, its head's N 10) takes dp4a_kernel: one block per
+//   ResNet head's N 10) takes dp4a_kernel: one block per
 //   64x64 output tile, K walked in 32-deep steps through shared memory, a
 //   4x4 __dp4a sub-tile per thread.  Ragged edges are zero-filled.
 //
+// The integer arithmetic (epilogue()) and the tensor-core tile (Tile, the
+// cp.async ring's copies, ldmatrix, mma_s8, transpose4x4) live in
+// int8_tile.cuh, shared with the convolution kernel (int_conv.cu).
 // Integer semantics mirror the reference bit for bit, int32 wrap-around
-// included: a right shift rounds half away from zero as
-// a >= 0 ? (a + half) >> s : -(((-a) + half) >> s), and a negative requant
-// shift saturates to +-(2^31 - 1) >> |s| before the left shift.
+// included.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_tile.cuh"
+
 namespace {
-
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-
-__device__ __forceinline__ int wrap_neg(int a) { return (int)(0u - (unsigned)a); }
-
-// round-half-away arithmetic right shift, s in [1, 31]
-__device__ __forceinline__ int shift_round(int a, int s) {
-  const int half = 1 << (s - 1);
-  if (a >= 0) return wrap_add(a, half) >> s;
-  return wrap_neg(wrap_add(wrap_neg(a), half) >> s);
-}
-
-__device__ __forceinline__ int requant(int acc, int shift, int lo, int hi) {
-  if (shift > 0) {
-    acc = shift_round(acc, shift);
-  } else if (shift < 0) {
-    const int ls = -shift;
-    const int bound = 0x7fffffff >> ls;
-    acc = min(max(acc, -bound), bound);
-    acc = (int)((unsigned)acc << ls);
-  }
-  return min(max(acc, lo), hi);
-}
 
 // what a store writes: one byte a code, or the code times deq (2^-n_o) as
 // bf16 / fp32
 enum OutKind { OUT_CODES = 0, OUT_BF16 = 1, OUT_F32 = 2 };
-
-struct Epi {
-  const int8_t* bias;
-  int shift, bias_shift, relu, lo, hi, out_kind;
-  float deq;
-};
-
-// bias align -> ReLU -> shift-requant -> clip; the code's low byte is the
-// int8 / uint8 output
-__device__ __forceinline__ int epilogue(int acc, const Epi& e, int gn) {
-  if (e.bias != nullptr) {
-    int bb = e.bias[gn];
-    bb = e.bias_shift >= 0 ? (int)((unsigned)bb << e.bias_shift) : shift_round(bb, -e.bias_shift);
-    acc = wrap_add(acc, bb);
-  }
-  if (e.relu) acc = max(acc, 0);
-  return requant(acc, e.shift, e.lo, e.hi);
-}
 
 __device__ __forceinline__ float deq_code(int code, const Epi& e) {
   return __fmul_rn((float)code, e.deq);
@@ -177,81 +138,6 @@ __device__ __forceinline__ void store_one(void* out, size_t off, int c, const Ep
 // ---------------------------------------------------------------------------
 // mma_kernel (see the header)
 // ---------------------------------------------------------------------------
-constexpr int BK = 64;       // K rows a stage
-constexpr int NSTAGE = 4;    // ring depth
-constexpr int LDA = BK + 16; // bytes a staged activation row (80: ldmatrix rows on distinct banks)
-
-__device__ __forceinline__ void copy_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy_async8(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 8 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// c += a (16x32, row) * b (32x8, col), int32 accumulate, wrapping
-template <bool XU8>
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  if constexpr (XU8) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.u8.s8.s32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// r_i holds K row i's codes of four columns; c_j gets column j's codes of
-// the four K rows, K row 0 in the low byte (an mma B register)
-__device__ __forceinline__ void transpose4x4(const uint32_t (&r)[4], uint32_t (&c)[4]) {
-  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
-  const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
-  const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
-  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-template <int MT, int WM, int WN>
-struct Tile {
-  static constexpr int BM = 16 * MT * WM;
-  static constexpr int BN = 32 * WN;
-  static constexpr int THREADS = 32 * WM * WN;
-  static constexpr int LDB = BN + 8;  // bytes a staged weight row
-  static constexpr int A_BYTES = BM * LDA;
-  static constexpr int B_BYTES = BK * LDB;
-  static constexpr int SMEM = NSTAGE * (A_BYTES + B_BYTES);
-};
-
 // Block (blockIdx.x, blockIdx.y, blockIdx.z) computes output columns
 // [BN x, BN x + BN), rows [BM y, BM y + BM) over K rows [k_chunk z,
 // min(K, k_chunk (z + 1))).  One split (gridDim.z == 1): the epilogue and

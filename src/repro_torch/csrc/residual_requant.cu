@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernel repro/kernels/residual_requant.py::
 // residual_requant_kernel (built by make_residual_requant, reached through
-// kernels/ops.py::residual_requant).  On the paper's ResNet path it is every
-// residual add of resnet_int_forward (integer_ops.int_residual_add).
+// kernels/ops.py::residual_requant): integer_ops.int_residual_add on the
+// card.  The ResNet's forward does not launch it: each block's conv2 adds
+// its shortcut in the convolution kernel's epilogue (int_conv.cu).
 //
 // The branch and the shortcut arrive as 8-bit codes on two power-of-two
 // grids (n_a, n_b); each operand is int8 or uint8 on its own (the identity
@@ -18,7 +19,8 @@
 // <<); integer_ops.int_residual_add goes through qscheme.shift_requant,
 // which saturates to +-(2^31 - 1) >> |s| first.  They differ only where
 // the int32 sum overflows under the shift.  All int32 arithmetic wraps as
-// the reference's does, written with unsigned operations.
+// the reference's does, written with unsigned operations.  The arithmetic is
+// residual_one() in int8_tile.cuh, which that epilogue calls too.
 //
 // What bounds it on an H100: bytes (two bytes in, one out per element, a
 // handful of integer operations).  Design (simple first): a grid-stride
@@ -29,23 +31,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "int8_tile.cuh"
+
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int VEC = 16;
 constexpr int MAX_BLOCKS = 4096;
-
-struct Params {
-  int sa, sb, shift, relu, lo, hi;
-};
-
-__device__ __forceinline__ int wrap_add(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-
-__device__ __forceinline__ int wrap_neg(int a) { return (int)(0u - (unsigned)a); }
-
-__device__ __forceinline__ int wrap_shl(int a, int s) { return (int)((unsigned)a << s); }
 
 template <bool U8>
 __device__ __forceinline__ int code(uint32_t byte) {
@@ -53,26 +45,12 @@ __device__ __forceinline__ int code(uint32_t byte) {
 }
 
 template <bool AU8, bool BU8, bool SAT>
-__device__ __forceinline__ uint32_t one(uint32_t a_byte, uint32_t b_byte, const Params& p) {
-  int acc = wrap_add(wrap_shl(code<AU8>(a_byte), p.sa), wrap_shl(code<BU8>(b_byte), p.sb));
-  if (p.relu) acc = max(acc, 0);
-  if (p.shift > 0) {
-    const int half = 1 << (p.shift - 1);
-    acc = acc >= 0 ? wrap_add(acc, half) >> p.shift
-                   : wrap_neg(wrap_add(wrap_neg(acc), half) >> p.shift);
-  } else if (p.shift < 0) {
-    const int ls = -p.shift;
-    if (SAT) {
-      const int bound = 0x7fffffff >> ls;
-      acc = min(max(acc, -bound), bound);
-    }
-    acc = wrap_shl(acc, ls);
-  }
-  return (uint32_t)min(max(acc, p.lo), p.hi) & 0xffu;
+__device__ __forceinline__ uint32_t one(uint32_t a_byte, uint32_t b_byte, const ResParams& p) {
+  return (uint32_t)residual_one<SAT>(code<AU8>(a_byte), code<BU8>(b_byte), p) & 0xffu;
 }
 
 template <bool AU8, bool BU8, bool SAT>
-__device__ __forceinline__ uint32_t word(uint32_t a, uint32_t b, const Params& p) {
+__device__ __forceinline__ uint32_t word(uint32_t a, uint32_t b, const ResParams& p) {
   uint32_t w = 0;
 #pragma unroll
   for (int e = 0; e < 4; ++e) w |= one<AU8, BU8, SAT>(a >> (8 * e), b >> (8 * e), p) << (8 * e);
@@ -82,7 +60,7 @@ __device__ __forceinline__ uint32_t word(uint32_t a, uint32_t b, const Params& p
 template <bool AU8, bool BU8, bool SAT>
 __global__ void __launch_bounds__(THREADS)
 residual_requant_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
-                        uint8_t* __restrict__ out, long long n, Params p, int vec) {
+                        uint8_t* __restrict__ out, long long n, ResParams p, int vec) {
   const long long stride = (long long)gridDim.x * THREADS;
   const long long tid = (long long)blockIdx.x * THREADS + threadIdx.x;
   long long done = 0;
@@ -107,7 +85,7 @@ residual_requant_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict
 }
 
 template <bool AU8, bool BU8, bool SAT>
-void launch(const void* a, const void* b, void* out, long long n, const Params& p,
+void launch(const void* a, const void* b, void* out, long long n, const ResParams& p,
             cudaStream_t st) {
   const int vec = ((uintptr_t)a % 16 == 0) && ((uintptr_t)b % 16 == 0) &&
                   ((uintptr_t)out % 16 == 0);
@@ -120,7 +98,7 @@ void launch(const void* a, const void* b, void* out, long long n, const Params& 
 }
 
 template <bool AU8, bool BU8>
-void launch_sat(const void* a, const void* b, void* out, long long n, const Params& p,
+void launch_sat(const void* a, const void* b, void* out, long long n, const ResParams& p,
                 int saturate, cudaStream_t st) {
   if (saturate)
     launch<AU8, BU8, true>(a, b, out, n, p, st);
@@ -139,7 +117,7 @@ extern "C" int residual_requant_launch(const void* a, const void* b, void* out, 
                                        int a_u8, int b_u8, int sa, int sb, int shift, int relu,
                                        int lo, int hi, int saturate, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Params p{sa, sb, shift, relu, lo, hi};
+  const ResParams p{sa, sb, shift, relu, lo, hi};
   if (a_u8) {
     if (b_u8)
       launch_sat<true, true>(a, b, out, n, p, saturate, st);

@@ -4,7 +4,8 @@ Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into its own
 shared library with a plain C interface under ``build/kernels/`` at the
 repository root (listed in ``.gitignore``), at first use, and loaded with
 ``ctypes``.  Library names carry a hash of the source, of every header
-in ``csrc/`` (``*.cuh``, shared by K1 and K4) and of the flags, so an
+in ``csrc/`` (``*.cuh``: K1 and K4's body, the int8 tile and
+arithmetic of K2, K7 and the convolution) and of the flags, so an
 edited source or header is rebuilt.  :func:`build` starts one ``nvcc``
 per missing source, all at once, and waits for them together.
 
@@ -26,7 +27,8 @@ __all__ = ["KERNEL_SOURCES", "BUILD_DIR", "build", "load", "build_log"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNEL_SOURCES = ("int8_matmul", "ragged_attention", "flash_attention",
-                  "paged_attention", "quantize", "residual_requant")
+                  "paged_attention", "quantize", "residual_requant",
+                  "int_conv")
 # -split-compile 0: nvcc optimises a source's kernels on every core (the
 # flash source's 56 instantiations build in under half the time)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

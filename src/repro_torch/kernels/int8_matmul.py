@@ -4,7 +4,7 @@ requant epilogue, hand-written in CUDA C++ for Hopper
 
 Replaces the TPU kernel ``repro/kernels/int8_matmul.py::int8_matmul_kernel``.
 On an H100 it is bound by bytes: the int8 weight codes at the serving
-shapes, the activation rows at the ResNet's im2col products.  The
+shapes, the activation rows at large-M products.  The
 products run on the tensor cores (``mma.sync`` m16n8k32, s8 or u8 x s8);
 the epilogue (bias align, optional ReLU, round-half-away shift-requant
 with a saturating negative shift, clip) runs in registers, and stores the
@@ -21,8 +21,9 @@ the full sum; it is still one launch of ``int8_matmul``.  Shapes the
 tensor-core kernel does not take (K % 16 != 0, N % 8 != 0, misaligned
 operands) go to the kernel's ``dp4a`` tile.
 
-Activations are int8 codes, or uint8 post-ReLU codes (the ResNet's
-convolutions).  The weight codes stay in their public (K, N) layout, so
+Activations are int8 codes, or uint8 post-ReLU codes.  The ResNet's
+convolutions run in ``csrc/int_conv.cu``; only its head comes here.
+The weight codes stay in their public (K, N) layout, so
 no second copy of the weights exists.  Called through
 ``kernels.ops.int8_matmul``, which counts the launches and takes the plain
 version (``kernels.ref.int8_matmul_ref``) for CPU tensors.
@@ -51,7 +52,8 @@ _OUT_KIND = {torch.int8: 0, torch.uint8: 0, torch.bfloat16: 1,
 # (rows, columns) of the tensor-core kernel's block tile, by configuration
 # index (csrc/int8_matmul.cu::launch_cfg): 0-3 cover M <= 16 / 32 / 64 /
 # 128 in one block row; 4-9 are tall tiles for large M, narrow ones (32,
-# 64 columns) for the ResNet's Cout
+# 64 columns) for narrow N (on the card's paths now only chip_smoke.py's
+# old-chain comparison, an im2col product, reaches 4-7)
 MMA_TILES = ((16, 128), (32, 128), (64, 128), (128, 128),
              (256, 32), (128, 32), (128, 64), (64, 64),
              (128, 128), (64, 128))

@@ -17,7 +17,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
+from repro_torch.core.integer_ops import LinearQuantSpec
 from repro_torch.core.qscheme import int_bounds
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import (flash_decode_cuda,
@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  paged_attention_cuda,
                                                  paged_plan_from_positions)
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int_conv import ResidualShifts, int_conv_cuda
 from repro_torch.kernels.quantize import (quantize_multi_cuda,
                                           quantize_scatter_cuda)
 from repro_torch.kernels.ragged_flash import (RaggedWork,
@@ -41,7 +42,7 @@ __all__ = ["int8_matmul", "int_conv2d", "quantize_act", "quantize_multi",
 # loaded kernel libraries themselves)
 LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "paged_attention": 0,
             "flash_prefill": 0, "flash_decode": 0, "quantize": 0,
-            "residual_requant": 0}
+            "residual_requant": 0, "int_conv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -102,15 +103,41 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
 
 def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
                b_int: Optional[torch.Tensor], spec: LinearQuantSpec, *,
-               stride: int = 1, relu: bool = False) -> torch.Tensor:
-    """Integer NHWC x HWIO convolution with XLA's "SAME" padding: the
-    im2col gather (plain PyTorch, on the tensor's device) and one K2
-    launch over it, the requant epilogue fused.  ``x_int`` holds int8 or
-    uint8 codes; returns (B, H', W', Cout) codes as ``int8_matmul``."""
-    kh, kw, cin, cout = w_int.shape
-    cols, (bsz, ho, wo) = im2col_same(x_int, kh, kw, stride)
-    return int8_matmul(cols, w_int.reshape(kh * kw * cin, cout), b_int, spec,
-                       relu=relu).reshape(bsz, ho, wo, cout)
+               stride: int = 1, relu: bool = False,
+               residual: Optional[tuple] = None) -> torch.Tensor:
+    """Integer NHWC x HWIO convolution with XLA's "SAME" padding and the
+    requant epilogue fused, in ONE launch of the convolution kernel (no
+    im2col matrix).  ``x_int`` holds int8 or uint8 codes; returns
+    (B, H', W', Cout) codes as ``int8_matmul``.  With ``residual =
+    (shortcut, n_a, n_b, n_o)`` (Fig. 1(c)): those codes, on grid ``n_a``,
+    and the shortcut's (B, H', W', Cout) int8 / uint8 codes on ``n_b`` are
+    added on the finer grid, ReLU'd and requantized once to ``n_o``
+    (``integer_ops.int_residual_add``'s saturating arithmetic, K7's) in the
+    same launch: uint8 codes on 8 bits, whatever ``spec.bits`` (the
+    reference's add requantizes at its default 8 bits)."""
+    if spec.bits > 8:
+        raise ValueError(f"int_conv2d emits 8-bit codes, not {spec.bits}")
+    if not _on_cuda(x_int, "int_conv2d"):
+        return ref.int_conv2d_ref(x_int, w_int, b_int, spec, stride=stride,
+                                  relu=relu, residual=residual)
+    unsigned = relu and spec.out_unsigned
+    lo, hi = int_bounds(spec.bits, unsigned)
+    kw = dict(stride=stride, shift=spec.requant_shift,
+              bias_shift=spec.bias_shift, relu=relu, lo=lo, hi=hi)
+    if residual is None:
+        out = int_conv_cuda(x_int, w_int, b_int,
+                            out_dtype=torch.uint8 if unsigned else torch.int8,
+                            **kw)
+    else:
+        shortcut, n_a, n_b, n_o = residual
+        n_hi = max(n_a, n_b)
+        out = int_conv_cuda(x_int, w_int, b_int, out_dtype=torch.uint8,
+                            shortcut=shortcut,
+                            res=ResidualShifts(n_hi - n_a, n_hi - n_b,
+                                               n_hi - n_o), **kw)
+    if out.numel():                 # an empty output launches nothing
+        LAUNCHES["int_conv"] += 1
+    return out
 
 
 def quantize_act(x: torch.Tensor, n: int, bits: int = 8,

@@ -17,9 +17,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
 from repro_torch.core.qscheme import dequant, int_bounds
 
-__all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "quantize_ref",
+__all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "int_conv2d_ref",
+           "quantize_ref",
            "quantize_multi_ref", "quantize_scatter_ref",
            "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
            "ragged_attention_split_ref", "paged_attention_ref",
@@ -120,6 +122,33 @@ def _int8_epilogue(acc: torch.Tensor, b_int: Optional[torch.Tensor], *,
     if relu:
         acc = torch.clamp(acc, min=0)
     return _requant(acc, shift, lo, hi).to(out_dtype)
+
+
+def int_conv2d_ref(x_int: torch.Tensor, w_int: torch.Tensor,
+                   b_int: Optional[torch.Tensor], spec: LinearQuantSpec, *,
+                   stride: int = 1, relu: bool = False,
+                   residual: Optional[tuple] = None) -> torch.Tensor:
+    """The convolution kernel's plain version: NHWC codes x HWIO int8
+    weights with XLA's "SAME" padding as the im2col gather and K2's plain
+    version, (B, H', W', Cout) codes as ``int8_matmul_ref`` gives them;
+    with ``residual = (shortcut, n_a, n_b, n_o)``, those codes (on grid
+    ``n_a``) and the shortcut's (``n_b``) through K7's plain version in
+    its saturating form with ReLU: 8-bit uint8 codes on ``n_o`` whatever
+    ``spec.bits``, as the reference's add."""
+    kh, kw, cin, cout = w_int.shape
+    cols, (bsz, ho, wo) = im2col_same(x_int, kh, kw, stride)
+    unsigned = relu and spec.out_unsigned
+    lo, hi = int_bounds(spec.bits, unsigned)
+    y = int8_matmul_ref(cols, w_int.reshape(kh * kw * cin, cout), b_int,
+                        shift=spec.requant_shift, bias_shift=spec.bias_shift,
+                        relu=relu, lo=lo, hi=hi,
+                        out_dtype=torch.uint8 if unsigned else torch.int8
+                        ).reshape(bsz, ho, wo, cout)
+    if residual is None:
+        return y
+    shortcut, n_a, n_b, n_o = residual
+    return residual_requant_ref(y, shortcut, n_a=n_a, n_b=n_b, n_o=n_o,
+                                relu=True, saturate=True)
 
 
 def quantize_ref(x: torch.Tensor, *, n: int, bits: int = 8,

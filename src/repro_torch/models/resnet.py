@@ -12,8 +12,11 @@ element of the paper:
   unsigned post-ReLU codes.
 
 On the card the integer forward runs on the hand-written kernels: K3
-quantizes the image and the head input, K2 computes every convolution
-(over an im2col gather) and the head, K7 every residual add.
+quantizes the image and the head input, the convolution kernel
+(``csrc/int_conv.cu``, implicit GEMM, no im2col matrix) computes every
+convolution, each block's conv2 with the residual add as its epilogue
+(K7's arithmetic), and K2 the head (at CONFIG width 15, 1 and 2
+launches a forward).
 
 The float convolutions run with TF32 off (``torch.backends.cudnn`` allows
 TF32 for fp32 convolutions by default), whatever the caller's global
@@ -303,20 +306,20 @@ def resnet_int_forward(q: QuantizedResNet, x: torch.Tensor,
                                         q.biases[f"{name}/conv1"],
                                         q.specs[f"{name}/conv1"],
                                         stride=stride, apply_relu=True)
-            h2 = integer_ops.int_conv2d(h1, q.weights[f"{name}/conv2"],
-                                        q.biases[f"{name}/conv2"],
-                                        q.specs[f"{name}/conv2"])
             sp = q.specs.get(f"{name}/proj")
             if isinstance(sp, integer_ops.LinearQuantSpec):
                 sc = integer_ops.int_conv2d(hi, q.weights[f"{name}/proj"],
                                             q.biases[f"{name}/proj"], sp,
                                             stride=stride)
-                n_sc = sp.n_o
             else:
-                sc, n_sc = hi, n_h
+                sc = hi
+            # conv2 and the Fig. 1(c) residual add + ReLU in one call (on
+            # the card one launch: the add is the convolution's epilogue)
             n_a, n_b, n_o = q.specs[f"{name}/add"]
-            hi = integer_ops.int_residual_add(h2, n_a, sc, n_b, n_o,
-                                              apply_relu=True)            # K7
+            hi = integer_ops.int_conv2d(h1, q.weights[f"{name}/conv2"],
+                                        q.biases[f"{name}/conv2"],
+                                        q.specs[f"{name}/conv2"],
+                                        residual=(sc, n_a, n_b, n_o))
             n_h = n_o
             bi += 1
     hw = hi.shape[1] * hi.shape[2]

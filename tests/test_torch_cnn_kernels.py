@@ -14,8 +14,9 @@ the JAX package, on the same numpy inputs, bit for bit.
   ``shift_requant``), over every operand dtype pair, ReLU on and off, and
   a negative requant shift whose int32 sum overflows, where the two
   semantics differ.
-* ``int_conv2d`` (``integer_ops`` and ``ops``, an im2col gather + the K2
-  plain version) against the JAX ``int_conv2d`` (an XLA int32
+* ``int_conv2d`` (``integer_ops`` and ``ops``, whose CPU path is the
+  convolution kernel's plain version: an im2col gather + the K2 plain
+  version) against the JAX ``int_conv2d`` (an XLA int32
   convolution): kernel 1 and 3, stride 1 and 2 (XLA's "SAME" padding),
   odd and even sizes, int8 and uint8 inputs, both bias-shift signs, ReLU
   on and off.
@@ -171,7 +172,9 @@ def test_same_padding_is_xlas(size, k, stride, want):
 
 def test_cuda_paths_take_no_plain_fallback(monkeypatch):
     """On a CUDA tensor the wrappers reach the kernel binding (here a
-    stand-in that records the call) and count the launch."""
+    stand-in that records the call) and count the launch; a convolution,
+    with or without the residual epilogue, reaches the convolution
+    kernel's binding, never K2's over an im2col gather."""
     calls = []
 
     def fake(name):
@@ -182,7 +185,8 @@ def test_cuda_paths_take_no_plain_fallback(monkeypatch):
 
     for mod, name in ((tops, "quantize_multi_cuda"),
                       (tops, "residual_requant_cuda"),
-                      (tops, "int8_matmul_cuda")):
+                      (tops, "int8_matmul_cuda"),
+                      (tops, "int_conv_cuda")):
         monkeypatch.setattr(mod, name, fake(name))
     monkeypatch.setattr(tops, "_on_cuda", lambda t, what: True)
     x = torch.zeros((2, 4, 4, 3))
@@ -192,7 +196,11 @@ def test_cuda_paths_take_no_plain_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="residual_requant_cuda reached"):
         tops.residual_requant(codes, codes, n_a=1, n_b=2, n_o=3)
     w = torch.zeros((3, 3, 3, 4), dtype=torch.int8)
-    with pytest.raises(RuntimeError, match="int8_matmul_cuda reached"):
-        tops.int_conv2d(codes, w, None, tio.LinearQuantSpec(1, 2, 3, 4))
+    spec = tio.LinearQuantSpec(1, 2, 3, 4)
+    with pytest.raises(RuntimeError, match="int_conv_cuda reached"):
+        tops.int_conv2d(codes, w, None, spec)
+    shortcut = torch.zeros((2, 4, 4, 4), dtype=torch.uint8)
+    with pytest.raises(RuntimeError, match="int_conv_cuda reached"):
+        tops.int_conv2d(codes, w, None, spec, residual=(shortcut, 4, 3, 5))
     assert calls == ["quantize_multi_cuda", "residual_requant_cuda",
-                     "int8_matmul_cuda"]
+                     "int_conv_cuda", "int_conv_cuda"]
