@@ -203,6 +203,26 @@ the CUDA toolkit.  Phases, one line each (or a few):
     2 (their bf16 weights at full depth, printed, would not leave room to
     serve), one ragged INT engine run each, tokens in range and launches
     by phase 5's formula.
+23. the recurrent families' classic path: (a) rwkv6-3b (2 layers) and
+    zamba2-2.7b (one group, its dense cache int8) at full width in fp32,
+    ``prefill`` of the (4, 32) prompt and 3 ``decode_step`` calls, kernels
+    on the card against the plain path on the CPU, each step from the
+    card's state: FP logits within 2e-4 and tokens identical, INT module
+    by module identical; (b) classic ``serve`` of both at full depth in
+    bf16 (flash attention, zamba2 over an int8 cache), calibrated INT and
+    FP, graphs and eager in turns as phase 10: tokens identical, launches
+    by ``_rec_serve_want`` (K2 257 / 181 a forward, K5 9 a zamba2 forward
+    and 9 for INT's calibration forward, K6 9 a decode step), calibration
+    and prefill seconds, decode ms/token replayed and eager, peak memory;
+    (c) ``serve_engine`` of both at full depth on phase 20's workload,
+    int8 slabs (and pool), calibrated INT and ``w8a8=True`` cold and warm:
+    W8A8 token-identical to INT, K2 by ``_rec_per_dispatch``; (d) the
+    classic path against the engine on phase 20's workload, fp32, 2
+    layers / one group: tokens agreeing, and the top-2 margin at any first
+    divergence (printed); (e) K5 (4 x 32 over 48 rows) and K6 (pos 47 of
+    48, pos 32767 of 32768) at zamba2's shared block (32 heads over 32 KV
+    heads of 80, bf16 q, int8 cache) against their plain versions, timed
+    beside the bound and SDPA on the dequantized K/V.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -220,7 +240,8 @@ It then prints the card line, a JSON line describing every kernel (K4's
 and K2's times are one engine step's launches, K3's ResNet launches
 beside them; K7's its standalone launches at the ResNet's adds, which
 the forward no longer makes, and the convolution kernel's one forward's,
-its old chain beside), and
+its old chain beside; K5's and K6's also at zamba2's head dim 80,
+from phase 23), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -4014,6 +4035,504 @@ def phase_recurrent(torch, out):
 
 
 # ---------------------------------------------------------------------------
+# phase 23: the recurrent families' classic path
+# ---------------------------------------------------------------------------
+
+# zamba2-2.7b's shared attention block: 32 query heads over 32 KV heads of
+# 80 (one group a KV head)
+ZAMBA_HEADS, ZAMBA_HEAD_DIM = 32, 80
+# the card-against-CPU model: decode steps after the (4, 32) prefill
+REC_CLASSIC_DECODES = 3
+
+
+def _rec_classic_cfgs():
+    """The card-against-CPU configurations: rwkv6-3b cut to 2 layers and
+    zamba2-2.7b to one group (6 Mamba blocks and the shared block, its
+    dense cache int8, flash attention), fp32, full width."""
+    from repro_torch.configs import get_config
+    return (("rwkv6_3b", dataclasses.replace(
+                get_config("rwkv6_3b"), n_layers=2, dtype="float32")),
+            ("zamba2_2_7b", dataclasses.replace(
+                get_config("zamba2_2_7b"), n_layers=6, dtype="float32",
+                kv_cache_bits=8, attn_kernel="flash")))
+
+
+def _rec_forward_launches(cfg, mode, kv_int8):
+    """(K2, K3) launches of one classic forward (a prefill or a decode
+    step) of a recurrent model.  INT: K2 once a projection (RWKV6: 8 a
+    layer -- r, k, v, g, o and the channel mix's k, v, r -- and the head;
+    zamba2: 2 a Mamba block, 8 a shared-block application -- in_proj, q,
+    k, v, o, w1, w3, w2 -- and the head) and K3 once a module input
+    (RWKV6: each projection's own; zamba2: each Mamba projection's, 5 a
+    shared-block application -- in_proj, q / k / v together, o, w1 / w3
+    together, w2 -- and the head's), plus the tied head's weight; in
+    either mode K3 once a shared-block application for its int8 K/V
+    write."""
+    if cfg.family == "ssm":
+        k2 = k3_in = 8 * cfg.n_layers + 1
+        kv = 0
+    else:
+        groups = cfg.n_layers // cfg.hybrid.attn_every
+        k2 = 2 * cfg.n_layers + 8 * groups + 1
+        k3_in = 2 * cfg.n_layers + 5 * groups + 1
+        kv = groups if kv_int8 else 0
+    if mode == "int":
+        return k2, k3_in + int(cfg.tie_embeddings) + kv
+    return 0, kv
+
+
+def _rec_serve_want(cfg, mode, kv_int8, gen=SERVE_GEN, calibrated=True):
+    """Kernel launches of one classic ``serve`` call of a recurrent model:
+    ``gen`` forwards (the prefill and gen - 1 decode steps) at
+    ``_rec_forward_launches``; on zamba2 K5 once a group in the prefill
+    and K6 once a group a decode step; INT's calibration forward (FP mode)
+    adds K5 once a group and, over the int8 cache, K3 once a group for
+    its K/V write."""
+    k2, k3 = _rec_forward_launches(cfg, mode, kv_int8)
+    groups = 0 if cfg.family == "ssm" else \
+        cfg.n_layers // cfg.hybrid.attn_every
+    cal = int(mode == "int" and calibrated)
+    return {"flash_prefill": groups * (1 + cal),
+            "flash_decode": groups * (gen - 1),
+            "int8_matmul": k2 * gen,
+            "ragged_attention": 0, "paged_attention": 0,
+            "quantize": k3 * gen + cal * (groups if kv_int8 else 0),
+            "residual_requant": 0, "int_conv": 0}
+
+
+def _state_diff(torch, cpu, gpu, acc):
+    """Card against CPU cache after one classic step, added into ``acc``:
+    float states (entries beyond 1e-4 of the tensor's largest |value|,
+    the largest |diff| over that value) and int8 K/V codes (differing,
+    largest step), as phase 20 holds its slabs and pool."""
+    for ac, ag in zip(_tree_leaves(cpu), _tree_leaves(gpu)):
+        dd = (ag.cpu().double() - ac.double()).abs()
+        if ac.dtype == torch.int8:
+            key, bad, top = "kv codes", dd > 0, 1.0
+        else:
+            top = max(1.0, float(ac.abs().max()))
+            key, bad = "states", dd > 1e-4 * top
+        n, m, e = acc.get(key, (0, 0.0, 0))
+        acc[key] = (n + int(bad.sum()), max(m, float(dd.max()) / top),
+                    e + dd.numel())
+
+
+def _rec_classic_model(torch, res):
+    """(a) ``prefill`` of the (4, 32) serve prompt and REC_CLASSIC_DECODES
+    ``decode_step`` calls, kernels on the card against the plain path on
+    the CPU, FP and INT, each step from the card's state (the card's cache
+    is copied to the CPU after each comparison) and both devices fed the
+    card's greedy tokens.  FP: logits within atol = rtol = 2e-4 (phase
+    20's reading), greedy tokens identical; INT module by module
+    (``_ModuleSync``): every module output and logit identical on the
+    card's input.  States within 1e-2 of each tensor's largest |value|,
+    int8 K/V codes within one step on at most 0.1%; launches by
+    ``_rec_serve_want`` without calibration."""
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    for arch, cfg in _rec_classic_cfgs():
+        p_gpu = M.init_params(cfg, 0, device="cuda")
+        p_cpu = _tree_to(p_gpu, "cpu")
+        tok0 = torch.from_numpy(_serve_tokens(cfg.vocab_size))
+        for mode in ("fp", "int"):
+            ctx = QuantContext(mode=QuantMode(mode))
+            pc, pg = p_cpu, p_gpu
+            if ctx.mode is QuantMode.INT:
+                pc = quantize_weight_tree(p_cpu, ctx,
+                                          name_fn=M.qlinear_weight)
+                pg = quantize_weight_tree(p_gpu, ctx,
+                                          name_fn=M.qlinear_weight)
+            sync = _ModuleSync(ctx.mode is QuantMode.INT)
+            ops.reset_launch_counts()
+            state, worst, same = {}, 0.0, True
+            caches, tok = {}, {"cuda": tok0.cuda(), "cpu": tok0}
+            for step in range(1 + REC_CLASSIC_DECODES):
+                logits = {}
+                for dv, params in (("cuda", pg), ("cpu", pc)):
+                    with torch.no_grad(), sync.on(dv):
+                        if step == 0:
+                            lg, caches[dv] = M.prefill(
+                                params, {"tokens": tok[dv]}, cfg, ctx,
+                                max_seq=SERVE_PROMPT + SERVE_GEN)
+                        else:
+                            pos = SERVE_PROMPT + step - 1
+                            lg, caches[dv] = M.decode_step(
+                                params, tok[dv], caches[dv],
+                                _pos(torch, pos) if dv == "cuda" else pos,
+                                cfg, ctx)
+                    logits[dv] = lg.float().cpu()
+                a, b = logits["cuda"], logits["cpu"]
+                check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+                      f"classic {arch} {mode}: non-finite or misshapen "
+                      f"logits")
+                same &= torch.equal(a.argmax(-1), b.argmax(-1))
+                diff = (a - b).abs()
+                worst = max(worst, float((diff / (1 + b.abs())).max()))
+                _state_diff(torch, caches["cpu"], caches["cuda"], state)
+                for c_, g_ in zip(_tree_leaves(caches["cpu"]),
+                                  _tree_leaves(caches["cuda"])):
+                    c_.copy_(g_.cpu())
+                nxt = a.argmax(-1).to(torch.int32)[:, None]
+                tok = {"cuda": nxt.cuda(), "cpu": nxt}
+            launches = dict(ops.LAUNCHES)
+            want = _rec_serve_want(cfg, mode, cfg.kv_cache_bits == 8,
+                                   gen=1 + REC_CLASSIC_DECODES,
+                                   calibrated=False)
+            tag = f"{arch} ({cfg.n_layers} layers) {mode}"
+            log(f"[23a] classic {tag}, full width, fp32, prefill (4, "
+                f"{SERVE_PROMPT}) + {REC_CLASSIC_DECODES} decode steps, each "
+                f"from the card's state: greedy tokens "
+                f"{'identical' if same else 'DIFFER'}; logits max |diff| / "
+                f"(1 + |logit|) {worst:.3e}; states and codes (differing, "
+                f"max |diff| (states: over the largest |value|), entries) "
+                f"{state}; launches K2 {launches['int8_matmul']} K3 "
+                f"{launches['quantize']} K5 {launches['flash_prefill']} K6 "
+                f"{launches['flash_decode']}"
+                + (f"; module by module ({sync.calls} calls): largest "
+                   f"input |diff| {sync.x_diff:.3e}, output codes differing "
+                   f"{sync.y_diff}" if sync.enabled else ""))
+            check(same, f"classic {tag}: greedy tokens differ")
+            check(launches == want, f"classic {tag}: launches {launches}, "
+                  f"want {want}")
+            for key, (n, m, e) in state.items():
+                if key == "states":
+                    check(m <= 1e-2, f"classic {tag}: states differ by "
+                          f"{m:.2e} of the largest |value|")
+                else:
+                    check(n <= 1e-3 * e and m <= 1, f"classic {tag}: K/V "
+                          f"codes differ in {n} of {e}, max {m}")
+            if mode == "int":
+                check(sync.y_diff == 0 and worst == 0,
+                      f"classic {tag}: {sync.y_diff} module output codes "
+                      f"and logits by up to {worst} differ on the same "
+                      f"inputs")
+            else:
+                check(worst <= 2e-4, f"classic {tag}: logits differ by "
+                      f"{worst:.3e} (atol = rtol = 2e-4)")
+            res["model"][f"{arch} {mode}"] = dict(
+                logits_max_rel=worst, state=state, launches=launches,
+                module_input_diff=sync.x_diff)
+            del caches, pc, pg
+        del p_cpu, p_gpu
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _rec_classic_serve(torch, res, params, arch):
+    """(b) classic ``serve`` at full depth, bf16, flash attention (zamba2
+    over its int8 dense cache): INT (calibrated) and FP, each with its
+    decode steps captured and eagerly, in turns (graphs, eager, graphs,
+    eager), as phase 10: tokens identical, launches by
+    ``_rec_serve_want``, the step graphs' counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    cfg = get_config(arch)
+    hybrid = cfg.family == "hybrid"
+    overrides = {"kv_cache_bits": 8} if hybrid else None
+    for mode in ("int", "fp"):
+        want = _rec_serve_want(cfg, mode, hybrid)
+        runs = []
+        for rep, graphs in enumerate((True, False, True, False)):
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            o = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen=SERVE_GEN, mode=mode, calibrate=True, smoke=False,
+                      params=params, attn_kernel="flash",
+                      cfg_overrides=overrides, graphs=graphs, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            toks, g = o["tokens"], o["graphs"]
+            tag = "graphs" if graphs else "eager"
+            log(f"[23b] serve {arch} {mode} run {rep} ({tag}): calibration "
+                f"{o['calibrate_s']:.3f} s, prefill {o['prefill_s']:.4f} s, "
+                f"decode {1e3 * o['decode_s_per_tok']:.3f} ms/token ("
+                + ("replays; first call + capture "
+                   if graphs else "every step eager; first step ")
+                + f"{1e3 * o['compile_decode_s']:.2f} ms), first calls "
+                f"{g['first_calls']} captures {g['captures']} replays "
+                f"{g['replays']}, launches K2 {launches['int8_matmul']} K3 "
+                f"{launches['quantize']} K5 {launches['flash_prefill']} K6 "
+                f"{launches['flash_decode']}, peak {peak:.2f} GiB, "
+                f"{wall:.1f} s")
+            check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_size,
+                  f"serve {arch} {mode}: tokens {toks}")
+            check(launches == want, f"serve {arch} {mode} {tag}: launches "
+                  f"{launches}, want {want}")
+            check(g == dict(enabled=graphs, first_calls=int(graphs),
+                            captures=int(graphs),
+                            replays=SERVE_GEN - 2 if graphs else 0),
+                  f"serve {arch} {mode} {tag}: step graphs {g}")
+            runs.append(dict(graphs=graphs, tokens=toks, launches=launches,
+                             calibrate_s=o["calibrate_s"],
+                             prefill_s=o["prefill_s"],
+                             decode_s_per_tok=o["decode_s_per_tok"],
+                             first_decode_s=o["compile_decode_s"],
+                             peak_gib=peak, wall_s=wall))
+            del o
+            torch.cuda.empty_cache()
+        check(all((r["tokens"] == runs[0]["tokens"]).all() for r in runs),
+              f"serve {arch} {mode}: graphs and eager runs, or repeats, "
+              f"gave other tokens")
+        log(f"[23b] serve {arch} {mode}: graphs and eager runs "
+            f"token-identical, decode "
+            f"{[round(1e3 * r['decode_s_per_tok'], 3) for r in runs]} "
+            f"ms/token (graphs, eager, graphs, eager)")
+        res["serve"][f"{arch} {mode}"] = [
+            {k: v for k, v in r.items() if k != "tokens"} for r in runs]
+
+
+def _rec_classic_engine(torch, res, params, arch):
+    """(c) ``serve_engine`` at full depth, bf16, on phase 20's workload
+    (chunk 64), int8 slabs (and zamba2's int8 pool): calibrated INT and
+    ``w8a8=True``, each cold and warm; W8A8's tokens identical to INT's
+    (both compute on the same codes), K2 by ``_rec_per_dispatch``."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve_engine
+    cfg = get_config(arch)
+    per = _rec_per_dispatch(cfg)
+    got = {}
+    for tag, kw in (("int", dict(mode="int", calibrate=True)),
+                    ("w8a8", dict(w8a8=True))):
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        o = serve_engine(arch, smoke=False, params=params, n_requests=8,
+                         n_slots=4, chunk=HYBRID_CHUNK, rate=1e9,
+                         state_bits=8, kv_bits=8, device="cuda", **kw)
+        torch.cuda.synchronize()
+        eng = o["engine"]
+        cold = _rec_result(torch, eng, o["report"], 0,
+                           time.perf_counter() - t0)
+        warm = _rec_warm(torch, eng)
+        for when, r in (("cold", cold), ("warm", warm)):
+            rep = r["report"]
+            n = rep["recurrent_steps"]
+            log(f"[23c] engine {arch} {tag} {when} (int8 slabs"
+                + (", int8 pool" if cfg.family == "hybrid" else "")
+                + f"): {rep['tokens_per_s']} tok/s, TTFT p50 "
+                f"{rep['ttft_s']['p50']:.5f} s, TPOT p50 "
+                f"{rep['tpot_s']['p50']:.5f} s, {rep['gen_tokens']} tokens "
+                f"over {n} dispatches, launches {r['launches']}, peak "
+                f"{r['peak_gib']:.3f} GiB"
+                + (f", {len(o['quantized'].converted)} weight tensors as "
+                   f"int8 codes" if o["quantized"] is not None else ""))
+            check(rep["completed"] == 8, f"engine {arch} {tag}: not all "
+                  f"done")
+            check(r["launches"]["int8_matmul"] == per["int8_matmul"] * n
+                  and r["launches"]["paged_attention"]
+                  == per["paged_attention"] * n,
+                  f"engine {arch} {tag} {when}: launches {r['launches']} "
+                  f"over {n} dispatches, want {per} a dispatch")
+        check(_same_tokens(cold["outputs"], warm["outputs"]),
+              f"engine {arch} {tag}: warm tokens differ from cold")
+        got[tag] = (cold, warm)
+        res["engine"][f"{arch} {tag}"] = {
+            when: dict(tokens_per_s=r["report"]["tokens_per_s"],
+                       ttft_p50=r["report"]["ttft_s"]["p50"],
+                       tpot_p50=r["report"]["tpot_s"]["p50"],
+                       dispatches=r["report"]["recurrent_steps"],
+                       launches=r["launches"], peak_gib=r["peak_gib"])
+            for when, r in (("cold", cold), ("warm", warm))}
+        del o, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(_same_tokens(got["w8a8"][0]["outputs"], got["int"][0]["outputs"]),
+          f"engine {arch}: W8A8 tokens differ from calibrated INT's")
+    log(f"[23c] engine {arch}: W8A8 token-identical to calibrated INT")
+
+
+def _ulps(t1: float, t2: float, mantissa: int) -> float:
+    """The top-2 margin in units of the top value's ulp."""
+    ulp = 2.0 ** (math.floor(math.log2(abs(t1))) - mantissa) if t1 \
+        else 2.0 ** -149
+    return (t1 - t2) / ulp
+
+
+def _rec_classic_vs_engine(torch, res):
+    """(d) the classic path against the engine (fp32 slabs, FP) on phase
+    20's workload, 2 layers / one group, fp32: whether each request's
+    greedy tokens agree, and at the first divergent token the top-2 logit
+    margin (fp32 ulps) of the classic prefill of the agreed prefix.
+    Printed, not gated (the CPU tests gate it)."""
+    import numpy as np
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.launch.serve import poisson_workload
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    ctx = QuantContext()
+    for arch, cfg in _rec_classic_cfgs():
+        params = M.init_params(cfg, 0, device="cuda")
+        reqs = poisson_workload(cfg.vocab_size, n_requests=8, rate=1e9)
+        need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
+        eng = ServingEngine(cfg, params, ctx, n_slots=4, chunk=HYBRID_CHUNK,
+                            max_model_len=-(-need // 16) * 16,
+                            device="cuda")
+        rows, n_same = [], 0
+        with torch.no_grad():
+            eng.run(reqs)
+            outs = eng.outputs()
+            for r in reqs:
+                prompt = torch.from_numpy(
+                    np.asarray(r.prompt, np.int64)).cuda()[None]
+                logits, cache = M.prefill(params, {"tokens": prompt}, cfg,
+                                          ctx, max_seq=need)
+                got = []
+                for i in range(r.max_new_tokens):
+                    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+                    got.append(int(tok))
+                    if i + 1 < r.max_new_tokens:
+                        logits, cache = M.decode_step(
+                            params, tok, cache,
+                            _pos(torch, len(r.prompt) + i), cfg, ctx)
+                eng_toks = [int(t) for t in outs[r.rid]]
+                if got == eng_toks:
+                    n_same += 1
+                    continue
+                i = next(j for j, (a, b) in enumerate(zip(got, eng_toks))
+                         if a != b)
+                prefix = torch.from_numpy(np.concatenate(
+                    [np.asarray(r.prompt, np.int64),
+                     np.asarray(got[:i], np.int64)])).cuda()[None]
+                lg, _ = M.prefill(params, {"tokens": prefix}, cfg, ctx)
+                top = torch.topk(lg[0].float(), 2)
+                t1, t2 = (float(v) for v in top.values)
+                rows.append((r.rid, i, got[i], eng_toks[i],
+                             _ulps(t1, t2, 23)))
+        log(f"[23d] classic vs engine {arch} ({cfg.n_layers} layers, fp32, "
+            f"FP, fp32 slabs{', int8 cache and pool' if cfg.kv_cache_bits else ''}): "
+            f"{n_same} of {len(reqs)} requests token-identical"
+            + "".join(f"; request {rid} first differs at token {i} "
+                      f"(classic {a}, engine {b}), top-2 margin "
+                      f"{m:.1f} fp32 ulps" for rid, i, a, b, m in rows))
+        res["classic_vs_engine"][arch] = dict(same=n_same, total=len(reqs),
+                                              divergences=rows)
+        del eng, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _rec_attention_kernels(torch, res):
+    """(e) K5 and K6 at zamba2-2.7b's shared block (32 query heads over 32
+    KV heads of 80, bf16 q, int8 cache): K5 the (4, 32) prefill over 48
+    rows, K6 a decode step at pos 47 of 48 and at pos 32767 of 32768, each
+    held against its plain version (atol = rtol = 2e-2; past 1024 rows
+    also within LONG_ROW_TOL of each row's largest |value|, which a
+    repeated kv tile fails) and timed as phases 6 and 7 time them, beside
+    the bound and SDPA on the dequantized K/V."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import plan_decode_splits
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    h = kvh = ZAMBA_HEADS
+    d = ZAMBA_HEAD_DIM
+    sdpa, sdpa_how = _sdpa(torch)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b, sq, skv = SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+    q, k, v, nkv = _dense_qkv(torch, gen, b, sq, skv, h, kvh, d,
+                              torch.bfloat16, torch.int8)
+    got = ops.flash_attention(q, k, v, kv_frac_bits=nkv)
+    want = ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv)
+    torch.cuda.synchronize()
+    err = _close(torch, got, want, 2e-2, "K5 at zamba2's shape")
+    ms = time_ms(torch, lambda: ops.flash_attention(
+        q, k, v, kv_frac_bits=nkv), 50)
+    plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(
+        q, k, v, kv_frac_bits=nkv), 3, warmup=1)
+    kf = _deq(torch, k[:, :sq], nkv, q.dtype).contiguous()
+    vf = _deq(torch, v[:, :sq], nkv, q.dtype).contiguous()
+    lib = sdpa(q, kf, vf, True).transpose(1, 2)
+    check(torch.allclose(lib.float(), want.float(), atol=5e-2, rtol=5e-2),
+          "K5 at zamba2's shape: SDPA disagrees")
+    lib_ms = time_ms(torch, lambda: sdpa(q, kf, vf, True), 50)
+    n_bytes = 2 * q.numel() * q.element_size() + 2 * b * sq * kvh * d
+    n_ops = b * h * 4 * d * sum(i + 1 for i in range(sq))
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    res["k5"] = dict(name="zamba2 prefill, int8 cache", b=b, sq=sq, skv=skv,
+                     h=h, kvh=kvh, d=d, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     max_abs_err=err)
+    log(f"[23e] K5 at zamba2's shape (B {b}, Sq {sq} over {skv} int8 rows, "
+        f"H {h}, KVH {kvh}, D {d}, bf16 q): within atol=rtol=2e-2 (max "
+        f"|diff| {err:.2e}) | kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"SDPA ({sdpa_how}) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    del q, k, v, kf, vf
+    for s_max, pos in ((skv, skv - 1), (K6_LONG, K6_LONG - 1)):
+        q, k, v, nkv = _dense_qkv(torch, gen, b, 1, s_max, h, kvh, d,
+                                  torch.bfloat16, torch.int8)
+        pos_t = _pos(torch, pos)
+        got = ops.flash_decode(q, k, v, pos=pos_t, kv_frac_bits=nkv)
+        want = ref.flash_decode_ref(q, k, v, pos=pos, kv_frac_bits=nkv)
+        torch.cuda.synchronize()
+        what = f"K6 at zamba2's shape, pos {pos} of {s_max}"
+        err = _close(torch, got, want, 2e-2, what)
+        if pos >= 1024:
+            _close_rows(torch, got, want, LONG_ROW_TOL, what)
+            check(_tile_fault_caught(torch, ref.flash_decode_ref, q, k, v,
+                                     want, LONG_ROW_TOL, pos // 256, pos=pos,
+                                     kv_frac_bits=nkv),
+                  f"{what}: the row tolerance passes a repeated kv tile")
+        ms = time_ms(torch, lambda: ops.flash_decode(
+            q, k, v, pos=pos_t, kv_frac_bits=nkv), 50)
+        plain_ms = time_ms(torch, lambda: ref.flash_decode_ref(
+            q, k, v, pos=pos_t, kv_frac_bits=nkv), 5, warmup=1)
+        kf = _deq(torch, k[:, :pos + 1], nkv, q.dtype).contiguous()
+        vf = _deq(torch, v[:, :pos + 1], nkv, q.dtype).contiguous()
+        lib_ms = time_ms(torch, lambda: sdpa(q, kf, vf, False), 50)
+        n_bytes = 2 * q.numel() * q.element_size() + 2 * b * (pos + 1) \
+            * kvh * d
+        n_ops = b * h * 4 * d * (pos + 1)
+        b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+        splits, chunk = plan_decode_splits(s_max, b, kvh, sms)
+        key = "k6" if s_max == skv else "k6_long"
+        res[key] = dict(name=f"zamba2 decode, pos {pos} of {s_max}", b=b,
+                        s_max=s_max, pos=pos, h=h, kvh=kvh, d=d, ms=ms,
+                        plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by, max_abs_err=err, splits=splits,
+                        chunk=chunk)
+        log(f"[23e] {what} (B {b}, H {h}, KVH {kvh}, D {d}, bf16 q, int8 "
+            f"cache; {splits} split(s) of {chunk} rows): within "
+            f"atol=rtol=2e-2 (max |diff| {err:.2e}) | kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, SDPA ({sdpa_how}) on the dequantized "
+            f"slice {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        del q, k, v, kf, vf
+        torch.cuda.empty_cache()
+
+
+def phase_recurrent_classic(torch, out):
+    """Phase 23: the recurrent families' classic path -- (a) the 2-layer /
+    one-group model card against CPU, (b) classic ``serve`` and (c) the
+    calibrated INT and W8A8 engines at full depth, (d) the classic path
+    against the engine, (e) K5 and K6 at zamba2's head dim 80."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    res = {"model": {}, "serve": {}, "engine": {}, "classic_vs_engine": {}}
+    _rec_classic_model(torch, res)
+    for arch in ("rwkv6_3b", "zamba2_2_7b"):
+        params = M.init_params(get_config(arch), 0, device="cuda")
+        _rec_classic_serve(torch, res, params, arch)
+        _rec_classic_engine(torch, res, params, arch)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    _rec_classic_vs_engine(torch, res)
+    _rec_attention_kernels(torch, res)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[23] recurrent classic phase {res['seconds']:.1f} s")
+    out["recurrent_classic"] = res
+    return res
+
+
+# ---------------------------------------------------------------------------
 # phase 21: K3 as the LM path's quantizer, K2's float epilogue
 # ---------------------------------------------------------------------------
 
@@ -4729,7 +5248,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22); "
+                         "20, 21, 22, 23); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -4756,7 +5275,7 @@ def main(argv=None) -> int:
                  15: phase_k4,
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
-                 22: phase_configs}
+                 22: phase_configs, 23: phase_recurrent_classic}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -4809,6 +5328,8 @@ def main(argv=None) -> int:
         qf = phase_quant_fusion(torch, out)
         torch.cuda.empty_cache()
         phase_configs(torch, out)
+        torch.cuda.empty_cache()
+        rcl = phase_recurrent_classic(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4847,7 +5368,10 @@ def main(argv=None) -> int:
          "codes_and_dequant_ms": k2f["chain_ms"],
          "recurrent_launches": {
              tag: rec[tag]["graphs cold"]["launches"]["int8_matmul"]
-             for tag, _, kw in REC_CASES if kw["mode"] == "int"}},
+             for tag, _, kw in REC_CASES if kw["mode"] == "int"},
+         "recurrent_classic_launches": {
+             tag: runs[0]["launches"]["int8_matmul"]
+             for tag, runs in rcl["serve"].items() if tag.endswith("int")}},
     ]
     # K5 / K6: one launch at the classic path's shapes (K5: the prefill of
     # the 4x32 prompt into the int8 48-position cache; K6: a decode step
@@ -4866,6 +5390,18 @@ def main(argv=None) -> int:
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
             "library_ms": res["library_ms"], "per": "launch"})
+    # K5 / K6 at zamba2-2.7b's shared block (phase 23: D 80, 32 heads over
+    # 32 KV heads, int8 cache), launches from its first INT serve run
+    zl = rcl["serve"]["zamba2_2_7b int"][0]["launches"]
+    kernels[-2]["zamba2_d80"] = dict(
+        {k: v for k, v in rcl["k5"].items() if k != "name"},
+        launches=zl["flash_prefill"],
+        per="launch: the (4, 32) prefill over the 48-row int8 cache")
+    kernels[-1]["zamba2_d80"] = dict(
+        {k: v for k, v in rcl["k6"].items() if k != "name"},
+        launches=zl["flash_decode"],
+        per="launch at pos 47 of the 48-row int8 cache",
+        long={k: v for k, v in rcl["k6_long"].items() if k != "name"})
     kernels[-1]["long"] = {
         tag: {k: k6[tag][k] for k in ("pos", "s_max", "splits",
                                       "live_splits", "ms", "plain_ms",

@@ -217,27 +217,30 @@ def quantize_weight_tree(params: Any, ctx: QuantContext,
                          name_fn=None) -> Any:
     """Convert float matmul weights to int8 codes ONCE, at model build.
 
-    Leaves with ndim >= 2 whose path holds neither 'norm' nor 'embed'
-    (or, with ``name_fn``, those for which ``name_fn(path, leaf)`` is
-    true) become ``quant(w, n_w)`` on their module's grid (the table entry
-    for the longest matching path suffix, else the defaults) —
-    bit-identical to the per-call quantization in :func:`qlinear`'s INT
-    branch, so the step then reads int8 weights instead of float ones.
-    Embeddings and norm gains stay float.  Returns a new tree; the input
-    is untouched.
+    Each converted leaf becomes ``quant(w, n_w)`` on its module's grid
+    (the table entry, else the defaults) -- bit-identical to the per-call
+    quantization in :func:`qlinear`'s INT branch, so the step then reads
+    int8 weights instead of float ones.  By default the leaves with ndim
+    >= 2 whose path holds neither 'norm' nor 'embed' convert, each on the
+    grid of the longest path suffix in the table.  With ``name_fn``,
+    ``name_fn(path, leaf)`` names the module whose ``qlinear`` call reads
+    the leaf (``models.model.qlinear_weight``), whose grid it takes, or
+    returns None to keep the leaf float.  Embeddings and norm gains stay
+    float.  Returns a new tree; the input is untouched.
     """
-    def is_weight(path, leaf):
-        if name_fn is not None:
-            return name_fn(path, leaf)
-        return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
-                and "norm" not in path and "embed" not in path)
-
     def conv(path, leaf):
-        if is_weight(path, leaf) and leaf.dtype != torch.int8:
+        if not isinstance(leaf, torch.Tensor) or leaf.dtype == torch.int8:
+            return leaf
+        if name_fn is not None:
+            mod = name_fn(path, leaf)
+            if mod is None:
+                return leaf
+        elif leaf.ndim >= 2 and "norm" not in path and "embed" not in path:
             mod = module_name_for_path(path, ctx.table)
-            mb = ctx.bits_for(mod) if mod is not None else ModuleBits()
-            return quant(leaf, mb.n_w, ctx.bits)
-        return leaf
+        else:
+            return leaf
+        mb = ctx.bits_for(mod) if mod is not None else ModuleBits()
+        return quant(leaf, mb.n_w, ctx.bits)
 
     return _map_leaves(params, conv)
 

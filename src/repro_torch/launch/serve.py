@@ -11,6 +11,11 @@ float scales, no calibration):
         [--mode int|fake|fake_sf|fp] [--attn-kernel flash] [--full] \
         [--no-graphs] [--device cpu]
 
+The recurrent archs (``rwkv6_3b``, ``zamba2_2_7b``) take the same path:
+prefill over zero states (and zamba2's dense KV cache for its shared
+attention block), then the O(1) decode recurrences, the decode step
+captured as one CUDA graph on the card.
+
 Engine (``--engine``, ``serve_engine``): the continuous-batching engine on
 the paged int8-KV pool against a synthetic Poisson workload; ``--w8a8``
 calibrates, pre-quantizes the weights to int8 codes and serves every
@@ -21,14 +26,16 @@ attention, K4) instead of the unified ragged step (K1).  The recurrent
 archs (``rwkv6_3b``, ``zamba2_2_7b``) serve from fixed-size state slabs,
 ``--slabs N`` of them (default one a slot plus the trash slab), fp32 or
 with ``--state-bits 8`` int8 codes requantized once a step; zamba2's
-shared attention block also keeps a paged KV pool (K4):
+shared attention block also keeps a paged KV pool (K4); they calibrate
+and take ``--w8a8`` as the dense archs do:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
         --engine [--w8a8 | --mode fp | --mode int --no-calibrate] \
         [--spec-k 3] [--no-ragged] [--trace OUT.json] [--metrics OUT.prom] \
         [--profile-dir DIR] [--record OUT.json] [--slo]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
-        --engine --mode fp [--state-bits 8] [--slabs 3]
+        --engine [--w8a8 | --mode fp | --mode int] [--state-bits 8] \
+        [--slabs 3]
 
 Observability: ``--trace`` exports the run's Chrome trace (Perfetto),
 ``--metrics`` the registry's Prometheus text, ``--profile-dir`` a
@@ -88,13 +95,15 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
 
     With ``graphs`` (the default on a CUDA device; the CPU runs eagerly)
     the first decode step runs eagerly, the second is captured as one CUDA
-    graph (key ``("decode", B, S_max)``) and replayed, and every later
+    graph (key ``("decode", B, S_max)``, over a recurrent cache its
+    shapes: ``launch.steps.serve_step_key``) and replayed, and every later
     step is a replay; ``graphs=False`` runs every step eagerly.  Prefill
     runs once a call and stays eager.
 
     Returns {"tokens" (B, gen) numpy, "prefill_s", "decode_s_per_tok",
-    "compile_prefill_s", "compile_decode_s", "report", "ctx", "graphs"}
-    (the last the :class:`launch.steps.StepGraphs` counts).
+    "compile_prefill_s", "compile_decode_s", "calibrate_s", "report",
+    "ctx", "graphs"} (the last the :class:`launch.steps.StepGraphs`
+    counts; ``calibrate_s`` is 0.0 without calibration).
     ``compile_prefill_s`` holds the time of the prefill call (kernel
     builds and lazy initialisation included), which is also
     ``prefill_s``.  With graphs ``compile_decode_s`` holds the eager first
@@ -105,7 +114,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     of ``decode_s_per_tok``.  ``params`` overrides the seeded random
     weights; in INT mode float matmul weights are quantized to int8 codes
     once, here, on the calibrated grids (bit-identical to quantizing in
-    every call).  ``device`` defaults to ``cuda``.  ``_graph_factory`` is
+    every call; on the recurrent archs only the leaves their ``qlinear``
+    calls read, each on its module's grid, ``models.model.qlinear_weight``).
+    ``device`` defaults to ``cuda``.  ``_graph_factory`` is
     for the tests: a stand-in for the CUDA graph (``StepGraphs``'
     ``graph_factory``) that drives the capture bookkeeping on the CPU."""
     import torch
@@ -128,14 +139,19 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     prompt = {"tokens": torch.from_numpy(stream.batch(0)["tokens"]).to(dev)}
 
     ctx = QuantContext(mode=QuantMode(mode))
-    report = None
+    report, t_cal = None, 0.0
     if calibrate and mode in ("fake", "int"):
         t0 = time.perf_counter()
         ctx, report = _calibrated(cfg, params, mode, prompt["tokens"])
-        print(f"calibrated {len(report.results)} modules "
-              f"in {time.perf_counter() - t0:.1f}s")
+        _sync(dev)
+        t_cal = time.perf_counter() - t0
+        print(f"calibrated {len(report.results)} modules in {t_cal:.1f}s")
     if ctx.mode is QuantMode.INT:
-        params = quantize_weight_tree(params, ctx)
+        # the recurrent blocks' other matrices (LoRA and token-shift mixes,
+        # conv taps) are float operands outside any unified module
+        params = quantize_weight_tree(
+            params, ctx, name_fn=M.qlinear_weight
+            if cfg.family in ("ssm", "hybrid") else None)
 
     if graphs is None:
         graphs = dev.type == "cuda"
@@ -166,7 +182,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
             "decode_s_per_tok": sum(replayed) / max(len(replayed), 1),
             "compile_prefill_s": t_prefill,
             "compile_decode_s": sum(step_s[:n_first]),
-            "report": report, "ctx": ctx,
+            "calibrate_s": t_cal, "report": report, "ctx": ctx,
             "graphs": dict(enabled=graphs,
                            first_calls=step_graphs.first_calls,
                            captures=step_graphs.captures,
@@ -241,9 +257,9 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     fixed-slab substrate: ``num_slabs`` sizes the state pool (default one
     slab a slot plus the trash slab) and ``state_bits=8`` stores the slabs
     as int8 Eq.-1 codes requantized once a step (``None``: fp32 slabs).
-    They refuse ``spec_k > 0`` and ``prefix_cache=True``, and calibration
-    (its Algorithm 1 runs ``model.forward``, not ported for them): INT
-    mode runs on the context's default bits with ``calibrate=False``.
+    They refuse ``spec_k > 0`` and ``prefix_cache=True``; their INT mode
+    converts only the leaves their ``qlinear`` calls read, each on its
+    module's grid (``models.model.qlinear_weight``).
     ``device`` defaults to ``cuda``; there the engine runs each step
     key's first call eagerly, captures the key as a CUDA graph at its
     second and replays it from then on, unless ``graphs=False`` (every
@@ -281,13 +297,6 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     if overrides:
         cfg = dataclasses.replace(cfg, **overrides)
     recurrent = cfg.family in ("ssm", "hybrid")
-    if recurrent and calibrate and mode in ("fake", "int"):
-        raise NotImplementedError(
-            f"calibration of the {cfg.family!r} family is not ported yet: "
-            f"Algorithm 1 runs model.forward, which the port serves for "
-            f"the dense family only (ROADMAP Queue 1 item 5's remainder); "
-            f"pass calibrate=False (INT mode then runs on the default "
-            f"bits)")
     if params is None:
         params = M.init_params(cfg, seed, device=dev)
     ctx = QuantContext(mode=QuantMode(mode))

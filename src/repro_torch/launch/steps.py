@@ -28,7 +28,7 @@ from repro_torch.models import model as M
 
 __all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
            "build_paged_step", "build_ragged_step", "build_recurrent_step",
-           "StepGraphs", "run_serve_step"]
+           "StepGraphs", "serve_step_key", "run_serve_step"]
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
@@ -224,7 +224,8 @@ class StepGraphs:
     :meth:`run` takes a step key (the engine's: ``("ragged", T_pad, S_pad,
     k_cap, has_top_k, sampled)``, ``(B, C, verify, k_cap, has_top_k,
     sampled)`` or ``("recurrent", B, C, k_cap, has_top_k, sampled)``; the
-    classic path's ``("decode", B, S_max)``: everything a step's device
+    classic path's ``("decode", B, S_max)`` (:func:`serve_step_key`;
+    over a recurrent cache, its tensors' shapes): everything a step's device
     program depends on beyond its staged arrays), the step function
     ``fn(inputs) -> output`` over the staged arrays' device tensors, and
     the step's host arrays.
@@ -336,24 +337,39 @@ class StepGraphs:
         cur.wait_stream(self._stream)
 
 
+def serve_step_key(tokens, cache: dict) -> tuple:
+    """The classic decode step's key in :class:`StepGraphs`: ``("decode",
+    B, S_max)`` over a dense cache; over a recurrent cache (RWKV6's
+    states, zamba2's states and dense KV) ``("decode", B, shapes)``, the
+    shape of every cache tensor by name."""
+    b = tokens.shape[0]
+    if set(cache) == {"kv"}:
+        return ("decode", b, cache["kv"].k.shape[2])
+    shapes = tuple((f"{name}.{field}", tuple(t.shape))
+                   for name, part in cache.items()
+                   for field, t in zip(part._fields, part))
+    return ("decode", b, shapes)
+
+
 def run_serve_step(graphs: StepGraphs, serve_step, params, tokens,
                    cache: dict, pos: int) -> torch.Tensor:
     """One decode step of the classic path through ``graphs``:
     ``serve_step`` (:func:`build_serve_step`) over the tokens (B, 1) int32
     (a numpy array) and the position ``pos``, both staged into the step
-    key ``("decode", B, S_max)``'s buffers, ``pos`` as a 0-d int32 that
+    key's (:func:`serve_step_key`) buffers, ``pos`` as a 0-d int32 that
     the step reads only on the device.  Returns the next tokens (B, 1)
     int32 on the device (on a replay the graph's static output, valid
-    until the key's next replay).  The cache is written in place, so a
-    captured step's static memory is the cache prefill allocated: one
-    ``graphs`` serves one (params, cache) pair."""
-    b, s_max = tokens.shape[0], cache["kv"].k.shape[2]
-    if not 0 <= pos < s_max:
-        raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
+    until the key's next replay).  The cache (KV and recurrent states) is
+    written in place, so a captured step's static memory is the cache
+    prefill allocated: one ``graphs`` serves one (params, cache) pair."""
+    if "kv" in cache:
+        s_max = cache["kv"].k.shape[2]
+        if not 0 <= pos < s_max:
+            raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
 
     def step(inputs):
         return serve_step(params, inputs["tokens"], cache, inputs["pos"])[0]
 
-    return graphs.run(("decode", b, s_max), step,
+    return graphs.run(serve_step_key(tokens, cache), step,
                       {"tokens": np.asarray(tokens, dtype=np.int32),
                        "pos": np.asarray(pos, dtype=np.int32)})

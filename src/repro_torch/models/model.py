@@ -1,12 +1,15 @@
 """Top-level model API (PyTorch counterpart of ``repro.models.model``):
-``init_params``; for the dense GQA families (``dense``, and ``vlm``,
-whose early-fusion image tokens share the text vocabulary and run the
-same blocks) the classic dense-cache path
-``init_cache`` / ``forward`` / ``prefill`` / ``decode_step`` and the
-serving engine's ``init_paged_cache`` / ``ragged_step`` / ``paged_step``;
-for the recurrent (``ssm``) and hybrid families the fixed-slab serving
-substrate ``init_paged_state`` / ``paged_recurrent_step``; and the weight
-bridge from the JAX package's param tree.
+``init_params``; the classic path ``init_cache`` / ``forward`` /
+``prefill`` / ``decode_step`` for the dense GQA families (``dense``, and
+``vlm``, whose early-fusion image tokens share the text vocabulary and
+run the same blocks) over a dense KV cache, and for the recurrent
+(``ssm``: RWKV6) and hybrid (zamba2) families over their carried states
+(and the hybrid's dense KV cache for its shared attention block), the
+decode step O(1) in the recurrences; the dense families' serving-engine
+steps ``init_paged_cache`` / ``ragged_step`` / ``paged_step``; the
+recurrent families' fixed-slab serving substrate ``init_paged_state`` /
+``paged_recurrent_step``; and the weight bridge from the JAX package's
+param tree.
 
 Parameters are a plain dict of tensors: ``embed`` (Vp, d), ``ln_f`` (d,),
 ``lm_head`` (d, Vp) and ``blocks``, a list with one dict per layer —
@@ -50,7 +53,7 @@ _RECURRENT = ("ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig, what: str,
-                  families: tuple = _DENSE) -> None:
+                  families: tuple = _DENSE + _RECURRENT) -> None:
     if cfg.family in families:
         return
     if families == _RECURRENT:
@@ -60,10 +63,9 @@ def _check_family(cfg: ModelConfig, what: str,
     if cfg.family in _RECURRENT:
         raise NotImplementedError(
             f"{what} covers the dense GQA families; the {cfg.family!r} "
-            f"family is served by the fixed-slab substrate "
-            f"(init_paged_state, paged_recurrent_step) only: its classic "
-            f"forward / prefill / decode path is ROADMAP Queue 1 item 5's "
-            f"remainder")
+            f"family is served by the classic path (prefill, decode_step) "
+            f"and the fixed-slab substrate (init_paged_state, "
+            f"paged_recurrent_step)")
     raise NotImplementedError(
         f"{what} covers the dense GQA (dense, vlm), ssm and hybrid "
         f"families; got family={cfg.family!r} (other families: ROADMAP "
@@ -76,7 +78,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     (default ``cuda``).  Not the JAX package's numbers — its PRNG cannot
     be reproduced; tests carry JAX weights over with
     :func:`from_jax_params`."""
-    _check_family(cfg, "init_params", _DENSE + _RECURRENT)
+    _check_family(cfg, "init_params")
     dev = resolve_device(device)
     dt = model_dtype(cfg)
     gen = torch.Generator(device=dev)
@@ -108,32 +110,91 @@ def _n_groups(cfg: ModelConfig) -> int:
 
 # leaves that reach ``qlinear`` as a weight (the other matrices of the
 # recurrent blocks -- LoRA mixes, token-shift mixes, the bonus, the conv
-# taps -- are float operands outside any unified module)
+# taps -- are float operands outside any unified module); the RWKV channel
+# mix's weights sit beside the time mix's under "rwkv", but its qlinear
+# calls name the module "rwkv_ffn" (``rwkv.rwkv6_channel_mix``)
 _QLINEAR_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "lm_head",
                    "wr", "wg", "wk_ffn", "wv_ffn", "wr_ffn", "w_in",
                    "w_out", "in_proj"}
+_CHANNEL_MIX = {"wk_ffn": "rwkv_ffn/wk", "wv_ffn": "rwkv_ffn/wv",
+                "wr_ffn": "rwkv_ffn/wr"}
 
 
-def qlinear_weight(path: str, leaf) -> bool:
-    """Whether the params leaf at ``path`` (``blocks/3/rwkv/wr``) is a
-    matmul weight that runs through ``qlinear``: the leaves INT mode
-    quantizes to int8 codes once (``quantize_weight_tree``'s
-    ``name_fn``)."""
-    return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
-            and path.split("/")[-1] in _QLINEAR_LEAVES)
+def qlinear_weight(path: str, leaf) -> Optional[str]:
+    """The module name of the ``qlinear`` call that reads the params leaf
+    at ``path`` as its weight, or None when the leaf is no such weight.
+
+    The name is the path without its layer prefix (``blocks/3/attn/wq``
+    -> ``attn/wq``, ``blocks/3/ssm/w_in`` -> ``ssm/w_in``,
+    ``shared/attn/wq``, ``lm_head``), except for the RWKV channel mix
+    (``blocks/3/rwkv/wk_ffn`` -> ``rwkv_ffn/wk``).  INT mode quantizes
+    these leaves to int8 codes once, each on its module's grid
+    (``quantize_weight_tree``'s ``name_fn``), the codes its call would
+    give."""
+    if not (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2):
+        return None
+    parts = path.split("/")
+    if parts[-1] not in _QLINEAR_LEAVES:
+        return None
+    if parts[-1] in _CHANNEL_MIX:
+        return _CHANNEL_MIX[parts[-1]]
+    if parts[0] == "blocks":
+        parts = parts[2:]
+    return "/".join(parts)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: Device = None) -> dict:
-    """Dense KV cache of the classic serving path: one (L, B, S_max, KVH,
-    D) pair, int8 Eq.-1 codes when ``cfg.kv_cache_bits == 8``."""
+    """Cache of the classic serving path, zeros.  Dense: one dense KV pair
+    ``kv`` (L, B, S_max, KVH, D), int8 Eq.-1 codes when
+    ``cfg.kv_cache_bits == 8``.  RWKV6 (``ssm``): ``state``, an
+    ``RWKVState`` of (L, B, 1, d) token-shift inputs in the model dtype
+    and the (L, B, H, 64, 64) fp32 wkv.  Hybrid: ``ssm``, an ``SSMState``
+    of (G, g, B, ...) arenas (G groups of g Mamba blocks; the conv window
+    in the model dtype, the state fp32), and the shared block's dense KV
+    pair ``kv`` (G, B, S_max, KVH, D).  The reference's dtypes, component
+    by component."""
     _check_family(cfg, "init_cache")
     dev = resolve_device(device)
-    kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else model_dtype(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads,
-             cfg.resolved_head_dim)
-    return {"kv": att.KVCache(k=torch.zeros(shape, dtype=kv_dt, device=dev),
-                              v=torch.zeros(shape, dtype=kv_dt, device=dev))}
+    dt = model_dtype(cfg)
+
+    def stacked(lead: tuple, state):
+        return type(state)(*(torch.zeros(lead + tuple(z.shape),
+                                         dtype=z.dtype, device=dev)
+                             for z in state))
+
+    if cfg.family == "ssm":
+        return {"state": stacked((cfg.n_layers,), rwkv_lib.zero_state(
+            cfg, batch, dt, device="meta"))}
+    kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else dt
+    n_kv = cfg.n_layers if cfg.family in _DENSE else _n_groups(cfg)
+    shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    kv = att.KVCache(k=torch.zeros(shape, dtype=kv_dt, device=dev),
+                     v=torch.zeros(shape, dtype=kv_dt, device=dev))
+    if cfg.family in _DENSE:
+        return {"kv": kv}
+    return {"ssm": stacked((_n_groups(cfg), cfg.hybrid.attn_every),
+                           ssm_lib.zero_state(cfg, batch, dt,
+                                              device="meta")),
+            "kv": kv}
+
+
+def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """A block's new state component written IN PLACE into the cache
+    tensor ``dst``.  The cache keeps the reference's dtypes, so a copy
+    that would cast is a fault, and raises."""
+    if src.dtype != dst.dtype or src.shape != dst.shape:
+        raise TypeError(f"state component {tuple(src.shape)} {src.dtype} "
+                        f"cannot be stored into {tuple(dst.shape)} "
+                        f"{dst.dtype}")
+    dst.copy_(src)
+
+
+def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
+          ctx: QuantContext) -> torch.Tensor:
+    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return unembed(ctx, x, head)
 
 
 def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
@@ -144,24 +205,81 @@ def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
             cache["kv"].k[layer], cache["kv"].v[layer])
         x, _ = tfm.dense_block(ctx, p_l, x, cfg, rope=rope, cache=c_l,
                                cache_pos=cache_pos)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return unembed(ctx, x, head)
+    return _head(params, x, cfg, ctx)
+
+
+def _rwkv_layers(params, x, cfg, ctx, state: rwkv_lib.RWKVState,
+                 decode: bool, store: bool):
+    """The RWKV6 stack over ``state`` ((L, ...) components): each layer's
+    block from its state, its new state written back IN PLACE when
+    ``store``."""
+    block = tfm.rwkv_block_decode if decode else tfm.rwkv_block_fwd
+    for layer, p_l in enumerate(params["blocks"]):
+        x, new = block(ctx, p_l, x, cfg, rwkv_lib.RWKVState(
+            *(c[layer] for c in state)))
+        if store:
+            for c, n in zip(state, new):
+                _put(c[layer], n)
+    return _head(params, x, cfg, ctx)
+
+
+def _hybrid_groups(params, x, positions, cfg, ctx, cache: dict, cache_pos,
+                   decode: bool, store: bool):
+    """zamba2's groups over ``cache`` (``init_cache``'s): each Mamba block
+    from its state (new states written back IN PLACE when ``store``), the
+    shared block's K/V written into the group's dense cache at
+    ``cache_pos``."""
+    dt = model_dtype(cfg)
+    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
+    g = cfg.hybrid.attn_every
+    st, kv = cache["ssm"], cache["kv"]
+    x_embed = x
+    for gi in range(_n_groups(cfg)):
+        states = [ssm_lib.SSMState(*(c[gi, j] for c in st))
+                  for j in range(g)]
+        x, new = tfm.hybrid_group_fwd(
+            ctx, params["blocks"][gi * g:(gi + 1) * g], params["shared"],
+            x, x_embed, cfg, states=states, rope=rope,
+            cache=att.KVCache(kv.k[gi], kv.v[gi]), cache_pos=cache_pos,
+            decode=decode)
+        if store:
+            for old, ns in zip(states, new):
+                for c, n in zip(old, ns):
+                    _put(c, n)
+    return _head(params, x, cfg, ctx)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
             *, cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
     """Full-sequence forward of ``batch["tokens"]`` (B, S) from position 0.
-    With ``cache`` (prefill), every layer's K/V are written into it at
-    position 0 (in place).  Returns (logits (B, S, V) in the activation
-    dtype, cache).  ``params`` may be a ``QuantizedParams.tree`` when
-    ``ctx`` is the matching INT-mode context."""
+    With ``cache`` (prefill, ``init_cache``'s), every layer's K/V are
+    written into it at position 0 and the recurrent families' states
+    after the sequence replace its states, all in place; the recurrent
+    blocks start from the cache's states.  Without it the recurrent
+    blocks start from zero states and the hybrid's shared block runs over
+    a fresh cache of S positions (int8 codes when ``cfg.kv_cache_bits ==
+    8``), as the reference's forward does.  Returns (logits (B, S, V) in
+    the activation dtype, cache).  ``params`` may be a
+    ``QuantizedParams.tree`` when ``ctx`` is the matching INT-mode
+    context."""
     _check_family(cfg, "forward")
     tokens = batch["tokens"]
     b, s = tokens.shape
+    dev = tokens.device
     x = embed(params["embed"], tokens, model_dtype(cfg))
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
+    positions = torch.arange(s, device=dev).expand(b, s)
+    if cfg.family in _DENSE:
+        logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
+    elif cfg.family == "ssm":
+        state = cache["state"] if cache is not None else init_cache(
+            cfg, b, s, device=dev)["state"]
+        logits = _rwkv_layers(params, x, cfg, ctx, state, decode=False,
+                              store=cache is not None)
+    else:
+        c = cache if cache is not None else init_cache(cfg, b, s,
+                                                       device=dev)
+        logits = _hybrid_groups(params, x, positions, cfg, ctx, c, 0,
+                                decode=False, store=cache is not None)
     return logits, cache
 
 
@@ -180,25 +298,35 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
                 cfg: ModelConfig, ctx: QuantContext
                 ) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens (B, 1) at absolute position ``pos``, the
-    cache from :func:`prefill`, written at ``pos`` in place.  ``pos`` is a
-    host int (checked against the cache here) or a 0-d integer tensor on
-    the step's device, which nothing reads back to the host: the step's
+    cache from :func:`prefill`: the K/V written at ``pos`` and the
+    recurrent states replaced, all in place.  ``pos`` is a host int
+    (checked against the KV cache here) or a 0-d integer tensor on the
+    step's device, which nothing reads back to the host: the step's
     launches do not depend on it, so one CUDA graph of the step serves
-    every position (``launch.steps.StepGraphs``).  Returns (logits (B, V),
-    cache), the cache the same tensors as given (a captured step's static
-    memory is the cache prefill allocated)."""
+    every position (``launch.steps.StepGraphs``).  RWKV6 keeps no KV and
+    ignores it.  Returns (logits (B, V), cache), the cache the same
+    tensors as given (a captured step's static memory is the cache
+    prefill allocated)."""
     _check_family(cfg, "decode_step")
     b = tokens.shape[0]
     dev = tokens.device
+    x = embed(params["embed"], tokens, model_dtype(cfg))
+    if cfg.family == "ssm":
+        logits = _rwkv_layers(params, x, cfg, ctx, cache["state"],
+                              decode=True, store=True)
+        return logits[:, 0], cache
     if not isinstance(pos, torch.Tensor):
         s_max = cache["kv"].k.shape[2]
         if not 0 <= int(pos) < s_max:
             raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
         pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
     pos = pos.to(device=dev, dtype=torch.int32).reshape(())
-    x = embed(params["embed"], tokens, model_dtype(cfg))
     positions = pos.expand(b, 1)
-    logits = _dense_layers(params, x, positions, cfg, ctx, cache, pos)
+    if cfg.family in _DENSE:
+        logits = _dense_layers(params, x, positions, cfg, ctx, cache, pos)
+    else:
+        logits = _hybrid_groups(params, x, positions, cfg, ctx, cache, pos,
+                                decode=True, store=True)
     return logits[:, 0], cache
 
 
@@ -208,7 +336,7 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
     shared by every in-flight request (int8 Eq.-1 codes when
     ``cfg.kv_cache_bits == 8``).  Block 0 is the trash block, so
     ``num_blocks`` must be >= 2."""
-    _check_family(cfg, "paged serving")
+    _check_family(cfg, "paged serving", _DENSE)
     if num_blocks < 2:
         raise ValueError("pool needs >= 2 blocks (block 0 is the trash "
                          "block inactive slots write to)")
@@ -232,7 +360,7 @@ def ragged_step(params: dict, tokens: torch.Tensor, cache: dict,
     the pool destinations.  Returns (logits (T, V) in the activation
     dtype, cache); the pool tensors are updated in place.  Padding rows
     produce logits that no descriptor samples."""
-    _check_family(cfg, "ragged_step")
+    _check_family(cfg, "ragged_step", _DENSE)
     dt = model_dtype(cfg)
     x = embed(params["embed"], tokens, dt)
     # positions are the same in every layer: one rope table per step
@@ -242,9 +370,7 @@ def ragged_step(params: dict, tokens: torch.Tensor, cache: dict,
         x, _ = tfm.dense_block(
             ctx, p_l, x, cfg, rope=rope,
             cache=att.PagedKVCache(kv.k[layer], kv.v[layer]), ragged=ragged)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return unembed(ctx, x, head), cache
+    return _head(params, x, cfg, ctx), cache
 
 
 def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
@@ -262,7 +388,7 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     by every layer; without it each layer's K4 plans from the positions.
     Returns (logits (B, C, V) in the activation dtype, cache); the pool
     tensors are updated in place."""
-    _check_family(cfg, "paged_step")
+    _check_family(cfg, "paged_step", _DENSE)
     dt = model_dtype(cfg)
     x = embed(params["embed"], tokens, dt)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
@@ -273,9 +399,7 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
             cache=att.PagedKVCache(kv.k[layer], kv.v[layer]),
             cache_pos=positions, block_tables=block_tables,
             paged_work=work)
-    x = rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return unembed(ctx, x, head), cache
+    return _head(params, x, cfg, ctx), cache
 
 
 # ---------------------------------------------------------------------------
@@ -457,9 +581,7 @@ def paged_recurrent_step(params: dict, tokens: torch.Tensor, cache: dict,
 
     last = torch.clamp(q_len.long() - 1, min=0)
     xe = x[torch.arange(b, device=dev), last][:, None, :]   # (B, 1, d)
-    xe = rmsnorm(xe, params["ln_f"], cfg.norm_eps)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return unembed(ctx, xe, head)[:, 0], cache
+    return _head(params, xe, cfg, ctx)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -490,7 +612,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     layer (the hybrid's ``blocks/mamba`` (G, g, ...) leaves into one dict
     per Mamba block, group-major); dtypes are kept (bf16 stays bf16, int8
     codes stay int8).  Nothing here imports JAX."""
-    _check_family(cfg, "from_jax_params", _DENSE + _RECURRENT)
+    _check_family(cfg, "from_jax_params")
     dev = resolve_device(device)
     out = {k: _tree(v, lambda a: _to_tensor(a, dev))
            for k, v in np_tree.items() if k != "blocks"}

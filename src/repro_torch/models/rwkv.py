@@ -7,9 +7,10 @@ Recurrence per head (d_k = d_v = head_dim = 64):
     out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 with w_t = exp(-exp(w0 + lora_w(x_t))) in (0, 1) per channel.
 
-The serving step runs the chunked linear-attention form (a masked
-quadratic within each chunk, the state carried across chunks by a plain
-loop where the reference scans).  The r/k/v/g/o projections and both
+The prefill and the serving step run the chunked linear-attention form
+(a masked quadratic within each chunk, the state carried across chunks
+by a plain loop where the reference scans); the classic decode step is
+the O(1) recurrence (``rwkv6_decode``).  The r/k/v/g/o projections and both
 channel-mix matmuls go through ``qlinear``; the decay and the recurrence
 stay fp32 (a power-of-two rounded decay applied every step diverges).
 Their products are fp32 matmuls: they must not run in TF32 or bf16 (the
@@ -28,7 +29,7 @@ from repro_torch.models.common import linear, rmsnorm
 from repro_torch.models.mlp import _silu
 
 __all__ = ["RWKVState", "HEAD_DIM", "zero_state", "init_rwkv6",
-           "rwkv6_block", "rwkv6_channel_mix"]
+           "rwkv6_block", "rwkv6_channel_mix", "rwkv6_decode"]
 
 HEAD_DIM = 64  # rwkv6 fixed head size
 
@@ -222,3 +223,41 @@ def rwkv6_channel_mix(ctx: QuantContext, p: dict, x: torch.Tensor,
     k = torch.square(torch.relu(k))
     kv = linear(ctx, f"{name}/wv", k, p["wv_ffn"])
     return torch.sigmoid(linear(ctx, f"{name}/wr", xr, p["wr_ffn"])) * kv
+
+
+def rwkv6_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
+                 cfg: ModelConfig, state: RWKVState, name: str = "rwkv"
+                 ) -> tuple[torch.Tensor, RWKVState]:
+    """Single-token time-mix recurrence, O(1) in sequence length: x (B, 1,
+    d) after ``state``.  r / k / v and the state in fp32; the bonus ``u``
+    weighs the token's own k v^T in the output, and the new state is
+    ``w * S + k v^T``.  Returns (time-mix output, new state); the new
+    state's ``x_prev_ffn`` is the given one (the caller sets it)."""
+    b, s, d = x.shape  # s == 1
+    h = _heads(cfg)
+
+    mixed = _ddlerp(x, state.x_prev_att, p["mu"], p["lora_mix_a"],
+                    p["lora_mix_b"])
+    xr, xk, xv, xw, xg = (mixed[i] for i in range(5))
+    r = linear(ctx, f"{name}/wr", xr, p["wr"]).reshape(b, h, HEAD_DIM)
+    k = linear(ctx, f"{name}/wk", xk, p["wk"]).reshape(b, h, HEAD_DIM)
+    v = linear(ctx, f"{name}/wv", xv, p["wv"]).reshape(b, h, HEAD_DIM)
+    g = _silu(linear(ctx, f"{name}/wg", xg, p["wg"]))
+
+    w_dd = torch.tanh(xw @ p["lora_w_a"].to(x.dtype)) \
+        @ p["lora_w_b"].to(x.dtype)
+    w = torch.exp(-torch.exp(torch.clamp(
+        p["w0"].to(torch.float32) + w_dd.to(torch.float32)[:, 0],
+        -8.0, 0.5))).reshape(b, h, HEAD_DIM)
+
+    rf, kf, vf = (t.to(torch.float32) for t in (r, k, v))
+    s_prev = state.wkv.to(torch.float32)                    # (B,H,Dk,Dv)
+    kv = torch.einsum("bhk,bhv->bhkv", kf, vf)
+    out = torch.einsum("bhk,bhkv->bhv", rf, s_prev
+                       + p["u"].to(torch.float32)[None, :, :, None] * kv)
+    new_wkv = w[..., None] * s_prev + kv
+    out = out.reshape(b, 1, d).to(x.dtype)
+    out = rmsnorm(out, p["ln_x"], cfg.norm_eps) * g
+    att_out = linear(ctx, f"{name}/wo", out, p["wo"])
+    return att_out, RWKVState(x_prev_att=x, x_prev_ffn=state.x_prev_ffn,
+                              wkv=new_wkv)

@@ -1,9 +1,10 @@
 """Mamba2 (SSD) block (PyTorch counterpart of ``repro.models.ssm``), the
 recurrent layer of zamba2-2.7b's hybrid stack.
 
-The serving step runs the chunked state-space-duality form: a masked
-quadratic within each chunk and the (H, P, N) state carried across
-chunks by a plain loop (where the reference scans).  The in/out
+The prefill and the serving step run the chunked state-space-duality
+form: a masked quadratic within each chunk and the (H, P, N) state
+carried across chunks by a plain loop (where the reference scans); the
+classic decode step is the O(1) recurrence (``mamba2_decode``).  The in/out
 projections go through ``qlinear``; the recurrence stays fp32 (a
 power-of-two rounded decay applied every step diverges).  Its products
 are fp32 matmuls and must not run in TF32 or bf16 (the port keeps
@@ -21,7 +22,8 @@ from repro_torch.core.qmodel import QuantContext
 from repro_torch.models.common import linear, rmsnorm
 from repro_torch.models.mlp import _silu
 
-__all__ = ["SSMState", "zero_state", "init_mamba2", "mamba2"]
+__all__ = ["SSMState", "zero_state", "init_mamba2", "mamba2",
+           "mamba2_decode"]
 
 
 class SSMState(NamedTuple):
@@ -208,3 +210,49 @@ def mamba2(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
         conv_tail = torch.gather(
             win, 1, idx[..., None].expand(-1, -1, win.shape[-1]))
     return out, SSMState(conv=conv_tail, ssm=final)
+
+
+def mamba2_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
+                  cfg: ModelConfig, state: SSMState, name: str = "ssm"
+                  ) -> tuple[torch.Tensor, SSMState]:
+    """Single-token step, x (B, 1, d), O(1) in sequence length: the conv
+    over the rolling window ``[state.conv | xbc]`` (the new window drops
+    its first row), each group's B / C repeated over its heads, the state
+    decayed by ``exp(softplus(dt + dt_bias) * a)`` plus the token's
+    update, the D skip and the gated rmsnorm.  Returns (output, new
+    state)."""
+    s, d_inner, n_heads, d_conv_in = _dims(cfg)
+    b = x.shape[0]
+    zxbcdt = linear(ctx, f"{name}/w_in", x, p["w_in"])
+    z, xbc, dt = _split_in(cfg, zxbcdt)
+
+    window = torch.cat([state.conv, xbc], dim=1)           # (B, K, C)
+    conv_out = torch.einsum("bkc,kc->bc", window,
+                            p["conv_w"].to(window.dtype)) \
+        + p["conv_b"].to(window.dtype)
+    xbc_t = _silu(conv_out)[:, None, :]
+    new_conv = window[:, 1:, :]
+
+    gn = s.n_groups * s.d_state
+    rep = n_heads // s.n_groups
+    # each group's B / C over its rep heads (an expand, as in the scan)
+    bmat, cmat = (m.reshape(b, s.n_groups, 1, s.d_state).to(torch.float32)
+                  .expand(b, s.n_groups, rep, s.d_state)
+                  .reshape(b, n_heads, s.d_state)
+                  for m in (xbc_t[:, 0, d_inner:d_inner + gn],
+                            xbc_t[:, 0, d_inner + gn:]))
+    dtp = torch.nn.functional.softplus(dt[:, 0].to(torch.float32)
+                                       + p["dt_bias"])       # (B, H)
+    a = -torch.exp(p["a_log"])
+    decay = torch.exp(dtp * a[None, :])                      # (B, H)
+    xh = xbc_t[:, 0, :d_inner].reshape(b, n_heads, s.head_dim).to(
+        torch.float32)
+
+    upd = torch.einsum("bh,bhp,bhn->bhpn", dtp, xh, bmat)
+    new_ssm = decay[:, :, None, None] * state.ssm.to(torch.float32) + upd
+    y = torch.einsum("bhn,bhpn->bhp", cmat, new_ssm)
+    y = y + xh * p["d_skip"][None, :, None]
+    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    y = rmsnorm(y * _silu(z), p["norm"], cfg.norm_eps)
+    out = linear(ctx, f"{name}/w_out", y, p["w_out"])
+    return out, SSMState(conv=new_conv, ssm=new_ssm)

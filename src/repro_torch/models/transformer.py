@@ -1,10 +1,12 @@
 """Block assembly (PyTorch counterpart of ``repro.models.transformer``):
 the dense family's pre-norm GQA + SwiGLU block, the RWKV6 block, and
 zamba2's hybrid group (``attn_every`` Mamba2 blocks, then the one shared
-attention block on concat(h, embedding)), the last two in the batched
-paged form of the serving engine.  Blocks are plain functions over one
-layer's dict of tensors; the model loops over layers where the JAX
-package scans stacked parameters."""
+attention block on concat(h, embedding)), the last two in the classic
+forms (a full sequence over a carried state and a dense KV cache, and
+the O(1) decode step) and in the batched paged form of the serving
+engine.  Blocks are plain functions over one layer's dict of tensors;
+the model loops over layers where the JAX package scans stacked
+parameters."""
 from __future__ import annotations
 
 import torch
@@ -18,7 +20,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import Initializer, linear, rmsnorm
 
 __all__ = ["init_dense_block", "dense_block", "init_rwkv_block",
-           "rwkv_block_paged", "init_mamba_block", "init_shared_attn",
+           "rwkv_block_fwd", "rwkv_block_decode", "rwkv_block_paged",
+           "init_mamba_block", "init_shared_attn", "hybrid_group_fwd",
            "hybrid_group_paged"]
 
 
@@ -64,6 +67,36 @@ def init_rwkv_block(init: Initializer, cfg: ModelConfig) -> dict:
         "ln2": init.ones((cfg.d_model,)),
         "rwkv": rwkv_lib.init_rwkv6(init, cfg),
     }
+
+
+def rwkv_block_fwd(ctx: QuantContext, p: dict, x: torch.Tensor,
+                   cfg: ModelConfig, state: rwkv_lib.RWKVState):
+    """One layer over a full sequence x (B, S, d) after ``state``.  The new
+    state carries the NORMED inputs of the last position (``att_in``,
+    ``ffn_in``), as the reference's, and the wkv."""
+    att_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    att_out, _, st = rwkv_lib.rwkv6_block(ctx, p["rwkv"], att_in, cfg,
+                                          state=state)
+    x = x + att_out
+    ffn_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + rwkv_lib.rwkv6_channel_mix(ctx, p["rwkv"], ffn_in, cfg,
+                                       x_prev=state.x_prev_ffn)
+    return x, rwkv_lib.RWKVState(x_prev_att=att_in[:, -1:],
+                                 x_prev_ffn=ffn_in[:, -1:], wkv=st.wkv)
+
+
+def rwkv_block_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
+                      cfg: ModelConfig, state: rwkv_lib.RWKVState):
+    """One layer's decode step, x (B, 1, d), through the O(1) time-mix
+    recurrence."""
+    att_in = rmsnorm(x, p["ln1"], cfg.norm_eps)
+    att_out, st = rwkv_lib.rwkv6_decode(ctx, p["rwkv"], att_in, cfg, state)
+    x = x + att_out
+    ffn_in = rmsnorm(x, p["ln2"], cfg.norm_eps)
+    x = x + rwkv_lib.rwkv6_channel_mix(ctx, p["rwkv"], ffn_in, cfg,
+                                       x_prev=state.x_prev_ffn)
+    return x, rwkv_lib.RWKVState(x_prev_att=att_in, x_prev_ffn=ffn_in,
+                                 wkv=st.wkv)
 
 
 def rwkv_block_paged(ctx: QuantContext, p: dict, x: torch.Tensor,
@@ -118,6 +151,51 @@ def init_shared_attn(init: Initializer, cfg: ModelConfig) -> dict:
     }
 
 
+def _shared_block(ctx: QuantContext, shared_p: dict, x: torch.Tensor,
+                  x_embed: torch.Tensor, cfg: ModelConfig, *,
+                  rope: tuple[torch.Tensor, torch.Tensor], **attn_kw
+                  ) -> torch.Tensor:
+    """The shared attention block on concat(h, embedding) (zamba2's
+    dataflow), its cache and positions in ``attn_kw``
+    (``attention.gqa_attention``'s); returns ``x + z``."""
+    z = linear(ctx, "shared/in_proj", torch.cat([x, x_embed], dim=-1),
+               shared_p["in_proj"])
+    h, _ = att.gqa_attention(
+        ctx, shared_p["attn"], rmsnorm(z, shared_p["ln1"], cfg.norm_eps),
+        cfg, rope=rope, name="shared/attn", **attn_kw)
+    z = z + h
+    z = z + mlp_lib.mlp(ctx, shared_p["mlp"],
+                        rmsnorm(z, shared_p["ln2"], cfg.norm_eps), cfg.act,
+                        name="shared/mlp")
+    return x + z
+
+
+def hybrid_group_fwd(ctx: QuantContext, group_p: list, shared_p: dict,
+                     x: torch.Tensor, x_embed: torch.Tensor,
+                     cfg: ModelConfig, *, states: list,
+                     rope: tuple[torch.Tensor, torch.Tensor],
+                     cache: att.KVCache, cache_pos, decode: bool = False):
+    """One group of the classic path: the group's Mamba blocks
+    (``group_p``, one dict each, over their ``states``; with ``decode``
+    the O(1) step on x (B, 1, d)), then the shared attention block over
+    the group's dense ``cache``, its K/V written IN PLACE at
+    ``cache_pos`` (0 for a prefill; a decode step's position, a host int
+    or a 0-d tensor read on the device).  Returns (x, the Mamba blocks'
+    new states)."""
+    new_states = []
+    for p_l, st_l in zip(group_p, states):
+        h_in = rmsnorm(x, p_l["ln"], cfg.norm_eps)
+        if decode:
+            h, st = ssm_lib.mamba2_decode(ctx, p_l["ssm"], h_in, cfg, st_l)
+        else:
+            h, st = ssm_lib.mamba2(ctx, p_l["ssm"], h_in, cfg,
+                                   init_state=st_l)
+        x = x + h
+        new_states.append(st)
+    return _shared_block(ctx, shared_p, x, x_embed, cfg, rope=rope,
+                         cache=cache, cache_pos=cache_pos), new_states
+
+
 def hybrid_group_paged(ctx: QuantContext, group_p: list, shared_p: dict,
                        x: torch.Tensor, x_embed: torch.Tensor,
                        cfg: ModelConfig, *, states: list,
@@ -138,15 +216,7 @@ def hybrid_group_paged(ctx: QuantContext, group_p: list, shared_p: dict,
                                init_state=st_l, valid=valid)
         x = x + h
         new_states.append(st)
-    # shared attention block on concat(h, embedding) (zamba2 dataflow)
-    z = linear(ctx, "shared/in_proj", torch.cat([x, x_embed], dim=-1),
-               shared_p["in_proj"])
-    h, _ = att.gqa_attention(
-        ctx, shared_p["attn"], rmsnorm(z, shared_p["ln1"], cfg.norm_eps),
-        cfg, rope=rope, cache=cache, cache_pos=positions,
-        block_tables=block_tables, paged_work=paged_work, name="shared/attn")
-    z = z + h
-    z = z + mlp_lib.mlp(ctx, shared_p["mlp"],
-                        rmsnorm(z, shared_p["ln2"], cfg.norm_eps), cfg.act,
-                        name="shared/mlp")
-    return x + z, new_states
+    return _shared_block(ctx, shared_p, x, x_embed, cfg, rope=rope,
+                         cache=cache, cache_pos=positions,
+                         block_tables=block_tables,
+                         paged_work=paged_work), new_states

@@ -25,7 +25,7 @@ the JAX package's, on the JAX package's own smoke weights carried over by
 * a mid-decode preemption on RWKV6 snapshots the slab to the host and the
   resumed request finishes on the JAX engine's tokens, fp32 and int8;
 * ``spec_k`` and ``prefix_cache=True`` refused at construction with the
-  reference's messages;
+  reference's messages, and the calibrated INT engine served;
 * a zamba2 record replayed across the packages with an empty decision
   diff;
 * the recurrent step key through ``StepGraphs`` with the stand-in graph:
@@ -386,9 +386,11 @@ def test_spec_and_prefix_cache_rejected_at_construction(arch):
     with pytest.raises(ValueError, match="not an addressable token"):
         tengine.ServingEngine(tcfg, tp, TCtx(), device="cpu",
                               prefix_cache=True, **ENGINE)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.serve_engine(arch, mode="int", calibrate=True, device="cpu",
-                            n_requests=1)
+    # calibration is no longer refused: the calibrated INT engine serves
+    out = tserve.serve_engine(arch, mode="int", calibrate=True,
+                              device="cpu", n_requests=1)
+    assert out["report"]["completed"] == 1
+    assert out["ctx"].mode is TMode.INT and "lm_head" in out["ctx"].table
 
 
 def _round_trip(rec_mod, rec):
