@@ -223,6 +223,29 @@ the CUDA toolkit.  Phases, one line each (or a few):
     48, pos 32767 of 32768) at zamba2's shared block (32 heads over 32 KV
     heads of 80, bf16 q, int8 cache) against their plain versions, timed
     beside the bound and SDPA on the dequantized K/V.
+24. the MoE family with MLA: (a) K2's grouped form (the experts' (E, C,
+    K) x (E, K, N) products in one launch, each expert's row count read
+    on the card) bit-exact against its plain version at granite-moe-3b's
+    and deepseek-v3's expert shapes (C 128) and four odd shapes, with
+    every count 0, 1, C, random and (granite) the padding experts empty,
+    rows_cap C and 4, through the code, bf16 and fp32 (negative shift)
+    epilogues; then timed at a decode step's routing (4 tokens) and the
+    prefill's (128 tokens) beside the plain version, ``torch._int_mm``
+    looped over the active experts and the bound (the active experts'
+    int8 weight bytes); (b) K5 at MLA's expanded shape (H = KVH 128, Dk
+    192, Dv 128, bf16 K/V) and at granite's prefill (24 heads over 8 KV
+    heads of 64, int8 cache), K6 at granite's decode, against their plain
+    versions beside SDPA; (c) granite-moe-3b at full width on 2 layers in
+    fp32, prefill of the (4, 32) prompt and 3 decode steps card against
+    CPU under phase 23a's rules (FP logits within 2e-4, INT every qlinear
+    and MoE layer identical on the card's input), and deepseek-v3's MLA
+    attention alone at full width, expanded (K5) and absorbed (prefill
+    and 3 decode steps), FP within 1e-4, INT module by module identical;
+    (d) classic ``serve`` of granite-moe-3b at full depth (int8 cache)
+    and deepseek-v3 at full width on 4 layers (its 3 dense layers and 1
+    MoE layer), bf16, flash attention, calibrated INT and FP, graphs and
+    eager in turns: tokens identical, launches by ``_moe_serve_want``,
+    calibration and prefill seconds, decode ms/token, peak memory.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -241,7 +264,9 @@ and K2's times are one engine step's launches, K3's ResNet launches
 beside them; K7's its standalone launches at the ResNet's adds, which
 the forward no longer makes, and the convolution kernel's one forward's,
 its old chain beside; K5's and K6's also at zamba2's head dim 80,
-from phase 23), and
+from phase 23, and at the MoE family's shapes, from phase 24; K2's
+grouped form one granite-moe-3b decode step's 96 launches, from phase
+24), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -252,6 +277,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -1670,7 +1696,7 @@ def _serve_want(cfg, mode, kv_int8, gen=SERVE_GEN):
             "flash_decode": L * (gen - 1),
             "int8_matmul": (7 * L + 1) * forwards if mode == "int" else 0,
             "ragged_attention": 0, "paged_attention": 0, "quantize": k3,
-            "residual_requant": 0, "int_conv": 0}
+            "residual_requant": 0, "int_conv": 0, "int8_matmul_grouped": 0}
 
 
 def phase_serve(torch, out):
@@ -2211,7 +2237,7 @@ def phase_resnet_forward(torch, out, q_gpu):
     want_launches = {"int_conv": 15, "int8_matmul": 1, "residual_requant": 0,
                      "quantize": 2, "ragged_attention": 0,
                      "paged_attention": 0, "flash_prefill": 0,
-                     "flash_decode": 0}
+                     "flash_decode": 0, "int8_matmul_grouped": 0}
     runs = []
     for rep in range(2):
         torch.cuda.synchronize()
@@ -4097,7 +4123,7 @@ def _rec_serve_want(cfg, mode, kv_int8, gen=SERVE_GEN, calibrated=True):
             "int8_matmul": k2 * gen,
             "ragged_attention": 0, "paged_attention": 0,
             "quantize": k3 * gen + cal * (groups if kv_int8 else 0),
-            "residual_requant": 0, "int_conv": 0}
+            "residual_requant": 0, "int_conv": 0, "int8_matmul_grouped": 0}
 
 
 def _state_diff(torch, cpu, gpu, acc):
@@ -5239,6 +5265,648 @@ def phase_configs(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the MoE family with MLA, and K2's grouped form
+# ---------------------------------------------------------------------------
+
+# the grouped K2's path shapes: (label, E, K, N) at C = 128 (the experts'
+# capacity at the serve prompt and at a decode step)
+GK2_SHAPES = (("granite w1/w3", 48, 1536, 512), ("granite w2", 48, 512, 1536),
+              ("deepseek w1/w3", 256, 7168, 2048),
+              ("deepseek w2", 256, 2048, 7168))
+GK2_CAP = 128
+# small odd shapes (E, C, K, N): C off the 16-row tiles, one expert, one
+# row, the narrowest K and N the tensor-core tile takes
+GK2_ODD = ((3, 40, 48, 24), (5, 17, 16, 8), (1, 1, 32, 16), (7, 130, 64, 40))
+# the epilogues held: (name, spec, output)
+GK2_SPECS = (("codes", dict(n_x=4, n_w=8, n_b=8, n_o=4), None),
+             ("bf16", dict(n_x=4, n_w=8, n_b=8, n_o=4), "bfloat16"),
+             ("fp32 shift<0", dict(n_x=0, n_w=1, n_b=1, n_o=6), "float32"))
+# the MLA attention's K5 shape at deepseek-v3's width (the expanded
+# forward of the serve prompt): H = KVH 128, Dk 192, Dv 128, bf16 K/V
+MLA_HEADS, MLA_DK, MLA_DV = 128, 192, 128
+# granite's attention: 24 heads over 8 KV heads of 64
+GRANITE_HEADS, GRANITE_KV_HEADS, GRANITE_HEAD_DIM = 24, 8, 64
+MOE_CLASSIC_DECODES = 3
+
+
+def _gk2_counts(torch, gen, e, cap, kind, real=None):
+    """Row counts (E,) int32 on the card: every expert 0, 1, C, random in
+    [0, C], or the granite pattern (random on the first ``real`` experts,
+    the padding experts empty)."""
+    if kind == "zero":
+        c = torch.zeros(e, dtype=torch.int32)
+    elif kind == "one":
+        c = torch.ones(e, dtype=torch.int32)
+    elif kind == "full":
+        c = torch.full((e,), cap, dtype=torch.int32)
+    else:
+        c = torch.randint(0, cap + 1, (e,), generator=gen).to(torch.int32)
+        if kind == "padding":
+            c[real:] = 0
+    return c.cuda()
+
+
+def _gk2_plain(torch, x, w, counts, rows_cap, spec, out_dtype, n_o,
+               group=8):
+    """The plain version on the card over the experts with live rows, a
+    few at a time (its float64 product of a whole deepseek stack would
+    take 30 GB); returns {expert: (rows, output rows)}."""
+    from repro_torch.core.qscheme import int_bounds
+    from repro_torch.kernels import ref
+    lo, hi = int_bounds(spec.bits)
+    live = [int(i) for i in torch.nonzero(torch.clamp(
+        counts, max=rows_cap) > 0).flatten().tolist()]
+    got = {}
+    for i in range(0, len(live), group):
+        sel = torch.tensor(live[i:i + group], device="cuda")
+        o = ref.int8_matmul_grouped_ref(
+            x.index_select(0, sel), w.index_select(0, sel),
+            counts.index_select(0, sel), rows_cap=rows_cap,
+            shift=spec.requant_shift, lo=lo, hi=hi, out_dtype=out_dtype,
+            n_o=n_o)
+        for j, e_ in enumerate(live[i:i + group]):
+            r = min(int(counts[e_]), rows_cap)
+            got[e_] = (r, o[j, :r])
+    return got
+
+
+def _gk2_held(torch, x, w, counts, rows_cap, spec_kw, out_name, what):
+    """The kernel against its plain version on every live row, bit for
+    bit; returns the largest difference (0)."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops
+    spec = LinearQuantSpec(**spec_kw)
+    out_float = getattr(torch, out_name) if out_name else None
+    got = ops.int8_matmul_grouped(x, w, counts, spec, rows_cap=rows_cap,
+                                  out_float=out_float)
+    want = _gk2_plain(torch, x, w, counts, rows_cap, spec,
+                      out_float or torch.int8,
+                      spec.n_o if out_float else None)
+    check(got.shape == (x.shape[0], x.shape[1], w.shape[2])
+          and got.dtype == (out_float or torch.int8),
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    diff = 0.0
+    for e_, (r, o) in want.items():
+        d = float((got[e_, :r].double() - o.double()).abs().max()) \
+            if r else 0.0
+        diff = max(diff, d)
+    check(diff == 0, f"{what}: kernel != plain by {diff}")
+    return diff
+
+
+def _decode_counts(torch, gen, e_real, e_pad, tokens, top_k):
+    """The counts a routed step gives: each of ``tokens`` tokens picks
+    ``top_k`` distinct experts of ``e_real`` (random), the padding
+    experts none."""
+    pick = torch.rand((tokens, e_real), generator=gen).argsort(dim=1)
+    c = torch.zeros(e_pad, dtype=torch.int64)
+    c.index_add_(0, pick[:, :top_k].flatten(),
+                 torch.ones(tokens * top_k, dtype=torch.int64))
+    return c.to(torch.int32).cuda()
+
+
+def _gk2_timed(torch, gen, label, e, k, n, e_real, tokens, top_k):
+    """One path launch timed: the kernel (rows_cap = min(C, tokens)), the
+    plain version over the live experts, ``torch._int_mm`` looped over
+    the active experts (their C rows each; int32 result only), the bound
+    (the active experts' int8 weight bytes, the live rows in and the bf16
+    rows out)."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops
+    cap = GK2_CAP
+    rows_cap = min(cap, tokens)
+    counts = _decode_counts(torch, gen, e_real, e, tokens, top_k)
+    counts = torch.clamp(counts, max=rows_cap)
+    copies = max(1, math.ceil(128e6 / (e * k * n)))       # beat the L2
+    x = torch.randint(-128, 128, (e, cap, k), generator=None,
+                      device="cuda", dtype=torch.int8)
+    ws = [torch.randint(-128, 128, (e, k, n), device="cuda",
+                        dtype=torch.int8) for _ in range(copies)]
+    spec = LinearQuantSpec(n_x=4, n_w=8, n_b=8, n_o=4)
+    err = _gk2_held(torch, x, ws[0], counts, rows_cap,
+                    dict(n_x=4, n_w=8, n_b=8, n_o=4), "bfloat16",
+                    f"grouped K2 {label} at {tokens} tokens")
+    it = [0]
+
+    def kernel():
+        it[0] += 1
+        ops.int8_matmul_grouped(x, ws[it[0] % copies], counts, spec,
+                                rows_cap=rows_cap, out_float=torch.bfloat16)
+
+    active = [int(i) for i in torch.nonzero(counts).flatten().tolist()]
+
+    def library():
+        it[0] += 1
+        w = ws[it[0] % copies]
+        for i in active:
+            torch._int_mm(x[i], w[i])
+
+    def plain():
+        _gk2_plain(torch, x, ws[0], counts, rows_cap, spec, torch.bfloat16,
+                   spec.n_o)
+
+    ms = time_ms(torch, kernel, 20)
+    lib_ms = time_ms(torch, library, 10)
+    plain_ms = time_ms(torch, plain, 2, warmup=1)
+    rows = int(counts.sum())
+    n_bytes = len(active) * k * n + rows * k + 2 * rows * n
+    b_ms, b_by = bound_ms(n_bytes, 2 * rows * k * n, "int8")
+    rec = dict(shape=label, e=e, c=cap, k=k, n=n, tokens=tokens,
+               rows_cap=rows_cap, active=len(active), rows=rows, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, max_abs_err=err)
+    log(f"    grouped K2 {label} (E {e}, C {cap}, K {k}, N {n}), {tokens} "
+        f"tokens top-{top_k}: {len(active)} active experts, {rows} rows, "
+        f"rows_cap {rows_cap}, exact | kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, _int_mm x {len(active)} {lib_ms:.4f} ms, "
+        f"bound {b_ms:.5f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+    del x, ws
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _gk2_phase(torch, res):
+    """(a) K2's grouped form against its plain version on the card, bit
+    for bit: the path's (E, K, N) at C = 128 and four odd shapes, with
+    every expert's count 0, 1, C, random, and (granite) random with the
+    padding experts empty, through three epilogues, rows_cap C and 4;
+    then timed at a decode step's counts (4 tokens) and the prefill's
+    (128 tokens)."""
+    gen = torch.Generator()
+    gen.manual_seed(24)
+    n_checks, err = 0, 0.0
+    shapes = [(f"{lab}", e, GK2_CAP, k, n) for lab, e, k, n in GK2_SHAPES] \
+        + [(f"odd {s}", *s) for s in GK2_ODD]
+    for label, e, cap, k, n in shapes:
+        x = torch.randint(-128, 128, (e, cap, k), device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (e, k, n), device="cuda",
+                          dtype=torch.int8)
+        kinds = ["zero", "one", "full", "random"] + \
+            (["padding"] if e == 48 else [])
+        for kind in kinds:
+            counts = _gk2_counts(torch, gen, e, cap, kind, real=40)
+            for rows_cap in sorted({cap, min(cap, 4)}):
+                for name, spec_kw, out_name in GK2_SPECS:
+                    if e == 256 and name != "bf16" and kind != "random":
+                        continue        # the deepseek stack: fewer cases
+                    err = max(err, _gk2_held(
+                        torch, x, w, counts, rows_cap, spec_kw, out_name,
+                        f"grouped K2 {label} counts {kind} rows_cap "
+                        f"{rows_cap} {name}"))
+                    n_checks += 1
+        del x, w
+        torch.cuda.empty_cache()
+    log(f"[24a] grouped K2 bit-exact against its plain version in "
+        f"{n_checks} cases (the path's shapes at C {GK2_CAP} and "
+        f"{len(GK2_ODD)} odd shapes x counts 0 / 1 / C / random / padding "
+        f"experts empty x rows_cap C and 4 x codes, bf16, fp32 with a "
+        f"negative shift)")
+    timed = []
+    for tokens in (SERVE_BATCH, SERVE_BATCH * SERVE_PROMPT):
+        for label, e, k, n in GK2_SHAPES:
+            e_real = 40 if e == 48 else e
+            timed.append(_gk2_timed(torch, gen, label, e, k, n, e_real,
+                                    tokens, 8))
+    res["k2_grouped"] = dict(checks=n_checks, max_abs_err=err, timed=timed)
+
+
+def _attn_held(torch, tag, q, k, v, nkv, causal_prefill, pos=None):
+    """One K5 (``pos`` None) or K6 launch against its plain version
+    (atol = rtol = 2e-2), timed beside the plain version, SDPA on the
+    (dequantized) K/V and the bound."""
+    from repro_torch.kernels import ops, ref
+    sdpa, sdpa_how = _sdpa(torch)
+    b, sq, h, dk = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    if pos is None:
+        launch = lambda: ops.flash_attention(q, k, v, kv_frac_bits=nkv)
+        want = ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv)
+        plain = lambda: ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv)
+        rows = sq
+        kf = _deq(torch, k[:, :sq], nkv, q.dtype).contiguous()
+        vf = _deq(torch, v[:, :sq], nkv, q.dtype).contiguous()
+        lib = lambda: sdpa(q, kf, vf, True)
+        n_ops = b * h * 2 * (dk + dv) * sum(i + 1 for i in range(sq))
+    else:
+        pos_t = _pos(torch, pos)
+        launch = lambda: ops.flash_decode(q, k, v, pos=pos_t,
+                                          kv_frac_bits=nkv)
+        want = ref.flash_decode_ref(q, k, v, pos=pos, kv_frac_bits=nkv)
+        plain = lambda: ref.flash_decode_ref(q, k, v, pos=pos_t,
+                                             kv_frac_bits=nkv)
+        rows = pos + 1
+        kf = _deq(torch, k[:, :rows], nkv, q.dtype).contiguous()
+        vf = _deq(torch, v[:, :rows], nkv, q.dtype).contiguous()
+        lib = lambda: sdpa(q, kf, vf, False)
+        n_ops = b * h * 2 * (dk + dv) * rows
+    got = launch()
+    torch.cuda.synchronize()
+    err = _close(torch, got, want, 2e-2, tag)
+    ms = time_ms(torch, launch, 50)
+    plain_ms = time_ms(torch, plain, 3, warmup=1)
+    try:
+        lib_ms = time_ms(torch, lib, 50)
+    except RuntimeError as e:        # no SDPA backend takes the shape
+        log(f"    SDPA at {tag}: {e}")
+        lib_ms = None
+    n_bytes = (q.numel() + b * sq * h * dv) * q.element_size() \
+        + b * rows * kvh * (dk + dv) * k.element_size()
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    log(f"[24b] {tag} (B {b}, Sq {sq}, H {h}, KVH {kvh}, Dk {dk}, Dv {dv}, "
+        f"{k.dtype} K/V): within atol=rtol=2e-2 (max |diff| {err:.2e}) | "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({sdpa_how}) "
+        + (f"{lib_ms:.4f} ms" if lib_ms is not None else "n/a")
+        + f", bound {b_ms:.5f} ms ({b_by})")
+    return dict(name=tag, b=b, sq=sq, h=h, kvh=kvh, dk=dk, dv=dv, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, max_abs_err=err)
+
+
+def _moe_attention_kernels(torch, res):
+    """(b) K5 at MLA's expanded shape (the serve prompt at deepseek-v3's
+    width: H = KVH 128, Dk 192, Dv 128, bf16 q and K/V, 32 rows) and at
+    granite's (24 heads over 8 KV heads of 64, the prompt over the 48-row
+    int8 cache), K6 at granite's decode (pos 47 of 48), each against its
+    plain version."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(25)
+    b, sq, skv = SERVE_BATCH, SERVE_PROMPT, SERVE_PROMPT + SERVE_GEN
+    q = torch.randn((b, sq, MLA_HEADS, MLA_DK), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    k = torch.randn((b, sq, MLA_HEADS, MLA_DK), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    v = torch.randn((b, sq, MLA_HEADS, MLA_DV), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    res["k5_mla"] = _attn_held(torch, "K5 at MLA's expanded shape", q, k, v,
+                               None, True)
+    q, k, v, nkv = _dense_qkv(torch, gen, b, sq, skv, GRANITE_HEADS,
+                              GRANITE_KV_HEADS, GRANITE_HEAD_DIM,
+                              torch.bfloat16, torch.int8)
+    res["k5_granite"] = _attn_held(torch, "K5 at granite's prefill", q, k,
+                                   v, nkv, True)
+    q, k, v, nkv = _dense_qkv(torch, gen, b, 1, skv, GRANITE_HEADS,
+                              GRANITE_KV_HEADS, GRANITE_HEAD_DIM,
+                              torch.bfloat16, torch.int8)
+    res["k6_granite"] = _attn_held(torch, "K6 at granite's decode", q, k,
+                                   v, nkv, False, pos=skv - 1)
+
+
+class _MoESync(_ModuleSync):
+    """``_ModuleSync`` that also holds each MoE layer (``mlp.moe``) on the
+    card's input: the routing, the grouped expert products and the
+    combine, compared with the card's output."""
+
+    def on(self, device):
+        inner = super().on(device)
+        if not self.enabled:
+            return inner
+        from repro_torch.models import mlp as mlp_lib
+        real = mlp_lib.moe
+
+        def card(ctx, p, x, cfg, name="moe"):
+            slot = [x.cpu(), None]
+            self.card.append((slot[0], slot))
+            y = real(ctx, p, x, cfg, name=name)
+            slot[1] = [y.cpu()]
+            return y
+
+        def cpu(ctx, p, x, cfg, name="moe"):
+            xc, slot = self.card.pop(0)
+            check(isinstance(slot, list) and xc.shape == x.shape,
+                  "moe: the CPU's call order differs from the card's")
+            self.x_diff = max(self.x_diff, float((xc - x).abs().max()))
+            y = real(ctx, p, xc, cfg, name=name)
+            self.y_diff += self._n_diff(y, slot[1][0])
+            self.moe_calls += 1
+            return y
+
+        @contextlib.contextmanager
+        def patched():
+            mlp_lib.moe = card if device == "cuda" else cpu
+            try:
+                with inner:
+                    yield
+            finally:
+                mlp_lib.moe = real
+        return patched()
+
+    moe_calls = 0
+
+
+def _moe_model(torch, res):
+    """(c) granite-moe-3b at full width on 2 layers, fp32, ``prefill`` of
+    the (4, 32) serve prompt and MOE_CLASSIC_DECODES ``decode_step``
+    calls, kernels on the card against the plain path on the CPU (phase
+    23a's loop): FP logits within atol = rtol = 2e-4 and greedy tokens
+    identical; INT module by module (every qlinear and MoE layer on the
+    card's input) identical; then deepseek-v3's MLA attention alone at
+    full width (one layer, fp32), its expanded forward (K5) and its
+    absorbed prefill and decode steps, FP within 1e-4 and INT module by
+    module identical."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as att
+    from repro_torch.models import model as M
+    from repro_torch.models.common import Initializer, rope_tables
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
+                              n_layers=2, dtype="float32",
+                              kv_cache_bits=8, attn_kernel="flash")
+    p_gpu = M.init_params(cfg, 0, device="cuda")
+    p_cpu = _tree_to(p_gpu, "cpu")
+    tok0 = torch.from_numpy(_serve_tokens(cfg.vocab_size))
+    name_fn = functools.partial(M.qlinear_weight, cfg=cfg)
+    for mode in ("fp", "int"):
+        ctx = QuantContext(mode=QuantMode(mode))
+        pc, pg = p_cpu, p_gpu
+        if ctx.mode is QuantMode.INT:
+            pc = quantize_weight_tree(p_cpu, ctx, name_fn=name_fn)
+            pg = quantize_weight_tree(p_gpu, ctx, name_fn=name_fn)
+        sync = _MoESync(ctx.mode is QuantMode.INT)
+        ops.reset_launch_counts()
+        worst, same, caches = 0.0, True, {}
+        tok = {"cuda": tok0.cuda(), "cpu": tok0}
+        codes = [0, 0]
+        for step in range(1 + MOE_CLASSIC_DECODES):
+            logits = {}
+            for dv, params in (("cuda", pg), ("cpu", pc)):
+                with torch.no_grad(), sync.on(dv):
+                    if step == 0:
+                        lg, caches[dv] = M.prefill(
+                            params, {"tokens": tok[dv]}, cfg, ctx,
+                            max_seq=SERVE_PROMPT + SERVE_GEN)
+                    else:
+                        pos = SERVE_PROMPT + step - 1
+                        lg, caches[dv] = M.decode_step(
+                            params, tok[dv], caches[dv],
+                            _pos(torch, pos) if dv == "cuda" else pos,
+                            cfg, ctx)
+                logits[dv] = lg.float().cpu()
+            a, b = logits["cuda"], logits["cpu"]
+            check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+                  f"moe model {mode}: non-finite or misshapen logits")
+            same &= torch.equal(a.argmax(-1), b.argmax(-1))
+            worst = max(worst, float(((a - b).abs() / (1 + b.abs())).max()))
+            for c_, g_ in zip(_tree_leaves(caches["cpu"]),
+                              _tree_leaves(caches["cuda"])):
+                d = (g_.cpu().int() - c_.int()).abs()
+                codes[0] += int((d > 0).sum())
+                codes[1] = max(codes[1], int(d.max()))
+                c_.copy_(g_.cpu())
+            nxt = a.argmax(-1).to(torch.int32)[:, None]
+            tok = {"cuda": nxt.cuda(), "cpu": nxt}
+        launches = dict(ops.LAUNCHES)
+        want = _moe_serve_want(cfg, mode, True, gen=1 + MOE_CLASSIC_DECODES,
+                               calibrated=False)
+        tag = f"granite ({cfg.n_layers} layers) {mode}"
+        log(f"[24c] {tag}, full width, fp32, int8 cache, prefill (4, "
+            f"{SERVE_PROMPT}) + {MOE_CLASSIC_DECODES} decode steps, each "
+            f"from the card's cache: greedy tokens "
+            f"{'identical' if same else 'DIFFER'}; logits max |diff| / (1 "
+            f"+ |logit|) {worst:.3e}; K/V codes differing {codes[0]} (max "
+            f"step {codes[1]}); launches {launches}"
+            + (f"; module by module ({sync.calls} qlinear, {sync.moe_calls} "
+               f"MoE calls): largest input |diff| {sync.x_diff:.3e}, "
+               f"outputs differing {sync.y_diff}" if sync.enabled else ""))
+        check(same, f"moe model {tag}: greedy tokens differ")
+        check(launches == want, f"moe model {tag}: launches {launches}, "
+              f"want {want}")
+        n_codes = sum(t.numel() for t in _tree_leaves(caches["cpu"]))
+        check(codes[0] <= 1e-3 * n_codes and codes[1] <= 1,
+              f"moe model {tag}: K/V codes differ in {codes[0]}")
+        if mode == "int":
+            check(sync.y_diff == 0 and worst == 0 and sync.moe_calls
+                  == cfg.n_layers * (1 + MOE_CLASSIC_DECODES),
+                  f"moe model {tag}: {sync.y_diff} module outputs and "
+                  f"logits by up to {worst} differ on the same inputs")
+        else:
+            check(worst <= 2e-4, f"moe model {tag}: logits differ by "
+                  f"{worst:.3e} (atol = rtol = 2e-4)")
+        res["model"][tag] = dict(logits_max_rel=worst, launches=launches,
+                                 kv_codes_differing=codes[0],
+                                 module_input_diff=sync.x_diff)
+        del caches, pc, pg
+    del p_cpu, p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # deepseek-v3's MLA attention alone, full width, fp32
+    mcfg = dataclasses.replace(get_config("deepseek_v3_671b"),
+                               dtype="float32", attn_kernel="flash")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    pg = att.init_mla(Initializer(gen, torch.float32, torch.device("cuda")),
+                      mcfg)
+    pc = _tree_to(pg, "cpu")
+    xg = torch.randn((SERVE_BATCH, SERVE_PROMPT, mcfg.d_model),
+                     generator=gen, device="cuda")
+    m = mcfg.mla
+    s_max = SERVE_PROMPT + SERVE_GEN
+    for mode in ("fp", "int"):
+        ctx = QuantContext(mode=QuantMode(mode))
+        sync = _ModuleSync(mode == "int")
+        ops.reset_launch_counts()
+        outs, worst = {}, 0.0
+        cache = {}
+        for step in range(2 + MOE_CLASSIC_DECODES):
+            for dv, p in (("cuda", pg), ("cpu", pc)):
+                x = xg.to(dv)
+                if step >= 2:
+                    x = x[:, step - 2:step - 1] * 0.5
+                s = x.shape[1]
+                pos = 0 if step < 2 else SERVE_PROMPT + step - 2
+                positions = torch.arange(s, device=dv)[None] + pos
+                rope = rope_tables(positions, m.qk_rope_head_dim,
+                                   mcfg.rope_theta, torch.float32)
+                if step == 1:
+                    cache[dv] = att.MLACache(
+                        torch.zeros((SERVE_BATCH, s_max, m.kv_lora_rank),
+                                    device=dv),
+                        torch.zeros((SERVE_BATCH, s_max, m.qk_rope_head_dim),
+                                    device=dv))
+                with torch.no_grad(), sync.on(dv):
+                    y, _ = att.mla_attention(
+                        ctx, p, x, mcfg, rope=rope,
+                        cache=None if step == 0 else cache[dv],
+                        cache_pos=(_pos(torch, pos) if dv == "cuda"
+                                   else pos) if step else 0)
+                outs[dv] = y.float().cpu()
+            a, b = outs["cuda"], outs["cpu"]
+            check(bool(torch.isfinite(a).all()), f"MLA {mode}: non-finite")
+            worst = max(worst, float(((a - b).abs() / (1 + b.abs())).max()))
+        launches = dict(ops.LAUNCHES)
+        log(f"[24c] deepseek-v3 MLA alone, full width, fp32, {mode}: the "
+            f"expanded forward of ({SERVE_BATCH}, {SERVE_PROMPT}) (K5 "
+            f"{launches['flash_prefill']}), the absorbed prefill and "
+            f"{MOE_CLASSIC_DECODES} decode steps: max |diff| / (1 + |y|) "
+            f"{worst:.3e}"
+            + (f"; module by module ({sync.calls} calls): largest input "
+               f"|diff| {sync.x_diff:.3e}, outputs differing {sync.y_diff}"
+               if sync.enabled else ""))
+        check(launches["flash_prefill"] == 1, f"MLA {mode}: K5 launched "
+              f"{launches['flash_prefill']} times, want 1")
+        if mode == "int":
+            check(sync.y_diff == 0, f"MLA int: {sync.y_diff} module outputs "
+                  f"differ on the same inputs")
+        else:
+            check(worst <= 1e-4, f"MLA fp: outputs differ by {worst:.3e}")
+        res["model"][f"deepseek MLA {mode}"] = dict(max_rel=worst,
+                                                    launches=launches)
+    del pg, pc, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _moe_forward_launches(cfg, mode, kv_int8):
+    """(K2, K3, grouped K2) launches of one classic forward (a prefill or a
+    decode step) of a MoE model.  INT: K3 once a module input -- GQA's q /
+    k / v together and o, MLA's wq_a, wq_b, wkv_a and wo (the absorbed path
+    has no wkv_b call), a dense MLP's w1 / w3 together and w2, the experts'
+    token rows (w1 / w3) and their hidden buffer (w2), a shared expert's
+    two, the head's input and a tied head's weight -- and once a GQA layer
+    for its int8 K/V write (in FP too); K2 once a projection; the grouped
+    K2 three times a MoE layer."""
+    nd = cfg.moe.n_dense_layers
+    nm = cfg.n_layers - nd
+    mla = cfg.mla is not None
+    kv = 0 if mla or not kv_int8 else cfg.n_layers
+    if mode != "int":
+        return 0, kv, 0
+    shared_k3, shared_k2 = (2, 3) if cfg.moe.n_shared else (0, 0)
+    k3 = (cfg.n_layers * (4 if mla else 2) + 2 * nd + nm * (2 + shared_k3)
+          + 1 + int(cfg.tie_embeddings) + kv)
+    k2 = 4 * cfg.n_layers + 3 * nd + nm * shared_k2 + 1
+    return k2, k3, 3 * nm
+
+
+def _moe_serve_want(cfg, mode, kv_int8, gen=SERVE_GEN, calibrated=True):
+    """Launches of one classic ``serve`` call of a MoE model: ``gen``
+    forwards at ``_moe_forward_launches``; K5 once a GQA layer in the
+    prefill and K6 once a GQA layer a decode step (MLA's prefill and
+    decode are absorbed: no K5, no K6); INT's calibration forward (FP mode,
+    no cache) adds K5 once a layer, GQA or MLA's expanded form."""
+    k2, k3, grouped = _moe_forward_launches(cfg, mode, kv_int8)
+    gqa = 0 if cfg.mla is not None else cfg.n_layers
+    cal = int(mode == "int" and calibrated)
+    return {"int8_matmul": k2 * gen, "int8_matmul_grouped": grouped * gen,
+            "ragged_attention": 0, "paged_attention": 0,
+            "flash_prefill": gqa + cal * cfg.n_layers,
+            "flash_decode": gqa * (gen - 1), "quantize": k3 * gen,
+            "residual_requant": 0, "int_conv": 0}
+
+
+def _moe_serve(torch, res, arch, cfg_overrides):
+    """(d) classic ``serve`` at full width, bf16, flash attention: INT
+    (calibrated) and FP, graphs and eager in turns (graphs, eager, graphs,
+    eager): tokens identical, launches by ``_moe_serve_want``, the step
+    graphs' counts; calibration, prefill, decode ms/token and peak memory
+    of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch), **cfg_overrides)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    log(f"[24d] {arch} ({cfg.n_layers} layers): {n_params / 1e9:.3f} B "
+        f"parameters, bf16, made in {time.perf_counter() - t0:.1f} s")
+    kv_int8 = cfg.kv_cache_bits == 8
+    for mode in ("int", "fp"):
+        want = _moe_serve_want(cfg, mode, kv_int8)
+        runs = []
+        for rep, graphs in enumerate((True, False, True, False)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            o = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen=SERVE_GEN, mode=mode, calibrate=True, smoke=False,
+                      params=params, attn_kernel="flash",
+                      cfg_overrides=cfg_overrides, graphs=graphs,
+                      device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            toks, g = o["tokens"], o["graphs"]
+            tag = "graphs" if graphs else "eager"
+            log(f"[24d] serve {arch} {mode} run {rep} ({tag}): calibration "
+                f"{o['calibrate_s']:.3f} s, prefill {o['prefill_s']:.4f} s, "
+                f"decode {1e3 * o['decode_s_per_tok']:.3f} ms/token ("
+                + ("replays; first call + capture "
+                   if graphs else "every step eager; first step ")
+                + f"{1e3 * o['compile_decode_s']:.2f} ms), first calls "
+                f"{g['first_calls']} captures {g['captures']} replays "
+                f"{g['replays']}, launches K2 {launches['int8_matmul']} "
+                f"grouped K2 {launches['int8_matmul_grouped']} K3 "
+                f"{launches['quantize']} K5 {launches['flash_prefill']} K6 "
+                f"{launches['flash_decode']}, peak {peak:.2f} GiB, "
+                f"{wall:.1f} s")
+            # the head covers the padded vocabulary (its padding ids are
+            # dead classes of random weight, as in the reference)
+            check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_padded,
+                  f"serve {arch} {mode}: tokens {toks}")
+            check(launches == want, f"serve {arch} {mode} {tag}: launches "
+                  f"{launches}, want {want}")
+            check(g == dict(enabled=graphs, first_calls=int(graphs),
+                            captures=int(graphs),
+                            replays=SERVE_GEN - 2 if graphs else 0),
+                  f"serve {arch} {mode} {tag}: step graphs {g}")
+            runs.append(dict(graphs=graphs, tokens=toks, launches=launches,
+                             calibrate_s=o["calibrate_s"],
+                             prefill_s=o["prefill_s"],
+                             decode_s_per_tok=o["decode_s_per_tok"],
+                             first_decode_s=o["compile_decode_s"],
+                             peak_gib=peak, wall_s=wall))
+            del o
+        check(all((r["tokens"] == runs[0]["tokens"]).all() for r in runs),
+              f"serve {arch} {mode}: graphs and eager runs, or repeats, "
+              f"gave other tokens")
+        log(f"[24d] serve {arch} {mode}: graphs and eager runs "
+            f"token-identical, decode "
+            f"{[round(1e3 * r['decode_s_per_tok'], 3) for r in runs]} "
+            f"ms/token (graphs, eager, graphs, eager)")
+        res["serve"][f"{arch} {mode}"] = [
+            {k: v for k, v in r.items() if k != "tokens"} for r in runs]
+        res["serve"][f"{arch} {mode}"][0]["n_params"] = n_params
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_moe(torch, out):
+    """Phase 24: the MoE family with MLA -- (a) K2's grouped form, (b) K5
+    and K6 at the family's shapes, (c) the 2-layer granite model and
+    deepseek-v3's MLA card against CPU, (d) classic ``serve`` of
+    granite-moe-3b at full depth and deepseek-v3 on 4 layers."""
+    t0 = time.perf_counter()
+    res = {"model": {}, "serve": {}, "part_s": {}}
+    for part, run in (
+            ("a", lambda: _gk2_phase(torch, res)),
+            ("b", lambda: _moe_attention_kernels(torch, res)),
+            ("c", lambda: _moe_model(torch, res)),
+            ("d granite", lambda: _moe_serve(
+                torch, res, "granite_moe_3b_a800m", {"kv_cache_bits": 8})),
+            ("d deepseek", lambda: _moe_serve(
+                torch, res, "deepseek_v3_671b", {"n_layers": 4}))):
+        t1 = time.perf_counter()
+        run()
+        res["part_s"][part] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[24] moe phase {res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["moe"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -5248,7 +5916,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23); "
+                         "20, 21, 22, 23, 24); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5275,7 +5943,8 @@ def main(argv=None) -> int:
                  15: phase_k4,
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
-                 22: phase_configs, 23: phase_recurrent_classic}
+                 22: phase_configs, 23: phase_recurrent_classic,
+                 24: phase_moe}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -5330,6 +5999,8 @@ def main(argv=None) -> int:
         phase_configs(torch, out)
         torch.cuda.empty_cache()
         rcl = phase_recurrent_classic(torch, out)
+        torch.cuda.empty_cache()
+        moe = phase_moe(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5495,6 +6166,52 @@ def main(argv=None) -> int:
         "library_note": "no single PyTorch call reads a block table; gather "
                         f"+ dequantize + SDPA (two calls) "
                         f"{k4['gather_sdpa_ms']:.4f} ms"})
+    # the MoE family (phase 24): K2's grouped form, one granite decode
+    # step's 96 launches (32 layers x w1, w3, w2 at 4 tokens, each shape
+    # timed alone); launches from granite's first INT serve run; the
+    # other shapes beside.  K2, K3, K5 and K6 at the family's shapes
+    gk = moe["k2_grouped"]
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0}
+    for r in gk["timed"]:
+        if r["tokens"] == SERVE_BATCH and r["shape"].startswith("granite"):
+            per = 32 * (2 if "w1" in r["shape"] else 1)
+            for key in ("ms", "plain_ms", "library_ms"):
+                step[key] += per * r[key]
+            step["bytes"] += per * r["bound_ms"] * PEAK["bytes"] / 1e3
+    g_int = moe["serve"]["granite_moe_3b_a800m int"][0]["launches"]
+    d_int = moe["serve"]["deepseek_v3_671b int"][0]["launches"]
+    kernels.append({
+        "name": "int8_matmul_grouped", "route": "cuda",
+        "source": "src/repro_torch/csrc/int8_matmul.cu",
+        "replaces": "src/repro/models/mlp.py:91 (the experts' int8 "
+                    "lax.dot_general, XLA: no Pallas kernel); K2's tile and "
+                    "epilogue (src/repro/kernels/int8_matmul.py:59)",
+        "launches": g_int["int8_matmul_grouped"],
+        "max_abs_err": gk["max_abs_err"], "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bytes"] / PEAK["bytes"] * 1e3,
+        "bound_by": "bytes", "library_ms": step["library_ms"],
+        "library_note": "torch._int_mm looped over the active experts "
+                        "(int32 result only; no batched int8 product on "
+                        "CUDA)",
+        "per": "granite-moe-3b decode step at batch 4: 96 launches (w1, "
+               "w3, w2 a layer), each shape timed alone",
+        "deepseek_launches": d_int["int8_matmul_grouped"],
+        "shapes": gk["timed"], "checks": gk["checks"]})
+    for k_name, key in (("int8_matmul_requant", "int8_matmul"),
+                        ("quantize", "quantize")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["moe_classic_launches"] = {
+            tag: runs[0]["launches"][key]
+            for tag, runs in moe["serve"].items() if tag.endswith("int")}
+    for k_name, keys in (("flash_prefill", ("k5_mla", "k5_granite")),
+                         ("flash_decode", ("k6_granite",))):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        for key in keys:
+            entry[key] = {k: v for k, v in moe[key].items() if k != "name"}
+        entry["moe_classic_launches"] = {
+            tag: runs[0]["launches"][k_name]
+            for tag, runs in moe["serve"].items()}
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

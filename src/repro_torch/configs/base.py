@@ -2,17 +2,50 @@
 
 A copy of the JAX package's ``ModelConfig`` for the families the PyTorch
 port serves, holding the fields the port reads: the dense pre-norm GQA
-transformers (families ``dense`` and ``vlm``), and the recurrent
-(``ssm``: RWKV6) and hybrid (Mamba2 groups plus one shared attention
-block) families with their ``SSMConfig`` / ``HybridConfig``.  The MoE / MLA / enc-dec sub-configs
-are not ported yet.  Configs are frozen, hashable dataclasses.
+transformers (families ``dense`` and ``vlm``), the recurrent (``ssm``:
+RWKV6) and hybrid (Mamba2 groups plus one shared attention block)
+families with their ``SSMConfig`` / ``HybridConfig``, and the routed
+mixture of experts (``moe``) with its ``MoEConfig`` and, for DeepSeek's
+latent attention, ``MLAConfig``.  The enc-dec sub-config is not ported
+yet.  Configs are frozen, hashable dataclasses.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["SSMConfig", "HybridConfig", "ModelConfig"]
+__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "HybridConfig",
+           "ModelConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                  # per-expert FFN hidden size
+    n_shared: int = 0              # always-on shared experts (DeepSeek-V3)
+    n_dense_layers: int = 0        # leading layers that stay dense
+    capacity_factor: float = 1.25
+    router_dtype: str = "float32"  # router math stays high precision
+    # the expert STACKS (not the router) padded to this many experts (the
+    # reference pads granite's 40 to 48 for its expert-parallel axis);
+    # the padding experts receive no tokens
+    n_experts_padded: Optional[int] = None
+
+    @property
+    def e_padded(self) -> int:
+        return self.n_experts_padded or self.n_experts
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek Multi-head Latent Attention dims (arXiv:2412.19437)."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +73,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | vlm | ssm | hybrid
+    family: str                    # dense | vlm | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -54,6 +87,8 @@ class ModelConfig:
     act: str = "silu"              # silu (SwiGLU) | relu_sq (rwkv)
     tie_embeddings: bool = False
     attn_bias: bool = False
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.core import integer_ops
 from repro_torch.core.baselines import scale_quant
-from repro_torch.core.qscheme import fake_quant, quant
+from repro_torch.core.qscheme import fake_quant, quant, storage_dtype
 
 __all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear", "qlinears",
            "capture_activations", "module_name_for_path",
@@ -226,7 +226,10 @@ def quantize_weight_tree(params: Any, ctx: QuantContext,
     ``name_fn(path, leaf)`` names the module whose ``qlinear`` call reads
     the leaf (``models.model.qlinear_weight``), whose grid it takes, or
     returns None to keep the leaf float.  Embeddings and norm gains stay
-    float.  Returns a new tree; the input is untouched.
+    float.  A stack of matrices (ndim >= 3: the MoE experts, (E, K, N))
+    converts slice by slice into one int8 stack, the same codes without
+    the whole stack's fp32 temporaries (deepseek-v3's stacks hold 3.76 G
+    elements each).  Returns a new tree; the input is untouched.
     """
     def conv(path, leaf):
         if not isinstance(leaf, torch.Tensor) or leaf.dtype == torch.int8:
@@ -240,7 +243,13 @@ def quantize_weight_tree(params: Any, ctx: QuantContext,
         else:
             return leaf
         mb = ctx.bits_for(mod) if mod is not None else ModuleBits()
-        return quant(leaf, mb.n_w, ctx.bits)
+        if leaf.ndim < 3:
+            return quant(leaf, mb.n_w, ctx.bits)
+        codes = torch.empty(leaf.shape, dtype=storage_dtype(ctx.bits),
+                            device=leaf.device)
+        for i in range(leaf.shape[0]):
+            codes[i] = quant(leaf[i], mb.n_w, ctx.bits)
+        return codes
 
     return _map_leaves(params, conv)
 

@@ -143,10 +143,18 @@ __device__ __forceinline__ void store_one(void* out, size_t off, int c, const Ep
 // min(K, k_chunk (z + 1))).  One split (gridDim.z == 1): the epilogue and
 // the 8-bit store; else int32 partials to ws[z] (M x N).  K % 16 == 0,
 // N % 8 == 0, x 16-byte and w 8-byte aligned, k_chunk a multiple of BK.
-template <int MT, int WM, int WN, bool XU8>
+//
+// GROUPED (the experts' form): blockIdx.z is the expert e, x and w are the
+// (E, C, K) and (E, K, N) stacks (M = C) and out (E, C, N); expert e's
+// live rows are min(counts[e], rows_cap), read on the card, and a block
+// whose first row lies past them exits at once.  Rows past an expert's
+// count are LEFT UNWRITTEN (never 0): no consumer reads them.  One split
+// of K.  Offsets are 64-bit (a stack may exceed 2^31 elements).
+template <int MT, int WM, int WN, bool XU8, bool GROUPED>
 __global__ void __launch_bounds__(Tile<MT, WM, WN>::THREADS)
 mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __restrict__ out,
-           int* __restrict__ ws, int M, int N, int K, int k_chunk, Epi epi) {
+           int* __restrict__ ws, int M, int N, int K, int k_chunk, Epi epi,
+           const int* __restrict__ counts, int rows_cap) {
   using T = Tile<MT, WM, WN>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* a_s = smem;                          // [NSTAGE][BM][LDA]
@@ -156,7 +164,20 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
   const int warp_m = warp / WN, warp_n = warp % WN;
   const int gid = lane / 4, tig = lane % 4;
   const int m0 = blockIdx.y * T::BM, n0 = blockIdx.x * T::BN;
-  const int kb = blockIdx.z * k_chunk, ke = min(K, kb + k_chunk);
+  size_t out_base = 0;  // the expert's first output element
+  int kb = 0, ke = K;
+  if constexpr (GROUPED) {
+    const size_t e = blockIdx.z;
+    const int rows = min(max(counts[e], 0), rows_cap);
+    if (m0 >= rows) return;  // the whole block past the expert's rows
+    x += e * (size_t)M * K;
+    w += e * (size_t)K * N;
+    out_base = e * (size_t)M * N;
+    M = rows;
+  } else {
+    kb = blockIdx.z * k_chunk;
+    ke = min(K, kb + k_chunk);
+  }
   const int n_tiles = (ke - kb + BK - 1) / BK;
 
   auto load = [&](int t, int slot) {
@@ -236,11 +257,11 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
       for (int e = 0; e < 2; ++e)
 #pragma unroll
         for (int j = 0; j < 4; ++j) v[4 * e + j] = acc[mt][j][2 * h + e];
-      if (gridDim.z == 1) {
+      if (GROUPED || gridDim.z == 1) {
         int c[8];
 #pragma unroll
         for (int i = 0; i < 8; ++i) c[i] = epilogue(v[i], epi, gc + i);
-        store_out<8>(out, (size_t)gm * N + gc, c, epi);
+        store_out<8>(out, out_base + (size_t)gm * N + gc, c, epi);
       } else {
         int4* p = reinterpret_cast<int4*>(ws + ((size_t)blockIdx.z * M + gm) * N + gc);
         p[0] = make_int4(v[0], v[1], v[2], v[3]);
@@ -371,19 +392,24 @@ dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-template <int MT, int WM, int WN, bool XU8>
+// GROUPED: `splits` experts (the grid's z), M = C rows each, of which the
+// grid covers rows_cap
+template <int MT, int WM, int WN, bool XU8, bool GROUPED>
 int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N, int K,
-               int splits, int k_chunk, const Epi& epi, cudaStream_t st) {
+               int splits, int k_chunk, const Epi& epi, cudaStream_t st,
+               const int* counts, int rows_cap) {
   using T = Tile<MT, WM, WN>;
-  auto kernel = mma_kernel<MT, WM, WN, XU8>;
+  auto kernel = mma_kernel<MT, WM, WN, XU8, GROUPED>;
   // the limit is raised once per instantiation, not per launch
   static const int smem_err = (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (smem_err != 0) return smem_err;
-  const dim3 grid((N + T::BN - 1) / T::BN, (M + T::BM - 1) / T::BM, splits);
-  kernel<<<grid, T::THREADS, T::SMEM, st>>>(x, w, out, ws, M, N, K, k_chunk, epi);
+  const int rows = GROUPED ? rows_cap : M;
+  const dim3 grid((N + T::BN - 1) / T::BN, (rows + T::BM - 1) / T::BM, splits);
+  kernel<<<grid, T::THREADS, T::SMEM, st>>>(x, w, out, ws, M, N, K, k_chunk, epi, counts,
+                                            rows_cap);
   int err = (int)cudaGetLastError();
-  if (err != 0 || splits == 1) return err;
+  if (err != 0 || GROUPED || splits == 1) return err;
   const size_t quads = (size_t)M * N / 4;
   finish_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, st>>>(ws, out, M, N, splits, epi);
   return (int)cudaGetLastError();
@@ -391,21 +417,22 @@ int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int 
 
 // the tile configurations, by the index plan_int8_matmul returns
 // (kernels/int8_matmul.py::MMA_TILES mirrors this table)
-template <bool XU8>
+template <bool XU8, bool GROUPED = false>
 int launch_cfg(int cfg, const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N,
-               int K, int splits, int k_chunk, const Epi& epi, cudaStream_t st) {
-#define K2_ARGS x, w, out, ws, M, N, K, splits, k_chunk, epi, st
+               int K, int splits, int k_chunk, const Epi& epi, cudaStream_t st,
+               const int* counts = nullptr, int rows_cap = 0) {
+#define K2_ARGS x, w, out, ws, M, N, K, splits, k_chunk, epi, st, counts, rows_cap
   switch (cfg) {
-    case 0: return launch_mma<1, 1, 4, XU8>(K2_ARGS);  // M <= 16:  16 x 128
-    case 1: return launch_mma<2, 1, 4, XU8>(K2_ARGS);  // M <= 32:  32 x 128
-    case 2: return launch_mma<4, 1, 4, XU8>(K2_ARGS);  // M <= 64:  64 x 128
-    case 3: return launch_mma<8, 1, 4, XU8>(K2_ARGS);  // M <= 128: 128 x 128
-    case 4: return launch_mma<2, 8, 1, XU8>(K2_ARGS);  // 256 x 32
-    case 5: return launch_mma<1, 8, 1, XU8>(K2_ARGS);  // 128 x 32
-    case 6: return launch_mma<2, 4, 2, XU8>(K2_ARGS);  // 128 x 64
-    case 7: return launch_mma<1, 4, 2, XU8>(K2_ARGS);  // 64 x 64
-    case 8: return launch_mma<4, 2, 4, XU8>(K2_ARGS);  // 128 x 128
-    case 9: return launch_mma<2, 2, 4, XU8>(K2_ARGS);  // 64 x 128
+    case 0: return launch_mma<1, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 16:  16 x 128
+    case 1: return launch_mma<2, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 32:  32 x 128
+    case 2: return launch_mma<4, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 64:  64 x 128
+    case 3: return launch_mma<8, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 128: 128 x 128
+    case 4: return launch_mma<2, 8, 1, XU8, GROUPED>(K2_ARGS);  // 256 x 32
+    case 5: return launch_mma<1, 8, 1, XU8, GROUPED>(K2_ARGS);  // 128 x 32
+    case 6: return launch_mma<2, 4, 2, XU8, GROUPED>(K2_ARGS);  // 128 x 64
+    case 7: return launch_mma<1, 4, 2, XU8, GROUPED>(K2_ARGS);  // 64 x 64
+    case 8: return launch_mma<4, 2, 4, XU8, GROUPED>(K2_ARGS);  // 128 x 128
+    case 9: return launch_mma<2, 2, 4, XU8, GROUPED>(K2_ARGS);  // 64 x 128
   }
 #undef K2_ARGS
   return (int)cudaErrorInvalidValue;
@@ -450,4 +477,26 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias
   int* wsi = static_cast<int*>(ws);
   if (x_u8) return launch_cfg<true>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
   return launch_cfg<false>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
+}
+
+// C entry of the grouped form (the experts' (E, C, K) x (E, K, N)
+// products, one launch): expert e's first min(counts[e], rows_cap) rows
+// (counts: E int32 on the card) are multiplied by its weight codes and
+// requantized by K2's epilogue (no bias, no ReLU); rows past them are left
+// unwritten.  int8 activations; the mma kernel's conditions (K % 16 == 0,
+// N % 8 == 0, x 16-byte and w 8-byte aligned); rows_cap <= C; E <= 65535.
+extern "C" int int8_matmul_grouped_launch(const void* x, const void* w, const void* counts,
+                                          void* out, int E, int C, int rows_cap, int N, int K,
+                                          int shift, int lo, int hi, int cfg, int out_kind,
+                                          float deq, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Epi epi{nullptr, shift, 0, 0, lo, hi, out_kind, deq};
+  if (E <= 0 || E > 65535 || C <= 0 || rows_cap <= 0 || rows_cap > C || N <= 0 || K <= 0 ||
+      cfg < 0 || counts == nullptr || out_kind < OUT_CODES || out_kind > OUT_F32 ||
+      (out_kind != OUT_CODES && ((uintptr_t)out & 15u)) || K % 16 || N % 8 ||
+      ((uintptr_t)x & 15u) || ((uintptr_t)w & 7u))
+    return (int)cudaErrorInvalidValue;
+  return launch_cfg<false, true>(cfg, static_cast<const int8_t*>(x),
+                                 static_cast<const int8_t*>(w), out, nullptr, C, N, K, E, K,
+                                 epi, st, static_cast<const int*>(counts), rows_cap);
 }

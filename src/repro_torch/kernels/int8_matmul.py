@@ -21,6 +21,12 @@ the full sum; it is still one launch of ``int8_matmul``.  Shapes the
 tensor-core kernel does not take (K % 16 != 0, N % 8 != 0, misaligned
 operands) go to the kernel's ``dp4a`` tile.
 
+:func:`int8_matmul_grouped_cuda` is its grouped form for the MoE experts
+(no TPU twin: the reference leaves the experts' int8 product to XLA):
+one launch over (E, C, K) x (E, K, N) stacks, the expert a grid
+dimension, each expert's row count read on the card, so padding experts
+and empty capacity rows cost one early exit a block.
+
 Activations are int8 codes, or uint8 post-ReLU codes.  The ResNet's
 convolutions run in ``csrc/int_conv.cu``; only its head comes here.
 The weight codes stay in their public (K, N) layout, so
@@ -38,13 +44,16 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["int8_matmul_cuda", "plan_int8_matmul", "Int8MatmulPlan",
-           "MMA_TILES", "DP4A_TILE", "K_STEP"]
+__all__ = ["int8_matmul_cuda", "int8_matmul_grouped_cuda",
+           "plan_int8_matmul", "Int8MatmulPlan", "MMA_TILES", "DP4A_TILE",
+           "K_STEP"]
 
 _NAME = "int8_matmul"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_matmul_launch": (
-    ctypes.c_int, [_P] * 5 + [_I] * 13 + [ctypes.c_float, _P])}
+    ctypes.c_int, [_P] * 5 + [_I] * 13 + [ctypes.c_float, _P]),
+    "int8_matmul_grouped_launch": (
+    ctypes.c_int, [_P] * 4 + [_I] * 10 + [ctypes.c_float, _P])}
 # the kernel's out_kind, by output dtype
 _OUT_KIND = {torch.int8: 0, torch.uint8: 0, torch.bfloat16: 1,
              torch.float32: 2}
@@ -161,4 +170,61 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
             2.0 ** -int(n_o or 0), stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err}")
+    return out
+
+
+def int8_matmul_grouped_cuda(x3: torch.Tensor, w3: torch.Tensor,
+                             counts: torch.Tensor, *, rows_cap: int,
+                             shift: int, lo: int, hi: int,
+                             out_dtype: torch.dtype,
+                             n_o: Optional[int] = None) -> torch.Tensor:
+    """Launch K2's grouped form on (E, C, K) int8 x (E, K, N) int8 CUDA
+    stacks: expert e's first ``min(counts[e], rows_cap)`` rows (``counts``
+    (E,) int32 on the card, never read on the host) through K2's epilogue
+    (shift-requant, clip; no bias or ReLU), as ``out_dtype`` codes or, with
+    bfloat16 / float32, their values times ``2^-n_o``.  Returns (E, C, N);
+    rows past an expert's count are left unwritten (``torch.empty``).  The
+    tile is planned for ``rows_cap`` rows (an upper bound of every count
+    that the caller knows on the host: at most one row a token)."""
+    if x3.device.type != "cuda" or w3.device != x3.device \
+            or counts.device != x3.device:
+        raise ValueError("int8_matmul_grouped_cuda takes CUDA tensors on "
+                         "one device")
+    if x3.dtype != torch.int8 or w3.dtype != torch.int8 \
+            or counts.dtype != torch.int32:
+        raise TypeError(f"the grouped K2 takes int8 x int8 codes and int32 "
+                        f"counts, got {x3.dtype} x {w3.dtype}, "
+                        f"{counts.dtype}")
+    if x3.ndim != 3 or w3.ndim != 3 or x3.shape[0] != w3.shape[0] \
+            or x3.shape[2] != w3.shape[1] or counts.shape != x3.shape[:1]:
+        raise ValueError(f"shape mismatch {tuple(x3.shape)} x "
+                         f"{tuple(w3.shape)}, counts {tuple(counts.shape)}")
+    e, c, k = x3.shape
+    n = w3.shape[2]
+    if k % 16 or n % 8:
+        raise ValueError(f"the grouped K2 takes K % 16 == 0 and N % 8 == 0, "
+                         f"got K={k}, N={n}")
+    if not 1 <= rows_cap <= c or e > 65535:
+        raise ValueError(f"rows_cap {rows_cap} outside [1, C={c}] or "
+                         f"{e} experts > 65535")
+    if out_dtype not in _OUT_KIND:
+        raise TypeError(f"K2 emits int8 codes or their bf16 / fp32 values, "
+                        f"not {out_dtype}")
+    if (n_o is None) != (_OUT_KIND[out_dtype] == 0):
+        raise ValueError("a float output takes its grid n_o; codes take none")
+    if not -31 <= shift <= 31:
+        raise ValueError(f"shift {shift} outside the int32 range [-31, 31]")
+    x3, w3, counts = x3.contiguous(), w3.contiguous(), counts.contiguous()
+    out = torch.empty((e, c, n), dtype=out_dtype, device=x3.device)
+    plan = plan_int8_matmul(rows_cap, k, n)
+    lib = _build.load(_NAME, _SIGNATURES)
+    with torch.cuda.device(x3.device):
+        stream = torch.cuda.current_stream(x3.device).cuda_stream
+        err = lib.int8_matmul_grouped_launch(
+            x3.data_ptr(), w3.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            e, c, int(rows_cap), n, k, int(shift), int(lo), int(hi),
+            plan.cfg, _OUT_KIND[out_dtype], 2.0 ** -int(n_o or 0), stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul_grouped kernel launch failed: CUDA "
+                           f"error {err}")
     return out

@@ -24,7 +24,8 @@ from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  flash_prefill_cuda,
                                                  paged_attention_cuda,
                                                  paged_plan_from_positions)
-from repro_torch.kernels.int8_matmul import int8_matmul_cuda
+from repro_torch.kernels.int8_matmul import (int8_matmul_cuda,
+                                             int8_matmul_grouped_cuda)
 from repro_torch.kernels.int_conv import ResidualShifts, int_conv_cuda
 from repro_torch.kernels.quantize import (quantize_multi_cuda,
                                           quantize_scatter_cuda)
@@ -33,14 +34,16 @@ from repro_torch.kernels.ragged_flash import (RaggedWork,
                                              ragged_attention_cuda)
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
-__all__ = ["int8_matmul", "int_conv2d", "quantize_act", "quantize_multi",
-           "quantize_scatter", "residual_requant",
+__all__ = ["int8_matmul", "int8_matmul_grouped", "int_conv2d",
+           "quantize_act", "quantize_multi", "quantize_scatter",
+           "residual_requant",
            "ragged_attention", "paged_attention", "flash_attention",
            "flash_decode", "LAUNCHES", "reset_launch_counts"]
 
 # launches per kernel since the last reset (process-wide, like the
 # loaded kernel libraries themselves)
-LAUNCHES = {"int8_matmul": 0, "ragged_attention": 0, "paged_attention": 0,
+LAUNCHES = {"int8_matmul": 0, "int8_matmul_grouped": 0,
+            "ragged_attention": 0, "paged_attention": 0,
             "flash_prefill": 0, "flash_decode": 0, "quantize": 0,
             "residual_requant": 0, "int_conv": 0}
 
@@ -99,6 +102,40 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                            hi=hi, out_dtype=out_dtype, n_o=n_o)
     LAUNCHES["int8_matmul"] += 1
     return out.reshape(*batch, n)
+
+
+def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
+                        counts: torch.Tensor, spec: LinearQuantSpec, *,
+                        rows_cap: Optional[int] = None,
+                        out_float: Optional[torch.dtype] = None
+                        ) -> torch.Tensor:
+    """The MoE experts' product: (E, C, K) int8 codes x (E, K, N) int8
+    codes -> (E, C, N), expert by expert, each requantized by ``spec``
+    (no bias), in ONE launch of K2's grouped form.  Expert e's rows
+    ``< min(counts[e], rows_cap)`` are computed (``counts`` (E,) int32 on
+    the operands' device, read there; ``rows_cap`` defaults to C); the
+    plain version writes the other rows as 0, the kernel leaves them
+    unwritten.  ``out_float`` as :func:`int8_matmul`'s."""
+    if spec.bits > 8:
+        raise ValueError(f"int8_matmul_grouped emits 8-bit codes, not "
+                         f"{spec.bits}")
+    lo, hi = int_bounds(spec.bits)
+    out_dtype, n_o = torch.int8, None
+    if out_float is not None:
+        if out_float not in (torch.bfloat16, torch.float32):
+            raise TypeError(f"K2's float epilogue writes bfloat16 or "
+                            f"float32, not {out_float}")
+        out_dtype, n_o = out_float, spec.n_o
+    cap = x_int.shape[1] if rows_cap is None else int(rows_cap)
+    if not _on_cuda(x_int, "int8_matmul_grouped"):
+        return ref.int8_matmul_grouped_ref(
+            x_int, w_int, counts, rows_cap=cap, shift=spec.requant_shift,
+            lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+    out = int8_matmul_grouped_cuda(x_int, w_int, counts, rows_cap=cap,
+                                   shift=spec.requant_shift, lo=lo, hi=hi,
+                                   out_dtype=out_dtype, n_o=n_o)
+    LAUNCHES["int8_matmul_grouped"] += 1
+    return out
 
 
 def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,

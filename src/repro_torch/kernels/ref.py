@@ -20,7 +20,8 @@ import torch
 from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
 from repro_torch.core.qscheme import dequant, int_bounds
 
-__all__ = ["int8_matmul_ref", "int8_matmul_split_ref", "int_conv2d_ref",
+__all__ = ["int8_matmul_ref", "int8_matmul_split_ref",
+           "int8_matmul_grouped_ref", "int_conv2d_ref",
            "quantize_ref",
            "quantize_multi_ref", "quantize_scatter_ref",
            "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
@@ -106,6 +107,31 @@ def int8_matmul_split_ref(x_int: torch.Tensor, w_int: torch.Tensor,
         acc = part if acc is None else acc + part
     return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
                           relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
+
+
+def int8_matmul_grouped_ref(x_int: torch.Tensor, w_int: torch.Tensor,
+                            counts: torch.Tensor, *, rows_cap: int,
+                            shift: int, lo: int = -128, hi: int = 127,
+                            out_dtype: torch.dtype = torch.int8,
+                            n_o: Optional[int] = None) -> torch.Tensor:
+    """K2's grouped form: (E, C, K) x (E, K, N) int8 codes, expert by
+    expert, the int32 product (exact in float64) through the epilogue
+    (no bias, no ReLU), codes or, with a float ``out_dtype``, their
+    values ``code * 2^-n_o``.  Rows at or past ``min(counts[e],
+    rows_cap)`` of expert e are 0 (the kernel leaves them unwritten)."""
+    acc = torch.bmm(x_int.to(torch.float64),
+                    w_int.to(torch.float64)).to(torch.int32)
+    codes = _int8_epilogue(acc, None, shift=shift, bias_shift=0, relu=False,
+                           lo=lo, hi=hi, out_dtype=torch.int32)
+    rows = torch.clamp(counts.to(torch.int64), 0, rows_cap)
+    live = torch.arange(x_int.shape[1], device=x_int.device)[None, :] \
+        < rows[:, None]
+    codes = torch.where(live[..., None], codes, 0)
+    if not out_dtype.is_floating_point:
+        return codes.to(out_dtype)
+    if n_o is None:
+        raise ValueError("a float output takes its grid n_o")
+    return (codes.to(torch.float32) * (2.0 ** -int(n_o))).to(out_dtype)
 
 
 def _int8_epilogue(acc: torch.Tensor, b_int: Optional[torch.Tensor], *,

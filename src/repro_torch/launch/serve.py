@@ -14,7 +14,10 @@ float scales, no calibration):
 The recurrent archs (``rwkv6_3b``, ``zamba2_2_7b``) take the same path:
 prefill over zero states (and zamba2's dense KV cache for its shared
 attention block), then the O(1) decode recurrences, the decode step
-captured as one CUDA graph on the card.
+captured as one CUDA graph on the card.  So do the mixture-of-experts
+archs (``granite_moe_3b_a800m``; ``deepseek_v3_671b``, its attention
+MLA over the compressed latent cache), which the engines refuse, as in
+the reference.
 
 Engine (``--engine``, ``serve_engine``): the continuous-batching engine on
 the paged int8-KV pool against a synthetic Poisson workload; ``--w8a8``
@@ -55,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import time
 
@@ -114,8 +118,10 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     of ``decode_s_per_tok``.  ``params`` overrides the seeded random
     weights; in INT mode float matmul weights are quantized to int8 codes
     once, here, on the calibrated grids (bit-identical to quantizing in
-    every call; on the recurrent archs only the leaves their ``qlinear``
-    calls read, each on its module's grid, ``models.model.qlinear_weight``).
+    every call; on the recurrent and MoE archs only the leaves their
+    ``qlinear`` calls (and the experts' products) read, each on its
+    module's grid, ``models.model.qlinear_weight``: the MoE router and
+    MLA's ``wkv_b`` stay float).
     ``device`` defaults to ``cuda``.  ``_graph_factory`` is
     for the tests: a stand-in for the CUDA graph (``StepGraphs``'
     ``graph_factory``) that drives the capture bookkeeping on the CPU."""
@@ -148,10 +154,11 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         print(f"calibrated {len(report.results)} modules in {t_cal:.1f}s")
     if ctx.mode is QuantMode.INT:
         # the recurrent blocks' other matrices (LoRA and token-shift mixes,
-        # conv taps) are float operands outside any unified module
+        # conv taps), the MoE router and MLA's wkv_b are float operands
+        # outside any unified module
         params = quantize_weight_tree(
-            params, ctx, name_fn=M.qlinear_weight
-            if cfg.family in ("ssm", "hybrid") else None)
+            params, ctx, name_fn=functools.partial(M.qlinear_weight, cfg=cfg)
+            if cfg.family in ("ssm", "hybrid", "moe") else None)
 
     if graphs is None:
         graphs = dev.type == "cuda"

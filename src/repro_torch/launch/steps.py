@@ -25,6 +25,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
+from repro_torch.models.attention import KVCache
 
 __all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
            "build_paged_step", "build_ragged_step", "build_recurrent_step",
@@ -339,11 +340,12 @@ class StepGraphs:
 
 def serve_step_key(tokens, cache: dict) -> tuple:
     """The classic decode step's key in :class:`StepGraphs`: ``("decode",
-    B, S_max)`` over a dense cache; over a recurrent cache (RWKV6's
-    states, zamba2's states and dense KV) ``("decode", B, shapes)``, the
+    B, S_max)`` over a dense KV cache; over any other cache (RWKV6's
+    states, zamba2's states and dense KV, the MoE family's ``kv_dense``
+    beside ``kv``, MLA's latent caches) ``("decode", B, shapes)``, the
     shape of every cache tensor by name."""
     b = tokens.shape[0]
-    if set(cache) == {"kv"}:
+    if set(cache) == {"kv"} and isinstance(cache["kv"], KVCache):
         return ("decode", b, cache["kv"].k.shape[2])
     shapes = tuple((f"{name}.{field}", tuple(t.shape))
                    for name, part in cache.items()
@@ -363,7 +365,7 @@ def run_serve_step(graphs: StepGraphs, serve_step, params, tokens,
     written in place, so a captured step's static memory is the cache
     prefill allocated: one ``graphs`` serves one (params, cache) pair."""
     if "kv" in cache:
-        s_max = cache["kv"].k.shape[2]
+        s_max = cache["kv"][0].shape[2]
         if not 0 <= pos < s_max:
             raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
 

@@ -21,15 +21,20 @@ families of paths:
   to their plain versions on any device (the reference computes that path
   as jnp outside any kernel).
 
-The MLA path is not ported yet.
+DeepSeek's multi-head latent attention (``init_mla``, ``mla_attention``,
+``MLACache``): without a cache (the forward that calibration captures)
+its expanded form, K built from ``k_nope`` and the shared rope key and
+attended through K5 when ``cfg.attn_kernel == 'flash'``; with a cache
+(prefill and decode) its absorbed form over the compressed latent.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
@@ -37,8 +42,8 @@ from repro_torch.kernels.ragged_flash import RaggedWork
 from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm, rotate
 
-__all__ = ["KVCache", "PagedKVCache", "RaggedBatch", "init_gqa",
-           "gqa_attention"]
+__all__ = ["KVCache", "MLACache", "PagedKVCache", "RaggedBatch", "init_gqa",
+           "gqa_attention", "init_mla", "mla_attention"]
 
 
 class KVCache(NamedTuple):
@@ -46,6 +51,13 @@ class KVCache(NamedTuple):
     codes (``cfg.kv_cache_bits == 8``) or the model dtype."""
     k: torch.Tensor     # (B, S_max, KVH, D)
     v: torch.Tensor     # (B, S_max, KVH, D)
+
+
+class MLACache(NamedTuple):
+    """MLA's per-layer cache of the classic path, in the model dtype: the
+    compressed latent and the shared rope key."""
+    c_kv: torch.Tensor  # (B, S_max, kv_lora)
+    k_pe: torch.Tensor  # (B, S_max, rope_dim)
 
 
 class PagedKVCache(NamedTuple):
@@ -219,3 +231,104 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
             out = prefill(q, k, v, kv_frac_bits=kv_frac_bits)
     return (linear(ctx, f"{name}/wo", out.reshape(*lead, h * hd), p["wo"]),
             cache)
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V3 multi-head latent attention with absorbed decode
+# ---------------------------------------------------------------------------
+
+def init_mla(init, cfg: ModelConfig) -> dict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wq_a": init.dense((d, m.q_lora_rank)),
+        "q_norm": init.ones((m.q_lora_rank,)),
+        "wq_b": init.dense((m.q_lora_rank, h * qk_head)),
+        "wkv_a": init.dense((d, m.kv_lora_rank + m.qk_rope_head_dim)),
+        "kv_norm": init.ones((m.kv_lora_rank,)),
+        "wkv_b": init.dense((m.kv_lora_rank,
+                             h * (m.qk_nope_head_dim + m.v_head_dim))),
+        "wo": init.dense((h * m.v_head_dim, d)),
+    }
+
+
+def mla_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
+                  cfg: ModelConfig, *,
+                  rope: tuple[torch.Tensor, torch.Tensor],
+                  cache: Optional[MLACache] = None, cache_pos=0,
+                  name: str = "mla"):
+    """MLA over x (B, S, d); ``rope`` is the (cos, sin) table of the
+    tokens' positions at ``qk_rope_head_dim`` (``common.rope_tables``).
+    Returns (output, cache).
+
+    * No cache: the expanded form.  K is ``k_nope`` with the rope key
+      broadcast to every head (Dk = nope + rope, Dv = v_head_dim, KVH =
+      H), causal from position 0, through K5 when ``cfg.attn_kernel ==
+      'flash'`` (its 1/sqrt(Dk) is the reference's scale), else its plain
+      version.
+    * A cache (prefill from ``cache_pos == 0``, or a decode step at
+      ``cache_pos``, a host int or a 0-d integer tensor read only on the
+      device): the latent ``c_kv`` and the rope key are written IN PLACE
+      at ``cache_pos`` and attention runs absorbed: ``W_uk`` folded into
+      q, ``W_uv`` into the output, over the float ``wkv_b`` (never
+      pre-quantized, ``models.model.qlinear_weight``), key rows ``t <=``
+      each query's position.  These products stay outside any kernel, as
+      in the reference; they run in float64 and round once to fp32, so
+      the CPU and the card give the same values."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+
+    cq = rmsnorm(linear(ctx, f"{name}/wq_a", x, p["wq_a"]), p["q_norm"],
+                 cfg.norm_eps)
+    q = linear(ctx, f"{name}/wq_b", cq, p["wq_b"]).reshape(
+        b, s, h, nope + rope_d)
+    q_nope, q_pe = q[..., :nope], rotate(q[..., nope:], *rope)
+
+    kv_a = linear(ctx, f"{name}/wkv_a", x, p["wkv_a"])
+    c_kv = rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_pe = rotate(kv_a[..., m.kv_lora_rank:][:, :, None, :], *rope)[:, :, 0]
+
+    if cache is None:
+        kv = linear(ctx, f"{name}/wkv_b", c_kv, p["wkv_b"]).reshape(
+            b, s, h, nope + vdim)
+        k = torch.cat([kv[..., :nope],
+                       k_pe[:, :, None, :].expand(b, s, h, rope_d)], dim=-1)
+        qq = torch.cat([q_nope, q_pe], dim=-1)
+        if cfg.attn_kernel not in ("flash", "chunked"):
+            raise ValueError(f"unknown attn_kernel={cfg.attn_kernel!r}; "
+                             "expected 'chunked' or 'flash'")
+        prefill = kops.flash_attention if cfg.attn_kernel == "flash" \
+            else kref.flash_attention_ref
+        out = prefill(qq, k, kv[..., nope:])
+        return (linear(ctx, f"{name}/wo", out.reshape(b, s, h * vdim),
+                       p["wo"]), None)
+
+    # absorbed path: the cache holds (c_kv, k_pe) only
+    if isinstance(cache_pos, torch.Tensor):
+        pos0 = cache_pos.to(device=x.device, dtype=torch.int64).reshape(())
+    else:
+        pos0 = torch.tensor(int(cache_pos), dtype=torch.int64,
+                            device=x.device)
+    q_pos = pos0 + torch.arange(s, device=x.device)            # (S,)
+    cache.c_kv.index_copy_(1, q_pos, c_kv.to(cache.c_kv.dtype))
+    cache.k_pe.index_copy_(1, q_pos, k_pe.to(cache.k_pe.dtype))
+
+    f64 = torch.float64
+    w_kv_b = p["wkv_b"].to(f64).reshape(m.kv_lora_rank, h, nope + vdim)
+    c_full, pe_full = cache.c_kv.to(f64), cache.k_pe.to(f64)
+    q_lat = torch.einsum("bshd,lhd->bshl", q_nope.to(f64),
+                         w_kv_b[..., :nope])
+    scores = (torch.einsum("bshl,btl->bhst", q_lat, c_full)
+              + torch.einsum("bshd,btd->bhst", q_pe.to(f64), pe_full)) \
+        / math.sqrt(nope + rope_d)
+    t_pos = torch.arange(c_full.shape[1], device=x.device)
+    scores = scores.masked_fill(t_pos[None, None, None, :]
+                                > q_pos[None, None, :, None], -math.inf)
+    probs = torch.softmax(scores, dim=-1)
+    ctx_lat = torch.einsum("bhst,btl->bshl", probs, c_full)
+    out = torch.einsum("bshl,lhv->bshv", ctx_lat, w_kv_b[..., nope:])
+    out = out.to(torch.float32).reshape(b, s, h * vdim).to(x.dtype)
+    return linear(ctx, f"{name}/wo", out, p["wo"]), cache

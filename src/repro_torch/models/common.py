@@ -137,6 +137,19 @@ class Initializer:
                                     generator=self.gen)
         return (w * std).to(self.dtype)
 
+    def dense_stack(self, shape, fan_in: Optional[int] = None
+                    ) -> torch.Tensor:
+        """A stack of matmul weights (the MoE experts, (E, K, N)) with
+        :meth:`dense`'s scale (fan-in ``shape[0]`` by default, as the
+        reference's ``dense`` of the whole stack), drawn one slice at a
+        time into the ``dtype`` stack: no fp32 copy of the whole stack
+        (deepseek-v3's are 3.76 G elements)."""
+        fan = fan_in if fan_in is not None else shape[0]
+        w = torch.empty(shape, dtype=self.dtype, device=self.device)
+        for i in range(shape[0]):
+            w[i] = self.dense(tuple(shape[1:]), fan_in=fan)
+        return w
+
     def ones(self, shape) -> torch.Tensor:
         return torch.ones(shape, dtype=torch.float32, device=self.device)
 

@@ -2,7 +2,10 @@
 ``init_params``; the classic path ``init_cache`` / ``forward`` /
 ``prefill`` / ``decode_step`` for the dense GQA families (``dense``, and
 ``vlm``, whose early-fusion image tokens share the text vocabulary and
-run the same blocks) over a dense KV cache, and for the recurrent
+run the same blocks) over a dense KV cache, for the mixture-of-experts
+family (``moe``: leading dense layers, then MoE layers, attention GQA
+over a dense KV cache or DeepSeek's MLA over its latent cache), and for
+the recurrent
 (``ssm``: RWKV6) and hybrid (zamba2) families over their carried states
 (and the hybrid's dense KV cache for its shared attention block), the
 decode step O(1) in the recurrences; the dense families' serving-engine
@@ -16,7 +19,9 @@ Parameters are a plain dict of tensors: ``embed`` (Vp, d), ``ln_f`` (d,),
 where the JAX package stacks the layers on a leading axis and scans (the
 hybrid's Mamba blocks on two axes, group and block; here group ``i``
 holds ``blocks[i * attn_every:(i + 1) * attn_every]``) — and, for the
-hybrid, ``shared``, the one shared attention block.
+hybrid, ``shared``, the one shared attention block; for ``moe``,
+``dense_blocks`` (the leading dense layers, when the config has any) and
+``blocks`` (the MoE layers).
 """
 from __future__ import annotations
 
@@ -50,10 +55,11 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 
 _DENSE = ("dense", "vlm")
 _RECURRENT = ("ssm", "hybrid")
+_MOE = "moe"
 
 
 def _check_family(cfg: ModelConfig, what: str,
-                  families: tuple = _DENSE + _RECURRENT) -> None:
+                  families: tuple = _DENSE + (_MOE,) + _RECURRENT) -> None:
     if cfg.family in families:
         return
     if families == _RECURRENT:
@@ -66,10 +72,15 @@ def _check_family(cfg: ModelConfig, what: str,
             f"family is served by the classic path (prefill, decode_step) "
             f"and the fixed-slab substrate (init_paged_state, "
             f"paged_recurrent_step)")
+    if cfg.family == _MOE:
+        raise NotImplementedError(
+            f"{what} covers the dense GQA families; the 'moe' family is "
+            f"served by the classic path (prefill, decode_step), as in the "
+            f"reference, whose engines refuse it")
     raise NotImplementedError(
-        f"{what} covers the dense GQA (dense, vlm), ssm and hybrid "
+        f"{what} covers the dense GQA (dense, vlm), moe, ssm and hybrid "
         f"families; got family={cfg.family!r} (other families: ROADMAP "
-        f"Queue 1 'Other families')")
+        f"Queue 1 item 6, 'Other families')")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -93,6 +104,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     if cfg.family in _DENSE:
         params["blocks"] = [tfm.init_dense_block(init, cfg)
                             for _ in range(cfg.n_layers)]
+    elif cfg.family == _MOE:
+        nd = cfg.moe.n_dense_layers
+        if nd:
+            params["dense_blocks"] = [tfm.init_dense_block(init, cfg)
+                                      for _ in range(nd)]
+        params["blocks"] = [tfm.init_moe_block(init, cfg)
+                            for _ in range(cfg.n_layers - nd)]
     elif cfg.family == "ssm":
         params["blocks"] = [tfm.init_rwkv_block(init, cfg)
                             for _ in range(cfg.n_layers)]
@@ -108,29 +126,38 @@ def _n_groups(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid.attn_every
 
 
-# leaves that reach ``qlinear`` as a weight (the other matrices of the
+# leaves that reach ``qlinear`` (or, the MoE experts' stacks, the
+# experts' integer product) as a weight (the other matrices of the
 # recurrent blocks -- LoRA mixes, token-shift mixes, the bonus, the conv
-# taps -- are float operands outside any unified module); the RWKV channel
-# mix's weights sit beside the time mix's under "rwkv", but its qlinear
-# calls name the module "rwkv_ffn" (``rwkv.rwkv6_channel_mix``)
+# taps -- are float operands outside any unified module, and so is the
+# MoE router); the RWKV channel mix's weights sit beside the time mix's
+# under "rwkv", but its qlinear calls name the module "rwkv_ffn"
+# (``rwkv.rwkv6_channel_mix``).  MLA's weights sit under "attn" but its
+# calls name the module "mla"; its ``wkv_b`` stays float, since the
+# absorbed path reads it as a float matrix.
 _QLINEAR_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "lm_head",
                    "wr", "wg", "wk_ffn", "wv_ffn", "wr_ffn", "w_in",
-                   "w_out", "in_proj"}
+                   "w_out", "in_proj", "wq_a", "wq_b", "wkv_a"}
 _CHANNEL_MIX = {"wk_ffn": "rwkv_ffn/wk", "wv_ffn": "rwkv_ffn/wv",
                 "wr_ffn": "rwkv_ffn/wr"}
 
 
-def qlinear_weight(path: str, leaf) -> Optional[str]:
+def qlinear_weight(path: str, leaf, cfg: Optional[ModelConfig] = None
+                   ) -> Optional[str]:
     """The module name of the ``qlinear`` call that reads the params leaf
     at ``path`` as its weight, or None when the leaf is no such weight.
 
     The name is the path without its layer prefix (``blocks/3/attn/wq``
-    -> ``attn/wq``, ``blocks/3/ssm/w_in`` -> ``ssm/w_in``,
-    ``shared/attn/wq``, ``lm_head``), except for the RWKV channel mix
-    (``blocks/3/rwkv/wk_ffn`` -> ``rwkv_ffn/wk``).  INT mode quantizes
-    these leaves to int8 codes once, each on its module's grid
-    (``quantize_weight_tree``'s ``name_fn``), the codes its call would
-    give."""
+    -> ``attn/wq``, ``dense_blocks/0/mlp/w1`` -> ``mlp/w1``,
+    ``blocks/3/ssm/w_in`` -> ``ssm/w_in``, ``shared/attn/wq``,
+    ``lm_head``; the MoE expert stacks ``blocks/3/moe/w1`` -> ``moe/w1``
+    and its shared expert ``moe/shared/w1``), except for the RWKV channel
+    mix (``blocks/3/rwkv/wk_ffn`` -> ``rwkv_ffn/wk``) and for an MLA
+    ``cfg``, whose attention calls name the module ``mla`` (``attn/wq_a``
+    -> ``mla/wq_a``).  The router and MLA's ``wkv_b`` stay float (None).
+    INT mode quantizes these leaves to int8 codes once, each on its
+    module's grid (``quantize_weight_tree``'s ``name_fn``, with ``cfg``
+    bound), the codes its call would give."""
     if not (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2):
         return None
     parts = path.split("/")
@@ -138,8 +165,10 @@ def qlinear_weight(path: str, leaf) -> Optional[str]:
         return None
     if parts[-1] in _CHANNEL_MIX:
         return _CHANNEL_MIX[parts[-1]]
-    if parts[0] == "blocks":
+    if parts[0] in ("blocks", "dense_blocks"):
         parts = parts[2:]
+    if parts[0] == "attn" and cfg is not None and cfg.mla is not None:
+        parts[0] = "mla"
     return "/".join(parts)
 
 
@@ -147,7 +176,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
                device: Device = None) -> dict:
     """Cache of the classic serving path, zeros.  Dense: one dense KV pair
     ``kv`` (L, B, S_max, KVH, D), int8 Eq.-1 codes when
-    ``cfg.kv_cache_bits == 8``.  RWKV6 (``ssm``): ``state``, an
+    ``cfg.kv_cache_bits == 8``.  MoE: ``kv`` for the MoE layers and
+    ``kv_dense`` for the leading dense layers (when there are any), each
+    such a pair or, under MLA, an ``MLACache`` of (L, B, S_max, kv_lora)
+    latents and (L, B, S_max, rope_dim) rope keys in the model dtype.
+    RWKV6 (``ssm``): ``state``, an
     ``RWKVState`` of (L, B, 1, d) token-shift inputs in the model dtype
     and the (L, B, H, 64, 64) fp32 wkv.  Hybrid: ``ssm``, an ``SSMState``
     of (G, g, B, ...) arenas (G groups of g Mamba blocks; the conv window
@@ -167,16 +200,32 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
         return {"state": stacked((cfg.n_layers,), rwkv_lib.zero_state(
             cfg, batch, dt, device="meta"))}
     kv_dt = torch.int8 if cfg.kv_cache_bits == 8 else dt
-    n_kv = cfg.n_layers if cfg.family in _DENSE else _n_groups(cfg)
-    shape = (n_kv, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-    kv = att.KVCache(k=torch.zeros(shape, dtype=kv_dt, device=dev),
-                     v=torch.zeros(shape, dtype=kv_dt, device=dev))
+
+    def kv_pair(n_layers: int):
+        if cfg.mla is not None:
+            m = cfg.mla
+            return att.MLACache(
+                c_kv=torch.zeros((n_layers, batch, max_seq, m.kv_lora_rank),
+                                 dtype=dt, device=dev),
+                k_pe=torch.zeros((n_layers, batch, max_seq,
+                                  m.qk_rope_head_dim), dtype=dt, device=dev))
+        shape = (n_layers, batch, max_seq, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        return att.KVCache(k=torch.zeros(shape, dtype=kv_dt, device=dev),
+                           v=torch.zeros(shape, dtype=kv_dt, device=dev))
+
     if cfg.family in _DENSE:
-        return {"kv": kv}
+        return {"kv": kv_pair(cfg.n_layers)}
+    if cfg.family == _MOE:
+        nd = cfg.moe.n_dense_layers
+        cache = {"kv": kv_pair(cfg.n_layers - nd)}
+        if nd:
+            cache["kv_dense"] = kv_pair(nd)
+        return cache
     return {"ssm": stacked((_n_groups(cfg), cfg.hybrid.attn_every),
                            ssm_lib.zero_state(cfg, batch, dt,
                                               device="meta")),
-            "kv": kv}
+            "kv": kv_pair(_n_groups(cfg))}
 
 
 def _put(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -197,14 +246,35 @@ def _head(params: dict, x: torch.Tensor, cfg: ModelConfig,
     return unembed(ctx, x, head)
 
 
+def _rope(positions, cfg: ModelConfig):
+    """The step's rope tables: at the head dim, or MLA's rope dim."""
+    width = cfg.mla.qk_rope_head_dim if cfg.mla is not None \
+        else cfg.resolved_head_dim
+    return rope_tables(positions, width, cfg.rope_theta, model_dtype(cfg))
+
+
+def _layer_cache(cache: Optional[dict], name: str, layer: int):
+    """Layer ``layer``'s slice of the cache part ``name`` (a KVCache or an
+    MLACache of stacked tensors), or None without a cache."""
+    if cache is None:
+        return None
+    part = cache[name]
+    return type(part)(*(t[layer] for t in part))
+
+
 def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
-    dt = model_dtype(cfg)
-    rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
-    for layer, p_l in enumerate(params["blocks"]):
-        c_l = None if cache is None else att.KVCache(
-            cache["kv"].k[layer], cache["kv"].v[layer])
-        x, _ = tfm.dense_block(ctx, p_l, x, cfg, rope=rope, cache=c_l,
+    """The dense families' stack, and the MoE family's: its leading dense
+    layers (``dense_blocks`` over ``kv_dense``), then its MoE layers."""
+    rope = _rope(positions, cfg)
+    for layer, p_l in enumerate(params.get("dense_blocks", ())):
+        x, _ = tfm.dense_block(ctx, p_l, x, cfg, rope=rope,
+                               cache=_layer_cache(cache, "kv_dense", layer),
                                cache_pos=cache_pos)
+    block = tfm.moe_block if cfg.family == _MOE else tfm.dense_block
+    for layer, p_l in enumerate(params["blocks"]):
+        x, _ = block(ctx, p_l, x, cfg, rope=rope,
+                     cache=_layer_cache(cache, "kv", layer),
+                     cache_pos=cache_pos)
     return _head(params, x, cfg, ctx)
 
 
@@ -268,7 +338,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     dev = tokens.device
     x = embed(params["embed"], tokens, model_dtype(cfg))
     positions = torch.arange(s, device=dev).expand(b, s)
-    if cfg.family in _DENSE:
+    if cfg.family in _DENSE + (_MOE,):
         logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
     elif cfg.family == "ssm":
         state = cache["state"] if cache is not None else init_cache(
@@ -316,13 +386,13 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
                               decode=True, store=True)
         return logits[:, 0], cache
     if not isinstance(pos, torch.Tensor):
-        s_max = cache["kv"].k.shape[2]
+        s_max = cache["kv"][0].shape[2]
         if not 0 <= int(pos) < s_max:
             raise ValueError(f"pos {pos} outside the cache [0, {s_max})")
         pos = torch.tensor(int(pos), dtype=torch.int32, device=dev)
     pos = pos.to(device=dev, dtype=torch.int32).reshape(())
     positions = pos.expand(b, 1)
-    if cfg.family in _DENSE:
+    if cfg.family in _DENSE + (_MOE,):
         logits = _dense_layers(params, x, positions, cfg, ctx, cache, pos)
     else:
         logits = _hybrid_groups(params, x, positions, cfg, ctx, cache, pos,
@@ -608,14 +678,21 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     """The JAX param tree (as numpy arrays: ``jax.tree.map(np.asarray,
     params)``, or a ``QuantizedParams.tree``) as the port's params.
 
-    Scanned ``(L, ...)`` block leaves are unstacked into one dict per
-    layer (the hybrid's ``blocks/mamba`` (G, g, ...) leaves into one dict
-    per Mamba block, group-major); dtypes are kept (bf16 stays bf16, int8
-    codes stay int8).  Nothing here imports JAX."""
+    Scanned ``(L, ...)`` block leaves (``blocks``, and the MoE family's
+    ``dense_blocks``) are unstacked into one dict per layer (the hybrid's
+    ``blocks/mamba`` (G, g, ...) leaves into one dict per Mamba block,
+    group-major); dtypes are kept (bf16 stays bf16, int8 codes stay int8).
+    Nothing here imports JAX."""
     _check_family(cfg, "from_jax_params")
     dev = resolve_device(device)
+    stacked = ("blocks", "dense_blocks")
     out = {k: _tree(v, lambda a: _to_tensor(a, dev))
-           for k, v in np_tree.items() if k != "blocks"}
+           for k, v in np_tree.items() if k not in stacked}
+    if "dense_blocks" in np_tree:
+        out["dense_blocks"] = [
+            _tree(np_tree["dense_blocks"],
+                  lambda a, i=i: _to_tensor(a[i], dev))
+            for i in range(cfg.moe.n_dense_layers)]
     blocks = np_tree["blocks"]
     if cfg.family == "hybrid":
         g = cfg.hybrid.attn_every
@@ -624,6 +701,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
                   lambda a, i=i: _to_tensor(a[i // g][i % g], dev))
             for i in range(_n_groups(cfg) * g)]
     else:
+        n = cfg.n_layers - (cfg.moe.n_dense_layers if cfg.moe else 0)
         out["blocks"] = [_tree(blocks, lambda a, i=i: _to_tensor(a[i], dev))
-                         for i in range(cfg.n_layers)]
+                         for i in range(n)]
     return out

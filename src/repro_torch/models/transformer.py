@@ -1,5 +1,7 @@
 """Block assembly (PyTorch counterpart of ``repro.models.transformer``):
-the dense family's pre-norm GQA + SwiGLU block, the RWKV6 block, and
+the dense family's pre-norm GQA + SwiGLU block, the MoE family's block
+(attention, GQA or DeepSeek's MLA, then the routed experts; MLA configs
+send the dense block's attention to MLA too), the RWKV6 block, and
 zamba2's hybrid group (``attn_every`` Mamba2 blocks, then the one shared
 attention block on concat(h, embedding)), the last two in the classic
 forms (a full sequence over a carried state and a dense KV cache, and
@@ -19,10 +21,16 @@ from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import Initializer, linear, rmsnorm
 
-__all__ = ["init_dense_block", "dense_block", "init_rwkv_block",
+__all__ = ["init_dense_block", "dense_block", "init_moe_block",
+           "moe_block", "init_rwkv_block",
            "rwkv_block_fwd", "rwkv_block_decode", "rwkv_block_paged",
            "init_mamba_block", "init_shared_attn", "hybrid_group_fwd",
            "hybrid_group_paged"]
+
+
+def _init_attn(init: Initializer, cfg: ModelConfig) -> dict:
+    return att.init_mla(init, cfg) if cfg.mla is not None \
+        else att.init_gqa(init, cfg)
 
 
 def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
@@ -30,8 +38,27 @@ def init_dense_block(init: Initializer, cfg: ModelConfig) -> dict:
         "ln1": init.ones((cfg.d_model,)),
         "ln2": init.ones((cfg.d_model,)),
         "mlp": mlp_lib.init_mlp(init, cfg.d_model, cfg.d_ff, cfg.act),
-        "attn": att.init_gqa(init, cfg),
+        "attn": _init_attn(init, cfg),
     }
+
+
+def _attn_dispatch(ctx: QuantContext, p: dict, x: torch.Tensor,
+                   cfg: ModelConfig, *, rope, cache, cache_pos, ragged,
+                   block_tables, paged_work):
+    """The block's attention: MLA for MLA configs (the classic dense-cache
+    paths only, as in the reference), else GQA."""
+    if cfg.mla is not None:
+        if ragged is not None or block_tables is not None:
+            raise NotImplementedError(
+                "paged serving covers GQA caches only; MLA's compressed "
+                "latent cache has no block-pool layout (as in the "
+                "reference)")
+        return att.mla_attention(ctx, p["attn"], x, cfg, rope=rope,
+                                 cache=cache, cache_pos=cache_pos)
+    return att.gqa_attention(ctx, p["attn"], x, cfg, rope=rope, cache=cache,
+                             cache_pos=cache_pos, ragged=ragged,
+                             block_tables=block_tables,
+                             paged_work=paged_work)
 
 
 def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
@@ -47,13 +74,38 @@ def dense_block(ctx: QuantContext, p: dict, x: torch.Tensor,
     ``rope`` is the step's (cos, sin) tables.  All quantization lives
     inside the qlinear modules; residual adds and rmsnorms run in float
     between module grids."""
-    h, new_cache = att.gqa_attention(
-        ctx, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-        rope=rope, cache=cache, cache_pos=cache_pos, ragged=ragged,
+    h, new_cache = _attn_dispatch(
+        ctx, p, rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rope=rope,
+        cache=cache, cache_pos=cache_pos, ragged=ragged,
         block_tables=block_tables, paged_work=paged_work)
     x = x + h
     x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg.act)
+    return x, new_cache
+
+
+def init_moe_block(init: Initializer, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": init.ones((cfg.d_model,)),
+        "ln2": init.ones((cfg.d_model,)),
+        "moe": mlp_lib.init_moe(init, cfg),
+        "attn": _init_attn(init, cfg),
+    }
+
+
+def moe_block(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
+              *, rope: tuple[torch.Tensor, torch.Tensor], cache=None,
+              cache_pos=None):
+    """One MoE layer of the classic path: attention (GQA or MLA) over an
+    optional dense cache written at ``cache_pos``, then the routed experts
+    (``mlp.moe``) on x (B, S, d)."""
+    h, new_cache = _attn_dispatch(
+        ctx, p, rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rope=rope,
+        cache=cache, cache_pos=cache_pos, ragged=None, block_tables=None,
+        paged_work=None)
+    x = x + h
+    x = x + mlp_lib.moe(ctx, p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                        cfg)
     return x, new_cache
 
 

@@ -1,16 +1,12 @@
-"""Differential tests of the recurrent families' classic path (rwkv6_3b,
-family ``ssm``; zamba2_2_7b, family ``hybrid``) against the JAX package,
-on its smoke weights carried over by ``from_jax_params``, fp32 unless
-stated:
+"""The recurrent families' classic path against the JAX package: the
+cases both archs share, imported by ``test_torch_recurrent_classic_rwkv.py``
+(rwkv6_3b, family ``ssm``) and ``test_torch_recurrent_classic_zamba.py``
+(zamba2_2_7b, family ``hybrid``), each of which gives the module-scoped
+``arch`` fixture these cases and the ``calibrated`` fixture read, so that
+each file holds one JAX calibration and the two files run on separate
+workers.  On the smoke weights carried over by ``from_jax_params``, fp32
+unless stated:
 
-* the O(1) decode recurrences ``rwkv6_decode`` and ``mamba2_decode`` from
-  a random non-zero state, output and new state within 1e-5;
-* the blocks ``rwkv_block_fwd``, ``rwkv_block_decode`` and
-  ``hybrid_group_fwd`` (prefill and ``decode=True``, over an fp32 and an
-  int8 dense cache) within 1e-5; int8 cache codes identical, or at most
-  phase 20's documented one-step flips (on <= 0.1% of the codes: the two
-  packages sum fp32 products in other orders, and a code on a rounding
-  boundary may move; ROADMAP Queue 3, "FP int8 slab codes");
 * ``init_cache`` (bf16 and fp32, ``kv_cache_bits`` 8 and None): shapes and
   dtypes; after ``prefill`` the cache's dtypes, component by component;
 * ``forward``, ``prefill`` and ``decode_step`` in FP (logits within
@@ -23,11 +19,8 @@ stated:
 * ``calibrate_lm``: the same module names in the same order, layer 0
   captured first, the dataflow edges under ``shared/``, and tables
   identical to the JAX package's;
-* the repair of ``quantize_weight_tree`` on RWKV6: a calibrated INT
-  forward over the pre-quantized tree equals the on-the-fly forward over
-  float weights bit for bit (the channel mix's weights on their
-  ``rwkv_ffn/*`` grids), and ``quantize_params``' converted leaves are
-  the JAX list with the stacked paths unstacked;
+* ``quantize_params``' converted leaves are the JAX list with the stacked
+  paths unstacked;
 * classic ``serve`` (FP and calibrated INT) token-identical to the JAX
   package's prefill + decode loop (``tests/test_recurrent_serving.py::
   _dense_oracle``'s) under the JAX package's calibrated context, and
@@ -38,9 +31,8 @@ stated:
 * the port's classic tokens equal to the port's engine's on the JAX
   recurrent tests' workload (the counterpart of ``_check_vs_oracle``).
 
-One JAX calibration per arch is shared through a module-scoped fixture
-(the JAX ``serve`` / ``serve_engine`` calibrate on the same 4 x 32 batch,
-and take it from there).
+The JAX ``serve`` / ``serve_engine`` calibrate on the same 4 x 32 batch as
+the ``calibrated`` fixture, and take its calibration from there.
 """
 import dataclasses
 import functools
@@ -86,7 +78,6 @@ from tests.test_torch_recurrent_blocks import tcfg_of  # noqa: E402
 from tests.test_torch_recurrent_serving import ENGINE, _workload  # noqa
 from tests.test_torch_step_capture import StubGraph  # noqa: E402
 
-ARCHS = ["rwkv6_3b", "zamba2_2_7b"]
 TOL = dict(atol=1e-5, rtol=1e-5)
 NKV = 4                      # the smoke configs' kv_cache_frac_bits
 PROMPT, BATCH, GEN = 32, 4, 8
@@ -140,21 +131,18 @@ def _calib_tokens():
 
 
 @pytest.fixture(scope="module")
-def calibrated():
-    """arch -> (JAX calibrated context, its report, the port's context and
-    report), on the arch's smoke config with ``_kv_bits``."""
-    out = {}
-    for arch in ARCHS:
-        jcfg, tcfg = _cfgs(arch, kv_cache_bits=_kv_bits(arch))
-        jp, _ = _weights(arch)
-        tokens = _calib_tokens()
-        jctx, jrep = jcalibrate(lambda p, b, c: JM.forward(p, b, jcfg, c),
-                                jp, {"tokens": jnp.asarray(tokens)})
-        tctx, trep = calibrate_lm(
-            lambda p, b, c: TM.forward(p, b, tcfg, c),
-            _tparams(arch, tcfg), {"tokens": _t(tokens)})
-        out[arch] = (jctx, jrep, tctx, trep)
-    return out
+def calibrated(arch):
+    """(JAX calibrated context, its report, the port's context and
+    report) for the file's arch, on its smoke config with ``_kv_bits``."""
+    jcfg, tcfg = _cfgs(arch, kv_cache_bits=_kv_bits(arch))
+    jp, _ = _weights(arch)
+    tokens = _calib_tokens()
+    jctx, jrep = jcalibrate(lambda p, b, c: JM.forward(p, b, jcfg, c),
+                            jp, {"tokens": jnp.asarray(tokens)})
+    tctx, trep = calibrate_lm(
+        lambda p, b, c: TM.forward(p, b, tcfg, c),
+        _tparams(arch, tcfg), {"tokens": _t(tokens)})
+    return jctx, jrep, tctx, trep
 
 
 @pytest.fixture
@@ -163,9 +151,7 @@ def shared_jax_calibration(calibrated, monkeypatch):
     instead of running their own on the same batch (asserted)."""
     def cached(forward_fn, params, batch):
         assert np.array_equal(np.asarray(batch["tokens"]), _calib_tokens())
-        jctx, jrep, _, _ = calibrated[
-            "zamba2_2_7b" if "shared" in params else "rwkv6_3b"]
-        return jctx, jrep
+        return calibrated[:2]
     monkeypatch.setattr(jserve, "calibrate_lm", cached)
 
 
@@ -193,133 +179,6 @@ def _layer(tree, i):
     return jax.tree.map(lambda a: a[i], tree)
 
 
-def test_rwkv6_decode_matches_jax():
-    jcfg, tcfg = _cfgs("rwkv6_3b")
-    jp, _ = _weights("rwkv6_3b")
-    tp = _tparams("rwkv6_3b", tcfg)
-    rng = np.random.default_rng(1)
-    x = rng.standard_normal((3, 1, jcfg.d_model)).astype(np.float32)
-    st = _rwkv_state(rng, jcfg, 3)
-    jo, jst = jax.jit(lambda p, x, st: jrwkv.rwkv6_decode(
-        JCtx(), p, x, jcfg, st))(_layer(jp["blocks"], 1)["rwkv"],
-                                 jnp.asarray(x),
-                                 jrwkv.RWKVState(*map(jnp.asarray, st)))
-    with torch.no_grad():
-        to, tst = trwkv.rwkv6_decode(TCtx(), tp["blocks"][1]["rwkv"], _t(x),
-                                     tcfg, trwkv.RWKVState(*map(_t, st)))
-    _close(to, jo, "out")
-    for f, a, b in zip(jst._fields, tst, jst):
-        assert a.dtype == torch.float32, f
-        _close(a, b, f)
-
-
-def test_mamba2_decode_matches_jax():
-    jcfg, tcfg = _cfgs("zamba2_2_7b")
-    jp, _ = _weights("zamba2_2_7b")
-    tp = _tparams("zamba2_2_7b", tcfg)
-    rng = np.random.default_rng(2)
-    z = tssm.zero_state(tcfg, 3)
-    x = rng.standard_normal((3, 1, jcfg.d_model)).astype(np.float32)
-    conv = rng.standard_normal(tuple(z.conv.shape)).astype(np.float32)
-    ssm = (rng.standard_normal(tuple(z.ssm.shape)) * 0.5).astype(np.float32)
-    jp_l = _layer(_layer(jp["blocks"]["mamba"], 1), 0)["ssm"]
-    jo, jst = jax.jit(lambda p, x, st: jssm.mamba2_decode(
-        JCtx(), p, x, jcfg, st))(jp_l, jnp.asarray(x),
-                                 jssm.SSMState(jnp.asarray(conv),
-                                               jnp.asarray(ssm)))
-    g = tcfg.hybrid.attn_every
-    with torch.no_grad():
-        to, tst = tssm.mamba2_decode(TCtx(), tp["blocks"][g]["ssm"], _t(x),
-                                     tcfg, tssm.SSMState(_t(conv), _t(ssm)))
-    _close(to, jo, "out")
-    _close(tst.conv, jst.conv, "conv")
-    _close(tst.ssm, jst.ssm, "ssm")
-    # the window rolled: the new window's first rows are the old last ones
-    assert torch.equal(tst.conv[:, :-1], _t(conv)[:, 1:])
-
-
-@pytest.mark.parametrize("decode", [False, True])
-def test_rwkv_blocks_match_jax(decode):
-    jcfg, tcfg = _cfgs("rwkv6_3b")
-    jp, _ = _weights("rwkv6_3b")
-    tp = _tparams("rwkv6_3b", tcfg)
-    rng = np.random.default_rng(3)
-    s = 1 if decode else 21
-    x = rng.standard_normal((2, s, jcfg.d_model)).astype(np.float32)
-    st = _rwkv_state(rng, jcfg, 2)
-    jblock = jtfm.rwkv_block_decode if decode else jtfm.rwkv_block_fwd
-    tblock = ttfm.rwkv_block_decode if decode else ttfm.rwkv_block_fwd
-    jx, jst = jax.jit(lambda p, x, st: jblock(JCtx(), p, x, jcfg, st))(
-        _layer(jp["blocks"], 0), jnp.asarray(x),
-        jrwkv.RWKVState(*map(jnp.asarray, st)))
-    with torch.no_grad():
-        tx, tst = tblock(TCtx(), tp["blocks"][0], _t(x), tcfg,
-                         trwkv.RWKVState(*map(_t, st)))
-    _close(tx, jx, "x")
-    for f, a, b in zip(jst._fields, tst, jst):
-        assert tuple(a.shape) == b.shape, f
-        _close(a, b, f)
-
-
-def _hybrid_case(rng, jcfg, tcfg, b, s_max, kv_bits):
-    """Random group states and a dense KV cache whose rows hold values
-    (codes when int8)."""
-    g = tcfg.hybrid.attn_every
-    z = tssm.zero_state(tcfg, b)
-    conv = rng.standard_normal((g,) + tuple(z.conv.shape)).astype(np.float32)
-    ssm = (rng.standard_normal((g,) + tuple(z.ssm.shape)) * 0.5
-           ).astype(np.float32)
-    shape = (b, s_max, jcfg.n_kv_heads, jcfg.resolved_head_dim)
-    kv = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
-    if kv_bits == 8:
-        kv = [np.asarray(jquant(jnp.asarray(a), NKV, 8)) for a in kv]
-    return conv, ssm, kv
-
-
-@pytest.mark.parametrize("kv_bits", [None, 8])
-@pytest.mark.parametrize("decode", [False, True])
-def test_hybrid_group_fwd_matches_jax(kv_bits, decode):
-    jcfg, tcfg = _cfgs("zamba2_2_7b", kv_cache_bits=kv_bits)
-    jp, _ = _weights("zamba2_2_7b")
-    tp = _tparams("zamba2_2_7b", tcfg)
-    rng = np.random.default_rng(4)
-    b, s_max = 2, 24
-    s, pos = (1, 17) if decode else (19, 0)
-    conv, ssm, kv = _hybrid_case(rng, jcfg, tcfg, b, s_max, kv_bits)
-    x = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
-    xe = rng.standard_normal((b, s, jcfg.d_model)).astype(np.float32)
-    positions = np.broadcast_to(pos + np.arange(s), (b, s))
-    jx, jst, jkv = jtfm.hybrid_group_fwd(
-        JCtx(), _layer(jp["blocks"]["mamba"], 1), jp["shared"],
-        jnp.asarray(x), jnp.asarray(xe), jcfg,
-        positions=jnp.asarray(positions),
-        ssm_states=jssm.SSMState(jnp.asarray(conv), jnp.asarray(ssm)),
-        attn_cache=jatt.KVCache(*map(jnp.asarray, kv)),
-        cache_pos=jnp.asarray(pos, jnp.int32) if decode else 0,
-        decode=decode)
-    g = tcfg.hybrid.attn_every
-    cache = tatt.KVCache(*map(_t, kv))
-    with torch.no_grad():
-        tx, tst = ttfm.hybrid_group_fwd(
-            TCtx(), tp["blocks"][g:2 * g], tp["shared"], _t(x), _t(xe), tcfg,
-            states=[tssm.SSMState(_t(conv[j]), _t(ssm[j]))
-                    for j in range(g)],
-            rope=rope_tables(_t(positions), tcfg.resolved_head_dim,
-                             tcfg.rope_theta, torch.float32),
-            cache=cache,
-            cache_pos=torch.tensor(pos, dtype=torch.int32) if decode else 0,
-            decode=decode)
-    _close(tx, jx, "x")
-    for j in range(g):
-        _close(tst[j].conv, jst.conv[j], f"conv {j}")
-        _close(tst[j].ssm, jst.ssm[j], f"ssm {j}")
-    for name, a, want in (("k", cache.k, jkv.k), ("v", cache.v, jkv.v)):
-        if kv_bits == 8:
-            _codes_match(a, want, name)
-        else:
-            _close(a, want, name)
-
-
 # ---------------------------------------------------------------------------
 # the cache and the model entry points
 # ---------------------------------------------------------------------------
@@ -345,7 +204,6 @@ def _same_layout(tcache, jcache, values=False):
             assert not t.any(), name
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kv_bits", [None, 8])
 def test_init_cache_matches_jax(arch, dtype, kv_bits):
@@ -355,7 +213,6 @@ def test_init_cache_matches_jax(arch, dtype, kv_bits):
                  JM.init_cache(jcfg, 3, 10), values=True)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_prefill_cache_dtypes_match_jax(arch, dtype):
     jcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
@@ -373,7 +230,6 @@ def test_prefill_cache_dtypes_match_jax(arch, dtype):
     _same_layout(tc, jc)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode", ["fp", "int"])
 def test_forward_prefill_decode_match_jax(arch, mode):
     """FP within 1e-5; uncalibrated INT identical (logits and caches)."""
@@ -417,7 +273,6 @@ def test_forward_prefill_decode_match_jax(arch, mode):
             _close(t, want, name, atol=1e-5 * np.abs(want).max(), rtol=0)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_decode_consistency(arch):
     """decode(t | prefill(0..t-1)) == forward(0..t)[-1], as the JAX
     package's ``test_models_smoke.py::test_prefill_decode_consistency``."""
@@ -439,9 +294,8 @@ def test_prefill_decode_consistency(arch):
 # calibration and the weight conversions
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_calibrate_matches_jax(arch, calibrated):
-    jctx, jrep, tctx, trep = calibrated[arch]
+    jctx, jrep, tctx, trep = calibrated
     assert list(tctx.table) == list(jctx.table)
     assert list(trep.results) == list(jrep.results)
     assert _table(tctx) == _table(jctx)
@@ -471,33 +325,8 @@ def test_calibrate_matches_jax(arch, calibrated):
         assert store[name][1] is w, name
 
 
-def test_prequantized_rwkv_tree_equals_on_the_fly(calibrated):
-    """The repair: ``quantize_weight_tree`` quantizes the channel mix's
-    ``wk_ffn`` / ``wv_ffn`` / ``wr_ffn`` on the grids of the modules their
-    ``qlinear`` calls name (``rwkv_ffn/wk|wv|wr``, ``models.model.
-    qlinear_weight``), so the INT forward over the pre-quantized tree is
-    the forward over float weights, bit for bit.  Under the old mapping
-    (the longest path suffix in the table: none for these leaves) they
-    took the default grid."""
-    jctx = calibrated["rwkv6_3b"][0]
-    ctx = _port_ctx(jctx, "int")
-    assert {ctx.table[f"rwkv_ffn/{m}"].n_w for m in ("wk", "wv", "wr")} \
-        != {tqmodel.DEFAULT_N_W}      # the grids the old mapping missed
-    _, tcfg = _cfgs("rwkv6_3b")
-    tp = _tparams("rwkv6_3b", tcfg)
-    pre = tqmodel.quantize_weight_tree(tp, ctx, name_fn=TM.qlinear_weight)
-    assert pre["blocks"][0]["rwkv"]["wk_ffn"].dtype == torch.int8
-    assert pre["blocks"][0]["rwkv"]["lora_mix_a"].dtype == torch.float32
-    toks = {"tokens": _t(_calib_tokens()[:, :12])}
-    with torch.no_grad():
-        want, _ = TM.forward(tp, toks, tcfg, ctx)
-        got, _ = TM.forward(pre, toks, tcfg, ctx)
-    assert torch.equal(got, want)
-
-
-@pytest.mark.parametrize("arch", ARCHS)
 def test_quantize_params_converts_the_jax_leaves(arch, calibrated):
-    jctx = calibrated[arch][0]
+    jctx = calibrated[0]
     jcfg, tcfg = _cfgs(arch)
     jq = jquantize_params(_weights(arch)[0],
                           dataclasses.replace(jctx, mode=JMode.INT))
@@ -552,18 +381,17 @@ def _serve_kw(arch):
                                "kv_cache_bits": _kv_bits(arch)})
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("mode", ["fp", "int"])
 def test_serve_matches_jax_loop(arch, mode, calibrated):
     jcfg, tcfg = _cfgs(arch, kv_cache_bits=_kv_bits(arch))
     jctx = JCtx() if mode == "fp" else dataclasses.replace(
-        calibrated[arch][0], mode=JMode.INT)
+        calibrated[0], mode=JMode.INT)
     want = _jax_loop(jcfg, _weights(arch)[0], jctx, _calib_tokens(), GEN)
     o = tserve.serve(arch, mode=mode, params=_tparams(arch, tcfg),
                      device="cpu", **_serve_kw(arch))
     assert np.array_equal(o["tokens"], want)
     if mode == "int":
-        assert _table(o["ctx"]) == _table(calibrated[arch][0])
+        assert _table(o["ctx"]) == _table(calibrated[0])
 
 
 class StateRestoringStub(StubGraph):
@@ -581,7 +409,6 @@ class StateRestoringStub(StubGraph):
             t.copy_(v)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_serve_through_stand_in_graph(arch, monkeypatch):
     _, tcfg = _cfgs(arch, kv_cache_bits=_kv_bits(arch))
     tp = _tparams(arch, tcfg)
@@ -618,10 +445,7 @@ def test_serve_through_stand_in_graph(arch, monkeypatch):
                                             StateRestoringStub.cache)
 
 
-ENGINE_CASES = [(a, w) for a in ARCHS for w in (False, True)]
-
-
-@pytest.mark.parametrize("arch,w8a8", ENGINE_CASES)
+@pytest.mark.parametrize("w8a8", [False, True])
 def test_serve_engine_calibrated_matches_jax(arch, w8a8,
                                              shared_jax_calibration):
     """``calibrate=True`` (INT) and ``w8a8=True`` on the JAX recurrent
@@ -644,7 +468,6 @@ def test_serve_engine_calibrated_matches_jax(arch, w8a8,
         assert to["engine"].launches["int8_matmul"] == 0    # the CPU
 
 
-@pytest.mark.parametrize("arch", ARCHS)
 def test_classic_tokens_equal_engine_tokens(arch):
     """The port's prefill + decode loop and the port's engine (fp32 slabs,
     FP) give the same greedy tokens on every request of the JAX recurrent

@@ -72,6 +72,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve_engine("qwen3_1_7b", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("qwen3_1_7b")
+    for arch in ("granite_moe_3b_a800m", "deepseek_v3_671b"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            serve(arch)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_cache(cfg, 1, 8)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -39,15 +39,17 @@ from repro_torch.models import ssm as tssm  # noqa: E402
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+_SUB_CONFIGS = {"ssm": tbase.SSMConfig, "hybrid": tbase.HybridConfig,
+                "moe": tbase.MoEConfig, "mla": tbase.MLAConfig}
+
+
 def tcfg_of(jcfg):
     """The port's ModelConfig for a JAX config (sub-configs converted)."""
     kw = {}
     for f in dataclasses.fields(tbase.ModelConfig):
         v = getattr(jcfg, f.name)
-        if f.name == "ssm" and v is not None:
-            v = tbase.SSMConfig(**dataclasses.asdict(v))
-        elif f.name == "hybrid" and v is not None:
-            v = tbase.HybridConfig(**dataclasses.asdict(v))
+        if f.name in _SUB_CONFIGS and v is not None:
+            v = _SUB_CONFIGS[f.name](**dataclasses.asdict(v))
         kw[f.name] = v
     return tbase.ModelConfig(**kw)
 
