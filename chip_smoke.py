@@ -246,6 +246,24 @@ the CUDA toolkit.  Phases, one line each (or a few):
     MoE layer), bf16, flash attention, calibrated INT and FP, graphs and
     eager in turns: tokens identical, launches by ``_moe_serve_want``,
     calibration and prefill seconds, decode ms/token, peak memory.
+25. the audio family: (a) K5's non-causal form (every query over every
+    kv row) against its plain version at whisper's encoder shape (B 4,
+    1500 over 1500, H = KVH 20, D 64; held row by row, a repeated kv tile
+    caught) and the cross prefill's (B 4, 32 over 1500) and five odd
+    shapes, x fp32 / bf16 q x int8 / float K/V, the encoder and cross
+    shapes timed beside non-causal SDPA and the bound; K6 at the cross
+    decode (one query over all 1500 memory rows, pos 1499) the same way;
+    K2 with a bias at 6000 x 1280 -> 1280, -> 5120 and 6000 x 5120 ->
+    1280, bit-exact (bias shifted left and right, the bf16 epilogue),
+    timed; (b) whisper at full width on 2 encoder and 2 decoder layers,
+    fp32, batch 2, prefill and 3 decode steps card against CPU under phase
+    24c's rules (FP logits within 2e-4, INT every qlinear identical on the
+    card's input); (c) classic ``serve`` of whisper-large-v3 at full width
+    and depth, bf16, flash attention, calibrated INT and FP, graphs and
+    eager in turns: tokens identical, launches by ``_whisper_launches``
+    (a decode step K6 64, INT K2 321; a prefill K5 96, 64 of them
+    non-causal), calibration and prefill seconds, decode ms/token, peak
+    memory.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -266,7 +284,7 @@ the forward no longer makes, and the convolution kernel's one forward's,
 its old chain beside; K5's and K6's also at zamba2's head dim 80,
 from phase 23, and at the MoE family's shapes, from phase 24; K2's
 grouped form one granite-moe-3b decode step's 96 launches, from phase
-24), and
+24; K5's non-causal form at whisper's encoder, from phase 25), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -5907,6 +5925,446 @@ def phase_moe(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the audio family (whisper-large-v3) and K5's non-causal form
+# ---------------------------------------------------------------------------
+
+# whisper-large-v3's attention: 20 heads over 20 KV heads of 64, the
+# encoder over 1500 frames
+WHISPER_HEADS, WHISPER_DIM, WHISPER_FRAMES = 20, 64, 1500
+# K5's non-causal odd shapes (B, Sq, Skv, H, KVH, D): one query over one
+# row, one query over a tail of 100, more queries than rows, Sq and Skv off
+# the tiles with GQA and D 80, Skv one past two tiles
+K5_NC_ODD = ((1, 1, 1, 2, 2, 64), (2, 1, 100, 4, 2, 64),
+             (2, 70, 1, 4, 4, 64), (2, 33, 131, 8, 2, 80),
+             (1, 129, 257, 20, 20, 64))
+K5_NC_DTYPES = (("bf16 q, int8 K/V", "bfloat16", "int8", 2e-2),
+                ("bf16 q, bf16 K/V", "bfloat16", "bfloat16", 2e-2),
+                ("fp32 q, int8 K/V", "float32", "int8", 1e-4),
+                ("fp32 q, fp32 K/V", "float32", "float32", 1e-4))
+# K2 with a bias at whisper's prefill shapes, M = 4 x 1500 frames: the
+# projections, w1 and w2 (and a decode step's cross K / V)
+WHISPER_K2 = ((6000, 1280, 1280), (6000, 1280, 5120), (6000, 5120, 1280))
+WHISPER_DECODES = 3
+
+
+def _nc_held(torch, q, k, v, nkv, tol, what):
+    """K5's non-causal form against its plain version: atol = rtol = tol,
+    or, over 1024 kv rows and more, ``tol`` of each row's largest |value|
+    (a row averages that many V rows), a repeated kv tile caught."""
+    from repro_torch.kernels import ops, ref
+    got = ops.flash_attention(q, k, v, kv_frac_bits=nkv, causal=False)
+    want = ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv, causal=False)
+    torch.cuda.synchronize()
+    if k.shape[1] < 1024:
+        return _close(torch, got, want, tol, what)
+    err = _close_rows(torch, got, want, tol, what)
+    check(_tile_fault_caught(torch, ref.flash_attention_ref, q, k, v, want,
+                             tol, 1, kv_frac_bits=nkv, causal=False),
+          f"{what}: the row tolerance passes a repeated kv tile")
+    return err
+
+
+def _w_attn_timed(torch, tag, q, k, v, nkv, pos=None):
+    """One non-causal K5 launch (``pos`` None) or K6 launch at ``pos``,
+    held against its plain version row by row (each output averages up to
+    1500 V rows), timed beside it, non-causal SDPA over the same K/V and
+    the bound: every query reads every kv row (K6: rows <= pos)."""
+    from repro_torch.kernels import ops, ref
+    sdpa, sdpa_how = _sdpa(torch)
+    b, sq, h, dk = q.shape
+    kvh, dv = k.shape[2], v.shape[3]
+    if pos is None:
+        launch = lambda: ops.flash_attention(q, k, v, kv_frac_bits=nkv,
+                                             causal=False)
+        plain = lambda: ref.flash_attention_ref(q, k, v, kv_frac_bits=nkv,
+                                                causal=False)
+        rows = k.shape[1]
+    else:
+        pos_t = _pos(torch, pos)
+        launch = lambda: ops.flash_decode(q, k, v, pos=pos_t,
+                                          kv_frac_bits=nkv)
+        plain = lambda: ref.flash_decode_ref(q, k, v, pos=pos_t,
+                                             kv_frac_bits=nkv)
+        rows = pos + 1
+    kf = _deq(torch, k[:, :rows], nkv, q.dtype).contiguous()
+    vf = _deq(torch, v[:, :rows], nkv, q.dtype).contiguous()
+    lib = sdpa(q, kf, vf, False).transpose(1, 2)
+    want = plain()
+    check(torch.allclose(lib.float(), want.float(), atol=5e-2, rtol=5e-2),
+          f"{tag}: SDPA disagrees with the plain version")
+    got = launch()
+    torch.cuda.synchronize()
+    err = _close_rows(torch, got, want, LONG_ROW_TOL, tag)
+    ms = time_ms(torch, launch, 20)
+    plain_ms = time_ms(torch, plain, 3, warmup=1)
+    lib_ms = time_ms(torch, lambda: sdpa(q, kf, vf, False), 20)
+    n_ops = b * h * 2 * (dk + dv) * sq * rows
+    n_bytes = (q.numel() + b * sq * h * dv) * q.element_size() \
+        + b * rows * kvh * (dk + dv) * k.element_size()
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    log(f"[25a] {tag} (B {b}, Sq {sq}, Skv {k.shape[1]}"
+        + (f", pos {pos}" if pos is not None else "")
+        + f", H {h}, KVH {kvh}, D {dk}, {q.dtype} q, {k.dtype} K/V): kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA ({sdpa_how}, "
+        f"non-causal) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+        f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB); within "
+        f"{LONG_ROW_TOL} of each row's largest |value| (max |diff| "
+        f"{err:.2e})")
+    return dict(name=tag, b=b, sq=sq, skv=k.shape[1], h=h, kvh=kvh, d=dk,
+                pos=pos, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, max_abs_err=err, ops=n_ops,
+                bytes=n_bytes)
+
+
+def _whisper_k2(torch, gen, res):
+    """K2 with a bias at whisper's prefill shapes, bit for bit against its
+    plain version: the codes epilogue with the bias shifted left and right
+    and the float (bf16) epilogue the path launches; the path's form timed
+    beside the plain version, ``torch._int_mm`` and the bound."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.int8_matmul import plan_int8_matmul
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    specs = (("bias<<", dict(n_x=4, n_w=8, n_b=7, n_o=4), None),
+             ("bias>>", dict(n_x=2, n_w=3, n_b=9, n_o=4), None),
+             ("bias, bf16 out", dict(n_x=4, n_w=8, n_b=9, n_o=5),
+              torch.bfloat16))
+    timed, n = [], 0
+    for m, k, nn in WHISPER_K2:
+        x, (w,) = _k2_operands(torch, gen, m, k, nn)
+        b = torch.randint(-128, 128, (nn,), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        for name, spec_kw, out_float in specs:
+            spec = LinearQuantSpec(**spec_kw)
+            got = ops.int8_matmul(x, w, b, spec, out_float=out_float)
+            want = ref.int8_matmul_ref(
+                x, w, b, shift=spec.requant_shift,
+                bias_shift=spec.bias_shift,
+                out_dtype=out_float or torch.int8, n_o=spec.n_o)
+            torch.cuda.synchronize()
+            check(got.dtype == want.dtype and torch.equal(got, want),
+                  f"K2 {name} at {m}x{k}->{nn}: kernel != plain")
+            n += 1
+        spec = LinearQuantSpec(**specs[-1][1])
+        ms = time_ms(torch, lambda: ops.int8_matmul(
+            x, w, b, spec, out_float=torch.bfloat16), 20)
+        plain_ms = time_ms(torch, lambda: ref.int8_matmul_ref(
+            x, w, b, shift=spec.requant_shift, bias_shift=spec.bias_shift,
+            out_dtype=torch.bfloat16, n_o=spec.n_o), 3, warmup=1)
+        lib_ms = time_ms(torch, lambda: torch._int_mm(x, w), 20)
+        n_bytes = m * k + k * nn + nn + 2 * m * nn
+        b_ms, b_by = bound_ms(n_bytes, 2 * m * k * nn, "int8")
+        timed.append(dict(shape=f"{m}x{k}->{nn}", ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                          plan=_plan_str(plan_int8_matmul(m, k, nn, sms))))
+        log(f"[25a] K2 with a bias {m}x{k}->{nn} ({timed[-1]['plan']}): "
+            f"bit-exact (codes, bias << and >>; bf16 epilogue) | kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm (int32 "
+            f"out, no bias) {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+        del x, w
+    res["k2_bias"] = dict(checks=n, timed=timed)
+
+
+def _whisper_kernels(torch, res):
+    """(a) K5's non-causal form against its plain version at whisper's
+    encoder shape (B 4, 1500 over 1500, H = KVH 20, D 64) and the cross
+    prefill's (B 4, 32 over 1500), and at the odd shapes, each over fp32
+    and bf16 q and int8 and float K/V; the encoder and cross shapes timed
+    (bf16, the path's types).  K6 at the cross decode's shape (one query
+    over all 1500 memory rows: pos 1499).  K2 with a bias at whisper's
+    shapes."""
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    h, d = WHISPER_HEADS, WHISPER_DIM
+    shapes = [("encoder", (4, WHISPER_FRAMES, WHISPER_FRAMES, h, h, d)),
+              ("cross prefill", (4, SERVE_PROMPT, WHISPER_FRAMES, h, h, d))] \
+        + [(f"odd {s}", s) for s in K5_NC_ODD]
+    n, err = 0, 0.0
+    for label, (b, sq, skv, hh, kvh, dd) in shapes:
+        for dname, q_dt, kv_dt, tol in K5_NC_DTYPES:
+            q, k, v, nkv = _dense_qkv(torch, gen, b, sq, skv, hh, kvh, dd,
+                                      getattr(torch, q_dt),
+                                      getattr(torch, kv_dt))
+            e = _nc_held(torch, q, k, v, nkv, tol,
+                         f"non-causal K5 {label} {dname}")
+            if q_dt == "bfloat16":
+                err = max(err, e)
+            n += 1
+        del q, k, v
+    log(f"[25a] non-causal K5 against its plain version in {n} cases "
+        f"(encoder and cross-prefill shapes and {len(K5_NC_ODD)} odd ones x "
+        f"fp32 / bf16 q x int8 / float K/V; fp32 q within 1e-4, bf16 within "
+        f"2e-2, over 1024+ rows 2e-2 of each row's largest |value|): bf16 "
+        f"max |diff| {err:.2e}")
+    res["k5_nc_checks"], res["k5_nc_max_abs_err"] = n, err
+    bf = torch.bfloat16
+    q, k, v, _ = _dense_qkv(torch, gen, 4, WHISPER_FRAMES, WHISPER_FRAMES,
+                            h, h, d, bf, bf)
+    res["k5_encoder"] = _w_attn_timed(torch, "non-causal K5, encoder", q, k,
+                                      v, None)
+    res["k5_cross"] = _w_attn_timed(torch, "non-causal K5, cross prefill",
+                                    q[:, :SERVE_PROMPT].contiguous(), k, v,
+                                    None)
+    res["k6_cross"] = _w_attn_timed(torch, "K6, cross decode",
+                                    q[:, :1].contiguous(), k, v, None,
+                                    pos=WHISPER_FRAMES - 1)
+    # K6 at the memory's last row is the non-causal function
+    got = ops.flash_decode(q[:, :1].contiguous(), k, v,
+                           pos=_pos(torch, WHISPER_FRAMES - 1))
+    want = ref.flash_attention_ref(q[:, :1], k, v, causal=False)
+    torch.cuda.synchronize()
+    res["k6_cross"]["vs_noncausal_k5_plain"] = _close_rows(
+        torch, got, want, LONG_ROW_TOL,
+        "K6 at pos S_enc - 1 vs non-causal plain K5")
+    del q, k, v
+    _whisper_k2(torch, gen, res)
+
+
+def _whisper_launches(cfg, mode, gen, calibrated=True):
+    """Launches of one classic ``serve`` call (a prefill and ``gen - 1``
+    decode steps; ``gen`` 1: a prefill alone) of whisper.  A decoder layer
+    launches K5 twice in a prefill (causal self-attention, non-causal
+    cross-attention) and K6 twice a decode step (self over the cache,
+    cross at the memory's last row); an encoder layer K5 once (non-causal).
+    INT: K2 once a projection (an encoder layer 6, a decoder layer 10: q,
+    k, v and o of both attentions, w1, w2; the head 1); K3 once a module
+    input (the q / k / v input once, the cross K / V's memory once, each
+    other projection once) and once a bias (q, k and v of each attention),
+    an encoder layer 7, a decoder layer 13, the head 1; and once a decoder
+    layer for an int8 K/V write.  INT's calibration forward (FP, no cache)
+    adds the prefill's K5 launches.  Returns (LAUNCHES, non-causal K5)."""
+    n_enc, n_dec = cfg.encdec.n_encoder_layers, cfg.n_layers
+    kv = n_dec if cfg.kv_cache_bits == 8 else 0
+    k2 = k3 = (0, 0)
+    if mode == "int":
+        k2, k3 = (6 * n_enc, 10 * n_dec + 1), (7 * n_enc, 13 * n_dec + 1)
+    cal = int(mode == "int" and calibrated)
+    want = {"int8_matmul": k2[0] + k2[1] * gen, "int8_matmul_grouped": 0,
+            "ragged_attention": 0, "paged_attention": 0,
+            "flash_prefill": (1 + cal) * (n_enc + 2 * n_dec),
+            "flash_decode": 2 * n_dec * (gen - 1),
+            "quantize": k3[0] + (k3[1] + kv) * gen if mode == "int"
+            else kv * gen,
+            "residual_requant": 0, "int_conv": 0}
+    return want, (1 + cal) * (n_enc + n_dec)
+
+
+def _whisper_model(torch, res):
+    """(b) whisper at full width on 2 encoder and 2 decoder layers (1500
+    frames), fp32, batch 2, the attention biases drawn from a seed:
+    ``prefill`` of the prompt's first 2 rows and WHISPER_DECODES
+    ``decode_step`` calls, kernels on the card against the plain path on
+    the CPU (phase 24c's loop, each step from the card's cache): FP logits
+    within atol = rtol = 2e-4 and greedy tokens identical; INT module by
+    module (every qlinear on the card's input) identical, logits too;
+    launches as ``_whisper_launches`` says."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import EncDecConfig
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(
+        get_config("whisper_large_v3"), n_layers=2, dtype="float32",
+        attn_kernel="flash",
+        encdec=EncDecConfig(n_encoder_layers=2, encoder_seq=WHISPER_FRAMES))
+    p_gpu = M.init_params(cfg, 0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(28)
+    for blk in p_gpu["enc_blocks"] + p_gpu["blocks"]:
+        for part in ("attn", "cross"):
+            for name in ("bq", "bk", "bv"):
+                if part in blk:
+                    blk[part][name].copy_(0.1 * torch.randn(
+                        blk[part][name].shape, generator=gen, device="cuda"))
+    p_cpu = _tree_to(p_gpu, "cpu")
+    b = 2
+    tok0 = torch.from_numpy(_serve_tokens(cfg.vocab_size)[:b])
+    feats = torch.randn((b, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                        device="cuda")
+    name_fn = functools.partial(M.qlinear_weight, cfg=cfg)
+    for mode in ("fp", "int"):
+        ctx = QuantContext(mode=QuantMode(mode))
+        pc, pg = p_cpu, p_gpu
+        if ctx.mode is QuantMode.INT:
+            pc = quantize_weight_tree(p_cpu, ctx, name_fn=name_fn)
+            pg = quantize_weight_tree(p_gpu, ctx, name_fn=name_fn)
+        sync = _ModuleSync(ctx.mode is QuantMode.INT)
+        ops.reset_launch_counts()
+        worst, same, caches, cache_diff = 0.0, True, {}, 0.0
+        tok = {"cuda": tok0.cuda(), "cpu": tok0}
+        for step in range(1 + WHISPER_DECODES):
+            logits = {}
+            for dv, params in (("cuda", pg), ("cpu", pc)):
+                with torch.no_grad(), sync.on(dv):
+                    if step == 0:
+                        lg, caches[dv] = M.prefill(
+                            params, {"tokens": tok[dv],
+                                     "encoder_features": feats.to(dv)},
+                            cfg, ctx, max_seq=SERVE_PROMPT + SERVE_GEN)
+                    else:
+                        pos = SERVE_PROMPT + step - 1
+                        lg, caches[dv] = M.decode_step(
+                            params, tok[dv], caches[dv],
+                            _pos(torch, pos) if dv == "cuda" else pos,
+                            cfg, ctx)
+                logits[dv] = lg.float().cpu()
+            a, bb = logits["cuda"], logits["cpu"]
+            check(bool(torch.isfinite(a).all()) and a.shape == bb.shape,
+                  f"whisper model {mode}: non-finite or misshapen logits")
+            same &= torch.equal(a.argmax(-1), bb.argmax(-1))
+            worst = max(worst, float(((a - bb).abs() / (1 + bb.abs())).max()))
+            for c_, g_ in zip(_tree_leaves(caches["cpu"]),
+                              _tree_leaves(caches["cuda"])):
+                g_ = g_.cpu()
+                cache_diff = max(cache_diff, float(
+                    ((g_ - c_).abs() / (1 + c_.abs())).max()))
+                c_.copy_(g_)
+            nxt = a.argmax(-1).to(torch.int32)[:, None]
+            tok = {"cuda": nxt.cuda(), "cpu": nxt}
+        launches = dict(ops.LAUNCHES)
+        want, _ = _whisper_launches(cfg, mode, 1 + WHISPER_DECODES,
+                                    calibrated=False)
+        tag = f"whisper (2 + 2 layers) {mode}"
+        log(f"[25b] {tag}, full width, fp32, batch {b}, prefill of "
+            f"{SERVE_PROMPT} tokens over {WHISPER_FRAMES} frames + "
+            f"{WHISPER_DECODES} decode steps, each from the card's cache: "
+            f"greedy tokens {'identical' if same else 'DIFFER'}; logits max "
+            f"|diff| / (1 + |logit|) {worst:.3e}; cache (K/V, memory) max "
+            f"|diff| / (1 + |x|) {cache_diff:.3e}; launches {launches}"
+            + (f"; module by module ({sync.calls} qlinear calls): largest "
+               f"input |diff| {sync.x_diff:.3e}, outputs differing "
+               f"{sync.y_diff}" if sync.enabled else ""))
+        check(same, f"{tag}: greedy tokens differ")
+        check(launches == want, f"{tag}: launches {launches}, want {want}")
+        check(cache_diff <= 1e-3, f"{tag}: caches differ by {cache_diff}")
+        if mode == "int":
+            check(sync.y_diff == 0 and worst == 0,
+                  f"{tag}: {sync.y_diff} module outputs and logits by up to "
+                  f"{worst} differ on the same inputs")
+        else:
+            check(worst <= 2e-4, f"{tag}: logits differ by {worst:.3e} "
+                  f"(atol = rtol = 2e-4)")
+        res["model"][tag] = dict(logits_max_rel=worst, launches=launches,
+                                 cache_max_rel=cache_diff,
+                                 module_input_diff=sync.x_diff)
+        del caches, pc, pg
+    del p_cpu, p_gpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _whisper_serve(torch, res):
+    """(c) classic ``serve`` of whisper-large-v3 at full width and depth
+    (32 + 32 layers, 1500 frames), bf16, flash attention: INT (calibrated)
+    and FP, graphs and eager in turns (graphs, eager, graphs, eager):
+    tokens identical, launches by ``_whisper_launches`` (K6 64 a decode
+    step; INT K2 321 a decode step; K5 96 a prefill, 64 of them
+    non-causal), the step graphs' counts; calibration, prefill, decode
+    ms/token and peak memory of each run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import model as M
+    arch = "whisper_large_v3"
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _tree_leaves(params))
+    n_enc = sum(t.numel() for t in _tree_leaves(params["enc_blocks"]))
+    n_dec = sum(t.numel() for t in _tree_leaves(params["blocks"]))
+    log(f"[25c] {arch} ({cfg.encdec.n_encoder_layers} encoder + "
+        f"{cfg.n_layers} decoder layers): {n_params / 1e9:.3f} B parameters "
+        f"({n_enc / 1e6:.1f} M encoder, {n_dec / 1e6:.1f} M decoder), bf16, "
+        f"made in {time.perf_counter() - t0:.1f} s")
+    for mode in ("int", "fp"):
+        want, want_nc = _whisper_launches(cfg, mode, SERVE_GEN)
+        runs = []
+        for rep, graphs in enumerate((True, False, True, False)):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            o = serve(arch, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                      gen=SERVE_GEN, mode=mode, calibrate=True, smoke=False,
+                      params=params, attn_kernel="flash", graphs=graphs,
+                      device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            nc = ops.FORM_LAUNCHES["flash_prefill_noncausal"]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            toks, g = o["tokens"], o["graphs"]
+            tag = "graphs" if graphs else "eager"
+            log(f"[25c] serve {arch} {mode} run {rep} ({tag}): calibration "
+                f"{o['calibrate_s']:.3f} s, prefill {o['prefill_s']:.4f} s, "
+                f"decode {1e3 * o['decode_s_per_tok']:.3f} ms/token ("
+                + ("replays; first call + capture "
+                   if graphs else "every step eager; first step ")
+                + f"{1e3 * o['compile_decode_s']:.2f} ms), first calls "
+                f"{g['first_calls']} captures {g['captures']} replays "
+                f"{g['replays']}, launches K2 {launches['int8_matmul']} K3 "
+                f"{launches['quantize']} K5 {launches['flash_prefill']} "
+                f"({nc} non-causal) K6 {launches['flash_decode']}, peak "
+                f"{peak:.2f} GiB, {wall:.1f} s")
+            check(toks.shape == (SERVE_BATCH, SERVE_GEN)
+                  and int(toks.min()) >= 0
+                  and int(toks.max()) < cfg.vocab_padded,
+                  f"serve {arch} {mode}: tokens {toks}")
+            check(launches == want and nc == want_nc,
+                  f"serve {arch} {mode} {tag}: launches {launches} ({nc} "
+                  f"non-causal K5), want {want} ({want_nc})")
+            check(g == dict(enabled=graphs, first_calls=int(graphs),
+                            captures=int(graphs),
+                            replays=SERVE_GEN - 2 if graphs else 0),
+                  f"serve {arch} {mode} {tag}: step graphs {g}")
+            runs.append(dict(graphs=graphs, tokens=toks, launches=launches,
+                             noncausal_k5=nc, calibrate_s=o["calibrate_s"],
+                             prefill_s=o["prefill_s"],
+                             decode_s_per_tok=o["decode_s_per_tok"],
+                             first_decode_s=o["compile_decode_s"],
+                             peak_gib=peak, wall_s=wall))
+            del o
+        check(all((r["tokens"] == runs[0]["tokens"]).all() for r in runs),
+              f"serve {arch} {mode}: graphs and eager runs, or repeats, "
+              f"gave other tokens")
+        log(f"[25c] serve {arch} {mode}: graphs and eager runs "
+            f"token-identical, decode "
+            f"{[round(1e3 * r['decode_s_per_tok'], 3) for r in runs]} "
+            f"ms/token (graphs, eager, graphs, eager)")
+        res["serve"][f"{arch} {mode}"] = [
+            {k: v for k, v in r.items() if k != "tokens"} for r in runs]
+        res["serve"][f"{arch} {mode}"][0].update(
+            n_params=n_params, n_encoder=n_enc, n_decoder=n_dec)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_whisper(torch, out):
+    """Phase 25: the audio family -- (a) K5's non-causal form, K6 at the
+    cross decode and K2 with a bias at whisper's shapes, (b) the 2 + 2
+    layer model card against CPU, (c) classic ``serve`` of
+    whisper-large-v3 at full width and depth."""
+    t0 = time.perf_counter()
+    res = {"model": {}, "serve": {}, "part_s": {}}
+    for part, run in (("a", lambda: _whisper_kernels(torch, res)),
+                      ("b", lambda: _whisper_model(torch, res)),
+                      ("c", lambda: _whisper_serve(torch, res))):
+        t1 = time.perf_counter()
+        run()
+        res["part_s"][part] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[25] whisper phase {res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["whisper"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -5916,7 +6374,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24); "
+                         "20, 21, 22, 23, 24, 25); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -5944,7 +6402,7 @@ def main(argv=None) -> int:
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
-                 24: phase_moe}
+                 24: phase_moe, 25: phase_whisper}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -6001,6 +6459,8 @@ def main(argv=None) -> int:
         rcl = phase_recurrent_classic(torch, out)
         torch.cuda.empty_cache()
         moe = phase_moe(torch, out)
+        torch.cuda.empty_cache()
+        wsp = phase_whisper(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6212,6 +6672,39 @@ def main(argv=None) -> int:
         entry["moe_classic_launches"] = {
             tag: runs[0]["launches"][k_name]
             for tag, runs in moe["serve"].items()}
+    # the audio family (phase 25): K5's non-causal form, its own entry at
+    # whisper's encoder shape (launches: the first calibrated INT serve
+    # run's non-causal K5, the encoder's and the cross-attention's in the
+    # prefill and the calibration forward), the cross prefill beside; K6
+    # at the cross decode; K2 with a bias at whisper's prefill shapes
+    w_int = wsp["serve"]["whisper_large_v3 int"][0]
+    enc = wsp["k5_encoder"]
+    kernels.append({
+        "name": "flash_prefill_noncausal", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:68 (causal=False)",
+        "launches": w_int["noncausal_k5"],
+        "max_abs_err": wsp["k5_nc_max_abs_err"], "ms": enc["ms"],
+        "plain_ms": enc["plain_ms"], "bound_ms": enc["bound_ms"],
+        "bound_by": enc["bound_by"], "library_ms": enc["library_ms"],
+        "per": f"launch at whisper's encoder: B {SERVE_BATCH}, "
+               f"{WHISPER_FRAMES} over {WHISPER_FRAMES}, H = KVH "
+               f"{WHISPER_HEADS}, D {WHISPER_DIM}, bf16",
+        "cross_prefill": {k: v for k, v in wsp["k5_cross"].items()
+                          if k != "name"},
+        "checks": wsp["k5_nc_checks"]})
+    for k_name, key, extra in (
+            ("flash_prefill", "flash_prefill", {}),
+            ("flash_decode", "flash_decode",
+             {"whisper_cross": {k: v for k, v in wsp["k6_cross"].items()
+                                if k != "name"}}),
+            ("int8_matmul_requant", "int8_matmul",
+             {"whisper_bias": wsp["k2_bias"]}),
+            ("quantize", "quantize", {})):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry.update(extra, whisper_classic_launches={
+            tag: runs[0]["launches"][key]
+            for tag, runs in wsp["serve"].items()})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -4,7 +4,8 @@ Only the architectures the port serves are registered: the dense GQA
 transformers (qwen3 1.7B and 32B, llama3.2 1B, deepseek 67B, and the
 early-fusion chameleon 34B, family ``vlm``, whose image tokens share the
 text vocabulary), the mixtures of experts granite-moe 3B and DeepSeek-V3
-(family ``moe``, the latter with latent attention), the recurrent RWKV6
+(family ``moe``, the latter with latent attention), the audio
+encoder-decoder whisper-large-v3 (family ``audio``), the recurrent RWKV6
 and the hybrid zamba2 (each a ``ModelConfig``) and the paper's ResNet
 (``resnet_paper``, a ``ResNetConfig``); other architecture ids raise
 ``NotImplementedError`` naming the ROADMAP queue.
@@ -22,7 +23,7 @@ __all__ = ["ARCH_IDS", "ModelConfig", "ResNetConfig", "get_config",
 
 ARCH_IDS = ["qwen3_1_7b", "llama3_2_1b", "qwen3_32b", "deepseek_67b",
             "chameleon_34b", "granite_moe_3b_a800m", "deepseek_v3_671b",
-            "rwkv6_3b", "zamba2_2_7b", "resnet_paper"]
+            "whisper_large_v3", "rwkv6_3b", "zamba2_2_7b", "resnet_paper"]
 
 # canonical CLI ids (dashes) -> module names
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}

@@ -6,16 +6,17 @@ transformers (families ``dense`` and ``vlm``), the recurrent (``ssm``:
 RWKV6) and hybrid (Mamba2 groups plus one shared attention block)
 families with their ``SSMConfig`` / ``HybridConfig``, and the routed
 mixture of experts (``moe``) with its ``MoEConfig`` and, for DeepSeek's
-latent attention, ``MLAConfig``.  The enc-dec sub-config is not ported
-yet.  Configs are frozen, hashable dataclasses.
+latent attention, ``MLAConfig``, and the audio encoder-decoder
+(``audio``: whisper) with its ``EncDecConfig``.  Configs are frozen,
+hashable dataclasses.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
-__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "HybridConfig",
-           "ModelConfig"]
+__all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "EncDecConfig",
+           "HybridConfig", "ModelConfig"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,13 @@ class SSMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncDecConfig:
+    n_encoder_layers: int
+    encoder_seq: int = 1500        # whisper: 30 s of audio at 50 Hz post-conv
+    frontend: str = "stub"         # modality frontend is a stub per assignment
+
+
+@dataclasses.dataclass(frozen=True)
 class HybridConfig:
     """Zamba2-style: shared attention block every ``attn_every`` SSM blocks."""
 
@@ -73,7 +81,7 @@ class HybridConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                    # dense | vlm | moe | ssm | hybrid
+    family: str                    # dense | vlm | moe | audio | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -84,12 +92,13 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
-    act: str = "silu"              # silu (SwiGLU) | relu_sq (rwkv)
+    act: str = "silu"              # silu (SwiGLU) | gelu | relu_sq (rwkv)
     tie_embeddings: bool = False
     attn_bias: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    encdec: Optional[EncDecConfig] = None
     hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
     # int8 KV cache: Eq. 1 applied to the cache with a static fractional

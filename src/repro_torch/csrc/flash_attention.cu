@@ -8,14 +8,16 @@
 //   K6 <- _flash_decode_kernel (built by make_flash_decode, reached through
 //     kernels/ops.py::flash_decode: every decode step of the classic serve
 //     path).
-// Both are causal (q_offset 0) with scores scaled by 2^-n / sqrt(Dk): the
-// int8 grid's 2^-n of K is folded into the score scale and V's into the
-// final 1/l, so no dequantized copy of the cache exists.  A masked score is
+// K6 is causal at pos; K5 is causal from q_offset 0 or, with causal
+// false, lets every query see every kv row (whisper's encoder and the
+// cross-attention's prefill, Sq != Skv).  Scores are scaled by
+// 2^-n / sqrt(Dk): the int8 grid's 2^-n of K is folded into the score scale
+// and V's into the final 1/l, so no dequantized copy of the cache exists.  A masked score is
 // the reference's finite DEFAULT_MASK_VALUE; the running max starts at
 // -inf.  The softmax is fp32, K/V values and P are rounded to the q type
 // before their products (int8 codes and bf16 values convert exactly), l
 // sums the unrounded P, and a row whose l is 0 is written as 0.  Kv rows
-// past Sq (K5) or past pos (K6) are never read.  K6 reads pos from the
+// past Sq (causal K5) or past pos (K6) are never read.  K6 reads pos from the
 // card (an int32 every block loads, as the TPU kernel takes it by scalar
 // prefetch), so one captured launch serves every decode position.
 //
@@ -53,8 +55,9 @@
 // are fp32 FMAs on the CUDA cores (the K4 kernel shares the layout).
 //
 // K5, prefill.  Bound by its operations at a long prefill (4 * Sq * Skv / 2
-// * H * D causal FLOPs: 68.7 GFLOP at 4096^2, H 16, D 128); a launch at the
-// serving path's 32-token prompt.  Built with mma.sync.m16n8k16 (bf16 in,
+// * H * D causal FLOPs: 68.7 GFLOP at 4096^2, H 16, D 128; non-causal 4 *
+// Sq * Skv * H * D: 46.1 GFLOP at whisper's encoder, B 4, 1500^2, H 20,
+// D 64); a launch at the serving path's 32-token prompt.  Built with mma.sync.m16n8k16 (bf16 in,
 // fp32 accumulate) and ldmatrix rather than wgmma: the warp-level product
 // keeps each warp's 16 rows, their softmax state and the P fragments in
 // registers with no warpgroup or descriptor machinery, and reaches the
@@ -65,9 +68,10 @@
 // S = Q K^T from ldmatrix fragments of Q and K, the online softmax on the
 // accumulator fragments (each row's stats reduced over its 4 lanes), P
 // rounded to bf16 and reused in registers as the A operand of O += P V,
-// V read by ldmatrix.trans.  Tiles wholly above the diagonal or at/past
-// Skv are skipped, only the diagonal and the tail tile are masked per
-// element, and q tiles are walked longest first.  bf16 K/V tiles arrive by
+// V read by ldmatrix.trans.  Tiles wholly above the diagonal (causal) or
+// at/past Skv are skipped, only the diagonal and the tail tile are masked
+// per element (non-causal: the tail tile alone, every block reading all
+// Skv rows), and q tiles are walked longest first.  bf16 K/V tiles arrive by
 // cp.async into a double buffer; int8 (and fp32) K/V are converted to bf16
 // on their way into shared memory.  Head dims are zero-padded to 64, 128
 // or 256.  Left: no TMA, no wgmma, no warp specialisation.
@@ -195,9 +199,10 @@ int raise_smem_limit(K kernel) {
 }
 
 // ---------------------------------------------------------------------------
-// K5 on fp32 q: causal prefill, q (B, Sq, H, Dk) over K/V (B, Skv, KVH, D),
-// q_offset 0, fp32 FMAs on the CUDA cores.  One 256-thread block per (q
-// tile, KV head, batch) carries all `groups` query heads of that KV head
+// K5 on fp32 q: prefill, q (B, Sq, H, Dk) over K/V (B, Skv, KVH, D), causal
+// from q_offset 0 or non-causal, fp32 FMAs on the CUDA cores.  One
+// 256-thread block per (q tile, KV head, batch) carries all `groups` query
+// heads of that KV head
 // for TQ = 64 / groups positions (64 rows); K/V tiles of 64 rows are
 // staged as floats (rows padded by one word); four threads own a row: each
 // scores 16 kv rows of the tile, the quad reduces the row max and sum with
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(THREADS)
 flash_prefill_simt_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
                           const KT* __restrict__ v, QT* __restrict__ out, int Sq, int Skv,
                           int H, int KVH, int Dk, int Dv, int tq, float score_scale,
-                          float v_scale, float mask_value) {
+                          float v_scale, float mask_value, bool causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int ldk = Dk + 1, ldv = Dv + 1, lds = P_BK + 1;
   float* q_s = reinterpret_cast<float*>(smem);  // [P_ROWS][Dk + 1]
@@ -250,7 +255,7 @@ flash_prefill_simt_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   for (int i = 0; i < NPT; ++i) acc[i] = 0.f;
 
   // causal: tiles that start past the block's last position are skipped
-  const int kv_end = min(Skv, q0 + tq);
+  const int kv_end = causal ? min(Skv, q0 + tq) : Skv;
   for (int kv0 = 0; kv0 < kv_end; kv0 += P_BK) {
     __syncthreads();   // the previous tile (and the q staging) is done
     for (int idx = tid; idx < P_BK * Dk; idx += THREADS) {
@@ -278,7 +283,7 @@ flash_prefill_simt_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       float dot = 0.f;
       for (int d = 0; d < Dk; ++d) dot = fmaf(qr[d], kr[d], dot);
       const int kpos = kv0 + j;
-      const bool live = kpos < Skv && kpos <= qpos;
+      const bool live = kpos < Skv && (!causal || kpos <= qpos);
       s[jj] = live ? dot * score_scale : mask_value;
       m_tile = fmaxf(m_tile, s[jj]);
     }
@@ -419,7 +424,7 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
 flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k,
                         const KT* __restrict__ v, __nv_bfloat16* __restrict__ out, int Sq, int Skv,
                         int H, int KVH, int Dk, int Dv, int tq, float score_scale, float v_scale,
-                        float mask_value, bool q_vec, bool kv_vec) {
+                        float mask_value, bool q_vec, bool kv_vec, bool causal) {
   constexpr int LD = DP + TC_PAD;
   constexpr int NT = TC_BN / 8;  // n-tiles of S
   constexpr int OT = DP / 8;     // n-tiles of O
@@ -444,7 +449,8 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
   const size_t row_k = (size_t)KVH * Dk, row_v = (size_t)KVH * Dv;
   const KT* k_b = k + (size_t)b * Skv * row_k + (size_t)kvh * Dk;
   const KT* v_b = v + (size_t)b * Skv * row_v + (size_t)kvh * Dv;
-  const int kv_end = min(Skv, q0 + tq_live);  // rows no live query sees are never read
+  // rows no live query sees are never read (non-causal: every row is seen)
+  const int kv_end = causal ? min(Skv, q0 + tq_live) : Skv;
   const int n_tiles = (kv_end + TC_BN - 1) / TC_BN;
   auto stage_kv = [&](int tile) {
     const int kv0 = tile * TC_BN;
@@ -505,7 +511,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
         }
       }
       // scale; mask only the tile that crosses the diagonal or Skv
-      const bool masked = kv0 + TC_BN - 1 > q0 || kv0 + TC_BN > Skv;
+      const bool masked = (causal && kv0 + TC_BN - 1 > q0) || kv0 + TC_BN > Skv;
       float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
       for (int n = 0; n < NT; ++n)
@@ -514,7 +520,7 @@ flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q, const KT* __restric
           float x = s[n][e] * score_scale;
           if (masked) {
             const int kp = kv0 + n * 8 + 2 * t4 + (e & 1);
-            if (!(kp < Skv && kp <= qp[e / 2])) x = mask_value;
+            if (!(kp < Skv && (!causal || kp <= qp[e / 2]))) x = mask_value;
           }
           s[n][e] = x;
           mx[e / 2] = fmaxf(mx[e / 2], x);
@@ -906,7 +912,7 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 template <typename QT, typename KT, int NPT>
 int launch_prefill_simt(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                         int Skv, int H, int KVH, int Dk, int Dv, float score_scale,
-                        float v_scale, float mask_value, cudaStream_t stream) {
+                        float v_scale, float mask_value, bool causal, cudaStream_t stream) {
   auto kernel = flash_prefill_simt_kernel<QT, KT, NPT>;
   static const int smem_err = raise_smem_limit(kernel);
   if (smem_err != 0) return smem_err;
@@ -916,14 +922,15 @@ int launch_prefill_simt(const void* q, const void* k, const void* v, void* out, 
   const dim3 grid((Sq + tq - 1) / tq, KVH, B);
   kernel<<<grid, THREADS, smem, stream>>>(
       static_cast<const QT*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
-      static_cast<QT*>(out), Sq, Skv, H, KVH, Dk, Dv, tq, score_scale, v_scale, mask_value);
+      static_cast<QT*>(out), Sq, Skv, H, KVH, Dk, Dv, tq, score_scale, v_scale, mask_value,
+      causal);
   return (int)cudaGetLastError();
 }
 
 template <typename KT, int DP>
 int launch_prefill_tc(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                       int Skv, int H, int KVH, int Dk, int Dv, float score_scale, float v_scale,
-                      float mask_value, cudaStream_t stream) {
+                      float mask_value, bool causal, cudaStream_t stream) {
   auto kernel = flash_prefill_tc_kernel<KT, DP>;
   static const int smem_err = raise_smem_limit(kernel);
   if (smem_err != 0) return smem_err;
@@ -936,7 +943,7 @@ int launch_prefill_tc(const void* q, const void* k, const void* v, void* out, in
   kernel<<<grid, TC_THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KT*>(k), static_cast<const KT*>(v),
       static_cast<__nv_bfloat16*>(out), Sq, Skv, H, KVH, Dk, Dv, tq, score_scale, v_scale,
-      mask_value, q_vec, kv_vec);
+      mask_value, q_vec, kv_vec, causal);
   return (int)cudaGetLastError();
 }
 
@@ -945,8 +952,8 @@ int launch_prefill_tc(const void* q, const void* k, const void* v, void* out, in
 template <typename QT, typename KT>
 int launch_prefill(const void* q, const void* k, const void* v, void* out, int B, int Sq,
                    int Skv, int H, int KVH, int Dk, int Dv, float score_scale, float v_scale,
-                   float mask_value, cudaStream_t stream) {
-#define FP_ARGS q, k, v, out, B, Sq, Skv, H, KVH, Dk, Dv, score_scale, v_scale, mask_value, stream
+                   float mask_value, bool causal, cudaStream_t stream) {
+#define FP_ARGS q, k, v, out, B, Sq, Skv, H, KVH, Dk, Dv, score_scale, v_scale, mask_value, causal, stream
   const int D = Dk > Dv ? Dk : Dv;
   if constexpr (sizeof(QT) == 2) {
     if (D <= 64) return launch_prefill_tc<KT, 64>(FP_ARGS);
@@ -1025,20 +1032,23 @@ float from_bits(int bits) {
 
 // C entries.  q_dtype: 0 float32, 1 bfloat16.  kv_dtype: 0 float32,
 // 1 bfloat16, 2 int8 codes on the 2^-kv_frac_bits grid (0 for floats).
+// K5's causal: 1 masks kv rows past each query's position, 0 none.
 // score_scale and mask_value arrive as the bits of float32s.  Every tensor
 // is contiguous; out (and K6's workspace) is allocated by the caller.  Each
 // returns cudaGetLastError() after each of its launches (0 on success).
 extern "C" int flash_prefill_launch(const void* q, const void* k, const void* v, void* out,
                                     int B, int Sq, int Skv, int H, int KVH, int Dk, int Dv,
                                     int score_scale_bits, int kv_frac_bits, int mask_bits,
-                                    int q_dtype, int kv_dtype, void* stream) {
+                                    int q_dtype, int kv_dtype, int causal, void* stream) {
   if (KVH <= 0 || H % KVH || H / KVH > P_ROWS || Dk <= 0 || Dv <= 0 || Dk > MAX_DIM ||
       Dv > MAX_DIM)
     return (int)cudaErrorInvalidValue;
   const float score_scale = from_bits(score_scale_bits), mask_value = from_bits(mask_bits);
   const float v_scale = ldexpf(1.f, -kv_frac_bits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define FP_ARGS q, k, v, out, B, Sq, Skv, H, KVH, Dk, Dv, score_scale, v_scale, mask_value, st
+  const bool is_causal = causal != 0;
+#define FP_ARGS \
+  q, k, v, out, B, Sq, Skv, H, KVH, Dk, Dv, score_scale, v_scale, mask_value, is_causal, st
   if (q_dtype == 0) {
     if (kv_dtype == 0) return launch_prefill<float, float>(FP_ARGS);
     if (kv_dtype == 1) return launch_prefill<float, __nv_bfloat16>(FP_ARGS);

@@ -1,13 +1,17 @@
-"""K5 and K6 bindings: causal flash prefill and one-token flash decode over
-a dense (B, S, KVH, D) KV cache, hand-written in CUDA C++ for Hopper
+"""K5 and K6 bindings: flash prefill (causal, or non-causal for whisper's
+encoder and cross-attention) and one-token flash decode over a dense
+(B, S, KVH, D) KV cache, hand-written in CUDA C++ for Hopper
 (``csrc/flash_attention.cu``); and K4's: paged attention over the serving
 engine's KV block pool (``csrc/paged_attention.cu``), as the JAX file
 keeps the paged decode kernel beside the dense ones.
 
 K5 replaces the TPU kernel ``repro/kernels/flash_attention.py::
 _flash_prefill_kernel`` and K6 ``_flash_decode_kernel``.  K5 serves the
-dense-cache prefill and calibration's forward, K6 every decode step of the
-classic serve path, both under ``attn_kernel='flash'``.  The cache may
+dense-cache prefill and calibration's forward (non-causal: the audio
+family's encoder and the cross-attention over its memory), K6 every
+decode step of the classic serve path (the cross-attention's too, one
+query over every memory row at the fixed position S_enc - 1), both under
+``attn_kernel='flash'``.  The cache may
 hold int8 Eq.-1 codes (converted exactly on their way to the products,
 the grid's 2^-n folded into the score scale and the final 1/l) or floats.
 
@@ -69,7 +73,7 @@ __all__ = ["flash_prefill_cuda", "flash_decode_cuda", "paged_attention_cuda",
 _NAME = "flash_attention"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "flash_prefill_launch": (ctypes.c_int, [_P] * 4 + [_I] * 12 + [_P]),
+    "flash_prefill_launch": (ctypes.c_int, [_P] * 4 + [_I] * 13 + [_P]),
     "flash_decode_launch": (ctypes.c_int, [_P] * 6 + [_I] * 13 + [_P]),
 }
 _PAGED_NAME = "paged_attention"
@@ -216,11 +220,12 @@ def _launch(entry: str, *args, name=_NAME, signatures=_SIGNATURES) -> None:
 
 
 def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                       kv_frac_bits: int) -> torch.Tensor:
-    """Launch K5: causal attention of q (B, Sq, H, Dk) over K/V
-    (B, Skv, KVH, D) with q at positions 0..Sq-1; returns (B, Sq, H, Dv)
-    in q's dtype.  ``kv_frac_bits`` is the int8 cache's fractional bit (0
-    for floats)."""
+                       kv_frac_bits: int, causal: bool = True
+                       ) -> torch.Tensor:
+    """Launch K5: attention of q (B, Sq, H, Dk) over K/V (B, Skv, KVH, D),
+    causal with q at positions 0..Sq-1 or, with ``causal=False``, every
+    query over every kv row; returns (B, Sq, H, Dv) in q's dtype.
+    ``kv_frac_bits`` is the int8 cache's fractional bit (0 for floats)."""
     _check("flash_prefill_cuda", q, k, v, PREFILL_MAX_GROUPS)
     b, sq, h, dk = q.shape
     skv, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -233,7 +238,7 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 v.data_ptr(), out.data_ptr(), b, sq, skv, h, kvh, dk, dv,
                 _f32_bits(score_scale), int(kv_frac_bits),
                 _f32_bits(DEFAULT_MASK_VALUE), _Q_CODES[q.dtype],
-                _KV_CODES[k.dtype], stream)
+                _KV_CODES[k.dtype], int(bool(causal)), stream)
     return out
 
 

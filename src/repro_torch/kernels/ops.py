@@ -38,7 +38,8 @@ __all__ = ["int8_matmul", "int8_matmul_grouped", "int_conv2d",
            "quantize_act", "quantize_multi", "quantize_scatter",
            "residual_requant",
            "ragged_attention", "paged_attention", "flash_attention",
-           "flash_decode", "LAUNCHES", "reset_launch_counts"]
+           "flash_decode", "LAUNCHES", "FORM_LAUNCHES",
+           "reset_launch_counts"]
 
 # launches per kernel since the last reset (process-wide, like the
 # loaded kernel libraries themselves)
@@ -48,9 +49,15 @@ LAUNCHES = {"int8_matmul": 0, "int8_matmul_grouped": 0,
             "residual_requant": 0, "int_conv": 0}
 
 
+# launches of one form of a kernel, counted beside (not instead of) the
+# kernel's own count in LAUNCHES
+FORM_LAUNCHES = {"flash_prefill_noncausal": 0}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, FORM_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -331,25 +338,32 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_frac_bits: Optional[int] = None) -> torch.Tensor:
-    """Causal flash attention over a dense cache: q (B, Sq, H, Dk) at
-    positions 0..Sq-1 x K/V (B, Skv, KVH, D) -> (B, Sq, H, Dv), scores
-    scaled by 1/sqrt(Dk).  K/V may be int8 Eq.-1 codes on the
-    2^-``kv_frac_bits`` grid, converted exactly on the card.  Kv rows past
-    Sq (an empty cache tail) are masked by causality and never read.
+                    kv_frac_bits: Optional[int] = None,
+                    causal: bool = True) -> torch.Tensor:
+    """Flash attention over a dense cache: q (B, Sq, H, Dk) at positions
+    0..Sq-1 x K/V (B, Skv, KVH, D) -> (B, Sq, H, Dv), scores scaled by
+    1/sqrt(Dk).  K/V may be int8 Eq.-1 codes on the 2^-``kv_frac_bits``
+    grid, converted exactly on the card.  Causal by default: kv rows past
+    Sq (an empty cache tail) are masked and never read.  With
+    ``causal=False`` every query attends to every kv row (the audio
+    family's encoder, and the cross-attention over its memory, where Sq
+    != Skv).
 
     K5's backward belongs to the training slice: a CUDA ``q`` that
     requires grad raises."""
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_attention"):
-        return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits)
+        return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits,
+                                       causal=causal)
     if q.requires_grad:
         raise NotImplementedError(
             "flash_attention on CUDA is forward-only: K5's backward comes "
             "with training (ROADMAP Queue 1 item 7, 'Training and "
             "infrastructure')")
-    out = flash_prefill_cuda(q, k, v, kv_frac_bits=nkv)
+    out = flash_prefill_cuda(q, k, v, kv_frac_bits=nkv, causal=causal)
     LAUNCHES["flash_prefill"] += 1
+    if not causal:
+        FORM_LAUNCHES["flash_prefill_noncausal"] += 1
     return out
 
 

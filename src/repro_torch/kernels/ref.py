@@ -496,11 +496,17 @@ def _dense_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        *, kv_frac_bits: Optional[int] = None
-                        ) -> torch.Tensor:
+                        *, kv_frac_bits: Optional[int] = None,
+                        causal: bool = True) -> torch.Tensor:
     """K5's function: causal attention of q (B, Sq, H, Dk) at positions
-    0..Sq-1 over K/V (B, Skv, KVH, D); (B, Sq, H, Dv) in q's dtype."""
-    q_pos = torch.arange(q.shape[1], device=q.device)
+    0..Sq-1 over K/V (B, Skv, KVH, D), or with ``causal=False`` every
+    query over every kv row (each query placed at the last kv position,
+    so the mask keeps every row and the arithmetic is the causal
+    function's); (B, Sq, H, Dv) in q's dtype."""
+    if causal:
+        q_pos = torch.arange(q.shape[1], device=q.device)
+    else:
+        q_pos = torch.full((q.shape[1],), k.shape[1] - 1, device=q.device)
     return _dense_attention_ref(q, k, v, q_pos, kv_frac_bits)
 
 

@@ -16,8 +16,11 @@ prefill over zero states (and zamba2's dense KV cache for its shared
 attention block), then the O(1) decode recurrences, the decode step
 captured as one CUDA graph on the card.  So do the mixture-of-experts
 archs (``granite_moe_3b_a800m``; ``deepseek_v3_671b``, its attention
-MLA over the compressed latent cache), which the engines refuse, as in
-the reference.
+MLA over the compressed latent cache) and the audio encoder-decoder
+(``whisper_large_v3``: the prompt carries stub frame embeddings, the
+encoder runs once in prefill, each decode step recomputes the
+cross-attention's K/V from the cached memory), which the engines
+refuse, as in the reference.
 
 Engine (``--engine``, ``serve_engine``): the continuous-batching engine on
 the paged int8-KV pool against a synthetic Poisson workload; ``--w8a8``
@@ -51,8 +54,9 @@ decisions are identical.
 Runs on the CUDA device unless ``--device cpu`` is given.  ``--attn-kernel
 flash`` sends the classic path's attention through the flash prefill and
 decode kernels (K5, K6); ``chunked`` (the default) through their plain
-versions.  The JAX CLI's ``--mesh`` and ``--profile-cost`` options are not
-ported yet.
+versions.  ``--prefix-cache`` / ``--no-prefix-cache`` force the engine's
+prefix cache on or off (default: the engine decides).  The JAX CLI's
+``--mesh`` and ``--profile-cost`` options are not ported yet.
 """
 from __future__ import annotations
 
@@ -73,15 +77,16 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _calibrated(cfg, params, mode: str, tokens):
-    """The INT / FAKE context: Algorithm 1 on one batch of ``tokens``
-    (the model's forward, FP mode, with activation capture), the mode
-    swapped in.  Returns (ctx, report)."""
+def _calibrated(cfg, params, mode: str, prompt: dict):
+    """The INT / FAKE context: Algorithm 1 on one batch, the ``prompt``
+    (its tokens, and the audio family's encoder features; the model's
+    forward, FP mode, with activation capture), the mode swapped in.
+    Returns (ctx, report)."""
     from repro_torch.core.lm_calibrate import calibrate_lm
     from repro_torch.core.qmodel import QuantMode
     from repro_torch.models import model as M
     ctx, report = calibrate_lm(lambda p, b, c: M.forward(p, b, cfg, c),
-                               params, {"tokens": tokens})
+                               params, prompt)
     return dataclasses.replace(ctx, mode=QuantMode(mode)), report
 
 
@@ -141,14 +146,19 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     if params is None:
         params = M.init_params(cfg, seed, device=dev)
-    stream = SyntheticLMStream(cfg.vocab_size, prompt_len, batch, seed=seed)
-    prompt = {"tokens": torch.from_numpy(stream.batch(0)["tokens"]).to(dev)}
+    audio = cfg.family == "audio"
+    stream = SyntheticLMStream(
+        cfg.vocab_size, prompt_len, batch, seed=seed,
+        encoder_seq=cfg.encdec.encoder_seq if audio else None,
+        d_model=cfg.d_model if audio else None)
+    prompt = {k: torch.from_numpy(v).to(dev)
+              for k, v in stream.batch(0).items()}
 
     ctx = QuantContext(mode=QuantMode(mode))
     report, t_cal = None, 0.0
     if calibrate and mode in ("fake", "int"):
         t0 = time.perf_counter()
-        ctx, report = _calibrated(cfg, params, mode, prompt["tokens"])
+        ctx, report = _calibrated(cfg, params, mode, prompt)
         _sync(dev)
         t_cal = time.perf_counter() - t0
         print(f"calibrated {len(report.results)} modules in {t_cal:.1f}s")
@@ -158,7 +168,7 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         # outside any unified module
         params = quantize_weight_tree(
             params, ctx, name_fn=functools.partial(M.qlinear_weight, cfg=cfg)
-            if cfg.family in ("ssm", "hybrid", "moe") else None)
+            if cfg.family in ("ssm", "hybrid", "moe", "audio") else None)
 
     if graphs is None:
         graphs = dev.type == "cuda"
@@ -311,7 +321,7 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
         stream = SyntheticLMStream(cfg.vocab_size, max(prompt_lens), 4,
                                    seed=seed)
         tokens = torch.from_numpy(stream.batch(0)["tokens"]).to(dev)
-        ctx, _ = _calibrated(cfg, params, mode, tokens)
+        ctx, _ = _calibrated(cfg, params, mode, {"tokens": tokens})
     quantized = None
     if cfg.matmul_kernel == "int8":
         if ctx.mode is not QuantMode.INT:
@@ -388,7 +398,13 @@ def main(argv=None):
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--shared-prefix", type=int, default=0, metavar="N")
-    ap.add_argument("--no-prefix-cache", action="store_true")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="[--engine] force the content-addressed prefix "
+                         "cache on (default: the engine decides: on for "
+                         "attention archs, unavailable on recurrent ones)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="[--engine] disable the prefix cache (the "
+                         "baseline for an A/B at equal pool size)")
     ap.add_argument("--slabs", type=int, default=None, metavar="N",
                     help="[--engine] recurrent-state pool size in slabs "
                          "(default 1 trash + one per slot); ignored on "
@@ -446,6 +462,12 @@ def main(argv=None):
                     help="torch device (default cuda; 'cpu' runs the plain "
                          "PyTorch versions of the kernels)")
     args = ap.parse_args(argv)
+    if args.prefix_cache and args.no_prefix_cache:
+        ap.error("--prefix-cache and --no-prefix-cache are mutually "
+                 "exclusive")
+    # tri-state: None lets the engine decide
+    prefix_cache = (True if args.prefix_cache
+                    else False if args.no_prefix_cache else None)
     if args.replay:
         raise SystemExit(_replay(args))
     if args.engine:
@@ -457,7 +479,7 @@ def main(argv=None):
                 calibrate=not args.no_calibrate, smoke=not args.full,
                 seed=args.seed, temperature=args.temperature,
                 top_k=args.top_k, shared_prefix=args.shared_prefix,
-                prefix_cache=False if args.no_prefix_cache else None,
+                prefix_cache=prefix_cache,
                 num_slabs=args.slabs, state_bits=args.state_bits,
                 spec_k=args.spec_k, drafter=args.drafter,
                 ragged=not args.no_ragged, w8a8=args.w8a8,

@@ -342,15 +342,20 @@ def serve_step_key(tokens, cache: dict) -> tuple:
     """The classic decode step's key in :class:`StepGraphs`: ``("decode",
     B, S_max)`` over a dense KV cache; over any other cache (RWKV6's
     states, zamba2's states and dense KV, the MoE family's ``kv_dense``
-    beside ``kv``, MLA's latent caches) ``("decode", B, shapes)``, the
-    shape of every cache tensor by name."""
+    beside ``kv``, MLA's latent caches, the audio family's ``memory``
+    tensor beside ``kv``) ``("decode", B, shapes)``, the shape of every
+    cache tensor by name."""
     b = tokens.shape[0]
     if set(cache) == {"kv"} and isinstance(cache["kv"], KVCache):
         return ("decode", b, cache["kv"].k.shape[2])
-    shapes = tuple((f"{name}.{field}", tuple(t.shape))
-                   for name, part in cache.items()
-                   for field, t in zip(part._fields, part))
-    return ("decode", b, shapes)
+    shapes = []
+    for name, part in cache.items():
+        if isinstance(part, torch.Tensor):
+            shapes.append((name, tuple(part.shape)))
+        else:
+            shapes += [(f"{name}.{field}", tuple(t.shape))
+                       for field, t in zip(part._fields, part)]
+    return ("decode", b, tuple(shapes))
 
 
 def run_serve_step(graphs: StepGraphs, serve_step, params, tokens,

@@ -19,7 +19,11 @@ families of paths:
   calibration runs): ``cfg.attn_kernel == 'flash'`` goes to
   ``ops.flash_attention`` (K5) / ``ops.flash_decode`` (K6), ``'chunked'``
   to their plain versions on any device (the reference computes that path
-  as jnp outside any kernel).
+  as jnp outside any kernel).  Without a cache the attention may be
+  non-causal (whisper's encoder) or cross-attention over a memory
+  (``kv_x``: whisper's decoder), which reads K and V from the memory and
+  takes K5 in its non-causal form, or, for one query (a decode step),
+  K6 at the memory's last row, where every row is visible.
 
 DeepSeek's multi-head latent attention (``init_mla``, ``mla_attention``,
 ``MLACache``): without a cache (the forward that calibration captures)
@@ -29,6 +33,7 @@ attended through K5 when ``cfg.attn_kernel == 'flash'``; with a cache
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -43,7 +48,7 @@ from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm, rotate
 
 __all__ = ["KVCache", "MLACache", "PagedKVCache", "RaggedBatch", "init_gqa",
-           "gqa_attention", "init_mla", "mla_attention"]
+           "gqa_attention", "last_row", "init_mla", "mla_attention"]
 
 
 class KVCache(NamedTuple):
@@ -105,15 +110,28 @@ def init_gqa(init, cfg: ModelConfig) -> dict:
     return p
 
 
+@functools.lru_cache(maxsize=None)
+def last_row(n_rows: int, device: torch.device) -> torch.Tensor:
+    """The 0-d int32 ``n_rows - 1`` on ``device``, made once per (rows,
+    device): the position at which K6 attends one query over all of a
+    cross-attention's ``n_rows`` memory rows.  The audio family's
+    ``init_cache`` makes it, outside any captured decode step, which then
+    reads this one tensor at every replay."""
+    return torch.full((), n_rows - 1, dtype=torch.int32, device=device)
+
+
 def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
-                  cfg: ModelConfig, *, rope: tuple[torch.Tensor, torch.Tensor],
+                  cfg: ModelConfig, *,
+                  rope: Optional[tuple[torch.Tensor, torch.Tensor]],
                   cache=None, cache_pos=None,
                   ragged: Optional[RaggedBatch] = None,
                   block_tables: Optional[torch.Tensor] = None,
                   paged_work: Optional[RaggedWork] = None,
+                  causal: bool = True, kv_x: Optional[torch.Tensor] = None,
                   name: str = "attn"):
     """GQA with qk_norm and rope; ``rope`` is the (cos, sin) table of the
-    tokens' absolute positions (``common.rope_tables``).  Returns
+    tokens' absolute positions (``common.rope_tables``), or None for no
+    rotation (the audio family's encoder and cross-attention).  Returns
     (output, cache).
 
     * ``ragged`` given: x (T, d) is the whole mixed step and ``cache`` the
@@ -136,26 +154,48 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
       and K6 reads the position there), over the cache up to it; otherwise
       a prefill, which starts at ``cache_pos == 0`` and attends causally
       over the cache.
-    * no cache: causal attention over x's own (B, S) sequence (the
-      forward that calibration captures).
+    * no cache: attention over x's own (B, S) sequence (the forward that
+      calibration captures), causal unless ``causal=False``; or, with
+      ``kv_x`` (B, S_kv, d), cross-attention of x's queries over the
+      memory's S_kv rows, every row visible: K and V are ``wk`` / ``wv``
+      of the memory (their own quant point, ``wq``'s x another), and one
+      query (a decode step) goes to K6 at position S_kv - 1
+      (:func:`last_row`), more to K5's non-causal form.
 
     The returned cache holds the same tensors as the given one."""
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.n_kv_heads
     lead = x.shape[:-1]                    # (T,) ragged, (B, S) dense
+    if (kv_x is not None or not causal) and (
+            cache is not None or ragged is not None):
+        raise ValueError("non-causal and cross-attention run without a "
+                         "cache, as in the reference")
+    if kv_x is not None and rope is not None:
+        raise ValueError("cross-attention takes no rope (its memory rows "
+                         "have no rope positions here)")
 
-    # one quant point for the three (qlinears); wo's input grid is threaded
-    # from wv's output grid: attention rows are softmax-convex combinations
-    # of V rows
-    q, k, v = common.linears(
-        ctx, [f"{name}/wq", f"{name}/wk", f"{name}/wv"], x,
-        [p["wq"], p["wk"], p["wv"]], [p.get("bq"), p.get("bk"), p.get("bv")])
-    q, k, v = (q.reshape(*lead, h, hd), k.reshape(*lead, kvh, hd),
-               v.reshape(*lead, kvh, hd))
+    # wo's input grid is threaded from wv's output grid: attention rows
+    # are softmax-convex combinations of V rows
+    biases = [p.get("bq"), p.get("bk"), p.get("bv")]
+    if kv_x is None:
+        # one quant point for the three (qlinears)
+        q, k, v = common.linears(
+            ctx, [f"{name}/wq", f"{name}/wk", f"{name}/wv"], x,
+            [p["wq"], p["wk"], p["wv"]], biases)
+        kv_lead = lead
+    else:
+        # wq reads x, wk and wv the memory: two quant points
+        q = linear(ctx, f"{name}/wq", x, p["wq"], biases[0])
+        k, v = common.linears(ctx, [f"{name}/wk", f"{name}/wv"], kv_x,
+                              [p["wk"], p["wv"]], biases[1:])
+        kv_lead = kv_x.shape[:-1]
+    q, k, v = (q.reshape(*lead, h, hd), k.reshape(*kv_lead, kvh, hd),
+               v.reshape(*kv_lead, kvh, hd))
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
-    q, k = rotate(q, *rope), rotate(k, *rope)
+    if rope is not None:
+        q, k = rotate(q, *rope), rotate(k, *rope)
 
     kv_frac_bits = None
     if cache is not None:
@@ -217,9 +257,11 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                 write_rows((torch.arange(bsz, device=x.device)[:, None]
                             * cache.k.shape[1] + rows).reshape(-1))
             k, v = cache.k, cache.v
+        decode = kops.flash_decode if flash else kref.flash_decode_ref
         if cache is not None and s == 1:
-            decode = kops.flash_decode if flash else kref.flash_decode_ref
             out = decode(q, k, v, pos=cache_pos, kv_frac_bits=kv_frac_bits)
+        elif kv_x is not None and s == 1:
+            out = decode(q, k, v, pos=last_row(k.shape[1], x.device))
         else:
             if cache is not None and (on_card or cache_pos != 0):
                 raise NotImplementedError(
@@ -228,7 +270,8 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                     "position 0")
             prefill = kops.flash_attention if flash \
                 else kref.flash_attention_ref
-            out = prefill(q, k, v, kv_frac_bits=kv_frac_bits)
+            out = prefill(q, k, v, kv_frac_bits=kv_frac_bits,
+                          causal=causal and kv_x is None)
     return (linear(ctx, f"{name}/wo", out.reshape(*lead, h * hd), p["wo"]),
             cache)
 

@@ -1,5 +1,6 @@
 """Feed-forward layers (PyTorch counterpart of ``repro.models.mlp``): the
-SwiGLU MLP and the token-choice mixture of experts.
+SwiGLU MLP, whisper's non-gated gelu MLP and the token-choice mixture of
+experts.
 
 Quantization placement (paper Fig. 1(b) generalized): ``w1`` and ``w3``
 read the same input, quantized once for both (``qlinears``); the gate product
@@ -20,6 +21,7 @@ a decode step that routes is captured as one CUDA graph.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -43,9 +45,23 @@ def _silu(x: torch.Tensor) -> torch.Tensor:
     return (x64 * torch.sigmoid(x64)).to(x.dtype)
 
 
+_GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation ``0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715
+    x^3)))`` (``jax.nn.gelu``'s default) evaluated in float64 and rounded
+    once to x's dtype, as :func:`_silu`."""
+    x64 = x.to(torch.float64)
+    inner = _GELU_C * (x64 + 0.044715 * x64 * x64 * x64)
+    return (0.5 * x64 * (1.0 + torch.tanh(inner))).to(x.dtype)
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "silu":
         return _silu(x)
+    if kind == "gelu":
+        return _gelu(x)
     raise NotImplementedError(f"activation {kind!r} is not ported yet")
 
 

@@ -4,8 +4,10 @@
 ``vlm``, whose early-fusion image tokens share the text vocabulary and
 run the same blocks) over a dense KV cache, for the mixture-of-experts
 family (``moe``: leading dense layers, then MoE layers, attention GQA
-over a dense KV cache or DeepSeek's MLA over its latent cache), and for
-the recurrent
+over a dense KV cache or DeepSeek's MLA over its latent cache), for the
+audio encoder-decoder (``audio``: whisper; a non-causal encoder over stub
+frame embeddings, then a causal decoder with cross-attention over the
+encoder's memory, which the cache keeps), and for the recurrent
 (``ssm``: RWKV6) and hybrid (zamba2) families over their carried states
 (and the hybrid's dense KV cache for its shared attention block), the
 decode step O(1) in the recurrences; the dense families' serving-engine
@@ -21,10 +23,12 @@ hybrid's Mamba blocks on two axes, group and block; here group ``i``
 holds ``blocks[i * attn_every:(i + 1) * attn_every]``) — and, for the
 hybrid, ``shared``, the one shared attention block; for ``moe``,
 ``dense_blocks`` (the leading dense layers, when the config has any) and
-``blocks`` (the MoE layers).
+``blocks`` (the MoE layers); for ``audio``, ``enc_blocks`` (the encoder
+layers), ``ln_enc`` and ``blocks`` (the decoder layers).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Optional, Union
 
 import numpy as np
@@ -56,12 +60,19 @@ def model_dtype(cfg: ModelConfig) -> torch.dtype:
 _DENSE = ("dense", "vlm")
 _RECURRENT = ("ssm", "hybrid")
 _MOE = "moe"
+_AUDIO = "audio"
 
 
 def _check_family(cfg: ModelConfig, what: str,
-                  families: tuple = _DENSE + (_MOE,) + _RECURRENT) -> None:
+                  families: tuple = _DENSE + (_MOE, _AUDIO) + _RECURRENT
+                  ) -> None:
     if cfg.family in families:
         return
+    if cfg.family in (_MOE, _AUDIO):
+        raise NotImplementedError(
+            f"{what} does not serve the {cfg.family!r} family; it is served "
+            f"by the classic path (prefill, decode_step), as in the "
+            f"reference, whose engines refuse it")
     if families == _RECURRENT:
         raise NotImplementedError(
             f"{what} covers the recurrent families (ssm, hybrid); got "
@@ -72,15 +83,9 @@ def _check_family(cfg: ModelConfig, what: str,
             f"family is served by the classic path (prefill, decode_step) "
             f"and the fixed-slab substrate (init_paged_state, "
             f"paged_recurrent_step)")
-    if cfg.family == _MOE:
-        raise NotImplementedError(
-            f"{what} covers the dense GQA families; the 'moe' family is "
-            f"served by the classic path (prefill, decode_step), as in the "
-            f"reference, whose engines refuse it")
     raise NotImplementedError(
-        f"{what} covers the dense GQA (dense, vlm), moe, ssm and hybrid "
-        f"families; got family={cfg.family!r} (other families: ROADMAP "
-        f"Queue 1 item 6, 'Other families')")
+        f"{what} covers the dense GQA (dense, vlm), moe, audio, ssm and "
+        f"hybrid families; got family={cfg.family!r}")
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -111,6 +116,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                                       for _ in range(nd)]
         params["blocks"] = [tfm.init_moe_block(init, cfg)
                             for _ in range(cfg.n_layers - nd)]
+    elif cfg.family == _AUDIO:
+        params["enc_blocks"] = [tfm.init_encoder_block(init, cfg)
+                                for _ in range(cfg.encdec.n_encoder_layers)]
+        params["ln_enc"] = init.ones((cfg.d_model,))
+        params["blocks"] = [tfm.init_decoder_block(init, cfg)
+                            for _ in range(cfg.n_layers)]
     elif cfg.family == "ssm":
         params["blocks"] = [tfm.init_rwkv_block(init, cfg)
                             for _ in range(cfg.n_layers)]
@@ -134,7 +145,9 @@ def _n_groups(cfg: ModelConfig) -> int:
 # under "rwkv", but its qlinear calls name the module "rwkv_ffn"
 # (``rwkv.rwkv6_channel_mix``).  MLA's weights sit under "attn" but its
 # calls name the module "mla"; its ``wkv_b`` stays float, since the
-# absorbed path reads it as a float matrix.
+# absorbed path reads it as a float matrix.  whisper's encoder and decoder
+# share the module names ``attn/*`` and ``mlp/*``; its cross-attention is
+# ``cross/*``; its biases stay float (quantized per call on ``n_b``).
 _QLINEAR_LEAVES = {"wq", "wk", "wv", "wo", "w1", "w2", "w3", "lm_head",
                    "wr", "wg", "wk_ffn", "wv_ffn", "wr_ffn", "w_in",
                    "w_out", "in_proj", "wq_a", "wq_b", "wkv_a"}
@@ -148,7 +161,9 @@ def qlinear_weight(path: str, leaf, cfg: Optional[ModelConfig] = None
     at ``path`` as its weight, or None when the leaf is no such weight.
 
     The name is the path without its layer prefix (``blocks/3/attn/wq``
-    -> ``attn/wq``, ``dense_blocks/0/mlp/w1`` -> ``mlp/w1``,
+    -> ``attn/wq``, ``dense_blocks/0/mlp/w1`` -> ``mlp/w1``, whisper's
+    ``enc_blocks/0/attn/wq`` -> ``attn/wq`` and ``blocks/3/cross/wq`` ->
+    ``cross/wq``,
     ``blocks/3/ssm/w_in`` -> ``ssm/w_in``, ``shared/attn/wq``,
     ``lm_head``; the MoE expert stacks ``blocks/3/moe/w1`` -> ``moe/w1``
     and its shared expert ``moe/shared/w1``), except for the RWKV channel
@@ -165,7 +180,7 @@ def qlinear_weight(path: str, leaf, cfg: Optional[ModelConfig] = None
         return None
     if parts[-1] in _CHANNEL_MIX:
         return _CHANNEL_MIX[parts[-1]]
-    if parts[0] in ("blocks", "dense_blocks"):
+    if parts[0] in ("blocks", "dense_blocks", "enc_blocks"):
         parts = parts[2:]
     if parts[0] == "attn" and cfg is not None and cfg.mla is not None:
         parts[0] = "mla"
@@ -185,8 +200,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     and the (L, B, H, 64, 64) fp32 wkv.  Hybrid: ``ssm``, an ``SSMState``
     of (G, g, B, ...) arenas (G groups of g Mamba blocks; the conv window
     in the model dtype, the state fp32), and the shared block's dense KV
-    pair ``kv`` (G, B, S_max, KVH, D).  The reference's dtypes, component
-    by component."""
+    pair ``kv`` (G, B, S_max, KVH, D).  Audio: the decoder's dense KV pair
+    ``kv`` and ``memory``, the encoder's output (B, S_enc, d) in the model
+    dtype, which prefill writes in place.  The reference's dtypes,
+    component by component."""
     _check_family(cfg, "init_cache")
     dev = resolve_device(device)
     dt = model_dtype(cfg)
@@ -216,6 +233,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
 
     if cfg.family in _DENSE:
         return {"kv": kv_pair(cfg.n_layers)}
+    if cfg.family == _AUDIO:
+        s_enc = cfg.encdec.encoder_seq
+        memory = torch.zeros((batch, s_enc, cfg.d_model), dtype=dt,
+                             device=dev)
+        # the cross decode's K6 position, made here, outside any capture
+        att.last_row(s_enc, memory.device)
+        return {"kv": kv_pair(cfg.n_layers), "memory": memory}
     if cfg.family == _MOE:
         nd = cfg.moe.n_dense_layers
         cache = {"kv": kv_pair(cfg.n_layers - nd)}
@@ -278,6 +302,47 @@ def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
     return _head(params, x, cfg, ctx)
 
 
+@functools.lru_cache(maxsize=8)
+def _sinusoid(seq: int, d: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """The encoder's (1, seq, d) sinusoidal positions [sin | cos] of
+    ``pos / 10000^(2i / d)``.  The angles are fp32, as the reference's
+    (computed on the CPU, so every device starts from the same bits); sin
+    and cos are evaluated in float64 from them and rounded once to fp32,
+    then cast to ``dtype``, as ``common.rope_tables`` does: both devices
+    agree, and the reference's XLA sin / cos differ from the table in the
+    last fp32 bit now and then (ROADMAP Queue 3)."""
+    pos = torch.arange(seq, dtype=torch.float32)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
+    ang = (pos / torch.pow(10000.0, 2 * dim / d)).to(torch.float64)
+    table = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+    return table.to(torch.float32).to(dtype)[None].to(device)
+
+
+def _encode(params, batch: dict, cfg: ModelConfig, ctx) -> torch.Tensor:
+    """The whisper encoder over the stub frame embeddings
+    ``batch["encoder_features"]`` (B, T, d): sinusoidal positions added in
+    the model dtype, the encoder layers, then ``ln_enc``."""
+    feats = batch["encoder_features"]
+    dt = model_dtype(cfg)
+    x = feats.to(dt) + _sinusoid(feats.shape[1], cfg.d_model, dt,
+                                 feats.device)
+    for p_l in params["enc_blocks"]:
+        x = tfm.encoder_block(ctx, p_l, x, cfg)
+    return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
+
+
+def _decoder_layers(params, x, memory, positions, cfg, ctx, cache,
+                    cache_pos):
+    """whisper's decoder stack over the encoder's ``memory``."""
+    rope = _rope(positions, cfg)
+    for layer, p_l in enumerate(params["blocks"]):
+        x, _ = tfm.decoder_block(ctx, p_l, x, memory, cfg, rope=rope,
+                                 cache=_layer_cache(cache, "kv", layer),
+                                 cache_pos=cache_pos)
+    return _head(params, x, cfg, ctx)
+
+
 def _rwkv_layers(params, x, cfg, ctx, state: rwkv_lib.RWKVState,
                  decode: bool, store: bool):
     """The RWKV6 stack over ``state`` ((L, ...) components): each layer's
@@ -321,11 +386,13 @@ def _hybrid_groups(params, x, positions, cfg, ctx, cache: dict, cache_pos,
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
             *, cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
-    """Full-sequence forward of ``batch["tokens"]`` (B, S) from position 0.
+    """Full-sequence forward of ``batch["tokens"]`` (B, S) from position 0
+    (the audio family first encodes ``batch["encoder_features"]``).
     With ``cache`` (prefill, ``init_cache``'s), every layer's K/V are
-    written into it at position 0 and the recurrent families' states
-    after the sequence replace its states, all in place; the recurrent
-    blocks start from the cache's states.  Without it the recurrent
+    written into it at position 0, the audio family's encoder output into
+    its ``memory``, and the recurrent families' states after the sequence
+    replace its states, all in place; the recurrent blocks start from the
+    cache's states.  Without it the recurrent
     blocks start from zero states and the hybrid's shared block runs over
     a fresh cache of S positions (int8 codes when ``cfg.kv_cache_bits ==
     8``), as the reference's forward does.  Returns (logits (B, S, V) in
@@ -340,6 +407,13 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     positions = torch.arange(s, device=dev).expand(b, s)
     if cfg.family in _DENSE + (_MOE,):
         logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
+    elif cfg.family == _AUDIO:
+        memory = _encode(params, batch, cfg, ctx)
+        if cache is not None:
+            _put(cache["memory"], memory)
+            memory = cache["memory"]
+        logits = _decoder_layers(params, x, memory, positions, cfg, ctx,
+                                 cache, 0)
     elif cfg.family == "ssm":
         state = cache["state"] if cache is not None else init_cache(
             cfg, b, s, device=dev)["state"]
@@ -374,7 +448,9 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
     step's device, which nothing reads back to the host: the step's
     launches do not depend on it, so one CUDA graph of the step serves
     every position (``launch.steps.StepGraphs``).  RWKV6 keeps no KV and
-    ignores it.  Returns (logits (B, V), cache), the cache the same
+    ignores it.  The audio family reads the encoder's memory from the
+    cache and recomputes the cross-attention's K/V from it every step, as
+    the reference does.  Returns (logits (B, V), cache), the cache the same
     tensors as given (a captured step's static memory is the cache
     prefill allocated)."""
     _check_family(cfg, "decode_step")
@@ -394,6 +470,9 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
     positions = pos.expand(b, 1)
     if cfg.family in _DENSE + (_MOE,):
         logits = _dense_layers(params, x, positions, cfg, ctx, cache, pos)
+    elif cfg.family == _AUDIO:
+        logits = _decoder_layers(params, x, cache["memory"], positions, cfg,
+                                 ctx, cache, pos)
     else:
         logits = _hybrid_groups(params, x, positions, cfg, ctx, cache, pos,
                                 decode=True, store=True)
@@ -678,21 +757,24 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
     """The JAX param tree (as numpy arrays: ``jax.tree.map(np.asarray,
     params)``, or a ``QuantizedParams.tree``) as the port's params.
 
-    Scanned ``(L, ...)`` block leaves (``blocks``, and the MoE family's
-    ``dense_blocks``) are unstacked into one dict per layer (the hybrid's
+    Scanned ``(L, ...)`` block leaves (``blocks``, the MoE family's
+    ``dense_blocks`` and the audio family's ``enc_blocks``) are unstacked
+    into one dict per layer (the hybrid's
     ``blocks/mamba`` (G, g, ...) leaves into one dict per Mamba block,
     group-major); dtypes are kept (bf16 stays bf16, int8 codes stay int8).
     Nothing here imports JAX."""
     _check_family(cfg, "from_jax_params")
     dev = resolve_device(device)
-    stacked = ("blocks", "dense_blocks")
+    stacked = {"dense_blocks": cfg.moe.n_dense_layers if cfg.moe else 0,
+               "enc_blocks": cfg.encdec.n_encoder_layers if cfg.encdec
+               else 0}
     out = {k: _tree(v, lambda a: _to_tensor(a, dev))
-           for k, v in np_tree.items() if k not in stacked}
-    if "dense_blocks" in np_tree:
-        out["dense_blocks"] = [
-            _tree(np_tree["dense_blocks"],
-                  lambda a, i=i: _to_tensor(a[i], dev))
-            for i in range(cfg.moe.n_dense_layers)]
+           for k, v in np_tree.items() if k not in ("blocks", *stacked)}
+    for key, n in stacked.items():
+        if key in np_tree:
+            out[key] = [_tree(np_tree[key],
+                              lambda a, i=i: _to_tensor(a[i], dev))
+                        for i in range(n)]
     blocks = np_tree["blocks"]
     if cfg.family == "hybrid":
         g = cfg.hybrid.attn_every

@@ -1,7 +1,10 @@
 """Block assembly (PyTorch counterpart of ``repro.models.transformer``):
 the dense family's pre-norm GQA + SwiGLU block, the MoE family's block
 (attention, GQA or DeepSeek's MLA, then the routed experts; MLA configs
-send the dense block's attention to MLA too), the RWKV6 block, and
+send the dense block's attention to MLA too), whisper's encoder block
+(non-causal attention, gelu MLP) and decoder block (causal
+self-attention, cross-attention over the encoder's memory, gelu MLP),
+the RWKV6 block, and
 zamba2's hybrid group (``attn_every`` Mamba2 blocks, then the one shared
 attention block on concat(h, embedding)), the last two in the classic
 forms (a full sequence over a carried state and a dense KV cache, and
@@ -22,7 +25,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.common import Initializer, linear, rmsnorm
 
 __all__ = ["init_dense_block", "dense_block", "init_moe_block",
-           "moe_block", "init_rwkv_block",
+           "moe_block", "init_encoder_block", "encoder_block",
+           "init_decoder_block", "decoder_block", "init_rwkv_block",
            "rwkv_block_fwd", "rwkv_block_decode", "rwkv_block_paged",
            "init_mamba_block", "init_shared_attn", "hybrid_group_fwd",
            "hybrid_group_paged"]
@@ -106,6 +110,68 @@ def moe_block(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     x = x + h
     x = x + mlp_lib.moe(ctx, p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps),
                         cfg)
+    return x, new_cache
+
+
+# ---------------------------------------------------------------------------
+# whisper's encoder and decoder blocks (no rope in the encoder and the
+# cross-attention: the encoder's sinusoidal positions are added at embed
+# time; the decoder's self-attention takes rope in lieu of whisper's
+# learned positions, as in the reference)
+# ---------------------------------------------------------------------------
+
+def init_encoder_block(init: Initializer, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": init.ones((cfg.d_model,)),
+        "ln2": init.ones((cfg.d_model,)),
+        "attn": att.init_gqa(init, cfg),
+        "mlp": mlp_lib.init_mlp(init, cfg.d_model, cfg.d_ff, "gelu"),
+    }
+
+
+def encoder_block(ctx: QuantContext, p: dict, x: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One encoder layer over the frames x (B, T, d): non-causal
+    self-attention without rope, then the gelu MLP."""
+    h, _ = att.gqa_attention(ctx, p["attn"],
+                             rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                             rope=None, causal=False)
+    x = x + h
+    return x + mlp_lib.mlp(ctx, p["mlp"],
+                           rmsnorm(x, p["ln2"], cfg.norm_eps), "gelu")
+
+
+def init_decoder_block(init: Initializer, cfg: ModelConfig) -> dict:
+    return {
+        "ln1": init.ones((cfg.d_model,)),
+        "ln_cross": init.ones((cfg.d_model,)),
+        "ln2": init.ones((cfg.d_model,)),
+        "attn": att.init_gqa(init, cfg),
+        "cross": att.init_gqa(init, cfg),
+        "mlp": mlp_lib.init_mlp(init, cfg.d_model, cfg.d_ff, "gelu"),
+    }
+
+
+def decoder_block(ctx: QuantContext, p: dict, x: torch.Tensor,
+                  memory: torch.Tensor, cfg: ModelConfig, *,
+                  rope: tuple[torch.Tensor, torch.Tensor], cache=None,
+                  cache_pos=None):
+    """One decoder layer on x (B, S, d): causal self-attention with rope
+    over an optional dense cache written at ``cache_pos``, then
+    cross-attention (module ``cross``) over the encoder's ``memory``
+    (B, T, d) with no rope and no cache (a decode step recomputes the
+    memory's K / V, as the reference does), then the gelu MLP; each
+    behind its rmsnorm (``ln1``, ``ln_cross``, ``ln2``)."""
+    h, new_cache = att.gqa_attention(
+        ctx, p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, rope=rope,
+        cache=cache, cache_pos=cache_pos)
+    x = x + h
+    h, _ = att.gqa_attention(
+        ctx, p["cross"], rmsnorm(x, p["ln_cross"], cfg.norm_eps), cfg,
+        rope=None, kv_x=memory, name="cross")
+    x = x + h
+    x = x + mlp_lib.mlp(ctx, p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps),
+                        "gelu")
     return x, new_cache
 
 

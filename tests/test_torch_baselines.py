@@ -31,6 +31,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core import baselines as tb  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.model import from_jax_params  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 NEW_ARCHS = ["llama3_2_1b", "qwen3_32b", "deepseek_67b", "chameleon_34b"]

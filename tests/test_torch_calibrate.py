@@ -36,6 +36,7 @@ from repro_torch.core import qscheme as tqs  # noqa: E402
 from repro_torch.core.lm_calibrate import calibrate_lm as tcalibrate_lm  # noqa: E402
 from repro_torch.data import make_calibration_batch as tbatch  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 

@@ -34,6 +34,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro_torch.core import integer_ops as tio  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 

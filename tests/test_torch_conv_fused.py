@@ -38,6 +38,7 @@ from repro_torch.kernels.int_conv import (CONV_TILES,  # noqa: E402
 from repro_torch.models import resnet as TR  # noqa: E402
 from tests.test_torch_resnet import (BATCH, _cfgs, _perturb_bn,  # noqa: E402
                                      net)  # noqa: F401
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 

@@ -43,6 +43,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from tests.test_torch_model import _xla_inv_rms  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 NKV = 4

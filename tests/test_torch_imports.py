@@ -8,6 +8,7 @@ import sys
 
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -72,7 +73,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         serve_engine("qwen3_1_7b", n_requests=1)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve("qwen3_1_7b")
-    for arch in ("granite_moe_3b_a800m", "deepseek_v3_671b"):
+    for arch in ("granite_moe_3b_a800m", "deepseek_v3_671b",
+                 "whisper_large_v3"):
         with pytest.raises(RuntimeError, match="CUDA"):
             serve(arch)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -18,6 +18,7 @@ import pytest
 
 jnp = pytest.importorskip("jax.numpy")
 import torch  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 try:
     from hypothesis import given, settings, strategies as st

@@ -25,6 +25,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro.kernels.ref import ragged_attention_ref  # noqa: E402
 from repro_torch.core.integer_ops import LinearQuantSpec as TSpec  # noqa: E402
 from repro_torch.kernels import ops as tops  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ITEMS = ((32, 160), (1, 131), (5, 37), (16, 16))   # (q_len, kv_len)
 NKV, SMAX, DK, BS = 4, 256, 128, 128

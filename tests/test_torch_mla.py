@@ -54,6 +54,7 @@ from tests.test_torch_moe import (BATCH, GEN, INT_TOL, PROMPT, TOL,  # noqa
                                   same_layout, serve_against_jax_loop,
                                   serve_through_stand_in_graph, t_, table,
                                   tparams, weights)
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCH = "deepseek_v3_671b"
 
@@ -189,14 +190,15 @@ def test_prequantized_tree_equals_on_the_fly(calibrated):
 
 
 def test_family_refusals():
-    """The classic path refuses the families still to port, naming ROADMAP
-    Queue 1 item 6; the serving engines refuse ``moe``, as the
-    reference's do."""
+    """The serving engines refuse ``moe`` and the audio family (a whisper
+    config), naming the classic path that serves them, as the reference's
+    engines refuse them."""
+    from repro_torch.configs import get_smoke_config as tsmoke
     _, tcfg = cfgs(ARCH)
-    audio = dataclasses.replace(tcfg, family="audio", moe=None, mla=None)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        TM.init_params(audio, device="cpu")
-    for fn, args in ((TM.init_paged_cache, (tcfg, 4, 16)),
-                     (TM.init_paged_state, (tcfg, 4))):
-        with pytest.raises(NotImplementedError, match="moe"):
-            fn(*args, device="cpu")
+    audio = tsmoke("whisper_large_v3")
+    for cfg, fam in ((tcfg, "moe"), (audio, "audio")):
+        for fn, args in ((TM.init_paged_cache, (cfg, 4, 16)),
+                         (TM.init_paged_state, (cfg, 4))):
+            with pytest.raises(NotImplementedError,
+                               match=f"'{fam}' family.*classic path"):
+                fn(*args, device="cpu")

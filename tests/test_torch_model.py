@@ -33,6 +33,7 @@ from repro_torch.core.qmodel import QuantMode as TMode  # noqa: E402
 from repro_torch.core.qmodel import quantize_weight_tree  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.attention import RaggedBatch as TRB  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 BS, NB, S = 16, 8, 3
 

@@ -72,6 +72,7 @@ from repro_torch.models import transformer as ttfm  # noqa: E402
 from repro_torch.models.common import rope_tables  # noqa: E402
 from tests.test_torch_recurrent_blocks import tcfg_of  # noqa: E402
 from tests.test_torch_step_capture import StubGraph  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["granite_moe_3b_a800m", "deepseek_v3_671b"]
 GRANITE = "granite_moe_3b_a800m"

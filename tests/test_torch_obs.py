@@ -20,6 +20,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 PKGS = ("repro", "repro_torch")
 

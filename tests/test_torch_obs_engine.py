@@ -39,6 +39,7 @@ from repro_torch.obs import replay as treplay  # noqa: E402
 from repro_torch.obs import schema as tschema  # noqa: E402
 from repro_torch.obs import slo as tslo  # noqa: E402
 from repro_torch.obs.trace import validate_chrome_trace  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 # scenario -> (ragged, spec_k, w8a8, tight SLOs)
 SCENARIOS = {

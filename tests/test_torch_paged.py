@@ -48,6 +48,7 @@ from repro_torch.kernels.flash_attention import plan_paged_work  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving.kv_pool import TRASH_BLOCK  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 NKV = 4
 B = 4

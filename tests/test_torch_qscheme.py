@@ -15,6 +15,7 @@ from repro.core import integer_ops as jio  # noqa: E402
 from repro.core import qscheme as jq  # noqa: E402
 from repro_torch.core import integer_ops as tio  # noqa: E402
 from repro_torch.core import qscheme as tq  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _same(t: torch.Tensor, j) -> None:

@@ -43,6 +43,7 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.kernels.int8_matmul import int8_matmul_cuda  # noqa: E402
 from repro_torch.kernels.quantize import (quantize_multi_cuda,  # noqa: E402
                                           quantize_scatter_cuda)
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 GRIDS = (-2, 0, 4, 8, 12)

@@ -35,12 +35,14 @@ from repro_torch.core.qmodel import QuantContext as TCtx  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models import rwkv as trwkv  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
 _SUB_CONFIGS = {"ssm": tbase.SSMConfig, "hybrid": tbase.HybridConfig,
-                "moe": tbase.MoEConfig, "mla": tbase.MLAConfig}
+                "moe": tbase.MoEConfig, "mla": tbase.MLAConfig,
+                "encdec": tbase.EncDecConfig}
 
 
 def tcfg_of(jcfg):

@@ -32,6 +32,7 @@ from tests.recurrent_classic_cases import *  # noqa: E402,F401,F403
 from tests.recurrent_classic_cases import (  # noqa: E402
     _calib_tokens, _cfgs, _close, _layer, _port_ctx, _rwkv_state, _t,
     _tparams, _weights)
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module", params=["rwkv6_3b"])

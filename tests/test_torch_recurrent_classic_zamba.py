@@ -34,6 +34,7 @@ from repro_torch.models.common import rope_tables  # noqa: E402
 from tests.recurrent_classic_cases import *  # noqa: E402,F401,F403
 from tests.recurrent_classic_cases import (  # noqa: E402
     NKV, _cfgs, _close, _codes_match, _layer, _t, _tparams, _weights)
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module", params=["zamba2_2_7b"])

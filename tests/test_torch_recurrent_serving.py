@@ -32,6 +32,7 @@ the JAX package's, on the JAX package's own smoke weights carried over by
   one key, its first call eager, then one capture and replays, every
   dispatch's launches counted once, tokens those of the eager engine.
 """
+import contextlib
 import dataclasses
 import functools
 import json
@@ -66,6 +67,7 @@ from repro_torch.serving.scheduler import Request as TRequest  # noqa: E402
 from repro_torch.serving.scheduler import RequestState as TState  # noqa: E402
 from tests.test_torch_recurrent_blocks import tcfg_of  # noqa: E402
 from tests.test_torch_step_capture import StubGraph  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 ARCHS = ["rwkv6_3b", "zamba2_2_7b"]
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -85,9 +87,37 @@ SCENARIOS = {
 
 @functools.lru_cache(maxsize=None)
 def _weights(arch):
+    """The JAX package's ``init_params`` at seed 0, compiled once (op by
+    op it compiles every primitive at every shape).  The JAX engines take
+    these same weights (``_jax_weights``), as the port's do."""
     jcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32")
-    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    jp = jax.jit(JM.init_params, static_argnums=0)(jcfg,
+                                                   jax.random.PRNGKey(0))
     return jcfg, jp, jax.tree.map(np.asarray, jp)
+
+
+@contextlib.contextmanager
+def _jax_weights(arch):
+    """The JAX ``serve_engine`` builds its weights by ``init_params(cfg,
+    PRNGKey(seed))`` from the fp32 smoke config at seed 0; inside this
+    context it takes ``_weights(arch)``'s instead (the same function,
+    compiled: for rwkv6 its numbers differ from the op-by-op ones in the
+    last bit, so both packages must take one set)."""
+    real, jp = JM.init_params, _weights(arch)[1]
+    JM.init_params = lambda cfg, key: jp
+    try:
+        yield
+    finally:
+        JM.init_params = real
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(jcfg, mode):
+    """The JAX package's ``paged_recurrent_step``, compiled once per
+    config and mode."""
+    jctx = JCtx(mode=JMode(mode))
+    return jax.jit(lambda p, t, c, ids, ql, pos, bt: JM.paged_recurrent_step(
+        p, t, c, ids, ql, pos, bt, jcfg, jctx))
 
 
 def _tparams(arch, state_bits=None, kv_bits=None):
@@ -195,7 +225,7 @@ def test_paged_recurrent_step_matches_jax(arch, mode, state_bits):
     jcfg = dataclasses.replace(jcfg0, state_bits=state_bits,
                                kv_cache_bits=kv_bits)
     tcfg, tp = _tparams(arch, state_bits, kv_bits)
-    jctx, tctx = JCtx(mode=JMode(mode)), TCtx(mode=TMode(mode))
+    tctx = TCtx(mode=TMode(mode))
     if mode == "int":
         tp = quantize_weight_tree(tp, tctx, name_fn=TM.qlinear_weight)
     bs, nbmax = 4, 4
@@ -204,10 +234,10 @@ def test_paged_recurrent_step_matches_jax(arch, mode, state_bits):
     tcache = TM.init_paged_state(tcfg, 4, device="cpu", **kw)
     for step in _rec_steps(jcfg.vocab_size, bs, nbmax, hybrid):
         t, ids, ql, pos, bt = step
-        jl, jcache = JM.paged_recurrent_step(
+        jl, jcache = _jax_step(jcfg, mode)(
             jp, jnp.asarray(t), jcache, jnp.asarray(ids), jnp.asarray(ql),
             None if pos is None else jnp.asarray(pos),
-            None if bt is None else jnp.asarray(bt), jcfg, jctx)
+            None if bt is None else jnp.asarray(bt))
         trash = {k: v.clone() for k, v in _leaves(tcache).items()
                  if k.startswith(("/state", "/ssm"))}
         tl, tcache = TM.paged_recurrent_step(
@@ -263,8 +293,9 @@ def _kw(name, **extra):
 def _runs(name):
     arch, kw = _kw(name)
     jcfg, _, _ = _weights(arch)
-    jo = jserve.serve_engine(arch, requests=_workload(
-        JRequest, jcfg.vocab_size), **kw)
+    with _jax_weights(arch):
+        jo = jserve.serve_engine(arch, requests=_workload(
+            JRequest, jcfg.vocab_size), **kw)
     tcfg, tp = _tparams(arch, kw.get("state_bits"), 8)
     to = tserve.serve_engine(arch, requests=_workload(
         TRequest, jcfg.vocab_size), params=tp, device="cpu", **kw)
@@ -412,8 +443,9 @@ def test_zamba2_record_replays_across_packages(way):
     else:
         arch, kw = _kw(name)
         rec = _round_trip(jreplay, to["record"])
-        fresh = jserve.serve_engine(arch, requests=jreplay.build_requests(
-            rec), **kw)["engine"]
+        with _jax_weights(arch):
+            fresh = jserve.serve_engine(
+                arch, requests=jreplay.build_requests(rec), **kw)["engine"]
         res = jreplay.replay_workload(rec, fresh)
     assert res.token_identical and res.decision_diff == [] and res.ok
     assert res.outputs == jo["record"].outputs

@@ -36,6 +36,7 @@ from repro_torch.core import dataflow as tdf  # noqa: E402
 from repro_torch.core import hwcost as thw  # noqa: E402
 from repro_torch.core.integer_ops import LinearQuantSpec  # noqa: E402
 from repro_torch.models import resnet as TR  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 WIDTHS = ("smoke", "config")
@@ -122,8 +123,13 @@ def _perturb_bn(params, seed):
 
 @pytest.fixture(scope="module", params=WIDTHS)
 def net(request):
+    """One JAX calibration per width; the JAX init and integer forward
+    compiled (each once, where op-by-op dispatch compiled every primitive
+    at every shape); both packages share the JAX weights, so the init's
+    numbers need not be the eager ones."""
     jcfg, tcfg = _cfgs(request.param)
-    jp = JR.init_resnet(jcfg, jax.random.PRNGKey(0))
+    jp = jax.jit(JR.init_resnet, static_argnums=0)(jcfg,
+                                                   jax.random.PRNGKey(0))
     _perturb_bn(jp, 5)
     tp = TR.from_jax_resnet_params(jax.tree.map(np.asarray, jp),
                                    device="cpu")
@@ -131,10 +137,9 @@ def net(request):
         0, 1, size=(BATCH, jcfg.img_size, jcfg.img_size, 3)).astype(np.float32)
     jq = JR.quantize_resnet(jp, jnp.asarray(x), jcfg)
     tq = TR.quantize_resnet(tp, torch.from_numpy(x), tcfg)
+    jfwd = jax.jit(lambda x_: JR.resnet_int_forward(jq, x_, jcfg))
     return dict(width=request.param, jcfg=jcfg, tcfg=tcfg, jp=jp, tp=tp,
-                x=x, jq=jq, tq=tq,
-                jlogits=np.asarray(JR.resnet_int_forward(jq, jnp.asarray(x),
-                                                         jcfg)))
+                x=x, jq=jq, tq=tq, jlogits=np.asarray(jfwd(jnp.asarray(x))))
 
 
 def test_fold_bn_and_forward_match_jax(net):
@@ -213,8 +218,9 @@ def test_init_resnet_shapes_match_jax():
     gen = torch.Generator()
     gen.manual_seed(0)
     tp = TR.init_resnet(cfg, generator=gen, device="cpu")
-    jp = jax.tree.map(np.asarray, JR.init_resnet(jcfgs.CONFIG,
-                                                 jax.random.PRNGKey(0)))
+    # shapes and dtypes only: traced, not run
+    jp = jax.eval_shape(lambda k: JR.init_resnet(jcfgs.CONFIG, k),
+                        jax.random.PRNGKey(0))
     jl, jt = jax.tree_util.tree_flatten_with_path(jp)
     tl = jax.tree_util.tree_flatten_with_path(
         jax.tree.map(lambda t: t.numpy(), tp))[0]

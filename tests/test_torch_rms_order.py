@@ -15,6 +15,7 @@ jax = pytest.importorskip("jax")
 import torch  # noqa: E402
 
 from repro_torch.models.common import inv_rms  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 EPS = 1e-6

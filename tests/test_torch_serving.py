@@ -33,6 +33,7 @@ from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models.model import from_jax_params  # noqa: E402
 from repro_torch.serving import kv_pool as tkv  # noqa: E402
 from repro_torch.serving import scheduler as tsch  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 def _pool_state(pool):

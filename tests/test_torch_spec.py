@@ -22,6 +22,7 @@ import torch  # noqa: E402
 
 from repro.serving import spec as jspec  # noqa: E402
 from repro_torch.serving import spec as tspec  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
 @pytest.mark.parametrize("seed", range(6))

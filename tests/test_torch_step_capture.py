@@ -55,6 +55,7 @@ from repro_torch.launch.steps import StepGraphs  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving.kv_pool import TRASH_BLOCK  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 jnp = jax.numpy
 NKV = 4
