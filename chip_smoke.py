@@ -264,6 +264,25 @@ the CUDA toolkit.  Phases, one line each (or a few):
     (a decode step K6 64, INT K2 321; a prefill K5 96, 64 of them
     non-causal), calibration and prefill seconds, decode ms/token, peak
     memory.
+26. training: (a) K5 under autograd (``ops.flash_attention`` over q, k,
+    v that require grad: the kernel forward, the backward the plain
+    version's recomputed, as the reference's ``custom_vjp``) against the
+    plain version's forward and autograd at llama3.2-1B's train shape (B
+    8, S 128, H 32 over 8 KV heads of 64, bf16, causal), an fp32 case, a
+    non-causal case with Sq != Skv and phase 6's 4096^2 bf16 case; the
+    output and dq / dk / dv within the tolerances in ``TRAIN_K5_CASES``;
+    a q that requires grad over int8 K/V refused; at the train shape the
+    forward, the recompute backward and SDPA's forward + backward timed
+    beside the bounds; (b) llama3.2-1B's width on 2 layers, fp32, card
+    against CPU from the same params and AdamW state: one
+    ``build_train_step`` step and one with ``accum_steps=2`` (loss,
+    grad_norm, params, moments), then a checkpoint saved, restored and
+    resumed against the uninterrupted run's losses; (c) ``train()`` of
+    llama3.2-1B at full width and depth, 8 steps of 8 x 128 tokens, flash
+    attention: losses finite, the last below step 1's, K5 16 a step; the
+    step time, tokens/s and peak memory; (d) Algorithm 1 on the trained
+    weights and the INT forward on one batch: FP vs INT argmax agreement,
+    K2 and K3 launches by phase 22's formula.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -284,7 +303,9 @@ the forward no longer makes, and the convolution kernel's one forward's,
 its old chain beside; K5's and K6's also at zamba2's head dim 80,
 from phase 23, and at the MoE family's shapes, from phase 24; K2's
 grouped form one granite-moe-3b decode step's 96 launches, from phase
-24; K5's non-causal form at whisper's encoder, from phase 25), and
+24; K5's non-causal form at whisper's encoder, from phase 25; K5's
+training launches and its recompute backward at the train shape, from
+phase 26), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -6365,6 +6386,432 @@ def phase_whisper(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 26: training
+# ---------------------------------------------------------------------------
+
+# K5 under autograd: (name, B, Sq, Skv, H, KVH, D, dtype, causal, forward
+# tolerance).  The forward is the kernel's, held as phase 6 holds it
+# (atol = rtol = tol; the long case row by row); the backward is the plain
+# version's autograd recomputed on the same inputs, so dq / dk / dv are
+# held within TRAIN_GRAD_TOL of each gradient's largest |value| (the same
+# arithmetic: only a reduction's order may differ)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 128, 8
+TRAIN_K5_CASES = (
+    ("train shape", TRAIN_B, TRAIN_S, TRAIN_S, 32, 8, 64, "bfloat16", True,
+     2e-2),
+    ("fp32", 2, 128, 128, 8, 2, 64, "float32", True, 1e-4),
+    ("non-causal, Sq != Skv", 2, 100, 160, 8, 4, 64, "bfloat16", False,
+     2e-2),
+    ("long", 1, 4096, 4096, K1_HEADS, K1_KV_HEADS, K1_DIM, "bfloat16", True,
+     LONG_ROW_TOL))
+TRAIN_GRAD_TOL = 1e-5
+# phase 26b: card against CPU, fp32.  The loss and grad_norm within
+# TRAIN_LOSS_RTOL relative, the moments within TRAIN_MOMENT_TOL of each
+# leaf's largest |value| (fp32 sums in other orders); the params after a
+# step at rate lr within 2 lr (+ 1e-6): Adam's update is about
+# sign(g) for the first steps, and a gradient element near 0 may take
+# either sign on the two devices, moving its parameter by at most 2 lr
+TRAIN_LOSS_RTOL, TRAIN_MOMENT_TOL = 1e-5, 1e-4
+TRAIN_CPU_BATCH, TRAIN_CPU_SEQ = 4, 64
+
+
+def _rel_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp(min=1e-30))
+
+
+def _k5_autograd_case(torch, gen, case):
+    """One case of 26a: the kernel's output and the recompute's gradients
+    against the plain version's forward and autograd."""
+    from repro_torch.kernels import ops, ref
+    name, b, sq, skv, h, kvh, d, dt, causal, tol = case
+    q_dt = getattr(torch, dt)
+    q, k, v, _ = _dense_qkv(torch, gen, b, sq, skv, h, kvh, d, q_dt, q_dt)
+    g = torch.randn((b, sq, h, d), generator=gen, device="cuda").to(q_dt)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*got_in, causal=causal)
+    got = torch.autograd.grad(out, got_in, g)
+    want_out = ref.flash_attention_ref(*want_in, causal=causal)
+    want = torch.autograd.grad(want_out, want_in, g)
+    torch.cuda.synchronize()
+    if sq < 1024:
+        err = _close(torch, out.detach(), want_out.detach(), tol,
+                     f"K5 train {name}")
+    else:
+        err = _close_rows(torch, out.detach(), want_out.detach(), tol,
+                          f"K5 train {name}")
+    grad_err = 0.0
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == w.dtype and a.shape == w.shape,
+              f"K5 train {name}: {gname} {a.dtype} {tuple(a.shape)}")
+        e = _rel_err(torch, a, w)
+        check(e <= TRAIN_GRAD_TOL, f"K5 train {name}: {gname} off the "
+              f"plain version's by {e:.2e} of its largest value")
+        grad_err = max(grad_err, float((a.float() - w.float()).abs().max()))
+    log(f"[26a] K5 under autograd, {name} (B {b}, Sq {sq}, Skv {skv}, H "
+        f"{h}, KVH {kvh}, D {d}, {dt}, causal {causal}): output within "
+        f"{tol} (max |diff| {err:.2e}), dq / dk / dv within "
+        f"{TRAIN_GRAD_TOL} of their largest (max |diff| {grad_err:.2e})")
+    return dict(name=name, max_abs_err=err, grad_max_abs_err=grad_err)
+
+
+def _k5_train_times(torch, gen):
+    """26a's times at the train shape: K5's forward, the recompute
+    backward (the ``autograd.Function``'s, replayed from one graph), the
+    plain version's forward, SDPA's forward and forward + backward; the
+    bounds of the forward (q, k, v read, o written; its products) and of
+    the backward (q, k, v, dO read, dq, dk, dv written; 2.5x the
+    forward's operations: five products against two)."""
+    from repro_torch.kernels import ops, ref
+    b, s, h, kvh, d = TRAIN_B, TRAIN_S, 32, 8, 64
+    sdpa, sdpa_how = _sdpa(torch)
+    q, k, v, _ = _dense_qkv(torch, gen, b, s, s, h, kvh, d, torch.bfloat16,
+                            torch.bfloat16)
+    g = torch.randn((b, s, h, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ops.flash_attention(q, k, v), 50)
+        plain_ms = time_ms(torch, lambda: ref.flash_attention_ref(q, k, v),
+                           20)
+        lib_ms = time_ms(torch, lambda: sdpa(q, k, v, True), 50)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*ins)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, ins, g, retain_graph=True), 20)
+    sins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_train():
+        o = sdpa(*sins, True).transpose(1, 2)
+        return torch.autograd.grad(o, sins, g)
+    lib_train_ms = time_ms(torch, sdpa_train, 20)
+    n_bytes = 2 * (2 * q.numel() + 2 * k.numel())
+    n_ops = b * h * 4 * d * sum(i + 1 for i in range(s))
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    bwd_bytes = 2 * (3 * q.numel() + 4 * k.numel())
+    bb_ms, bb_by = bound_ms(bwd_bytes, 2.5 * n_ops, "bfloat16")
+    res = dict(ms=fwd_ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=b_ms, bound_by=b_by, bytes=n_bytes, ops=n_ops,
+               backward_ms=bwd_ms, backward_bound_ms=bb_ms,
+               backward_bound_by=bb_by, library_train_ms=lib_train_ms,
+               sdpa=sdpa_how)
+    log(f"[26a] K5 at the train shape (B {b}, S {s}, H {h}, KVH {kvh}, D "
+        f"{d}, bf16, causal): forward {fwd_ms:.4f} ms (bound {b_ms:.5f} ms, "
+        f"{b_by}, {n_bytes / 1e6:.1f} MB), recompute backward "
+        f"{bwd_ms:.4f} ms (bound {bb_ms:.5f} ms, {bb_by}), plain forward "
+        f"{plain_ms:.4f} ms; SDPA ({sdpa_how}) forward {lib_ms:.4f} ms, "
+        f"forward + backward {lib_train_ms:.4f} ms against K5 + recompute "
+        f"{fwd_ms + bwd_ms:.4f} ms")
+    return res
+
+
+def _train_kernels(torch, res):
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(26)
+    res["k5_cases"] = [_k5_autograd_case(torch, gen, c)
+                       for c in TRAIN_K5_CASES]
+    # int8 K/V codes take no gradient, as in the reference
+    q, k, v, nkv = _dense_qkv(torch, gen, 2, 16, 16, 8, 4, 64,
+                              torch.bfloat16, torch.int8)
+    try:
+        ops.flash_attention(q.requires_grad_(), k, v, kv_frac_bits=nkv)
+    except NotImplementedError as e:
+        log(f"[26a] K5: a q that requires grad over int8 K/V refused ({e})")
+    else:
+        check(False, "K5: a q that requires grad over int8 K/V was taken")
+    res["k5_train"] = _k5_train_times(torch, gen)
+
+
+def _train_batches(cfg, device, n):
+    import torch
+    from repro_torch.data import SyntheticLMStream
+    stream = SyntheticLMStream(cfg.vocab_size, TRAIN_CPU_SEQ,
+                               TRAIN_CPU_BATCH, seed=0)
+    return [{k: torch.from_numpy(v).to(device)
+             for k, v in stream.batch(i).items()} for i in range(n)]
+
+
+def _train_card_vs_cpu(torch, res):
+    """26b: the 2-layer full-width model, fp32, one step and one
+    accumulated step on both devices from the same params and state, then
+    a checkpoint round trip resumed on the card."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import adamw, warmup_cosine
+    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
+                              dtype="float32", attn_kernel="flash")
+    opt, lr_fn = adamw(), warmup_cosine(3e-3, 1, 10)
+    p = {"cpu": M.init_params(cfg, 0, device="cpu")}
+    p["cuda"] = _tree_to(p["cpu"], "cuda")
+    st = {dev: opt.init(p[dev]) for dev in p}
+    batches = {dev: _train_batches(cfg, dev, 4) for dev in p}
+    p0 = [t.clone() for t in leaves(p["cpu"])]
+    for accum, lr in ((1, 0.0), (2, 3e-3)):
+        step = S.build_train_step(cfg, QuantContext(), opt, lr_fn,
+                                  remat=False, accum_steps=accum)
+        m = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            _, _, m[dev] = step(p[dev], st[dev], batches[dev][accum - 1])
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            m[dev]["s"] = time.perf_counter() - t0
+        for key in ("loss", "grad_norm"):
+            e = abs(float(m["cuda"][key]) - float(m["cpu"][key])) \
+                / abs(float(m["cpu"][key]))
+            check(e <= TRAIN_LOSS_RTOL, f"26b accum {accum}: {key} card "
+                  f"{float(m['cuda'][key])} CPU {float(m['cpu'][key])}")
+        check(float(m["cuda"]["lr"]) == float(m["cpu"]["lr"])
+              and abs(float(m["cpu"]["lr"]) - lr) <= 1e-9,
+              f"26b accum {accum}: lr {float(m['cuda']['lr'])}")
+        mom = max(_rel_err(torch, a.cpu(), b)
+                  for name in ("m", "v")
+                  for a, b in zip(leaves(getattr(st["cuda"], name)),
+                                  leaves(getattr(st["cpu"], name))))
+        check(mom <= TRAIN_MOMENT_TOL, f"26b accum {accum}: moments off by "
+              f"{mom:.2e} of a leaf's largest")
+        dp = max(float((a.cpu() - b).abs().max())
+                 for a, b in zip(leaves(p["cuda"]), leaves(p["cpu"])))
+        moved = sum(int(((a.cpu() - b).abs() > 1e-6).sum())
+                    for a, b in zip(leaves(p["cuda"]), leaves(p["cpu"])))
+        check(dp <= 2 * lr + 1e-6, f"26b accum {accum}: params off by "
+              f"{dp:.2e}, beyond 2 lr = {2 * lr}")
+        if lr == 0.0:
+            check(all(torch.equal(a.cpu(), b) for a, b in
+                      zip(leaves(p["cuda"]), p0)),
+                  "26b: a step at lr 0 moved a parameter")
+        n_par = sum(t.numel() for t in leaves(p["cpu"]))
+        log(f"[26b] 2-layer llama3.2-1B width, fp32, step with accum_steps "
+            f"{accum} at lr {lr}: loss card {float(m['cuda']['loss']):.6f} "
+            f"CPU {float(m['cpu']['loss']):.6f}, grad_norm card "
+            f"{float(m['cuda']['grad_norm']):.6f} CPU "
+            f"{float(m['cpu']['grad_norm']):.6f} (within "
+            f"{TRAIN_LOSS_RTOL}), moments within {mom:.2e} of a leaf's "
+            f"largest, params max |diff| {dp:.2e} ({moved} of {n_par} "
+            f"beyond 1e-6); step {m['cuda']['s']:.2f} s card, "
+            f"{m['cpu']['s']:.2f} s CPU")
+        res[f"card_vs_cpu accum {accum}"] = dict(
+            loss=(float(m["cuda"]["loss"]), float(m["cpu"]["loss"])),
+            grad_norm=(float(m["cuda"]["grad_norm"]),
+                       float(m["cpu"]["grad_norm"])),
+            moment_rel_err=mom, param_max_diff=dp, params_moved=moved)
+    del p["cpu"], st["cpu"], p0
+    # checkpoint after these steps; two more steps straight on, then the
+    # same two from the restored state
+    step = S.build_train_step(cfg, QuantContext(), opt, lr_fn, remat=False)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = Checkpointer(tmp)
+        t0 = time.perf_counter()
+        ck.save(2, {"params": p["cuda"], "opt": st["cuda"]},
+                extra={"step": 2}, blocking=True)
+        save_s = time.perf_counter() - t0
+        direct = [float(step(p["cuda"], st["cuda"], b)[2]["loss"])
+                  for b in batches["cuda"][2:]]
+        t0 = time.perf_counter()
+        state, extra = ck.restore({"params": p["cuda"], "opt": st["cuda"]})
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(extra == {"step": 2} and int(state["opt"].step) == 2,
+              f"26b: restored {extra}, step {int(state['opt'].step)}")
+        resumed = [float(step(state["params"], state["opt"], b)[2]["loss"])
+                   for b in batches["cuda"][2:]]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    e = max(abs(a - b) / abs(b) for a, b in zip(resumed, direct))
+    check(e <= TRAIN_LOSS_RTOL, f"26b: resumed losses {resumed}, "
+          f"uninterrupted {direct}")
+    log(f"[26b] checkpoint of params + AdamW state saved in {save_s:.1f} s, "
+        f"restored in {restore_s:.1f} s; the resumed steps' losses "
+        f"{resumed} against the uninterrupted run's {direct} (within "
+        f"{TRAIN_LOSS_RTOL} relative)")
+    res["resume"] = dict(direct=direct, resumed=resumed, save_s=save_s,
+                         restore_s=restore_s)
+
+
+def _train_full(torch, res):
+    """26c: ``train()`` of llama3.2-1B at full width and depth on the
+    card, flash attention, no checkpoint."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import train
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    o = train("llama3_2_1b", TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+              smoke=False, attn_kernel="flash", log_every=1)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    cfg, losses = o["cfg"], o["losses"]
+    n_par = S.param_count(cfg)
+    check(n_par == _dense_params(cfg),
+          f"26c: param_count {n_par}, the formula {_dense_params(cfg)}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x)
+                                              for x in losses),
+          f"26c: losses {losses}")
+    check(losses[-1] < losses[1], f"26c: the loss did not fall after step "
+          f"1: {losses}")
+    want = {k: 0 for k in launches}
+    want["flash_prefill"] = cfg.n_layers * TRAIN_STEPS
+    check(launches == want, f"26c: launches {launches}, want {want}")
+    step_s = sorted(o["step_s"][1:])
+    med = step_s[len(step_s) // 2]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[26c] train llama3.2-1B at full width and depth "
+        f"({n_par / 1e9:.3f} B parameters, AdamW), {TRAIN_STEPS} steps of "
+        f"{TRAIN_B} x {TRAIN_S} tokens, flash attention: losses "
+        f"{[round(x, 4) for x in losses]}; step (host clock, synchronized) "
+        f"median of steps 2-{TRAIN_STEPS} {1e3 * med:.1f} ms (range "
+        f"{1e3 * step_s[0]:.1f}-{1e3 * step_s[-1]:.1f}; step 1 "
+        f"{1e3 * o['step_s'][0]:.1f} ms), "
+        f"{TRAIN_B * TRAIN_S / med:.0f} tokens/s, peak "
+        f"{peak:.2f} GiB, K5 {launches['flash_prefill']} launches "
+        f"({cfg.n_layers} a step), {wall:.1f} s")
+    res["full"] = dict(losses=losses, step_s=o["step_s"], median_step_s=med,
+                       tokens_per_s=TRAIN_B * TRAIN_S / med, peak_gib=peak,
+                       params=n_par, launches=launches, wall_s=wall)
+    _train_breakdown(torch, res, o)
+    return o
+
+
+def _train_breakdown(torch, res, trained):
+    """Where 26c's step goes: its three parts timed apart (host clock,
+    synchronized, median of 3: the loss and its gradients, the clip, the
+    AdamW update at lr 0, which moves no parameter), then one whole step
+    under ``torch.profiler``: device time, busy share, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.core.tree import unflatten
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.profile_engine import _device_us
+    from repro_torch.optim import adamw, clip_by_global_norm
+    cfg, params = trained["cfg"], trained["params"]
+    opt = adamw()
+    state = opt.init(params)
+    b = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLMStream(
+        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(TRAIN_STEPS).items()}
+
+    def step():
+        t = [time.perf_counter()]
+        _, _, grads = S.loss_and_grads(params, b, cfg, QuantContext())
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        grads, _ = clip_by_global_norm(unflatten(params, grads), 1.0)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        opt.update(grads, state, params, 0.0)
+        torch.cuda.synchronize()
+        t.append(time.perf_counter())
+        return [t[i + 1] - t[i] for i in range(3)]
+
+    parts = [sorted(p)[1] for p in zip(*[step() for _ in range(3)])]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.key, _device_us(e), e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and _device_us(e)),
+                  key=lambda r: -r[1])
+    dev_ms = sum(r[1] for r in rows) / 1e3
+    k5_ms = sum(r[1] for r in rows if "flash_prefill" in r[0]) / 1e3
+    log(f"[26c] a step's parts (median of 3, synchronized): loss + "
+        f"gradients {1e3 * parts[0]:.1f} ms, clip {1e3 * parts[1]:.1f} ms, "
+        f"AdamW update {1e3 * parts[2]:.1f} ms; profiled step: wall "
+        f"{1e3 * wall:.1f} ms, device time {dev_ms:.1f} ms (busy "
+        f"{dev_ms / (1e3 * wall):.3f}), {sum(r[2] for r in rows)} kernels, "
+        f"copies and fills, K5 {k5_ms:.2f} ms; top:")
+    for key, us, count in rows[:10]:
+        log(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:100]}")
+    res["breakdown"] = dict(
+        grads_ms=1e3 * parts[0], clip_ms=1e3 * parts[1],
+        update_ms=1e3 * parts[2], profiled_wall_ms=1e3 * wall,
+        device_ms=dev_ms, k5_ms=k5_ms,
+        top=[dict(kernel=k, ms=us / 1e3, count=c) for k, us, c in rows[:10]])
+
+
+def _train_then_int(torch, res, trained):
+    """26d: Algorithm 1 on the trained weights, their matmul weights
+    quantized once to int8 codes (as ``serve`` deploys them), then the FP
+    and INT forwards of one batch: K2 and K3 by phase 22's formula for a
+    forward without a cache (no int8 K/V write: K3_PER_LAYER - 1 a
+    layer)."""
+    from repro_torch.core.lm_calibrate import calibrate_lm
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.kernels import ops
+    from repro_torch.models import model as M
+    cfg, params = trained["cfg"], trained["params"]
+    tokens = SyntheticLMStream(cfg.vocab_size, TRAIN_S, TRAIN_B,
+                               seed=123).batch(0)["tokens"]
+    b = {"tokens": torch.from_numpy(tokens).to("cuda")}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ctx, _ = calibrate_lm(lambda p, bb, c: M.forward(p, bb, cfg, c),
+                          params, b)
+    torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    int_ctx = dataclasses.replace(ctx, mode=QuantMode.INT)
+    with torch.no_grad():
+        lf, _ = M.forward(params, b, cfg, QuantContext(mode=QuantMode.FP))
+        codes = quantize_weight_tree(params, int_ctx)
+        li, _ = M.forward(codes, b, cfg, int_ctx)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    L = cfg.n_layers
+    want = {k: 0 for k in launches}
+    want.update(flash_prefill=3 * L, int8_matmul=7 * L + 1,
+                quantize=(K3_PER_LAYER - 1) * L + 1
+                + int(cfg.tie_embeddings))
+    check(launches == want, f"26d: launches {launches}, want {want}")
+    check(bool(torch.isfinite(li).all()), "26d: INT logits not finite")
+    agree = float((lf.argmax(-1) == li.argmax(-1)).float().mean())
+    log(f"[26d] Algorithm 1 on the trained weights in {cal_s:.2f} s "
+        f"({len(ctx.table)} modules); FP vs INT argmax agreement "
+        f"{agree:.4f} on {TRAIN_B} x {TRAIN_S} tokens; launches K2 "
+        f"{launches['int8_matmul']} K3 {launches['quantize']} K5 "
+        f"{launches['flash_prefill']} (calibration forward, FP, INT)")
+    res["int"] = dict(agreement=agree, calibrate_s=cal_s, launches=launches)
+
+
+def phase_train(torch, out):
+    """Phase 26: training -- (a) K5 under autograd, (b) the 2-layer
+    full-width model card against CPU and a checkpoint resume, (c)
+    ``train()`` of llama3.2-1B at full width and depth, (d) Algorithm 1
+    and the INT forward on the trained weights."""
+    t0 = time.perf_counter()
+    res = {"part_s": {}}
+    trained = {}
+    for part, run in (
+            ("a", lambda: _train_kernels(torch, res)),
+            ("b", lambda: _train_card_vs_cpu(torch, res)),
+            ("c", lambda: trained.update(_train_full(torch, res))),
+            ("d", lambda: _train_then_int(torch, res, trained))):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.empty_cache()
+        res["part_s"][part] = time.perf_counter() - t1
+    trained.clear()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[26] training phase {res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["train"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -6374,7 +6821,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25); "
+                         "20, 21, 22, 23, 24, 25, 26); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -6402,7 +6849,7 @@ def main(argv=None) -> int:
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
-                 24: phase_moe, 25: phase_whisper}
+                 24: phase_moe, 25: phase_whisper, 26: phase_train}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -6461,6 +6908,8 @@ def main(argv=None) -> int:
         moe = phase_moe(torch, out)
         torch.cuda.empty_cache()
         wsp = phase_whisper(torch, out)
+        torch.cuda.empty_cache()
+        trn = phase_train(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -6705,6 +7154,23 @@ def main(argv=None) -> int:
         entry.update(extra, whisper_classic_launches={
             tag: runs[0]["launches"][key]
             for tag, runs in wsp["serve"].items()})
+    # training (phase 26): K5's launches in the 8 full-depth train steps
+    # (forward only: the backward recomputes through the plain version),
+    # its forward and the recompute backward at the train shape
+    kt = trn["k5_train"]
+    entry = next(e for e in kernels if e["name"] == "flash_prefill")
+    entry["training"] = dict(
+        launches=trn["full"]["launches"]["flash_prefill"],
+        per=f"launch at llama3.2-1B's train shape: B {TRAIN_B}, S "
+            f"{TRAIN_S}, H 32, KVH 8, D 64, bf16, causal; launches from "
+            f"phase 26c's {TRAIN_STEPS} steps",
+        max_abs_err=max(c["max_abs_err"] for c in trn["k5_cases"]),
+        grad_max_abs_err=max(c["grad_max_abs_err"]
+                             for c in trn["k5_cases"]),
+        **{k: kt[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "backward_ms",
+                              "backward_bound_ms", "backward_bound_by",
+                              "library_train_ms")})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -10,7 +10,8 @@ JAX package's on every device.
 
 * ``quant(r, N, bits)``   — float → integer code.
 * ``dequant(q, N)``       — integer code → float.
-* ``fake_quant(r, N, bits)`` — Eq. 1 in float arithmetic, ``dequant(quant(r))``.
+* ``fake_quant(r, N, bits)`` — Eq. 1 in float arithmetic, ``dequant(quant(r))``;
+  ``fake_quant_ste`` the same with a straight-through gradient.
 * ``max_frac_bits(x)`` / ``search_window(x, tau)`` — Eq. 6 and the narrowed
   window of Algorithm 1.
 * ``shift_requant(acc, s)`` — int32 accumulator → n-bit code by a
@@ -24,8 +25,8 @@ from typing import Optional
 import torch
 
 __all__ = ["int_bounds", "round_half_away", "quant", "dequant",
-           "fake_quant", "max_frac_bits", "search_window", "shift_requant",
-           "storage_dtype"]
+           "fake_quant", "fake_quant_ste", "max_frac_bits", "search_window",
+           "shift_requant", "storage_dtype"]
 
 
 def int_bounds(bits: int, unsigned: bool = False) -> tuple[int, int]:
@@ -78,6 +79,29 @@ def fake_quant(r: torch.Tensor, n: int, bits: int = 8,
     scaled = r.to(torch.float32) * (2.0 ** int(n))
     q = torch.clamp(round_half_away(scaled), lo, hi)
     return (q * (2.0 ** (-int(n)))).to(r.dtype)
+
+
+class _FakeQuantSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, n, bits, unsigned):
+        lo, hi = int_bounds(bits, unsigned)
+        scaled = r.to(torch.float32) * (2.0 ** int(n))
+        ctx.save_for_backward((scaled >= lo) & (scaled <= hi))
+        return fake_quant(r, n, bits, unsigned)
+
+    @staticmethod
+    def backward(ctx, g):
+        inside, = ctx.saved_tensors
+        return torch.where(inside, g, torch.zeros_like(g)), None, None, None
+
+
+def fake_quant_ste(r: torch.Tensor, n: int, bits: int = 8,
+                   unsigned: bool = False) -> torch.Tensor:
+    """:func:`fake_quant` with a straight-through estimator: the gradient
+    passes where ``r * 2^n`` lies inside ``[lo, hi]`` and is 0 where it
+    is clipped.  (``fake_quant`` itself has a zero gradient: its
+    ``trunc`` has none.)"""
+    return _FakeQuantSTE.apply(r, n, bits, unsigned)
 
 
 def max_frac_bits(x: torch.Tensor) -> int:

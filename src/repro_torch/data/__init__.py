@@ -1,3 +1,5 @@
-from repro_torch.data.pipeline import SyntheticLMStream, make_calibration_batch
+from repro_torch.data.pipeline import (ShardedLoader,  # noqa: F401
+                                      SyntheticLMStream,
+                                      make_calibration_batch)
 
-__all__ = ["SyntheticLMStream", "make_calibration_batch"]
+__all__ = ["SyntheticLMStream", "ShardedLoader", "make_calibration_batch"]

@@ -1,21 +1,32 @@
-"""Deterministic synthetic token stream (numpy only).
+"""Deterministic synthetic token stream and its prefetching loader
+(PyTorch counterpart of ``repro.data.pipeline``).
 
-A copy of the numpy part of the JAX package's ``repro.data.pipeline``:
-``batch(step)`` is a pure function of ``(seed, step)`` and draws, number
-for number, what the JAX package's stream draws, so calibration batches
-and prompts are the same in both packages.  The labels and mask are not
-kept.  With ``encoder_seq`` (the audio family) the batch also carries
+``SyntheticLMStream.batch(step)`` is a pure function of ``(seed, step)``
+and draws, number for number, what the JAX package's stream draws, so
+calibration batches, prompts and training batches are the same in both
+packages: ``tokens``, ``labels`` (the tokens) and ``mask`` (fp32 ones).
+With ``encoder_seq`` (the audio family) the batch also carries
 ``encoder_features``, (B, encoder_seq, d_model) fp32 stub frame
 embeddings drawn after the tokens, so the tokens are the same with or
 without them.
+
+``ShardedLoader`` keeps ``depth`` batches in flight on a background
+thread, each copied to the device from pinned host memory, and exposes
+its stream position for checkpointing (restart at step k reproduces the
+stream exactly).
 """
 from __future__ import annotations
 
-from typing import Optional
+import queue
+import threading
+from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
-__all__ = ["SyntheticLMStream", "make_calibration_batch"]
+from repro_torch.core.device import resolve_device
+
+__all__ = ["SyntheticLMStream", "ShardedLoader", "make_calibration_batch"]
 
 
 class SyntheticLMStream:
@@ -40,11 +51,78 @@ class SyntheticLMStream:
         base = np.minimum(base - 1, self.vocab_size - 1)
         rep = rng.random((b, s)) < 0.3
         shifted = np.roll(base, 1, axis=1)
-        out = {"tokens": np.where(rep, shifted, base).astype(np.int32)}
+        tokens = np.where(rep, shifted, base).astype(np.int32)
+        out = {"tokens": tokens, "labels": tokens,
+               "mask": np.ones((b, s), np.float32)}
         if self.encoder_seq is not None:
             out["encoder_features"] = rng.standard_normal(
                 (b, self.encoder_seq, self.d_model), dtype=np.float32)
         return out
+
+
+class ShardedLoader:
+    """Prefetch of the stream's batches onto ``device`` (default
+    ``cuda``): a thread draws batch after batch from ``start_step`` and
+    keeps ``depth`` of them queued, each array copied to the device from
+    pinned host memory without blocking.  ``next(loader)`` gives
+    ``(step, batch)``; ``state()`` / ``restore()`` carry the position
+    through a checkpoint; ``close()`` stops the thread.  (The reference
+    places each batch with its input sharding; one card takes one
+    device.)"""
+
+    def __init__(self, stream: SyntheticLMStream, device=None,
+                 start_step: int = 0, depth: int = 2):
+        self.stream = stream
+        self.device = resolve_device(device)
+        self.depth = depth
+        self._step = start_step
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _place(self, batch: dict) -> dict:
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def _fill(self):
+        step = self._step
+        while not self._stop.is_set():
+            try:
+                self._q.put((step, self._place(self.stream.batch(step))),
+                            timeout=0.1)
+                step += 1
+            except queue.Full:
+                continue
+
+    def __next__(self) -> tuple[int, dict]:
+        step, batch = self._q.get()
+        self._step = step + 1
+        return step, batch
+
+    def __iter__(self) -> Iterator[tuple[int, dict]]:
+        while True:
+            yield next(self)
+
+    def state(self) -> dict:
+        return {"step": self._step, "seed": self.stream.seed}
+
+    @classmethod
+    def restore(cls, stream: SyntheticLMStream, device, state: dict,
+                depth: int = 2) -> "ShardedLoader":
+        stream.seed = state["seed"]
+        return cls(stream, device, start_step=state["step"], depth=depth)
+
+    def close(self):
+        self._stop.set()
+        while not self._q.empty():
+            self._q.get_nowait()
+        self._thread.join(timeout=2)
 
 
 def make_calibration_batch(vocab_size: int, seq_len: int, batch: int,

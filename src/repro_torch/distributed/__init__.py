@@ -1,0 +1,6 @@
+"""Fault tolerance: heartbeats, elastic re-meshing, the restart loop."""
+from repro_torch.distributed.fault_tolerance import (  # noqa: F401
+    ElasticPlanner, HeartbeatMonitor, MeshPlan, RunSupervisor)
+
+__all__ = ["HeartbeatMonitor", "ElasticPlanner", "MeshPlan",
+           "RunSupervisor"]

@@ -349,22 +349,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     family's encoder, and the cross-attention over its memory, where Sq
     != Skv).
 
-    K5's backward belongs to the training slice: a CUDA ``q`` that
-    requires grad raises."""
+    Differentiable over float K/V: where autograd records (any of q, k, v
+    requires grad), K5 runs the forward and the backward recomputes
+    through the plain version, as the reference pairs its Pallas forward
+    with the chunked reference's VJP (:class:`_FlashPrefill`).  Over int8
+    codes a ``q`` that requires grad raises: the reference takes no VJP
+    there."""
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits,
                                        causal=causal)
-    if q.requires_grad:
-        raise NotImplementedError(
-            "flash_attention on CUDA is forward-only: K5's backward comes "
-            "with training (ROADMAP Queue 1 item 7, 'Training and "
-            "infrastructure')")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if k.dtype == torch.int8:
+            raise NotImplementedError(
+                "flash_attention: int8 K/V codes are the inference "
+                "dataflow and take no gradient (the reference pairs K5 "
+                "with a backward only over float K/V); attend over float "
+                "K/V to train, or run without grad")
+        return _FlashPrefill.apply(q, k, v, causal)
+    return _flash_prefill_launch(q, k, v, nkv, causal)
+
+
+def _flash_prefill_launch(q, k, v, nkv: int, causal: bool) -> torch.Tensor:
     out = flash_prefill_cuda(q, k, v, kv_frac_bits=nkv, causal=causal)
     LAUNCHES["flash_prefill"] += 1
     if not causal:
         FORM_LAUNCHES["flash_prefill_noncausal"] += 1
     return out
+
+
+class _FlashPrefill(torch.autograd.Function):
+    """K5 over float K/V with the reference's backward: the forward is the
+    kernel (q, k, v saved), the backward autograd of the plain version
+    recomputed on the saved inputs (the JAX wrapper's ``custom_vjp``,
+    ``repro/kernels/ops.py:288-305``: no backward kernel)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _flash_prefill_launch(q, k, v, 0, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.flash_attention_ref(*inputs, causal=ctx.causal)
+            grads = torch.autograd.grad(out, inputs, g)
+        return (*(gi if need else None for gi, need in
+                  zip(grads, ctx.needs_input_grad)), None)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,4 +1,5 @@
-"""Step builders of the classic dense-cache serving path and of the
+"""Step builders of training (``build_train_step``, ``param_count``,
+``pick_optimizer``), of the classic dense-cache serving path and of the
 serving engine (PyTorch counterpart of ``repro.launch.steps``:
 ``build_prefill_step``, ``build_serve_step``, ``build_paged_step``,
 ``build_ragged_step``, ``build_recurrent_step`` and the build-time W8A8
@@ -23,13 +24,103 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
+from repro_torch.core.tree import leaves, unflatten
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.models.attention import KVCache
+from repro_torch.optim import adafactor, adamw, clip_by_global_norm
+from repro_torch.optim.optimizers import Optimizer, OptState
 
-__all__ = ["check_matmul_kernel", "build_prefill_step", "build_serve_step",
+__all__ = ["param_count", "pick_optimizer", "loss_and_grads",
+           "build_train_step",
+           "ADAFACTOR_THRESHOLD", "check_matmul_kernel",
+           "build_prefill_step", "build_serve_step",
            "build_paged_step", "build_ragged_step", "build_recurrent_step",
            "StepGraphs", "serve_step_key", "run_serve_step"]
+
+ADAFACTOR_THRESHOLD = 30e9  # params; above it AdamW's 12 bytes a param
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Parameters of ``cfg``'s tree, counted from its shapes on the meta
+    device (nothing allocated)."""
+    return sum(t.numel() for t in leaves(M.init_params(cfg,
+                                                       device="meta")))
+
+
+def pick_optimizer(cfg: ModelConfig) -> Optimizer:
+    return adafactor() if param_count(cfg) > ADAFACTOR_THRESHOLD \
+        else adamw()
+
+
+def loss_and_grads(params, batch, cfg, ctx, remat=False):
+    """``models.model.loss_fn`` and its gradients: (loss, metrics,
+    gradients in ``leaves(params)``'s order), all detached.  A leaf
+    the loss does not reach, and every leaf when nothing does (INT mode:
+    each ``qlinear`` casts to codes), gets a zero gradient, the value the
+    reference's autodiff gives there."""
+    ls = leaves(params)
+    for p in ls:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = M.loss_fn(params, batch, cfg, ctx, remat=remat)
+        gs = (torch.autograd.grad(loss, ls, allow_unused=True)
+              if loss.requires_grad else [None] * len(ls))
+    finally:
+        for p in ls:
+            p.requires_grad_(False)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(ls, gs)]
+    return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def build_train_step(cfg: ModelConfig, ctx: QuantContext, opt: Optimizer,
+                     lr_fn, *, remat=True, clip_norm: float = 1.0,
+                     accum_steps: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics)``: the loss's gradients (``models.model.loss_fn`` with
+    ``remat``), clipped to a global norm of ``clip_norm``, then ``opt``'s
+    update at ``lr_fn(opt_state.step)``; params and moments are updated
+    IN PLACE and returned.  ``metrics``: ``loss``, ``grad_norm``, ``lr``
+    and the loss's ``nll`` / ``z_loss`` / ``ppl_proxy`` (with
+    accumulation ``nll`` alone, the mean loss), 0-d tensors on the
+    device.
+
+    ``accum_steps > 1`` splits the batch A x B/A into microbatches whose
+    gradients accumulate in fp32 and are averaged (fp32 gradients then
+    reach the update, as in the reference)."""
+    check_matmul_kernel(cfg, ctx)
+
+    def train_step(params, opt_state: OptState, batch):
+        if accum_steps == 1:
+            loss, metrics, grads = loss_and_grads(params, batch, cfg, ctx,
+                                                  remat)
+        else:
+            micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) for p in leaves(params)]
+            loss = 0.0
+            for i in range(accum_steps):
+                mb_loss, _, g = loss_and_grads(
+                    params, {k: v[i] for k, v in micro.items()}, cfg, ctx,
+                    remat)
+                for acc, gi in zip(grads, g):
+                    acc.add_(gi.float())
+                loss = loss + mb_loss
+            grads = [g / accum_steps for g in grads]
+            loss = loss / accum_steps
+            metrics = {"nll": loss}
+        grads, gnorm = clip_by_global_norm(unflatten(params, grads),
+                                           clip_norm)
+        lr = lr_fn(opt_state.step)
+        params, opt_state = opt.update(grads, opt_state, params, lr)
+        return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm,
+                                       lr=lr)
+
+    return train_step
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:

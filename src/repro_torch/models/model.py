@@ -45,10 +45,11 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.common import (Initializer, embed, rmsnorm,
                                        rope_tables, unembed)
 
-__all__ = ["init_params", "init_cache", "forward", "prefill", "decode_step",
+__all__ = ["init_params", "init_cache", "forward", "loss_fn", "prefill",
+           "decode_step",
            "init_paged_cache", "ragged_step", "paged_step",
            "init_paged_state", "paged_recurrent_step", "qlinear_weight",
-           "from_jax_params", "model_dtype"]
+           "from_jax_params", "from_jax_opt_state", "model_dtype"]
 
 Device = Optional[Union[str, torch.device]]
 
@@ -91,13 +92,15 @@ def _check_family(cfg: ModelConfig, what: str,
 def init_params(cfg: ModelConfig, seed: int = 0, *,
                 device: Device = None) -> dict:
     """Random weights from a seeded ``torch.Generator`` on ``device``
-    (default ``cuda``).  Not the JAX package's numbers — its PRNG cannot
-    be reproduced; tests carry JAX weights over with
+    (default ``cuda``; ``"meta"`` gives the shapes and dtypes without
+    storage).  Not the JAX package's numbers — its PRNG cannot be
+    reproduced; tests carry JAX weights over with
     :func:`from_jax_params`."""
     _check_family(cfg, "init_params")
-    dev = resolve_device(device)
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dt = model_dtype(cfg)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if meta else dev)
     gen.manual_seed(seed)
     init = Initializer(gen, dt, dev)
     params: dict[str, Any] = {
@@ -286,19 +289,49 @@ def _layer_cache(cache: Optional[dict], name: str, layer: int):
     return type(part)(*(t[layer] for t in part))
 
 
-def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos):
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat='dots'``: keep the plain 2-D products (what the
+    reference's ``dots_with_no_batch_dims_saveable`` keeps), recompute
+    the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(block, remat):
+    """``block(x) -> x`` as the forward's ``remat`` asks: as given
+    (False), recomputed whole in the backward (True / 'full'), or
+    recomputed but for its 2-D products ('dots'); the values do not
+    change."""
+    if not remat:
+        return block
+    from torch.utils import checkpoint as ckpt
+    if remat in (True, "full"):
+        return functools.partial(ckpt.checkpoint, block, use_reentrant=False)
+    if remat != "dots":
+        raise ValueError(f"unknown remat={remat!r}; expected False, True, "
+                         "'full' or 'dots'")
+    return functools.partial(
+        ckpt.checkpoint, block, use_reentrant=False,
+        context_fn=functools.partial(ckpt.create_selective_checkpoint_contexts,
+                                     _dots_policy))
+
+
+def _dense_layers(params, x, positions, cfg, ctx, cache, cache_pos,
+                  remat=False):
     """The dense families' stack, and the MoE family's: its leading dense
     layers (``dense_blocks`` over ``kv_dense``), then its MoE layers."""
     rope = _rope(positions, cfg)
-    for layer, p_l in enumerate(params.get("dense_blocks", ())):
-        x, _ = tfm.dense_block(ctx, p_l, x, cfg, rope=rope,
-                               cache=_layer_cache(cache, "kv_dense", layer),
-                               cache_pos=cache_pos)
-    block = tfm.moe_block if cfg.family == _MOE else tfm.dense_block
-    for layer, p_l in enumerate(params["blocks"]):
-        x, _ = block(ctx, p_l, x, cfg, rope=rope,
-                     cache=_layer_cache(cache, "kv", layer),
-                     cache_pos=cache_pos)
+    stacks = (("kv_dense", tfm.dense_block, params.get("dense_blocks", ())),
+              ("kv", tfm.moe_block if cfg.family == _MOE
+               else tfm.dense_block, params["blocks"]))
+    for name, block, blocks in stacks:
+        for layer, p_l in enumerate(blocks):
+            x = _remat(lambda x, p_l=p_l, layer=layer, block=block, name=name:
+                       block(ctx, p_l, x, cfg, rope=rope,
+                             cache=_layer_cache(cache, name, layer),
+                             cache_pos=cache_pos)[0], remat)(x)
     return _head(params, x, cfg, ctx)
 
 
@@ -319,7 +352,8 @@ def _sinusoid(seq: int, d: int, dtype: torch.dtype,
     return table.to(torch.float32).to(dtype)[None].to(device)
 
 
-def _encode(params, batch: dict, cfg: ModelConfig, ctx) -> torch.Tensor:
+def _encode(params, batch: dict, cfg: ModelConfig, ctx,
+            remat=False) -> torch.Tensor:
     """The whisper encoder over the stub frame embeddings
     ``batch["encoder_features"]`` (B, T, d): sinusoidal positions added in
     the model dtype, the encoder layers, then ``ln_enc``."""
@@ -328,33 +362,38 @@ def _encode(params, batch: dict, cfg: ModelConfig, ctx) -> torch.Tensor:
     x = feats.to(dt) + _sinusoid(feats.shape[1], cfg.d_model, dt,
                                  feats.device)
     for p_l in params["enc_blocks"]:
-        x = tfm.encoder_block(ctx, p_l, x, cfg)
+        x = _remat(lambda x, p_l=p_l: tfm.encoder_block(ctx, p_l, x, cfg),
+                   remat)(x)
     return rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
 def _decoder_layers(params, x, memory, positions, cfg, ctx, cache,
-                    cache_pos):
+                    cache_pos, remat=False):
     """whisper's decoder stack over the encoder's ``memory``."""
     rope = _rope(positions, cfg)
     for layer, p_l in enumerate(params["blocks"]):
-        x, _ = tfm.decoder_block(ctx, p_l, x, memory, cfg, rope=rope,
-                                 cache=_layer_cache(cache, "kv", layer),
-                                 cache_pos=cache_pos)
+        x = _remat(lambda x, p_l=p_l, layer=layer: tfm.decoder_block(
+            ctx, p_l, x, memory, cfg, rope=rope,
+            cache=_layer_cache(cache, "kv", layer),
+            cache_pos=cache_pos)[0], remat)(x)
     return _head(params, x, cfg, ctx)
 
 
 def _rwkv_layers(params, x, cfg, ctx, state: rwkv_lib.RWKVState,
-                 decode: bool, store: bool):
+                 decode: bool, store: bool, remat=False):
     """The RWKV6 stack over ``state`` ((L, ...) components): each layer's
     block from its state, its new state written back IN PLACE when
-    ``store``."""
+    ``store`` (``remat`` only without)."""
     block = tfm.rwkv_block_decode if decode else tfm.rwkv_block_fwd
     for layer, p_l in enumerate(params["blocks"]):
-        x, new = block(ctx, p_l, x, cfg, rwkv_lib.RWKVState(
-            *(c[layer] for c in state)))
-        if store:
-            for c, n in zip(state, new):
-                _put(c[layer], n)
+        st = rwkv_lib.RWKVState(*(c[layer] for c in state))
+        if not store:
+            x = _remat(lambda x, p_l=p_l, st=st: block(ctx, p_l, x, cfg,
+                                                       st)[0], remat)(x)
+            continue
+        x, new = block(ctx, p_l, x, cfg, st)
+        for c, n in zip(state, new):
+            _put(c[layer], n)
     return _head(params, x, cfg, ctx)
 
 
@@ -385,7 +424,8 @@ def _hybrid_groups(params, x, positions, cfg, ctx, cache: dict, cache_pos,
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
-            *, cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
+            *, remat: Union[bool, str] = False,
+            cache: Optional[dict] = None) -> tuple[torch.Tensor, Any]:
     """Full-sequence forward of ``batch["tokens"]`` (B, S) from position 0
     (the audio family first encodes ``batch["encoder_features"]``).
     With ``cache`` (prefill, ``init_cache``'s), every layer's K/V are
@@ -398,27 +438,38 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     8``), as the reference's forward does.  Returns (logits (B, S, V) in
     the activation dtype, cache).  ``params`` may be a
     ``QuantizedParams.tree`` when ``ctx`` is the matching INT-mode
-    context."""
+    context.
+
+    ``remat`` (training, without a cache) sets what each block keeps for
+    the backward, as the reference's: everything (False), nothing, the
+    block recomputed (True / 'full'), or its 2-D products ('dots'); no
+    value changes.  The hybrid family takes none."""
     _check_family(cfg, "forward")
+    if remat and (cache is not None or cfg.family == "hybrid"):
+        raise NotImplementedError(
+            "remat applies to a forward without a cache, on the dense, "
+            "vlm, moe, audio and ssm families (the hybrid family's "
+            "training is ROADMAP Queue 1 item 7)")
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
     x = embed(params["embed"], tokens, model_dtype(cfg))
     positions = torch.arange(s, device=dev).expand(b, s)
     if cfg.family in _DENSE + (_MOE,):
-        logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0)
+        logits = _dense_layers(params, x, positions, cfg, ctx, cache, 0,
+                               remat)
     elif cfg.family == _AUDIO:
-        memory = _encode(params, batch, cfg, ctx)
+        memory = _encode(params, batch, cfg, ctx, remat)
         if cache is not None:
             _put(cache["memory"], memory)
             memory = cache["memory"]
         logits = _decoder_layers(params, x, memory, positions, cfg, ctx,
-                                 cache, 0)
+                                 cache, 0, remat)
     elif cfg.family == "ssm":
         state = cache["state"] if cache is not None else init_cache(
             cfg, b, s, device=dev)["state"]
         logits = _rwkv_layers(params, x, cfg, ctx, state, decode=False,
-                              store=cache is not None)
+                              store=cache is not None, remat=remat)
     else:
         c = cache if cache is not None else init_cache(cfg, b, s,
                                                        device=dev)
@@ -436,6 +487,38 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     cache = init_cache(cfg, b, max_seq or s, device=batch["tokens"].device)
     logits, cache = forward(params, batch, cfg, ctx, cache=cache)
     return logits[:, -1], cache
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
+            *, remat: Union[bool, str] = "full"
+            ) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy (fp32 logsumexp over the activation-dtype
+    logits, the max held out of the gradient) of ``batch["labels"]``
+    under ``batch["mask"]`` (when given), plus the ``1e-4 * mean(lse^2)``
+    z-loss.  Returns (loss + z_loss, {"nll", "z_loss", "ppl_proxy"}).
+
+    The gold logit is picked by ``gather``, where the reference sums
+    ``logits * one_hot`` in fp32 (a vocab-dim gather re-shards the logits
+    under GSPMD): the sum has one nonzero term, so value and gradient are
+    the same, without a (B, S, V) one-hot."""
+    logits, _ = forward(params, batch, cfg, ctx, remat=remat)
+    logits = logits[:, :-1]
+    targets = batch["labels"][:, 1:].long()
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    sumexp = torch.exp(logits - m).sum(-1, dtype=torch.float32)
+    lse = torch.log(sumexp) + m[..., 0].float()
+    gold = logits.gather(-1, targets[..., None])[..., 0].float()
+    nll = lse - gold
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = mask[:, 1:].to(nll.dtype)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    z_loss = 1e-4 * (lse * lse).mean()
+    metrics = {"nll": loss, "z_loss": z_loss,
+               "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
+    return loss + z_loss, metrics
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
@@ -749,6 +832,8 @@ def _to_tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
 def _tree(node, fn):
     if isinstance(node, dict):
         return {k: _tree(v, fn) for k, v in node.items()}
+    if isinstance(node, tuple):             # adafactor's (row, col)
+        return tuple(fn(a) for a in node)
     return fn(node)
 
 
@@ -787,3 +872,21 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig, *,
         out["blocks"] = [_tree(blocks, lambda a, i=i: _to_tensor(a[i], dev))
                          for i in range(n)]
     return out
+
+
+def from_jax_opt_state(np_state, cfg: ModelConfig, *,
+                       device: Device = None):
+    """The JAX package's ``OptState`` (as numpy: ``jax.tree.map(
+    np.asarray, state)``) as the port's ``optim.OptState``: the step a
+    0-d int32 tensor, ``m`` and ``v`` laid out as :func:`from_jax_params`
+    lays out the params (adafactor's factored ``(row, col)`` second
+    moments split per layer alike; its ``m`` stays None)."""
+    from repro_torch.optim.optimizers import OptState
+    dev = resolve_device(device)
+
+    def moments(tree):
+        return None if tree is None else from_jax_params(tree, cfg,
+                                                         device=dev)
+    return OptState(step=torch.tensor(int(np.asarray(np_state.step)),
+                                      dtype=torch.int32, device=dev),
+                    m=moments(np_state.m), v=moments(np_state.v))

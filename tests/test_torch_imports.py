@@ -47,6 +47,12 @@ def test_import_without_jax_loads_no_repro_module():
         "    GOLDEN_SCHEMA, PORT_EXTRAS, EnergyAccount, Profiler,\n"
         "    WorkloadRecord, replay_workload)\n"
         "Profiler(); EnergyAccount()\n"
+        "from repro_torch.data import ShardedLoader\n"
+        "from repro_torch.checkpoint import Checkpointer\n"
+        "from repro_torch.distributed import RunSupervisor\n"
+        "from repro_torch.optim import adamw\n"
+        "from repro_torch.launch.train import train\n"
+        "adamw()\n"
         "bad = [m for m, mod in sys.modules.items() if mod is not None and"
         " (m == 'repro' or m.startswith(('repro.', 'jax')))]\n"
         "assert not bad, bad\n"
@@ -92,6 +98,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         quickstart.run()
     with pytest.raises(RuntimeError, match="CUDA"):
         quickstart.main([])
+    from repro_torch.data import ShardedLoader, SyntheticLMStream
+    from repro_torch.launch import fault_tolerant_train, train_small_lm
+    from repro_torch.launch.train import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train("llama3_2_1b", 1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedLoader(SyntheticLMStream(16, 4, 1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_small_lm.run(1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fault_tolerant_train.run()
     # the CPU is taken only when asked for
     assert init_params(cfg, device="cpu")["embed"].device.type == "cpu"
     assert init_resnet(rcfg, generator=torch.Generator(),

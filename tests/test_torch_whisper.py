@@ -245,8 +245,11 @@ def test_sinusoid_matches_jax():
 def test_stream_matches_jax():
     js = JStream(256, 12, 3, seed=5, encoder_seq=20, d_model=8).batch(2)
     ts = TStream(256, 12, 3, seed=5, encoder_seq=20, d_model=8).batch(2)
-    assert set(ts) == {"tokens", "encoder_features"}
-    assert np.array_equal(ts["tokens"], js["tokens"])
+    assert set(ts) == set(js) == {"tokens", "labels", "mask",
+                                  "encoder_features"}
+    for key in ("tokens", "labels", "mask"):
+        assert ts[key].dtype == js[key].dtype
+        assert np.array_equal(ts[key], js[key])
     assert ts["encoder_features"].dtype == np.float32
     assert np.array_equal(ts["encoder_features"], js["encoder_features"])
     # the features are drawn after the tokens: the tokens do not move
