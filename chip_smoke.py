@@ -283,6 +283,24 @@ the CUDA toolkit.  Phases, one line each (or a few):
     step time, tokens/s and peak memory; (d) Algorithm 1 on the trained
     weights and the INT forward on one batch: FP vs INT argmax agreement,
     K2 and K3 launches by phase 22's formula.
+27. tensor-parallel serving on a (data, model) mesh: (a) K2's rank-split
+    form (each rank's int32 partial, the partials summed in int32, the
+    finish's epilogue once) bit-exact against the single launch at
+    qwen3-1.7B's row-cut shapes (wo 2048 -> 2048, w2 6144 -> 2048) over 2
+    and 4 ranks x M {1, 4, 24, 256} x bias or none x int8 / uint8 x codes
+    / bf16; the partial (beside ``torch._int_mm``), the finish and the
+    single launch timed at M 24 beside their bounds; (b) two spawned
+    ranks sharing the card over gloo (a (1, 2) mesh), qwen3-1.7B at full
+    width and depth, bf16: the ragged engine in FP, calibrated INT and
+    W8A8 on phase 5's workload, the legacy engine in INT, classic
+    ``serve`` with flash attention in FP and INT, each against the
+    one-rank eager run here: the ranks token-identical, INT and W8A8
+    tokens and first-step logits bit-identical to one rank's, FP's
+    first-step logits within ``TP_FP_REL`` of the largest |logit| (token
+    agreement printed), each rank's launches by ``_tp_want``, tokens/s of
+    the 2 ranks on one card (no speed-up: one card does both ranks'
+    work, and every collective goes through the host); (c) a (1, 16)
+    mesh on qwen3's 8 KV heads refused at build time.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -305,7 +323,8 @@ from phase 23, and at the MoE family's shapes, from phase 24; K2's
 grouped form one granite-moe-3b decode step's 96 launches, from phase
 24; K5's non-causal form at whisper's encoder, from phase 25; K5's
 training launches and its recompute backward at the train shape, from
-phase 26), and
+phase 26; K2's rank-split form and every kernel's launches on each rank
+of phase 27's mesh), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -3660,17 +3679,17 @@ class _ModuleSync:
             self.calls += len(names)
             return ys
 
-        def card(ctx, name, x, w, b=None):
-            y = real(ctx, name, x, w, b)
+        def card(ctx, name, x, w, b=None, **kw):
+            y = real(ctx, name, x, w, b, **kw)
             self.card.append((x.cpu(), [y.cpu()]))
             return y
 
-        def cpu(ctx, name, x, w, b=None):
+        def cpu(ctx, name, x, w, b=None, **kw):
             xc, (yc,) = self.card.pop(0)
             check(xc.shape == x.shape, f"module {name}: the CPU's call "
                   f"order differs from the card's")
             self.x_diff = max(self.x_diff, float((xc - x).abs().max()))
-            y = real(ctx, name, xc, w, b)
+            y = real(ctx, name, xc, w, b, **kw)
             self.y_diff += self._n_diff(y, yc)
             self.calls += 1
             return y
@@ -4780,7 +4799,9 @@ class _OldChain:
         from repro_torch.kernels import ops
         self.torch, self.common, self.ops = torch, common, ops
 
-    def qlinear(self, ctx, name, x, w, b=None):
+    def qlinear(self, ctx, name, x, w, b=None, reduce=False):
+        # (``reduce``: a row-cut module on a mesh; this chain runs on one
+        # rank, where it changes nothing)
         from repro_torch.core.integer_ops import LinearQuantSpec
         from repro_torch.core.qscheme import dequant, quant
         int8 = self.torch.int8
@@ -4808,8 +4829,8 @@ class _OldChain:
         real = (common.qlinear, common.linears, ops.quantize_scatter)
         one = self.qlinear if old else real[0]
 
-        def qlinear(ctx, name, x, w, b=None):
-            y = one(ctx, name, x, w, b)
+        def qlinear(ctx, name, x, w, b=None, **kw):
+            y = one(ctx, name, x, w, b, **kw)
             outputs.append((name, y))
             return y
 
@@ -6811,6 +6832,328 @@ def phase_train(torch, out):
     out["train"] = res
     return res
 
+# ---------------------------------------------------------------------------
+# phase 27: tensor-parallel serving over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# qwen3-1.7B's row-cut modules (K, N) cut over the model axis's ranks, at
+# these stream rows (the engine's 24 bucket among them), timed at
+# TP_TIMED_ROWS
+TP_ROW_CUT = {"wo": (2048, 2048), "w2": (6144, 2048)}
+TP_RANKS, TP_ROWS, TP_TIMED_ROWS = (2, 4), (1, 4, 24, 256), 24
+# the FP rule: a mesh's first-step logits (the row-cut modules' fp32
+# partials summed in another order, rounded once to bf16) within this
+# share of the one rank's largest |logit|
+TP_FP_REL = 5e-2
+# requests a second of 27b's wall-clock engine run on the mesh
+TP_PACED_RATE = 10.0
+
+
+def _tp_k2(torch, res):
+    """27a: K2's rank-split form (each rank's int32 partial, the partials
+    summed in int32, the finish once) against the single launch, bit-exact,
+    at qwen3-1.7B's row-cut shapes over 2 and 4 ranks; the partial (and
+    ``torch._int_mm``, the same int32 product), the finish and the single
+    launch timed beside their bounds."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops, ref
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(27)
+    spec = LinearQuantSpec(n_x=4, n_w=8, n_b=7, n_o=4)
+    n_checks, timed, max_err = 0, [], 0.0
+    for name, (k, n) in TP_ROW_CUT.items():
+        w = torch.randint(-128, 128, (k, n), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        b = torch.randint(-128, 128, (n,), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        for ranks in TP_RANKS:
+            kr = k // ranks
+            for m in TP_ROWS:
+                for x_dt in (torch.int8, torch.uint8):
+                    lo, hi = (0, 256) if x_dt == torch.uint8 else (-128, 128)
+                    x = torch.randint(lo, hi, (m, k), generator=gen,
+                                      device="cuda",
+                                      dtype=torch.int32).to(x_dt)
+                    parts = [ops.int8_matmul_partial(
+                        x[:, r * kr:(r + 1) * kr], w[r * kr:(r + 1) * kr])
+                        for r in range(ranks)]
+                    check(torch.equal(parts[0], ref.int8_matmul_partial_ref(
+                        x[:, :kr], w[:kr])),
+                        f"27a {name} M={m}: partial != plain")
+                    acc = parts[0].clone()
+                    for p in parts[1:]:
+                        acc += p        # the ranks' int32 all-reduce
+                    for bias in (None, b):
+                        for out_float in (None, torch.bfloat16):
+                            want = ops.int8_matmul(x, w, bias, spec,
+                                                   out_float=out_float)
+                            got = ops.int8_matmul_finish(
+                                acc, bias, spec, out_float=out_float)
+                            max_err = max(max_err, float(
+                                (got.double() - want.double()).abs().max()))
+                            check(got.dtype == want.dtype
+                                  and torch.equal(got, want),
+                                  f"27a {name} {ranks} ranks M={m} {x_dt} "
+                                  f"bias {bias is not None} {out_float}: "
+                                  f"rank-split != single launch")
+                            n_checks += 1
+            # timed at the engine's rows, bf16 epilogue, weights rotated
+            # past the L2
+            m = TP_TIMED_ROWS
+            copies = max(1, math.ceil(128e6 / (kr * n)))
+            x = torch.randint(-128, 128, (m, k), generator=gen,
+                              device="cuda", dtype=torch.int8)
+            xr = x[:, :kr].contiguous()
+            ws = [torch.randint(-128, 128, (kr, n), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(copies)]
+            wf = [torch.randint(-128, 128, (k, n), generator=gen,
+                                device="cuda", dtype=torch.int8)
+                  for _ in range(max(1, math.ceil(128e6 / (k * n))))]
+            acc = ops.int8_matmul_partial(xr, ws[0])
+            it = [0]
+
+            def turn(pool):
+                it[0] += 1
+                return pool[it[0] % len(pool)]
+
+            part_ms = time_ms(torch, lambda: ops.int8_matmul_partial(
+                xr, turn(ws)), 50)
+            lib_ms = time_ms(torch, lambda: torch._int_mm(xr, turn(ws)), 50)
+            fin_ms = time_ms(torch, lambda: ops.int8_matmul_finish(
+                acc, None, spec, out_float=torch.bfloat16), 50)
+            one_ms = time_ms(torch, lambda: ops.int8_matmul(
+                x, turn(wf), None, spec, out_float=torch.bfloat16), 50)
+            plain_ms = time_ms(torch, lambda: ref.int8_matmul_finish_ref(
+                ref.int8_matmul_partial_ref(xr, turn(ws)), None,
+                shift=spec.requant_shift, out_dtype=torch.bfloat16,
+                n_o=spec.n_o), 3, warmup=1)
+            pb, pby = bound_ms(m * kr + kr * n + 4 * m * n, 2 * m * kr * n,
+                               "int8")
+            fb, fby = bound_ms(4 * m * n + 2 * m * n, 2 * m * n, "float32")
+            ob, oby = bound_ms(m * k + k * n + 2 * m * n, 2 * m * k * n,
+                               "int8")
+            row = dict(module=name, k=k, n=n, ranks=ranks, m=m,
+                       partial_ms=part_ms, partial_bound_ms=pb,
+                       partial_bound_by=pby, int_mm_ms=lib_ms,
+                       finish_ms=fin_ms, finish_bound_ms=fb,
+                       finish_bound_by=fby, single_ms=one_ms,
+                       single_bound_ms=ob, single_bound_by=oby,
+                       plain_ms=plain_ms)
+            timed.append(row)
+            log(f"    27a {name} K={k} N={n} over {ranks} ranks, M={m}: "
+                f"partial {part_ms:.4f} ms (bound {pb:.5f}, {pby}; _int_mm "
+                f"{lib_ms:.4f}), finish {fin_ms:.4f} ms (bound {fb:.5f}, "
+                f"{fby}), single launch {one_ms:.4f} ms (bound {ob:.5f}, "
+                f"{oby}), plain partial + finish {plain_ms:.4f} ms")
+            del ws, wf
+    log(f"[27a] K2 rank-split bit-exact against the single launch: "
+        f"{n_checks} cases (wo, w2 x {list(TP_RANKS)} ranks x M "
+        f"{list(TP_ROWS)} x int8 / uint8 x bias or none x codes / bf16), "
+        f"max |diff| {max_err:.3g}")
+    res["k2"] = dict(checks=n_checks, timed=timed, max_abs_err=max_err)
+
+
+def _tp_one(res_run, kind):
+    """What phase 27b compares of one run of ``tests/tp_cases.py``'s
+    runner: tokens, first-step logits, launches, the calibrated table and
+    (engine) the report."""
+    toks = res_run["tokens"] if kind == "serve" else res_run["outputs"]
+    return dict(res_run, tokens=toks, logits=res_run["logits"].float(),
+                report=res_run.get("report"),
+                decode_s_per_tok=res_run.get("decode_s_per_tok"))
+
+
+def _tp_want(cfg, kind, mode, rep) -> dict:
+    """One rank's launches on a (1, 2) mesh: K2 a launch a column-cut
+    module (q, k, v, w1, w3, the head) and a partial and a finish a
+    row-cut one (wo, w2), 9 a layer and the head in INT; K3 as one rank's
+    (4 module inputs and the K/V write a layer, the head's input); K1 (the
+    ragged engine) or K4 (the legacy one) once a layer a step; classic: K5
+    once a layer in prefill, K6 once a layer a decode step."""
+    L = cfg.n_layers
+    if kind == "serve":
+        forwards = SERVE_GEN
+        want = {"flash_prefill": L, "flash_decode": L * (SERVE_GEN - 1)}
+    else:
+        forwards = _dispatches(rep)
+        want = {"ragged_attention" if rep["ragged"] else
+                "paged_attention": L * forwards}
+    if mode == "int":
+        want.update(int8_matmul=(9 * L + 1) * forwards,
+                    int8_matmul_partial=2 * L * forwards,
+                    int8_matmul_finish=2 * L * forwards,
+                    quantize=(K3_PER_LAYER * L + 1) * forwards)
+    else:
+        want.update(int8_matmul=0, int8_matmul_partial=0,
+                    int8_matmul_finish=0,
+                    quantize=L * forwards if kind != "serve" else 0)
+    return want
+
+
+def _tp_serving(torch, res):
+    """27b: two ranks sharing the card over gloo, qwen3-1.7B at full width
+    and depth, bf16: the (1, 2) ragged engine in FP, calibrated INT and
+    W8A8 on phase 5's workload, the legacy engine in INT, classic ``serve``
+    with flash attention in FP and INT, each against the one-rank eager
+    run of the same workload here."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import run_ranks
+    # the case runner the tensor-parallel tests use; the spawned ranks
+    # import it through this process's path
+    sys.path.insert(0, str(ROOT / "tests"))
+    import tp_cases
+    import numpy as np
+    cfg = get_config("qwen3_1_7b")
+    eng = dict(smoke=False, kv_bits=8, n_requests=8, n_slots=4, rate=1e9)
+    cls = dict(smoke=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               gen=SERVE_GEN, attn_kernel="flash")
+    cases = [("ragged fp", "serve_engine", dict(eng, mode="fp")),
+             ("ragged int", "serve_engine",
+              dict(eng, mode="int", calibrate=True)),
+             ("ragged w8a8", "serve_engine", dict(eng, w8a8=True)),
+             ("legacy int", "serve_engine",
+              dict(eng, mode="int", calibrate=True, ragged=False)),
+             ("classic fp", "serve", dict(cls, mode="fp", calibrate=False)),
+             ("classic int", "serve",
+              dict(cls, mode="int", calibrate=True,
+                   cfg_overrides={"kv_cache_bits": 8}))]
+    kinds = {"serve": "classic", "serve_engine": "engine"}
+    ones = [_tp_one(tp_cases.run(kinds[fn], kw, device="cuda"), fn)
+            for _, fn, kw in cases]
+    t0 = time.perf_counter()
+    # last, on the ranks only: the INT engine at a finite rate on the
+    # wall clock, where rank 0's clock decides each step's admissions
+    paced = dict(eng, mode="int", calibrate=True, rate=TP_PACED_RATE)
+    ranks = run_ranks(tp_cases.run_cases, (1, 2), device="cuda",
+                      backend="gloo",
+                      kwargs={"cases": [(kinds[fn], kw)
+                                        for _, fn, kw in cases]
+                              + [("engine", paced)]})
+    mesh_s = time.perf_counter() - t0
+    log(f"[27b] one rank: {sum(o['wall_s'] for o in ones):.1f} s for the "
+        f"{len(cases)} runs; the (1, 2) mesh's ranks: {mesh_s:.1f} s, "
+        f"spawned, the weights built and cut on each, every run")
+    runs = {}
+    for i, (tag, fn, kw) in enumerate(cases):
+        one = ones[i]
+        got = [_tp_one(r[i], fn) for r in ranks]
+        mode = "int" if ("int" in tag or "w8a8" in tag) else "fp"
+        kind = "serve" if fn == "serve" else "engine"
+        if kind == "engine":
+            same_ranks = all(g["tokens"].keys() == got[0]["tokens"].keys()
+                             and all(np.array_equal(g["tokens"][r],
+                                                    got[0]["tokens"][r])
+                                     for r in g["tokens"]) for g in got)
+            agree = np.mean([float(np.array_equal(got[0]["tokens"][r],
+                                                  one["tokens"][r]))
+                             for r in one["tokens"]])
+        else:
+            same_ranks = all(np.array_equal(g["tokens"], got[0]["tokens"])
+                             for g in got)
+            agree = float(np.mean(got[0]["tokens"] == one["tokens"]))
+        check(same_ranks, f"27b {tag}: the ranks' tokens differ")
+        err = float((got[0]["logits"] - one["logits"]).abs().max())
+        scale = float(one["logits"].abs().max())
+        for r, g in enumerate(got):
+            check(g["table"] == one["table"],
+                  f"27b {tag} rank {r}: calibrated table != one rank's")
+            rep = g["report"] if kind == "engine" else None
+            want = _tp_want(cfg, fn, mode, rep)
+            have = {k: g["launches"][k] for k in want}
+            check(have == want, f"27b {tag} rank {r}: launches {have}, "
+                  f"want {want}")
+            check(bool(torch.isfinite(g["logits"]).all()),
+                  f"27b {tag} rank {r}: non-finite logits")
+        if mode == "int":
+            check(agree == 1.0, f"27b {tag}: tokens differ from one rank's "
+                  f"(agreement {agree})")
+            check(all(torch.equal(g["logits"], one["logits"]) for g in got),
+                  f"27b {tag}: first-step logits != one rank's "
+                  f"(max |diff| {err})")
+        else:
+            check(err <= TP_FP_REL * scale,
+                  f"27b {tag}: first-step logits {err} apart, over "
+                  f"{TP_FP_REL} x {scale}")
+        # the engine's tokens/s over its run; classic serve's decode
+        # steps (batch x 1 token a step) per second
+        if kind == "engine":
+            tps = got[0]["report"]["tokens_per_s"]
+            one_tps = one["report"]["tokens_per_s"]
+        else:
+            tps = SERVE_BATCH / got[0]["decode_s_per_tok"]
+            one_tps = SERVE_BATCH / one["decode_s_per_tok"]
+        launches = {k: v for k, v in got[0]["launches"].items() if v}
+        log(f"[27b] {tag}: ranks token-identical; against one rank tokens "
+            f"agree {agree:.4f}, first-step logits max |diff| {err:.6g} "
+            f"(|logit| up to {scale:.4g})"
+            + (" bit-identical" if mode == "int" else "")
+            + f"; {tps:.2f} tokens/s on 2 ranks sharing one card over "
+            f"gloo ({one_tps:.2f} one rank, eager"
+            + ("" if kind == "engine" else
+               f"; decode {1e3 * got[0]['decode_s_per_tok']:.1f} / "
+               f"{1e3 * one['decode_s_per_tok']:.1f} ms a step")
+            + f"); rank 0 launches {launches}")
+        runs[tag] = dict(agree=agree, logits_max_abs_diff=err,
+                         logits_scale=scale, tokens_per_s=tps,
+                         one_rank_tokens_per_s=one_tps,
+                         decode_s_per_tok=got[0]["decode_s_per_tok"],
+                         one_rank_decode_s_per_tok=one["decode_s_per_tok"],
+                         launches=[g["launches"] for g in got],
+                         wall_s=[g["wall_s"] for g in got],
+                         one_rank_wall_s=one["wall_s"])
+    got = [r[-1] for r in ranks]
+    admitting = sum(1 for st in got[0]["steps"] if st)
+    check(all(g["steps"] == got[0]["steps"] for g in got),
+          "27b paced: the ranks' steps admitted different requests")
+    check(all(g["outputs"].keys() == got[0]["outputs"].keys()
+              and all(np.array_equal(g["outputs"][q], got[0]["outputs"][q])
+                      for q in g["outputs"]) for g in got),
+          "27b paced: the ranks' tokens differ")
+    check(admitting > 1, f"27b paced: every arrival joined in one step "
+          f"({got[0]['steps']}); the rate did not pace the run")
+    log(f"[27b] ragged int at {TP_PACED_RATE} requests/s on the wall "
+        f"clock: the ranks' {len(got[0]['steps'])} steps admitted the same "
+        f"requests ({admitting} steps admitting), tokens identical; "
+        f"{got[0]['report']['tokens_per_s']:.2f} tokens/s on 2 ranks "
+        f"sharing one card over gloo")
+    runs["ragged int paced"] = dict(
+        steps=len(got[0]["steps"]), admitting_steps=admitting,
+        tokens_per_s=got[0]["report"]["tokens_per_s"],
+        launches=[g["launches"] for g in got],
+        wall_s=[g["wall_s"] for g in got])
+    res["serving"] = runs
+    res["mesh_s"] = mesh_s
+
+
+def _tp_refusal(res):
+    """27c: a (1, 16) mesh on qwen3's 8 KV heads raises at build time,
+    before any rank starts."""
+    from repro_torch.launch.serve import serve
+    try:
+        serve("qwen3_1_7b", smoke=False, mesh_shape=(1, 16),
+              dist_backend="gloo", device="cuda")
+    except NotImplementedError as e:
+        check("must divide" in str(e), f"27c: refused for another reason: "
+              f"{e}")
+        log(f"[27c] a (1, 16) mesh refused at build time: {e}")
+        res["refusal"] = str(e)
+        return
+    check(False, "27c: a (1, 16) mesh on 8 KV heads was not refused")
+
+
+def phase_tp(torch, out):
+    t0 = time.perf_counter()
+    res = {}
+    _tp_k2(torch, res)
+    torch.cuda.empty_cache()
+    _tp_serving(torch, res)
+    _tp_refusal(res)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[27] tensor-parallel serving: {res['seconds']:.1f} s")
+    out["tp"] = res
+    return res
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -6821,7 +7164,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26); "
+                         "20, 21, 22, 23, 24, 25, 26, 27); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -6849,7 +7192,8 @@ def main(argv=None) -> int:
                  17: phase_legacy_engine, 18: phase_obs, 19: phase_graphs,
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
-                 24: phase_moe, 25: phase_whisper, 26: phase_train}
+                 24: phase_moe, 25: phase_whisper, 26: phase_train,
+                 27: phase_tp}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -6910,6 +7254,8 @@ def main(argv=None) -> int:
         wsp = phase_whisper(torch, out)
         torch.cuda.empty_cache()
         trn = phase_train(torch, out)
+        torch.cuda.empty_cache()
+        tp = phase_tp(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7171,6 +7517,41 @@ def main(argv=None) -> int:
                               "library_ms", "backward_ms",
                               "backward_bound_ms", "backward_bound_by",
                               "library_train_ms")})
+    # tensor-parallel serving (phase 27): K2's rank-split form (each
+    # rank's partial, the int32 all-reduce, the finish) at qwen3-1.7B's
+    # row-cut shapes, and every kernel's launches on each rank of the
+    # (1, 2) mesh (two ranks sharing the card over gloo)
+    srv_tp = tp["serving"]
+    k2tp = next(t for t in tp["k2"]["timed"]
+                if t["module"] == "wo" and t["ranks"] == 2)
+    entry = next(e for e in kernels if e["name"] == "int8_matmul_requant")
+    entry["rank_split"] = dict(
+        checks=tp["k2"]["checks"], max_abs_err=tp["k2"]["max_abs_err"],
+        ms=k2tp["partial_ms"] + k2tp["finish_ms"],
+        plain_ms=k2tp["plain_ms"],
+        bound_ms=k2tp["partial_bound_ms"] + k2tp["finish_bound_ms"],
+        bound_by=k2tp["partial_bound_by"], library_ms=k2tp["int_mm_ms"],
+        library_note="torch._int_mm: the partial's int32 product alone",
+        launches={f"rank {r}": {k: srv_tp["ragged int"]["launches"][r][k]
+                                for k in ("int8_matmul",
+                                          "int8_matmul_partial",
+                                          "int8_matmul_finish")}
+                  for r in range(2)},
+        per=f"one rank's partial + the finish of wo (2048 -> 2048 over 2 "
+            f"ranks) at M={TP_TIMED_ROWS}, bf16 epilogue; launches from "
+            f"phase 27b's ragged INT engine run",
+        shapes=tp["k2"]["timed"])
+    for k_name, key, tag in (
+            ("ragged_paged_attention", "ragged_attention", "ragged int"),
+            ("int8_matmul_requant", "int8_matmul", "ragged int"),
+            ("quantize", "quantize", "ragged int"),
+            ("paged_attention", "paged_attention", "legacy int"),
+            ("flash_prefill", "flash_prefill", "classic int"),
+            ("flash_decode", "flash_decode", "classic int")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["mesh_launches"] = dict(
+            per_rank=[r[key] for r in srv_tp[tag]["launches"]],
+            per=f"each rank of the (1, 2) mesh, phase 27b's {tag} run")
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

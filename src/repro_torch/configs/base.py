@@ -117,6 +117,11 @@ class ModelConfig:
     #               ``flash_decode``); int8 KV codes are dequantized in
     #               registers.  The ragged serving path ignores it.
     attn_kernel: str = "chunked"
+    # mesh axis the attention heads are cut over (whole GQA groups, their
+    # KV heads and cache with them, ``distributed.sharding``); only
+    # 'model' is wired (``launch.steps`` refuses any other on a mesh of
+    # more than one rank), and its size must divide n_kv_heads
+    attn_shard_axis: str = "model"
     # projection matmuls: 'dense' follows the QuantContext mode; 'int8' is
     # the W8A8 deploy (weights pre-quantized by ``quantize_params``),
     # which requires a calibrated INT-mode context (checked when a step

@@ -14,17 +14,22 @@ carries their hardware constants.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 import torch
 
-__all__ = ["scale_quant", "codebook_quant"]
+__all__ = ["scale_quant", "abs_max", "codebook_quant"]
 
 
-def scale_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+def scale_quant(x: torch.Tensor, bits: int = 8,
+                amax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Symmetric per-tensor float-scale fake quantization: fp32 math, the
     scale clamped at 1e-12, codes rounded half to even (``torch.round``,
     as ``jnp.round``; not Eq. 1's half away from zero), the result in
-    ``x``'s dtype.
+    ``x``'s dtype.  ``amax`` (fp32, 0-d) stands for ``max|x|`` where ``x``
+    is one rank's slice of a tensor cut over a mesh: the all-reduced max
+    of the ranks' :func:`abs_max`, so the grid is the whole tensor's.
 
     The scale is ``max|x|`` times the fp32 reciprocal of ``hi``, as the
     reference computes it wherever it is compiled (its models, under
@@ -33,10 +38,16 @@ def scale_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
     in the scale's last bit on some tensors."""
     hi = 2.0 ** (bits - 1) - 1
     xf = x.to(torch.float32)
-    scale = torch.clamp(xf.abs().max() * float(np.float32(1.0 / hi)),
-                        min=1e-12)
+    if amax is None:
+        amax = abs_max(x)
+    scale = torch.clamp(amax * float(np.float32(1.0 / hi)), min=1e-12)
     q = torch.clamp(torch.round(xf / scale), -hi - 1, hi)
     return (q * scale).to(x.dtype)
+
+
+def abs_max(x: torch.Tensor) -> torch.Tensor:
+    """``max|x|`` in fp32 (0-d): :func:`scale_quant`'s statistic."""
+    return x.to(torch.float32).abs().max()
 
 
 def codebook_quant(x: torch.Tensor, bits: int = 4, iters: int = 10,

@@ -24,6 +24,17 @@ PyTorch counterpart of ``repro.core.qmodel``:
 The context carries the table (module name -> fractional bits) that
 ``core.lm_calibrate.calibrate_lm`` fills; uncalibrated modules use the
 static ``ModuleBits`` defaults.
+
+On a tensor-parallel mesh (``distributed.sharding.activation_sharding``)
+each rank holds its slices: a column-cut module (``wq``, ``w1``, the LM
+head) is exact as it is, per output column; a row-cut one (``wo``,
+``w2``: ``qlinear(..., reduce=True)``) holds this rank's rows of K, and
+its ranks' partial products are summed over the model axis: in INT mode
+K2's int32 partials (K2's rank-split form), the epilogue once after the
+sum, so the output is one rank's bit for bit; in the float modes fp32
+partials rounded once to the activation dtype (one rank's up to the
+summation order).  ``fake_sf`` takes each statistic over the whole
+tensor (a max all-reduce).
 """
 from __future__ import annotations
 
@@ -36,7 +47,8 @@ from typing import Any, Mapping, Optional
 import torch
 
 from repro_torch.core import integer_ops
-from repro_torch.core.baselines import scale_quant
+from repro_torch.core.baselines import abs_max, scale_quant
+from repro_torch.distributed import sharding as shd
 from repro_torch.core.qscheme import fake_quant, quant, storage_dtype
 
 __all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear", "qlinears",
@@ -82,11 +94,27 @@ class QuantContext:
         return self.table.get(name, ModuleBits())
 
 
-def _fp_linear(x, w, b):
-    y = torch.matmul(x, w.to(x.dtype))
+def _fp_linear(x, w, b, mesh=None):
+    """``x @ w + b`` in x's dtype; on a ``mesh`` (a row-cut module) the
+    ranks' fp32 partials are summed, then rounded once, before the bias."""
+    if mesh is None:
+        y = torch.matmul(x, w.to(x.dtype))
+    else:
+        y = mesh.all_reduce(torch.matmul(x.to(torch.float32),
+                                         w.to(torch.float32)),
+                            "model").to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
+
+
+def _scale_quant_tp(t: torch.Tensor, bits: int, mesh):
+    """``scale_quant`` of a tensor that may be cut over ``mesh``'s model
+    axis: its statistic all-reduced to the whole tensor's."""
+    if mesh is None:
+        return scale_quant(t, bits)
+    return scale_quant(t, bits,
+                       amax=mesh.all_reduce(abs_max(t), "model", op="max"))
 
 
 # Activation capture for Algorithm-1 calibration: while a store is set,
@@ -110,15 +138,22 @@ def capture_activations():
 
 
 def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor] = None) -> torch.Tensor:
+            b: Optional[torch.Tensor] = None, *,
+            reduce: bool = False) -> torch.Tensor:
     """One unified-module linear op under the active quantization mode.
 
     ``x`` is a float activation at the module boundary; the result is a
     float activation, exact (``fp``) or on the module's output grid
     (``fake``, ``int``).  In ``int`` mode ``w`` may already be int8 codes
     (from :func:`quantize_params` / :func:`quantize_weight_tree`,
-    bit-identical to quantizing here).
+    bit-identical to quantizing here).  ``reduce``: the module is row-cut
+    on a tensor-parallel mesh (``x`` and ``w`` hold this rank's rows of
+    K, ``b`` is whole), and its ranks' partial products are summed over
+    the model axis (the module docstring); without such a mesh in scope
+    it changes nothing.
     """
+    mesh = shd.tp_mesh()
+    row_mesh = mesh if reduce else None
     if w.dtype == torch.int8 and ctx.mode is not QuantMode.INT:
         raise ValueError(
             f"module {name!r}: int8 weight codes reached the "
@@ -127,15 +162,20 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     if ctx.mode is QuantMode.FP:
         store = _CAPTURE.get()
         if store is not None and name not in store:
+            if mesh is not None:
+                raise ValueError(
+                    "calibration captures whole modules: calibrate before "
+                    "the weights are cut over a mesh")
             store[name] = (x, w, b)
-        return _fp_linear(x, w, b)
+        return _fp_linear(x, w, b, row_mesh)
     if ctx.mode is QuantMode.FAKE_SF:
         # the competing scheme: per-tensor float scales, accuracy
         # reference of costly requant hardware
-        return _fp_linear(scale_quant(x, ctx.bits),
-                          scale_quant(w, ctx.bits).to(x.dtype),
+        return _fp_linear(_scale_quant_tp(x, ctx.bits, mesh),
+                          _scale_quant_tp(w, ctx.bits, mesh).to(x.dtype),
                           None if b is None else
-                          scale_quant(b, ctx.bits).to(x.dtype))
+                          _scale_quant_tp(b, ctx.bits, mesh).to(x.dtype),
+                          row_mesh)
 
     mb = ctx.bits_for(name)
     n_b = mb.n_b if mb.n_b is not None else mb.n_w
@@ -143,9 +183,9 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
         xq = fake_quant(x, mb.n_x, ctx.bits)
         wq = fake_quant(w, mb.n_w, ctx.bits).to(x.dtype)
         bq = None if b is None else fake_quant(b, n_b, ctx.bits).to(x.dtype)
-        return _fp_linear(xq, wq, bq)
+        return _fp_linear(xq, wq, bq, row_mesh)
 
-    return _int_linears(ctx, [name], x, [w], [b])[0]
+    return _int_linears(ctx, [name], x, [w], [b], row_mesh)[0]
 
 
 def qlinears(ctx: QuantContext, names, x: torch.Tensor, ws,
@@ -164,12 +204,14 @@ def qlinears(ctx: QuantContext, names, x: torch.Tensor, ws,
 
 
 def _int_linears(ctx: QuantContext, names, x: torch.Tensor, ws,
-                 bs) -> list[torch.Tensor]:
+                 bs, row_mesh=None) -> list[torch.Tensor]:
     """INT mode: one K3 launch writes ``x``'s codes on every distinct input
     grid of the modules, then one K2 launch a module, its epilogue writing
     the module's float output (x's dtype) on the module's output grid.
     Float weights and biases (not pre-quantized) are quantized here by K3,
-    to the codes ``quantize_weight_tree`` would give."""
+    to the codes ``quantize_weight_tree`` would give.  With ``row_mesh``
+    (row-cut modules) K2's rank-split form instead: this rank's int32
+    partial, an int32 sum over the model axis, the epilogue once."""
     from repro_torch.kernels import ops as kops
     mbs = [ctx.bits_for(n) for n in names]
     codes = kops.quantize_multi(x, [mb.n_x for mb in mbs], ctx.bits)
@@ -184,8 +226,14 @@ def _int_linears(ctx: QuantContext, names, x: torch.Tensor, ws,
                 b, n_b, ctx.bits)
         spec = integer_ops.LinearQuantSpec(
             n_x=mb.n_x, n_w=mb.n_w, n_b=n_b, n_o=mb.n_o, bits=ctx.bits)
-        out.append(kops.int8_matmul(x_int, w_int, b_int, spec,
-                                    out_float=x.dtype))
+        if row_mesh is None:
+            out.append(kops.int8_matmul(x_int, w_int, b_int, spec,
+                                        out_float=x.dtype))
+            continue
+        acc = row_mesh.all_reduce(kops.int8_matmul_partial(x_int, w_int),
+                                  "model")
+        out.append(kops.int8_matmul_finish(acc, b_int, spec,
+                                           out_float=x.dtype))
     return out
 
 

@@ -54,6 +54,14 @@
 //   workspace the wrapper allocated, and finish_kernel adds them (integer
 //   adds: exact and order-free) and runs the epilogue once on the full sum
 //   (shift-requant is not linear, so it never runs per split).
+// * The rank-split form (a row-cut module, wo or w2, on one rank of a
+//   tensor-parallel mesh: each rank holds some of K's rows) is the same
+//   two passes across processes: int8_matmul_launch with out_kind OUT_I32
+//   stores this rank's int32 sums (no epilogue), the ranks' sums are
+//   added in int32 by an all-reduce (exact in any order, like the split-K
+//   workspace), and int8_matmul_finish_launch runs finish_kernel once over
+//   the reduced buffer, bias included.  So the module's output is the one
+//   rank's bit for bit.
 // * Large M: a tall tile (BM 64..256) and a narrow BN of 32 / 64 for
 //   narrow N, so an N = 16 / 32 / 64 product wastes at most half an
 //   n-tile; K is zero-filled to the step.
@@ -76,8 +84,14 @@
 namespace {
 
 // what a store writes: one byte a code, or the code times deq (2^-n_o) as
-// bf16 / fp32
-enum OutKind { OUT_CODES = 0, OUT_BF16 = 1, OUT_F32 = 2 };
+// bf16 / fp32, or (the rank-split form's first pass) the raw int32 sum
+enum OutKind { OUT_CODES = 0, OUT_BF16 = 1, OUT_F32 = 2, OUT_I32 = 3 };
+
+// an accumulator's stored value: the epilogue's code, or the sum itself
+// when the epilogue runs later (OUT_I32)
+__device__ __forceinline__ int finish_one(int v, const Epi& e, int gn) {
+  return e.out_kind == OUT_I32 ? v : epilogue(v, e, gn);
+}
 
 __device__ __forceinline__ float deq_code(int code, const Epi& e) {
   return __fmul_rn((float)code, e.deq);
@@ -89,12 +103,16 @@ __device__ __forceinline__ uint32_t bf16_pair(int c0, int c1, const Epi& e) {
 }
 
 // NC (4 or 8) consecutive outputs c from element offset off: one 4- / 8-byte
-// word of codes, or 8- / 16-byte words of bf16, or 16-byte words of fp32
-// (off a multiple of NC, the output 16-byte aligned)
+// word of codes, or 8- / 16-byte words of bf16, or 16-byte words of fp32 or
+// int32 (off a multiple of NC, the output 16-byte aligned)
 template <int NC>
 __device__ __forceinline__ void store_out(void* out, size_t off, const int (&c)[NC],
                                           const Epi& e) {
-  if (e.out_kind == OUT_CODES) {
+  if (e.out_kind == OUT_I32) {
+    int4* p = reinterpret_cast<int4*>(static_cast<int*>(out) + off);
+#pragma unroll
+    for (int q = 0; q < NC / 4; ++q) p[q] = make_int4(c[4 * q], c[4 * q + 1], c[4 * q + 2], c[4 * q + 3]);
+  } else if (e.out_kind == OUT_CODES) {
     uint32_t w[NC / 4];
 #pragma unroll
     for (int q = 0; q < NC / 4; ++q) {
@@ -127,7 +145,9 @@ __device__ __forceinline__ void store_out(void* out, size_t off, const int (&c)[
 
 // one output, for the dp4a tile's scalar stores
 __device__ __forceinline__ void store_one(void* out, size_t off, int c, const Epi& e) {
-  if (e.out_kind == OUT_CODES)
+  if (e.out_kind == OUT_I32)
+    static_cast<int*>(out)[off] = c;
+  else if (e.out_kind == OUT_CODES)
     static_cast<int8_t*>(out)[off] = (int8_t)c;
   else if (e.out_kind == OUT_BF16)
     static_cast<uint16_t*>(out)[off] = __bfloat16_as_ushort(__float2bfloat16_rn(deq_code(c, e)));
@@ -260,7 +280,7 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
       if (GROUPED || gridDim.z == 1) {
         int c[8];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) c[i] = epilogue(v[i], epi, gc + i);
+        for (int i = 0; i < 8; ++i) c[i] = finish_one(v[i], epi, gc + i);
         store_out<8>(out, out_base + (size_t)gm * N + gc, c, epi);
       } else {
         int4* p = reinterpret_cast<int4*>(ws + ((size_t)blockIdx.z * M + gm) * N + gc);
@@ -271,7 +291,10 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
 }
 
 // split-K's second pass: four outputs a thread, the splits' partials added
-// in int32 (wrapping, exact in any order), then the epilogue once
+// in int32 (wrapping, exact in any order), then the epilogue once (or, for
+// the rank-split form's first pass, the sum stored as int32).  With one
+// "split" it is the rank-split form's finish: the epilogue once over the
+// int32 sums the ranks' partials were reduced into.
 __global__ void __launch_bounds__(256)
 finish_kernel(const int* __restrict__ ws, void* __restrict__ out, int M, int N, int splits,
               Epi epi) {
@@ -287,8 +310,8 @@ finish_kernel(const int* __restrict__ ws, void* __restrict__ out, int M, int N, 
     s.w = wrap_add(s.w, p.w);
   }
   const int gn = (int)((4 * q) % N);
-  const int c[4] = {epilogue(s.x, epi, gn), epilogue(s.y, epi, gn + 1),
-                    epilogue(s.z, epi, gn + 2), epilogue(s.w, epi, gn + 3)};
+  const int c[4] = {finish_one(s.x, epi, gn), finish_one(s.y, epi, gn + 1),
+                    finish_one(s.z, epi, gn + 2), finish_one(s.w, epi, gn + 3)};
   store_out<4>(out, 4 * q, c, epi);
 }
 
@@ -384,7 +407,7 @@ dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int gm = m0 + ty + 16 * i;
-      if (gm < M) store_one(out, (size_t)gm * N + gn, epilogue(acc[i][j], epi, gn), epi);
+      if (gm < M) store_one(out, (size_t)gm * N + gn, finish_one(acc[i][j], epi, gn), epi);
     }
   }
 }
@@ -447,7 +470,9 @@ int launch_cfg(int cfg, const int8_t* x, const int8_t* w, void* out, int* ws, in
 // splits nonempty, and ws (splits x M x N int32) when splits > 1.
 // x_u8: the activation codes are uint8 (else int8); weights are int8.
 // out_kind: 0 one byte a code, 1 bf16 / 2 fp32 values code * deq (deq =
-// 2^-n_o), the output 16-byte aligned.
+// 2^-n_o), 3 the raw int32 sums with no epilogue (the rank-split form's
+// first pass: bias and the epilogue's arguments unread), the output 16-byte
+// aligned unless it holds codes.
 extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias, void* out,
                                   void* ws, int M, int N, int K, int shift, int bias_shift,
                                   int relu, int lo, int hi, int x_u8, int cfg, int splits,
@@ -457,7 +482,7 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias
   const int8_t* wt = static_cast<const int8_t*>(w);
   const Epi epi{static_cast<const int8_t*>(bias), shift, bias_shift, relu, lo, hi, out_kind,
                 deq};
-  if (M <= 0 || N <= 0 || K <= 0 || out_kind < OUT_CODES || out_kind > OUT_F32 ||
+  if (M <= 0 || N <= 0 || K <= 0 || out_kind < OUT_CODES || out_kind > OUT_I32 ||
       (out_kind != OUT_CODES && ((uintptr_t)out & 15u)))
     return (int)cudaErrorInvalidValue;
   if (cfg < 0) {
@@ -477,6 +502,25 @@ extern "C" int int8_matmul_launch(const void* x, const void* w, const void* bias
   int* wsi = static_cast<int*>(ws);
   if (x_u8) return launch_cfg<true>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
   return launch_cfg<false>(cfg, xs, wt, out, wsi, M, N, K, splits, k_chunk, epi, st);
+}
+
+// C entry of the RANK-SPLIT form's finish: K2's epilogue once over the
+// (M, N) int32 sums `acc` (16-byte aligned; N % 4 == 0) -- bias, ReLU,
+// shift-requant, clip -- stored as out_kind says (codes, or bf16 / fp32
+// values code * deq, the output 16-byte aligned).
+extern "C" int int8_matmul_finish_launch(const void* acc, const void* bias, void* out, int M,
+                                         int N, int shift, int bias_shift, int relu, int lo,
+                                         int hi, int out_kind, float deq, void* stream) {
+  if (M <= 0 || N <= 0 || N % 4 || out_kind < OUT_CODES || out_kind > OUT_F32 ||
+      ((uintptr_t)acc & 15u) || (out_kind != OUT_CODES && ((uintptr_t)out & 15u)) ||
+      (out_kind == OUT_CODES && ((uintptr_t)out & 3u)))
+    return (int)cudaErrorInvalidValue;
+  const Epi epi{static_cast<const int8_t*>(bias), shift, bias_shift, relu, lo, hi, out_kind,
+                deq};
+  const size_t quads = (size_t)M * N / 4;
+  finish_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(acc), out, M, N, 1, epi);
+  return (int)cudaGetLastError();
 }
 
 // C entry of the grouped form (the experts' (E, C, K) x (E, K, N)

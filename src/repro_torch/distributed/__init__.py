@@ -1,4 +1,5 @@
-"""Fault tolerance: heartbeats, elastic re-meshing, the restart loop."""
+"""Fault tolerance (heartbeats, elastic re-meshing, the restart loop) and,
+in ``distributed.sharding``, the (data, model) mesh's partition rules."""
 from repro_torch.distributed.fault_tolerance import (  # noqa: F401
     ElasticPlanner, HeartbeatMonitor, MeshPlan, RunSupervisor)
 

@@ -1,0 +1,439 @@
+"""Partition rules of the (data, model) mesh: param path -> spec for every
+architecture (PyTorch counterpart of ``repro.distributed.sharding``).
+
+Strategy (as the reference's):
+  * tensor parallelism on the ``model`` axis: attention heads (whole GQA
+    groups), the MLP hidden, the experts, the vocab (embedding rows and
+    LM-head columns);
+  * data parallelism on ``data`` (x ``pod`` when both exist): the batch;
+  * FSDP: large leaves also cut over ``data`` on a dim that divides.
+
+A spec is a tuple with one entry a dim: None (whole), an axis name, or a
+tuple of axis names (the reference's ``PartitionSpec`` entries).  The
+rules read nothing of a mesh but ``shape`` (axis name -> size) and
+``axis_names``, so any object with those two can stand in for one
+(``launch.mesh.RankMesh`` is the port's).
+
+The reference stacks each block leaf over the layers, (L, ...), and its
+rules see that stacked leaf; the port keeps one dict a layer.  So a
+per-layer leaf's spec is computed on the stacked shape the reference
+would see (``(L,) + shape``, or ``(G, g) + shape`` for the hybrid's
+Mamba blocks) and the stacking entries are dropped: the per-layer spec
+is the stacked spec minus its leading entries, ``_add_fsdp`` keeps the
+reference's start past the stacking axis and ``min_size`` counts the
+stacked leaf's elements.  (The one spec that cannot drop to a layer: on
+the hybrid's (G, g, ...) leaves the reference's FSDP may take the ``g``
+axis, which a per-layer leaf does not have; the dropped entry is
+ROADMAP Queue 3's.)
+
+Where the JAX package constrains activations through GSPMD
+(``constrain``), the port's ranks each hold their own slice and the
+model code adds the collectives itself; the scope
+(:func:`activation_sharding`) tells it the mesh, and
+:func:`local_config` gives the per-rank view of a config under which the
+blocks run unchanged.  :func:`shard_params` cuts a full tree down to one
+rank's leaves by these rules.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import re
+import threading
+from typing import Any
+
+from repro_torch.core.tree import leaves_with_paths, unflatten
+
+__all__ = ["DATA_AXES", "param_sharding_rules", "opt_sharding_rules",
+           "batch_sharding", "cache_sharding_rules", "activation_sharding",
+           "current_mesh", "data_shards", "batch_shards", "model_shards",
+           "tp_mesh",
+           "local_config", "shard_params", "leaf_spec", "reference_leaf"]
+
+DATA_AXES = ("pod", "data")  # gradient-reduction axes when both exist
+
+
+def _dp(mesh) -> Any:
+    """The composite data-parallel axis spec entry for this mesh."""
+    return tuple(a for a in DATA_AXES if a in mesh.axis_names) or None
+
+
+# (regex on path, [candidate specs]).  First matching pattern wins; within
+# a pattern the FIRST candidate whose cut dims all DIVIDE the leaf shape is
+# chosen, else the first candidate with its non-dividing axes stripped
+_RULES: list[tuple[str, list]] = [
+    # embeddings / head: vocab over model, fall back to d_model
+    (r"embed$",                 [("model", None), (None, "model"), ()]),
+    (r"lm_head$",               [(None, "model"), ("model", None), ()]),
+    # attention (GQA): heads over model
+    (r"attn/w[qkv]$",           [(None, "model"), ("model", None)]),
+    (r"attn/wo$",               [("model", None), (None, "model")]),
+    (r"attn/b[qkv]$",           [("model",), ()]),
+    # MLA: latent down-projections replicated, up-projections by head
+    (r"attn/wq_a$|attn/wkv_a$", [(None, None)]),
+    (r"attn/wq_b$|attn/wkv_b$", [(None, "model"), ("model", None)]),
+    # cross attention (whisper decoder)
+    (r"cross/w[qkv]$",          [(None, "model"), ("model", None)]),
+    (r"cross/wo$",              [("model", None), (None, "model")]),
+    (r"cross/b[qkv]$",          [("model",), ()]),
+    # dense MLP: hidden over model
+    (r"mlp/w1$|mlp/w3$",        [(None, "model"), ("model", None)]),
+    (r"mlp/w2$",                [("model", None), (None, "model")]),
+    # MoE: experts over model; fall back to TP inside each expert
+    (r"moe/router$",            [(None, None)]),
+    (r"moe/w[13]$",             [("model", None, None),
+                                 (None, "model", None),
+                                 (None, None, "model")]),
+    (r"moe/w2$",                [("model", None, None),
+                                 (None, None, "model"),
+                                 (None, "model", None)]),
+    (r"moe/shared/w[13]$",      [(None, "model"), ("model", None)]),
+    (r"moe/shared/w2$",         [("model", None), (None, "model")]),
+    # mamba2: contract-dim cut on in-proj, free-dim on out-proj
+    (r"ssm/w_in$",              [("model", None)]),
+    (r"ssm/w_out$",             [(None, "model"), ("model", None)]),
+    (r"ssm/conv_w$|ssm/conv_b$", [()]),
+    # rwkv6: contract-dim cut (the head layout stays local)
+    (r"rwkv/w[rkvgo]$",         [("model", None)]),
+    (r"rwkv/wk_ffn$|rwkv/wr_ffn$", [(None, "model"), ("model", None)]),
+    (r"rwkv/wv_ffn$",           [("model", None), (None, "model")]),
+    # zamba2 shared block input projection
+    (r"shared/in_proj$|in_proj$", [(None, "model"), ("model", None)]),
+    # norms, gains, scalars: replicated
+    (r".*",                     [()]),
+]
+
+# serve-mode MoE: 2-D (expert x data) cut so expert weights are never
+# gathered at decode
+_SERVE_RULES: list[tuple[str, list]] = [
+    (r"moe/w[13]$", [("model", None, "data"), ("model", None, None),
+                     (None, "model", None)]),
+    (r"moe/w2$",    [("model", "data", None), ("model", None, None),
+                     (None, None, "model")]),
+]
+
+
+def _axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    if isinstance(entry, tuple):
+        return math.prod(mesh.shape[a] for a in entry)
+    return mesh.shape[entry]
+
+
+def _fit_rank(spec: tuple, ndim: int) -> list:
+    """Pad / truncate a spec to the leaf's rank; a stacked leaf's leading
+    axes get None."""
+    entries = list(spec)
+    if len(entries) < ndim:
+        entries = [None] * (ndim - len(entries)) + entries
+    elif len(entries) > ndim:
+        entries = entries[-ndim:] if ndim else []
+    return entries
+
+
+def _divisible(entries: list, shape: tuple, mesh) -> bool:
+    return all(e is None or dim % _axis_size(mesh, e) == 0
+               for dim, e in zip(shape, entries))
+
+
+def _spec_for(path: str, shape: tuple, mesh) -> tuple:
+    ndim = len(shape)
+    for pat, candidates in _RULES:
+        if re.search(pat, path):
+            for cand in candidates:
+                entries = _fit_rank(cand, ndim)
+                if _divisible(entries, shape, mesh):
+                    return tuple(entries)
+            # last resort: strip non-dividing axes from the first candidate
+            return tuple(
+                e if e is not None and shape[i] % _axis_size(mesh, e) == 0
+                else None
+                for i, e in enumerate(_fit_rank(candidates[0], ndim)))
+    return ()
+
+
+def _add_fsdp(spec: tuple, path: str, shape: tuple, mesh,
+              min_size: int = 1 << 20) -> tuple:
+    """FSDP: also cut a large leaf over the data axis, on the first dim
+    that is not cut already, that the data axis divides, and that is not
+    a block leaf's (leading) layer-stack dim.  ``shape`` is the stacked
+    leaf's."""
+    if "data" not in mesh.axis_names:
+        return spec
+    if math.prod(shape) < min_size:
+        return spec
+    dsize = mesh.shape["data"]
+    entries = list(spec)
+    start = 1 if ("blocks" in path and len(shape) == len(entries)) else 0
+    # stacked leaves got their scan dim as a prepended None in _spec_for
+    if len(entries) and entries[0] is None and "blocks" in path:
+        start = 1
+    for i in range(start, len(entries)):
+        if entries[i] is None and shape[i] % dsize == 0 and shape[i] >= dsize:
+            entries[i] = "data"
+            return tuple(entries)
+    return spec
+
+
+def leaf_spec(path: str, shape: tuple, mesh, *, fsdp: bool = True,
+              serve: bool = False) -> tuple:
+    """The reference's spec of one (stacked) leaf at ``path``."""
+    shape = tuple(shape)
+    if serve and "data" in mesh.axis_names:
+        for pat, cands in _SERVE_RULES:
+            if re.search(pat, path):
+                for cand in cands:
+                    entries = _fit_rank(cand, len(shape))
+                    if _divisible(entries, shape, mesh):
+                        return tuple(entries)
+                break
+    spec = _spec_for(path, shape, mesh)
+    return _add_fsdp(spec, path, shape, mesh) if fsdp else spec
+
+
+# ---------------------------------------------------------------------------
+# the port's trees against the reference's stacked paths
+# ---------------------------------------------------------------------------
+
+_STACKS = ("blocks", "dense_blocks", "enc_blocks")
+
+
+def reference_leaf(params: dict, path: str, shape: tuple, cfg):
+    """(the reference's path, its stacked shape, the number of stacking
+    dims) of the port's leaf ``path`` of shape ``shape`` in ``params``:
+    a block leaf ``blocks/<i>/...`` is the reference's ``blocks/...``
+    (the hybrid's ``blocks/mamba/...``) of shape (L,) + shape (the
+    hybrid's (G, g) + shape)."""
+    parts = path.split("/")
+    if len(parts) > 2 and parts[0] in _STACKS and parts[1].isdigit():
+        rest = "/".join(parts[2:])
+        n = len(params[parts[0]])
+        hybrid = parts[0] == "blocks" and cfg is not None \
+            and cfg.family == "hybrid"
+        if hybrid:
+            g = cfg.hybrid.attn_every
+            return f"blocks/mamba/{rest}", (n // g, g) + shape, 2
+        if parts[0] == "blocks" and cfg is None and "shared" in params:
+            raise ValueError("the hybrid family's blocks stack on (group, "
+                             "block): pass its cfg")
+        return f"{parts[0]}/{rest}", (n,) + shape, 1
+    return path, shape, 0
+
+
+def _param_specs(params: Any, mesh, fsdp: bool, serve: bool, cfg,
+                 stacked: bool) -> list:
+    """The specs of ``params``' leaves, in ``core.tree``'s order."""
+    specs = []
+    for path, leaf in leaves_with_paths(params):
+        ref_path, shape, lead = reference_leaf(params, path,
+                                               tuple(leaf.shape), cfg)
+        spec = leaf_spec(ref_path, shape, mesh, fsdp=fsdp, serve=serve)
+        specs.append(spec if stacked else spec[lead:])
+    return specs
+
+
+def param_sharding_rules(params: Any, mesh, fsdp: bool = True,
+                         serve: bool = False, *, cfg=None) -> Any:
+    """Spec tree matching the port's ``params`` (tensors, or anything with
+    a ``shape``: ``init_params(cfg, device="meta")``).  A block leaf's
+    spec is its stacked spec minus the stacking entries.  ``cfg`` names
+    the hybrid family's (group, block) stacking."""
+    return unflatten(params, _param_specs(params, mesh, fsdp, serve, cfg,
+                                          False))
+
+
+def opt_sharding_rules(opt_state: Any, param_specs_by_path: Any, mesh, *,
+                       cfg=None, stacked: bool = False) -> Any:
+    """Moments inherit their param's rule (``_spec_for`` on the moment's
+    own shape: adafactor's factored rows / columns fall through to
+    replicated); the step counter is replicated.  ``opt_state`` is an
+    ``optim.OptState`` whose ``m`` / ``v`` trees are laid out as the
+    params; ``param_specs_by_path`` is unused, as in the reference."""
+    del param_specs_by_path
+
+    def moments(tree):
+        if tree is None:
+            return None
+        specs = []
+        for path, leaf in leaves_with_paths(tree):
+            ref_path, shape, lead = reference_leaf(tree, path,
+                                                   tuple(leaf.shape), cfg)
+            spec = _spec_for(ref_path, shape, mesh)
+            specs.append(spec if stacked else spec[lead:])
+        return unflatten(tree, specs)
+
+    return type(opt_state)(step=(), m=moments(opt_state.m),
+                           v=moments(opt_state.v))
+
+
+def batch_sharding(mesh, batch_dims: int = 2) -> tuple:
+    """(B, S, ...) activations: batch over the composite data axis."""
+    return (_dp(mesh),) + (None,) * (batch_dims - 1)
+
+
+def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
+                         attn_shard_axis: str = "model") -> Any:
+    """Specs of the port's caches, whose tensors stack the layers as the
+    reference's do: (L, B, S, H, D) KV -> batch over data when it divides,
+    plus a kernel-dependent second axis; the engine's (L, NB, BS, KVH, D)
+    pool KV heads over ``attn_shard_axis`` (block tables replicated: the
+    blocks of one sequence land on every rank's pool at the same indices);
+    recurrent states by the reference's rank rules.
+
+    ``attn_kernel='chunked'`` keeps a dense cache SEQUENCE-cut over model
+    (the reference's context-parallel decode), ``'flash'`` HEAD-cut when
+    the axis divides the KV heads; the port's ranks always hold their KV
+    heads (``models.model.init_cache``), so the sequence cut is ROADMAP
+    Queue 1 item 8's."""
+    dp = _dp(mesh)
+    dsize = _axis_size(mesh, dp) if dp else 1
+
+    def spec(ps: str, leaf) -> tuple:
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        batch_ok = nd >= 2 and shape[1] % dsize == 0 if dsize else False
+        bdim = dp if batch_ok else None
+        if "paged" in ps and nd == 5:          # (L, NB, BS, KVH, D) pool
+            hdim = (attn_shard_axis
+                    if attn_shard_axis in mesh.axis_names
+                    and shape[3] % mesh.shape[attn_shard_axis] == 0
+                    else None)
+            return (None, None, None, hdim, None)
+        if "memory" in ps:                     # (B, T, d)
+            mdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
+            return (bdim if shape[0] % max(dsize, 1) == 0 else None,
+                    None, mdim)
+        if nd == 5:                            # (L, B, S, H, D) stacked KV
+            if (attn_kernel == "flash"
+                    and attn_shard_axis in mesh.axis_names
+                    and shape[3] % mesh.shape[attn_shard_axis] == 0):
+                return (None, bdim, None, attn_shard_axis, None)
+            sdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
+            return (None, bdim, sdim, None, None)
+        if nd == 4:                            # (L, B, S, lat) MLA latents
+            sdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
+            return (None, bdim, sdim, None)
+        return (None,) * nd
+
+    return unflatten(cache, [spec(p, leaf)
+                             for p, leaf in leaves_with_paths(cache)])
+
+
+# ---------------------------------------------------------------------------
+# the scope model code reads
+# ---------------------------------------------------------------------------
+
+_TLS = threading.local()
+
+
+@contextlib.contextmanager
+def activation_sharding(mesh, *, batch_split: bool = False):
+    """The mesh the model code in this scope runs on (one rank's slice of
+    every cut tensor; collectives where the reference's GSPMD would
+    reshard).  ``batch_split``: the data axis holds one slice of the
+    batch each (classic ``serve``), not replicas (the engine)."""
+    prev = getattr(_TLS, "scope", None)
+    _TLS.scope = (mesh, batch_split)
+    try:
+        yield
+    finally:
+        _TLS.scope = prev
+
+
+def current_mesh():
+    """The mesh of the active :func:`activation_sharding` scope (None
+    outside one)."""
+    scope = getattr(_TLS, "scope", None)
+    return None if scope is None else scope[0]
+
+
+def data_shards() -> int:
+    """Size of the composite data axis in the active scope (1 outside)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return 1
+    dp = _dp(mesh)
+    return _axis_size(mesh, dp) if dp else 1
+
+
+def batch_shards() -> int:
+    """Slices the batch is cut into in the active scope: the data axis's
+    size when the scope splits the batch, else 1."""
+    scope = getattr(_TLS, "scope", None)
+    return data_shards() if scope is not None and scope[1] else 1
+
+
+def model_shards(mesh=None) -> int:
+    """Size of the ``model`` axis of ``mesh`` (default: the scope's; 1
+    without a mesh)."""
+    mesh = current_mesh() if mesh is None else mesh
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def tp_mesh():
+    """The scope's mesh when its model axis has more than one rank (the
+    model code's collectives run over it), else None."""
+    mesh = current_mesh()
+    return mesh if model_shards(mesh) > 1 else None
+
+
+def local_config(cfg, mesh):
+    """The per-rank view of ``cfg`` on ``mesh``: heads, KV heads and d_ff
+    divided by the model axis (the head dim pinned), under which a
+    dense block runs unchanged on its rank's weights.  The vocab stays
+    whole: the head gathers its logits.  Refuses what the port does not
+    cut: a family other than dense / vlm, a shard axis other than
+    ``model``, and a model axis that does not divide the KV heads, d_ff
+    or the padded vocab (where the rules fall back to another layout).
+    Without a mesh, or on a mesh of one rank, ``cfg`` itself."""
+    if mesh is None or math.prod(mesh.shape.values()) == 1:
+        return cfg
+    if cfg.family not in ("dense", "vlm"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} family under a mesh of more than one rank "
+            f"is ROADMAP Queue 1 item 8's (tensor-parallel serving covers "
+            f"the dense GQA families)")
+    tp = model_shards(mesh)
+    if tp == 1:
+        return cfg
+    if cfg.attn_shard_axis != "model":
+        raise NotImplementedError(
+            f"attn_shard_axis={cfg.attn_shard_axis!r} is not wired; only "
+            f"'model' is supported on a mesh of more than one rank")
+    from repro_torch.kernels.ops import _check_head_divisibility
+    _check_head_divisibility(cfg.n_kv_heads, tp)
+    for what, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.vocab_padded)):
+        if n % tp:
+            raise NotImplementedError(
+                f"the model axis ({tp}) does not divide the {what} ({n}); "
+                f"its fall-back layout is ROADMAP Queue 1 item 8's")
+    return dataclasses.replace(
+        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
+        d_ff=cfg.d_ff // tp, head_dim=cfg.resolved_head_dim)
+
+
+def shard_params(params: Any, mesh, coords: dict, *, cfg=None) -> Any:
+    """One rank's leaves of the full tree ``params``: each leaf cut as
+    ``param_sharding_rules(params, mesh, fsdp=False, serve=True)`` says,
+    the rank's piece of each cut dim at its coordinate ``coords`` (axis
+    name -> index; a tuple entry is the axes' row-major index).  Pieces
+    are copies, so the full tree can be freed.  Int8 weight codes cut as
+    their float counterparts do."""
+    def cut(leaf, spec):
+        for dim, entry in enumerate(spec):
+            if entry is None:
+                continue
+            idx = 0
+            for a in (entry if isinstance(entry, tuple) else (entry,)):
+                idx = idx * mesh.shape[a] + coords[a]
+            size = leaf.shape[dim] // _axis_size(mesh, entry)
+            leaf = leaf.narrow(dim, idx * size, size)
+        return leaf.clone()
+
+    specs = _param_specs(params, mesh, False, True, cfg, False)
+    return unflatten(params, [cut(leaf, s) for (_, leaf), s in
+                              zip(leaves_with_paths(params), specs)])

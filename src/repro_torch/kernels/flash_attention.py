@@ -243,7 +243,8 @@ def flash_prefill_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      pos: torch.Tensor, kv_frac_bits: int) -> torch.Tensor:
+                      pos: torch.Tensor, kv_frac_bits: int,
+                      plan_shards: int = 1) -> torch.Tensor:
     """Launch K6: q (B, 1, H, Dk) at absolute position ``pos`` (a 0-d int32
     tensor on q's device, read by the kernel and never by the host) over
     the cache (B, S_max, KVH, D), kv rows ``<= pos`` visible; returns
@@ -252,7 +253,11 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel reads the cache only up to ``pos``; with more than one split
     its blocks write fp32 partials (m, l, acc) to a workspace from the
     caching allocator (inside a capture, the graph's pool), merged by the
-    combine kernel in the same call."""
+    combine kernel in the same call.  ``plan_shards``: the operands are
+    one of that many ranks' slices (heads, batch) of a mesh's decode, and
+    the splits are planned for the whole (``plan_decode_splits`` of batch
+    x KV heads x ``plan_shards``), so each head's partials combine in the
+    one-rank order."""
     _check("flash_decode_cuda", q, k, v, DECODE_MAX_GROUPS)
     b, sq, h, dk = q.shape
     s_max, kvh, dv = k.shape[1], k.shape[2], v.shape[3]
@@ -265,7 +270,7 @@ def flash_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         "device (a 0-d tensor)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((b, 1, h, dv), dtype=q.dtype, device=q.device)
-    splits, chunk = plan_decode_splits(s_max, b, kvh,
+    splits, chunk = plan_decode_splits(s_max, b * plan_shards, kvh,
                                        _sm_count(q.device.index or 0))
     ws_ptr = 0
     if splits > 1:

@@ -27,6 +27,13 @@ one launch over (E, C, K) x (E, K, N) stacks, the expert a grid
 dimension, each expert's row count read on the card, so padding experts
 and empty capacity rows cost one early exit a block.
 
+Its rank-split form, for a row-cut module on a tensor-parallel mesh, is
+:func:`int8_matmul_cuda` with ``out_dtype=torch.int32`` (one rank's
+(M, N) sums, no epilogue), the ranks' sums added in int32 by an
+all-reduce, and :func:`int8_matmul_finish_cuda`, the epilogue once over
+them, so the module's output is one rank's bit for bit (``core.qmodel``'s
+row-cut modules).
+
 Activations are int8 codes, or uint8 post-ReLU codes.  The ResNet's
 convolutions run in ``csrc/int_conv.cu``; only its head comes here.
 The weight codes stay in their public (K, N) layout, so
@@ -45,6 +52,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["int8_matmul_cuda", "int8_matmul_grouped_cuda",
+           "int8_matmul_finish_cuda",
            "plan_int8_matmul", "Int8MatmulPlan", "MMA_TILES", "DP4A_TILE",
            "K_STEP"]
 
@@ -53,10 +61,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_matmul_launch": (
     ctypes.c_int, [_P] * 5 + [_I] * 13 + [ctypes.c_float, _P]),
     "int8_matmul_grouped_launch": (
-    ctypes.c_int, [_P] * 4 + [_I] * 10 + [ctypes.c_float, _P])}
-# the kernel's out_kind, by output dtype
+    ctypes.c_int, [_P] * 4 + [_I] * 10 + [ctypes.c_float, _P]),
+    "int8_matmul_finish_launch": (
+    ctypes.c_int, [_P] * 3 + [_I] * 8 + [ctypes.c_float, _P])}
+# the kernel's out_kind, by output dtype (int32: the raw sums, no epilogue)
 _OUT_KIND = {torch.int8: 0, torch.uint8: 0, torch.bfloat16: 1,
-             torch.float32: 2}
+             torch.float32: 2, torch.int32: 3}
 
 # (rows, columns) of the tensor-core kernel's block tile, by configuration
 # index (csrc/int8_matmul.cu::launch_cfg): 0-3 cover M <= 16 / 32 / 64 /
@@ -127,7 +137,9 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
                      n_o: Optional[int] = None) -> torch.Tensor:
     """Launch K2 on (M, K) int8 or uint8 x (K, N) int8 (+ (N,) int8 bias)
     CUDA tensors; returns (M, N) ``out_dtype`` (int8 or uint8) codes, or
-    with ``out_dtype`` bfloat16 / float32 the codes times ``2^-n_o``."""
+    with ``out_dtype`` bfloat16 / float32 the codes times ``2^-n_o``, or
+    with int32 the raw sums (the rank-split form's first pass: no bias, no
+    epilogue; a split launch's partials added in int32)."""
     if x2.device.type != "cuda" or w.device != x2.device:
         raise ValueError("int8_matmul_cuda takes CUDA tensors on one device")
     if x2.dtype not in (torch.int8, torch.uint8) or w.dtype != torch.int8:
@@ -136,10 +148,13 @@ def int8_matmul_cuda(x2: torch.Tensor, w: torch.Tensor,
     if x2.ndim != 2 or w.ndim != 2 or x2.shape[1] != w.shape[0]:
         raise ValueError(f"shape mismatch {tuple(x2.shape)} x {tuple(w.shape)}")
     if out_dtype not in _OUT_KIND:
-        raise TypeError(f"K2 emits int8 / uint8 codes or their bf16 / fp32 "
-                        f"values, not {out_dtype}")
-    if (n_o is None) != (_OUT_KIND[out_dtype] == 0):
-        raise ValueError("a float output takes its grid n_o; codes take none")
+        raise TypeError(f"K2 emits int8 / uint8 codes, their bf16 / fp32 "
+                        f"values or the int32 sums, not {out_dtype}")
+    if (n_o is None) != (_OUT_KIND[out_dtype] in (0, 3)):
+        raise ValueError("a float output takes its grid n_o; codes and sums "
+                         "take none")
+    if out_dtype == torch.int32 and b is not None:
+        raise ValueError("the int32 sums take no bias: the finish adds it")
     if n_o is not None and not -126 <= n_o <= 126:
         raise ValueError(f"output grid {n_o} outside fp32's exponent range")
     for s in (shift, bias_shift):
@@ -227,4 +242,46 @@ def int8_matmul_grouped_cuda(x3: torch.Tensor, w3: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"int8_matmul_grouped kernel launch failed: CUDA "
                            f"error {err}")
+    return out
+
+
+def int8_matmul_finish_cuda(acc: torch.Tensor, b: Optional[torch.Tensor], *,
+                            shift: int, bias_shift: int, relu: bool, lo: int,
+                            hi: int, out_dtype: torch.dtype,
+                            n_o: Optional[int] = None) -> torch.Tensor:
+    """The rank-split form's finish: K2's epilogue once over the (M, N)
+    int32 CUDA sums ``acc`` (+ the (N,) int8 bias), as ``out_dtype`` codes
+    or, with bfloat16 / float32, their values times ``2^-n_o``; N % 4 ==
+    0."""
+    if acc.device.type != "cuda" or acc.dtype != torch.int32 \
+            or acc.ndim != 2:
+        raise TypeError("the finish takes (M, N) int32 sums on the card")
+    m, n = acc.shape
+    if n % 4:
+        raise ValueError(f"the finish takes N % 4 == 0, got N={n}")
+    if out_dtype not in _OUT_KIND or out_dtype == torch.int32:
+        raise TypeError(f"the finish emits int8 / uint8 codes or their "
+                        f"bf16 / fp32 values, not {out_dtype}")
+    if (n_o is None) != (_OUT_KIND[out_dtype] == 0):
+        raise ValueError("a float output takes its grid n_o; codes take none")
+    for s in (shift, bias_shift):
+        if not -31 <= s <= 31:
+            raise ValueError(f"shift {s} outside the int32 range [-31, 31]")
+    acc = acc.contiguous()
+    if b is not None:
+        if b.dtype != torch.int8 or b.shape != (n,) or b.device != acc.device:
+            raise ValueError("bias must be (N,) int8 codes on the same device")
+        b = b.contiguous()
+    out = torch.empty((m, n), dtype=out_dtype, device=acc.device)
+    lib = _build.load(_NAME, _SIGNATURES)
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        err = lib.int8_matmul_finish_launch(
+            acc.data_ptr(), None if b is None else b.data_ptr(),
+            out.data_ptr(), m, n, int(shift), int(bias_shift), int(relu),
+            int(lo), int(hi), _OUT_KIND[out_dtype], 2.0 ** -int(n_o or 0),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"int8_matmul finish launch failed: CUDA error "
+                           f"{err}")
     return out

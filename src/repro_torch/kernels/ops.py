@@ -9,6 +9,12 @@ over: on a CUDA tensor the kernel launches for every shape.
 
 ``LAUNCHES`` counts kernel launches per kernel, one per launch and
 nowhere else, so a run can show that its path went through the kernels.
+
+Under a tensor-parallel mesh each rank calls these wrappers on its own
+slices: K2's rank-split form (:func:`int8_matmul_partial`, then an int32
+all-reduce, then :func:`int8_matmul_finish`) serves the row-cut modules,
+and the attention wrappers take the ``mesh`` (:func:`attn_shard_size`):
+their operands hold this rank's KV heads, whole GQA groups.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  paged_attention_cuda,
                                                  paged_plan_from_positions)
 from repro_torch.kernels.int8_matmul import (int8_matmul_cuda,
+                                             int8_matmul_finish_cuda,
                                              int8_matmul_grouped_cuda)
 from repro_torch.kernels.int_conv import ResidualShifts, int_conv_cuda
 from repro_torch.kernels.quantize import (quantize_multi_cuda,
@@ -34,7 +41,8 @@ from repro_torch.kernels.ragged_flash import (RaggedWork,
                                              ragged_attention_cuda)
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
-__all__ = ["int8_matmul", "int8_matmul_grouped", "int_conv2d",
+__all__ = ["int8_matmul", "int8_matmul_grouped", "int8_matmul_partial",
+           "int8_matmul_finish", "attn_shard_size", "int_conv2d",
            "quantize_act", "quantize_multi", "quantize_scatter",
            "residual_requant",
            "ragged_attention", "paged_attention", "flash_attention",
@@ -51,7 +59,8 @@ LAUNCHES = {"int8_matmul": 0, "int8_matmul_grouped": 0,
 
 # launches of one form of a kernel, counted beside (not instead of) the
 # kernel's own count in LAUNCHES
-FORM_LAUNCHES = {"flash_prefill_noncausal": 0}
+FORM_LAUNCHES = {"flash_prefill_noncausal": 0, "int8_matmul_partial": 0,
+                 "int8_matmul_finish": 0}
 
 
 def reset_launch_counts() -> None:
@@ -68,6 +77,24 @@ def _on_cuda(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
+def _k2_out(spec: LinearQuantSpec, relu: bool,
+            out_float: Optional[torch.dtype]):
+    """K2's clip bounds, output dtype and float grid for ``spec``: codes
+    (uint8 on [0, 2^bits - 1] with ``relu`` and ``spec.out_unsigned``),
+    or with ``out_float`` their values in that type."""
+    if spec.bits > 8:
+        raise ValueError(f"int8_matmul emits 8-bit codes, not {spec.bits}")
+    unsigned = relu and spec.out_unsigned
+    lo, hi = ((0, (1 << spec.bits) - 1) if unsigned
+              else (-(1 << (spec.bits - 1)), (1 << (spec.bits - 1)) - 1))
+    if out_float is None:
+        return lo, hi, torch.uint8 if unsigned else torch.int8, None
+    if out_float not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"K2's float epilogue writes bfloat16 or float32, "
+                        f"not {out_float}")
+    return lo, hi, out_float, spec.n_o
+
+
 def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                 b_int: Optional[torch.Tensor], spec: LinearQuantSpec,
                 *, relu: bool = False,
@@ -81,20 +108,9 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
     ``out_float`` (bfloat16 or float32) the epilogue writes the codes'
     values ``code * 2^-spec.n_o`` in that type instead (the module's
     dequantized output, ``qscheme.dequant`` of the codes bit for bit)."""
-    if spec.bits > 8:
-        raise ValueError(f"int8_matmul emits 8-bit codes, not {spec.bits}")
+    lo, hi, out_dtype, n_o = _k2_out(spec, relu, out_float)
     *batch, k = x_int.shape
     n = w_int.shape[-1]
-    unsigned = relu and spec.out_unsigned
-    lo, hi = ((0, (1 << spec.bits) - 1) if unsigned
-              else (-(1 << (spec.bits - 1)), (1 << (spec.bits - 1)) - 1))
-    out_dtype = torch.uint8 if unsigned else torch.int8
-    n_o = None
-    if out_float is not None:
-        if out_float not in (torch.bfloat16, torch.float32):
-            raise TypeError(f"K2's float epilogue writes bfloat16 or "
-                            f"float32, not {out_float}")
-        out_dtype, n_o = out_float, spec.n_o
     if not _on_cuda(x_int, "int8_matmul"):
         return ref.int8_matmul_ref(x_int, w_int, b_int,
                                    shift=spec.requant_shift,
@@ -108,6 +124,55 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                            bias_shift=spec.bias_shift, relu=relu, lo=lo,
                            hi=hi, out_dtype=out_dtype, n_o=n_o)
     LAUNCHES["int8_matmul"] += 1
+    return out.reshape(*batch, n)
+
+
+def int8_matmul_partial(x_int: torch.Tensor,
+                        w_int: torch.Tensor) -> torch.Tensor:
+    """K2's rank-split form, first pass: (..., K) int8 / uint8 codes x
+    (K, N) int8 codes -> the (..., N) int32 sums, no epilogue (a row-cut
+    module's partial on one rank: this rank's rows of K).  Add the ranks'
+    sums in int32 (an all-reduce: exact in any order), then
+    :func:`int8_matmul_finish` runs the epilogue once."""
+    *batch, k = x_int.shape
+    n = w_int.shape[-1]
+    if not _on_cuda(x_int, "int8_matmul_partial"):
+        return ref.int8_matmul_partial_ref(x_int, w_int)
+    m = math.prod(batch)
+    if m == 0 or n == 0:
+        return torch.zeros((*batch, n), dtype=torch.int32,
+                           device=x_int.device)
+    out = int8_matmul_cuda(x_int.reshape(m, k), w_int, None, shift=0,
+                           bias_shift=0, relu=False, lo=0, hi=0,
+                           out_dtype=torch.int32)
+    LAUNCHES["int8_matmul"] += 1
+    FORM_LAUNCHES["int8_matmul_partial"] += 1
+    return out.reshape(*batch, n)
+
+
+def int8_matmul_finish(acc: torch.Tensor, b_int: Optional[torch.Tensor],
+                       spec: LinearQuantSpec, *, relu: bool = False,
+                       out_float: Optional[torch.dtype] = None
+                       ) -> torch.Tensor:
+    """K2's rank-split form, finish: the epilogue of :func:`int8_matmul`
+    (bias, ReLU, shift-requant, clip; codes or, with ``out_float``, their
+    values) once over the (..., N) int32 sums ``acc``.  Equal, bit for
+    bit, to :func:`int8_matmul` of the product whose sums they are."""
+    lo, hi, out_dtype, n_o = _k2_out(spec, relu, out_float)
+    *batch, n = acc.shape
+    if not _on_cuda(acc, "int8_matmul_finish"):
+        return ref.int8_matmul_finish_ref(
+            acc, b_int, shift=spec.requant_shift, bias_shift=spec.bias_shift,
+            relu=relu, lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+    m = math.prod(batch)
+    if m == 0 or n == 0:
+        return torch.empty((*batch, n), dtype=out_dtype, device=acc.device)
+    out = int8_matmul_finish_cuda(acc.reshape(m, n), b_int,
+                                  shift=spec.requant_shift,
+                                  bias_shift=spec.bias_shift, relu=relu,
+                                  lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+    LAUNCHES["int8_matmul"] += 1
+    FORM_LAUNCHES["int8_matmul_finish"] += 1
     return out.reshape(*batch, n)
 
 
@@ -265,12 +330,46 @@ def residual_requant(a_int: torch.Tensor, b_int: torch.Tensor, *, n_a: int,
     return out
 
 
+def attn_shard_size(mesh) -> int:
+    """Size of the mesh axis the attention heads are cut over, ``model``
+    (1 without a mesh or without that axis: one rank holds every head)."""
+    if mesh is None or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def _check_head_divisibility(kvh: int, tp: int) -> None:
+    """A config's KV heads must split over the tensor axis in whole GQA
+    groups (checked where the config is known: ``launch.steps`` and
+    ``distributed.sharding.local_config``)."""
+    if kvh % tp:
+        raise NotImplementedError(
+            f"attention shards KV heads over mesh axis 'model' (size "
+            f"{tp}), which must divide the KV head count ({kvh}); the "
+            f"reference's sequence-cut decode for such meshes is ROADMAP "
+            f"Queue 1 item 8's")
+
+
+def _rank_heads(q: torch.Tensor, kv: torch.Tensor, mesh, what: str) -> int:
+    """The wrappers' backstop on a mesh: ``q`` (..., H, D) and the K/V
+    (..., KVH, D) are this rank's slice, which must hold whole GQA groups
+    (H a multiple of KVH).  Returns the axis size."""
+    tp = attn_shard_size(mesh)
+    if tp > 1 and q.shape[-2] % kv.shape[-2]:
+        raise NotImplementedError(
+            f"{what}: a rank of mesh axis 'model' (size {tp}) holds "
+            f"{q.shape[-2]} query heads over {kv.shape[-2]} KV heads, not "
+            f"whole GQA groups")
+    return tp
+
+
 def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      q_start: torch.Tensor, q_len: torch.Tensor,
                      kv_len: torch.Tensor, *,
                      kv_frac_bits: Optional[int] = None,
-                     work: Optional[RaggedWork] = None) -> torch.Tensor:
+                     work: Optional[RaggedWork] = None,
+                     mesh=None) -> torch.Tensor:
     """Unified ragged-batch attention over the paged KV pool.
 
     q (T, H, Dk) is the flattened mixed stream; ``q_start`` / ``q_len``
@@ -281,7 +380,11 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     by 1/sqrt(Dk).  ``work`` is the kernel's work list for these
     descriptors (``ragged_flash.plan_ragged_work``, on q's device); without
     it one is planned from the descriptors, read back to the host.
-    Returns (T, H, Dv) with rows no descriptor covers exactly zero."""
+    Returns (T, H, Dv) with rows no descriptor covers exactly zero.  On a
+    ``mesh`` q and the pools hold this rank's heads of its ``model`` axis;
+    the descriptors and tables are every rank's (the work list does not
+    depend on the head count)."""
+    _rank_heads(q, k_pool, mesh, "ragged_attention")
     nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
     if not _on_cuda(q, "ragged_attention"):
         return ref.ragged_attention_ref(
@@ -304,7 +407,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     q_positions: torch.Tensor, *,
                     kv_frac_bits: Optional[int] = None,
                     scale: Optional[float] = None,
-                    work: Optional[RaggedWork] = None) -> torch.Tensor:
+                    work: Optional[RaggedWork] = None,
+                    mesh=None) -> torch.Tensor:
     """Attention over the serving engine's paged KV block pool (the
     legacy per-shape engine's steps).
 
@@ -319,7 +423,9 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     K4's work list for these positions and this table width
     (``flash_attention.plan_paged_work``, on q's device); without it one
     is planned from the positions, read back to the host.  The CPU path
-    takes no plan.  Returns (B, C, H, Dv) in q's dtype."""
+    takes no plan.  Returns (B, C, H, Dv) in q's dtype.  ``mesh`` as
+    :func:`ragged_attention`'s."""
+    _rank_heads(q, k_pool, mesh, "paged_attention")
     nkv = ref.kv_frac_bits_of(k_pool, kv_frac_bits)
     if not _on_cuda(q, "paged_attention"):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
@@ -339,7 +445,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_frac_bits: Optional[int] = None,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, mesh=None) -> torch.Tensor:
     """Flash attention over a dense cache: q (B, Sq, H, Dk) at positions
     0..Sq-1 x K/V (B, Skv, KVH, D) -> (B, Sq, H, Dv), scores scaled by
     1/sqrt(Dk).  K/V may be int8 Eq.-1 codes on the 2^-``kv_frac_bits``
@@ -354,7 +460,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     through the plain version, as the reference pairs its Pallas forward
     with the chunked reference's VJP (:class:`_FlashPrefill`).  Over int8
     codes a ``q`` that requires grad raises: the reference takes no VJP
-    there."""
+    there.  On a ``mesh`` the operands hold this rank's heads (and batch
+    slice) of its ``model`` axis; no collective runs: softmax is over each
+    head's own rows."""
+    _rank_heads(q, k, mesh, "flash_attention")
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits,
@@ -402,16 +511,23 @@ class _FlashPrefill(torch.autograd.Function):
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 pos, kv_frac_bits: Optional[int] = None) -> torch.Tensor:
+                 pos, kv_frac_bits: Optional[int] = None, mesh=None,
+                 batch_shards: int = 1) -> torch.Tensor:
     """One-token decode over a dense cache: q (B, 1, H, Dk) at absolute
     position ``pos`` over (B, S_max, KVH, D), kv rows ``<= pos`` visible
     -> (B, 1, H, Dv).  On the card ``pos`` is a 0-d int32 tensor on q's
     device, which K6 reads there (the plain version also takes a host
-    int).  The cache is read in place, up to ``pos`` only."""
+    int).  The cache is read in place, up to ``pos`` only.  On a ``mesh``
+    the operands hold this rank's heads of its ``model`` axis (and, with
+    ``batch_shards`` > 1, its slice of the batch): the kernel's splits are
+    planned for the whole mesh's heads and batch, so a head's partials
+    combine in the order one rank's would."""
+    tp = _rank_heads(q, k, mesh, "flash_decode")
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_decode"):
         return ref.flash_decode_ref(q, k, v, pos=pos,
                                     kv_frac_bits=kv_frac_bits)
-    out = flash_decode_cuda(q, k, v, pos=pos, kv_frac_bits=nkv)
+    out = flash_decode_cuda(q, k, v, pos=pos, kv_frac_bits=nkv,
+                            plan_shards=tp * batch_shards)
     LAUNCHES["flash_decode"] += 1
     return out

@@ -20,7 +20,8 @@ import torch
 from repro_torch.core.integer_ops import LinearQuantSpec, im2col_same
 from repro_torch.core.qscheme import dequant, int_bounds
 
-__all__ = ["int8_matmul_ref", "int8_matmul_split_ref",
+__all__ = ["int8_matmul_ref", "int8_matmul_partial_ref",
+           "int8_matmul_finish_ref", "int8_matmul_split_ref",
            "int8_matmul_grouped_ref", "int_conv2d_ref",
            "quantize_ref",
            "quantize_multi_ref", "quantize_scatter_ref",
@@ -70,13 +71,33 @@ def int8_matmul_ref(x_int: torch.Tensor, w_int: torch.Tensor,
                     n_o: Optional[int] = None) -> torch.Tensor:
     """(..., K) x (K, N) int8 codes -> (..., N) requantized codes, or,
     with a float ``out_dtype`` (K2's float epilogue), the codes' values
-    ``code * 2^-n_o`` in that type.
+    ``code * 2^-n_o`` in that type: :func:`int8_matmul_finish_ref` of
+    :func:`int8_matmul_partial_ref`."""
+    return int8_matmul_finish_ref(
+        int8_matmul_partial_ref(x_int, w_int), b_int, shift=shift,
+        bias_shift=bias_shift, relu=relu, lo=lo, hi=hi, out_dtype=out_dtype,
+        n_o=n_o)
 
-    The int32 accumulator is computed in float64 (exact below 2^53) and
-    cast, since PyTorch has no int32 matmul on CUDA and no BLAS behind its
-    int64 one on the CPU."""
-    acc = torch.matmul(x_int.to(torch.float64),
-                       w_int.to(torch.float64)).to(torch.int32)
+
+def int8_matmul_partial_ref(x_int: torch.Tensor,
+                            w_int: torch.Tensor) -> torch.Tensor:
+    """K2's rank-split first pass: the (..., N) int32 sums of (..., K) x
+    (K, N) int8 / uint8 codes, no epilogue.  Computed in float64 (exact
+    below 2^53) and cast, since PyTorch has no int32 matmul on CUDA and no
+    BLAS behind its int64 one on the CPU."""
+    return torch.matmul(x_int.to(torch.float64),
+                        w_int.to(torch.float64)).to(torch.int32)
+
+
+def int8_matmul_finish_ref(acc: torch.Tensor, b_int: Optional[torch.Tensor],
+                           *, shift: int, bias_shift: int = 0,
+                           relu: bool = False, lo: int = -128, hi: int = 127,
+                           out_dtype: torch.dtype = torch.int8,
+                           n_o: Optional[int] = None) -> torch.Tensor:
+    """K2's epilogue, once, on the (..., N) int32 sums ``acc`` (one
+    product's, or the int32 sum of the ranks' partials): bias, ReLU,
+    shift-requant and clip to codes, or their values ``code * 2^-n_o`` in
+    a float ``out_dtype``."""
     if not out_dtype.is_floating_point:
         return _int8_epilogue(acc, b_int, shift=shift, bias_shift=bias_shift,
                               relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)

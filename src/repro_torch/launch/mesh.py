@@ -1,0 +1,236 @@
+"""The (data, model) mesh over processes (PyTorch counterpart of
+``repro.launch.mesh``'s ``make_local_mesh``).
+
+The JAX package builds a mesh over the devices one process sees and lets
+GSPMD move the slices; the port runs one process a rank, each holding its
+own slices, over ``torch.distributed``.  Rank ``r`` of a D x M mesh sits
+at (data ``r // M``, model ``r % M``) and, on the card, on
+``cuda:(r % device_count)``.  The backend is named by the caller, never
+chosen: ``gloo`` (the CPU; also CUDA tensors, through the host, and ranks
+that share a card) or ``nccl`` (one card a rank; it refuses two ranks on
+one card, so that asks for an error here).
+
+:func:`run_ranks` starts the D x M ranks itself (``spawn``: the parent
+may hold a CUDA context already) and returns each rank's result;
+:func:`join_world` joins a world that ``torchrun`` started.  Nothing
+here starts a process or touches a device at import.
+"""
+from __future__ import annotations
+
+import datetime
+import os
+import shutil
+import tempfile
+from pathlib import Path
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["RankMesh", "make_local_mesh", "run_ranks", "join_world",
+           "in_torchrun", "parse_mesh", "BACKENDS"]
+
+BACKENDS = ("gloo", "nccl")
+_TIMEOUT = datetime.timedelta(minutes=15)
+
+
+def parse_mesh(text: str) -> tuple[int, int]:
+    """``"DxM"`` (the CLI's ``--mesh``) as (data, model)."""
+    try:
+        d, m = (int(x) for x in text.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh takes DATAxMODEL, e.g. 1x2, not "
+                         f"{text!r}") from None
+    if d < 1 or m < 1:
+        raise ValueError(f"mesh axes are at least 1, got {text!r}")
+    return d, m
+
+
+class RankMesh:
+    """One rank's view of a (data, model) mesh of processes: ``shape``
+    (axis name -> size) and ``axis_names``, which the sharding rules read,
+    this rank's ``coords``, its ``device``, and the collectives over one
+    axis's group (a no-op over an axis of size 1).  ``RankMesh(d, m)``
+    alone is the layout, before any rank exists (the build-time refusals
+    read it); its collectives over an axis longer than one fail."""
+
+    axis_names = ("data", "model")
+
+    def __init__(self, data: int, model: int, rank: int = 0,
+                 groups: Optional[dict] = None,
+                 device: Optional[torch.device] = None,
+                 backend: Optional[str] = None):
+        if data < 1 or model < 1:
+            raise ValueError(f"mesh axes are at least 1, got "
+                             f"({data}, {model})")
+        self.shape = {"data": data, "model": model}
+        self.size = data * model
+        self.rank = rank
+        self.coords = {"data": rank // model, "model": rank % model}
+        self.device = device
+        self.backend = backend
+        self._groups = groups or {}
+
+    def __repr__(self) -> str:
+        return (f"RankMesh(data={self.shape['data']}, model="
+                f"{self.shape['model']}, rank={self.rank}, "
+                f"{self.backend} on {self.device})")
+
+    def all_reduce(self, t: torch.Tensor, axis: str = "model",
+                   op: str = "sum") -> torch.Tensor:
+        """``t`` reduced IN PLACE over ``axis``'s ranks (``sum`` or
+        ``max``) and returned."""
+        if self.shape[axis] > 1:
+            dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                            else dist.ReduceOp.MAX,
+                            group=self._groups[axis])
+        return t
+
+    def all_gather(self, t: torch.Tensor, axis: str = "model",
+                   dim: int = -1) -> torch.Tensor:
+        """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in
+        rank order.  Over gloo a CUDA tensor is gathered through the host
+        (a copy each way), as gloo's own CUDA all-reduce works."""
+        if self.shape[axis] == 1:
+            return t
+        dev = t.device
+        host = self.backend == "gloo" and dev.type == "cuda"
+        t = (t.cpu() if host else t).contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+        dist.all_gather(parts, t, group=self._groups[axis])
+        out = torch.cat(parts, dim=dim)
+        return out.to(dev) if host else out
+
+    def gather_objects(self, obj) -> list:
+        """Every rank's picklable ``obj``, in rank order, on every rank."""
+        out = [None] * self.size
+        dist.all_gather_object(out, obj)
+        return out
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s picklable ``obj`` on every rank."""
+        box = [obj if self.rank == src else None]
+        dist.broadcast_object_list(box, src=src)
+        return box[0]
+
+
+def make_local_mesh(model_axis: int = 1, *, device: str = "cuda",
+                    backend: str) -> RankMesh:
+    """The (world / ``model_axis``, ``model_axis``) mesh over the ranks of
+    the initialised world, its groups made with ``backend``; this rank's
+    device is ``cuda:(rank % device_count)`` (made current) or the CPU."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_local_mesh runs in an initialised world "
+                           "(run_ranks, join_world or torchrun)")
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r}: expected one of {BACKENDS}")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"model axis {model_axis} does not divide the "
+                         f"{world} ranks")
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        n_cards = torch.cuda.device_count()
+        if n_cards == 0:
+            raise RuntimeError("no CUDA device for the mesh's ranks")
+        if backend == "nccl" and world > n_cards:
+            raise ValueError(
+                f"{world} ranks share {n_cards} card(s): NCCL refuses two "
+                f"ranks on one device; pass backend='gloo' (it reduces "
+                f"CUDA tensors through the host)")
+        dev = torch.device("cuda", rank % n_cards)
+        torch.cuda.set_device(dev)
+    elif backend == "nccl":
+        raise ValueError("nccl reduces CUDA tensors only; the CPU's ranks "
+                         "take backend='gloo'")
+    data = world // model_axis
+    groups = {}
+    # every rank makes every group, in one order
+    for d in range(data):
+        ranks = [d * model_axis + m for m in range(model_axis)]
+        g = dist.new_group(ranks, backend=backend) if model_axis > 1 \
+            else None
+        if rank in ranks:
+            groups["model"] = g
+    for m in range(model_axis):
+        ranks = [d * model_axis + m for d in range(data)]
+        g = dist.new_group(ranks, backend=backend) if data > 1 else None
+        if rank in ranks:
+            groups["data"] = g
+    return RankMesh(data, model_axis, rank, groups, dev, backend)
+
+
+def join_world(mesh_shape: tuple[int, int], *, device: str = "cuda",
+               backend: str) -> RankMesh:
+    """Join the world ``torchrun`` started (its ``RANK``, ``WORLD_SIZE``,
+    ``MASTER_ADDR`` / ``MASTER_PORT``) and make the mesh over it; the
+    world must hold D x M ranks."""
+    d, m = mesh_shape
+    world = int(os.environ["WORLD_SIZE"])
+    if world != d * m:
+        raise ValueError(f"a {d}x{m} mesh needs {d * m} ranks; torchrun "
+                         f"started {world}")
+    if torch.device(device).type == "cuda" and torch.cuda.device_count():
+        torch.cuda.set_device(int(os.environ["RANK"])
+                              % torch.cuda.device_count())
+    if not dist.is_initialized():
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=_TIMEOUT)
+    return make_local_mesh(m, device=device, backend=backend)
+
+
+def in_torchrun() -> bool:
+    """Whether this process is a rank ``torchrun`` started."""
+    return all(k in os.environ for k in ("RANK", "WORLD_SIZE",
+                                         "MASTER_ADDR"))
+
+
+def _rank_main(rank: int, world: int, mesh_shape, device: str, backend: str,
+               workdir: str, fn: Callable, kwargs: dict,
+               threads: Optional[int]) -> None:
+    """A spawned rank: join the world through the file store in
+    ``workdir``, run ``fn(mesh, **kwargs)`` and save its result there."""
+    if threads is not None:
+        torch.set_num_threads(threads)
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    store = dist.FileStore(str(Path(workdir) / "store"), world)
+    dist.init_process_group(backend, store=store, rank=rank,
+                            world_size=world, timeout=_TIMEOUT)
+    try:
+        mesh = make_local_mesh(mesh_shape[1], device=device, backend=backend)
+        result = fn(mesh, **kwargs)
+        torch.save(result, Path(workdir) / f"rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(fn: Callable, mesh_shape: tuple[int, int], *,
+              device: str = "cuda", backend: str,
+              kwargs: Optional[dict] = None,
+              workdir: Optional[str] = None,
+              threads: Optional[int] = None) -> list:
+    """Start the D x M ranks of ``mesh_shape`` (``spawn``), each running
+    ``fn(mesh, **kwargs)`` (``fn`` a module-level function: the ranks
+    import it), and return their results in rank order.  They meet
+    through a file store in a fresh directory under ``workdir`` (default
+    the system's temporary directory), removed after.  A rank that raises
+    stops the others, and the error is raised here.  ``threads`` sets
+    each rank's intra-op torch threads."""
+    d, m = mesh_shape
+    world = d * m
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the mesh's ranks run on a CUDA device and none "
+                           "is available; pass device='cpu'")
+    tmp = tempfile.mkdtemp(prefix="repro-mesh-", dir=workdir)
+    try:
+        torch.multiprocessing.start_processes(
+            _rank_main, args=(world, (d, m), device, backend, tmp, fn,
+                              dict(kwargs or {}), threads),
+            nprocs=world, join=True, start_method="spawn")
+        # our own ranks' files
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)

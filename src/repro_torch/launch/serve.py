@@ -56,7 +56,20 @@ flash`` sends the classic path's attention through the flash prefill and
 decode kernels (K5, K6); ``chunked`` (the default) through their plain
 versions.  ``--prefix-cache`` / ``--no-prefix-cache`` force the engine's
 prefix cache on or off (default: the engine decides).  The JAX CLI's
-``--mesh`` and ``--profile-cost`` options are not ported yet.
+``--profile-cost`` option is not ported yet.
+
+Tensor-parallel serving (the dense families): ``--mesh DxM`` serves
+either path on a (data, model) mesh of D x M ranks (``launch.mesh``), the
+attention heads (whole GQA groups and their KV), the MLP hidden and the
+vocab cut over ``model``, the classic batch over ``data``, every step
+eager.  The ranks are spawned here, or joined when ``torchrun`` started
+the process (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve
+... --mesh DxM``); rank 0 prints.  ``--dist-backend`` names their
+backend: nccl (the default on the card, one card a rank) or gloo (the
+CPU's default; also ranks that share one card):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
+        [--engine] --mesh 1x2 [--device cpu | --dist-backend gloo]
 """
 from __future__ import annotations
 
@@ -64,11 +77,14 @@ import argparse
 import dataclasses
 import functools
 import json
+import math
+import os
 import time
 
 import numpy as np
 
-__all__ = ["poisson_workload", "serve", "serve_engine", "main"]
+__all__ = ["poisson_workload", "serve", "serve_engine", "serve_rank",
+           "serve_engine_rank", "main"]
 
 
 def _sync(dev) -> None:
@@ -90,11 +106,91 @@ def _calibrated(cfg, params, mode: str, prompt: dict):
     return dataclasses.replace(ctx, mode=QuantMode(mode)), report
 
 
+def _resolve_cfg_mesh(arch: str, *, smoke: bool,
+                      attn_kernel: str | None = None,
+                      cfg_overrides: dict | None = None,
+                      mesh_shape: tuple[int, int] | None = None):
+    """Config and mesh setup shared by the classic and engine drivers:
+    ``attn_kernel`` and ``cfg_overrides`` patch the config; ``mesh_shape``
+    (data, model) is checked against it here, before any rank starts, by
+    the step builders' refusals (``launch.steps._resolve_attn_kernel``:
+    the model axis must divide the KV heads, and the family must be a
+    dense one).  Returns (cfg, the (data, model) shape or None)."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.launch import steps as S
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if attn_kernel is not None:
+        cfg = dataclasses.replace(cfg, attn_kernel=attn_kernel)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if mesh_shape is None:
+        return cfg, None
+    from repro_torch.launch.mesh import RankMesh
+    shape = RankMesh(*(int(n) for n in mesh_shape))
+    S._resolve_attn_kernel(cfg, shape)
+    return cfg, (shape.shape["data"], shape.shape["model"])
+
+
+def _backend(dist_backend: str | None, device) -> str:
+    """The ranks' backend: as given, else ``nccl`` on the card (one card a
+    rank) and ``gloo`` on the CPU; never chosen for the caller past that
+    (``launch.mesh.make_local_mesh`` refuses nccl on a shared card)."""
+    if dist_backend is not None:
+        return dist_backend
+    import torch
+    return "gloo" if torch.device(device or "cuda").type == "cpu" else "nccl"
+
+
+def _on_ranks(fn, mesh_shape, device, dist_backend, kwargs: dict) -> list:
+    """``fn(mesh, **kwargs)`` on every rank of the mesh: in this process
+    when ``torchrun`` started it (a one-element list), else on D x M ranks
+    spawned here (every rank's result, in rank order)."""
+    from repro_torch.launch import mesh as mesh_lib
+    dev = "cuda" if device is None else str(device)
+    backend = _backend(dist_backend, dev)
+    if mesh_lib.in_torchrun():
+        return [fn(mesh_lib.join_world(mesh_shape, device=dev,
+                                       backend=backend), **kwargs)]
+    import torch
+    # the CPU's ranks share this process's intra-op threads
+    threads = (max(1, torch.get_num_threads() // math.prod(mesh_shape))
+               if torch.device(dev).type == "cpu" else None)
+    return mesh_lib.run_ranks(fn, mesh_shape, device=dev, backend=backend,
+                              kwargs=kwargs, threads=threads)
+
+
+def _launch_counts() -> dict:
+    from repro_torch.kernels import ops as kops
+    return {**kops.LAUNCHES, **kops.FORM_LAUNCHES}
+
+
+def _launches_since(start: dict) -> dict:
+    return {k: n - start[k] for k, n in _launch_counts().items()}
+
+
+def _rank_calibrated(cfg, params, mode: str, prompt: dict, mesh):
+    """:func:`_calibrated` on the whole model: on rank 0 of a mesh, its
+    context sent to every rank (every rank then quantizes on the same
+    grids); the report and the seconds are rank 0's."""
+    import torch
+    t0 = time.perf_counter()
+    ctx = report = None
+    if mesh is None or mesh.rank == 0:
+        ctx, report = _calibrated(cfg, params, mode, prompt)
+    if mesh is not None:
+        ctx = mesh.broadcast_object(ctx)
+    if next(iter(prompt.values())).device.type == "cuda":
+        torch.cuda.synchronize()
+    return ctx, report, time.perf_counter() - t0
+
+
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
           mode: str = "int", calibrate: bool = True, smoke: bool = True,
           seed: int = 0, params=None, attn_kernel: str | None = None,
           cfg_overrides: dict | None = None, graphs: bool | None = None,
-          device=None, _graph_factory=None) -> dict:
+          mesh_shape: tuple[int, int] | None = None,
+          dist_backend: str | None = None, mesh=None, device=None,
+          _graph_factory=None) -> dict:
     """Classic serving: calibrate (``mode`` 'int' / 'fake' with
     ``calibrate``; 'fp' and the scaling-factor baseline 'fake_sf' take
     none), prefill a ``batch`` x ``prompt_len`` synthetic prompt into a
@@ -109,10 +205,13 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     step is a replay; ``graphs=False`` runs every step eagerly.  Prefill
     runs once a call and stays eager.
 
-    Returns {"tokens" (B, gen) numpy, "prefill_s", "decode_s_per_tok",
+    Returns {"tokens" (B, gen) numpy, "logits" (the prefill's last
+    logits (B, V), on the host), "prefill_s", "decode_s_per_tok",
     "compile_prefill_s", "compile_decode_s", "calibrate_s", "report",
-    "ctx", "graphs"} (the last the :class:`launch.steps.StepGraphs`
-    counts; ``calibrate_s`` is 0.0 without calibration).
+    "ctx", "graphs", "launches"} (``graphs`` the
+    :class:`launch.steps.StepGraphs` counts; ``calibrate_s`` is 0.0
+    without calibration; ``launches`` each kernel's launches in the call,
+    its forms' beside).
     ``compile_prefill_s`` holds the time of the prefill call (kernel
     builds and lazy initialisation included), which is also
     ``prefill_s``.  With graphs ``compile_decode_s`` holds the eager first
@@ -129,23 +228,59 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     MLA's ``wkv_b`` stay float).
     ``device`` defaults to ``cuda``.  ``_graph_factory`` is
     for the tests: a stand-in for the CUDA graph (``StepGraphs``'
-    ``graph_factory``) that drives the capture bookkeeping on the CPU."""
+    ``graph_factory``) that drives the capture bookkeeping on the CPU.
+
+    ``mesh_shape`` (data, model) serves on a mesh of D x M ranks
+    (``launch.mesh``; spawned here unless ``torchrun`` started this
+    process) over ``dist_backend`` (default nccl on the card, gloo on the
+    CPU; ranks sharing one card take gloo): the dense families only, the
+    weights calibrated and quantized whole, then cut (heads, d_ff and
+    vocab over ``model``), the batch cut over ``data`` when it divides
+    (else every data rank serves it all), every step eager.  Returns rank
+    0's result (its tokens the whole batch's) with ``mesh`` and
+    ``ranks``, every rank's {"tokens", "logits", "launches", ...}.  A
+    caller that is already a rank passes its ``mesh``
+    (``launch.mesh.RankMesh``) instead, and gets its rank's result."""
+    if mesh is not None:
+        mesh_shape = (mesh.shape["data"], mesh.shape["model"])
+    cfg, mesh_shape = _resolve_cfg_mesh(arch, smoke=smoke,
+                                        attn_kernel=attn_kernel,
+                                        cfg_overrides=cfg_overrides,
+                                        mesh_shape=mesh_shape)
+    kw = dict(cfg=cfg, batch=batch, prompt_len=prompt_len, gen=gen,
+              mode=mode, calibrate=calibrate, seed=seed, params=params)
+    if mesh is not None:
+        return serve_rank(mesh, graphs=graphs, **kw)
+    if mesh_shape is None:
+        return serve_rank(None, graphs=graphs, device=device,
+                          graph_factory=_graph_factory, **kw)
+    if graphs:
+        raise ValueError("a mesh runs its decode steps eagerly: its "
+                         "collectives cannot be captured (graphs=False)")
+    ranks = _on_ranks(serve_rank, mesh_shape, device, dist_backend, kw)
+    return dict(ranks[0], mesh=mesh_shape, ranks=ranks)
+
+
+def serve_rank(mesh, *, cfg, batch, prompt_len, gen, mode, calibrate, seed,
+               params, graphs=None, device=None,
+               graph_factory=None) -> dict:
+    """:func:`serve`'s body on one process: the whole model (``mesh``
+    None), or one rank of a mesh (its device the rank's): the rank
+    worker, whose keywords are those :func:`serve` resolves (``cfg`` the
+    resolved config)."""
     import torch
-    from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.device import resolve_device
     from repro_torch.core.qmodel import (QuantContext, QuantMode,
                                          quantize_weight_tree)
     from repro_torch.data import SyntheticLMStream
+    from repro_torch.distributed import sharding as shd
     from repro_torch.launch import steps as S
     from repro_torch.models import model as M
-    dev = resolve_device(device)
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if attn_kernel is not None:
-        cfg = dataclasses.replace(cfg, attn_kernel=attn_kernel)
-    if cfg_overrides:
-        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    dev = resolve_device(device if mesh is None else mesh.device)
     if params is None:
         params = M.init_params(cfg, seed, device=dev)
+    elif mesh is not None:
+        params = _to_device(params, dev)
     audio = cfg.family == "audio"
     stream = SyntheticLMStream(
         cfg.vocab_size, prompt_len, batch, seed=seed,
@@ -157,11 +292,12 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     ctx = QuantContext(mode=QuantMode(mode))
     report, t_cal = None, 0.0
     if calibrate and mode in ("fake", "int"):
-        t0 = time.perf_counter()
-        ctx, report = _calibrated(cfg, params, mode, prompt)
-        _sync(dev)
-        t_cal = time.perf_counter() - t0
-        print(f"calibrated {len(report.results)} modules in {t_cal:.1f}s")
+        ctx, report, t_cal = _rank_calibrated(cfg, params, mode, prompt,
+                                              mesh)
+        ctx = dataclasses.replace(ctx, mode=QuantMode(mode))
+        if mesh is None or mesh.rank == 0:
+            print(f"calibrated {len(report.results)} modules in "
+                  f"{t_cal:.1f}s")
     if ctx.mode is QuantMode.INT:
         # the recurrent blocks' other matrices (LoRA and token-shift mixes,
         # conv taps), the MoE router and MLA's wkv_b are float operands
@@ -169,18 +305,38 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
         params = quantize_weight_tree(
             params, ctx, name_fn=functools.partial(M.qlinear_weight, cfg=cfg)
             if cfg.family in ("ssm", "hybrid", "moe", "audio") else None)
+    split = False
+    if mesh is not None:
+        # the weights are cut after calibration and quantization, whole
+        params = shd.shard_params(params, mesh, mesh.coords, cfg=cfg)
+        d = mesh.shape["data"]
+        split = batch % d == 0 and d > 1
+        if split:
+            rows = slice(mesh.coords["data"] * (batch // d),
+                         (mesh.coords["data"] + 1) * (batch // d))
+            prompt = {k: v[rows] for k, v in prompt.items()}
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
 
     if graphs is None:
-        graphs = dev.type == "cuda"
+        graphs = dev.type == "cuda" and mesh is None
+    # off a mesh the builders are called as their stand-ins are, without
+    # the mesh's keywords
+    on_mesh = {} if mesh is None else dict(mesh=mesh)
     step_graphs = S.StepGraphs(dev, capture=graphs,
-                               graph_factory=_graph_factory)
-    prefill_fn = S.build_prefill_step(cfg, ctx, max_seq=prompt_len + gen)
-    serve_fn = S.build_serve_step(cfg, ctx)
+                               graph_factory=graph_factory, **on_mesh)
+    if mesh is not None:
+        on_mesh["batch_split"] = split
+    prefill_fn = S.build_prefill_step(cfg, ctx, max_seq=prompt_len + gen,
+                                      **on_mesh)
+    serve_fn = S.build_serve_step(cfg, ctx, **on_mesh)
+    start = _launch_counts()
     with torch.no_grad():
         t0 = time.perf_counter()
         logits, cache = prefill_fn(params, prompt)
         _sync(dev)
         t_prefill = time.perf_counter() - t0
+        first_logits = logits.to("cpu", copy=True)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
         out_tokens = [tok.cpu().numpy()]
         step_s = []
@@ -192,18 +348,38 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
             # graph's static buffer)
             out_tokens.append(np.array(nxt.cpu()))
             step_s.append(time.perf_counter() - t0)
+    launches = _launches_since(start)
+    tokens = np.concatenate(out_tokens, axis=1)
+    if split:
+        # every data rank's rows, in data order (model rank 0 of each)
+        m = mesh.shape["model"]
+        gathered = mesh.gather_objects((tokens, first_logits))
+        tokens = np.concatenate([gathered[r][0] for r in
+                                 range(0, mesh.size, m)])
+        first_logits = torch.cat([gathered[r][1] for r in
+                                  range(0, mesh.size, m)])
     n_first = 2 if graphs else 1        # eager first call (and capture)
     replayed = step_s[n_first:] if graphs else step_s
-    return {"tokens": np.concatenate(out_tokens, axis=1),
+    return {"tokens": tokens, "logits": first_logits,
             "prefill_s": t_prefill,
             "decode_s_per_tok": sum(replayed) / max(len(replayed), 1),
             "compile_prefill_s": t_prefill,
             "compile_decode_s": sum(step_s[:n_first]),
             "calibrate_s": t_cal, "report": report, "ctx": ctx,
+            "launches": launches,
             "graphs": dict(enabled=graphs,
                            first_calls=step_graphs.first_calls,
                            captures=step_graphs.captures,
                            replays=step_graphs.replays)}
+
+
+def _to_device(tree, dev):
+    """A params tree (nested dicts and lists of tensors) on ``dev``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, dev) for v in tree]
+    return tree.to(dev)
 
 
 def poisson_workload(vocab_size: int, *, n_requests: int, rate: float,
@@ -253,6 +429,8 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  profile_dir: str | None = None,
                  record: str | bool = False, virtual_dt: float = 1e-3,
                  slo=None, params=None, graphs: bool | None = None,
+                 mesh_shape: tuple[int, int] | None = None,
+                 dist_backend: str | None = None, mesh=None,
                  device=None) -> dict:
     """Continuous-batching serving on the paged int8-KV block pool.
     Returns {"report", "outputs", "requests", "engine", "quantized",
@@ -291,17 +469,20 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     run's :class:`repro_torch.obs.replay.WorkloadRecord` under "record"
     (a path string also saves it as JSON); ``slo`` attaches the SLO
     burn-rate monitor (``True`` for the stock objectives, or a list of
-    ``SLObjective``)."""
-    import torch
-    from repro_torch.configs import get_config, get_smoke_config
-    from repro_torch.core.device import resolve_device
-    from repro_torch.core.qmodel import (QuantContext, QuantMode,
-                                         quantize_params,
-                                         quantize_weight_tree)
-    from repro_torch.data import SyntheticLMStream
-    from repro_torch.models import model as M
-    from repro_torch.serving.engine import ServingEngine
-    dev = resolve_device(device)
+    ``SLObjective``).
+
+    ``mesh_shape`` (data, model) serves on a mesh of D x M ranks, as
+    :func:`serve`'s (the dense families; ``dist_backend``): the weights
+    calibrated and quantized whole, then cut; every rank runs the engine
+    over the same requests with its slices and its pool of its KV heads,
+    eagerly; the data ranks are replicas.  Rank 0 reports and exports
+    (trace, metrics, record); the result is rank 0's ("engine" None,
+    "quantized" its converted paths only) with ``mesh`` and ``ranks``,
+    every rank's {"outputs", "launches", "record"}; a caller
+    that is already a rank passes its ``mesh`` instead, as
+    :func:`serve`'s."""
+    if mesh is not None:
+        mesh_shape = (mesh.shape["data"], mesh.shape["model"])
     overrides = dict(cfg_overrides or {})
     if kv_bits is not None:
         overrides.setdefault("kv_cache_bits", kv_bits)
@@ -310,18 +491,67 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     if w8a8:
         mode, calibrate = "int", True
         overrides["matmul_kernel"] = "int8"
-    cfg = get_smoke_config(arch) if smoke else get_config(arch)
-    if overrides:
-        cfg = dataclasses.replace(cfg, **overrides)
+    cfg, mesh_shape = _resolve_cfg_mesh(arch, smoke=smoke,
+                                        cfg_overrides=overrides,
+                                        mesh_shape=mesh_shape)
+    if requests is None:
+        requests = poisson_workload(
+            cfg.vocab_size, n_requests=n_requests, rate=rate,
+            prompt_lens=prompt_lens, gen_lens=gen_lens,
+            temperature=temperature, seed=seed,
+            shared_prefix=shared_prefix)
+    kw = dict(cfg=cfg, requests=requests, n_slots=n_slots,
+              block_size=block_size, chunk=chunk,
+              max_model_len=max_model_len, num_blocks=num_blocks, mode=mode,
+              calibrate=calibrate, seed=seed, top_k=top_k,
+              prompt_len=max(prompt_lens), prefix_cache=prefix_cache,
+              num_slabs=num_slabs, spec_k=spec_k, drafter=drafter,
+              ragged=ragged, trace=trace, trace_capacity=trace_capacity,
+              metrics_path=metrics_path, profile_dir=profile_dir,
+              record=record, virtual_dt=virtual_dt, slo=slo, params=params,
+              graphs=graphs)
+    if mesh is not None:
+        return serve_engine_rank(mesh, **kw)
+    if mesh_shape is None:
+        return serve_engine_rank(None, device=device, **kw)
+    if graphs:
+        raise ValueError("a mesh runs its engine steps eagerly: its "
+                         "collectives cannot be captured (graphs=False)")
+    ranks = _on_ranks(serve_engine_rank, mesh_shape, device, dist_backend,
+                      kw)
+    return dict(ranks[0], requests=requests, mesh=mesh_shape, ranks=ranks)
+
+
+def serve_engine_rank(mesh, *, cfg, requests, n_slots, block_size, chunk,
+                      max_model_len, num_blocks, mode, calibrate, seed,
+                      top_k, prompt_len, prefix_cache, num_slabs, spec_k,
+                      drafter, ragged, trace, trace_capacity, metrics_path,
+                      profile_dir, record, virtual_dt, slo, params, graphs,
+                      device=None) -> dict:
+    """:func:`serve_engine`'s body on one process: the whole model
+    (``mesh`` None), or one rank of a mesh: the rank worker, whose
+    keywords are those :func:`serve_engine` resolves."""
+    import torch
+    from repro_torch.core.device import resolve_device
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_params,
+                                         quantize_weight_tree)
+    from repro_torch.data import SyntheticLMStream
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model as M
+    from repro_torch.serving.engine import ServingEngine
+    dev = resolve_device(device if mesh is None else mesh.device)
     recurrent = cfg.family in ("ssm", "hybrid")
     if params is None:
         params = M.init_params(cfg, seed, device=dev)
+    elif mesh is not None:
+        params = _to_device(params, dev)
     ctx = QuantContext(mode=QuantMode(mode))
     if calibrate and mode in ("fake", "int"):
-        stream = SyntheticLMStream(cfg.vocab_size, max(prompt_lens), 4,
-                                   seed=seed)
+        stream = SyntheticLMStream(cfg.vocab_size, prompt_len, 4, seed=seed)
         tokens = torch.from_numpy(stream.batch(0)["tokens"]).to(dev)
-        ctx, _ = _calibrated(cfg, params, mode, {"tokens": tokens})
+        ctx, _, _ = _rank_calibrated(cfg, params, mode, {"tokens": tokens},
+                                     mesh)
     quantized = None
     if cfg.matmul_kernel == "int8":
         if ctx.mode is not QuantMode.INT:
@@ -334,15 +564,17 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
         # conv taps) are float operands outside any unified module
         params = quantize_weight_tree(
             params, ctx, name_fn=M.qlinear_weight if recurrent else None)
-    if requests is None:
-        requests = poisson_workload(
-            cfg.vocab_size, n_requests=n_requests, rate=rate,
-            prompt_lens=prompt_lens, gen_lens=gen_lens,
-            temperature=temperature, seed=seed,
-            shared_prefix=shared_prefix)
+    if mesh is not None:
+        # quantized whole, then cut: the codes cut as their floats do
+        params = shd.shard_params(params, mesh, mesh.coords, cfg=cfg)
+        if quantized is not None:
+            quantized = dataclasses.replace(quantized, tree=None)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
     if max_model_len is None:
         need = max(len(r.prompt) + r.max_new_tokens for r in requests)
         max_model_len = -(-need // block_size) * block_size
+    lead = mesh is None or mesh.rank == 0      # reports and exports
     engine = ServingEngine(cfg, params, ctx, n_slots=n_slots,
                            block_size=block_size, chunk=chunk,
                            max_model_len=max_model_len,
@@ -351,26 +583,29 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                            prefix_cache=prefix_cache, spec_k=spec_k,
                            drafter=drafter, ragged=ragged,
                            trace=bool(trace), trace_capacity=trace_capacity,
-                           profile_dir=profile_dir, record=bool(record),
-                           virtual_dt=virtual_dt, slo=slo, graphs=graphs,
-                           device=dev)
+                           profile_dir=profile_dir if lead else None,
+                           record=bool(record), virtual_dt=virtual_dt,
+                           slo=slo, graphs=graphs, device=dev, mesh=mesh)
+    start = _launch_counts()
     with torch.no_grad(), engine.profiler.capture():
         report = engine.run(requests)
-    if profile_dir is not None:
+    launches = _launches_since(start)
+    if profile_dir is not None and lead:
         report = engine.report()        # names the exported trace file
-    if isinstance(trace, str) and trace:
+    if isinstance(trace, str) and trace and lead:
         engine.tracer.export(trace)
-    if metrics_path is not None:
+    if metrics_path is not None and lead:
         with open(metrics_path, "w") as fh:
             fh.write(engine.metrics.to_prometheus())
     rec = None
     if record:
         rec = engine.workload_record(requests)
-        if isinstance(record, str):
+        if isinstance(record, str) and lead:
             rec.save(record)
     return {"report": report, "outputs": engine.outputs(),
-            "requests": requests, "engine": engine, "quantized": quantized,
-            "ctx": ctx, "record": rec}
+            "requests": requests, "quantized": quantized, "ctx": ctx,
+            "record": rec, "launches": launches,
+            "engine": engine if mesh is None else None}
 
 
 def main(argv=None):
@@ -457,6 +692,14 @@ def main(argv=None):
     ap.add_argument("--slo", action="store_true",
                     help="[--engine] attach the stock SLO objectives with "
                          "burn-rate alerting")
+    ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
+                    help="serve on a (data, model) mesh of ranks, e.g. "
+                         "'1x2': heads, MLP hidden and vocab cut over "
+                         "model, the classic batch over data")
+    ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
+                    help="[--mesh] the ranks' torch.distributed backend "
+                         "(default nccl on the card, gloo on the CPU; ranks "
+                         "sharing one card take gloo)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the plain "
@@ -468,8 +711,21 @@ def main(argv=None):
     # tri-state: None lets the engine decide
     prefix_cache = (True if args.prefix_cache
                     else False if args.no_prefix_cache else None)
+    if args.mesh is not None and (args.replay or args.slo):
+        ap.error("--replay and --slo read the engine in this process; run "
+                 "them without --mesh")
     if args.replay:
         raise SystemExit(_replay(args))
+    from repro_torch.launch.mesh import parse_mesh
+    try:
+        mesh_shape = None if args.mesh is None else parse_mesh(args.mesh)
+    except ValueError as e:
+        ap.error(str(e))
+    mesh_kw = dict(mesh_shape=mesh_shape, dist_backend=args.dist_backend)
+    if mesh_shape is not None and not args.no_graphs:
+        args.no_graphs = True           # a mesh's steps run eagerly
+    # under torchrun every rank runs main; rank 0 prints
+    quiet = int(os.environ.get("RANK", "0")) != 0
     if args.engine:
         try:
             out = serve_engine(
@@ -489,9 +745,11 @@ def main(argv=None):
                 record=args.record or False,
                 slo=True if args.slo else None,
                 graphs=False if args.no_graphs else None,
-                device=args.device)
+                device=args.device, **mesh_kw)
         except ValueError as e:
             ap.exit(2, f"error: {e}\n")
+        if quiet:
+            return
         print(json.dumps(out["report"], indent=2))
         _print_obs(args, out)
         if out["quantized"] is not None:
@@ -517,7 +775,14 @@ def main(argv=None):
                 calibrate=not args.no_calibrate, smoke=not args.full,
                 seed=args.seed, attn_kernel=args.attn_kernel,
                 graphs=False if args.no_graphs else None,
-                device=args.device)
+                device=args.device, **mesh_kw)
+    if quiet:
+        return
+    if mesh_shape is not None:
+        same = all(np.array_equal(r["tokens"], out["tokens"])
+                   for r in out["ranks"])
+        print(f"mesh {args.mesh}: {len(out['ranks'])} rank(s) in this "
+              f"process's view, tokens identical across them: {same}")
     print(f"generated {out['tokens'].shape} tokens | first calls "
           f"{out['compile_prefill_s']:.2f}s+{out['compile_decode_s']:.2f}s | "
           f"prefill {out['prefill_s']:.2f}s | "

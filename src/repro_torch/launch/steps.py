@@ -12,11 +12,19 @@ step once per shape, the port captures each step's whole device program
 pool or cache writes) as one CUDA graph per step key and replays it:
 :class:`StepGraphs`, which the engine and the classic path's decode loop
 (:func:`run_serve_step`) share.
+
+On a (data, model) mesh (``launch.mesh``) each rank builds the same steps
+with ``mesh=``: the step body runs in the mesh's scope
+(``distributed.sharding.activation_sharding``) on the rank's slices,
+after the build-time refusals of :func:`_resolve_attn_kernel`.  Such
+steps run eagerly: the ranks' collectives are not captured in a CUDA
+graph (:class:`StepGraphs` refuses).
 """
 from __future__ import annotations
 
 import contextlib
 import gc
+import math
 from typing import Callable, Hashable, Optional
 
 import numpy as np
@@ -25,6 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
 from repro_torch.core.tree import leaves, unflatten
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.models.attention import KVCache
@@ -138,62 +147,123 @@ def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:
             f"builds one); got mode={ctx.mode.value!r}")
 
 
+def _mesh_size(mesh) -> int:
+    return 1 if mesh is None else math.prod(mesh.shape.values())
+
+
+def _resolve_attn_kernel(cfg: ModelConfig, mesh=None) -> ModelConfig:
+    """The step's config, checked against ``mesh``.  On a mesh of more
+    than one rank the attention heads are cut over ``cfg.attn_shard_axis``
+    (whole GQA groups, the KV heads and their cache or pool with them), so
+    the builder refuses, as
+    the reference's does: a shard axis other than ``model`` (the rules
+    and the model code are wired to it), and an axis that does not divide
+    the KV head count (``n_heads`` for MLA, whose kernels run with as many
+    KV heads as query heads).  The reference refuses for its flash kernels
+    only, its chunked path falling back to a sequence-cut cache; every
+    attention of the port cuts heads, so it refuses for either kernel (the
+    sequence cut is ROADMAP Queue 1 item 8's).  Then the family's and the
+    layout's refusals (``distributed.sharding.local_config``)."""
+    if _mesh_size(mesh) > 1:
+        if cfg.attn_shard_axis != "model":
+            raise NotImplementedError(
+                f"attn_shard_axis='{cfg.attn_shard_axis}' is not wired "
+                f"through the cache / activation sharding rules; only "
+                f"'model' is supported on a mesh of more than one rank")
+        tp = kops.attn_shard_size(mesh)
+        kvh = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
+        if kvh % tp:
+            raise NotImplementedError(
+                f"attention shards KV heads over mesh axis "
+                f"'{cfg.attn_shard_axis}' (size {tp}), which must divide "
+                f"the KV head count ({kvh}"
+                + (", = n_heads for MLA" if cfg.mla is not None else
+                   " = n_kv_heads")
+                + f"); pick a mesh whose '{cfg.attn_shard_axis}' axis "
+                f"divides it (the sequence-cut decode is ROADMAP Queue 1 "
+                f"item 8's)")
+        shd.local_config(cfg, mesh)
+    return cfg
+
+
+def _mesh_scope(mesh, batch_split: bool = False):
+    """The mesh's scope for a step body (a null context without one)."""
+    return (shd.activation_sharding(mesh, batch_split=batch_split)
+            if mesh is not None else contextlib.nullcontext())
+
+
 def build_prefill_step(cfg: ModelConfig, ctx: QuantContext,
-                       max_seq: Optional[int] = None):
+                       max_seq: Optional[int] = None, *, mesh=None,
+                       batch_split: bool = False):
     """``prefill_step(params, batch) -> (last logits (B, V), cache)`` with
-    a cache of ``max_seq`` positions."""
+    a cache of ``max_seq`` positions.  On ``mesh``: this rank's params and
+    batch rows (``batch_split``: the data axis cuts the batch), its cache
+    of its KV heads, every rank's logits."""
+    cfg = _resolve_attn_kernel(cfg, mesh)
     check_matmul_kernel(cfg, ctx)
 
     def prefill_step(params, batch):
-        return M.prefill(params, batch, cfg, ctx, max_seq=max_seq)
+        with _mesh_scope(mesh, batch_split):
+            return M.prefill(params, batch, cfg, ctx, max_seq=max_seq)
 
     return prefill_step
 
 
-def build_serve_step(cfg: ModelConfig, ctx: QuantContext):
+def build_serve_step(cfg: ModelConfig, ctx: QuantContext, *, mesh=None,
+                     batch_split: bool = False):
     """One batched greedy decode step: ``serve_step(params, tokens (B, 1),
     cache, pos) -> (next tokens (B, 1) int32, cache)``, ``pos`` a host int
     or a 0-d integer tensor on the device (the form a captured step takes,
     :func:`run_serve_step`); ties take the first index, as ``jnp.argmax``
-    does."""
+    does.  ``mesh`` as :func:`build_prefill_step`'s."""
+    cfg = _resolve_attn_kernel(cfg, mesh)
     check_matmul_kernel(cfg, ctx)
 
     def serve_step(params, tokens, cache, pos):
-        logits, cache = M.decode_step(params, tokens, cache, pos, cfg, ctx)
+        with _mesh_scope(mesh, batch_split):
+            logits, cache = M.decode_step(params, tokens, cache, pos, cfg,
+                                          ctx)
         return torch.argmax(logits, dim=-1).to(torch.int32)[:, None], cache
 
     return serve_step
 
 
-def build_paged_step(cfg: ModelConfig, ctx: QuantContext):
+def build_paged_step(cfg: ModelConfig, ctx: QuantContext, *, mesh=None):
     """One step of the legacy per-shape engine over the paged KV block
     pool: ``paged_step(params, tokens (B, C), cache, positions (B, C),
     block_tables (B, W), work=None) -> (logits (B, C, V), cache)``, with
     ``work`` K4's work list for the positions (planned once per step).
     The same step serves the decode (n_slots, 1), prefill-chunk (1, C)
-    and verify (n_slots, K + 1) shapes."""
+    and verify (n_slots, K + 1) shapes.  On ``mesh``: this rank's params
+    and pool (its KV heads), every rank's tokens, positions and tables,
+    every rank's logits."""
+    cfg = _resolve_attn_kernel(cfg, mesh)
     check_matmul_kernel(cfg, ctx)
 
     def paged_step(params, tokens, cache, positions, block_tables,
                    work=None):
-        return M.paged_step(params, tokens, cache, positions, block_tables,
-                            cfg, ctx, work=work)
+        with _mesh_scope(mesh):
+            return M.paged_step(params, tokens, cache, positions,
+                                block_tables, cfg, ctx, work=work)
 
     return paged_step
 
 
-def build_ragged_step(cfg: ModelConfig, ctx: QuantContext):
+def build_ragged_step(cfg: ModelConfig, ctx: QuantContext, *, mesh=None):
     """One UNIFIED serving step over the flattened mixed stream:
     ``ragged_step(params, tokens (T,), cache, positions (T,), ragged
     RaggedBatch) -> (logits (T, V), cache)``, the pool updated in place.
     The engine captures it, with its sampling, once per (T_pad, S_pad)
     and sampling key (:class:`StepGraphs`), as the JAX engine's jit
-    specializes per (T_pad, S_pad) only."""
+    specializes per (T_pad, S_pad) only.  ``mesh`` as
+    :func:`build_paged_step`'s."""
+    cfg = _resolve_attn_kernel(cfg, mesh)
     check_matmul_kernel(cfg, ctx)
 
     def ragged_step(params, tokens, cache, positions, ragged):
-        return M.ragged_step(params, tokens, cache, positions, ragged, cfg,
-                             ctx)
+        with _mesh_scope(mesh):
+            return M.ragged_step(params, tokens, cache, positions, ragged,
+                                 cfg, ctx)
 
     return ragged_step
 
@@ -342,10 +412,17 @@ class StepGraphs:
     only on the key and the arrays' shapes (the padded work lists of
     ``kernels.ragged_flash.pad_work``).  ``graph_factory(generator, pool,
     stream)`` makes a graph object with ``capture(fn)``, ``replay()`` and
-    ``output`` (the tests pass a stand-in); its default is a CUDA graph."""
+    ``output`` (the tests pass a stand-in); its default is a CUDA graph.
+    ``mesh``: the rank's mesh, if any; one of more than one rank refuses
+    ``capture`` (its gloo collectives cannot be captured)."""
 
     def __init__(self, device, generator: Optional[torch.Generator] = None,
-                 *, capture: bool, graph_factory=None):
+                 *, capture: bool, graph_factory=None, mesh=None):
+        if capture and _mesh_size(mesh) > 1:
+            raise ValueError(
+                "a mesh of more than one rank runs its steps eagerly: its "
+                "collectives (gloo through the host) cannot be captured in "
+                "a CUDA graph (graphs=False)")
         self.device = torch.device(device)
         self.generator = generator
         self.capture = capture

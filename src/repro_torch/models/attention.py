@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core.qmodel import QuantContext
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ragged_flash import RaggedWork
@@ -220,12 +221,13 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
             k_rows.index_copy_(0, index, kk)
             v_rows.index_copy_(0, index, vv)
 
+    mesh = shd.current_mesh()
     if ragged is not None:
         write_rows(ragged.dest)
         out = kops.ragged_attention(
             q, cache.k, cache.v, ragged.block_tables, ragged.q_start,
             ragged.q_len, ragged.kv_len, kv_frac_bits=kv_frac_bits,
-            work=ragged.work)
+            work=ragged.work, mesh=mesh)
     elif isinstance(cache, PagedKVCache):
         if block_tables is None or cache_pos is None:
             raise ValueError("the paged path takes block_tables and (B, S) "
@@ -236,7 +238,7 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
         write_rows((blk * bs_blk + pos % bs_blk).reshape(-1))    # (B*S,)
         out = kops.paged_attention(q, cache.k, cache.v, block_tables,
                                    cache_pos, kv_frac_bits=kv_frac_bits,
-                                   work=paged_work)
+                                   work=paged_work, mesh=mesh)
     else:
         flash = cfg.attn_kernel == "flash"
         if cfg.attn_kernel not in ("flash", "chunked"):
@@ -257,7 +259,13 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                 write_rows((torch.arange(bsz, device=x.device)[:, None]
                             * cache.k.shape[1] + rows).reshape(-1))
             k, v = cache.k, cache.v
-        decode = kops.flash_decode if flash else kref.flash_decode_ref
+        # the kernels take the mesh (this rank's heads; K6 plans its
+        # splits for the whole mesh's); their plain versions need nothing
+        on_mesh = dict(mesh=mesh) if flash else {}
+        decode = functools.partial(
+            kops.flash_decode, **on_mesh,
+            batch_shards=shd.batch_shards()) if flash \
+            else kref.flash_decode_ref
         if cache is not None and s == 1:
             out = decode(q, k, v, pos=cache_pos, kv_frac_bits=kv_frac_bits)
         elif kv_x is not None and s == 1:
@@ -271,9 +279,10 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
             prefill = kops.flash_attention if flash \
                 else kref.flash_attention_ref
             out = prefill(q, k, v, kv_frac_bits=kv_frac_bits,
-                          causal=causal and kv_x is None)
-    return (linear(ctx, f"{name}/wo", out.reshape(*lead, h * hd), p["wo"]),
-            cache)
+                          causal=causal and kv_x is None, **on_mesh)
+    # wo is row-cut on a mesh: its ranks' partial products are summed
+    return (linear(ctx, f"{name}/wo", out.reshape(*lead, h * hd), p["wo"],
+                   reduce=True), cache)
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,11 @@ reductions and transcendentals run in float64 before that single fp32
 rounding, so the CPU and CUDA paths round to the same fp32 values and
 quantize to the same codes.  The reference's own fp32 values differ from
 these in the last bit now and then (see ``inv_rms``).
+
+On a tensor-parallel mesh the embedding table (and a tied head with it)
+is cut by vocab rows over the model axis: :func:`embed` looks up the
+rows this rank holds and sums the ranks' masked lookups, and
+:func:`unembed` gathers the ranks' vocab columns of the logits.
 """
 from __future__ import annotations
 
@@ -18,6 +23,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.qmodel import QuantContext, qlinear, qlinears
+from repro_torch.distributed import sharding as shd
 
 __all__ = ["inv_rms", "rmsnorm", "rope_freqs", "rope_tables", "rotate", "apply_rope",
            "linear", "linears", "embed", "unembed", "Initializer"]
@@ -93,9 +99,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Unified-module linear — alias keeping model code terse."""
-    return qlinear(ctx, name, x, w, b)
+           b: Optional[torch.Tensor] = None, *,
+           reduce: bool = False) -> torch.Tensor:
+    """Unified-module linear — alias keeping model code terse
+    (``reduce``: a row-cut module, ``qlinear``'s)."""
+    return qlinear(ctx, name, x, w, b, reduce=reduce)
 
 
 def linears(ctx: QuantContext, names, x: torch.Tensor, ws,
@@ -107,13 +115,33 @@ def linears(ctx: QuantContext, names, x: torch.Tensor, ws,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor,
           dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    return table[tokens.long()].to(dtype)
+    """The tokens' rows of ``table`` in ``dtype``.  On a tensor-parallel
+    mesh ``table`` is this rank's block of vocab rows: each rank looks up
+    the tokens it holds, zeros elsewhere, and the ranks' lookups are summed
+    as integers over the values' bit patterns (one rank holds each row, so
+    the sum is its bits exactly; a float sum would turn a -0.0 into
+    +0.0)."""
+    mesh = shd.tp_mesh()
+    if mesh is None:
+        return table[tokens.long()].to(dtype)
+    rows = table.shape[0]
+    local = tokens.long() - mesh.coords["model"] * rows
+    mine = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(dtype)
+    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
+                                                   device=x.device))
+    bits = x.contiguous().view(torch.int32)   # d even for 16-bit dtypes
+    return mesh.all_reduce(bits, "model").view(dtype)
 
 
 def unembed(ctx: QuantContext, x: torch.Tensor,
             table: torch.Tensor) -> torch.Tensor:
-    """LM head; logits stay in the activation dtype."""
-    return qlinear(ctx, "lm_head", x, table)
+    """LM head; logits stay in the activation dtype.  On a tensor-parallel
+    mesh ``table`` is this rank's vocab columns, and the ranks' logits are
+    gathered along the vocab (each column's value is one rank's, exact)."""
+    logits = qlinear(ctx, "lm_head", x, table)
+    mesh = shd.tp_mesh()
+    return logits if mesh is None else mesh.all_gather(logits, "model", -1)
 
 
 class Initializer:
@@ -146,6 +174,8 @@ class Initializer:
         (deepseek-v3's are 3.76 G elements)."""
         fan = fan_in if fan_in is not None else shape[0]
         w = torch.empty(shape, dtype=self.dtype, device=self.device)
+        if w.device.type == "meta":         # shapes only: nothing to draw
+            return w
         for i in range(shape[0]):
             w[i] = self.dense(tuple(shape[1:]), fan_in=fan)
         return w

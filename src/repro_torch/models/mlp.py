@@ -82,7 +82,8 @@ def mlp(ctx: QuantContext, p: dict, x: torch.Tensor, act: str = "silu",
         h = _act(g, act) * u   # unified-module boundary: ONE quant point after product
     else:
         h = _act(linear(ctx, f"{name}/w1", x, p["w1"]), act)
-    return linear(ctx, f"{name}/w2", h, p["w2"])
+    # w2 is row-cut on a mesh: its ranks' partial products are summed
+    return linear(ctx, f"{name}/w2", h, p["w2"], reduce=True)
 
 
 # ---------------------------------------------------------------------------

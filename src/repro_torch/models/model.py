@@ -38,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.core.qscheme import round_half_away
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import attention as att
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -68,6 +69,7 @@ def _check_family(cfg: ModelConfig, what: str,
                   families: tuple = _DENSE + (_MOE, _AUDIO) + _RECURRENT
                   ) -> None:
     if cfg.family in families:
+        shd.local_config(cfg, shd.current_mesh())   # the mesh's refusals
         return
     if cfg.family in (_MOE, _AUDIO):
         raise NotImplementedError(
@@ -87,6 +89,14 @@ def _check_family(cfg: ModelConfig, what: str,
     raise NotImplementedError(
         f"{what} covers the dense GQA (dense, vlm), moe, audio, ssm and "
         f"hybrid families; got family={cfg.family!r}")
+
+
+def _rank_view(cfg: ModelConfig, mesh=None) -> ModelConfig:
+    """``cfg`` as one rank of the mesh (``mesh``, default the scope's)
+    sees it: heads, KV heads and d_ff divided by the model axis
+    (``distributed.sharding.local_config``); ``cfg`` itself off a mesh."""
+    return shd.local_config(cfg, shd.current_mesh() if mesh is None
+                            else mesh)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -191,7 +201,7 @@ def qlinear_weight(path: str, leaf, cfg: Optional[ModelConfig] = None
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
-               device: Device = None) -> dict:
+               device: Device = None, mesh=None) -> dict:
     """Cache of the classic serving path, zeros.  Dense: one dense KV pair
     ``kv`` (L, B, S_max, KVH, D), int8 Eq.-1 codes when
     ``cfg.kv_cache_bits == 8``.  MoE: ``kv`` for the MoE layers and
@@ -206,8 +216,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     pair ``kv`` (G, B, S_max, KVH, D).  Audio: the decoder's dense KV pair
     ``kv`` and ``memory``, the encoder's output (B, S_enc, d) in the model
     dtype, which prefill writes in place.  The reference's dtypes,
-    component by component."""
+    component by component.  On a tensor-parallel mesh (``mesh``, default
+    the scope's) the KV pairs hold this rank's KV heads, (L, B, S_max,
+    KVH / M, D), ``batch`` being this rank's rows."""
     _check_family(cfg, "init_cache")
+    cfg = _rank_view(cfg, mesh)
     dev = resolve_device(device)
     dt = model_dtype(cfg)
 
@@ -443,8 +456,14 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     ``remat`` (training, without a cache) sets what each block keeps for
     the backward, as the reference's: everything (False), nothing, the
     block recomputed (True / 'full'), or its 2-D products ('dots'); no
-    value changes.  The hybrid family takes none."""
+    value changes.  The hybrid family takes none.
+
+    Under a tensor-parallel scope (``distributed.sharding.
+    activation_sharding``; the dense families) ``params`` and ``cache``
+    are one rank's slices and the blocks run on the rank's view of
+    ``cfg``; the logits are every rank's, whole."""
     _check_family(cfg, "forward")
+    cfg = _rank_view(cfg)
     if remat and (cache is not None or cfg.family == "hybrid"):
         raise NotImplementedError(
             "remat applies to a forward without a cache, on the dense, "
@@ -537,6 +556,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
     tensors as given (a captured step's static memory is the cache
     prefill allocated)."""
     _check_family(cfg, "decode_step")
+    cfg = _rank_view(cfg)
     b = tokens.shape[0]
     dev = tokens.device
     x = embed(params["embed"], tokens, model_dtype(cfg))
@@ -563,12 +583,16 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
 
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int, *,
-                     device: Device = None) -> dict:
+                     device: Device = None, mesh=None) -> dict:
     """KV BLOCK POOL for the serving engine: one (L, NB, BS, KVH, D) arena
     shared by every in-flight request (int8 Eq.-1 codes when
     ``cfg.kv_cache_bits == 8``).  Block 0 is the trash block, so
-    ``num_blocks`` must be >= 2."""
+    ``num_blocks`` must be >= 2.  On a tensor-parallel mesh (``mesh``,
+    default the scope's) it holds this rank's KV heads, (L, NB, BS,
+    KVH / M, D): a sequence's blocks sit at the same indices in every
+    rank's pool, so the block tables are every rank's."""
     _check_family(cfg, "paged serving", _DENSE)
+    cfg = _rank_view(cfg, mesh)
     if num_blocks < 2:
         raise ValueError("pool needs >= 2 blocks (block 0 is the trash "
                          "block inactive slots write to)")
@@ -593,6 +617,7 @@ def ragged_step(params: dict, tokens: torch.Tensor, cache: dict,
     dtype, cache); the pool tensors are updated in place.  Padding rows
     produce logits that no descriptor samples."""
     _check_family(cfg, "ragged_step", _DENSE)
+    cfg = _rank_view(cfg)
     dt = model_dtype(cfg)
     x = embed(params["embed"], tokens, dt)
     # positions are the same in every layer: one rope table per step
@@ -621,6 +646,7 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     Returns (logits (B, C, V) in the activation dtype, cache); the pool
     tensors are updated in place."""
     _check_family(cfg, "paged_step", _DENSE)
+    cfg = _rank_view(cfg)
     dt = model_dtype(cfg)
     x = embed(params["embed"], tokens, dt)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)

@@ -62,6 +62,17 @@ and passes the reference's golden schema (``obs.schema``), plus the
 port's ``device`` and ``kernel_launches``.  None of it changes a token,
 a launch or a scheduling decision.
 
+On a (data, model) mesh (``mesh``: the rank's ``launch.mesh.RankMesh``)
+every rank runs this engine: the same scheduler, pool tables and prefix
+cache over the same requests, its own slices of the weights and its own
+pool of its KV heads (``models.model.init_paged_cache``), the logits
+gathered whole on every rank, and a sampling generator seeded alike;
+rank 0's clock says which arrivals join before each step (the other
+ranks take its word), so every rank makes the same decisions and samples
+the same tokens; the data ranks are replicas of one schedule (the
+reference's ragged step has no batch axis to cut).  Its steps run eagerly (``StepGraphs`` refuses to
+capture the collectives).
+
 Not ported yet, and raising ``NotImplementedError``: ``profile_cost``
 (XLA's cost analysis).
 """
@@ -77,6 +88,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import hwcost
 from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels.flash_attention import (paged_capacity,
                                                  plan_paged_work)
@@ -173,7 +185,8 @@ class ServingEngine:
                  profile_dir: Optional[str] = None,
                  profile_cost: bool = False,
                  record: bool = False, virtual_dt: float = 1e-3,
-                 slo=None, graphs: Optional[bool] = None, device=None):
+                 slo=None, graphs: Optional[bool] = None, device=None,
+                 mesh=None):
         # substrate routing: the config's layer mix decides which pools
         # back the sequences — growing block tables (attention), one fixed
         # state slab (recurrent), or both (hybrid)
@@ -195,7 +208,9 @@ class ServingEngine:
         if virtual_dt <= 0.0:
             raise ValueError(f"virtual_dt must be > 0, got {virtual_dt}")
         check_matmul_kernel(cfg, ctx)
+        shd.local_config(cfg, mesh)         # the mesh's refusals
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.cfg = cfg
         self.params = params
         self.ctx = ctx
@@ -274,7 +289,7 @@ class ServingEngine:
         self.energy = EnergyAccount("bit_shifting")
         if sub.kind == "attention":
             self.cache = M.init_paged_cache(cfg, num_blocks, block_size,
-                                            device=self.device)
+                                            device=self.device, mesh=mesh)
         else:                   # slabs (+ the hybrid's shared-block pool)
             self.cache = M.init_paged_state(
                 cfg, self.state_pool.num_slabs,
@@ -289,16 +304,20 @@ class ServingEngine:
         self.drafter = resolve_drafter(drafter)
         self.ragged = ragged
         if sub.kind == "attention":
-            self._paged_fn = build_paged_step(cfg, ctx)
-            self._ragged_fn = build_ragged_step(cfg, ctx)
+            self._paged_fn = build_paged_step(cfg, ctx, mesh=mesh)
+            self._ragged_fn = build_ragged_step(cfg, ctx, mesh=mesh)
         else:
             self._rec_fn = build_recurrent_step(cfg, ctx)
         self._groups = cfg.n_heads // cfg.n_kv_heads
-        # the compiled step: on by default on a CUDA device
+        # the compiled step: on by default on a CUDA device, off a mesh
         if graphs is None:
-            graphs = self.device.type == "cuda"
+            graphs = self.device.type == "cuda" and (
+                mesh is None or mesh.size == 1)
+        # (StepGraphs refuses to capture on a mesh; off one it is built
+        # as stand-ins of it are, without the keyword)
         self.graphs = StepGraphs(self.device, self.generator,
-                                 capture=bool(graphs))
+                                 capture=bool(graphs),
+                                 **({} if mesh is None else {"mesh": mesh}))
         budget = self.sched.prefill_token_budget
         # worst-case stream: the full prefill budget plus every slot
         # verifying a K-token tail
@@ -443,7 +462,11 @@ class ServingEngine:
         """Serve ``requests`` (arrival-stamped) to completion; idle gaps
         between arrivals are fast-forwarded on the engine clock.  Under
         ``record=True`` the loop runs on the virtual clock instead
-        (``virtual_dt`` a step), so the run is exactly replayable."""
+        (``virtual_dt`` a step), so the run is exactly replayable.  On a
+        mesh of more than one rank, rank 0's clock decides which arrivals
+        join before each step and every rank admits those
+        (:meth:`_agreed`): the ranks' clocks differ, their schedules must
+        not."""
         pending = sorted(requests, key=lambda r: (r.arrival, r.rid))
         start = dict(kops.LAUNCHES)
         if self.record:
@@ -455,13 +478,25 @@ class ServingEngine:
                 if self.sched.idle and pending and pending[0].arrival > now:
                     self._skip += pending[0].arrival - now
                     now = self._now()
-                while pending and pending[0].arrival <= now:
-                    self.submit(pending.pop(0))
+                n = 0
+                while n < len(pending) and pending[n].arrival <= now:
+                    n += 1
+                n = self._agreed(n)
+                for req in pending[:n]:
+                    self.submit(req)
+                del pending[:n]
                 self.step()
             self._wall_s = self._now()
         for name in self.launches:
             self.launches[name] += kops.LAUNCHES[name] - start[name]
         return self.report()
+
+    def _agreed(self, n: int) -> int:
+        """Rank 0's ``n`` on every rank of a mesh of more than one (this
+        process's ``n`` off one)."""
+        if self.mesh is None or self.mesh.size == 1:
+            return n
+        return self.mesh.broadcast_object(n)
 
     def _run_virtual(self, pending: list[Request]) -> None:
         """The record-mode loop: as ``run``'s, but the clock advances
