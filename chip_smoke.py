@@ -291,7 +291,8 @@ the CUDA toolkit.  Phases, one line each (or a few):
     / bf16; the partial (beside ``torch._int_mm``), the finish and the
     single launch timed at M 24 beside their bounds; (b) two spawned
     ranks sharing the card over gloo (a (1, 2) mesh), qwen3-1.7B at full
-    width and depth, bf16: the ragged engine in FP, calibrated INT and
+    width on 14 of its 28 layers (``TP_LAYERS``; the script's time), bf16:
+    the ragged engine in FP, calibrated INT and
     W8A8 on phase 5's workload, the legacy engine in INT, classic
     ``serve`` with flash attention in FP and INT, each against the
     one-rank eager run here: the ranks token-identical, INT and W8A8
@@ -301,6 +302,28 @@ the CUDA toolkit.  Phases, one line each (or a few):
     the 2 ranks on one card (no speed-up: one card does both ranks'
     work, and every collective goes through the host); (c) a (1, 16)
     mesh on qwen3's 8 KV heads refused at build time.
+28. training over a (data, model) mesh (``launch.steps.jit_train_step``
+    on spawned ranks sharing the card over gloo, the cases of
+    ``tests/train_mesh_cases.py``): (a) llama3.2-1B at full width and
+    depth on a (1, 2) mesh, bf16, flash attention, 3 steps of 8 x 128
+    tokens: the ranks' metrics identical, each step's loss and grad_norm
+    against one rank's on the card (``TM_LOSS_REL`` / ``TM_GNORM_REL``
+    on the seeded params; the third step, after the second's update,
+    ``TM_UPDATED_LOSS_REL`` / ``TM_UPDATED_GNORM_REL``), K5 16 a step on
+    each rank and no other kernel; step time, tokens/s and peak memory a
+    rank; before them ``train(mesh_shape=(1, 2), dist_backend='gloo')``
+    of the smoke config with whole-tree checkpoints, whose first steps
+    the case runner's ranks repeat and, its last commit dropped, resume
+    (losses bit-identical until the first update, then within
+    ``TM_UPDATED_LOSS_REL``); (b) on the same ranks as a (2, 1) mesh,
+    with and without FSDP, the width cut to 2 layers (the gradients'
+    mean crosses the host), fp32, two steps each at a rate with no
+    warmup (the second step sees the first's update) against the CPU's
+    one rank under phase 26b's rules (loss and grad_norm within
+    ``TRAIN_LOSS_RTOL``, the first step's moments within
+    ``TRAIN_MOMENT_TOL`` of a leaf's largest); (c) one INT step on the (1, 2) mesh: the loss one rank's
+    bit for bit, grad_norm 0, the launches one rank's with each row-cut
+    module's K2 a partial and a finish.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -324,7 +347,8 @@ grouped form one granite-moe-3b decode step's 96 launches, from phase
 24; K5's non-causal form at whisper's encoder, from phase 25; K5's
 training launches and its recompute backward at the train shape, from
 phase 26; K2's rank-split form and every kernel's launches on each rank
-of phase 27's mesh), and
+of phase 27's mesh; K5's, K2's and K3's launches on each rank of phase
+28's training mesh), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -4114,8 +4138,11 @@ def _rec_extra_runs(torch, params, ref_outputs) -> dict:
 
 
 def phase_recurrent(torch, out):
+    t0 = time.perf_counter()
     phase_recurrent_model(torch, out)
-    return phase_recurrent_engine(torch, out)
+    res = phase_recurrent_engine(torch, out)
+    log(f"[20] recurrent phase {time.perf_counter() - t0:.1f} s")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -6847,6 +6874,12 @@ TP_RANKS, TP_ROWS, TP_TIMED_ROWS = (2, 4), (1, 4, 24, 256), 24
 TP_FP_REL = 5e-2
 # requests a second of 27b's wall-clock engine run on the mesh
 TP_PACED_RATE = 10.0
+# 27b's depth: half of qwen3-1.7B's 28 layers (full depth until the
+# script took phase 28).  On an H100 80GB HBM3 at 700 W phase 27 took 93.5
+# s at full depth and 48.4 s at half, and whole runs of the script spread
+# by over 100 s between calls: at full depth the slower calls would near
+# the 1000 s the script aims for
+TP_LAYERS = 14
 
 
 def _tp_k2(torch, res):
@@ -6993,7 +7026,8 @@ def _tp_want(cfg, kind, mode, rep) -> dict:
 
 def _tp_serving(torch, res):
     """27b: two ranks sharing the card over gloo, qwen3-1.7B at full width
-    and depth, bf16: the (1, 2) ragged engine in FP, calibrated INT and
+    on TP_LAYERS of its 28 layers, bf16: the (1, 2) ragged engine in FP,
+    calibrated INT and
     W8A8 on phase 5's workload, the legacy engine in INT, classic ``serve``
     with flash attention in FP and INT, each against the one-rank eager
     run of the same workload here."""
@@ -7004,10 +7038,12 @@ def _tp_serving(torch, res):
     sys.path.insert(0, str(ROOT / "tests"))
     import tp_cases
     import numpy as np
-    cfg = get_config("qwen3_1_7b")
-    eng = dict(smoke=False, kv_bits=8, n_requests=8, n_slots=4, rate=1e9)
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=TP_LAYERS)
+    cut = {"n_layers": TP_LAYERS}
+    eng = dict(smoke=False, kv_bits=8, n_requests=8, n_slots=4, rate=1e9,
+               cfg_overrides=cut)
     cls = dict(smoke=False, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-               gen=SERVE_GEN, attn_kernel="flash")
+               gen=SERVE_GEN, attn_kernel="flash", cfg_overrides=cut)
     cases = [("ragged fp", "serve_engine", dict(eng, mode="fp")),
              ("ragged int", "serve_engine",
               dict(eng, mode="int", calibrate=True)),
@@ -7017,7 +7053,7 @@ def _tp_serving(torch, res):
              ("classic fp", "serve", dict(cls, mode="fp", calibrate=False)),
              ("classic int", "serve",
               dict(cls, mode="int", calibrate=True,
-                   cfg_overrides={"kv_cache_bits": 8}))]
+                   cfg_overrides=dict(cut, kv_cache_bits=8)))]
     kinds = {"serve": "classic", "serve_engine": "engine"}
     ones = [_tp_one(tp_cases.run(kinds[fn], kw, device="cuda"), fn)
             for _, fn, kw in cases]
@@ -7031,7 +7067,8 @@ def _tp_serving(torch, res):
                                         for _, fn, kw in cases]
                               + [("engine", paced)]})
     mesh_s = time.perf_counter() - t0
-    log(f"[27b] one rank: {sum(o['wall_s'] for o in ones):.1f} s for the "
+    log(f"[27b] qwen3-1.7B at full width on {TP_LAYERS} of its 28 layers; "
+        f"one rank: {sum(o['wall_s'] for o in ones):.1f} s for the "
         f"{len(cases)} runs; the (1, 2) mesh's ranks: {mesh_s:.1f} s, "
         f"spawned, the weights built and cut on each, every run")
     runs = {}
@@ -7155,6 +7192,345 @@ def phase_tp(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 28: training over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# 28a: llama3.2-1B at full width and depth on a (1, 2) mesh, bf16, flash
+# attention, TM_STEPS steps of TM_B x TM_S tokens from weights and a
+# stream seeded TM_SEED, against one rank's on the card.  The rate is 0 at
+# the first step, so the first TM_FIXED steps run on the seeded params:
+# their loss within TM_LOSS_REL and grad_norm within TM_GNORM_REL (bf16:
+# the row-cut modules' partials summed in fp32 and rounded once, the
+# ranks' heads apart).  The steps after see the params an update moved:
+# loss within TM_UPDATED_LOSS_REL, grad_norm within TM_UPDATED_GNORM_REL.
+# The card's atomic adds (``index_add_`` in the vocab-cut embedding's
+# backward) reorder fp32 sums, and AdamW's first update, about lr
+# sign(g), moves a parameter whose gradient is near 0 by +lr on one run
+# and -lr on another (measured, a repeat of the same run: 4.9e-5 in the
+# loss at full size, 9.1e-6 on the smoke config; mesh against one rank:
+# 1.8e-5 in the loss, 1.0e-3 in grad_norm)
+TM_B, TM_S, TM_STEPS, TM_SEED, TM_FIXED = 8, 128, 3, 0, 2
+TM_LOSS_REL, TM_GNORM_REL = 5e-3, 2e-3
+TM_UPDATED_LOSS_REL, TM_UPDATED_GNORM_REL = 5e-4, 1e-2
+# 28a's ``train(mesh_shape=(1, 2))``: the smoke config (the call at full
+# size took 36.6 s and put phase 28 past its 150 s), TM_CKPT["steps"]
+# steps saved every ckpt_every; the (1, 2) case runner then repeats its
+# first TM_STEPS steps (the rates agree to there) and, with the last
+# commit dropped, resumes from the one before.  A repeat's losses are
+# bit-identical to the first run's before the first update, within
+# TM_UPDATED_LOSS_REL after it
+TM_CKPT = dict(steps=6, ckpt_every=3, batch=4, seq=32)
+# 28b: the 2-layer full-width model, fp32, two steps of the CPU's 26b
+# batch shape on a (2, 1) mesh, with and without FSDP, against the CPU's
+# one rank; the rate has no warmup, so the first step moves the params
+# and the second step's loss and grad_norm see where they went.  The
+# moments are held after the first step (its gradients, of the seeded
+# params): after an update the two devices' params part by +-lr where a
+# gradient is near 0, and the next gradients follow them (7.8e-4 of a
+# leaf's largest after the second step, against 26b's 1e-4)
+TM_DATA_LAYERS, TM_DATA_STEPS = 2, 2
+
+
+def _tm_case(**kw):
+    return dict(kind="train", arch="llama3_2_1b", smoke=False, **kw)
+
+
+def _tm_repeat_gap(got: list, want: list, exact: int) -> float:
+    """The largest relative gap of a repeat's losses ``got`` from the
+    first run's ``want`` past their first ``exact`` steps, which must be
+    bit-identical (inf when they are not, or the lengths differ)."""
+    if len(got) != len(want) or got[:exact] != want[:exact]:
+        return math.inf
+    return max([abs(a - b) / abs(b) for a, b in
+                zip(got[exact:], want[exact:])] + [0.0])
+
+
+def _tm_launches_want(one: dict, layers: int) -> dict:
+    """One rank of a (1, 2) mesh in an INT step: the one rank's launches,
+    but a row-cut module (wo, w2) is K2's rank-split form, a partial and
+    a finish where one rank launches K2 once."""
+    want = dict(one)
+    want["int8_matmul"] = one["int8_matmul"] + 2 * layers
+    want["int8_matmul_partial"] = 2 * layers
+    want["int8_matmul_finish"] = 2 * layers
+    return want
+
+
+def _tm_data_case() -> dict:
+    """28b's case: the 2-layer full-width model in fp32, TM_DATA_STEPS
+    steps at a rate with no warmup, on the (2, 1) mesh over the ranks."""
+    return _tm_case(cfg={"n_layers": TM_DATA_LAYERS, "dtype": "float32",
+                         "attn_kernel": "flash"},
+                    batch=TRAIN_CPU_BATCH, seq=TRAIN_CPU_SEQ,
+                    steps=TM_DATA_STEPS, warmup=0, keep="rank 0",
+                    keep_after=1, params_back=False, model_axis=1)
+
+
+def _tm_full(torch, res):
+    """28a + 28c: two ranks sharing the card over gloo, llama3.2-1B at
+    full width and depth, a (1, 2) mesh: TM_STEPS bf16 train steps (K5 the
+    attention forward), then one INT step (K2's rank-split form), each
+    against one rank's here; before them ``train(mesh_shape=(1, 2))`` of
+    the smoke config with checkpoints, which the same ranks repeat and
+    resume.  The same ranks then run 28b's cases on a (2, 1) mesh, while
+    its CPU reference runs here (``res["data_runs"]``)."""
+    import concurrent.futures
+    import shutil
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.launch import train as T
+    from repro_torch.launch.mesh import run_ranks
+    from repro_torch.models import model as M
+    sys.path.insert(0, str(ROOT / "tests"))
+    import train_mesh_cases as tmc
+    L = get_config("llama3_2_1b").n_layers
+    base = dict(cfg={"attn_kernel": "flash"}, batch=TM_B, seq=TM_S,
+                keep=False, seed=TM_SEED, data_seed=TM_SEED)
+    fp, int_ = _tm_case(steps=TM_STEPS, timed_step=True, **base), \
+        _tm_case(steps=1, mode="int", **base)
+    ones = {}
+    # one rank: every step compared, the warm ones timed
+    for tag, case in (("fp", fp), ("int", int_)):
+        torch.cuda.reset_peak_memory_stats()
+        ones[tag] = tmc.run(case, device="cuda")
+        ones[tag]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+    # 28b's CPU reference runs here beside the ranks, from the weights
+    # they build on the card (a device's generator draws its own numbers)
+    data = _tm_data_case()
+    w = tree_map(lambda t: t.cpu(), M.init_params(tmc.config(data), 0,
+                                                   device="cuda"))
+    torch.cuda.empty_cache()
+    # train() itself: its spawn, each rank's whole seeded weights on the
+    # card, the mesh's loader, whole-tree checkpoints (rank 0 writing)
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    smoke = dict(kind="train", batch=TM_CKPT["batch"], seq=TM_CKPT["seq"],
+                 steps=TM_STEPS, seed=TM_SEED, data_seed=TM_SEED,
+                 keep=False)
+    try:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(tmc.run, dict(data, params=w), device="cpu")
+            t0 = time.perf_counter()
+            tr = T.train("llama3_2_1b", TM_CKPT["steps"], seed=TM_SEED,
+                         ckpt_dir=ckpt_dir, log_every=TM_CKPT["steps"],
+                         device="cuda", mesh_shape=(1, 2),
+                         dist_backend="gloo",
+                         **{k: TM_CKPT[k] for k in ("batch", "seq",
+                                                    "ckpt_every")})
+            train_s = time.perf_counter() - t0
+            resume = dict(kind="resume", ckpt_dir=ckpt_dir,
+                          drop=TM_CKPT["steps"], seed=TM_SEED, **TM_CKPT)
+            t0 = time.perf_counter()
+            ranks = run_ranks(
+                tmc.run_cases, (1, 2), device="cuda", backend="gloo",
+                kwargs={"cases": [fp, int_, smoke, resume, data,
+                                  dict(data, fsdp=True)]})
+            mesh_s = time.perf_counter() - t0
+            cpu = fut.result()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    res["data_runs"] = dict(ranks=[r[4:] for r in ranks], cpu=cpu,
+                            mesh_s=mesh_s)
+    got = [r[0] for r in ranks]
+    m0, one = got[0]["metrics"], ones["fp"]["metrics"]
+    for r, g in enumerate(got):
+        check(g["metrics"] == m0, f"28a rank {r}: metrics differ from rank "
+              f"0's: {g['metrics']} / {m0}")
+        want = {k: 0 for k in g["launches"]}
+        want["flash_prefill"] = L * TM_STEPS
+        check(g["launches"] == want, f"28a rank {r}: launches "
+              f"{g['launches']}, want {want}")
+    loss_e = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+              for a, b in zip(m0, one)]
+    gn_e = [abs(a["grad_norm"] - b["grad_norm"]) / b["grad_norm"]
+            for a, b in zip(m0, one)]
+    check(len(m0) == len(one) == TM_STEPS, f"28a: {len(m0)} / {len(one)} "
+          f"steps")
+    limits = [(TM_LOSS_REL, TM_GNORM_REL) if i < TM_FIXED else
+              (TM_UPDATED_LOSS_REL, TM_UPDATED_GNORM_REL)
+              for i in range(TM_STEPS)]
+    check(all(le <= lim[0] and ge <= lim[1]
+              for le, ge, lim in zip(loss_e, gn_e, limits)),
+          f"28a: losses {[m['loss'] for m in m0]}, grad_norm "
+          f"{[m['grad_norm'] for m in m0]} against one rank's "
+          f"{[m['loss'] for m in one]}, {[m['grad_norm'] for m in one]}: "
+          f"gaps {loss_e}, {gn_e}, limits {limits}")
+    check(all(math.isfinite(m[k]) for m in m0 for k in ("loss",
+                                                        "grad_norm")),
+          f"28a: non-finite metrics {m0}")
+    step_s = sorted(got[0]["step_s"][1:])
+    med = step_s[len(step_s) // 2]
+    tps = TM_B * TM_S / med
+    one_s = sorted(ones["fp"]["step_s"][1:])
+    one_tps = TM_B * TM_S / one_s[len(one_s) // 2]
+    timed = [g["timed_step"] for g in got]
+    log(f"[28a] llama3.2-1B at full width and depth on a (1, 2) mesh (two "
+        f"ranks sharing the card over gloo), bf16, flash attention, "
+        f"{TM_STEPS} steps of {TM_B} x {TM_S} tokens: losses "
+        f"{[round(m['loss'], 5) for m in m0]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in m0]}; one rank's on the card: "
+        f"losses {[round(m['loss'], 5) for m in one]}, grad_norm "
+        f"{[round(m['grad_norm'], 4) for m in one]} (relative gaps "
+        f"{[f'{e:.2e}' for e in loss_e]} / {[f'{e:.2e}' for e in gn_e]}, "
+        f"limits {limits}); step (host clock, synchronized) "
+        f"{[round(1e3 * s, 1) for s in got[0]['step_s']]} ms, "
+        f"{tps:.0f} tokens/s (one rank's steps "
+        f"{[round(1e3 * s, 1) for s in ones['fp']['step_s']]} ms, "
+        f"{one_tps:.0f} tokens/s); "
+        f"peak {[round(g['peak_gib'], 2) for g in got]} GiB a rank (one "
+        f"rank {ones['fp']['peak_gib']:.2f}); K5 "
+        f"{[g['launches']['flash_prefill'] for g in got]} a rank ({L} a "
+        f"step); the spawn, both ranks' builds and all their cases (28b's "
+        f"too) {mesh_s:.1f} s")
+    for r, t in enumerate(timed):
+        log(f"    28a rank {r}, one more step with each collective timed "
+            f"(the card synchronized around it): {t['calls']} collectives, "
+            f"{t['bytes'] / 1e6:.1f} MB handed to them, "
+            f"{1e3 * t['seconds']:.1f} ms in them of a "
+            f"{1e3 * t['step_s']:.1f} ms step")
+    # train()'s run: the case runner's repeat of its first steps, then
+    # the resume from its checkpoint
+    n = TM_CKPT["steps"]
+    for r, rk in enumerate(tr["ranks"]):
+        check(rk["losses"] == tr["losses"] and len(rk["losses"]) == n,
+              f"28a train() rank {r}: losses {rk['losses']} against rank "
+              f"0's {tr['losses']}")
+    rep_l = [m["loss"] for m in ranks[0][2]["metrics"]]
+    resumed = ranks[0][3]["losses"]
+    for r, rk in enumerate(ranks):
+        check([m["loss"] for m in rk[2]["metrics"]] == rep_l
+              and rk[3]["losses"] == resumed, f"28a rank {r}: the repeat's "
+              f"or the resume's losses differ from rank 0's")
+    tr_e = _tm_repeat_gap(rep_l, tr["losses"][:TM_STEPS], TM_FIXED)
+    redo = tr["losses"][n - len(resumed):]
+    # the first resumed step runs on the restored params and data
+    ck_e = _tm_repeat_gap(resumed, redo, 1)
+    check(tr_e <= TM_UPDATED_LOSS_REL, f"28a: the case runner's repeat "
+          f"{rep_l} of train(mesh_shape=(1, 2))'s {tr['losses']}")
+    check(0 < len(resumed) < n and ck_e <= TM_UPDATED_LOSS_REL,
+          f"28a: resumed {resumed} against train()'s {tr['losses']}")
+    log(f"[28a] train('llama3_2_1b', {n}, mesh_shape=(1, 2), "
+        f"dist_backend='gloo', ckpt_every={TM_CKPT['ckpt_every']}) of the "
+        f"smoke config on the card: losses {tr['losses']} in {train_s:.1f} "
+        f"s; the case runner's first {TM_STEPS} on new ranks {rep_l} (the "
+        f"first {TM_FIXED} bit-identical, then {tr_e:.2e}, limit "
+        f"{TM_UPDATED_LOSS_REL}); with the last commit dropped, resumed "
+        f"{resumed} against {redo} (the first bit-identical, then "
+        f"{ck_e:.2e})")
+    res["full"] = dict(metrics=m0, one_rank=one, loss_rel=loss_e,
+                       collectives=timed,
+                       grad_norm_rel=gn_e, step_s=got[0]["step_s"],
+                       tokens_per_s=tps, one_rank_step_s=ones["fp"]["step_s"],
+                       one_rank_tokens_per_s=one_tps,
+                       peak_gib=[g["peak_gib"] for g in got],
+                       one_rank_peak_gib=ones["fp"]["peak_gib"],
+                       launches=[g["launches"] for g in got], mesh_s=mesh_s,
+                       train_call=dict(losses=tr["losses"], seconds=train_s,
+                                       repeat=rep_l, repeat_rel_err=tr_e,
+                                       resumed=resumed, resume_rel_err=ck_e))
+    # 28c: one INT step
+    got = [r[1] for r in ranks]
+    want = _tm_launches_want(ones["int"]["launches"], L)
+    loss1 = ones["int"]["metrics"][0]["loss"]
+    for r, g in enumerate(got):
+        check(g["metrics"][0]["loss"] == loss1, f"28c rank {r}: INT loss "
+              f"{g['metrics'][0]['loss']} != one rank's {loss1}")
+        check(g["metrics"][0]["grad_norm"] == 0.0, f"28c rank {r}: INT "
+              f"grad_norm {g['metrics'][0]['grad_norm']}, not 0")
+        check(g["launches"] == want, f"28c rank {r}: launches "
+              f"{g['launches']}, want {want}")
+    log(f"[28c] one INT step on the (1, 2) mesh: loss {loss1:.6f} "
+        f"bit-identical to one rank's, grad_norm 0 (as the reference's); "
+        f"launches a rank {{'int8_matmul': {want['int8_matmul']}, "
+        f"'int8_matmul_partial': {want['int8_matmul_partial']}, "
+        f"'int8_matmul_finish': {want['int8_matmul_finish']}, 'quantize': "
+        f"{want['quantize']}, 'flash_prefill': {want['flash_prefill']}}} "
+        f"(one rank: K2 {ones['int']['launches']['int8_matmul']}); step "
+        f"{1e3 * got[0]['step_s'][0]:.1f} ms (one rank "
+        f"{1e3 * ones['int']['step_s'][0]:.1f})")
+    res["int"] = dict(loss=loss1, launches=[g["launches"] for g in got],
+                      one_rank_launches=ones["int"]["launches"],
+                      step_s=got[0]["step_s"],
+                      one_rank_step_s=ones["int"]["step_s"])
+
+
+def _tm_data(torch, res):
+    """28b: (2, 1) and FSDP (2, 1), the 2-layer full-width model in fp32,
+    TM_DATA_STEPS steps each on the card (the ranks of 28a, two sharing
+    the card over gloo) at a rate with no warmup, against the CPU's one
+    rank, under phase 26b's rules."""
+    runs = res.pop("data_runs")
+    ranks, cpu, mesh_s = runs["ranks"], runs["cpu"], runs["mesh_s"]
+    cpu_s = cpu["wall_s"]
+    want = cpu["metrics"]
+    out = {}
+    for i, tag in enumerate(("(2, 1)", "FSDP (2, 1)")):
+        got = [r[i] for r in ranks]
+        ms = got[0]["metrics"]
+        for r, g in enumerate(got):
+            check(g["metrics"] == ms, f"28b {tag} rank {r}: metrics differ "
+                  f"from rank 0's")
+        check(len(ms) == len(want) == TM_DATA_STEPS, f"28b {tag}: "
+              f"{len(ms)} / {len(want)} steps")
+        errs = {}
+        for key in ("loss", "grad_norm"):
+            errs[key] = [abs(m[key] - w[key]) / abs(w[key])
+                         for m, w in zip(ms, want)]
+            check(max(errs[key]) <= TRAIN_LOSS_RTOL, f"28b {tag}: {key} "
+                  f"card {[m[key] for m in ms]} CPU "
+                  f"{[w[key] for w in want]}")
+        check([m["lr"] for m in ms] == [w["lr"] for w in want]
+              and want[0]["lr"] > 0, f"28b {tag}: lr {[m['lr'] for m in ms]}")
+        mom = max(_rel_err(torch, a, b)
+                  for k in ("m", "v")
+                  for a, b in zip(got[0]["moments"][k], cpu["moments"][k]))
+        check(mom <= TRAIN_MOMENT_TOL, f"28b {tag}: moments off by "
+              f"{mom:.2e} of a leaf's largest")
+        n_fsdp = got[0]["fsdp_leaves"]
+        check((n_fsdp > 0) == (i == 1), f"28b {tag}: {n_fsdp} leaves cut "
+              f"over data")
+        log(f"[28b] {tag}, llama3.2-1B's width cut to {TM_DATA_LAYERS} "
+            f"layers (the host-staged gradient traffic: "
+            f"{sum(t.numel() for t in cpu['moments']['m']) * 4 / 1e9:.2f} "
+            f"GB of "
+            f"fp32 gradients a rank a step), fp32, {TM_DATA_STEPS} steps "
+            f"of {TRAIN_CPU_BATCH} x {TRAIN_CPU_SEQ} tokens at lr "
+            f"{[m['lr'] for m in ms]} (the second step's metrics see the "
+            f"first step's update), {n_fsdp} "
+            f"leaves FSDP-cut: loss card {[m['loss'] for m in ms]} CPU "
+            f"{[w['loss'] for w in want]}, grad_norm card "
+            f"{[m['grad_norm'] for m in ms]} CPU "
+            f"{[w['grad_norm'] for w in want]} (largest relative gaps "
+            f"{max(errs['loss']):.2e} / {max(errs['grad_norm']):.2e}, "
+            f"limit {TRAIN_LOSS_RTOL}), the first step's moments within "
+            f"{mom:.2e} of a "
+            f"leaf's largest (limit {TRAIN_MOMENT_TOL}); steps "
+            f"{[round(1e3 * s, 1) for s in got[0]['step_s']]} ms a rank "
+            f"(peak {[round(g['peak_gib'], 2) for g in got]} GiB)")
+        out[tag] = dict(metrics=ms, rel_err=errs, moment_rel_err=mom,
+                        fsdp_leaves=n_fsdp, step_s=got[0]["step_s"],
+                        peak_gib=[g["peak_gib"] for g in got])
+    log(f"[28b] the CPU's one rank {cpu_s:.1f} s, beside train() and the "
+        f"ranks ({mesh_s:.1f} s with 28a's cases)")
+    res["data"] = dict(out, cpu=want, cpu_s=cpu_s, mesh_s=mesh_s)
+
+
+def phase_train_mesh(torch, out):
+    t0 = time.perf_counter()
+    res = {}
+    _tm_full(torch, res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _tm_data(torch, res)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[28] training over a mesh: {res['seconds']:.1f} s")
+    out["train_mesh"] = res
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -7164,7 +7540,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27); "
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -7193,7 +7569,7 @@ def main(argv=None) -> int:
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
-                 27: phase_tp}
+                 27: phase_tp, 28: phase_train_mesh}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -7256,6 +7632,8 @@ def main(argv=None) -> int:
         trn = phase_train(torch, out)
         torch.cuda.empty_cache()
         tp = phase_tp(torch, out)
+        torch.cuda.empty_cache()
+        tm = phase_train_mesh(torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7552,6 +7930,23 @@ def main(argv=None) -> int:
         entry["mesh_launches"] = dict(
             per_rank=[r[key] for r in srv_tp[tag]["launches"]],
             per=f"each rank of the (1, 2) mesh, phase 27b's {tag} run")
+    # training over a mesh (phase 28): each rank's launches in 28a's
+    # bf16 steps (K5) and 28c's INT step (K2's rank-split form, K3)
+    for k_name, key, part in (
+            ("flash_prefill", "flash_prefill", "full"),
+            ("int8_matmul_requant", "int8_matmul", "int"),
+            ("quantize", "quantize", "int")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["train_mesh_launches"] = dict(
+            per_rank=[r[key] for r in tm[part]["launches"]],
+            per=("each rank of the (1, 2) mesh, phase 28a's "
+                 f"{TM_STEPS} bf16 train steps" if part == "full" else
+                 "each rank of the (1, 2) mesh, phase 28c's INT train "
+                 "step"))
+    entry = next(e for e in kernels if e["name"] == "int8_matmul_requant")
+    entry["train_mesh_launches"].update(
+        partial=[r["int8_matmul_partial"] for r in tm["int"]["launches"]],
+        finish=[r["int8_matmul_finish"] for r in tm["int"]["launches"]])
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

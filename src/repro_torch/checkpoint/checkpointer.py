@@ -21,6 +21,13 @@ The state is any tree ``core.tree`` walks (dicts, lists, tuples,
 ``optim.OptState``) of tensors; restore takes a template tree of the
 same paths, shapes and dtypes (the meta device will do) and refuses a
 checkpoint of another structure.
+
+On a (data, model) mesh of ranks (``mesh=``, ``specs=``: the state's
+spec tree) a checkpoint holds the WHOLE tree, as the reference's hold
+global arrays: every rank gathers its pieces back
+(``distributed.sharding.unshard_params``) and rank 0 writes; on restore
+every rank reads the whole tree and keeps its own pieces.  So a run
+saved on one mesh resumes on another, or on one rank.
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.tree import leaves, leaves_with_paths, unflatten
+from repro_torch.core.tree import (leaves, leaves_with_paths, tree_map,
+                                   unflatten)
 
 __all__ = ["Checkpointer"]
 
@@ -74,7 +82,24 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save
     def save(self, step: int, state: Any, extra: Optional[dict] = None,
-             blocking: bool = False) -> None:
+             blocking: bool = False, *, mesh=None, specs: Any = None
+             ) -> None:
+        """Snapshot ``state`` and write it (on a worker thread unless
+        ``blocking``).  On ``mesh`` a collective: ``state`` is the rank's
+        pieces cut as ``specs``; rank 0 writes the whole tree, and with
+        ``blocking`` every rank returns once it is committed."""
+        if mesh is not None:
+            from repro_torch.distributed.sharding import unshard_params
+            state = unshard_params(state, specs, mesh)
+            if mesh.rank == 0:
+                self._save(step, state, extra, blocking)
+            if blocking:
+                mesh.barrier()
+            return
+        self._save(step, state, extra, blocking)
+
+    def _save(self, step: int, state: Any, extra: Optional[dict],
+              blocking: bool) -> None:
         self.wait()
         ls = leaves(state)
         dtypes = [_dtype_name(t) for t in ls]
@@ -141,10 +166,20 @@ class Checkpointer:
         return steps[-1] if steps else None
 
     def restore(self, template: Any, step: Optional[int] = None,
-                device=None) -> tuple[Any, dict]:
+                device=None, *, mesh=None, specs: Any = None
+                ) -> tuple[Any, dict]:
         """(state, extra) of ``step`` (default the latest committed) in
         ``template``'s structure; each leaf on ``device``, or where the
-        template's leaf lies (the CPU for a meta template)."""
+        template's leaf lies (the CPU for a meta template).  On ``mesh``
+        ``template`` is the whole tree (the meta device's will do) and
+        the result the rank's pieces of it, cut as ``specs``, on
+        ``device`` or the mesh's."""
+        if mesh is not None:
+            from repro_torch.distributed.sharding import shard_tree
+            whole, extra = self.restore(template, step, "cpu")
+            dev = device if device is not None else mesh.device
+            return tree_map(lambda t: t.to(dev), shard_tree(
+                whole, specs, mesh, mesh.coords)), extra
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")

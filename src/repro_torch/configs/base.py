@@ -16,7 +16,7 @@ import dataclasses
 from typing import Optional
 
 __all__ = ["MoEConfig", "MLAConfig", "SSMConfig", "EncDecConfig",
-           "HybridConfig", "ModelConfig"]
+           "HybridConfig", "ModelConfig", "ShapeConfig", "SHAPES"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,3 +140,21 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced-config variant for CPU smoke tests."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One workload shape of the reference's cells: ``kind`` 'train',
+    'prefill' or 'decode', ``global_batch`` sequences of ``seq_len``."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -34,7 +34,9 @@ K2's int32 partials (K2's rank-split form), the epilogue once after the
 sum, so the output is one rank's bit for bit; in the float modes fp32
 partials rounded once to the activation dtype (one rank's up to the
 summation order).  ``fake_sf`` takes each statistic over the whole
-tensor (a max all-reduce).
+tensor (a max all-reduce).  In training the row-cut sum and a column-cut
+module's input go through ``distributed.collectives`` (the same forward
+values; the backward sums the input's gradient over the model axis).
 """
 from __future__ import annotations
 
@@ -49,6 +51,8 @@ import torch
 from repro_torch.core import integer_ops
 from repro_torch.core.baselines import abs_max, scale_quant
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 reduce_from_model)
 from repro_torch.core.qscheme import fake_quant, quant, storage_dtype
 
 __all__ = ["QuantMode", "ModuleBits", "QuantContext", "qlinear", "qlinears",
@@ -96,13 +100,14 @@ class QuantContext:
 
 def _fp_linear(x, w, b, mesh=None):
     """``x @ w + b`` in x's dtype; on a ``mesh`` (a row-cut module) the
-    ranks' fp32 partials are summed, then rounded once, before the bias."""
+    ranks' fp32 partials are summed, then rounded once, before the bias
+    (``reduce_from_model``: the sum's gradient is each rank's own)."""
     if mesh is None:
         y = torch.matmul(x, w.to(x.dtype))
     else:
-        y = mesh.all_reduce(torch.matmul(x.to(torch.float32),
-                                         w.to(torch.float32)),
-                            "model").to(x.dtype)
+        y = reduce_from_model(torch.matmul(x.to(torch.float32),
+                                           w.to(torch.float32)),
+                              mesh).to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -150,10 +155,23 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     on a tensor-parallel mesh (``x`` and ``w`` hold this rank's rows of
     K, ``b`` is whole), and its ranks' partial products are summed over
     the model axis (the module docstring); without such a mesh in scope
-    it changes nothing.
+    it changes nothing.  Any other module on such a mesh is column-cut
+    (``x`` whole, ``w`` this rank's columns): in training its input's
+    gradient, each rank's partial, is summed over the model axis
+    (``copy_to_model``).
     """
     mesh = shd.tp_mesh()
-    row_mesh = mesh if reduce else None
+    if mesh is not None and not reduce:
+        x = copy_to_model(x, mesh)
+    return _qlinear(ctx, name, x, w, b, mesh, mesh if reduce else None)
+
+
+def _qlinear(ctx: QuantContext, name: str, x: torch.Tensor,
+             w: torch.Tensor, b: Optional[torch.Tensor], mesh,
+             row_mesh) -> torch.Tensor:
+    """:func:`qlinear` past its input's collective: ``mesh`` the
+    tensor-parallel mesh in scope (or None), ``row_mesh`` it for a row-cut
+    module."""
     if w.dtype == torch.int8 and ctx.mode is not QuantMode.INT:
         raise ValueError(
             f"module {name!r}: int8 weight codes reached the "
@@ -198,8 +216,12 @@ def qlinears(ctx: QuantContext, names, x: torch.Tensor, ws,
     ones).  In the other modes it is the loop over :func:`qlinear`, so a
     capture records the same names in the same order."""
     bs = [None] * len(names) if bs is None else list(bs)
+    mesh = shd.tp_mesh()
+    if mesh is not None:    # column-cut: one gradient sum for all of them
+        x = copy_to_model(x, mesh)
     if ctx.mode is not QuantMode.INT:
-        return [qlinear(ctx, n, x, w, b) for n, w, b in zip(names, ws, bs)]
+        return [_qlinear(ctx, n, x, w, b, mesh, None)
+                for n, w, b in zip(names, ws, bs)]
     return _int_linears(ctx, names, x, ws, bs)
 
 

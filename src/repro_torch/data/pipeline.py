@@ -26,7 +26,8 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
-__all__ = ["SyntheticLMStream", "ShardedLoader", "make_calibration_batch"]
+__all__ = ["SyntheticLMStream", "ShardedLoader", "check_data_split",
+           "make_calibration_batch"]
 
 
 class SyntheticLMStream:
@@ -60,6 +61,16 @@ class SyntheticLMStream:
         return out
 
 
+def check_data_split(batch: int, data: int, accum: int = 1) -> None:
+    """Refuse a global batch that the data axis's ``data`` ranks times
+    ``accum`` microbatches do not divide into equal blocks."""
+    if batch % (data * accum):
+        raise NotImplementedError(
+            f"a global batch of {batch} does not split into {data} data "
+            f"ranks x {accum} microbatches of equal rows; uneven data "
+            f"blocks are ROADMAP Queue 1 item 8's")
+
+
 class ShardedLoader:
     """Prefetch of the stream's batches onto ``device`` (default
     ``cuda``): a thread draws batch after batch from ``start_step`` and
@@ -67,12 +78,25 @@ class ShardedLoader:
     pinned host memory without blocking.  ``next(loader)`` gives
     ``(step, batch)``; ``state()`` / ``restore()`` carry the position
     through a checkpoint; ``close()`` stops the thread.  (The reference
-    places each batch with its input sharding; one card takes one
-    device.)"""
+    places each batch with its input sharding.)  On a (data, model)
+    ``mesh`` (``launch.mesh.RankMesh``) data rank ``d`` of D takes rows
+    ``[d B/D, (d + 1) B/D)`` of each global batch, the stream seeded the
+    same on every rank, and the rank's device is the mesh's; a global
+    batch that D x ``accum`` (the train step's microbatches) does not
+    divide is refused."""
 
     def __init__(self, stream: SyntheticLMStream, device=None,
-                 start_step: int = 0, depth: int = 2):
+                 start_step: int = 0, depth: int = 2, *, mesh=None,
+                 accum: int = 1):
         self.stream = stream
+        self.rows = None
+        if mesh is not None:
+            d = mesh.shape["data"]
+            check_data_split(stream.global_batch, d, accum)
+            per = stream.global_batch // d
+            self.rows = slice(mesh.coords["data"] * per,
+                              (mesh.coords["data"] + 1) * per)
+            device = mesh.device
         self.device = resolve_device(device)
         self.depth = depth
         self._step = start_step
@@ -84,6 +108,8 @@ class ShardedLoader:
     def _place(self, batch: dict) -> dict:
         out = {}
         for k, v in batch.items():
+            if self.rows is not None:
+                v = v[self.rows]
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
@@ -114,9 +140,12 @@ class ShardedLoader:
 
     @classmethod
     def restore(cls, stream: SyntheticLMStream, device, state: dict,
-                depth: int = 2) -> "ShardedLoader":
+                depth: int = 2, **on_mesh) -> "ShardedLoader":
+        """The loader at a saved ``state()`` (``on_mesh``: ``mesh`` and
+        ``accum``, as the constructor's)."""
         stream.seed = state["seed"]
-        return cls(stream, device, start_step=state["step"], depth=depth)
+        return cls(stream, device, start_step=state["step"], depth=depth,
+                   **on_mesh)
 
     def close(self):
         self._stop.set()

@@ -31,8 +31,12 @@ Where the JAX package constrains activations through GSPMD
 model code adds the collectives itself; the scope
 (:func:`activation_sharding`) tells it the mesh, and
 :func:`local_config` gives the per-rank view of a config under which the
-blocks run unchanged.  :func:`shard_params` cuts a full tree down to one
-rank's leaves by these rules.
+blocks run unchanged (under serving's rules and training's alike: the
+dense families' cuts are the same; FSDP's data cut is gathered before a
+block runs).  :func:`shard_params` cuts a full tree down to one rank's
+leaves by these rules, :func:`shard_tree` any state tree by a spec tree
+(the optimizer's by :func:`_opt_spec_like`), and :func:`unshard_params`
+gathers a rank's tree back to the whole one.
 """
 from __future__ import annotations
 
@@ -43,13 +47,17 @@ import re
 import threading
 from typing import Any
 
+import torch
+
 from repro_torch.core.tree import leaves_with_paths, unflatten
 
 __all__ = ["DATA_AXES", "param_sharding_rules", "opt_sharding_rules",
            "batch_sharding", "cache_sharding_rules", "activation_sharding",
            "current_mesh", "data_shards", "batch_shards", "model_shards",
            "tp_mesh",
-           "local_config", "shard_params", "leaf_spec", "reference_leaf"]
+           "local_config", "shard_params", "leaf_spec", "reference_leaf",
+           "spec_axes", "spec_list", "data_dim", "shard_leaf", "unshard_leaf",
+           "shard_tree", "unshard_params", "rank_zeros"]
 
 DATA_AXES = ("pod", "data")  # gradient-reduction axes when both exist
 
@@ -349,9 +357,10 @@ def current_mesh():
     return None if scope is None else scope[0]
 
 
-def data_shards() -> int:
-    """Size of the composite data axis in the active scope (1 outside)."""
-    mesh = current_mesh()
+def data_shards(mesh=None) -> int:
+    """Size of the composite data axis of ``mesh`` (default: the active
+    scope's; 1 without a mesh)."""
+    mesh = current_mesh() if mesh is None else mesh
     if mesh is None:
         return 1
     dp = _dp(mesh)
@@ -395,8 +404,8 @@ def local_config(cfg, mesh):
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"the {cfg.family!r} family under a mesh of more than one rank "
-            f"is ROADMAP Queue 1 item 8's (tensor-parallel serving covers "
-            f"the dense GQA families)")
+            f"is ROADMAP Queue 1 item 8's (serving and training over a mesh "
+            f"cover the dense GQA families)")
     tp = model_shards(mesh)
     if tp == 1:
         return cfg
@@ -416,24 +425,127 @@ def local_config(cfg, mesh):
         d_ff=cfg.d_ff // tp, head_dim=cfg.resolved_head_dim)
 
 
-def shard_params(params: Any, mesh, coords: dict, *, cfg=None) -> Any:
-    """One rank's leaves of the full tree ``params``: each leaf cut as
-    ``param_sharding_rules(params, mesh, fsdp=False, serve=True)`` says,
-    the rank's piece of each cut dim at its coordinate ``coords`` (axis
-    name -> index; a tuple entry is the axes' row-major index).  Pieces
-    are copies, so the full tree can be freed.  Int8 weight codes cut as
-    their float counterparts do."""
-    def cut(leaf, spec):
-        for dim, entry in enumerate(spec):
-            if entry is None:
-                continue
-            idx = 0
-            for a in (entry if isinstance(entry, tuple) else (entry,)):
-                idx = idx * mesh.shape[a] + coords[a]
-            size = leaf.shape[dim] // _axis_size(mesh, entry)
-            leaf = leaf.narrow(dim, idx * size, size)
-        return leaf.clone()
+def spec_axes(spec: tuple) -> tuple:
+    """The mesh axes that cut a leaf of spec ``spec``, in dim order."""
+    out = []
+    for entry in spec:
+        if entry is not None:
+            out.extend(entry if isinstance(entry, tuple) else (entry,))
+    return tuple(out)
 
-    specs = _param_specs(params, mesh, False, True, cfg, False)
-    return unflatten(params, [cut(leaf, s) for (_, leaf), s in
-                              zip(leaves_with_paths(params), specs)])
+
+def data_dim(spec: tuple):
+    """The dim of a leaf of spec ``spec`` that FSDP cuts over ``data``,
+    or None."""
+    return next((i for i, e in enumerate(spec) if e == "data"), None)
+
+
+def shard_leaf(leaf, spec: tuple, mesh, coords: dict):
+    """The rank's piece (at ``coords``, axis name -> index; a tuple entry
+    is the axes' row-major index) of each cut dim of ``leaf``, a copy."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = 0
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            idx = idx * mesh.shape[a] + coords[a]
+        size = leaf.shape[dim] // _axis_size(mesh, entry)
+        leaf = leaf.narrow(dim, idx * size, size)
+    return leaf.clone()
+
+
+def unshard_leaf(leaf, spec: tuple, mesh):
+    """The whole leaf from the ranks' pieces (a collective: every rank of
+    the mesh calls it, in the same order, and gets the whole leaf)."""
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        for a in reversed(entry if isinstance(entry, tuple) else (entry,)):
+            leaf = mesh.all_gather(leaf, a, dim)
+    return leaf
+
+
+def _with_specs(fn, tree: Any, specs: Any) -> Any:
+    """``fn(leaf, spec)`` over a state tree (dicts, lists, ``optim.
+    OptState``; adafactor's ``(row, col)`` moments) and its spec tree of
+    the same structure, whose leaves are spec tuples."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _with_specs(fn, tree[k], specs[k]) for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_with_specs(fn, v, sp)
+                            for v, sp in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_with_specs(fn, v, sp)
+                          for v, sp in zip(tree, specs))
+    return fn(tree, specs)
+
+
+def spec_list(tree: Any, specs: Any) -> list:
+    """The specs of ``tree``'s leaves in ``core.tree``'s leaf order."""
+    out: list = []
+    _with_specs(lambda t, sp: out.append(sp), tree, specs)
+    return out
+
+
+def shard_tree(tree: Any, specs: Any, mesh, coords: dict) -> Any:
+    """One rank's pieces (:func:`shard_leaf`) of every leaf of the whole
+    ``tree`` (params, or a train state ``{"params", "opt"}``), cut as the
+    spec tree ``specs`` of the same structure says."""
+    return _with_specs(lambda t, sp: shard_leaf(t, sp, mesh, coords), tree,
+                       specs)
+
+
+def unshard_params(tree: Any, specs: Any, mesh) -> Any:
+    """A rank's tree (params, optimizer state, or both) gathered back to
+    the whole tree, cut as ``specs`` said (:func:`unshard_leaf`; a
+    collective, every rank gets the whole tree)."""
+    return _with_specs(lambda t, sp: unshard_leaf(t, sp, mesh), tree, specs)
+
+
+def rank_zeros(abstract: Any, specs: Any, mesh, device) -> Any:
+    """Zeros of one rank's piece of every leaf of ``abstract`` (a whole
+    tree of shapes: the meta device's), in its dtype, on ``device``: a
+    fresh optimizer state cut as ``specs`` without the whole state."""
+    return _with_specs(
+        lambda t, sp: torch.zeros(
+            [n // _axis_size(mesh, e) for n, e in zip(t.shape, sp)],
+            dtype=t.dtype, device=device), abstract, specs)
+
+
+def _opt_spec_like(opt_abs: Any, p_spec: Any) -> Any:
+    """The optimizer state's specs (the reference's ``launch.steps.
+    _opt_spec_like``): a moment inherits its param's spec (ZeRO-1: cut
+    as the param is); adafactor's factored (row, col) moments take the
+    matching prefix (the row means drop the last dim, the column means
+    the one before it); the step counter is replicated.  ``opt_abs`` is
+    an ``optim.OptState`` whose moments are laid out as the params,
+    ``p_spec`` the params' spec tree."""
+    def like(sub, spec):
+        if isinstance(sub, tuple):          # adafactor (row, col)
+            return (spec[:-1], spec[:-2] + spec[-1:])
+        return spec
+
+    def walk(field, spec):
+        if isinstance(field, dict):
+            return {k: walk(v, spec[k]) for k, v in field.items()}
+        if isinstance(field, list):
+            return [walk(v, sp) for v, sp in zip(field, spec)]
+        return like(field, spec)
+
+    return type(opt_abs)(
+        step=(), m=None if opt_abs.m is None else walk(opt_abs.m, p_spec),
+        v=None if opt_abs.v is None else walk(opt_abs.v, p_spec))
+
+
+def shard_params(params: Any, mesh, coords: dict, *, cfg=None,
+                 fsdp: bool = False, serve: bool = True) -> Any:
+    """One rank's leaves of the full tree ``params`` (:func:`shard_tree`),
+    each leaf cut as ``param_sharding_rules(params, mesh, fsdp=fsdp,
+    serve=serve)`` says: by default serving's rules without FSDP;
+    training (``launch.train.train_rank``) passes ``serve=False`` and its
+    ``fsdp``.  Int8 weight codes
+    cut as their float counterparts do."""
+    return shard_tree(params, param_sharding_rules(
+        params, mesh, fsdp=fsdp, serve=serve, cfg=cfg), mesh, coords)

@@ -28,7 +28,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["RankMesh", "make_local_mesh", "run_ranks", "join_world",
-           "in_torchrun", "parse_mesh", "BACKENDS"]
+           "in_torchrun", "parse_mesh", "pick_backend", "on_ranks",
+           "BACKENDS"]
 
 BACKENDS = ("gloo", "nccl")
 _TIMEOUT = datetime.timedelta(minutes=15)
@@ -86,6 +87,29 @@ class RankMesh:
                             group=self._groups[axis])
         return t
 
+    def all_reduced(self, t: torch.Tensor, axis: str = "model",
+                    op: str = "sum") -> torch.Tensor:
+        """A new tensor: ``t`` reduced over ``axis``'s ranks, ``t`` left as
+        it is (autograd's collectives take this one: an in-place reduce
+        bumps a saved tensor's version)."""
+        if self.shape[axis] == 1:
+            return t
+        return self.all_reduce(t.clone(memory_format=torch.contiguous_format),
+                               axis, op)
+
+    def reduce_scatter(self, t: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """``t`` summed over ``axis``'s ranks, and this rank's block of
+        ``dim`` of the sum (the axis's size divides it): the all-reduce,
+        then the block (gloo has no reduce-scatter on every build; the
+        values are a reduce-scatter's)."""
+        n = self.shape[axis]
+        if n == 1:
+            return t
+        size = t.shape[dim] // n
+        return self.all_reduced(t, axis).narrow(
+            dim, self.coords[axis] * size, size)
+
     def all_gather(self, t: torch.Tensor, axis: str = "model",
                    dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in
@@ -101,6 +125,11 @@ class RankMesh:
         out = torch.cat(parts, dim=dim)
         return out.to(dev) if host else out
 
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        if self.size > 1:
+            dist.barrier()
+
     def gather_objects(self, obj) -> list:
         """Every rank's picklable ``obj``, in rank order, on every rank."""
         out = [None] * self.size
@@ -112,6 +141,34 @@ class RankMesh:
         box = [obj if self.rank == src else None]
         dist.broadcast_object_list(box, src=src)
         return box[0]
+
+
+def pick_backend(dist_backend: Optional[str], device) -> str:
+    """The ranks' backend: as given, else ``nccl`` on the card (one card a
+    rank) and ``gloo`` on the CPU; never chosen for the caller past that
+    (:func:`make_local_mesh` refuses nccl on a shared card)."""
+    if dist_backend is not None:
+        return dist_backend
+    return "gloo" if torch.device(device or "cuda").type == "cpu" \
+        else "nccl"
+
+
+def on_ranks(fn: Callable, mesh_shape, device, dist_backend: Optional[str],
+             kwargs: dict) -> list:
+    """``fn(mesh, **kwargs)`` on every rank of the mesh: in this process
+    when ``torchrun`` started it (a one-element list), else on D x M ranks
+    spawned here (every rank's result, in rank order), the CPU's ranks
+    sharing this process's intra-op threads."""
+    dev = "cuda" if device is None else str(device)
+    backend = pick_backend(dist_backend, dev)
+    if in_torchrun():
+        return [fn(join_world(mesh_shape, device=dev, backend=backend),
+                   **kwargs)]
+    threads = (max(1, torch.get_num_threads() // (mesh_shape[0]
+                                                   * mesh_shape[1]))
+               if torch.device(dev).type == "cpu" else None)
+    return run_ranks(fn, mesh_shape, device=dev, backend=backend,
+                     kwargs=kwargs, threads=threads)
 
 
 def make_local_mesh(model_axis: int = 1, *, device: str = "cuda",

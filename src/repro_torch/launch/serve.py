@@ -77,7 +77,6 @@ import argparse
 import dataclasses
 import functools
 import json
-import math
 import os
 import time
 
@@ -129,34 +128,6 @@ def _resolve_cfg_mesh(arch: str, *, smoke: bool,
     shape = RankMesh(*(int(n) for n in mesh_shape))
     S._resolve_attn_kernel(cfg, shape)
     return cfg, (shape.shape["data"], shape.shape["model"])
-
-
-def _backend(dist_backend: str | None, device) -> str:
-    """The ranks' backend: as given, else ``nccl`` on the card (one card a
-    rank) and ``gloo`` on the CPU; never chosen for the caller past that
-    (``launch.mesh.make_local_mesh`` refuses nccl on a shared card)."""
-    if dist_backend is not None:
-        return dist_backend
-    import torch
-    return "gloo" if torch.device(device or "cuda").type == "cpu" else "nccl"
-
-
-def _on_ranks(fn, mesh_shape, device, dist_backend, kwargs: dict) -> list:
-    """``fn(mesh, **kwargs)`` on every rank of the mesh: in this process
-    when ``torchrun`` started it (a one-element list), else on D x M ranks
-    spawned here (every rank's result, in rank order)."""
-    from repro_torch.launch import mesh as mesh_lib
-    dev = "cuda" if device is None else str(device)
-    backend = _backend(dist_backend, dev)
-    if mesh_lib.in_torchrun():
-        return [fn(mesh_lib.join_world(mesh_shape, device=dev,
-                                       backend=backend), **kwargs)]
-    import torch
-    # the CPU's ranks share this process's intra-op threads
-    threads = (max(1, torch.get_num_threads() // math.prod(mesh_shape))
-               if torch.device(dev).type == "cpu" else None)
-    return mesh_lib.run_ranks(fn, mesh_shape, device=dev, backend=backend,
-                              kwargs=kwargs, threads=threads)
 
 
 def _launch_counts() -> dict:
@@ -257,7 +228,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     if graphs:
         raise ValueError("a mesh runs its decode steps eagerly: its "
                          "collectives cannot be captured (graphs=False)")
-    ranks = _on_ranks(serve_rank, mesh_shape, device, dist_backend, kw)
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.on_ranks(serve_rank, mesh_shape, device,
+                              dist_backend, kw)
     return dict(ranks[0], mesh=mesh_shape, ranks=ranks)
 
 
@@ -517,8 +490,9 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     if graphs:
         raise ValueError("a mesh runs its engine steps eagerly: its "
                          "collectives cannot be captured (graphs=False)")
-    ranks = _on_ranks(serve_engine_rank, mesh_shape, device, dist_backend,
-                      kw)
+    from repro_torch.launch import mesh as mesh_lib
+    ranks = mesh_lib.on_ranks(serve_engine_rank, mesh_shape, device,
+                              dist_backend, kw)
     return dict(ranks[0], requests=requests, mesh=mesh_shape, ranks=ranks)
 
 

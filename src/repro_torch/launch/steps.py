@@ -30,10 +30,11 @@ from typing import Callable, Hashable, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.qmodel import QuantContext, QuantMode
 from repro_torch.core.tree import leaves, unflatten
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import fsdp_gather
 from repro_torch.kernels import ops as kops
 from repro_torch.models import model as M
 from repro_torch.models.attention import KVCache
@@ -41,7 +42,9 @@ from repro_torch.optim import adafactor, adamw, clip_by_global_norm
 from repro_torch.optim.optimizers import Optimizer, OptState
 
 __all__ = ["param_count", "pick_optimizer", "loss_and_grads",
-           "build_train_step",
+           "build_train_step", "abstract_params", "abstract_opt_state",
+           "jit_train_step", "default_accum_steps", "serve_needs_fsdp",
+           "SERVE_FSDP_BYTES", "GRAD_BUCKET", "mean_over_data",
            "ADAFACTOR_THRESHOLD", "check_matmul_kernel",
            "build_prefill_step", "build_serve_step",
            "build_paged_step", "build_ragged_step", "build_recurrent_step",
@@ -53,8 +56,7 @@ ADAFACTOR_THRESHOLD = 30e9  # params; above it AdamW's 12 bytes a param
 def param_count(cfg: ModelConfig) -> int:
     """Parameters of ``cfg``'s tree, counted from its shapes on the meta
     device (nothing allocated)."""
-    return sum(t.numel() for t in leaves(M.init_params(cfg,
-                                                       device="meta")))
+    return sum(t.numel() for t in leaves(abstract_params(cfg)))
 
 
 def pick_optimizer(cfg: ModelConfig) -> Optimizer:
@@ -62,17 +64,37 @@ def pick_optimizer(cfg: ModelConfig) -> Optimizer:
         else adamw()
 
 
-def loss_and_grads(params, batch, cfg, ctx, remat=False):
+def abstract_params(cfg: ModelConfig) -> dict:
+    """``cfg``'s whole params tree on the meta device (shapes and dtypes,
+    nothing allocated)."""
+    return M.init_params(cfg, device="meta")
+
+
+def abstract_opt_state(cfg: ModelConfig, opt: Optimizer) -> OptState:
+    """``opt``'s whole state for ``cfg``'s params, on the meta device."""
+    return opt.init(abstract_params(cfg))
+
+
+def loss_and_grads(params, batch, cfg, ctx, remat=False, *, mesh=None,
+                   fsdp_dims=None):
     """``models.model.loss_fn`` and its gradients: (loss, metrics,
     gradients in ``leaves(params)``'s order), all detached.  A leaf
     the loss does not reach, and every leaf when nothing does (INT mode:
     each ``qlinear`` casts to codes), gets a zero gradient, the value the
-    reference's autodiff gives there."""
+    reference's autodiff gives there.  ``fsdp_dims``: for each leaf, the
+    dim it is cut over ``mesh``'s data axis (FSDP) or None; such a leaf is
+    gathered whole for the forward (``distributed.collectives.
+    fsdp_gather``) and its gradient is the rank's piece, meaned over the
+    data axis."""
     ls = leaves(params)
     for p in ls:
         p.requires_grad_(True)
     try:
-        loss, metrics = M.loss_fn(params, batch, cfg, ctx, remat=remat)
+        use = ls if fsdp_dims is None else [
+            p if d is None else fsdp_gather(p, mesh, d)
+            for p, d in zip(ls, fsdp_dims)]
+        loss, metrics = M.loss_fn(unflatten(params, use), batch, cfg, ctx,
+                                  remat=remat)
         gs = (torch.autograd.grad(loss, ls, allow_unused=True)
               if loss.requires_grad else [None] * len(ls))
     finally:
@@ -84,9 +106,47 @@ def loss_and_grads(params, batch, cfg, ctx, remat=False):
             grads)
 
 
+# the data axis's mean of the gradients goes through buckets of at most
+# this many fp32 elements (one all-reduce a bucket: over gloo a CUDA
+# tensor is staged through the host)
+GRAD_BUCKET = 1 << 26
+
+
+def mean_over_data(grads: list, specs: list, mesh) -> None:
+    """The gradients (a rank's, in leaf order, their leaves cut as
+    ``specs``) of the leaves the data axis does not cut, meaned over it
+    IN PLACE, in flat fp32 buckets of at most :data:`GRAD_BUCKET`
+    elements (a leaf FSDP cuts over ``data`` got its mean from its
+    gather's backward)."""
+    if mesh.shape["data"] == 1:
+        return
+    grads = [g for g, sp in zip(grads, specs)
+             if "data" not in shd.spec_axes(sp)]
+    n = mesh.shape["data"]
+    bucket: list = []
+    size = 0
+
+    def flush():
+        flat = torch.cat([g.reshape(-1).float() for g in bucket])
+        flat = mesh.all_reduce(flat, "data") / n
+        off = 0
+        for g in bucket:
+            g.copy_(flat[off:off + g.numel()].view(g.shape))
+            off += g.numel()
+
+    for g in grads:
+        if bucket and size + g.numel() > GRAD_BUCKET:
+            flush()
+            bucket, size = [], 0
+        bucket.append(g)
+        size += g.numel()
+    if bucket:
+        flush()
+
+
 def build_train_step(cfg: ModelConfig, ctx: QuantContext, opt: Optimizer,
                      lr_fn, *, remat=True, clip_norm: float = 1.0,
-                     accum_steps: int = 1):
+                     accum_steps: int = 1, mesh=None, fsdp: bool = False):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss's gradients (``models.model.loss_fn`` with
     ``remat``), clipped to a global norm of ``clip_norm``, then ``opt``'s
@@ -98,38 +158,122 @@ def build_train_step(cfg: ModelConfig, ctx: QuantContext, opt: Optimizer,
 
     ``accum_steps > 1`` splits the batch A x B/A into microbatches whose
     gradients accumulate in fp32 and are averaged (fp32 gradients then
-    reach the update, as in the reference)."""
+    reach the update, as in the reference).
+
+    On a (data, model) ``mesh`` (``launch.mesh.RankMesh``) the step runs
+    on one rank: ``params`` and ``opt_state`` are its pieces, cut by the
+    training rules (``distributed.sharding.param_sharding_rules(fsdp=
+    fsdp)``; the state by ``_opt_spec_like``), ``batch`` its data block
+    of the global batch (rows ``d B/D`` to ``(d + 1) B/D``), which
+    accumulation splits A x B/(D A).  The loss is the global one; a
+    leaf's gradient is meaned over the data axis (bucketed into flat fp32
+    all-reduces), or, for a leaf FSDP cuts over it, reduce-scattered by
+    the gather's backward; the clip's norm sums each leaf over the axes
+    cutting it; the update runs on the rank's pieces.  The metrics are
+    the same on every rank."""
     check_matmul_kernel(cfg, ctx)
+    specs = p_spec = fsdp_dims = None
+    if mesh is not None:
+        _resolve_attn_kernel(cfg, mesh)
+        if ctx.mode is QuantMode.FAKE_SF and shd.model_shards(mesh) > 1:
+            raise NotImplementedError(
+                "fake_sf's per-tensor maxima take no gradient through a "
+                "model-axis all-reduce; training fake_sf over a cut model "
+                "is ROADMAP Queue 1 item 8's")
+        params_abs = abstract_params(cfg)
+        p_spec = shd.param_sharding_rules(params_abs, mesh, fsdp=fsdp,
+                                          cfg=cfg)
+        specs = shd.spec_list(params_abs, p_spec)
+        if fsdp:
+            fsdp_dims = [shd.data_dim(sp) for sp in specs]
+    on_mesh = {} if mesh is None else dict(mesh=mesh, specs=p_spec)
+
+    def grads_of(params, batch):
+        return loss_and_grads(params, batch, cfg, ctx, remat, mesh=mesh,
+                              fsdp_dims=fsdp_dims)
 
     def train_step(params, opt_state: OptState, batch):
-        if accum_steps == 1:
-            loss, metrics, grads = loss_and_grads(params, batch, cfg, ctx,
-                                                  remat)
-        else:
-            micro = {k: v.reshape((accum_steps, v.shape[0] // accum_steps)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in leaves(params)]
-            loss = 0.0
-            for i in range(accum_steps):
-                mb_loss, _, g = loss_and_grads(
-                    params, {k: v[i] for k, v in micro.items()}, cfg, ctx,
-                    remat)
-                for acc, gi in zip(grads, g):
-                    acc.add_(gi.float())
-                loss = loss + mb_loss
-            grads = [g / accum_steps for g in grads]
-            loss = loss / accum_steps
-            metrics = {"nll": loss}
+        with _mesh_scope(mesh, batch_split=True):
+            if accum_steps == 1:
+                loss, metrics, grads = grads_of(params, batch)
+            else:
+                micro = {k: v.reshape((accum_steps,
+                                       v.shape[0] // accum_steps)
+                                      + tuple(v.shape[1:]))
+                         for k, v in batch.items()}
+                grads = [torch.zeros(p.shape, dtype=torch.float32,
+                                     device=p.device)
+                         for p in leaves(params)]
+                loss = 0.0
+                for i in range(accum_steps):
+                    mb_loss, _, g = grads_of(
+                        params, {k: v[i] for k, v in micro.items()})
+                    for acc, gi in zip(grads, g):
+                        acc.add_(gi.float())
+                    loss = loss + mb_loss
+                grads = [g / accum_steps for g in grads]
+                loss = loss / accum_steps
+                metrics = {"nll": loss}
+            if mesh is not None:
+                mean_over_data(grads, specs, mesh)
         grads, gnorm = clip_by_global_norm(unflatten(params, grads),
-                                           clip_norm)
+                                           clip_norm, **on_mesh)
         lr = lr_fn(opt_state.step)
-        params, opt_state = opt.update(grads, opt_state, params, lr)
+        params, opt_state = opt.update(grads, opt_state, params, lr,
+                                       **on_mesh)
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm,
                                        lr=lr)
 
     return train_step
+
+
+# replicate serving weights over the data axis below this many bytes a
+# rank (the reference's measured re-gather cost of FSDP decode)
+SERVE_FSDP_BYTES = 12e9
+
+
+def serve_needs_fsdp(cfg: ModelConfig, mesh, bytes_per_param=2) -> bool:
+    """Whether serving ``cfg`` on ``mesh`` must cut its weights over the
+    data axis too (FSDP): above :data:`SERVE_FSDP_BYTES` a rank, counting
+    the non-expert params (serving cuts the MoE expert stacks 2-D, never
+    gathered), as the reference's."""
+    n = param_count(cfg)
+    if cfg.moe is not None:
+        m = cfg.moe
+        n -= (cfg.n_layers - m.n_dense_layers) * m.e_padded * 3 \
+            * cfg.d_model * m.d_expert
+    return n * bytes_per_param / mesh.shape["model"] > SERVE_FSDP_BYTES
+
+
+def default_accum_steps(cfg: ModelConfig, shape: ShapeConfig, mesh) -> int:
+    """Microbatches so that each data rank sees about one sequence a
+    micro-step on configs above 10 B params; smaller ones take the whole
+    batch in one step (the reference's)."""
+    if param_count(cfg) < 10e9:
+        return 1
+    ds = shd.data_shards(mesh)
+    return max(1, shape.global_batch // ds)
+
+
+def jit_train_step(cfg: ModelConfig, ctx: QuantContext, mesh,
+                   opt: Optimizer, lr_fn, *, remat: bool = True,
+                   fsdp: bool = True, accum_steps: int = 1):
+    """The reference's mesh wrapper of the train step, less its ``wire``
+    (the port compiles nothing): ``(step, (params_abs, opt_abs, p_spec,
+    o_spec))`` with ``step`` :func:`build_train_step` on ``mesh`` (one
+    rank's), ``params_abs`` / ``opt_abs`` the whole params and optimizer
+    state on the meta device, ``p_spec`` the params' spec tree by the
+    training rules (``fsdp``: large leaves also cut over ``data``) and
+    ``o_spec`` the state's (``distributed.sharding._opt_spec_like``).  A
+    rank's state is ``shard_tree`` of the whole one, or ``rank_zeros`` of
+    ``opt_abs`` for a fresh one."""
+    params_abs = abstract_params(cfg)
+    p_spec = shd.param_sharding_rules(params_abs, mesh, fsdp=fsdp, cfg=cfg)
+    opt_abs = abstract_opt_state(cfg, opt)
+    o_spec = shd._opt_spec_like(opt_abs, p_spec)
+    step = build_train_step(cfg, ctx, opt, lr_fn, remat=remat,
+                            accum_steps=accum_steps, mesh=mesh, fsdp=fsdp)
+    return step, (params_abs, opt_abs, p_spec, o_spec)
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:

@@ -42,6 +42,7 @@ import torch
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import copy_to_model
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels.ragged_flash import RaggedWork
@@ -121,6 +122,15 @@ def last_row(n_rows: int, device: torch.device) -> torch.Tensor:
     return torch.full((), n_rows - 1, dtype=torch.int32, device=device)
 
 
+def _whole_gain(gain: torch.Tensor) -> torch.Tensor:
+    """A leaf the rules leave whole that acts on the rank's own heads: on
+    a tensor-parallel mesh its gradient is summed over the model axis
+    (``distributed.collectives.copy_to_model``), so every rank holds the
+    whole gradient; the value is ``gain`` itself."""
+    mesh = shd.tp_mesh()
+    return gain if mesh is None else copy_to_model(gain, mesh)
+
+
 def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
                   cfg: ModelConfig, *,
                   rope: Optional[tuple[torch.Tensor, torch.Tensor]],
@@ -193,8 +203,10 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     q, k, v = (q.reshape(*lead, h, hd), k.reshape(*kv_lead, kvh, hd),
                v.reshape(*kv_lead, kvh, hd))
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        # whole gains over the rank's own heads on a mesh: each rank's
+        # gradient is partial, summed over the model axis
+        q = rmsnorm(q, _whole_gain(p["q_norm"]), cfg.norm_eps)
+        k = rmsnorm(k, _whole_gain(p["k_norm"]), cfg.norm_eps)
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
 

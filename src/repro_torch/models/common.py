@@ -24,6 +24,8 @@ import torch
 
 from repro_torch.core.qmodel import QuantContext, qlinear, qlinears
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import (gather_from_model,
+                                                 vocab_embed)
 
 __all__ = ["inv_rms", "rmsnorm", "rope_freqs", "rope_tables", "rotate", "apply_rope",
            "linear", "linears", "embed", "unembed", "Initializer"]
@@ -120,28 +122,23 @@ def embed(table: torch.Tensor, tokens: torch.Tensor,
     the tokens it holds, zeros elsewhere, and the ranks' lookups are summed
     as integers over the values' bit patterns (one rank holds each row, so
     the sum is its bits exactly; a float sum would turn a -0.0 into
-    +0.0)."""
+    +0.0); in training the gradient goes to the rows this rank holds
+    (``distributed.collectives.vocab_embed``)."""
     mesh = shd.tp_mesh()
     if mesh is None:
         return table[tokens.long()].to(dtype)
-    rows = table.shape[0]
-    local = tokens.long() - mesh.coords["model"] * rows
-    mine = (local >= 0) & (local < rows)
-    x = table[local.clamp(0, rows - 1)].to(dtype)
-    x = torch.where(mine[..., None], x, torch.zeros((), dtype=dtype,
-                                                   device=x.device))
-    bits = x.contiguous().view(torch.int32)   # d even for 16-bit dtypes
-    return mesh.all_reduce(bits, "model").view(dtype)
+    return vocab_embed(table, tokens, mesh, dtype)
 
 
 def unembed(ctx: QuantContext, x: torch.Tensor,
             table: torch.Tensor) -> torch.Tensor:
     """LM head; logits stay in the activation dtype.  On a tensor-parallel
     mesh ``table`` is this rank's vocab columns, and the ranks' logits are
-    gathered along the vocab (each column's value is one rank's, exact)."""
+    gathered along the vocab (each column's value is one rank's, exact;
+    the gradient of the rank's columns is its block of the logits')."""
     logits = qlinear(ctx, "lm_head", x, table)
     mesh = shd.tp_mesh()
-    return logits if mesh is None else mesh.all_gather(logits, "model", -1)
+    return logits if mesh is None else gather_from_model(logits, mesh, -1)
 
 
 class Initializer:

@@ -39,6 +39,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.core.qmodel import QuantContext
 from repro_torch.core.qscheme import round_half_away
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import sum_over_data
 from repro_torch.models import attention as att
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -519,7 +520,15 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     The gold logit is picked by ``gather``, where the reference sums
     ``logits * one_hot`` in fp32 (a vocab-dim gather re-shards the logits
     under GSPMD): the sum has one nonzero term, so value and gradient are
-    the same, without a (B, S, V) one-hot."""
+    the same, without a (B, S, V) one-hot.
+
+    Under a scope whose data axis cuts the batch (training on a mesh,
+    ``activation_sharding(mesh, batch_split=True)``) ``batch`` is this
+    rank's block of rows and the loss is the global one, as the
+    reference's over its data-cut batch: the masked sum and the mask
+    count (the z-loss's sum and count) summed over the data axis, then
+    divided (``distributed.collectives.sum_over_data``), the same value
+    on every rank."""
     logits, _ = forward(params, batch, cfg, ctx, remat=remat)
     logits = logits[:, :-1]
     targets = batch["labels"][:, 1:].long()
@@ -529,12 +538,22 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     gold = logits.gather(-1, targets[..., None])[..., 0].float()
     nll = lse - gold
     mask = batch.get("mask")
-    if mask is not None:
-        mask = mask[:, 1:].to(nll.dtype)
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    mesh = shd.current_mesh() if shd.batch_shards() > 1 else None
+    if mesh is None:
+        if mask is not None:
+            mask = mask[:, 1:].to(nll.dtype)
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            loss = nll.mean()
+        z_loss = 1e-4 * (lse * lse).mean()
     else:
-        loss = nll.mean()
-    z_loss = 1e-4 * (lse * lse).mean()
+        count = torch.tensor(float(nll.numel()), device=nll.device)
+        mask = (torch.ones_like(nll) if mask is None
+                else mask[:, 1:].to(nll.dtype))
+        loss = sum_over_data((nll * mask).sum(), mesh) / torch.clamp(
+            sum_over_data(mask.sum(), mesh), min=1.0)
+        z_loss = 1e-4 * (sum_over_data((lse * lse).sum(), mesh)
+                         / sum_over_data(count, mesh))
     metrics = {"nll": loss, "z_loss": z_loss,
                "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
     return loss + z_loss, metrics

@@ -6,9 +6,10 @@ max-heuristic), summed as int32 and shifted back.
 
 ``quantize_grads_po2`` / ``dequantize_grads_po2`` work on any tree of the
 port's (one grid a leaf: where the reference stacks the layers into one
-leaf, the port's per-layer leaves take a grid each).  ``compressed_psum``,
-the all-reduce itself, is a collective and waits for the multi-device
-port."""
+leaf, the port's per-layer leaves take a grid each).  ``compressed_psum``
+is the all-reduce itself over an axis of a (data, model) mesh of ranks
+(``launch.mesh``); as in the reference, the train step does not call it.
+"""
 from __future__ import annotations
 
 from typing import Any
@@ -46,10 +47,28 @@ def dequantize_grads_po2(codes: Any, ns: Any, count: int = 1) -> Any:
                     codes, ns)
 
 
-def compressed_psum(grads: Any, axis_name: str, bits: int = 8) -> Any:
-    """The all-reduce-mean over ``axis_name`` with the po2 payload: a
-    collective (the reference's ``lax.pmax`` / ``lax.psum`` under
-    ``shard_map``), not ported."""
-    raise NotImplementedError(
-        "compressed_psum is a collective: it comes with the multi-device "
-        "port (ROADMAP Queue 1 item 8, 'Multi-device and analysis')")
+def compressed_psum(grads: Any, axis: str, bits: int = 8, *,
+                    mesh=None) -> Any:
+    """The all-reduce-mean over the mesh axis ``axis`` with the po2
+    payload (the reference's, under ``shard_map``): the grid shared by
+    the axis's ranks is the coarsest, the smallest ``n`` (an all-reduce
+    max of ``-n``, a scalar a leaf), each rank's codes on it are summed
+    as int32 (exact), and the sum is shifted back and divided by the
+    count, in each gradient's dtype.  ``mesh``: a ``launch.mesh.
+    RankMesh``, default the scope's (``distributed.sharding.
+    activation_sharding``)."""
+    if mesh is None:
+        from repro_torch.distributed.sharding import current_mesh
+        mesh = current_mesh()
+    if mesh is None:
+        raise ValueError("compressed_psum reduces over a mesh's axis: pass "
+                         "mesh= or call it inside activation_sharding")
+    lo, hi = int_bounds(bits)
+    ns = tree_map(lambda g: -mesh.all_reduced(-_leaf_n(g, bits), axis,
+                                              "max"), grads)
+    codes = tree_map(lambda g, n: mesh.all_reduce(torch.clamp(
+        round_half_away(g.float() * torch.exp2(n)), lo, hi
+    ).to(torch.int32), axis), grads, ns)
+    count = mesh.shape[axis]
+    return tree_map(lambda c, n, g: (c.float() * torch.exp2(-n) / count
+                                     ).to(g.dtype), codes, ns, grads)

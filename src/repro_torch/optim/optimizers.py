@@ -12,10 +12,19 @@ alone are 9.9 GB, and a second copy of the tree would not be free.
                every leaf.
   adafactor -- factored second moment (row / col) for leaves whose last
                two dims are >= 128, the full one otherwise; no momentum.
+
+On a (data, model) mesh (``launch.steps.build_train_step(mesh=)``) each
+rank updates its own pieces of the leaves: ``update`` and
+:func:`clip_by_global_norm` take the mesh and the params' spec tree, and
+all-reduce what is not elementwise (the global norm; adafactor's means
+over a cut dim and its update RMS).  ``init`` takes the whole tree: the
+factored / full choice reads the whole leaf's shape, and a rank's state
+is its pieces (``distributed.sharding.rank_zeros``).
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 import re
 from typing import Any, Callable, NamedTuple
 
@@ -52,16 +61,47 @@ def _zip(ref: Any, *trees: Any) -> list[tuple]:
                                                  rows)]
 
 
-def clip_by_global_norm(grads: Any, max_norm: float
-                        ) -> tuple[Any, torch.Tensor]:
+def _reduced(t: torch.Tensor, axes, mesh, mean: bool = False
+             ) -> torch.Tensor:
+    """``t`` summed (``mean``: averaged) over the mesh axes ``axes``."""
+    for a in axes:
+        if mesh.shape[a] > 1:
+            t = mesh.all_reduced(t, a)
+            if mean:
+                t = t / mesh.shape[a]
+    return t
+
+
+def _dim_axes(spec: tuple, dim: int) -> tuple:
+    """The mesh axes cutting dim ``dim`` of a leaf of spec ``spec``."""
+    if not spec or spec[dim] is None:
+        return ()
+    return spec[dim] if isinstance(spec[dim], tuple) else (spec[dim],)
+
+
+def clip_by_global_norm(grads: Any, max_norm: float, *, mesh=None,
+                        specs: Any = None) -> tuple[Any, torch.Tensor]:
     """Scale every gradient by ``min(1, max_norm / (norm + 1e-9))`` of
     their global fp32 norm, IN PLACE (each cast back to its dtype).
-    Returns (grads, norm)."""
+    Returns (grads, norm).  On ``mesh`` ``grads`` are one rank's pieces,
+    cut as the spec tree ``specs`` says: each leaf's squares are summed
+    over the axes that cut it (the leaves cut by the same axes in one sum,
+    one all-reduce an axis), and a leaf whole over an axis counts once."""
     ls = leaves(grads)
     with torch.no_grad():
         total = torch.zeros((), dtype=torch.float32, device=ls[0].device)
-        for g in ls:
-            total = total + torch.square(g.float()).sum()
+        if mesh is None:
+            for g in ls:
+                total = total + torch.square(g.float()).sum()
+        else:
+            from repro_torch.distributed.sharding import spec_axes, spec_list
+            parts: dict[tuple, torch.Tensor] = {}
+            for g, sp in zip(ls, spec_list(grads, specs)):
+                key = tuple(a for a in mesh.axis_names
+                            if a in spec_axes(sp) and mesh.shape[a] > 1)
+                parts[key] = parts.get(key, 0) + torch.square(g.float()).sum()
+            for key, part in parts.items():
+                total = total + _reduced(part, key, mesh)
         gn = torch.sqrt(total)
         scale = torch.clamp(max_norm / (gn + 1e-9), max=1.0)
         for g in ls:
@@ -81,7 +121,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                                              device=p.device), params))
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, *, mesh=None, specs=None):
+        del mesh, specs     # elementwise: a rank's pieces are enough
         stepf = state.step.add_(1).float()
         bc1 = 1 - b1 ** stepf
         bc2 = 1 - b2 ** stepf
@@ -128,37 +169,57 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                                          device=_device_of(params)),
                         m=None, v=tree_map(v_init, params))
 
-    def vhat_of(v):
+    def vhat_of(v, spec=(), mesh=None):
         if isinstance(v, tuple):
             vr, vc = v
-            denom = torch.clamp(vr.mean(-1, keepdim=True), min=eps)
+            # the row means' mean over the param's rows
+            denom = vr.mean(-1, keepdim=True)
+            if mesh is not None:
+                denom = _reduced(denom, _dim_axes(spec, -2), mesh, True)
+            denom = torch.clamp(denom, min=eps)
             return (vr[..., None] * vc[..., None, :]) / denom[..., None]
         return v
 
     @torch.no_grad()
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, *, mesh=None, specs=None):
+        """``mesh``, ``specs``: the leaves are one rank's pieces cut as the
+        params' spec tree says; a factored mean over a cut dim and each
+        leaf's sum of u^2 are all-reduced over the axes cutting it."""
         beta2 = 1.0 - state.step.add_(1).float() ** -0.8
         rows = _zip(params, grads, state.v)
+        if mesh is None:
+            sps = [()] * len(rows)
+        else:
+            from repro_torch.distributed.sharding import spec_axes, spec_list
+            sps = spec_list(params, specs)
         sq: dict[str, torch.Tensor] = {}
         count: dict[str, int] = {}
         # pass 1: the second moments, and each stacked leaf's sum of u^2
-        for path, p, g, v in rows:
+        for (path, p, g, v), sp in zip(rows, sps):
             g32 = g.float()
             g2 = g32 * g32 + eps
             if isinstance(v, tuple):
                 vr, vc = v
-                vr.mul_(beta2).add_((1 - beta2) * g2.mean(-1))
-                vc.mul_(beta2).add_((1 - beta2) * g2.mean(-2))
+                rmean, cmean = g2.mean(-1), g2.mean(-2)
+                if mesh is not None:
+                    rmean = _reduced(rmean, _dim_axes(sp, -1), mesh, True)
+                    cmean = _reduced(cmean, _dim_axes(sp, -2), mesh, True)
+                vr.mul_(beta2).add_((1 - beta2) * rmean)
+                vc.mul_(beta2).add_((1 - beta2) * cmean)
             else:
                 v.mul_(beta2).add_((1 - beta2) * g2)
-            u = g32 / torch.sqrt(vhat_of(v) + eps)
+            u = g32 / torch.sqrt(vhat_of(v, sp, mesh) + eps)
             key = _stack_key(path)
-            sq[key] = sq.get(key, 0) + (u * u).sum()
-            count[key] = count.get(key, 0) + u.numel()
+            usq, n = (u * u).sum(), u.numel()
+            if mesh is not None:
+                usq = _reduced(usq, spec_axes(sp), mesh)
+                n *= math.prod(mesh.shape[a] for a in spec_axes(sp))
+            sq[key] = sq.get(key, 0) + usq
+            count[key] = count.get(key, 0) + n
         # pass 2: the clipped update from the new moments
-        for path, p, g, v in rows:
+        for (path, p, g, v), sp in zip(rows, sps):
             key = _stack_key(path)
-            u = g.float() / torch.sqrt(vhat_of(v) + eps)
+            u = g.float() / torch.sqrt(vhat_of(v, sp, mesh) + eps)
             rms = torch.sqrt(sq[key] / count[key] + eps)
             u = u / torch.clamp(rms / clip_threshold, min=1.0)
             if weight_decay:

@@ -9,15 +9,19 @@ fake quantization against the JAX package's, on the same numpy inputs:
 * ``warmup_cosine`` / ``warmup_linear`` at every step, host ints and
   device tensors, within 1 fp32 ulp of the reference's;
 * ``quantize_grads_po2`` codes and grids identical,
-  ``dequantize_grads_po2`` within 1e-7; ``compressed_psum`` refused,
-  naming ROADMAP Queue 1 item 8;
+  ``dequantize_grads_po2`` within 1e-7; ``compressed_psum`` on one rank
+  and on 2 (over ``data``) and 4 (over ``model``) spawned gloo ranks
+  against the reference's under ``jax.vmap(axis_name=...)`` on the same
+  per-rank numpy gradients (its ``pmax`` / ``psum`` over the mapped
+  axis), within 1e-7;
 * ``fake_quant_ste``: the value ``fake_quant``'s, the gradient the
   reference's ``custom_vjp`` (1 inside the range, 0 where clipped),
   exactly;
 * a property over leaf shapes: one AdamW and one Adafactor update on a
   random leaf agree with the reference's.
 
-About 15 s on one thread, most of it the JAX package's eager updates.
+About 25 s on one thread, most of it the JAX package's eager updates
+and the spawned ranks.
 """
 import numpy as np
 import pytest
@@ -37,9 +41,11 @@ from repro.optim import optimizers as jo  # noqa: E402
 from repro.optim import schedule as js  # noqa: E402
 from repro_torch.core import qscheme as tq  # noqa: E402
 from repro_torch.core.tree import leaves  # noqa: E402
+from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.optim import compression as tc  # noqa: E402
 from repro_torch.optim import optimizers as to  # noqa: E402
 from repro_torch.optim import schedule as ts  # noqa: E402
+from tests import train_mesh_cases as cases_lib  # noqa: E402
 from tests.torch_threads import one_torch_thread  # noqa: E402,F401
 
 
@@ -175,8 +181,48 @@ def test_grad_codec_matches_jax():
     for k in grads:
         np.testing.assert_allclose(td[k].numpy(), np.asarray(jd[k]),
                                    atol=1e-7, rtol=1e-7)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.compressed_psum(_t(grads), "data")
+    # compressed_psum over a one-rank axis: the grid is the rank's own
+    want = jax.vmap(lambda g: jc.compressed_psum(g, "r"), axis_name="r")(
+        {k: jnp.asarray(v)[None] for k, v in grads.items()})
+    got = tc.compressed_psum(_t(grads), "data",
+                             mesh=tmesh.RankMesh(1, 1))
+    for k in grads:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k][0]),
+                                   atol=1e-7, rtol=0)
+
+
+PSUM_SHAPES = {"a": (3, 130), "b": (7,), "c": (2, 4, 5), "z": (4,)}
+
+
+@pytest.mark.parametrize("shape,axis", [((2, 1), "data"),
+                                        ((1, 4), "model")],
+                         ids=["2 ranks over data", "4 ranks over model"])
+def test_compressed_psum_matches_jax(shape, axis, tmp_path):
+    """Each rank's own gradients (their maxima apart, a zero leaf, a bf16
+    leaf), the shared coarsest grid, the int32 sum and the mean."""
+    n = shape[0] * shape[1]
+    per_rank = []
+    for r in range(n):
+        g = _np_tree(100 + r, PSUM_SHAPES)
+        g["a"] *= 4.0 ** r
+        g["z"][:] = 0.0
+        per_rank.append(g)
+    want = jax.vmap(lambda g: jc.compressed_psum(g, "r"), axis_name="r")(
+        {k: jnp.asarray(np.stack([g[k] for g in per_rank]),
+                        jnp.bfloat16 if k == "c" else jnp.float32)
+         for k in PSUM_SHAPES})
+    got = tmesh.run_ranks(cases_lib.psum_case, shape, device="cpu",
+                          backend="gloo", workdir=str(tmp_path), threads=1,
+                          kwargs={"per_rank": per_rank, "axis": axis,
+                                  "bf16": ("c",)})
+    for r, res in enumerate(got):
+        for k in PSUM_SHAPES:
+            w = np.asarray(want[k][r].astype(jnp.float32))
+            assert res[k].dtype == (torch.bfloat16 if k == "c"
+                                    else torch.float32)
+            np.testing.assert_allclose(res[k].float().numpy(), w, atol=1e-7,
+                                       rtol=0)
+            assert torch.equal(res[k], got[0][k])
 
 
 @pytest.mark.parametrize("bits,unsigned,n", [(8, False, 4), (4, False, 2),
