@@ -121,11 +121,11 @@ the CUDA toolkit.  Phases, one line each (or a few):
     request on which the two engines' plain runs differ, the top-2 logit
     margin (in bf16 ulps) at the first divergent token, from the classic
     dense prefill of the agreed prefix (printed, not gated);
-18. the engine's observability at full depth on phase 5's workload: the
-    ragged INT engine with obs off and with ``trace=True, slo=True`` and a
+18. the engine's observability on phase 5's workload (at full width on
+    ``ENGINE_LAYERS``, 14 of qwen3-1.7B's 28 layers): the ragged INT engine with obs off and with ``trace=True, slo=True`` and a
     metrics export, interleaved (off, on, on, off) for tokens/s, TPOT and
     TTFT, every run token-identical with the same launches; an obs-on
-    INT and W8A8 run each held to K1 = 28 x steps and K2 = 197 x steps,
+    INT and W8A8 run each held to K1 = 14 x steps and K2 = 99 x steps,
     a clean schema diff and Chrome trace (one dispatch span a step), the
     energy proxy reconciled exactly with the hwcost counters, and the
     requant ops performed (and, W8A8, forward) equal to the rows each
@@ -138,8 +138,8 @@ the CUDA toolkit.  Phases, one line each (or a few):
     and a ``profile_dir`` run whose ``torch.profiler`` trace holds one
     ``ragged_step#N`` annotation per dispatch, each with K1's launches
     inside, and as many K1 kernels as the engine counted;
-19. the compiled serving step: phase 5's workload on the ragged engine
-    (FP, INT, W8A8, INT with ``spec_k=3``, INT sampled at temperature 0.8
+19. the compiled serving step: phase 5's workload (at ``ENGINE_LAYERS``,
+    as phase 18) on the ragged engine (FP, INT, W8A8, INT with ``spec_k=3``, INT sampled at temperature 0.8
     and top-k 50) and the legacy engine (INT, INT with ``spec_k=3``),
     each with CUDA graphs (the engines' default on the card) and with
     ``graphs=False``, cold (a fresh engine) and warm (the same engine
@@ -149,7 +149,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
     tokens/s, TPOT and TTFT p50, the trace's split into dispatch spans and
     host time between them, first calls, captures, replays and peak memory
     of each run; and the busy share of a profiled warm INT run eager and
-    with graphs (``launch/profile_engine.py``), its kernels, copies and
+    with graphs (``launch/profile_engine.py``, at full depth), its kernels, copies and
     fills a dispatch, the K1 kernels of ``key_averages()`` equal to those
     of the profiler's Kineto events, and those equal to the engine's count
     eager and not above it with graphs (the comment at the check says
@@ -159,12 +159,13 @@ the CUDA toolkit.  Phases, one line each (or a few):
     shared block) at full width in fp32, two (4, 64) steps with an idle
     lane, kernels on the card against the plain path on the CPU, FP and
     INT x fp32 and int8 slabs (zamba2's pool int8 with int8 slabs); then
-    ``serve_engine`` at full depth in bf16 on phase 5's workload with
+    ``serve_engine`` at full width in bf16 (``REC_DEPTH`` of the layers:
+    16 of rwkv6-3b's 32, 30 of zamba2-2.7b's 54) on phase 5's workload with
     chunk 64 (rwkv6-3b FP, FP with int8 slabs, INT; zamba2-2.7b FP on a
     bf16 pool, FP with int8 pool and slabs, INT), each with CUDA graphs and
     eagerly, cold and warm, in turns: identical tokens and launches, K1 0,
-    K4 = 9 x dispatches on zamba2 (0 on rwkv6), K2 = 257 / 181 a dispatch
-    in INT, one step key (first calls + replays = dispatches), the state
+    K4 = 5 x dispatches on zamba2 (0 on rwkv6), K2 = 129 / 101 a dispatch
+    in INT at that depth, one step key (first calls + replays = dispatches), the state
     requant ops equal to one slab's elements (from the arenas) x the
     dispatches' live rows (counted on the host side of the dispatch), with
     tokens/s, TTFT and TPOT p50, peak memory and the slabs' bytes; and
@@ -208,13 +209,13 @@ the CUDA toolkit.  Phases, one line each (or a few):
     ``prefill`` of the (4, 32) prompt and 3 ``decode_step`` calls, kernels
     on the card against the plain path on the CPU, each step from the
     card's state: FP logits within 2e-4 and tokens identical, INT module
-    by module identical; (b) classic ``serve`` of both at full depth in
+    by module identical; (b) classic ``serve`` of both at ``REC_DEPTH`` in
     bf16 (flash attention, zamba2 over an int8 cache), calibrated INT and
     FP, graphs and eager in turns as phase 10: tokens identical, launches
-    by ``_rec_serve_want`` (K2 257 / 181 a forward, K5 9 a zamba2 forward
-    and 9 for INT's calibration forward, K6 9 a decode step), calibration
+    by ``_rec_serve_want`` (K2 129 / 101 a forward, K5 5 a zamba2 forward
+    and 5 for INT's calibration forward, K6 5 a decode step), calibration
     and prefill seconds, decode ms/token replayed and eager, peak memory;
-    (c) ``serve_engine`` of both at full depth on phase 20's workload,
+    (c) ``serve_engine`` of both at ``REC_DEPTH`` on phase 20's workload,
     int8 slabs (and pool), calibrated INT and ``w8a8=True`` cold and warm:
     W8A8 token-identical to INT, K2 by ``_rec_per_dispatch``; (d) the
     classic path against the engine on phase 20's workload, fp32, 2
@@ -324,6 +325,26 @@ the CUDA toolkit.  Phases, one line each (or a few):
     ``TRAIN_MOMENT_TOL`` of a leaf's largest); (c) one INT step on the (1, 2) mesh: the loss one rank's
     bit for bit, grad_norm 0, the launches one rank's with each row-cut
     module's K2 a partial and a finish.
+29. the MoE family with MLA over a (data, model) mesh: (a) K2's grouped
+    form's int32 output kind and exchanged layout (an (E, D) count grid)
+    bit-exact against their plain versions at the decode shapes of a (1,
+    2) and a (2, 1) rank, timed beside their bounds and looped
+    ``torch._int_mm``; (b) granite-moe-3b at full width on 16 of its 32
+    layers (``MM_GRANITE_LAYERS``: the script's time) and (c)
+    deepseek-v3 at full width on 4 layers through classic ``serve`` on a
+    (1, 2) mesh of two ranks sharing the card over gloo, FP and calibrated
+    INT, the cases of ``tests/moe_mesh_cases.py``: tokens one rank's, INT
+    every step's logits bit for bit, bf16 FP against one rank with its
+    row-cut sums in the mesh's order within ``MM_FP_REL`` (one rank alone
+    printed beside, with the prefill's routing choices that flip between
+    the two one-rank runs and the first flip's margin, ``_route_flips``),
+    granite in fp32 on ``MM_FP32_LAYERS`` layers against
+    one rank within ``MM_FP32_REL``, each rank's launches by
+    ``_mm_want``, tokens/s and peak memory a rank; (d) two
+    full-width granite MoE layers in fp32 on a (2, 1) mesh (the hidden
+    cut over data) under a router that overflows expert 0, against the
+    CPU's one-process per-shard dispatch (INT identical, FP within
+    ``MM_LAYER_FP_REL``), each rank's launches a layer.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -348,7 +369,9 @@ grouped form one granite-moe-3b decode step's 96 launches, from phase
 training launches and its recompute backward at the train shape, from
 phase 26; K2's rank-split form and every kernel's launches on each rank
 of phase 27's mesh; K5's, K2's and K3's launches on each rank of phase
-28's training mesh), and
+28's training mesh; K2's grouped form's int32 kind and exchanged
+layout, and every kernel's launches on each rank of phase 29's mesh),
+and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -3037,6 +3060,12 @@ def phase_legacy_engine(torch, out):
 # ---------------------------------------------------------------------------
 
 OBS_DIR = ROOT / "build" / "obs"
+# phases 18 and 19 serve qwen3-1.7B at full width on ENGINE_LAYERS of its
+# 28 layers (phase 19's two profiled runs, ``profile_engine.profile_run``,
+# at full depth): full depth until PR 30, whose phase 29 took the script
+# past its time (phase 19 took 153.2 s at full depth on an H100 80GB HBM3
+# at 700 W, the script 1143.7 s)
+ENGINE_LAYERS = 14
 
 
 def _obs_run(torch, count_rows=False, **kw):
@@ -3060,7 +3089,7 @@ def _obs_run(torch, count_rows=False, **kw):
             return real_dispatch(self, tokens, positions, dest, *a, **k)
         ServingEngine._dispatch_ragged = counting_dispatch
     args = dict(smoke=False, kv_bits=8, n_requests=8, n_slots=4, rate=1e9,
-                device="cuda")
+                device="cuda", cfg_overrides={"n_layers": ENGINE_LAYERS})
     args.update(kw)
     if not args.get("w8a8"):
         args.setdefault("calibrate", False)
@@ -3146,7 +3175,8 @@ def phase_obs(torch, out):
     from repro_torch.obs.schema import diff_schema, schema_of
     from repro_torch.obs.trace import validate_chrome_trace
     from repro_torch.serving.engine import ServingEngine
-    cfg = get_config("qwen3_1_7b")
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"),
+                              n_layers=ENGINE_LAYERS)
     L = cfg.n_layers
     per_step_k2 = 7 * L + 1
     kv_elems = L * cfg.n_kv_heads * cfg.resolved_head_dim * 2
@@ -3413,7 +3443,8 @@ def _graph_runs(torch, graphs, kw):
 def phase_graphs(torch, out):
     from repro_torch.configs import get_config
     from repro_torch.launch.profile_engine import K1_TAG, profile_run
-    cfg = get_config("qwen3_1_7b")
+    cfg = dataclasses.replace(get_config("qwen3_1_7b"),
+                              n_layers=ENGINE_LAYERS)
     L = cfg.n_layers
     res = {}
     greedy_int = None
@@ -3509,7 +3540,9 @@ def phase_graphs(torch, out):
             f"every other call a replay; warm, every call a replay; each "
             f"key captured once")
         res[tag] = rows
-    # the busy share of a profiled warm run, eager and with graphs
+    # the busy share of a profiled warm run, eager and with graphs, at the
+    # module's own full depth
+    L = get_config("qwen3_1_7b").n_layers
     for graphs in (False, True):
         r = profile_run("int", graphs=None if graphs else False)
         rep = r["report"]
@@ -3578,6 +3611,18 @@ REC_MODEL_ROWS = (((1, 0, 24), (2, 0, 64), (0, 0, 0), (3, 0, 7)),
                   ((1, 24, 1), (2, 64, 30), (0, 0, 0), (3, 7, 1)))
 REC_MODEL_NBMAX = 6
 # the engine cases: (tag, arch, serve_engine options)
+# phases 20 and 23 run the recurrent archs at full width on these of
+# their layers (rwkv6-3b 16 of 32, zamba2-2.7b 5 of its 9 groups of 6):
+# full depth until PR 30, whose phase 29 took the script past its time
+REC_DEPTH = {"rwkv6_3b": 16, "zamba2_2_7b": 30}
+
+
+def _rec_cfg(arch):
+    """The recurrent arch's full config at REC_DEPTH of its layers."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=REC_DEPTH[arch])
+
+
 REC_CASES = (("rwkv fp", "rwkv6_3b", dict(mode="fp")),
              ("rwkv fp int8 slabs", "rwkv6_3b", dict(mode="fp",
                                                      state_bits=8)),
@@ -3909,7 +3954,7 @@ def _live_rows_of(fn):
 
 def _rec_engine(torch, arch, params, graphs, kw, num_slabs=None):
     """A cold run of phase 5's workload (8 requests at once, 4 slots) with
-    chunk 64 on a fresh recurrent engine at full depth, traced."""
+    chunk 64 on a fresh recurrent engine at REC_DEPTH, traced."""
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_engine
     ops.reset_launch_counts()
@@ -3918,7 +3963,8 @@ def _rec_engine(torch, arch, params, graphs, kw, num_slabs=None):
     o, rows = _live_rows_of(lambda: serve_engine(
         arch, smoke=False, params=params, n_requests=8, n_slots=4,
         chunk=HYBRID_CHUNK, rate=1e9, calibrate=False, trace=True,
-        graphs=graphs, num_slabs=num_slabs, device="cuda", **kw))
+        graphs=graphs, num_slabs=num_slabs, device="cuda",
+        cfg_overrides={"n_layers": REC_DEPTH[arch]}, **kw))
     torch.cuda.synchronize()
     return o["engine"], _rec_result(torch, o["engine"], o["report"], rows,
                                     time.perf_counter() - t0)
@@ -4004,12 +4050,11 @@ def _rec_preempt_run(torch, params, ref_outputs):
     preempted once after 4 decoded tokens: its slab is copied to the host
     and restored at readmission; every request's tokens must equal the
     uninterrupted run's.  Returns (the report, the preempted rid)."""
-    from repro_torch.configs import get_config
     from repro_torch.core.qmodel import QuantContext
     from repro_torch.launch.serve import poisson_workload
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.scheduler import RequestState
-    cfg = get_config("rwkv6_3b")
+    cfg = _rec_cfg("rwkv6_3b")
     reqs = poisson_workload(cfg.vocab_size, n_requests=8, rate=1e9)
     need = max(len(r.prompt) + r.max_new_tokens for r in reqs)
     eng = ServingEngine(cfg, params, QuantContext(), n_slots=4,
@@ -4037,16 +4082,15 @@ def _rec_preempt_run(torch, params, ref_outputs):
 
 
 def phase_recurrent_engine(torch, out):
-    """serve_engine on rwkv6-3b and zamba2-2.7b at full width and depth in
-    bf16 (REC_CASES), each with CUDA graphs and eagerly, cold and warm,
-    in turns; after RWKV6's FP case, RWKV6 on an undersized slab pool and
-    with a forced snapshot preemption."""
-    from repro_torch.configs import get_config
+    """serve_engine on rwkv6-3b and zamba2-2.7b at full width in bf16,
+    REC_DEPTH of their layers (REC_CASES), each with CUDA graphs and
+    eagerly, cold and warm, in turns; after RWKV6's FP case, RWKV6 on an
+    undersized slab pool and with a forced snapshot preemption."""
     from repro_torch.models import model as M
     res = {}
     params = {}
     for i, (tag, arch, kw) in enumerate(REC_CASES):
-        cfg = get_config(arch)
+        cfg = _rec_cfg(arch)
         if arch not in params:         # one model's weights at a time
             params.clear()
             gc.collect()
@@ -4332,7 +4376,7 @@ def _rec_classic_model(torch, res):
 
 
 def _rec_classic_serve(torch, res, params, arch):
-    """(b) classic ``serve`` at full depth, bf16, flash attention (zamba2
+    """(b) classic ``serve`` at REC_DEPTH, bf16, flash attention (zamba2
     over its int8 dense cache): INT (calibrated) and FP, each with its
     decode steps captured and eagerly, in turns (graphs, eager, graphs,
     eager), as phase 10: tokens identical, launches by
@@ -4340,9 +4384,11 @@ def _rec_classic_serve(torch, res, params, arch):
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve
-    cfg = get_config(arch)
+    cfg = _rec_cfg(arch)
     hybrid = cfg.family == "hybrid"
-    overrides = {"kv_cache_bits": 8} if hybrid else None
+    overrides = {"n_layers": cfg.n_layers}
+    if hybrid:
+        overrides["kv_cache_bits"] = 8
     for mode in ("int", "fp"):
         want = _rec_serve_want(cfg, mode, hybrid)
         runs = []
@@ -4401,14 +4447,13 @@ def _rec_classic_serve(torch, res, params, arch):
 
 
 def _rec_classic_engine(torch, res, params, arch):
-    """(c) ``serve_engine`` at full depth, bf16, on phase 20's workload
+    """(c) ``serve_engine`` at REC_DEPTH, bf16, on phase 20's workload
     (chunk 64), int8 slabs (and zamba2's int8 pool): calibrated INT and
     ``w8a8=True``, each cold and warm; W8A8's tokens identical to INT's
     (both compute on the same codes), K2 by ``_rec_per_dispatch``."""
-    from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.launch.serve import serve_engine
-    cfg = get_config(arch)
+    cfg = _rec_cfg(arch)
     per = _rec_per_dispatch(cfg)
     got = {}
     for tag, kw in (("int", dict(mode="int", calibrate=True)),
@@ -4418,7 +4463,8 @@ def _rec_classic_engine(torch, res, params, arch):
         t0 = time.perf_counter()
         o = serve_engine(arch, smoke=False, params=params, n_requests=8,
                          n_slots=4, chunk=HYBRID_CHUNK, rate=1e9,
-                         state_bits=8, kv_bits=8, device="cuda", **kw)
+                         state_bits=8, kv_bits=8, device="cuda",
+                         cfg_overrides={"n_layers": cfg.n_layers}, **kw)
         torch.cuda.synchronize()
         eng = o["engine"]
         cold = _rec_result(torch, eng, o["report"], 0,
@@ -4621,15 +4667,14 @@ def _rec_attention_kernels(torch, res):
 def phase_recurrent_classic(torch, out):
     """Phase 23: the recurrent families' classic path -- (a) the 2-layer /
     one-group model card against CPU, (b) classic ``serve`` and (c) the
-    calibrated INT and W8A8 engines at full depth, (d) the classic path
+    calibrated INT and W8A8 engines at REC_DEPTH, (d) the classic path
     against the engine, (e) K5 and K6 at zamba2's head dim 80."""
-    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     t0 = time.perf_counter()
     res = {"model": {}, "serve": {}, "engine": {}, "classic_vs_engine": {}}
     _rec_classic_model(torch, res)
     for arch in ("rwkv6_3b", "zamba2_2_7b"):
-        params = M.init_params(get_config(arch), 0, device="cuda")
+        params = M.init_params(_rec_cfg(arch), 0, device="cuda")
         _rec_classic_serve(torch, res, params, arch)
         _rec_classic_engine(torch, res, params, arch)
         del params
@@ -7531,6 +7576,552 @@ def phase_train_mesh(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the MoE family with MLA over a (data, model) mesh
+# ---------------------------------------------------------------------------
+
+# 29a: the grouped K2's int32 output kind and its exchanged layout (an (E,
+# D) count grid, each expert's C = 128 rows D segments of C / D) at the
+# decode shapes one rank sees: (label, E a rank, segments, K, N) of w1 (and
+# w3) and w2 on a (1, 2) mesh (half the experts, one segment) and a (2, 1)
+# mesh (every expert, half its hidden, two segments)
+MM_GK2_SHAPES = (
+    ("granite w1 (1, 2)", 24, 1, 1536, 512),
+    ("granite w2 (1, 2)", 24, 1, 512, 1536),
+    ("granite w1 (2, 1)", 48, 2, 1536, 256),
+    ("granite w2 (2, 1)", 48, 2, 256, 1536),
+    ("deepseek w1 (1, 2)", 128, 1, 7168, 2048),
+    ("deepseek w2 (1, 2)", 128, 1, 2048, 7168),
+    ("deepseek w1 (2, 1)", 256, 2, 7168, 1024),
+    ("deepseek w2 (2, 1)", 256, 2, 1024, 7168))
+MM_CAP = 128
+# 29b's depth: 16 of granite-moe-3b's 32 layers (the script's time)
+MM_GRANITE_LAYERS = 16
+# 29b / 29c: bf16 FP on the mesh sums each row-cut module's fp32 partials
+# and rounds once, where one rank's bf16 product rounds its own fp32 sum:
+# the last bits part, an expert's routing near-tie flips, and one rank's
+# tokens part from the mesh's (measured: granite's 32 layers agree on no
+# token, deepseek-v3's 4 layers on 92%; one rank with only those sums
+# taken in the mesh's order parts from one rank by the same amounts).  So
+# the mesh is held to one rank with its row-cut sums in the mesh's order
+# (``tests/moe_mesh_cases.py::split_sums``): tokens identical, every
+# step's logits within this share of the largest |logit|
+MM_FP_REL = 1e-2
+# and in fp32 on MM_FP32_LAYERS of granite's layers: tokens identical,
+# every step's logits within MM_FP32_REL of the largest |logit|
+MM_FP32_LAYERS, MM_FP32_REL = 4, 1e-4
+# 29d: granite at full width, 2 MoE layers in fp32, each alone on a (2, 1)
+# mesh (its hidden cut over data) over MM_LAYER_B x MM_LAYER_S tokens whose
+# capacity expert 0 overflows (its router column raised by MM_SKEW): the
+# card's ranks against the CPU's one-process ``data_shards=2`` form; FP
+# within MM_LAYER_FP_REL of the largest |output|
+MM_LAYER_B, MM_LAYER_S, MM_SKEW, MM_LAYER_FP_REL = 4, 80, 5.0, 1e-4
+
+
+def _mm_counts(torch, gen, e, segs, stride, kind, tokens, e_real):
+    """An (E,) or (E, segs) int32 count grid on the card: ``decode``, each
+    segment's ``tokens`` tokens routing top-8 among the ``e_real`` real
+    experts (the padding experts none); ``random`` in [0, stride]; ``full``
+    every segment full."""
+    if kind == "decode":
+        c = torch.stack([_decode_counts(torch, gen, e_real, e, tokens, 8)
+                         for _ in range(segs)], dim=1)
+    elif kind == "full":
+        c = torch.full((e, segs), stride, dtype=torch.int32, device="cuda")
+    else:
+        c = torch.randint(0, stride + 1, (e, segs), generator=gen).to(
+            torch.int32).cuda()
+    return c if segs > 1 else c[:, 0].contiguous()
+
+
+def _mm_gk2_run(torch, x, w, counts, rows_cap, kind):
+    """The form under test: ``int32`` the int32 sums, ``bf16`` the
+    float epilogue's values."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ops
+    if kind == "int32":
+        return ops.int8_matmul_grouped_partial(x, w, counts,
+                                               rows_cap=rows_cap)
+    return ops.int8_matmul_grouped(x, w, counts,
+                                   LinearQuantSpec(n_x=4, n_w=8, n_b=8,
+                                                   n_o=4),
+                                   rows_cap=rows_cap,
+                                   out_float=torch.bfloat16)
+
+
+def _mm_gk2_plain(torch, x, w, counts, rows_cap, kind, group=8):
+    """The plain versions over the experts with live rows, a few at a time
+    (a deepseek stack's float64 product whole would take 30 GB); returns
+    [(experts, their live-row mask (n, C), their outputs)]."""
+    from repro_torch.core.integer_ops import LinearQuantSpec
+    from repro_torch.kernels import ref
+    spec = LinearQuantSpec(n_x=4, n_w=8, n_b=8, n_o=4)
+    grid = counts.reshape(counts.shape[0], -1)
+    live = [int(i) for i in torch.nonzero(
+        torch.clamp(grid, max=rows_cap).sum(dim=1) > 0).flatten().tolist()]
+    parts = []
+    for i in range(0, len(live), group):
+        sel = torch.tensor(live[i:i + group], device="cuda")
+        xs, ws, cs = (x.index_select(0, sel), w.index_select(0, sel),
+                      counts.index_select(0, sel))
+        if kind == "int32":
+            o = ref.int8_matmul_grouped_partial_ref(xs, ws, cs,
+                                                    rows_cap=rows_cap)
+        else:
+            o = ref.int8_matmul_grouped_ref(
+                xs, ws, cs, rows_cap=rows_cap, shift=spec.requant_shift,
+                out_dtype=torch.bfloat16, n_o=spec.n_o)
+        parts.append((sel, ref._grouped_live(cs, x.shape[1], rows_cap), o))
+    return parts
+
+
+def _mm_gk2_held(torch, x, w, counts, rows_cap, kind, what) -> float:
+    """The kernel against its plain version on every live row, bit for
+    bit; returns the largest difference (0)."""
+    got = _mm_gk2_run(torch, x, w, counts, rows_cap, kind)
+    check(got.shape == (x.shape[0], x.shape[1], w.shape[2])
+          and got.dtype == (torch.int32 if kind == "int32"
+                            else torch.bfloat16),
+          f"{what}: output {got.dtype} {tuple(got.shape)}")
+    diff = 0.0
+    for sel, live, o in _mm_gk2_plain(torch, x, w, counts, rows_cap, kind):
+        g = got.index_select(0, sel)
+        d = (g.double() - o.double()).abs()
+        diff = max(diff, float(d[live].max()) if bool(live.any()) else 0.0)
+    check(diff == 0, f"{what}: kernel != plain by {diff}")
+    return diff
+
+
+def _mm_gk2(torch, res):
+    """29a: the int32 kind and the exchanged layout against their plain
+    versions, bit for bit, at the decode shapes of both meshes (counts a
+    decode step's, random and full, rows_cap the step's and the segment),
+    then each shape timed at a decode step's counts in the form the path
+    launches (w1 / w3 the bf16 epilogue, w2 the int32 kind where the
+    hidden is cut): the kernel, the plain version, ``torch._int_mm`` looped
+    over the live (expert, segment) pairs (the int32 products alone) and
+    the bound."""
+    gen = torch.Generator()
+    gen.manual_seed(29)
+    n_checks, err, timed = 0, 0.0, []
+    for label, e, segs, k, n in MM_GK2_SHAPES:
+        stride = MM_CAP // segs
+        tokens = SERVE_BATCH // segs
+        # the tokens route among the rank's experts (granite's (2, 1)
+        # rank holds all 48, the last 8 padding)
+        e_real = 40 if e == 48 else e
+        x = torch.randint(-128, 128, (e, MM_CAP, k), device="cuda",
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (e, k, n), device="cuda",
+                          dtype=torch.int8)
+        kinds = ("decode", "random") if e >= 128 else ("decode", "random",
+                                                        "full")
+        for ck in kinds:
+            counts = _mm_counts(torch, gen, e, segs, stride, ck, tokens,
+                                e_real)
+            for rows_cap in sorted({stride, min(stride, tokens)}):
+                for kind in ("int32", "bf16"):
+                    err = max(err, _mm_gk2_held(
+                        torch, x, w, counts, rows_cap, kind,
+                        f"29a {label} counts {ck} rows_cap {rows_cap} "
+                        f"{kind}"))
+                    n_checks += 1
+        # timed at a decode step's counts, in the path's form
+        kind = "int32" if segs > 1 and "w2" in label else "bf16"
+        counts = _mm_counts(torch, gen, e, segs, stride, "decode", tokens,
+                            e_real)
+        rows_cap = min(stride, tokens)
+        copies = max(1, math.ceil(128e6 / (e * k * n)))      # beat the L2
+        ws = [w] + [torch.randint(-128, 128, (e, k, n), device="cuda",
+                                  dtype=torch.int8)
+                    for _ in range(copies - 1)]
+        it = [0]
+
+        def kernel():
+            it[0] += 1
+            _mm_gk2_run(torch, x, ws[it[0] % copies], counts, rows_cap,
+                        kind)
+
+        grid = counts.reshape(e, -1)
+        pairs = [(int(i), int(s)) for i, s in
+                 torch.nonzero(grid > 0).tolist()]
+
+        def library():
+            it[0] += 1
+            wl = ws[it[0] % copies]
+            for i, s in pairs:
+                torch._int_mm(x[i, s * stride:(s + 1) * stride], wl[i])
+
+        ms = time_ms(torch, kernel, 20)
+        lib_ms = time_ms(torch, library, 10)
+        plain_ms = time_ms(torch, lambda: _mm_gk2_plain(
+            torch, x, w, counts, rows_cap, kind), 2, warmup=1)
+        rows = int(torch.clamp(grid, max=rows_cap).sum())
+        active = len({i for i, _ in pairs})
+        out_b = 4 if kind == "int32" else 2
+        n_bytes = active * k * n + rows * k + out_b * rows * n
+        b_ms, b_by = bound_ms(n_bytes, 2 * rows * k * n, "int8")
+        timed.append(dict(shape=label, e=e, segments=segs, c=MM_CAP, k=k,
+                          n=n, kind=kind, tokens=tokens, rows_cap=rows_cap,
+                          active=active, rows=rows, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"    29a {label} (E {e}, {segs} segment(s) of {stride}, K {k}, "
+            f"N {n}), {kind}, {tokens} tokens a shard top-8: {active} "
+            f"active experts, {rows} rows | kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, _int_mm x {len(pairs)} {lib_ms:.4f} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}, {n_bytes / 1e6:.1f} MB)")
+        del x, w, ws
+        torch.cuda.empty_cache()
+    log(f"[29a] grouped K2's int32 kind and exchanged layout bit-exact "
+        f"against their plain versions in {n_checks} cases ("
+        f"{len(MM_GK2_SHAPES)} decode shapes of (1, 2) and (2, 1) x counts "
+        f"decode / random / full x rows_cap the step's and the segment's x "
+        f"int32 sums and bf16 values)")
+    res["k2"] = dict(checks=n_checks, max_abs_err=err, timed=timed)
+
+
+def _mm_want(cfg, mode, model_axis: int, gen=SERVE_GEN) -> dict:
+    """One rank's launches of a classic ``serve`` on a (1, M) mesh (the
+    calibration, whole on rank 0 before the cut, outside them): a forward
+    as one rank's (``_moe_forward_launches``), and each row-cut module --
+    attention's wo, a dense MLP's and a shared expert's w2 -- a partial
+    and a finish in K2's place; the grouped K2 three times a MoE layer
+    (over the rank's experts, one segment: no data cut); K5 once a GQA
+    layer in the prefill, K6 once a GQA layer a decode step (MLA's are
+    absorbed)."""
+    k2, k3, grouped = _moe_forward_launches(cfg, mode, cfg.kv_cache_bits
+                                            == 8)
+    nd = cfg.moe.n_dense_layers
+    row_cut = 0
+    if model_axis > 1 and mode == "int":
+        row_cut = cfg.n_layers + nd + (cfg.n_layers - nd) * int(
+            cfg.moe.n_shared > 0)
+    gqa = 0 if cfg.mla is not None else cfg.n_layers
+    return {"int8_matmul": (k2 + row_cut) * gen,
+            "int8_matmul_partial": row_cut * gen,
+            "int8_matmul_finish": row_cut * gen,
+            "int8_matmul_grouped": grouped * gen,
+            "int8_matmul_grouped_partial": 0,
+            "int8_matmul_grouped_segments": 0,
+            "quantize": k3 * gen, "flash_prefill": gqa,
+            "flash_decode": gqa * (gen - 1)}
+
+
+def _mm_serve_cases(torch, arch, overrides, fp32_layers=0):
+    """29b / 29c's cases (classic ``serve`` at full width, bf16, flash
+    attention, FP and calibrated INT; with ``fp32_layers`` FP in fp32 on
+    that many layers) and their one-rank eager runs here, bf16 FP also
+    with its row-cut sums in the mesh's order: (cfg, cases, one-rank
+    results)."""
+    from repro_torch.configs import get_config
+    sys.path.insert(0, str(ROOT / "tests"))
+    import moe_mesh_cases as mmc
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    base = dict(kind="serve", arch=arch, smoke=False, batch=SERVE_BATCH,
+                prompt_len=SERVE_PROMPT, gen=SERVE_GEN, attn_kernel="flash",
+                cfg_overrides=overrides)
+    cases = {"fp": dict(base, mode="fp", calibrate=False),
+             "int": dict(base, mode="int", calibrate=True)}
+    # bf16 FP's yardstick: one rank with its row-cut sums in the mesh's
+    # order (``MM_FP_REL``); one rank as it runs alone beside it, both
+    # keeping every router call's choices (``_route_flips``)
+    ones = {"fp split": mmc.run(dict(cases["fp"], split_sums=2, routes=True),
+                                device="cuda")}
+    if fp32_layers:
+        cases["fp32"] = dict(base, mode="fp", calibrate=False,
+                             cfg_overrides=dict(overrides, dtype="float32",
+                                                n_layers=fp32_layers))
+    for mode, case in cases.items():
+        ones[mode] = mmc.run(dict(case, routes=mode == "fp"), device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return cfg, cases, ones
+
+
+def _route_flips(torch, alone, split, n_moe: int) -> dict:
+    """Where one rank alone and one rank with the mesh's row-cut sums
+    first route a token differently: their router calls in order (a
+    forward's MoE layers, then the next forward's), a (token, layer)
+    choice flipped where its top-k sets differ.  Returns the prefill's
+    flips by layer (of its T tokens), the first flip (forward, layer,
+    tokens) and, there, the flipped tokens' largest relative margin
+    between the k-th and (k+1)-th probabilities in either run beside the
+    share of that layer's tokens with a margin as small (a near-tie
+    flips where that share is small)."""
+    a, b = alone["routes"], split["routes"]
+    check(len(a) == len(b) and len(a) % n_moe == 0,
+          f"route calls {len(a)} / {len(b)} over {n_moe} MoE layers")
+    flips = []
+    for (ea, _), (eb, _) in zip(a, b):
+        flips.append((ea.sort(dim=1).values != eb.sort(dim=1).values
+                      ).any(dim=1))
+    out = {"tokens": int(a[0][0].shape[0]),
+           "prefill_by_layer": [int(f.sum()) for f in flips[:n_moe]],
+           "first": None}
+    for i, f in enumerate(flips):
+        if not bool(f.any()):
+            continue
+        margin = torch.maximum(a[i][1][f].max(), b[i][1][f].max())
+        share = float((torch.minimum(a[i][1], b[i][1]) <= margin)
+                      .float().mean())
+        out["first"] = dict(forward=i // n_moe, layer=i % n_moe,
+                            flipped=int(f.sum()), of=int(f.numel()),
+                            margin=float(margin), share_as_near=share)
+        break
+    return out
+
+
+def _mm_serve(torch, res, tag, arch, cfg, cases, ones, ranks):
+    """29b / 29c: the cases of ``_mm_serve_cases`` on a (1, 2) mesh of two
+    ranks sharing the card over gloo (``ranks``: each rank's results, in
+    the cases' order) against their one-rank runs ``ones``: tokens
+    identical; INT every step's logits bit for bit, bf16 FP within
+    ``MM_FP_REL`` of one rank with the mesh's row-cut sums, fp32 FP within
+    ``MM_FP32_REL`` of one rank; each rank's launches by ``_mm_want``;
+    decode tokens/s and peak memory a rank (the ranks build the whole
+    model one at a time, rank 0 calibrating it, and keep their
+    slices)."""
+    import numpy as np
+    out = {}
+    for i, mode in enumerate(cases):
+        one, got = ones[mode], [r[i] for r in ranks]
+        alone = None
+        if mode == "fp":
+            alone, one = one, ones["fp split"]
+        want = _mm_want(dataclasses.replace(cfg, **cases[mode][
+            "cfg_overrides"]), "fp" if mode == "fp32" else mode, 2)
+        scale = max(float(t.abs().max()) for t in one["logits"])
+        errs = []
+        agree = float(np.mean(got[0]["tokens"] == one["tokens"]))
+        for r, g in enumerate(got):
+            check(np.array_equal(g["tokens"], got[0]["tokens"]),
+                  f"{tag} {mode} rank {r}: the ranks' tokens differ")
+            check(len(g["logits"]) == len(one["logits"]) == SERVE_GEN,
+                  f"{tag} {mode} rank {r}: {len(g['logits'])} steps' logits")
+            for step, (a, b) in enumerate(zip(g["logits"], one["logits"])):
+                check(bool(torch.isfinite(a).all()),
+                      f"{tag} {mode} rank {r} step {step}: non-finite")
+                e_ = float((a - b).abs().max())
+                errs.append(e_)
+                if mode == "int":
+                    check(torch.equal(a, b), f"{tag} {mode} rank {r} step "
+                          f"{step}: logits != one rank's (max |diff| {e_})")
+            if mode == "int":
+                check(agree == 1.0, f"{tag} {mode}: tokens differ from one "
+                      f"rank's (agreement {agree})")
+            else:
+                rel = MM_FP_REL if mode == "fp" else MM_FP32_REL
+                check(agree == 1.0, f"{tag} {mode}: tokens differ from one "
+                      f"rank's (agreement {agree})")
+                check(max(errs) <= rel * scale, f"{tag} {mode} rank {r}: "
+                      f"logits {max(errs)} apart, over {rel} x {scale}")
+            have = {k: g["launches"][k] for k in want}
+            check(have == want, f"{tag} {mode} rank {r}: launches {have}, "
+                  f"want {want}")
+            check(g["table"] == one["table"],
+                  f"{tag} {mode} rank {r}: calibrated table != one rank's")
+        if alone is not None:       # the yardstick's run; one rank alone
+            one_tps = SERVE_BATCH / alone["decode_s_per_tok"]
+            alone_agree = float(np.mean(got[0]["tokens"] == alone["tokens"]))
+            alone_errs = [float((a - b).abs().max()) for a, b in
+                          zip(got[0]["logits"], alone["logits"])]
+            flips = _route_flips(torch, alone, one, cfg.n_layers
+                                 - cfg.moe.n_dense_layers)
+            one = dict(one, peak_gib=alone["peak_gib"],
+                       prefill_s=alone["prefill_s"],
+                       decode_s_per_tok=alone["decode_s_per_tok"],
+                       wall_s=alone["wall_s"])
+        tps = SERVE_BATCH / got[0]["decode_s_per_tok"]
+        one_tps = SERVE_BATCH / one["decode_s_per_tok"]
+        peaks = [g["peak_gib"] for g in got]
+        log(f"[{tag}] {arch} ({cfg.n_layers} layers) {mode}: ranks "
+            f"token-identical; against one rank"
+            + (" with the mesh's row-cut sums" if alone is not None else "")
+            + f" tokens agree {agree:.4f}, "
+            + ("every step's logits bit-identical" if mode == "int" else
+               f"logits apart by {[round(e_, 5) for e_ in errs[:SERVE_GEN]]}"
+               f" a step (|logit| up to {scale:.4g})")
+            + ("" if alone is None else
+               f"; against one rank alone tokens agree {alone_agree:.4f}, "
+               f"logits apart by {[round(e_, 5) for e_ in alone_errs]}; "
+               f"routing against one rank alone: prefill (token, layer) "
+               f"choices flipped by layer {flips['prefill_by_layer']} of "
+               f"{flips['tokens']} tokens a layer, first flip {flips['first']}")
+            + f"; decode {1e3 * got[0]['decode_s_per_tok']:.1f} ms a step, "
+            f"{tps:.2f} tokens/s on 2 ranks sharing one card over gloo "
+            f"(one rank eager {1e3 * one['decode_s_per_tok']:.1f} ms, "
+            f"{one_tps:.2f}); prefill {got[0]['prefill_s']:.3f} s (one rank "
+            f"{one['prefill_s']:.3f}); calibration {got[0]['calibrate_s']:.2f}"
+            f" s on rank 0; peak {peaks[0]:.2f} / {peaks[1]:.2f} GiB a rank "
+            f"(one rank {one['peak_gib']:.2f}); rank 0 launches "
+            f"{ {k: v for k, v in got[0]['launches'].items() if v} }")
+        out[mode] = dict(agree=agree, logits_max_abs_diff=errs[:SERVE_GEN],
+                         logits_scale=scale,
+                         **({} if alone is None else dict(
+                             one_rank_alone_agree=alone_agree,
+                             one_rank_alone_logits_diff=alone_errs,
+                             route_flips=flips)),
+                         tokens_per_s=tps, one_rank_tokens_per_s=one_tps,
+                         decode_s_per_tok=got[0]["decode_s_per_tok"],
+                         one_rank_decode_s_per_tok=one["decode_s_per_tok"],
+                         prefill_s=got[0]["prefill_s"],
+                         calibrate_s=got[0]["calibrate_s"],
+                         peak_gib=peaks, one_rank_peak_gib=one["peak_gib"],
+                         launches=[g["launches"] for g in got],
+                         wall_s=[g["wall_s"] for g in got],
+                         one_rank_wall_s=one["wall_s"])
+    res[tag] = out
+
+
+def _mm_layer_cases(torch):
+    """29d's cases: granite at full width, its 2 MoE layers in fp32, each
+    alone (FP and INT) over MM_LAYER_B x MM_LAYER_S tokens whose capacity
+    expert 0 overflows (its router column raised by MM_SKEW), on a (2, 1)
+    mesh; and each layer's dropped pairs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mlp as tmlp
+    from repro_torch.models import model as M
+    over = {"n_layers": 2, "dtype": "float32"}
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"), **over)
+    params = M.init_params(cfg, 0, device="cpu")
+    gen = torch.Generator().manual_seed(29)
+    x = torch.randn((MM_LAYER_B, MM_LAYER_S, cfg.d_model), generator=gen)
+    cases, drops = [], []
+    for layer in range(cfg.n_layers):
+        p = {k: v for k, v in params["blocks"][layer]["moe"].items()}
+        p["router"] = p["router"].clone()
+        p["router"][:, 0] += MM_SKEW
+        t = MM_LAYER_B * MM_LAYER_S
+        _, top_e = tmlp.route(x.reshape(t, -1), p["router"], cfg.moe.top_k)
+        cap_l = -(-tmlp.moe_capacity(t, cfg.moe) // 2)
+        _, keep, _ = tmlp.rank_pairs(top_e.reshape(2, -1), cfg.moe.e_padded,
+                                     cap_l)
+        drops.append(int((~keep).sum()))
+        check(drops[-1] > 0, f"29d layer {layer}: no pair overflows")
+        for mode in ("fp", "int"):
+            cases.append(dict(kind="layer", arch="granite_moe_3b_a800m",
+                              smoke=False, mode=mode, p=p, x=x,
+                              cfg_overrides=over, model_axis=1))
+    return cases, drops
+
+
+def _mm_layer(torch, res, cases, drops, ranks):
+    """29d: ``_mm_layer_cases`` on the ranks as a (2, 1) mesh sharing the
+    card (every expert on each, its hidden cut over data: the token rows
+    exchanged, w2's sums added over data, INT through the int32 kind and
+    the exchanged layout; ``ranks`` each rank's results) against the
+    CPU's one-process ``data_shards=2`` form: INT identical, FP within
+    ``MM_LAYER_FP_REL`` of the largest |output|; each rank's launches a
+    layer."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import moe_mesh_cases as mmc
+    t0 = time.perf_counter()
+    cpu = [mmc.run(dict(c, data_shards=2), device="cpu") for c in cases]
+    cpu_s = time.perf_counter() - t0
+    want = {"fp": dict.fromkeys(("int8_matmul_grouped",
+                                 "int8_matmul_grouped_partial",
+                                 "int8_matmul_grouped_segments",
+                                 "int8_matmul_finish", "quantize"), 0),
+            # K3: the token rows (one grid), the hidden buffer, and the
+            # three float expert stacks' slices quantized in the call
+            "int": {"int8_matmul_grouped": 3,
+                    "int8_matmul_grouped_partial": 1,
+                    "int8_matmul_grouped_segments": 3,
+                    "int8_matmul_finish": 1, "quantize": 5}}
+    errs = {"fp": 0.0, "int": 0.0}
+    launches = []
+    for i, c in enumerate(cases):
+        ref_out = cpu[i]["out"]
+        scale = float(ref_out.abs().max())
+        for r, rk in enumerate(ranks):
+            got = rk[i]
+            e_ = float((got["out"] - ref_out).abs().max())
+            errs[c["mode"]] = max(errs[c["mode"]], e_ / scale)
+            if c["mode"] == "int":
+                check(torch.equal(got["out"], ref_out),
+                      f"29d case {i} rank {r}: INT layer != the CPU's "
+                      f"(max |diff| {e_})")
+            else:
+                check(e_ <= MM_LAYER_FP_REL * scale,
+                      f"29d case {i} rank {r}: FP layer {e_} from the CPU's, "
+                      f"over {MM_LAYER_FP_REL} x {scale}")
+            have = {k: got["launches"][k] for k in want[c["mode"]]}
+            check(have == want[c["mode"]], f"29d case {i} rank {r}: "
+                  f"launches {have}, want {want[c['mode']]}")
+            launches.append(have)
+    log(f"[29d] granite at full width, 2 MoE layers in fp32 on a (2, 1) "
+        f"mesh, {MM_LAYER_B} x {MM_LAYER_S} tokens, expert 0 overflowing "
+        f"(drops {drops} pairs a layer): the card's ranks against the CPU's "
+        f"data_shards=2 form, INT identical, FP within "
+        f"{errs['fp']:.3g} of the largest |output|; a rank's INT layer "
+        f"launches {want['int']}; CPU {cpu_s:.1f} s")
+    res["29d"] = dict(drops=drops, fp_rel_err=errs["fp"], cpu_s=cpu_s,
+                      launches=launches, int_layer_launches=want["int"])
+
+
+def phase_moe_mesh(torch, out):
+    """Phase 29: the MoE family with MLA over a (data, model) mesh -- (a)
+    the grouped K2's int32 kind and exchanged layout, (b) granite-moe-3b
+    on MM_GRANITE_LAYERS and (c) deepseek-v3 on 4 layers through classic
+    ``serve`` on (1, 2), (d) the per-shard dispatch under overflow on (2,
+    1), card against CPU."""
+    t0 = time.perf_counter()
+    res = {"part_s": {}}
+    # what this process still holds on the card when the ranks come
+    log(f"[29] this process: {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+        f"reserved")
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(ROOT / "tests"))
+    import moe_mesh_cases as mmc
+
+    def part(name, fn, *args, **kwargs):
+        t1 = time.perf_counter()
+        got = fn(*args, **kwargs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["part_s"][name] = time.perf_counter() - t1
+        return got
+
+    part("a", _mm_gk2, torch, res)
+    # the one-rank runs here, then every case of b, c and d on one spawn
+    # of two ranks: (1, 2) for b and c, (2, 1) over the same ranks for d
+    b = part("b one rank", _mm_serve_cases, torch, "granite_moe_3b_a800m",
+             {"kv_cache_bits": 8, "n_layers": MM_GRANITE_LAYERS},
+             MM_FP32_LAYERS)
+    c = part("c one rank", _mm_serve_cases, torch, "deepseek_v3_671b",
+             {"n_layers": 4})
+    d_cases, drops = _mm_layer_cases(torch)
+    nb, nc = len(b[1]), len(c[1])
+    ranks = part("ranks", run_ranks, mmc.run_cases, (1, 2), device="cuda",
+                 backend="gloo", kwargs={"cases": list(b[1].values())
+                                         + list(c[1].values()) + d_cases})
+    log(f"[29] the ranks: {res['part_s']['ranks']:.1f} s, spawned once, "
+        f"the model built whole on each in turn and cut, every run of b, "
+        f"c and d")
+    _mm_serve(torch, res, "29b", "granite_moe_3b_a800m", *b,
+              [r[:nb] for r in ranks])
+    _mm_serve(torch, res, "29c", "deepseek_v3_671b", *c,
+              [r[nb:nb + nc] for r in ranks])
+    part("d CPU", _mm_layer, torch, res, d_cases, drops,
+         [r[nb + nc:] for r in ranks])
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[29] moe over a mesh {res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["moe_mesh"] = res
+    return res
+
+
+def _run_phase(out, fn, *args):
+    """``fn(*args)``, its seconds logged and kept under ``phase_s``."""
+    t0 = time.perf_counter()
+    res = fn(*args)
+    secs = time.perf_counter() - t0
+    out.setdefault("phase_s", {})[fn.__name__] = secs
+    log(f"[time] {fn.__name__}: {secs:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -7540,7 +8131,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27, 28); "
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -7569,7 +8160,7 @@ def main(argv=None) -> int:
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
-                 27: phase_tp, 28: phase_train_mesh}
+                 27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -7577,9 +8168,9 @@ def main(argv=None) -> int:
                   file=sys.stderr)
             return 2
         try:
-            phase_device(torch, out)
+            _run_phase(out, phase_device, torch, out)
             for phase in picked:
-                phase(torch, out)
+                _run_phase(out, phase, torch, out)
         except SmokeFailure as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
@@ -7590,50 +8181,52 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         return 0
     try:
-        smi, build_s = phase_device(torch, out)
-        k2 = phase_k2(torch, out)
-        k1 = phase_k1(torch, out)
-        phase_model(torch, out)
-        eng = phase_engine(torch, out)
-        k5 = phase_k5(torch, out)
-        k6 = phase_k6(torch, out)
-        cal = phase_calibrate(torch, out)
-        phase_dense_model(torch, out, *cal)
+        smi, build_s = _run_phase(out, phase_device, torch, out)
+        k2 = _run_phase(out, phase_k2, torch, out)
+        k1 = _run_phase(out, phase_k1, torch, out)
+        _run_phase(out, phase_model, torch, out)
+        eng = _run_phase(out, phase_engine, torch, out)
+        k5 = _run_phase(out, phase_k5, torch, out)
+        k6 = _run_phase(out, phase_k6, torch, out)
+        cal = _run_phase(out, phase_calibrate, torch, out)
+        _run_phase(out, phase_dense_model, torch, out, *cal)
         del cal
         torch.cuda.empty_cache()
-        srv = phase_serve(torch, out)
-        phase_w8a8(torch, out)
+        srv = _run_phase(out, phase_serve, torch, out)
+        _run_phase(out, phase_w8a8, torch, out)
         torch.cuda.empty_cache()
-        cnn = phase_cnn_kernels(torch, out)
-        q_resnet = phase_resnet_calibrate(torch, out)
-        rfwd = phase_resnet_forward(torch, out, q_resnet)
+        cnn = _run_phase(out, phase_cnn_kernels, torch, out)
+        q_resnet = _run_phase(out, phase_resnet_calibrate, torch, out)
+        rfwd = _run_phase(out, phase_resnet_forward, torch, out, q_resnet)
         del q_resnet
         torch.cuda.empty_cache()
-        k4 = phase_k4(torch, out)
-        phase_paged_model(torch, out)
-        legacy = phase_legacy_engine(torch, out)
+        k4 = _run_phase(out, phase_k4, torch, out)
+        _run_phase(out, phase_paged_model, torch, out)
+        legacy = _run_phase(out, phase_legacy_engine, torch, out)
         torch.cuda.empty_cache()
-        phase_obs(torch, out)
+        _run_phase(out, phase_obs, torch, out)
         torch.cuda.empty_cache()
-        phase_graphs(torch, out)
+        _run_phase(out, phase_graphs, torch, out)
         torch.cuda.empty_cache()
-        rec = phase_recurrent(torch, out)
+        rec = _run_phase(out, phase_recurrent, torch, out)
         torch.cuda.empty_cache()
-        qf = phase_quant_fusion(torch, out)
+        qf = _run_phase(out, phase_quant_fusion, torch, out)
         torch.cuda.empty_cache()
-        phase_configs(torch, out)
+        _run_phase(out, phase_configs, torch, out)
         torch.cuda.empty_cache()
-        rcl = phase_recurrent_classic(torch, out)
+        rcl = _run_phase(out, phase_recurrent_classic, torch, out)
         torch.cuda.empty_cache()
-        moe = phase_moe(torch, out)
+        moe = _run_phase(out, phase_moe, torch, out)
         torch.cuda.empty_cache()
-        wsp = phase_whisper(torch, out)
+        wsp = _run_phase(out, phase_whisper, torch, out)
         torch.cuda.empty_cache()
-        trn = phase_train(torch, out)
+        trn = _run_phase(out, phase_train, torch, out)
         torch.cuda.empty_cache()
-        tp = phase_tp(torch, out)
+        tp = _run_phase(out, phase_tp, torch, out)
         torch.cuda.empty_cache()
-        tm = phase_train_mesh(torch, out)
+        tm = _run_phase(out, phase_train_mesh, torch, out)
+        torch.cuda.empty_cache()
+        mm = _run_phase(out, phase_moe_mesh, torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -7947,6 +8540,45 @@ def main(argv=None) -> int:
     entry["train_mesh_launches"].update(
         partial=[r["int8_matmul_partial"] for r in tm["int"]["launches"]],
         finish=[r["int8_matmul_finish"] for r in tm["int"]["launches"]])
+    # the MoE family over a mesh (phase 29): K2's grouped form's int32 kind
+    # and exchanged layout, each its own entry at the (2, 1) decode shape
+    # the path launches it at (launches: 29d's ranks, a layer each), the
+    # other shapes beside; every kernel's launches on each rank of 29b's
+    # and 29c's (1, 2) INT serve runs
+    mk = mm["k2"]
+    for name, shape, form in (
+            ("int8_matmul_grouped_partial", "granite w2 (2, 1)",
+             "the int32 output kind (w2's sums over a hidden cut over "
+             "data, finished once after the ranks' int32 sum)"),
+            ("int8_matmul_grouped_segments", "granite w1 (2, 1)",
+             "the exchanged layout (an (E, D) count grid, each expert's "
+             "C rows D segments of C / D)")):
+        t = next(r for r in mk["timed"] if r["shape"] == shape)
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/int8_matmul.cu",
+            "replaces": "src/repro/models/mlp.py:91 (the experts' int8 "
+                        "lax.dot_general over the reference's (E, D * "
+                        "cap_l) exchange buffer, XLA: no Pallas kernel)",
+            "launches": sum(r[name] for r in mm["29d"]["launches"][::2]),
+            "max_abs_err": mk["max_abs_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_note": "torch._int_mm looped over the live (expert, "
+                            "segment) pairs (int32 products alone)",
+            "per": f"K2's grouped form, {form}: one launch at granite's "
+                   f"{shape} decode shape, {t['tokens']} tokens a shard; "
+                   f"launches: rank 0 of phase 29d's (2, 1) mesh",
+            "shapes": mk["timed"], "checks": mk["checks"]})
+    for k_name, key in (("int8_matmul_requant", "int8_matmul"),
+                        ("int8_matmul_grouped", "int8_matmul_grouped"),
+                        ("quantize", "quantize"),
+                        ("flash_prefill", "flash_prefill"),
+                        ("flash_decode", "flash_decode")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["moe_mesh_launches"] = {
+            tag: [r[key] for r in mm[tag]["int"]["launches"]]
+            for tag in ("29b", "29c")}
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -32,10 +32,26 @@ class MoEConfig:
     # reference pads granite's 40 to 48 for its expert-parallel axis);
     # the padding experts receive no tokens
     n_experts_padded: Optional[int] = None
+    # a mesh rank's view (``distributed.sharding.local_config``): the
+    # expert stacks cut over this many model ranks, each expert's hidden
+    # over this many data ranks (serving's 2-D rule); 1 off a mesh.  The
+    # fields above stay the whole model's (the router, the capacity)
+    expert_shards: int = 1
+    hidden_shards: int = 1
 
     @property
     def e_padded(self) -> int:
         return self.n_experts_padded or self.n_experts
+
+    @property
+    def e_local(self) -> int:
+        """Experts a rank holds."""
+        return self.e_padded // self.expert_shards
+
+    @property
+    def d_expert_local(self) -> int:
+        """An expert's hidden width a rank holds."""
+        return self.d_expert // self.hidden_shards
 
 
 @dataclasses.dataclass(frozen=True)

@@ -164,17 +164,21 @@ __device__ __forceinline__ void store_one(void* out, size_t off, int c, const Ep
 // the 8-bit store; else int32 partials to ws[z] (M x N).  K % 16 == 0,
 // N % 8 == 0, x 16-byte and w 8-byte aligned, k_chunk a multiple of BK.
 //
-// GROUPED (the experts' form): blockIdx.z is the expert e, x and w are the
-// (E, C, K) and (E, K, N) stacks (M = C) and out (E, C, N); expert e's
-// live rows are min(counts[e], rows_cap), read on the card, and a block
-// whose first row lies past them exits at once.  Rows past an expert's
-// count are LEFT UNWRITTEN (never 0): no consumer reads them.  One split
-// of K.  Offsets are 64-bit (a stack may exceed 2^31 elements).
+// GROUPED (the experts' form): x and w are the (E, C, K) and (E, K, N)
+// stacks (M = C) and out (E, C, N).  Each expert's C rows are `segs`
+// segments of `seg_stride` rows (the data shards' slices of its capacity,
+// the reference's (E, D * cap_l) exchange layout; one segment of C rows
+// without a data cut).  blockIdx.z is the segment z = e * segs + s, whose
+// live rows are its first min(counts[z], rows_cap) (counts (E, segs)
+// int32, read on the card), and a block whose first row lies past them
+// exits at once.  Rows past a segment's count are LEFT UNWRITTEN (never
+// 0): no consumer reads them.  One split of K.  Offsets are 64-bit (a
+// stack may exceed 2^31 elements).
 template <int MT, int WM, int WN, bool XU8, bool GROUPED>
 __global__ void __launch_bounds__(Tile<MT, WM, WN>::THREADS)
 mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __restrict__ out,
            int* __restrict__ ws, int M, int N, int K, int k_chunk, Epi epi,
-           const int* __restrict__ counts, int rows_cap) {
+           const int* __restrict__ counts, int rows_cap, int segs, int seg_stride) {
   using T = Tile<MT, WM, WN>;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* a_s = smem;                          // [NSTAGE][BM][LDA]
@@ -187,12 +191,13 @@ mma_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __r
   size_t out_base = 0;  // the expert's first output element
   int kb = 0, ke = K;
   if constexpr (GROUPED) {
-    const size_t e = blockIdx.z;
-    const int rows = min(max(counts[e], 0), rows_cap);
-    if (m0 >= rows) return;  // the whole block past the expert's rows
-    x += e * (size_t)M * K;
+    const size_t e = blockIdx.z / segs;
+    const size_t row0 = e * (size_t)M + (size_t)(blockIdx.z % segs) * seg_stride;
+    const int rows = min(max(counts[blockIdx.z], 0), rows_cap);
+    if (m0 >= rows) return;  // the whole block past the segment's rows
+    x += row0 * K;
     w += e * (size_t)K * N;
-    out_base = e * (size_t)M * N;
+    out_base = row0 * N;
     M = rows;
   } else {
     kb = blockIdx.z * k_chunk;
@@ -415,12 +420,12 @@ dp4a_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w, void* __
 // ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
-// GROUPED: `splits` experts (the grid's z), M = C rows each, of which the
-// grid covers rows_cap
+// GROUPED: `splits` segments (the grid's z: E experts x segs), M = C rows
+// an expert, of which the grid covers rows_cap a segment
 template <int MT, int WM, int WN, bool XU8, bool GROUPED>
 int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N, int K,
                int splits, int k_chunk, const Epi& epi, cudaStream_t st,
-               const int* counts, int rows_cap) {
+               const int* counts, int rows_cap, int segs, int seg_stride) {
   using T = Tile<MT, WM, WN>;
   auto kernel = mma_kernel<MT, WM, WN, XU8, GROUPED>;
   // the limit is raised once per instantiation, not per launch
@@ -430,7 +435,7 @@ int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int 
   const int rows = GROUPED ? rows_cap : M;
   const dim3 grid((N + T::BN - 1) / T::BN, (rows + T::BM - 1) / T::BM, splits);
   kernel<<<grid, T::THREADS, T::SMEM, st>>>(x, w, out, ws, M, N, K, k_chunk, epi, counts,
-                                            rows_cap);
+                                            rows_cap, segs, seg_stride);
   int err = (int)cudaGetLastError();
   if (err != 0 || GROUPED || splits == 1) return err;
   const size_t quads = (size_t)M * N / 4;
@@ -443,8 +448,10 @@ int launch_mma(const int8_t* x, const int8_t* w, void* out, int* ws, int M, int 
 template <bool XU8, bool GROUPED = false>
 int launch_cfg(int cfg, const int8_t* x, const int8_t* w, void* out, int* ws, int M, int N,
                int K, int splits, int k_chunk, const Epi& epi, cudaStream_t st,
-               const int* counts = nullptr, int rows_cap = 0) {
-#define K2_ARGS x, w, out, ws, M, N, K, splits, k_chunk, epi, st, counts, rows_cap
+               const int* counts = nullptr, int rows_cap = 0, int segs = 1,
+               int seg_stride = 0) {
+#define K2_ARGS x, w, out, ws, M, N, K, splits, k_chunk, epi, st, counts, rows_cap, segs, \
+                seg_stride
   switch (cfg) {
     case 0: return launch_mma<1, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 16:  16 x 128
     case 1: return launch_mma<2, 1, 4, XU8, GROUPED>(K2_ARGS);  // M <= 32:  32 x 128
@@ -524,23 +531,32 @@ extern "C" int int8_matmul_finish_launch(const void* acc, const void* bias, void
 }
 
 // C entry of the grouped form (the experts' (E, C, K) x (E, K, N)
-// products, one launch): expert e's first min(counts[e], rows_cap) rows
-// (counts: E int32 on the card) are multiplied by its weight codes and
-// requantized by K2's epilogue (no bias, no ReLU); rows past them are left
-// unwritten.  int8 activations; the mma kernel's conditions (K % 16 == 0,
-// N % 8 == 0, x 16-byte and w 8-byte aligned); rows_cap <= C; E <= 65535.
+// products, one launch).  Expert e's C rows are `segs` segments of
+// `seg_stride` rows (segs * seg_stride <= C): segment s's first
+// min(counts[e * segs + s], rows_cap) rows (counts: E x segs int32 on the
+// card) are multiplied by the expert's weight codes and stored as
+// out_kind says -- K2's epilogue (no bias, no ReLU) to codes or their bf16
+// / fp32 values, or (OUT_I32) the raw int32 sums, whose epilogue
+// int8_matmul_finish_launch runs once after they are summed over the
+// ranks that hold the other rows of K -- and rows past them are left
+// unwritten.  One segment (segs 1, seg_stride C) is the one-shard layout.
+// int8 activations; the mma kernel's conditions (K % 16 == 0, N % 8 ==
+// 0, x 16-byte and w 8-byte aligned); rows_cap <= seg_stride;
+// E * segs <= 65535.
 extern "C" int int8_matmul_grouped_launch(const void* x, const void* w, const void* counts,
                                           void* out, int E, int C, int rows_cap, int N, int K,
                                           int shift, int lo, int hi, int cfg, int out_kind,
-                                          float deq, void* stream) {
+                                          float deq, int segs, int seg_stride, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Epi epi{nullptr, shift, 0, 0, lo, hi, out_kind, deq};
-  if (E <= 0 || E > 65535 || C <= 0 || rows_cap <= 0 || rows_cap > C || N <= 0 || K <= 0 ||
-      cfg < 0 || counts == nullptr || out_kind < OUT_CODES || out_kind > OUT_F32 ||
+  if (E <= 0 || C <= 0 || segs <= 0 || (long long)E * segs > 65535 || seg_stride <= 0 ||
+      (long long)segs * seg_stride > C || rows_cap <= 0 || rows_cap > seg_stride || N <= 0 ||
+      K <= 0 || cfg < 0 || counts == nullptr || out_kind < OUT_CODES || out_kind > OUT_I32 ||
       (out_kind != OUT_CODES && ((uintptr_t)out & 15u)) || K % 16 || N % 8 ||
       ((uintptr_t)x & 15u) || ((uintptr_t)w & 7u))
     return (int)cudaErrorInvalidValue;
   return launch_cfg<false, true>(cfg, static_cast<const int8_t*>(x),
-                                 static_cast<const int8_t*>(w), out, nullptr, C, N, K, E, K,
-                                 epi, st, static_cast<const int*>(counts), rows_cap);
+                                 static_cast<const int8_t*>(w), out, nullptr, C, N, K, E * segs,
+                                 K, epi, st, static_cast<const int*>(counts), rows_cap, segs,
+                                 seg_stride);
 }

@@ -33,7 +33,8 @@ model code adds the collectives itself; the scope
 :func:`local_config` gives the per-rank view of a config under which the
 blocks run unchanged (under serving's rules and training's alike: the
 dense families' cuts are the same; FSDP's data cut is gathered before a
-block runs).  :func:`shard_params` cuts a full tree down to one rank's
+block runs; the moe family's expert cuts are serving's, its layer
+exchanging token rows itself, ``models.mlp.moe``).  :func:`shard_params` cuts a full tree down to one rank's
 leaves by these rules, :func:`shard_tree` any state tree by a spec tree
 (the optimizer's by :func:`_opt_spec_like`), and :func:`unshard_params`
 gathers a rank's tree back to the whole one.
@@ -294,7 +295,9 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
     (the reference's context-parallel decode), ``'flash'`` HEAD-cut when
     the axis divides the KV heads; the port's ranks always hold their KV
     heads (``models.model.init_cache``), so the sequence cut is ROADMAP
-    Queue 1 item 8's."""
+    Queue 1 item 8's.  MLA's (L, B, S, lat) latents and rope keys are cut
+    by batch and kept WHOLE over ``model`` (the reference cuts them by
+    sequence there; ROADMAP Queue 3)."""
     dp = _dp(mesh)
     dsize = _axis_size(mesh, dp) if dp else 1
 
@@ -320,7 +323,11 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
                 return (None, bdim, None, attn_shard_axis, None)
             sdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
             return (None, bdim, sdim, None, None)
-        if nd == 4:                            # (L, B, S, lat) MLA latents
+        if ps.endswith(("c_kv", "k_pe")):      # (L, B, S, lat) MLA latents
+            # whole over model: a rank's absorbed decode reads every
+            # latent row for its own heads
+            return (None, bdim, None, None)
+        if nd == 4:                            # (L, B, 1, d) token shifts
             sdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
             return (None, bdim, sdim, None)
         return (None,) * nd
@@ -390,39 +397,83 @@ def tp_mesh():
     return mesh if model_shards(mesh) > 1 else None
 
 
-def local_config(cfg, mesh):
-    """The per-rank view of ``cfg`` on ``mesh``: heads, KV heads and d_ff
-    divided by the model axis (the head dim pinned), under which a
-    dense block runs unchanged on its rank's weights.  The vocab stays
-    whole: the head gathers its logits.  Refuses what the port does not
-    cut: a family other than dense / vlm, a shard axis other than
-    ``model``, and a model axis that does not divide the KV heads, d_ff
-    or the padded vocab (where the rules fall back to another layout).
-    Without a mesh, or on a mesh of one rank, ``cfg`` itself."""
+def _refuse(what: str):
+    raise NotImplementedError(
+        f"{what} is ROADMAP Queue 1 item 8's (serving over a mesh covers "
+        f"the dense, vlm and moe families, training the dense ones)")
+
+
+def local_config(cfg, mesh, *, train: bool = False):
+    """The per-rank view of ``cfg`` on ``mesh``, under which a block runs
+    unchanged on its rank's weights: heads and KV heads (under MLA the
+    nominal KV heads, ``n_heads``) divided by the model axis (the head dim
+    pinned), and d_ff where the config has dense layers; for the moe
+    family (serving only) the expert stacks over ``model`` and, where
+    serving's 2-D rule cuts it, each expert's hidden over ``data``
+    (``MoEConfig.expert_shards`` / ``hidden_shards``; the router's
+    experts, top-k and the capacity stay the whole model's).  The vocab
+    stays whole: the head gathers its logits.  Refuses what the port does
+    not cut: the ssm, hybrid and audio families, the moe family in
+    training (``train``), a shard axis other than ``model``, and a model
+    axis that does not divide the KV heads, d_ff, the padded vocab or the
+    experts (where the rules fall back to another layout).  Without a
+    mesh, or on a mesh of one rank, ``cfg`` itself."""
     if mesh is None or math.prod(mesh.shape.values()) == 1:
         return cfg
-    if cfg.family not in ("dense", "vlm"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family under a mesh of more than one rank "
-            f"is ROADMAP Queue 1 item 8's (serving and training over a mesh "
-            f"cover the dense GQA families)")
+    if cfg.family not in ("dense", "vlm", "moe"):
+        _refuse(f"the {cfg.family!r} family under a mesh of more than one "
+                f"rank")
+    if cfg.family == "moe" and train:
+        _refuse("training the moe family on a mesh of more than one rank")
     tp = model_shards(mesh)
-    if tp == 1:
-        return cfg
-    if cfg.attn_shard_axis != "model":
-        raise NotImplementedError(
-            f"attn_shard_axis={cfg.attn_shard_axis!r} is not wired; only "
-            f"'model' is supported on a mesh of more than one rank")
-    from repro_torch.kernels.ops import _check_head_divisibility
-    _check_head_divisibility(cfg.n_kv_heads, tp)
-    for what, n in (("d_ff", cfg.d_ff), ("padded vocab", cfg.vocab_padded)):
-        if n % tp:
+    view = {}
+    if cfg.moe is not None:
+        view["moe"] = _moe_view(cfg, mesh)
+    if tp > 1:
+        if cfg.attn_shard_axis != "model":
             raise NotImplementedError(
-                f"the model axis ({tp}) does not divide the {what} ({n}); "
-                f"its fall-back layout is ROADMAP Queue 1 item 8's")
+                f"attn_shard_axis={cfg.attn_shard_axis!r} is not wired; "
+                f"only 'model' is supported on a mesh of more than one rank")
+        from repro_torch.kernels.ops import _check_head_divisibility
+        _check_head_divisibility(cfg.n_kv_heads, tp)
+        dense = cfg.moe is None or cfg.moe.n_dense_layers > 0
+        for what, n in (("d_ff", cfg.d_ff if dense else 0),
+                        ("padded vocab", cfg.vocab_padded)):
+            if n % tp:
+                _refuse(f"a model axis ({tp}) that does not divide the "
+                        f"{what} ({n}) (its fall-back layout)")
+        view.update(n_heads=cfg.n_heads // tp,
+                    n_kv_heads=cfg.n_kv_heads // tp,
+                    d_ff=cfg.d_ff // tp if dense else cfg.d_ff,
+                    head_dim=cfg.resolved_head_dim)
+    return dataclasses.replace(cfg, **view) if view else cfg
+
+
+def _moe_view(cfg, mesh):
+    """The rank's ``MoEConfig``: the cuts serving's rules give an expert
+    stack (``moe/w1``, ``moe/w2``: the experts over ``model``, each one's
+    hidden over ``data`` when the axis divides it), refusing the rules'
+    fall-back (experts the model axis does not divide) and a shared
+    expert whose hidden the model axis does not divide."""
+    m = cfg.moe
+    lead = (cfg.n_layers - m.n_dense_layers,)
+    w1 = leaf_spec("blocks/moe/w1", lead + (m.e_padded, cfg.d_model,
+                                            m.d_expert),
+                   mesh, fsdp=False, serve=True)[1:]
+    w2 = leaf_spec("blocks/moe/w2", lead + (m.e_padded, m.d_expert,
+                                            cfg.d_model),
+                   mesh, fsdp=False, serve=True)[1:]
+    tp = model_shards(mesh)
+    if w1[0] != "model" or (w2[0], w2[1]) != (w1[0], w1[2]):
+        _refuse(f"{m.e_padded} experts the model axis ({tp}) does not "
+                f"divide (the rules' fall-back cuts each expert's hidden "
+                f"over model)")
+    if (m.d_expert * m.n_shared) % tp:
+        _refuse(f"a shared expert of hidden {m.d_expert * m.n_shared} the "
+                f"model axis ({tp}) does not divide")
     return dataclasses.replace(
-        cfg, n_heads=cfg.n_heads // tp, n_kv_heads=cfg.n_kv_heads // tp,
-        d_ff=cfg.d_ff // tp, head_dim=cfg.resolved_head_dim)
+        m, expert_shards=tp,
+        hidden_shards=data_shards(mesh) if w1[2] == "data" else 1)
 
 
 def spec_axes(spec: tuple) -> tuple:

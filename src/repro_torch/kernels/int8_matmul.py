@@ -25,7 +25,13 @@ operands) go to the kernel's ``dp4a`` tile.
 (no TPU twin: the reference leaves the experts' int8 product to XLA):
 one launch over (E, C, K) x (E, K, N) stacks, the expert a grid
 dimension, each expert's row count read on the card, so padding experts
-and empty capacity rows cost one early exit a block.
+and empty capacity rows cost one early exit a block.  Under a data cut
+each expert's C rows are D segments of C / D rows (the data shards'
+slices of its capacity, the reference's exchange layout) with an (E, D)
+count grid, one grid block row a segment; and where a mesh cuts the
+experts' hidden over ``data`` it stores the raw int32 sums (the int32
+output kind), whose epilogue :func:`int8_matmul_finish_cuda` runs once
+after the ranks' sums are added.
 
 Its rank-split form, for a row-cut module on a tensor-parallel mesh, is
 :func:`int8_matmul_cuda` with ``out_dtype=torch.int32`` (one rank's
@@ -61,7 +67,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {"int8_matmul_launch": (
     ctypes.c_int, [_P] * 5 + [_I] * 13 + [ctypes.c_float, _P]),
     "int8_matmul_grouped_launch": (
-    ctypes.c_int, [_P] * 4 + [_I] * 10 + [ctypes.c_float, _P]),
+    ctypes.c_int, [_P] * 4 + [_I] * 10 + [ctypes.c_float, _I, _I, _P]),
     "int8_matmul_finish_launch": (
     ctypes.c_int, [_P] * 3 + [_I] * 8 + [ctypes.c_float, _P])}
 # the kernel's out_kind, by output dtype (int32: the raw sums, no epilogue)
@@ -194,13 +200,18 @@ def int8_matmul_grouped_cuda(x3: torch.Tensor, w3: torch.Tensor,
                              out_dtype: torch.dtype,
                              n_o: Optional[int] = None) -> torch.Tensor:
     """Launch K2's grouped form on (E, C, K) int8 x (E, K, N) int8 CUDA
-    stacks: expert e's first ``min(counts[e], rows_cap)`` rows (``counts``
-    (E,) int32 on the card, never read on the host) through K2's epilogue
-    (shift-requant, clip; no bias or ReLU), as ``out_dtype`` codes or, with
-    bfloat16 / float32, their values times ``2^-n_o``.  Returns (E, C, N);
-    rows past an expert's count are left unwritten (``torch.empty``).  The
-    tile is planned for ``rows_cap`` rows (an upper bound of every count
-    that the caller knows on the host: at most one row a token)."""
+    stacks.  ``counts`` (int32 on the card, never read on the host) is
+    (E,), each expert's rows one segment of C, or (E, D), each expert's C
+    rows D segments of C / D rows (the data shards' slices): segment s of
+    expert e computes its first ``min(counts[e, s], rows_cap)`` rows
+    through K2's epilogue (shift-requant, clip; no bias or ReLU), as
+    ``out_dtype`` codes or, with bfloat16 / float32, their values times
+    ``2^-n_o``, or with int32 the raw sums (no epilogue: a data-cut
+    hidden's partial, finished by :func:`int8_matmul_finish_cuda` after
+    the ranks' sums are added).  Returns (E, C, N); rows past a segment's
+    count are left unwritten (``torch.empty``).  The tile is planned for
+    ``rows_cap`` rows (an upper bound of every count that the caller
+    knows on the host: at most one row a token of the shard)."""
     if x3.device.type != "cuda" or w3.device != x3.device \
             or counts.device != x3.device:
         raise ValueError("int8_matmul_grouped_cuda takes CUDA tensors on "
@@ -210,23 +221,28 @@ def int8_matmul_grouped_cuda(x3: torch.Tensor, w3: torch.Tensor,
         raise TypeError(f"the grouped K2 takes int8 x int8 codes and int32 "
                         f"counts, got {x3.dtype} x {w3.dtype}, "
                         f"{counts.dtype}")
+    segs = counts.shape[1] if counts.ndim == 2 else 1
     if x3.ndim != 3 or w3.ndim != 3 or x3.shape[0] != w3.shape[0] \
-            or x3.shape[2] != w3.shape[1] or counts.shape != x3.shape[:1]:
+            or x3.shape[2] != w3.shape[1] or counts.ndim not in (1, 2) \
+            or counts.shape[0] != x3.shape[0] or x3.shape[1] % segs:
         raise ValueError(f"shape mismatch {tuple(x3.shape)} x "
                          f"{tuple(w3.shape)}, counts {tuple(counts.shape)}")
     e, c, k = x3.shape
     n = w3.shape[2]
+    stride = c // segs
     if k % 16 or n % 8:
         raise ValueError(f"the grouped K2 takes K % 16 == 0 and N % 8 == 0, "
                          f"got K={k}, N={n}")
-    if not 1 <= rows_cap <= c or e > 65535:
-        raise ValueError(f"rows_cap {rows_cap} outside [1, C={c}] or "
-                         f"{e} experts > 65535")
+    if not 1 <= rows_cap <= stride or e * segs > 65535:
+        raise ValueError(f"rows_cap {rows_cap} outside [1, {stride}] (C={c} "
+                         f"in {segs} segments) or {e} x {segs} segments > "
+                         f"65535")
     if out_dtype not in _OUT_KIND:
-        raise TypeError(f"K2 emits int8 codes or their bf16 / fp32 values, "
-                        f"not {out_dtype}")
-    if (n_o is None) != (_OUT_KIND[out_dtype] == 0):
-        raise ValueError("a float output takes its grid n_o; codes take none")
+        raise TypeError(f"K2 emits int8 codes, their bf16 / fp32 values or "
+                        f"the int32 sums, not {out_dtype}")
+    if (n_o is None) != (_OUT_KIND[out_dtype] in (0, 3)):
+        raise ValueError("a float output takes its grid n_o; codes and sums "
+                         "take none")
     if not -31 <= shift <= 31:
         raise ValueError(f"shift {shift} outside the int32 range [-31, 31]")
     x3, w3, counts = x3.contiguous(), w3.contiguous(), counts.contiguous()
@@ -238,7 +254,8 @@ def int8_matmul_grouped_cuda(x3: torch.Tensor, w3: torch.Tensor,
         err = lib.int8_matmul_grouped_launch(
             x3.data_ptr(), w3.data_ptr(), counts.data_ptr(), out.data_ptr(),
             e, c, int(rows_cap), n, k, int(shift), int(lo), int(hi),
-            plan.cfg, _OUT_KIND[out_dtype], 2.0 ** -int(n_o or 0), stream)
+            plan.cfg, _OUT_KIND[out_dtype], 2.0 ** -int(n_o or 0), segs,
+            stride, stream)
     if err != 0:
         raise RuntimeError(f"int8_matmul_grouped kernel launch failed: CUDA "
                            f"error {err}")

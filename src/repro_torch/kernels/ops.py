@@ -13,6 +13,9 @@ nowhere else, so a run can show that its path went through the kernels.
 Under a tensor-parallel mesh each rank calls these wrappers on its own
 slices: K2's rank-split form (:func:`int8_matmul_partial`, then an int32
 all-reduce, then :func:`int8_matmul_finish`) serves the row-cut modules,
+and its grouped form's int32 kind (:func:`int8_matmul_grouped_partial`)
+the experts' hidden cut over ``data``, over the exchanged layout (an
+(E, D) count grid),
 and the attention wrappers take the ``mesh`` (:func:`attn_shard_size`):
 their operands hold this rank's KV heads, whole GQA groups.
 """
@@ -41,7 +44,8 @@ from repro_torch.kernels.ragged_flash import (RaggedWork,
                                              ragged_attention_cuda)
 from repro_torch.kernels.residual_requant import residual_requant_cuda
 
-__all__ = ["int8_matmul", "int8_matmul_grouped", "int8_matmul_partial",
+__all__ = ["int8_matmul", "int8_matmul_grouped",
+           "int8_matmul_grouped_partial", "int8_matmul_partial",
            "int8_matmul_finish", "attn_shard_size", "int_conv2d",
            "quantize_act", "quantize_multi", "quantize_scatter",
            "residual_requant",
@@ -60,7 +64,8 @@ LAUNCHES = {"int8_matmul": 0, "int8_matmul_grouped": 0,
 # launches of one form of a kernel, counted beside (not instead of) the
 # kernel's own count in LAUNCHES
 FORM_LAUNCHES = {"flash_prefill_noncausal": 0, "int8_matmul_partial": 0,
-                 "int8_matmul_finish": 0}
+                 "int8_matmul_finish": 0, "int8_matmul_grouped_partial": 0,
+                 "int8_matmul_grouped_segments": 0}
 
 
 def reset_launch_counts() -> None:
@@ -176,6 +181,12 @@ def int8_matmul_finish(acc: torch.Tensor, b_int: Optional[torch.Tensor],
     return out.reshape(*batch, n)
 
 
+def _grouped_launched(counts: torch.Tensor) -> None:
+    LAUNCHES["int8_matmul_grouped"] += 1
+    if counts.ndim == 2 and counts.shape[1] > 1:
+        FORM_LAUNCHES["int8_matmul_grouped_segments"] += 1
+
+
 def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
                         counts: torch.Tensor, spec: LinearQuantSpec, *,
                         rows_cap: Optional[int] = None,
@@ -183,11 +194,15 @@ def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
                         ) -> torch.Tensor:
     """The MoE experts' product: (E, C, K) int8 codes x (E, K, N) int8
     codes -> (E, C, N), expert by expert, each requantized by ``spec``
-    (no bias), in ONE launch of K2's grouped form.  Expert e's rows
-    ``< min(counts[e], rows_cap)`` are computed (``counts`` (E,) int32 on
-    the operands' device, read there; ``rows_cap`` defaults to C); the
-    plain version writes the other rows as 0, the kernel leaves them
-    unwritten.  ``out_float`` as :func:`int8_matmul`'s."""
+    (no bias), in ONE launch of K2's grouped form.  ``counts`` (int32 on
+    the operands' device, read there) is (E,): expert e's rows ``<
+    min(counts[e], rows_cap)`` are computed; or (E, D), the exchanged
+    layout of a data cut: expert e's C rows are D segments of C / D rows
+    (shard s's at ``[s C / D, s C / D + min(counts[e, s], rows_cap))``)
+    and ``FORM_LAUNCHES["int8_matmul_grouped_segments"]`` counts the
+    launch too.  ``rows_cap`` defaults to C / D; the plain version writes
+    the other rows as 0, the kernel leaves them unwritten.  ``out_float``
+    as :func:`int8_matmul`'s."""
     if spec.bits > 8:
         raise ValueError(f"int8_matmul_grouped emits 8-bit codes, not "
                          f"{spec.bits}")
@@ -198,7 +213,7 @@ def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
             raise TypeError(f"K2's float epilogue writes bfloat16 or "
                             f"float32, not {out_float}")
         out_dtype, n_o = out_float, spec.n_o
-    cap = x_int.shape[1] if rows_cap is None else int(rows_cap)
+    cap = _grouped_rows_cap(x_int, counts, rows_cap)
     if not _on_cuda(x_int, "int8_matmul_grouped"):
         return ref.int8_matmul_grouped_ref(
             x_int, w_int, counts, rows_cap=cap, shift=spec.requant_shift,
@@ -206,7 +221,36 @@ def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
     out = int8_matmul_grouped_cuda(x_int, w_int, counts, rows_cap=cap,
                                    shift=spec.requant_shift, lo=lo, hi=hi,
                                    out_dtype=out_dtype, n_o=n_o)
-    LAUNCHES["int8_matmul_grouped"] += 1
+    _grouped_launched(counts)
+    return out
+
+
+def _grouped_rows_cap(x_int: torch.Tensor, counts: torch.Tensor,
+                      rows_cap: Optional[int]) -> int:
+    segs = counts.shape[1] if counts.ndim == 2 else 1
+    return x_int.shape[1] // segs if rows_cap is None else int(rows_cap)
+
+
+def int8_matmul_grouped_partial(x_int: torch.Tensor, w_int: torch.Tensor,
+                                counts: torch.Tensor, *,
+                                rows_cap: Optional[int] = None
+                                ) -> torch.Tensor:
+    """K2's grouped form with the int32 output kind: the experts' (E, C,
+    N) int32 sums, no epilogue, over the rows :func:`int8_matmul_grouped`
+    computes (``counts`` (E,) or (E, D) as there; other rows 0 on the
+    CPU, unwritten on the card).  A mesh that cuts the experts' hidden
+    over ``data`` adds the ranks' sums in int32 (exact in any order), then
+    :func:`int8_matmul_finish` runs the epilogue once.  Counted as a
+    grouped launch and in ``FORM_LAUNCHES["int8_matmul_grouped_partial"]``."""
+    cap = _grouped_rows_cap(x_int, counts, rows_cap)
+    if not _on_cuda(x_int, "int8_matmul_grouped_partial"):
+        return ref.int8_matmul_grouped_partial_ref(x_int, w_int, counts,
+                                                   rows_cap=cap)
+    out = int8_matmul_grouped_cuda(x_int, w_int, counts, rows_cap=cap,
+                                   shift=0, lo=0, hi=0,
+                                   out_dtype=torch.int32)
+    _grouped_launched(counts)
+    FORM_LAUNCHES["int8_matmul_grouped_partial"] += 1
     return out
 
 

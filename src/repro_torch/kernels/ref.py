@@ -22,7 +22,8 @@ from repro_torch.core.qscheme import dequant, int_bounds
 
 __all__ = ["int8_matmul_ref", "int8_matmul_partial_ref",
            "int8_matmul_finish_ref", "int8_matmul_split_ref",
-           "int8_matmul_grouped_ref", "int_conv2d_ref",
+           "int8_matmul_grouped_ref", "int8_matmul_grouped_partial_ref",
+           "int_conv2d_ref",
            "quantize_ref",
            "quantize_multi_ref", "quantize_scatter_ref",
            "residual_requant_ref", "ragged_token_meta", "ragged_attention_ref",
@@ -130,6 +131,34 @@ def int8_matmul_split_ref(x_int: torch.Tensor, w_int: torch.Tensor,
                           relu=relu, lo=lo, hi=hi, out_dtype=out_dtype)
 
 
+def _grouped_live(counts: torch.Tensor, c: int, rows_cap: int
+                  ) -> torch.Tensor:
+    """(E, C) bool: the rows K2's grouped form computes.  ``counts`` (E,)
+    is one segment of C rows an expert; (E, D) cuts each expert's C rows
+    into D segments of C / D rows, segment s's first ``min(counts[e, s],
+    rows_cap)`` live."""
+    seg = counts.reshape(counts.shape[0], -1).to(torch.int64)
+    stride = c // seg.shape[1]
+    rows = torch.clamp(seg, 0, rows_cap)                      # (E, D)
+    r = torch.arange(c, device=counts.device)
+    return (r % stride)[None, :] < rows.repeat_interleave(stride, dim=1)
+
+
+def int8_matmul_grouped_partial_ref(x_int: torch.Tensor, w_int: torch.Tensor,
+                                    counts: torch.Tensor, *,
+                                    rows_cap: int) -> torch.Tensor:
+    """K2's grouped form with the int32 output kind: (E, C, K) x (E, K, N)
+    int8 codes, expert by expert, the int32 sums (exact in float64) with
+    no epilogue, rows outside each segment's ``min(counts, rows_cap)``
+    (:func:`_grouped_live`) 0 (the kernel leaves them unwritten).  A
+    data-cut hidden's partial: the ranks' sums added in int32, then
+    :func:`int8_matmul_finish_ref` once."""
+    acc = torch.bmm(x_int.to(torch.float64),
+                    w_int.to(torch.float64)).to(torch.int32)
+    live = _grouped_live(counts, x_int.shape[1], rows_cap)
+    return torch.where(live[..., None], acc, 0)
+
+
 def int8_matmul_grouped_ref(x_int: torch.Tensor, w_int: torch.Tensor,
                             counts: torch.Tensor, *, rows_cap: int,
                             shift: int, lo: int = -128, hi: int = 127,
@@ -138,15 +167,14 @@ def int8_matmul_grouped_ref(x_int: torch.Tensor, w_int: torch.Tensor,
     """K2's grouped form: (E, C, K) x (E, K, N) int8 codes, expert by
     expert, the int32 product (exact in float64) through the epilogue
     (no bias, no ReLU), codes or, with a float ``out_dtype``, their
-    values ``code * 2^-n_o``.  Rows at or past ``min(counts[e],
-    rows_cap)`` of expert e are 0 (the kernel leaves them unwritten)."""
-    acc = torch.bmm(x_int.to(torch.float64),
-                    w_int.to(torch.float64)).to(torch.int32)
+    values ``code * 2^-n_o``.  ``counts`` (E,) or (E, D) segments as
+    :func:`_grouped_live` reads them; rows outside each segment's
+    ``min(counts, rows_cap)`` are 0 (the kernel leaves them unwritten)."""
+    acc = int8_matmul_grouped_partial_ref(x_int, w_int, counts,
+                                          rows_cap=rows_cap)
     codes = _int8_epilogue(acc, None, shift=shift, bias_shift=0, relu=False,
                            lo=lo, hi=hi, out_dtype=torch.int32)
-    rows = torch.clamp(counts.to(torch.int64), 0, rows_cap)
-    live = torch.arange(x_int.shape[1], device=x_int.device)[None, :] \
-        < rows[:, None]
+    live = _grouped_live(counts, x_int.shape[1], rows_cap)
     codes = torch.where(live[..., None], codes, 0)
     if not out_dtype.is_floating_point:
         return codes.to(out_dtype)

@@ -125,6 +125,22 @@ class RankMesh:
         out = torch.cat(parts, dim=dim)
         return out.to(dev) if host else out
 
+    def all_gather_rows(self, t: torch.Tensor, axis: str,
+                        sizes) -> list:
+        """The ranks' ``t`` of ``axis`` in rank order, where rank i's
+        holds ``sizes[i]`` rows (dim 0; every rank passes the same
+        ``sizes``): each padded to the largest, gathered, and cut back,
+        so only those rows cross (the MoE exchange's kept rows)."""
+        if self.shape[axis] == 1:
+            return [t]
+        most = max(sizes)
+        if most == 0:
+            return [t[:0] for _ in sizes]
+        pad = t.new_zeros((most,) + tuple(t.shape[1:]))
+        pad[:t.shape[0]] = t
+        got = self.all_gather(pad, axis, 0)
+        return [got[i * most:i * most + n] for i, n in enumerate(sizes)]
+
     def barrier(self) -> None:
         """Wait for every rank of the mesh."""
         if self.size > 1:

@@ -58,11 +58,14 @@ versions.  ``--prefix-cache`` / ``--no-prefix-cache`` force the engine's
 prefix cache on or off (default: the engine decides).  The JAX CLI's
 ``--profile-cost`` option is not ported yet.
 
-Tensor-parallel serving (the dense families): ``--mesh DxM`` serves
-either path on a (data, model) mesh of D x M ranks (``launch.mesh``), the
-attention heads (whole GQA groups and their KV), the MLP hidden and the
-vocab cut over ``model``, the classic batch over ``data``, every step
-eager.  The ranks are spawned here, or joined when ``torchrun`` started
+Tensor-parallel serving (the dense families on either path; the moe
+family, granite-moe-3b and deepseek-v3 with MLA, through classic
+``serve``): ``--mesh DxM`` serves on a (data, model) mesh of D x M ranks
+(``launch.mesh``), the attention heads (whole GQA groups and their KV;
+MLA's heads, its latent cache whole on each rank), the MLP hidden, the
+experts and the vocab cut over ``model``, the classic batch over
+``data`` (serving's 2-D rule cuts each expert's hidden over it too),
+every step eager.  The ranks are spawned here, or joined when ``torchrun`` started
 the process (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve
 ... --mesh DxM``); rank 0 prints.  ``--dist-backend`` names their
 backend: nccl (the default on the card, one card a rank) or gloo (the
@@ -70,6 +73,8 @@ CPU's default; also ranks that share one card):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
         [--engine] --mesh 1x2 [--device cpu | --dist-backend gloo]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch granite_moe_3b_a800m --mesh 1x2 [--device cpu | --dist-backend gloo]
 """
 from __future__ import annotations
 
@@ -139,20 +144,27 @@ def _launches_since(start: dict) -> dict:
     return {k: n - start[k] for k, n in _launch_counts().items()}
 
 
-def _rank_calibrated(cfg, params, mode: str, prompt: dict, mesh):
-    """:func:`_calibrated` on the whole model: on rank 0 of a mesh, its
-    context sent to every rank (every rank then quantizes on the same
-    grids); the report and the seconds are rank 0's."""
+def _calibrated_timed(cfg, params, mode: str, prompt: dict):
+    """:func:`_calibrated` and its seconds (the card synchronized)."""
     import torch
     t0 = time.perf_counter()
-    ctx = report = None
-    if mesh is None or mesh.rank == 0:
-        ctx, report = _calibrated(cfg, params, mode, prompt)
-    if mesh is not None:
-        ctx = mesh.broadcast_object(ctx)
+    ctx, report = _calibrated(cfg, params, mode, prompt)
     if next(iter(prompt.values())).device.type == "cuda":
         torch.cuda.synchronize()
     return ctx, report, time.perf_counter() - t0
+
+
+def _rank_calibrated(cfg, params, mode: str, prompt: dict, mesh):
+    """:func:`_calibrated_timed` on the whole model: on rank 0 of a mesh,
+    its context sent to every rank (every rank then quantizes on the same
+    grids); the report and the seconds are rank 0's."""
+    ctx = report = None
+    t_cal = 0.0
+    if mesh is None or mesh.rank == 0:
+        ctx, report, t_cal = _calibrated_timed(cfg, params, mode, prompt)
+    if mesh is not None:
+        ctx = mesh.broadcast_object(ctx)
+    return ctx, report, t_cal
 
 
 def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
@@ -204,10 +216,14 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     ``mesh_shape`` (data, model) serves on a mesh of D x M ranks
     (``launch.mesh``; spawned here unless ``torchrun`` started this
     process) over ``dist_backend`` (default nccl on the card, gloo on the
-    CPU; ranks sharing one card take gloo): the dense families only, the
-    weights calibrated and quantized whole, then cut (heads, d_ff and
-    vocab over ``model``), the batch cut over ``data`` when it divides
-    (else every data rank serves it all), every step eager.  Returns rank
+    CPU; ranks sharing one card take gloo): the dense and moe families,
+    the whole model built (or ``params`` moved to the card), calibrated
+    (rank 0) and cut by one rank at a time, so the ranks sharing a card
+    never hold two whole models, then quantized on the rank's slices
+    (heads, d_ff, the experts and vocab over ``model``; an expert's
+    hidden over ``data``), the batch cut over ``data`` when it divides
+    (else every data rank serves it all; the moe family refuses that),
+    every step eager.  Returns rank
     0's result (its tokens the whole batch's) with ``mesh`` and
     ``ranks``, every rank's {"tokens", "logits", "launches", ...}.  A
     caller that is already a rank passes its ``mesh``
@@ -250,10 +266,8 @@ def serve_rank(mesh, *, cfg, batch, prompt_len, gen, mode, calibrate, seed,
     from repro_torch.launch import steps as S
     from repro_torch.models import model as M
     dev = resolve_device(device if mesh is None else mesh.device)
-    if params is None:
+    if params is None and mesh is None:
         params = M.init_params(cfg, seed, device=dev)
-    elif mesh is not None:
-        params = _to_device(params, dev)
     audio = cfg.family == "audio"
     stream = SyntheticLMStream(
         cfg.vocab_size, prompt_len, batch, seed=seed,
@@ -264,9 +278,31 @@ def serve_rank(mesh, *, cfg, batch, prompt_len, gen, mode, calibrate, seed,
 
     ctx = QuantContext(mode=QuantMode(mode))
     report, t_cal = None, 0.0
-    if calibrate and mode in ("fake", "int"):
-        ctx, report, t_cal = _rank_calibrated(cfg, params, mode, prompt,
-                                              mesh)
+    calibrating = calibrate and mode in ("fake", "int")
+    if mesh is None:
+        if calibrating:
+            ctx, report, t_cal = _calibrated_timed(cfg, params, mode, prompt)
+    else:
+        # one rank at a time holds the whole model (the ranks may share a
+        # card): rank 0 builds it, calibrates it whole, cuts it and frees
+        # it before rank 1 builds its own, and so on
+        whole = params
+        for turn in range(mesh.size):
+            if mesh.rank == turn:
+                full = (M.init_params(cfg, seed, device=dev) if whole is None
+                        else _to_device(whole, dev))
+                if turn == 0 and calibrating:
+                    ctx, report, t_cal = _calibrated_timed(cfg, full, mode,
+                                                           prompt)
+                params = _cut_whole(full, shd.param_sharding_rules(
+                    full, mesh, fsdp=False, serve=True, cfg=cfg), mesh)
+                del full
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            mesh.barrier()
+        if calibrating:
+            ctx = mesh.broadcast_object(ctx)
+    if calibrating:
         ctx = dataclasses.replace(ctx, mode=QuantMode(mode))
         if mesh is None or mesh.rank == 0:
             print(f"calibrated {len(report.results)} modules in "
@@ -274,14 +310,14 @@ def serve_rank(mesh, *, cfg, batch, prompt_len, gen, mode, calibrate, seed,
     if ctx.mode is QuantMode.INT:
         # the recurrent blocks' other matrices (LoRA and token-shift mixes,
         # conv taps), the MoE router and MLA's wkv_b are float operands
-        # outside any unified module
+        # outside any unified module.  On a mesh the rank's slices: each
+        # leaf's grid is its module's table entry, never its values', so
+        # the codes are the whole tree's codes of the same slice
         params = quantize_weight_tree(
             params, ctx, name_fn=functools.partial(M.qlinear_weight, cfg=cfg)
             if cfg.family in ("ssm", "hybrid", "moe", "audio") else None)
     split = False
     if mesh is not None:
-        # the weights are cut after calibration and quantization, whole
-        params = shd.shard_params(params, mesh, mesh.coords, cfg=cfg)
         d = mesh.shape["data"]
         split = batch % d == 0 and d > 1
         if split:
@@ -344,6 +380,21 @@ def serve_rank(mesh, *, cfg, batch, prompt_len, gen, mode, calibrate, seed,
                            first_calls=step_graphs.first_calls,
                            captures=step_graphs.captures,
                            replays=step_graphs.replays)}
+
+
+def _cut_whole(tree, specs, mesh):
+    """The rank's slices of the whole params ``tree`` (a tree of dicts and
+    lists this rank made: ``init_params``' or ``_to_device``'), each leaf
+    cut as ``specs`` says (``distributed.sharding.shard_leaf``) and
+    dropped from ``tree`` as it is cut, so the rank never holds the whole
+    model and all its slices at once."""
+    from repro_torch.distributed.sharding import shard_leaf
+    if isinstance(tree, (dict, list)):
+        for k in (list(tree) if isinstance(tree, dict) else
+                  range(len(tree))):
+            tree[k] = _cut_whole(tree[k], specs[k], mesh)
+        return tree
+    return shard_leaf(tree, specs, mesh, mesh.coords)
 
 
 def _to_device(tree, dev):

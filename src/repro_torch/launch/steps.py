@@ -174,7 +174,7 @@ def build_train_step(cfg: ModelConfig, ctx: QuantContext, opt: Optimizer,
     check_matmul_kernel(cfg, ctx)
     specs = p_spec = fsdp_dims = None
     if mesh is not None:
-        _resolve_attn_kernel(cfg, mesh)
+        _resolve_attn_kernel(cfg, mesh, train=True)
         if ctx.mode is QuantMode.FAKE_SF and shd.model_shards(mesh) > 1:
             raise NotImplementedError(
                 "fake_sf's per-tensor maxima take no gradient through a "
@@ -295,7 +295,8 @@ def _mesh_size(mesh) -> int:
     return 1 if mesh is None else math.prod(mesh.shape.values())
 
 
-def _resolve_attn_kernel(cfg: ModelConfig, mesh=None) -> ModelConfig:
+def _resolve_attn_kernel(cfg: ModelConfig, mesh=None, *,
+                         train: bool = False) -> ModelConfig:
     """The step's config, checked against ``mesh``.  On a mesh of more
     than one rank the attention heads are cut over ``cfg.attn_shard_axis``
     (whole GQA groups, the KV heads and their cache or pool with them), so
@@ -307,7 +308,10 @@ def _resolve_attn_kernel(cfg: ModelConfig, mesh=None) -> ModelConfig:
     only, its chunked path falling back to a sequence-cut cache; every
     attention of the port cuts heads, so it refuses for either kernel (the
     sequence cut is ROADMAP Queue 1 item 8's).  Then the family's and the
-    layout's refusals (``distributed.sharding.local_config``)."""
+    layout's refusals (``distributed.sharding.local_config``; ``train``:
+    a training step's, which refuses the moe family); and, serving the moe
+    family, a mesh on which the reference would turn FSDP on
+    (:func:`serve_needs_fsdp`)."""
     if _mesh_size(mesh) > 1:
         if cfg.attn_shard_axis != "model":
             raise NotImplementedError(
@@ -326,7 +330,16 @@ def _resolve_attn_kernel(cfg: ModelConfig, mesh=None) -> ModelConfig:
                 + f"); pick a mesh whose '{cfg.attn_shard_axis}' axis "
                 f"divides it (the sequence-cut decode is ROADMAP Queue 1 "
                 f"item 8's)")
-        shd.local_config(cfg, mesh)
+        shd.local_config(cfg, mesh, train=train)
+        if cfg.family == "moe" and not train \
+                and serve_needs_fsdp(cfg, mesh):
+            raise NotImplementedError(
+                f"serving {cfg.name} on a model axis of "
+                f"{mesh.shape['model']} would cut its non-expert weights "
+                f"over data too (the reference's serve_needs_fsdp, over "
+                f"{SERVE_FSDP_BYTES / 1e9:g} GB a rank); serving runs without "
+                f"FSDP, whose gather is ROADMAP Queue 1 item 8's: take a "
+                f"larger model axis")
     return cfg
 
 

@@ -85,7 +85,7 @@ def train(arch: str, steps: int, *, batch: int = 8, seq: int = 128,
     if mesh is not None or tuple(mesh_shape) == (1, 1):
         return train_rank(mesh, device=device, **kw)
     layout = mesh_lib.RankMesh(*(int(n) for n in mesh_shape))
-    S._resolve_attn_kernel(cfg, layout)       # before any rank starts
+    S._resolve_attn_kernel(cfg, layout, train=True)   # before any rank
     check_data_split(batch, layout.shape["data"], accum)
     ranks = mesh_lib.on_ranks(train_rank, tuple(mesh_shape), device,
                               dist_backend, kw)

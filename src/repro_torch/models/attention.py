@@ -339,7 +339,13 @@ def mla_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
       pre-quantized, ``models.model.qlinear_weight``), key rows ``t <=``
       each query's position.  These products stay outside any kernel, as
       in the reference; they run in float64 and round once to fp32, so
-      the CPU and the card give the same values."""
+      the CPU and the card give the same values.
+
+    On a tensor-parallel mesh ``cfg`` is the rank's view: ``wq_a`` and
+    ``wkv_a`` whole, ``wq_b`` and ``wkv_b`` column-cut by head (the rank's
+    ``n_heads``), both forms over the rank's heads, ``wo`` row-cut (its
+    ranks' partials summed: K2's rank-split form in INT); the latent
+    cache is whole on every rank (``sharding.cache_sharding_rules``)."""
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
@@ -368,7 +374,7 @@ def mla_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
             else kref.flash_attention_ref
         out = prefill(qq, k, kv[..., nope:])
         return (linear(ctx, f"{name}/wo", out.reshape(b, s, h * vdim),
-                       p["wo"]), None)
+                       p["wo"], reduce=True), None)
 
     # absorbed path: the cache holds (c_kv, k_pe) only
     if isinstance(cache_pos, torch.Tensor):
@@ -395,4 +401,5 @@ def mla_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     ctx_lat = torch.einsum("bhst,btl->bshl", probs, c_full)
     out = torch.einsum("bshl,lhv->bshv", ctx_lat, w_kv_b[..., nope:])
     out = out.to(torch.float32).reshape(b, s, h * vdim).to(x.dtype)
-    return linear(ctx, f"{name}/wo", out, p["wo"]), cache
+    # wo is row-cut on a mesh: its ranks' partial products are summed
+    return linear(ctx, f"{name}/wo", out, p["wo"], reduce=True), cache

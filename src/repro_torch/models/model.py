@@ -460,7 +460,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     value changes.  The hybrid family takes none.
 
     Under a tensor-parallel scope (``distributed.sharding.
-    activation_sharding``; the dense families) ``params`` and ``cache``
+    activation_sharding``; the dense families, and in serving the moe
+    family) ``params`` and ``cache``
     are one rank's slices and the blocks run on the rank's view of
     ``cfg``; the logits are every rank's, whole."""
     _check_family(cfg, "forward")

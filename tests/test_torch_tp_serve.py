@@ -228,7 +228,7 @@ def test_refusals_without_processes(tmp_path):
     with pytest.raises(NotImplementedError, match="n_heads for MLA"):
         tserve._resolve_cfg_mesh("deepseek_v3_671b", smoke=False,
                                  mesh_shape=(1, 3))
-    for arch, shape in (("granite_moe_3b_a800m", (1, 2)),
+    for arch, shape in (("whisper_large_v3", (1, 2)),
                         ("rwkv6_3b", (2, 1))):
         with pytest.raises(NotImplementedError, match="item 8"):
             tserve._resolve_cfg_mesh(arch, smoke=True, mesh_shape=shape)
