@@ -56,7 +56,12 @@ the CUDA toolkit.  Phases, one line each (or a few):
    version there; timed at the path's shape and both long positions;
 8. Algorithm-1 calibration of qwen3-1.7B at full width and 2 layers on
    the card and on the CPU: the tables must agree, apart from declared
-   near-ties;
+   near-ties (the run order is 1-3, 6, 7, 10, 15, 4, 5, 11, 16-18, 8,
+   9, 12-14, 30a's card side, 20, 22, 19, 21, 23-29, 30: the CPU's
+   calibration runs on a background thread beside 4, 5, 11 and 16-18, as
+   30a's CPU side and 26b's CPU steps do beside 20 and 22, phases that
+   time nothing; every other phase waits for that thread to be idle, so
+   no kernel, step or profile is timed beside it);
 9. the 2-layer dense model (prefill + 3 decode steps, flash attention)
    on the card against the CPU: INT with an int8 cache (identical), FP
    with an fp32 cache (phase 4's FP rule) and FP with an int8 cache, with
@@ -122,7 +127,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
     margin (in bf16 ulps) at the first divergent token, from the classic
     dense prefill of the agreed prefix (printed, not gated);
 18. the engine's observability on phase 5's workload (at full width on
-    ``ENGINE_LAYERS``, 14 of qwen3-1.7B's 28 layers): the ragged INT engine with obs off and with ``trace=True, slo=True`` and a
+    ``ENGINE_LAYERS``, 8 of qwen3-1.7B's 28 layers): the ragged INT engine with obs off and with ``trace=True, slo=True`` and a
     metrics export, interleaved (off, on, on, off) for tokens/s, TPOT and
     TTFT, every run token-identical with the same launches; an obs-on
     INT and W8A8 run each held to K1 = 14 x steps and K2 = 99 x steps,
@@ -148,12 +153,13 @@ the CUDA toolkit.  Phases, one line each (or a few):
     other call a replay, warm every call a replay, each key captured once;
     tokens/s, TPOT and TTFT p50, the trace's split into dispatch spans and
     host time between them, first calls, captures, replays and peak memory
-    of each run; and the busy share of a profiled warm INT run eager and
-    with graphs (``launch/profile_engine.py``, at full depth), its kernels, copies and
-    fills a dispatch, the K1 kernels of ``key_averages()`` equal to those
-    of the profiler's Kineto events, and those equal to the engine's count
-    eager and not above it with graphs (the comment at the check says
-    why).
+    of each run; and the busy share of a profiled warm INT run without
+    graphs (``launch/profile_engine.py::profile_run``, at full depth), its
+    kernels, copies and fills a dispatch, the K1 kernels of
+    ``key_averages()`` equal to those of the profiler's Kineto events and
+    to the engine's count (phase 18 holds a graph run's K1 count to its
+    profile; the comment at the check says why a profiled graph run is
+    not held so).
 20. the recurrent and hybrid substrate: ``paged_recurrent_step`` of
     rwkv6-3b (2 layers) and zamba2-2.7b (one group: 6 Mamba blocks and the
     shared block) at full width in fp32, two (4, 64) steps with an idle
@@ -292,7 +298,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
     / bf16; the partial (beside ``torch._int_mm``), the finish and the
     single launch timed at M 24 beside their bounds; (b) two spawned
     ranks sharing the card over gloo (a (1, 2) mesh), qwen3-1.7B at full
-    width on 14 of its 28 layers (``TP_LAYERS``; the script's time), bf16:
+    width on 8 of its 28 layers (``TP_LAYERS``; the script's time), bf16:
     the ragged engine in FP, calibrated INT and
     W8A8 on phase 5's workload, the legacy engine in INT, classic
     ``serve`` with flash attention in FP and INT, each against the
@@ -329,7 +335,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
     form's int32 output kind and exchanged layout (an (E, D) count grid)
     bit-exact against their plain versions at the decode shapes of a (1,
     2) and a (2, 1) rank, timed beside their bounds and looped
-    ``torch._int_mm``; (b) granite-moe-3b at full width on 16 of its 32
+    ``torch._int_mm``; (b) granite-moe-3b at full width on 8 of its 32
     layers (``MM_GRANITE_LAYERS``: the script's time) and (c)
     deepseek-v3 at full width on 4 layers through classic ``serve`` on a
     (1, 2) mesh of two ranks sharing the card over gloo, FP and calibrated
@@ -345,6 +351,29 @@ the CUDA toolkit.  Phases, one line each (or a few):
     cut over data) under a router that overflows expert 0, against the
     CPU's one-process per-shard dispatch (INT identical, FP within
     ``MM_LAYER_FP_REL``), each rank's launches a layer.
+30. training every family on one card: (a) K5 under autograd at
+    whisper's encoder (non-causal, 1500 over 1500) and MLA's expanded
+    shape (Dk 192, Dv 128) against the plain version's forward and
+    autograd, timed beside SDPA's forward and forward + backward; each
+    family at full width cut in depth (granite-moe-3b and rwkv6-3b on 2
+    layers, deepseek-v3 on its first, dense MLA layer, whisper on 2 + 2
+    over 1500 frames, zamba2 on one group), fp32, one
+    ``build_train_step`` step (remat at its default) on the card and on
+    the CPU from the same weights: loss and grad_norm within
+    ``TRAIN_LOSS_RTOL``; zamba2's gradients with ``remat='full'`` equal
+    to those without, on the card; (b) ``train()`` of granite-moe-3b,
+    whisper-large-v3, rwkv6-3b and zamba2-2.7b at full width and depth,
+    bf16, flash attention, ``FAM_STEPS`` steps: the bytes of params,
+    gradients and moments reckoned against the free memory first, finite
+    the mean loss of the last two steps below that of the first two (both
+    on the seeded weights, step 1's rate 0), K5 once an attention layer a step (no
+    other kernel), step ms, tokens/s, peak memory (deepseek-v3 is not
+    trained: one MoE layer's 11.3 B expert parameters, 22.5 GB in bf16,
+    with gradients and moments would not fit); (c) the three example
+    twins at smoke size: the continuous-batching twin's dense-cache check
+    (K5 / K6) exact on the ragged and the legacy engine, the replay twin
+    EXACT with its legacy A/B, the inspect twin on the port engine's
+    trace.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -370,8 +399,9 @@ training launches and its recompute backward at the train shape, from
 phase 26; K2's rank-split form and every kernel's launches on each rank
 of phase 27's mesh; K5's, K2's and K3's launches on each rank of phase
 28's training mesh; K2's grouped form's int32 kind and exchanged
-layout, and every kernel's launches on each rank of phase 29's mesh),
-and
+layout, and every kernel's launches on each rank of phase 29's mesh;
+K5's training launches in every family's steps and its recompute
+backward at MLA's and whisper's shapes, from phase 30), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -380,6 +410,7 @@ package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import functools
@@ -388,6 +419,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -514,6 +546,30 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# CPU references that a later phase compares the card against run on one
+# background thread (each torch op releases the interpreter lock), only
+# beside phases that time nothing: ``_run_phase`` waits for the thread to
+# be idle before any other phase
+_CPU_POOL: list = []
+
+
+def on_cpu_thread(fn, *args):
+    """``fn(*args)`` queued on the background thread: its future."""
+    if not _CPU_POOL:
+        _CPU_POOL.append(concurrent.futures.ThreadPoolExecutor(
+            1, thread_name_prefix="cpu-reference"))
+    return _CPU_POOL[0].submit(fn, *args)
+
+
+def cpu_thread_idle() -> float:
+    """Wait until the background thread has run all it was given: the
+    seconds waited."""
+    t0 = time.perf_counter()
+    if _CPU_POOL:
+        _CPU_POOL[0].submit(lambda: None).result()
+    return time.perf_counter() - t0
 
 
 def time_ms(torch, fn, iters: int, warmup: int = 3) -> float:
@@ -1634,30 +1690,53 @@ def _serve_tokens(vocab):
                              seed=0).batch(0)["tokens"]
 
 
-def phase_calibrate(torch, out):
-    """Algorithm 1 on the card and on the CPU from the same weights and
-    batch.  Tolerance: the fp32 products and attention sums run in other
-    orders on the two devices, so a module whose best two candidates'
-    errors nearly tie may pick differently; that is accepted only where
-    the two chosen errors agree within 1e-4 relative."""
+def _calibrate_cfg():
+    """Phases 8 and 9's model: qwen3-1.7B's width on 2 layers, fp32, an
+    int8 cache, flash attention."""
     from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("qwen3_1_7b"), n_layers=2,
+                               dtype="float32", kv_cache_bits=8,
+                               attn_kernel="flash")
+
+
+def _calibrate_on(params, device):
+    """Algorithm 1 of ``_calibrate_cfg`` on ``params`` (on ``device``)
+    and the serve prompt: (ctx, report, seconds)."""
+    import torch
     from repro_torch.core.lm_calibrate import calibrate_lm
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(get_config("qwen3_1_7b"), n_layers=2,
-                              dtype="float32", kv_cache_bits=8,
-                              attn_kernel="flash")
+    cfg = _calibrate_cfg()
+    tokens = torch.from_numpy(_serve_tokens(cfg.vocab_size)).to(device)
+    t0 = time.perf_counter()
+    ctx, rep = calibrate_lm(lambda p, b, c: M.forward(p, b, cfg, c),
+                            params, {"tokens": tokens})
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return ctx, rep, time.perf_counter() - t0
+
+
+def _calibrate_cpu():
+    """Phase 8's CPU side (a CPU reference): the seeded weights and
+    Algorithm 1 on them."""
+    from repro_torch.models import model as M
+    return _calibrate_on(M.init_params(_calibrate_cfg(), 0, device="cpu"),
+                         "cpu")
+
+
+def phase_calibrate(torch, out, cpu=None):
+    """Algorithm 1 on the card and on the CPU from the same weights and
+    batch (the CPU's run ``cpu``, the future of ``_calibrate_cpu`` on the
+    background thread, started here if not given).  Tolerance:
+    the fp32 products and attention sums run in other orders on the two
+    devices, so a module whose best two candidates' errors nearly tie may
+    pick differently; that is accepted only where the two chosen errors
+    agree within 1e-4 relative."""
+    from repro_torch.models import model as M
+    cfg = _calibrate_cfg()
     p_cpu = M.init_params(cfg, 0, device="cpu")
     p_gpu = _tree_to(p_cpu, "cuda")
-    tokens = torch.from_numpy(_serve_tokens(cfg.vocab_size))
-    res = {}
-    for dev, params in (("cuda", p_gpu), ("cpu", p_cpu)):
-        t0 = time.perf_counter()
-        ctx, rep = calibrate_lm(lambda p, b, c: M.forward(p, b, cfg, c),
-                                params, {"tokens": tokens.to(dev)})
-        if dev == "cuda":
-            torch.cuda.synchronize()
-        res[dev] = (ctx, rep, time.perf_counter() - t0)
-    (cg, rg, tg), (cc, rc, tc) = res["cuda"], res["cpu"]
+    cg, rg, tg = _calibrate_on(p_gpu, "cuda")
+    cc, rc, tc = (cpu or on_cpu_thread(_calibrate_cpu)).result()
     check(list(cg.table) == list(cc.table), "calibration: module lists")
     ties = []
     for name in cc.table:
@@ -1674,7 +1753,7 @@ def phase_calibrate(torch, out):
     log(f"[8] calibration ({len(cc.table)} modules, qwen3-1.7B full width, "
         f"2 layers, fp32, {SERVE_BATCH}x{SERVE_PROMPT} tokens): tables "
         f"{'identical' if not ties else f'identical apart from near-ties {ties}'}"
-        f"; card {tg:.2f} s, CPU {tc:.2f} s")
+        f"; card {tg:.2f} s, CPU {tc:.2f} s (on a background thread)")
     out["calibration"] = dict(card_s=tg, cpu_s=tc, near_ties=ties,
                               table={k: dataclasses.astuple(v)
                                      for k, v in cc.table.items()})
@@ -3061,11 +3140,11 @@ def phase_legacy_engine(torch, out):
 
 OBS_DIR = ROOT / "build" / "obs"
 # phases 18 and 19 serve qwen3-1.7B at full width on ENGINE_LAYERS of its
-# 28 layers (phase 19's two profiled runs, ``profile_engine.profile_run``,
-# at full depth): full depth until PR 30, whose phase 29 took the script
-# past its time (phase 19 took 153.2 s at full depth on an H100 80GB HBM3
-# at 700 W, the script 1143.7 s)
-ENGINE_LAYERS = 14
+# 28 layers (phase 19's profiled run, ``profile_engine.profile_run``, at
+# full depth): full depth until phase 29 took the script past its time
+# (phase 19 took 153.2 s at full depth on an H100 80GB HBM3 at 700 W,
+# the script 1143.7 s), 14 until phase 30 did (the script 973.3 s)
+ENGINE_LAYERS = 8
 
 
 def _obs_run(torch, count_rows=False, **kw):
@@ -3540,60 +3619,44 @@ def phase_graphs(torch, out):
             f"every other call a replay; warm, every call a replay; each "
             f"key captured once")
         res[tag] = rows
-    # the busy share of a profiled warm run, eager and with graphs, at the
-    # module's own full depth
+    # the busy share of a profiled warm eager run at the module's own full
+    # depth, and the engine's K1 count against the K1 kernels the profiler
+    # saw: key_averages() must hold every K1 kernel of the profiler's own
+    # (Kineto) events, and those must be the engine's count.  (A profiled
+    # graph run is not held so: such runs have read 918 and 874 of 980,
+    # the Kineto events short by the same count as the table, the records
+    # lost inside the profiler while every token matched; phase 18 holds a
+    # graph run's trace to the engine's count)
     L = get_config("qwen3_1_7b").n_layers
-    for graphs in (False, True):
-        r = profile_run("int", graphs=None if graphs else False)
-        rep = r["report"]
-        name = "graphs" if graphs else "eager"
-        check(r["device_s"] > 0, f"profile {name}: no device time")
-        # the engine's K1 count against the K1 kernels the profiler saw:
-        # key_averages() must hold every K1 kernel of the profiler's own
-        # (Kineto) events, and those must be the engine's count eager.
-        # With graphs equality cannot be required: profiled graph runs have
-        # read 918 and 874 of 980, the Kineto events short by the same
-        # count as the table and every kernel alike (874: 2103.4 device
-        # events a step against 2357.0, 10.8% each), so the records were
-        # lost inside the profiler, before PyTorch builds its table, while
-        # every token matched and phase 18's trace of a graph run holds the
-        # engine's count.  Kineto keeps only the device events whose times,
-        # moved onto the host's clock, fall inside its window, and it warned
-        # of device times up to 18 ms before their launch calls.  The loss
-        # is intermittent: after the two runs above, 16 profiled graph runs
-        # (10 with 200 ms of idle time profiled around the run, 6 without)
-        # lost none, so it was never reproduced on demand and no
-        # mitigation is shown to work
-        k1_card = sum(c for k, _, c in r["rows"] if K1_TAG in k)
-        k1_raw = sum(c for k, c in r["raw_counts"].items() if K1_TAG in k)
-        k1 = rep["kernel_launches"]["ragged_attention"]
-        steps = rep["ragged_steps"]
-        events = sum(c for _, _, c in r["rows"])
-        check(k1 == L * steps and k1_card == k1_raw
-              and (0 < k1_raw <= k1 if graphs else k1_raw == k1),
-              f"profile {name}: {k1_card} K1 kernels in the profile "
-              f"({k1_raw} in its Kineto events), the engine counted {k1} "
-              f"over {steps} steps")
-        log(f"[19] profiled warm int run ({name}): {steps} "
-            f"steps, {k1_card} K1 kernels in the profile's key_averages() "
-            f"({k1_raw} in its Kineto events, {sum(r['raw_counts'].values())}"
-            f" device events there) of the engine's {k1}; "
-            f"{events / steps:.1f} kernels, copies and fills a dispatch "
-            f"({events} over {steps}); "
-            f"step graphs {rep['step_graphs']}, wall {r['wall_s']:.4f} s, "
-            f"device time of all kernels {r['device_s']:.4f} s, busy share "
-            f"{r['busy']:.3f}; top: "
-            + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms ({c}x)"
-                        for k, us, c in r["rows"][:8]))
-        res[f"profile {name}"] = dict(wall_s=r["wall_s"],
-                                      device_s=r["device_s"],
-                                      busy=r["busy"], top=r["rows"][:10],
-                                      events_per_dispatch=events / steps,
-                                      k1_profile=k1_card, k1_kineto=k1_raw,
-                                      k1_engine=k1)
-        del r
-        gc.collect()
-        torch.cuda.empty_cache()
+    r = profile_run("int", graphs=False)
+    rep = r["report"]
+    check(r["device_s"] > 0, "profile eager: no device time")
+    k1_card = sum(c for k, _, c in r["rows"] if K1_TAG in k)
+    k1_raw = sum(c for k, c in r["raw_counts"].items() if K1_TAG in k)
+    k1 = rep["kernel_launches"]["ragged_attention"]
+    steps = rep["ragged_steps"]
+    events = sum(c for _, _, c in r["rows"])
+    check(k1 == L * steps and k1_card == k1_raw == k1,
+          f"profile eager: {k1_card} K1 kernels in the profile ({k1_raw} "
+          f"in its Kineto events), the engine counted {k1} over {steps} "
+          f"steps")
+    log(f"[19] profiled warm int run (eager, {L} layers): {steps} steps, "
+        f"{k1_card} K1 kernels in the profile's key_averages() ({k1_raw} "
+        f"in its Kineto events, {sum(r['raw_counts'].values())} device "
+        f"events there) of the engine's {k1}; {events / steps:.1f} "
+        f"kernels, copies and fills a dispatch ({events} over {steps}); "
+        f"wall {r['wall_s']:.4f} s, device time of all kernels "
+        f"{r['device_s']:.4f} s, busy share {r['busy']:.3f}; top: "
+        + ", ".join(f"{k[:40]} {us / 1e3:.3f} ms ({c}x)"
+                    for k, us, c in r["rows"][:8]))
+    res["profile eager"] = dict(wall_s=r["wall_s"], device_s=r["device_s"],
+                                busy=r["busy"], top=r["rows"][:10],
+                                events_per_dispatch=events / steps,
+                                k1_profile=k1_card, k1_kineto=k1_raw,
+                                k1_engine=k1)
+    del r
+    gc.collect()
+    torch.cuda.empty_cache()
     out["graphs"] = res
     return res
 
@@ -3612,9 +3675,11 @@ REC_MODEL_ROWS = (((1, 0, 24), (2, 0, 64), (0, 0, 0), (3, 0, 7)),
 REC_MODEL_NBMAX = 6
 # the engine cases: (tag, arch, serve_engine options)
 # phases 20 and 23 run the recurrent archs at full width on these of
-# their layers (rwkv6-3b 16 of 32, zamba2-2.7b 5 of its 9 groups of 6):
-# full depth until PR 30, whose phase 29 took the script past its time
-REC_DEPTH = {"rwkv6_3b": 16, "zamba2_2_7b": 30}
+# their layers (rwkv6-3b 8 of 32, zamba2-2.7b 3 of its 9 groups of 6):
+# full depth until PR 30, whose phase 29 took the script past its time;
+# 16 and 30 layers until phase 30's training (phase 20 took 102.1 s and
+# the script 973.3 s at those on an H100 80GB HBM3 at 700 W)
+REC_DEPTH = {"rwkv6_3b": 8, "zamba2_2_7b": 18}
 
 
 def _rec_cfg(arch):
@@ -3712,7 +3777,10 @@ class _ModuleSync:
     input and output are recorded; on the CPU each call runs on the card's
     input for the same call (``on``), its output compared with the card's:
     ``y_diff`` counts the outputs that differ (with ``tol``, those beyond
-    atol = rtol = ``tol``).  Disabled, ``on`` changes nothing."""
+    atol = rtol = ``tol``).  Only the calls of the thread that entered
+    ``on`` are recorded or replayed: another thread's (a CPU reference on
+    the background thread) run the real op.  Disabled, ``on`` changes
+    nothing."""
 
     def __init__(self, enabled: bool, tol=None):
         import repro_torch.models.common as common
@@ -3763,11 +3831,18 @@ class _ModuleSync:
             self.calls += 1
             return y
 
+        owner = threading.get_ident()
+
+        def mine(fn, other):
+            return lambda *a, **kw: (
+                fn if threading.get_ident() == owner else other)(*a, **kw)
+
         @contextlib.contextmanager
         def patched():
             on_card = device == "cuda"
-            common.qlinear = card if on_card else cpu
-            common.linears = card_many if on_card else cpu_many
+            common.qlinear = mine(card if on_card else cpu, real)
+            common.linears = mine(card_many if on_card else cpu_many,
+                                  real_many)
             try:
                 yield
             finally:
@@ -6626,77 +6701,112 @@ def _train_batches(cfg, device, n):
              for k, v in stream.batch(i).items()} for i in range(n)]
 
 
-def _train_card_vs_cpu(torch, res):
-    """26b: the 2-layer full-width model, fp32, one step and one
-    accumulated step on both devices from the same params and state, then
-    a checkpoint round trip resumed on the card."""
-    import shutil
-    import tempfile
-    from repro_torch.checkpoint import Checkpointer
+# 26b's two steps from the seeded weights: (accum_steps, rate)
+TRAIN_ACCUMS = ((1, 0.0), (2, 3e-3))
+
+
+def _train_cut():
+    """26b's model, optimizer and schedule: llama3.2-1B's width on 2
+    layers, fp32, flash attention, AdamW, a warmup-cosine rate."""
     from repro_torch.configs import get_config
+    from repro_torch.optim import adamw, warmup_cosine
+    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
+                              dtype="float32", attn_kernel="flash")
+    return cfg, adamw(), warmup_cosine(3e-3, 1, 10)
+
+
+def _train_cpu_steps():
+    """26b's CPU side (a CPU reference): TRAIN_ACCUMS' steps from the
+    seeded weights and a fresh AdamW state; after each, its metrics and
+    seconds and copies of the moments and params."""
     from repro_torch.core.qmodel import QuantContext
     from repro_torch.core.tree import leaves
     from repro_torch.launch import steps as S
     from repro_torch.models import model as M
-    from repro_torch.optim import adamw, warmup_cosine
-    cfg = dataclasses.replace(get_config("llama3_2_1b"), n_layers=2,
-                              dtype="float32", attn_kernel="flash")
-    opt, lr_fn = adamw(), warmup_cosine(3e-3, 1, 10)
-    p = {"cpu": M.init_params(cfg, 0, device="cpu")}
-    p["cuda"] = _tree_to(p["cpu"], "cuda")
-    st = {dev: opt.init(p[dev]) for dev in p}
-    batches = {dev: _train_batches(cfg, dev, 4) for dev in p}
-    p0 = [t.clone() for t in leaves(p["cpu"])]
-    for accum, lr in ((1, 0.0), (2, 3e-3)):
+    cfg, opt, lr_fn = _train_cut()
+    p = M.init_params(cfg, 0, device="cpu")
+    st = opt.init(p)
+    batches = _train_batches(cfg, "cpu", 2)
+    out = []
+    for accum, _ in TRAIN_ACCUMS:
         step = S.build_train_step(cfg, QuantContext(), opt, lr_fn,
                                   remat=False, accum_steps=accum)
-        m = {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            _, _, m[dev] = step(p[dev], st[dev], batches[dev][accum - 1])
-            if dev == "cuda":
-                torch.cuda.synchronize()
-            m[dev]["s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, _, m = step(p, st, batches[accum - 1])
+        out.append(dict(metrics={k: float(v) for k, v in m.items()},
+                        s=time.perf_counter() - t0,
+                        m=[t.clone() for t in leaves(st.m)],
+                        v=[t.clone() for t in leaves(st.v)],
+                        params=[t.clone() for t in leaves(p)]))
+    return out
+
+
+def _train_card_vs_cpu(torch, res, cpu=None):
+    """26b: the 2-layer full-width model, fp32, one step and one
+    accumulated step on the card from the same params and state as the
+    CPU's (``cpu``, the future of ``_train_cpu_steps``), then a checkpoint round
+    trip resumed on the card."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    cfg, opt, lr_fn = _train_cut()
+    p_cpu = M.init_params(cfg, 0, device="cpu")
+    p0 = leaves(p_cpu)
+    p = {"cuda": _tree_to(p_cpu, "cuda")}
+    st = {"cuda": opt.init(p["cuda"])}
+    batches = {"cuda": _train_batches(cfg, "cuda", 4)}
+    cpu_steps = (cpu or on_cpu_thread(_train_cpu_steps)).result()
+    for (accum, lr), cpu in zip(TRAIN_ACCUMS, cpu_steps):
+        step = S.build_train_step(cfg, QuantContext(), opt, lr_fn,
+                                  remat=False, accum_steps=accum)
+        t0 = time.perf_counter()
+        _, _, mc = step(p["cuda"], st["cuda"], batches["cuda"][accum - 1])
+        torch.cuda.synchronize()
+        m = {"cuda": {k: float(v) for k, v in mc.items()},
+             "cpu": cpu["metrics"]}
+        m["cuda"]["s"], m["cpu"]["s"] = time.perf_counter() - t0, cpu["s"]
         for key in ("loss", "grad_norm"):
-            e = abs(float(m["cuda"][key]) - float(m["cpu"][key])) \
-                / abs(float(m["cpu"][key]))
+            e = abs(m["cuda"][key] - m["cpu"][key]) / abs(m["cpu"][key])
             check(e <= TRAIN_LOSS_RTOL, f"26b accum {accum}: {key} card "
-                  f"{float(m['cuda'][key])} CPU {float(m['cpu'][key])}")
-        check(float(m["cuda"]["lr"]) == float(m["cpu"]["lr"])
-              and abs(float(m["cpu"]["lr"]) - lr) <= 1e-9,
-              f"26b accum {accum}: lr {float(m['cuda']['lr'])}")
+                  f"{m['cuda'][key]} CPU {m['cpu'][key]}")
+        check(m["cuda"]["lr"] == m["cpu"]["lr"]
+              and abs(m["cpu"]["lr"] - lr) <= 1e-9,
+              f"26b accum {accum}: lr {m['cuda']['lr']}")
         mom = max(_rel_err(torch, a.cpu(), b)
                   for name in ("m", "v")
                   for a, b in zip(leaves(getattr(st["cuda"], name)),
-                                  leaves(getattr(st["cpu"], name))))
+                                  cpu[name]))
         check(mom <= TRAIN_MOMENT_TOL, f"26b accum {accum}: moments off by "
               f"{mom:.2e} of a leaf's largest")
         dp = max(float((a.cpu() - b).abs().max())
-                 for a, b in zip(leaves(p["cuda"]), leaves(p["cpu"])))
+                 for a, b in zip(leaves(p["cuda"]), cpu["params"]))
         moved = sum(int(((a.cpu() - b).abs() > 1e-6).sum())
-                    for a, b in zip(leaves(p["cuda"]), leaves(p["cpu"])))
+                    for a, b in zip(leaves(p["cuda"]), cpu["params"]))
         check(dp <= 2 * lr + 1e-6, f"26b accum {accum}: params off by "
               f"{dp:.2e}, beyond 2 lr = {2 * lr}")
         if lr == 0.0:
             check(all(torch.equal(a.cpu(), b) for a, b in
                       zip(leaves(p["cuda"]), p0)),
                   "26b: a step at lr 0 moved a parameter")
-        n_par = sum(t.numel() for t in leaves(p["cpu"]))
+        n_par = sum(t.numel() for t in p0)
         log(f"[26b] 2-layer llama3.2-1B width, fp32, step with accum_steps "
-            f"{accum} at lr {lr}: loss card {float(m['cuda']['loss']):.6f} "
-            f"CPU {float(m['cpu']['loss']):.6f}, grad_norm card "
-            f"{float(m['cuda']['grad_norm']):.6f} CPU "
-            f"{float(m['cpu']['grad_norm']):.6f} (within "
+            f"{accum} at lr {lr}: loss card {m['cuda']['loss']:.6f} "
+            f"CPU {m['cpu']['loss']:.6f}, grad_norm card "
+            f"{m['cuda']['grad_norm']:.6f} CPU "
+            f"{m['cpu']['grad_norm']:.6f} (within "
             f"{TRAIN_LOSS_RTOL}), moments within {mom:.2e} of a leaf's "
             f"largest, params max |diff| {dp:.2e} ({moved} of {n_par} "
             f"beyond 1e-6); step {m['cuda']['s']:.2f} s card, "
-            f"{m['cpu']['s']:.2f} s CPU")
+            f"{m['cpu']['s']:.2f} s CPU (on a background thread)")
         res[f"card_vs_cpu accum {accum}"] = dict(
-            loss=(float(m["cuda"]["loss"]), float(m["cpu"]["loss"])),
-            grad_norm=(float(m["cuda"]["grad_norm"]),
-                       float(m["cpu"]["grad_norm"])),
+            loss=(m["cuda"]["loss"], m["cpu"]["loss"]),
+            grad_norm=(m["cuda"]["grad_norm"], m["cpu"]["grad_norm"]),
             moment_rel_err=mom, param_max_diff=dp, params_moved=moved)
-    del p["cpu"], st["cpu"], p0
+    del cpu_steps, p0
     # checkpoint after these steps; two more steps straight on, then the
     # same two from the restored state
     step = S.build_train_step(cfg, QuantContext(), opt, lr_fn, remat=False)
@@ -6771,67 +6881,7 @@ def _train_full(torch, res):
     res["full"] = dict(losses=losses, step_s=o["step_s"], median_step_s=med,
                        tokens_per_s=TRAIN_B * TRAIN_S / med, peak_gib=peak,
                        params=n_par, launches=launches, wall_s=wall)
-    _train_breakdown(torch, res, o)
     return o
-
-
-def _train_breakdown(torch, res, trained):
-    """Where 26c's step goes: its three parts timed apart (host clock,
-    synchronized, median of 3: the loss and its gradients, the clip, the
-    AdamW update at lr 0, which moves no parameter), then one whole step
-    under ``torch.profiler``: device time, busy share, the top kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.qmodel import QuantContext
-    from repro_torch.core.tree import unflatten
-    from repro_torch.data import SyntheticLMStream
-    from repro_torch.launch import steps as S
-    from repro_torch.launch.profile_engine import _device_us
-    from repro_torch.optim import adamw, clip_by_global_norm
-    cfg, params = trained["cfg"], trained["params"]
-    opt = adamw()
-    state = opt.init(params)
-    b = {k: torch.from_numpy(v).to("cuda") for k, v in SyntheticLMStream(
-        cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(TRAIN_STEPS).items()}
-
-    def step():
-        t = [time.perf_counter()]
-        _, _, grads = S.loss_and_grads(params, b, cfg, QuantContext())
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        grads, _ = clip_by_global_norm(unflatten(params, grads), 1.0)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        opt.update(grads, state, params, 0.0)
-        torch.cuda.synchronize()
-        t.append(time.perf_counter())
-        return [t[i + 1] - t[i] for i in range(3)]
-
-    parts = [sorted(p)[1] for p in zip(*[step() for _ in range(3)])]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.key, _device_us(e), e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and _device_us(e)),
-                  key=lambda r: -r[1])
-    dev_ms = sum(r[1] for r in rows) / 1e3
-    k5_ms = sum(r[1] for r in rows if "flash_prefill" in r[0]) / 1e3
-    log(f"[26c] a step's parts (median of 3, synchronized): loss + "
-        f"gradients {1e3 * parts[0]:.1f} ms, clip {1e3 * parts[1]:.1f} ms, "
-        f"AdamW update {1e3 * parts[2]:.1f} ms; profiled step: wall "
-        f"{1e3 * wall:.1f} ms, device time {dev_ms:.1f} ms (busy "
-        f"{dev_ms / (1e3 * wall):.3f}), {sum(r[2] for r in rows)} kernels, "
-        f"copies and fills, K5 {k5_ms:.2f} ms; top:")
-    for key, us, count in rows[:10]:
-        log(f"    {us / 1e3:9.3f} ms {count:6d}x  {key[:100]}")
-    res["breakdown"] = dict(
-        grads_ms=1e3 * parts[0], clip_ms=1e3 * parts[1],
-        update_ms=1e3 * parts[2], profiled_wall_ms=1e3 * wall,
-        device_ms=dev_ms, k5_ms=k5_ms,
-        top=[dict(kernel=k, ms=us / 1e3, count=c) for k, us, c in rows[:10]])
 
 
 def _train_then_int(torch, res, trained):
@@ -6879,9 +6929,11 @@ def _train_then_int(torch, res, trained):
     res["int"] = dict(agreement=agree, calibrate_s=cal_s, launches=launches)
 
 
-def phase_train(torch, out):
+def phase_train(torch, out, cpu=None):
     """Phase 26: training -- (a) K5 under autograd, (b) the 2-layer
-    full-width model card against CPU and a checkpoint resume, (c)
+    full-width model card against CPU (``cpu``: the future of
+    ``_train_cpu_steps``, started here if not given) and a checkpoint
+    resume, (c)
     ``train()`` of llama3.2-1B at full width and depth, (d) Algorithm 1
     and the INT forward on the trained weights."""
     t0 = time.perf_counter()
@@ -6889,7 +6941,7 @@ def phase_train(torch, out):
     trained = {}
     for part, run in (
             ("a", lambda: _train_kernels(torch, res)),
-            ("b", lambda: _train_card_vs_cpu(torch, res)),
+            ("b", lambda: _train_card_vs_cpu(torch, res, cpu)),
             ("c", lambda: trained.update(_train_full(torch, res))),
             ("d", lambda: _train_then_int(torch, res, trained))):
         t1 = time.perf_counter()
@@ -6919,12 +6971,11 @@ TP_RANKS, TP_ROWS, TP_TIMED_ROWS = (2, 4), (1, 4, 24, 256), 24
 TP_FP_REL = 5e-2
 # requests a second of 27b's wall-clock engine run on the mesh
 TP_PACED_RATE = 10.0
-# 27b's depth: half of qwen3-1.7B's 28 layers (full depth until the
-# script took phase 28).  On an H100 80GB HBM3 at 700 W phase 27 took 93.5
-# s at full depth and 48.4 s at half, and whole runs of the script spread
-# by over 100 s between calls: at full depth the slower calls would near
-# the 1000 s the script aims for
-TP_LAYERS = 14
+# 27b's depth: 8 of qwen3-1.7B's 28 layers (full depth until the script
+# took phase 28, 14 until it took phase 30).  On an H100 80GB HBM3 at 700
+# W phase 27 took 93.5 s at full depth and 48.4 s at half, and whole runs
+# of the script spread by over 100 s between calls
+TP_LAYERS = 8
 
 
 def _tp_k2(torch, res):
@@ -7595,8 +7646,9 @@ MM_GK2_SHAPES = (
     ("deepseek w1 (2, 1)", 256, 2, 7168, 1024),
     ("deepseek w2 (2, 1)", 256, 2, 1024, 7168))
 MM_CAP = 128
-# 29b's depth: 16 of granite-moe-3b's 32 layers (the script's time)
-MM_GRANITE_LAYERS = 16
+# 29b's depth: 8 of granite-moe-3b's 32 layers (the script's time; 16
+# until phase 30)
+MM_GRANITE_LAYERS = 8
 # 29b / 29c: bf16 FP on the mesh sums each row-cut module's fp32 partials
 # and rounds once, where one rank's bf16 product rounds its own fp32 sum:
 # the last bits part, an expert's routing near-tie flips, and one rank's
@@ -8112,13 +8164,447 @@ def phase_moe_mesh(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 30: training every family on one card, and the example twins
+# ---------------------------------------------------------------------------
+
+# 30a: each family at full width, cut in depth (``_fam_cuts``), fp32, one
+# train step (``build_train_step`` at its defaults: remat=True) of
+# FAM_CPU_BATCH x FAM_CPU_SEQ tokens on the card, its loss and gradient
+# norm against the CPU's from the same weights within phase 26b's
+# TRAIN_LOSS_RTOL
+FAM_CPU_BATCH, FAM_CPU_SEQ = 1, 32
+# 30b: ``train()`` at full width, bf16, flash attention, FAM_STEPS steps
+# of FAM_B x FAM_S tokens (whisper with 1500 stub frames a row) at a peak
+# rate of FAM_LR (train()'s default 3e-3 sent rwkv6-3b's loss from 11.5
+# to 20.5 in one update); the first updates move the bf16 weights by
+# sign-like steps and the loss swings (whisper 10.8, 11.1, 12.3, 7.5), so
+# it is held to fall over the run
+FAM_B, FAM_S, FAM_STEPS, FAM_LR = 4, 128, 5, 3e-4
+FAM_TRAINED = ("granite_moe_3b_a800m", "whisper_large_v3", "rwkv6_3b",
+               "zamba2_2_7b")
+# K5 under autograd at the shapes the training path gives it that phase
+# 26a does not run: whisper's encoder (non-causal) and MLA's expanded
+# form (Dk != Dv): (name, B, Sq, Skv, H, KVH, Dk, Dv, causal)
+FAM_K5_CASES = (
+    ("whisper encoder, non-causal", FAM_B, WHISPER_FRAMES, WHISPER_FRAMES,
+     WHISPER_HEADS, WHISPER_HEADS, WHISPER_DIM, WHISPER_DIM, False),
+    ("MLA expanded, Dk 192 != Dv 128", FAM_B, FAM_S, FAM_S, 128, 128, 192,
+     128, True))
+TWIN_DIR = ROOT / "build" / "twins"
+
+
+def _fam_cuts():
+    """30a's configurations, fp32, flash attention: granite-moe-3b and
+    rwkv6-3b on 2 layers, deepseek-v3 on its first layer (dense, MLA:
+    one of its MoE layers holds 256 x 3 x 7168 x 2048 = 11.3 B expert
+    parameters, 45 GB in fp32 before gradients and moments), whisper on
+    2 + 2 layers over its 1500 frames, zamba2 on one group (6 Mamba
+    blocks and the shared block)."""
+    from repro_torch.configs import get_config
+    cuts = {"granite_moe_3b_a800m": dict(n_layers=2),
+            "deepseek_v3_671b": dict(n_layers=1),
+            "whisper_large_v3": dict(n_layers=2),
+            "rwkv6_3b": dict(n_layers=2),
+            "zamba2_2_7b": dict(n_layers=get_config("zamba2_2_7b")
+                                .hybrid.attn_every)}
+    out = {}
+    for arch, kw in cuts.items():
+        cfg = get_config(arch)
+        if cfg.moe is not None and arch == "deepseek_v3_671b":
+            kw["moe"] = dataclasses.replace(cfg.moe, n_dense_layers=1)
+        if cfg.encdec is not None:
+            kw["encdec"] = dataclasses.replace(cfg.encdec,
+                                               n_encoder_layers=2)
+        out[arch] = dataclasses.replace(cfg, dtype="float32",
+                                        attn_kernel="flash", **kw)
+    return out
+
+
+def _opt_name(opt) -> str:
+    """'adamw' or 'adafactor': the function that built ``opt``."""
+    return opt.init.__qualname__.split(".")[0]
+
+
+def _fam_batch(cfg, b, s, seed=0):
+    """One batch of the synthetic stream (the audio family's with its
+    stub ``encoder_features``), numpy."""
+    from repro_torch.data import SyntheticLMStream
+    audio = cfg.family == "audio"
+    return SyntheticLMStream(
+        cfg.vocab_size, s, b, seed=seed,
+        encoder_seq=cfg.encdec.encoder_seq if audio else None,
+        d_model=cfg.d_model if audio else None).batch(0)
+
+
+def _fam_k5_case(torch, gen, case):
+    """K5 under autograd at one training shape: the kernel's output and
+    the recompute's gradients against the plain version's forward and
+    autograd (gradients within TRAIN_GRAD_TOL of their largest), then
+    the forward, the recompute backward, SDPA's forward and forward +
+    backward timed, beside the forward's and the backward's bounds (26a's
+    formula: the backward reads q, k, v, dO and writes dq, dk, dv, 2.5x
+    the forward's products)."""
+    from repro_torch.kernels import ops, ref
+    name, b, sq, skv, h, kvh, dk, dv, causal = case
+    dt = torch.bfloat16
+    q = torch.randn((b, sq, h, dk), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, skv, kvh, dk), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, skv, kvh, dv), generator=gen, device="cuda").to(dt)
+    g = torch.randn((b, sq, h, dv), generator=gen, device="cuda").to(dt)
+    got_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_in = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*got_in, causal=causal)
+    got = torch.autograd.grad(out, got_in, g, retain_graph=True)
+    want_out = ref.flash_attention_ref(*want_in, causal=causal)
+    want = torch.autograd.grad(want_out, want_in, g)
+    torch.cuda.synchronize()
+    err = _close_rows(torch, out.detach(), want_out.detach(), 2e-2,
+                      f"K5 train {name}")
+    grad_err = 0.0
+    for gname, a, w in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == w.dtype and a.shape == w.shape,
+              f"K5 train {name}: {gname} {a.dtype} {tuple(a.shape)}")
+        e = _rel_err(torch, a, w)
+        check(e <= TRAIN_GRAD_TOL, f"K5 train {name}: {gname} off the "
+              f"plain version's by {e:.2e} of its largest value")
+        grad_err = max(grad_err, float((a.float() - w.float()).abs().max()))
+    sdpa, sdpa_how = _sdpa(torch)
+    with torch.no_grad():
+        fwd_ms = time_ms(torch, lambda: ops.flash_attention(
+            q, k, v, causal=causal), 20)
+        lib_ms = time_ms(torch, lambda: sdpa(q, k, v, causal), 20)
+    bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+        out, got_in, g, retain_graph=True), 5, warmup=1)
+    sins = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_train():
+        o = sdpa(*sins, causal).transpose(1, 2)
+        return torch.autograd.grad(o, sins, g)
+    lib_train_ms = time_ms(torch, sdpa_train, 5, warmup=1)
+    pairs = (sum(i + 1 for i in range(sq)) if causal else sq * skv)
+    n_ops = b * h * 2 * (dk + dv) * pairs
+    n_bytes = 2 * (q.numel() + k.numel() + v.numel() + g.numel())
+    b_ms, b_by = bound_ms(n_bytes, n_ops, "bfloat16")
+    bwd_bytes = 2 * (2 * q.numel() + 2 * k.numel() + 2 * v.numel()
+                     + g.numel())
+    bb_ms, bb_by = bound_ms(bwd_bytes, 2.5 * n_ops, "bfloat16")
+    log(f"[30a] K5 under autograd, {name} (B {b}, Sq {sq}, Skv {skv}, H "
+        f"{h}, KVH {kvh}, Dk {dk}, Dv {dv}, bf16): output rows within 2e-2 "
+        f"(max |diff| {err:.2e}), dq / dk / dv within {TRAIN_GRAD_TOL} of "
+        f"their largest (max |diff| {grad_err:.2e}); forward {fwd_ms:.4f} "
+        f"ms (bound {b_ms:.5f} ms, {b_by}), recompute backward "
+        f"{bwd_ms:.4f} ms (bound {bb_ms:.5f} ms, {bb_by}); SDPA "
+        f"({sdpa_how}) forward {lib_ms:.4f} ms, forward + backward "
+        f"{lib_train_ms:.4f} ms against K5 + recompute "
+        f"{fwd_ms + bwd_ms:.4f} ms")
+    return dict(name=name, max_abs_err=err, grad_max_abs_err=grad_err,
+                ms=fwd_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                backward_ms=bwd_ms, backward_bound_ms=bb_ms,
+                backward_bound_by=bb_by, library_train_ms=lib_train_ms,
+                sdpa=sdpa_how)
+
+
+def _fam_cpu_grads(cfg, params, batch):
+    """30a's CPU side of one family: the loss and the gradients' norm
+    (``loss_and_grads`` without remat, whose values remat leaves alone,
+    and ``clip_by_global_norm``: the step's first two parts, without the
+    CPU's update of every parameter), and its seconds."""
+    import torch
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.core.tree import unflatten
+    from repro_torch.launch import steps as S
+    from repro_torch.optim import clip_by_global_norm
+    t0 = time.perf_counter()
+    b = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, _, grads = S.loss_and_grads(params, b, cfg, QuantContext())
+    _, gnorm = clip_by_global_norm(unflatten(params, grads), 1.0)
+    return dict(loss=float(loss), grad_norm=float(gnorm),
+                s=time.perf_counter() - t0)
+
+
+def _fam_card_vs_cpu(torch, res):
+    """30a on the card: each family's cut configuration, one train step
+    (``build_train_step`` at its defaults, a fresh optimizer state) from
+    the weights a copy of which goes to the CPU's side
+    (``_fam_cpu_grads``, compared by ``_fam_card_vs_cpu_check``); zamba2's
+    gradients with ``remat='full'`` and without, equal.  The CPU sides
+    are queued on the background thread once every card step has run, so
+    that none runs beside them: returns their futures."""
+    from repro_torch.core.qmodel import QuantContext
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    from repro_torch.optim import warmup_cosine
+    out = res["card_vs_cpu"] = {}
+    cpu_args = {}
+    for arch, cfg in _fam_cuts().items():
+        params = M.init_params(cfg, 0, device="cuda")
+        batch = _fam_batch(cfg, FAM_CPU_BATCH, FAM_CPU_SEQ)
+        b = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+        remat_same = None
+        if arch == "zamba2_2_7b":
+            plain = S.loss_and_grads(params, b, cfg, QuantContext())
+            full_r = S.loss_and_grads(params, b, cfg, QuantContext(),
+                                      remat="full")
+            remat_same = bool(torch.equal(plain[0], full_r[0]) and all(
+                torch.equal(x, y) for x, y in zip(plain[2], full_r[2])))
+            check(remat_same, "30a zamba2: gradients with remat='full' "
+                  "differ from those without")
+            del plain, full_r
+        cpu_args[arch] = (cfg, _tree_to(params, "cpu"), batch)
+        opt = S.pick_optimizer(cfg)
+        step = S.build_train_step(cfg, QuantContext(), opt,
+                                  warmup_cosine(3e-3, 1, 10))
+        t0 = time.perf_counter()
+        _, _, mc = step(params, opt.init(params), b)
+        card = {k: float(mc[k]) for k in ("loss", "grad_norm")}
+        card["s"] = time.perf_counter() - t0
+        del params, mc
+        out[arch] = dict(layers=cfg.n_layers, params=S.param_count(cfg),
+                         optimizer=_opt_name(opt), card=card,
+                         remat_equal=remat_same)
+    return {arch: on_cpu_thread(_fam_cpu_grads, *a)
+            for arch, a in cpu_args.items()}
+
+
+def _fam_card_vs_cpu_check(res, pending):
+    """30a's comparison: each family's card loss and gradient norm within
+    TRAIN_LOSS_RTOL of its CPU side's."""
+    for arch, fut in pending.items():
+        r = res["card_vs_cpu"][arch]
+        card, cpu = r["card"], fut.result()
+        r["cpu"] = cpu
+        for key in ("loss", "grad_norm"):
+            e = abs(card[key] - cpu[key]) / abs(cpu[key])
+            check(math.isfinite(card[key]) and e <= TRAIN_LOSS_RTOL,
+                  f"30a {arch}: {key} card {card[key]} CPU {cpu[key]}")
+        log(f"[30a] {arch} ({r['layers']} layers, full width, "
+            f"{r['params'] / 1e9:.3f} B parameters, fp32, "
+            f"{r['optimizer']}), {FAM_CPU_BATCH} x {FAM_CPU_SEQ} tokens: "
+            f"loss card {card['loss']:.6f} CPU {cpu['loss']:.6f}, "
+            f"grad_norm card {card['grad_norm']:.6f} CPU "
+            f"{cpu['grad_norm']:.6f} (within {TRAIN_LOSS_RTOL}); the "
+            f"card's step {card['s']:.2f} s, the CPU's gradients "
+            f"{cpu['s']:.2f} s (on a background thread)"
+            + ("" if r["remat_equal"] is None else
+               "; remat='full' gradients equal to remat=False's"))
+
+
+def _fam_attention_layers(cfg) -> tuple[int, int]:
+    """(K5 launches, of them non-causal) of one training forward: a
+    causal launch an attention layer; whisper's encoder layers and its
+    decoder's cross-attention non-causal; zamba2's shared block once a
+    group; none in rwkv6."""
+    if cfg.family == "audio":
+        nc = cfg.encdec.n_encoder_layers + cfg.n_layers
+        return cfg.n_layers + nc, nc
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.hybrid.attn_every, 0
+    if cfg.family == "ssm":
+        return 0, 0
+    return cfg.n_layers, 0
+
+
+def _fam_train(torch, res):
+    """30b: ``train()`` of each family at full width, bf16, flash
+    attention: the bytes of its params, gradients and AdamW moments
+    reckoned first against the card's free memory, then FAM_STEPS steps:
+    finite losses that fall after step 1, K5 launched once an attention
+    layer a step (no other kernel), the step's median ms after the
+    first, tokens/s, peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import train
+    out = res["train"] = {}
+    failed = []
+    for arch in FAM_TRAINED:
+        n_par = S.param_count(get_config(arch))
+        # bf16 params and gradients, AdamW's two fp32 moments
+        need = n_par * (2 + 2 + 8)
+        free, _ = torch.cuda.mem_get_info()
+        check(need < free, f"30b {arch}: {need / 2**30:.1f} GiB of "
+              f"params, gradients and moments, {free / 2**30:.1f} GiB "
+              f"free on the card")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        o = train(arch, FAM_STEPS, batch=FAM_B, seq=FAM_S, smoke=False,
+                  lr=FAM_LR, attn_kernel="flash", log_every=FAM_STEPS)
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        nc = ops.FORM_LAUNCHES["flash_prefill_noncausal"]
+        losses = o["losses"]
+        # every family trains before a failed check is raised
+        if not (len(losses) == FAM_STEPS and all(math.isfinite(x)
+                                                 for x in losses)):
+            failed.append(f"30b {arch}: losses {losses}")
+        elif not sum(losses[-2:]) < sum(losses[:2]):
+            failed.append(f"30b {arch}: the mean loss of the last two "
+                          f"steps is not below that of the first two (the "
+                          f"seeded weights): {losses}")
+        per, per_nc = _fam_attention_layers(o["cfg"])
+        want = {"flash_prefill": per * FAM_STEPS} if per else {}
+        if not (launches == want and nc == per_nc * FAM_STEPS):
+            failed.append(f"30b {arch}: launches {launches} (non-causal K5 "
+                          f"{nc}), want {want} ({per_nc * FAM_STEPS} "
+                          f"non-causal)")
+        step_s = sorted(o["step_s"][1:])
+        med = step_s[len(step_s) // 2]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        tps = FAM_B * FAM_S / med
+        log(f"[30b] train {arch} at full width ({o['cfg'].n_layers} layers"
+            + (f" + {o['cfg'].encdec.n_encoder_layers} encoder layers over "
+               f"{o['cfg'].encdec.encoder_seq} frames"
+               if o["cfg"].encdec is not None else "")
+            + f", {n_par / 1e9:.3f} B parameters, "
+            f"{_opt_name(S.pick_optimizer(o['cfg']))}; params, "
+            f"gradients and moments {need / 2**30:.1f} GiB), {FAM_STEPS} "
+            f"steps of {FAM_B} x {FAM_S} tokens, bf16, flash attention, "
+            f"peak rate {FAM_LR}: "
+            f"losses {[round(x, 4) for x in losses]}; step median of steps "
+            f"2-{FAM_STEPS} {1e3 * med:.1f} ms (step 1 "
+            f"{1e3 * o['step_s'][0]:.1f} ms), {tps:.0f} tokens/s, peak "
+            f"{peak:.2f} GiB; K5 {per} a step ({per_nc} non-causal), launches "
+            f"{launches}; {wall:.1f} s")
+        out[arch] = dict(layers=o["cfg"].n_layers, params=n_par,
+                         reckoned_gib=need / 2**30, losses=losses,
+                         step_s=o["step_s"], median_step_ms=1e3 * med,
+                         tokens_per_s=tps, peak_gib=peak, launches=launches,
+                         noncausal_k5=nc, k5_per_step=per, wall_s=wall)
+        del o
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(not failed, "; ".join(failed))
+
+
+def _fam_twins(torch, res):
+    """30c: the three example twins at smoke size: the continuous-batching
+    twin's dense-cache check (K5 / K6) exact for the ragged engine (its
+    legacy A/B token-identical) and for the legacy engine alone, the
+    replay twin EXACT with its legacy A/B, and the inspect twin on a trace
+    the port's engine wrote: no schema problem, every request's
+    timeline."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch import continuous_batching, inspect_trace
+    from repro_torch.launch import replay_workload
+    from repro_torch.launch.serve import serve_engine
+    TWIN_DIR.mkdir(parents=True, exist_ok=True)
+    out = res["twins"] = {}
+    for tag, argv in (("ragged", []), ("legacy", ["--no-ragged"])):
+        ops.reset_launch_counts()
+        r = continuous_batching.main(["--attn-kernel", "flash"] + argv)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        check(r["exact"], f"30c continuous batching ({tag}): the dense-"
+              f"cache check parted from the engine's tokens")
+        check(r.get("legacy_identical", True), "30c continuous batching: "
+              "the legacy A/B's tokens differ")
+        kernel = "ragged_attention" if tag == "ragged" \
+            else "paged_attention"
+        check(all(launches.get(k, 0) > 0 for k in (
+            kernel, "flash_prefill", "flash_decode")),
+            f"30c continuous batching ({tag}): launches {launches}")
+        out[f"continuous_batching {tag}"] = dict(
+            exact=r["exact"], legacy_identical=r.get("legacy_identical"),
+            launches=launches)
+    rec_path = TWIN_DIR / "record.json"
+    r = replay_workload.main(["--legacy-ab", "--record", str(rec_path)])
+    check(r["replay"].ok and r["legacy_ab"].token_identical,
+          "30c replay: not exact, or the legacy A/B's tokens differ")
+    out["replay"] = dict(ok=r["replay"].ok,
+                         legacy_ab_diff_lines=len(r["legacy_ab"]
+                                                  .decision_diff))
+    trace_path = TWIN_DIR / "trace.json"
+    serve_engine("qwen3_1_7b", n_requests=8, trace=str(trace_path))
+    s = inspect_trace.main([str(trace_path)])
+    check(s["n_requests"] == 8, f"30c inspect: {s['n_requests']} request "
+          f"timelines in the trace, want 8")
+    out["inspect"] = dict(events=s["events"], spans=s["spans"],
+                          requests=s["n_requests"])
+    log(f"[30c] twins: continuous batching exact on the ragged and the "
+        f"legacy engine (dense-cache check through K5 / K6), replay EXACT "
+        f"(legacy A/B {out['replay']['legacy_ab_diff_lines']} decision "
+        f"diff lines, tokens identical), inspect: {s['events']} events, "
+        f"{s['n_requests']} request timelines, no schema problem")
+
+
+def phase_train_families_card(torch, out):
+    """Phase 30a's card side (``_fam_card_vs_cpu``), which the whole run
+    makes before phases 20 and 22 so that its CPU side runs beside them:
+    the results so far and the CPU side's futures, for
+    ``phase_train_families``."""
+    t0 = time.perf_counter()
+    res = {"part_s": {}}
+    pending = _fam_card_vs_cpu(torch, res)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["part_s"]["a"] = time.perf_counter() - t0
+    log(f"[30] part a: {res['part_s']['a']:.1f} s (its CPU side on the "
+        f"background thread)")
+    return res, pending
+
+
+def phase_train_families(torch, out, card=None):
+    """Phase 30: training every family -- (a) K5 under autograd at
+    whisper's encoder and MLA's shapes, each family's cut model card
+    against CPU (``card``: its card side, ``phase_train_families_card``,
+    if it already ran, else it runs here after the K5 cases), zamba2's
+    remat on the card; (c) the three example twins (beside 30a's CPU
+    side when part a runs here); (b) ``train()`` at full width of granite-moe-3b,
+    whisper-large-v3, rwkv6-3b and zamba2-2.7b, once that CPU side is
+    done, so that no step is timed beside it."""
+    t0 = time.perf_counter()
+    res, pending = card if card is not None else ({"part_s": {}}, {})
+    early_s = sum(res["part_s"].values())
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(30)
+    parts = [("a kernels", lambda: res.update(k5=[
+        _fam_k5_case(torch, gen, c) for c in FAM_K5_CASES]))]
+    if card is None:
+        parts.append(("a", lambda: pending.update(
+            _fam_card_vs_cpu(torch, res))))
+    parts += [("c", lambda: _fam_twins(torch, res)),
+              ("a CPU", lambda: _fam_card_vs_cpu_check(res, pending)),
+              ("b", lambda: _fam_train(torch, res))]
+    for part, run in parts:
+        t1 = time.perf_counter()
+        run()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["part_s"][part] = time.perf_counter() - t1
+        log(f"[30] part {part}: {res['part_s'][part]:.1f} s")
+    res["seconds"] = time.perf_counter() - t0 + early_s
+    log(f"[30] training every family {res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} }"
+        + ("; part a before phase 20" if card is not None else "") + ")")
+    out["train_families"] = res
+    return res
+
+
+# the phases that time nothing (no CUDA-event time, no profile, no
+# training step), which may run beside the background thread; before any
+# other phase ``_run_phase`` waits for that thread to be idle
+BESIDE_CPU_THREAD = {"phase_model", "phase_engine", "phase_w8a8",
+                     "phase_paged_model", "phase_legacy_engine",
+                     "phase_calibrate", "phase_dense_model",
+                     "phase_train_families_card", "phase_obs",
+                     "phase_recurrent", "phase_configs"}
+
+
 def _run_phase(out, fn, *args):
-    """``fn(*args)``, its seconds logged and kept under ``phase_s``."""
+    """``fn(*args)``, its seconds logged and kept under ``phase_s``; first,
+    unless it is one of BESIDE_CPU_THREAD, the wait for the background
+    thread to be idle, kept under ``cpu_wait_s``."""
+    name = fn.__name__
+    wait = 0.0 if name in BESIDE_CPU_THREAD else cpu_thread_idle()
     t0 = time.perf_counter()
     res = fn(*args)
     secs = time.perf_counter() - t0
-    out.setdefault("phase_s", {})[fn.__name__] = secs
-    log(f"[time] {fn.__name__}: {secs:.1f} s")
+    out.setdefault("phase_s", {})[name] = secs
+    out.setdefault("cpu_wait_s", {})[name] = wait
+    log(f"[time] {name}: {secs:.1f} s"
+        + (f" (after {wait:.1f} s waiting for the background thread)"
+           if wait >= 0.05 else ""))
     return res
 
 
@@ -8131,7 +8617,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29); "
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -8148,6 +8634,16 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     out: dict = {}
+    try:
+        return _run(torch, args, out, t_start)
+    finally:
+        for pool in _CPU_POOL:
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+def _run(torch, args, out, t_start) -> int:
+    """``main``'s phases: those ``args.only`` names, or all of them and
+    the kernels line."""
     if args.only:
         alone = {1: lambda torch, out: None, 2: phase_k2, 3: phase_k1,
                  5: phase_engine, 6: phase_k5, 7: phase_k6, 10: phase_serve,
@@ -8160,7 +8656,8 @@ def main(argv=None) -> int:
                  20: phase_recurrent, 21: phase_quant_fusion,
                  22: phase_configs, 23: phase_recurrent_classic,
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
-                 27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh}
+                 27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh,
+                 30: phase_train_families}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -8184,35 +8681,43 @@ def main(argv=None) -> int:
         smi, build_s = _run_phase(out, phase_device, torch, out)
         k2 = _run_phase(out, phase_k2, torch, out)
         k1 = _run_phase(out, phase_k1, torch, out)
-        _run_phase(out, phase_model, torch, out)
-        eng = _run_phase(out, phase_engine, torch, out)
         k5 = _run_phase(out, phase_k5, torch, out)
         k6 = _run_phase(out, phase_k6, torch, out)
-        cal = _run_phase(out, phase_calibrate, torch, out)
-        _run_phase(out, phase_dense_model, torch, out, *cal)
-        del cal
-        torch.cuda.empty_cache()
         srv = _run_phase(out, phase_serve, torch, out)
+        k4 = _run_phase(out, phase_k4, torch, out)
+        torch.cuda.empty_cache()
+        # phase 8's CPU side on the background thread beside phases that
+        # time nothing (BESIDE_CPU_THREAD); phase 13, itself a CPU
+        # calibration, comes after 8 so that the two do not share the cores
+        cal_cpu = on_cpu_thread(_calibrate_cpu)
+        _run_phase(out, phase_model, torch, out)
+        eng = _run_phase(out, phase_engine, torch, out)
         _run_phase(out, phase_w8a8, torch, out)
+        _run_phase(out, phase_paged_model, torch, out)
+        legacy = _run_phase(out, phase_legacy_engine, torch, out)
+        torch.cuda.empty_cache()
+        _run_phase(out, phase_obs, torch, out)
+        torch.cuda.empty_cache()
+        cal = _run_phase(out, phase_calibrate, torch, out, cal_cpu)
+        _run_phase(out, phase_dense_model, torch, out, *cal)
+        del cal, cal_cpu
         torch.cuda.empty_cache()
         cnn = _run_phase(out, phase_cnn_kernels, torch, out)
         q_resnet = _run_phase(out, phase_resnet_calibrate, torch, out)
         rfwd = _run_phase(out, phase_resnet_forward, torch, out, q_resnet)
         del q_resnet
         torch.cuda.empty_cache()
-        k4 = _run_phase(out, phase_k4, torch, out)
-        _run_phase(out, phase_paged_model, torch, out)
-        legacy = _run_phase(out, phase_legacy_engine, torch, out)
+        # 30a's card side alone, then its CPU side and phase 26b's beside
+        # phases 20 and 22
+        fam_card = _run_phase(out, phase_train_families_card, torch, out)
+        train_cpu = on_cpu_thread(_train_cpu_steps)
+        rec = _run_phase(out, phase_recurrent, torch, out)
         torch.cuda.empty_cache()
-        _run_phase(out, phase_obs, torch, out)
+        _run_phase(out, phase_configs, torch, out)
         torch.cuda.empty_cache()
         _run_phase(out, phase_graphs, torch, out)
         torch.cuda.empty_cache()
-        rec = _run_phase(out, phase_recurrent, torch, out)
-        torch.cuda.empty_cache()
         qf = _run_phase(out, phase_quant_fusion, torch, out)
-        torch.cuda.empty_cache()
-        _run_phase(out, phase_configs, torch, out)
         torch.cuda.empty_cache()
         rcl = _run_phase(out, phase_recurrent_classic, torch, out)
         torch.cuda.empty_cache()
@@ -8220,13 +8725,17 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         wsp = _run_phase(out, phase_whisper, torch, out)
         torch.cuda.empty_cache()
-        trn = _run_phase(out, phase_train, torch, out)
+        trn = _run_phase(out, phase_train, torch, out, train_cpu)
+        del train_cpu
         torch.cuda.empty_cache()
         tp = _run_phase(out, phase_tp, torch, out)
         torch.cuda.empty_cache()
         tm = _run_phase(out, phase_train_mesh, torch, out)
         torch.cuda.empty_cache()
         mm = _run_phase(out, phase_moe_mesh, torch, out)
+        torch.cuda.empty_cache()
+        fam = _run_phase(out, phase_train_families, torch, out, fam_card)
+        del fam_card
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -8579,6 +9088,32 @@ def main(argv=None) -> int:
         entry["moe_mesh_launches"] = {
             tag: [r[key] for r in mm[tag]["int"]["launches"]]
             for tag in ("29b", "29c")}
+    # training every family (phase 30): K5's launches in each family's
+    # train() steps (the forward; the backward recomputes through the
+    # plain version), its forward and recompute backward at MLA's Dk !=
+    # Dv shape and, on the non-causal entry, at whisper's encoder
+    k5_fam = {c["name"]: c for c in fam["k5"]}
+    fam_launches = {arch: dict(flash_prefill=r["launches"].get(
+                        "flash_prefill", 0), noncausal=r["noncausal_k5"],
+                        per_step=r["k5_per_step"])
+                    for arch, r in fam["train"].items()}
+    entry = next(e for e in kernels if e["name"] == "flash_prefill")
+    entry["training_families"] = dict(
+        launches=fam_launches,
+        per=f"phase 30b's {FAM_STEPS} train() steps of {FAM_B} x {FAM_S} "
+            f"tokens a family, full width, bf16; times: one launch at the "
+            f"MLA shape below",
+        mla={k: v for k, v in k5_fam[FAM_K5_CASES[1][0]].items()
+             if k != "name"})
+    entry = next(e for e in kernels if e["name"] == "flash_prefill_noncausal")
+    entry["training"] = dict(
+        launches=fam_launches["whisper_large_v3"]["noncausal"],
+        per=f"launch at whisper's encoder in training: B {FAM_B}, "
+            f"{WHISPER_FRAMES} over {WHISPER_FRAMES}, H = KVH "
+            f"{WHISPER_HEADS}, D {WHISPER_DIM}, bf16; launches from phase "
+            f"30b's {FAM_STEPS} steps",
+        **{k: v for k, v in k5_fam[FAM_K5_CASES[0][0]].items()
+           if k != "name"})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

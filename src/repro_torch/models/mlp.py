@@ -45,23 +45,61 @@ __all__ = ["init_mlp", "mlp", "init_moe", "moe", "moe_capacity", "route",
            "rank_pairs"]
 
 
+class _RoundedOnce(torch.autograd.Function):
+    """An activation ``f`` evaluated in float64 and rounded once to x's
+    dtype, differentiated from the saved x alone: the backward evaluates
+    ``f'(x) * g`` in float64 and rounds once.  Autograd through the
+    float64 expression would keep several float64 copies of the
+    activation for the backward (whisper's 32 encoder MLPs at batch 4 over
+    1500 frames ran the card out of memory so)."""
+
+    @staticmethod
+    def forward(ctx, x, f, df):
+        ctx.df = df
+        ctx.save_for_backward(x)
+        return f(x.to(torch.float64)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        x64 = x.to(torch.float64)
+        return (g.to(torch.float64) * ctx.df(x64)).to(x.dtype), None, None
+
+
+def _silu64(x64: torch.Tensor) -> torch.Tensor:
+    return x64 * torch.sigmoid(x64)
+
+
+def _dsilu64(x64: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(x64)
+    return s * (1.0 + x64 * (1.0 - s))
+
+
 def _silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` evaluated in float64 and rounded once to x's
-    dtype, so every device rounds to the same value."""
-    x64 = x.to(torch.float64)
-    return (x64 * torch.sigmoid(x64)).to(x.dtype)
+    dtype, so every device rounds to the same value (its gradient too)."""
+    return _RoundedOnce.apply(x, _silu64, _dsilu64)
 
 
 _GELU_C = math.sqrt(2.0 / math.pi)
+
+
+def _gelu64(x64: torch.Tensor) -> torch.Tensor:
+    inner = _GELU_C * (x64 + 0.044715 * x64 * x64 * x64)
+    return 0.5 * x64 * (1.0 + torch.tanh(inner))
+
+
+def _dgelu64(x64: torch.Tensor) -> torch.Tensor:
+    t = torch.tanh(_GELU_C * (x64 + 0.044715 * x64 * x64 * x64))
+    return 0.5 * (1.0 + t) + 0.5 * x64 * (1.0 - t * t) * _GELU_C * (
+        1.0 + 3 * 0.044715 * x64 * x64)
 
 
 def _gelu(x: torch.Tensor) -> torch.Tensor:
     """The tanh approximation ``0.5 x (1 + tanh(sqrt(2 / pi) (x + 0.044715
     x^3)))`` (``jax.nn.gelu``'s default) evaluated in float64 and rounded
     once to x's dtype, as :func:`_silu`."""
-    x64 = x.to(torch.float64)
-    inner = _GELU_C * (x64 + 0.044715 * x64 * x64 * x64)
-    return (0.5 * x64 * (1.0 + torch.tanh(inner))).to(x.dtype)
+    return _RoundedOnce.apply(x, _gelu64, _dgelu64)
 
 
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:

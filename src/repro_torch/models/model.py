@@ -411,29 +411,46 @@ def _rwkv_layers(params, x, cfg, ctx, state: rwkv_lib.RWKVState,
     return _head(params, x, cfg, ctx)
 
 
-def _hybrid_groups(params, x, positions, cfg, ctx, cache: dict, cache_pos,
-                   decode: bool, store: bool):
-    """zamba2's groups over ``cache`` (``init_cache``'s): each Mamba block
-    from its state (new states written back IN PLACE when ``store``), the
-    shared block's K/V written into the group's dense cache at
-    ``cache_pos``."""
+def _hybrid_groups(params, x, positions, cfg, ctx, cache: Optional[dict],
+                   cache_pos, decode: bool, remat=False):
+    """zamba2's groups.  With ``cache`` (``init_cache``'s): each Mamba
+    block from its state, its new state written back IN PLACE, the shared
+    block's K/V written into the group's dense cache at ``cache_pos``.
+    Without (a forward from position 0): each group from zero states over
+    a fresh K/V buffer of the sequence's length (int8 codes when
+    ``cfg.kv_cache_bits == 8``), the reference's fresh cache, both made
+    inside the group's body and nothing written back, so that ``remat``
+    recomputes the group on buffers of its own."""
     dt = model_dtype(cfg)
     rope = rope_tables(positions, cfg.resolved_head_dim, cfg.rope_theta, dt)
     g = cfg.hybrid.attn_every
-    st, kv = cache["ssm"], cache["kv"]
     x_embed = x
     for gi in range(_n_groups(cfg)):
+        blocks = params["blocks"][gi * g:(gi + 1) * g]
+        if cache is None:
+            def body(x, blocks=blocks):
+                b, s = x.shape[:2]
+                kv = [torch.zeros((b, s, cfg.n_kv_heads,
+                                   cfg.resolved_head_dim), device=x.device,
+                                  dtype=torch.int8 if cfg.kv_cache_bits == 8
+                                  else dt) for _ in range(2)]
+                return tfm.hybrid_group_fwd(
+                    ctx, blocks, params["shared"], x, x_embed, cfg,
+                    states=[ssm_lib.zero_state(cfg, b, dt, device=x.device)
+                            for _ in range(g)],
+                    rope=rope, cache=att.KVCache(*kv), cache_pos=0)[0]
+            x = _remat(body, remat)(x)
+            continue
+        st, kv = cache["ssm"], cache["kv"]
         states = [ssm_lib.SSMState(*(c[gi, j] for c in st))
                   for j in range(g)]
         x, new = tfm.hybrid_group_fwd(
-            ctx, params["blocks"][gi * g:(gi + 1) * g], params["shared"],
-            x, x_embed, cfg, states=states, rope=rope,
-            cache=att.KVCache(kv.k[gi], kv.v[gi]), cache_pos=cache_pos,
-            decode=decode)
-        if store:
-            for old, ns in zip(states, new):
-                for c, n in zip(old, ns):
-                    _put(c, n)
+            ctx, blocks, params["shared"], x, x_embed, cfg, states=states,
+            rope=rope, cache=att.KVCache(kv.k[gi], kv.v[gi]),
+            cache_pos=cache_pos, decode=decode)
+        for old, ns in zip(states, new):
+            for c, n in zip(old, ns):
+                _put(c, n)
     return _head(params, x, cfg, ctx)
 
 
@@ -454,10 +471,10 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     ``QuantizedParams.tree`` when ``ctx`` is the matching INT-mode
     context.
 
-    ``remat`` (training, without a cache) sets what each block keeps for
-    the backward, as the reference's: everything (False), nothing, the
-    block recomputed (True / 'full'), or its 2-D products ('dots'); no
-    value changes.  The hybrid family takes none.
+    ``remat`` (training, without a cache) sets what each block (the
+    hybrid's: each group) keeps for the backward, as the reference's:
+    everything (False), nothing, the block recomputed (True / 'full'), or
+    its 2-D products ('dots'); no value changes.
 
     Under a tensor-parallel scope (``distributed.sharding.
     activation_sharding``; the dense families, and in serving the moe
@@ -466,11 +483,9 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     ``cfg``; the logits are every rank's, whole."""
     _check_family(cfg, "forward")
     cfg = _rank_view(cfg)
-    if remat and (cache is not None or cfg.family == "hybrid"):
+    if remat and cache is not None:
         raise NotImplementedError(
-            "remat applies to a forward without a cache, on the dense, "
-            "vlm, moe, audio and ssm families (the hybrid family's "
-            "training is ROADMAP Queue 1 item 7)")
+            "remat applies to a forward without a cache")
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = tokens.device
@@ -492,10 +507,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
         logits = _rwkv_layers(params, x, cfg, ctx, state, decode=False,
                               store=cache is not None, remat=remat)
     else:
-        c = cache if cache is not None else init_cache(cfg, b, s,
-                                                       device=dev)
-        logits = _hybrid_groups(params, x, positions, cfg, ctx, c, 0,
-                                decode=False, store=cache is not None)
+        logits = _hybrid_groups(params, x, positions, cfg, ctx, cache, 0,
+                                decode=False, remat=remat)
     return logits, cache
 
 
@@ -598,7 +611,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict, pos,
                                  ctx, cache, pos)
     else:
         logits = _hybrid_groups(params, x, positions, cfg, ctx, cache, pos,
-                                decode=True, store=True)
+                                decode=True)
     return logits[:, 0], cache
 
 
