@@ -57,7 +57,7 @@ the CUDA toolkit.  Phases, one line each (or a few):
 8. Algorithm-1 calibration of qwen3-1.7B at full width and 2 layers on
    the card and on the CPU: the tables must agree, apart from declared
    near-ties (the run order is 1-3, 6, 7, 10, 15, 4, 5, 11, 16-18, 8,
-   9, 12-14, 30a's card side, 20, 22, 19, 21, 23-29, 30: the CPU's
+   9, 12-14, 30a's card side, 20, 22, 19, 21, 23-29, 30, 31: the CPU's
    calibration runs on a background thread beside 4, 5, 11 and 16-18, as
    30a's CPU side and 26b's CPU steps do beside 20 and 22, phases that
    time nothing; every other phase waits for that thread to be idle, so
@@ -374,6 +374,23 @@ the CUDA toolkit.  Phases, one line each (or a few):
     (K5 / K6) exact on the ragged and the legacy engine, the replay twin
     EXACT with its legacy A/B, the inspect twin on the port engine's
     trace.
+31. the recurrent and audio families over a (data, model) mesh of two
+    ranks sharing the card over gloo, at full width (rwkv6-3b on 8 of 32
+    layers, zamba2-2.7b on 12 of 54, whisper-large-v3 on 4 + 4 of 32 + 32
+    over 1500 frames; ``RM_LAYERS``), the cases of
+    ``tests/recurrent_mesh_cases.py``: (a) classic ``serve`` on (1, 2),
+    calibrated INT, bf16 FP and fp32 FP (2 layers, zamba2 one group; an
+    fp32 cache), (b) on (2, 1) whisper INT and rwkv6 W8A8 (the batch and
+    the encoder frames cut), (c) the fixed-slab engine on (1, 2) for
+    rwkv6 (INT) and zamba2 (INT and W8A8), on phase 20's workload in
+    chunks of 16; each against one rank:
+    tokens identical, INT and W8A8 every step's logits bit for bit, bf16
+    FP within ``RM_FP_REL`` of one rank with every product in the mesh's
+    order, fp32 FP within ``RM_FP32_REL`` of the largest |logit|,
+    ``RM_GEN`` tokens a classic case, each rank's launches
+    one rank's with K2's rank-split form (a partial and a finish) at each
+    row-cut module (``_rm_row_cut``), decode ms a step and tokens/s of
+    the ranks beside one rank's.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -401,7 +418,8 @@ of phase 27's mesh; K5's, K2's and K3's launches on each rank of phase
 28's training mesh; K2's grouped form's int32 kind and exchanged
 layout, and every kernel's launches on each rank of phase 29's mesh;
 K5's training launches in every family's steps and its recompute
-backward at MLA's and whisper's shapes, from phase 30), and
+backward at MLA's and whisper's shapes, from phase 30; every kernel's
+launches on each rank of phase 31's mesh), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -8581,6 +8599,281 @@ def phase_train_families(torch, out, card=None):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the recurrent and audio families served over a (data, model)
+# mesh
+# ---------------------------------------------------------------------------
+
+# each family at full width on two ranks sharing the card over gloo, cut in
+# depth (the script's time): rwkv6-3b on 8 of its 32 layers, zamba2-2.7b
+# on 12 of its 54 (two groups of 6 Mamba blocks and the shared block),
+# whisper-large-v3 on 4 + 4 of its 32 + 32 layers over its 1500 stub
+# frames; fp32 FP on 2 layers (zamba2: one group of 6; whisper: 2 + 2)
+RM_ARCHS = ("rwkv6_3b", "zamba2_2_7b", "whisper_large_v3")
+RM_LAYERS = {"rwkv6_3b": (8, 2), "zamba2_2_7b": (12, 6),
+             "whisper_large_v3": (4, 2)}
+# bf16 FP on the mesh sums each row-cut module's fp32 partials and rounds
+# once where one rank's bf16 product rounds its own sum, and a column-cut
+# module's bf16 product over half the columns may round otherwise (the
+# library picks its algorithm by shape: zamba2's tokens parted so on an
+# H100 80GB HBM3 at 700 W): held to one rank with every product in
+# the mesh's order (``recurrent_mesh_cases.mesh_order``) within this
+# share of the largest |logit|, tokens identical
+RM_FP_REL = 1e-2
+# fp32 FP: every step's logits within this share of the largest |logit|
+# of one rank's (the row-cut sums' other order; |logit| reaches ~5 at
+# full width: 1.14e-5 apart on an H100 80GB HBM3 at 700 W)
+RM_FP32_REL = 1e-5
+# each classic case decodes RM_GEN tokens (the script's time: at
+# SERVE_GEN's 16 the ranks' gloo steps took 73 s of cases)
+RM_GEN = 8
+# 31c: phase 20's workload (8 requests at once through 4 slots) in chunks
+# of 16 (the engine's default; phase 20's 64 took 15.0-19.9 s an engine
+# case on the ranks on an H100 80GB HBM3 at 700 W: every dispatch is (4,
+# chunk) rows, each row-cut sum crossing the host at that size)
+RM_ENGINE = dict(n_requests=8, n_slots=4, chunk=16, rate=1e9)
+
+
+def _rm_overrides(arch, layers, dtype="bfloat16"):
+    """``cfg_overrides`` of ``arch`` on ``layers`` layers (whisper's
+    encoder as deep as its decoder) in ``dtype``; zamba2's and whisper's
+    K/V in an int8 cache, but in fp32, whose cache is fp32: a last bit of
+    the row-cut sums' other order moves an int8 K/V code there (zamba2's
+    logits moved by 2.0e-4 so on an H100 80GB HBM3 at 700 W, as phase
+    9's FP over an int8 cache moves codes between the card and the
+    CPU)."""
+    from repro_torch.configs import get_config
+    over = {"n_layers": layers, "dtype": dtype}
+    if arch != "rwkv6_3b" and dtype != "float32":
+        over["kv_cache_bits"] = 8
+    if arch == "whisper_large_v3":
+        over["encdec"] = dataclasses.replace(get_config(arch).encdec,
+                                             n_encoder_layers=layers)
+    return over
+
+
+def _rm_cases():
+    """31a-c's cases, in the ranks' order: (tag, arch, mode, case)."""
+    out = []
+    for arch in RM_ARCHS:
+        deep, shallow = RM_LAYERS[arch]
+        base = dict(kind="serve", arch=arch, smoke=False, batch=SERVE_BATCH,
+                    prompt_len=SERVE_PROMPT, gen=RM_GEN,
+                    attn_kernel="flash", model_axis=2)
+        out += [("31a", arch, "int", dict(
+                     base, mode="int", calibrate=True,
+                     cfg_overrides=_rm_overrides(arch, deep))),
+                ("31a", arch, "fp", dict(
+                     base, mode="fp", calibrate=False,
+                     cfg_overrides=_rm_overrides(arch, deep))),
+                ("31a", arch, "fp32", dict(
+                     base, mode="fp", calibrate=False,
+                     cfg_overrides=_rm_overrides(arch, shallow,
+                                                 "float32")))]
+    # 31b: (2, 1), whisper INT and rwkv6 W8A8 (INT over the int8 weight
+    # codes, ``matmul_kernel='int8'``)
+    for tag, arch, mode, case in list(out):
+        if mode == "int" and arch == "whisper_large_v3":
+            out.append(("31b", arch, "int", dict(case, model_axis=1)))
+        if mode == "int" and arch == "rwkv6_3b":
+            out.append(("31b", arch, "w8a8", dict(
+                case, model_axis=1, cfg_overrides=dict(
+                    case["cfg_overrides"], matmul_kernel="int8"))))
+    # 31c: the engine, INT on both, W8A8 on zamba2 (the script's time)
+    for arch in ("rwkv6_3b", "zamba2_2_7b"):
+        over = {"n_layers": RM_LAYERS[arch][0]}
+        for mode in ("int",) if arch == "rwkv6_3b" else ("int", "w8a8"):
+            kw = dict(w8a8=True) if mode == "w8a8" else dict(
+                mode="int", calibrate=False)
+            out.append(("31c", arch, mode, dict(
+                kind="engine", arch=arch, smoke=False, cfg_overrides=over,
+                kv_bits=8 if arch == "zamba2_2_7b" else None, model_axis=2,
+                **RM_ENGINE, **kw)))
+    return out
+
+
+def _rm_row_cut(cfg, steps: int) -> int:
+    """K2's rank-split launches (partials; finishes alike) of one rank of
+    a (1, 2) mesh: each row-cut module call, RWKV6's w[rkvgo] and channel
+    mix's wv (6 a layer), mamba2's w_in (one a block) and the shared
+    block's attention wo and MLP w2 (2 a group), whisper's encoder wo and
+    w2 (2 a layer, the prefill only) and decoder wo, cross wo and w2 (3 a
+    layer) over ``steps`` forwards (the classic path's prefill and
+    decode steps, or the engine's dispatches)."""
+    if cfg.family == "ssm":
+        return 6 * cfg.n_layers * steps
+    if cfg.family == "hybrid":
+        return (cfg.n_layers + 2 * cfg.n_layers
+                // cfg.hybrid.attn_every) * steps
+    return 2 * cfg.encdec.n_encoder_layers + 3 * cfg.n_layers * steps
+
+
+def _rm_one_rank(torch, cases):
+    """The one-rank run of each case (rank cases less ``model_axis``; the
+    (2, 1) cases are their (1, 2) cases' one rank; bf16 FP's, one rank
+    with every product in a (1, 2) rank's order,
+    ``recurrent_mesh_cases.mesh_order``): {(engine, arch, mode):
+    result}."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import recurrent_mesh_cases as rmc
+    ones = {}
+    for tag, arch, mode, case in cases:
+        key = (tag == "31c", arch, mode)
+        if key in ones:
+            continue
+        one = {k: v for k, v in case.items() if k != "model_axis"}
+        if mode == "fp":
+            one["mesh_order"] = 2
+        ones[key] = rmc.run(one, device="cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ones
+
+
+def _rm_held(torch, res, cases, ones, ranks):
+    """Each case on the two ranks against its one-rank run: tokens
+    identical; INT and W8A8 every step's logits (the engine's first
+    step's) bit for bit, bf16 FP within ``RM_FP_REL`` of one rank with
+    every product in the mesh's order, fp32 FP within ``RM_FP32_REL``,
+    each of the
+    largest |logit|; each rank's
+    launches one rank's but K2's row-cut modules, each a partial and a
+    finish in one launch's place on a (1, 2) mesh (``_rm_row_cut``); decode
+    ms a step and tokens/s of the ranks beside one rank's (the ranks share
+    the card and talk through the host over gloo: no speed-up is
+    claimed)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    sys.path.insert(0, str(ROOT / "tests"))
+    import recurrent_mesh_cases as rmc
+    for i, (tag, arch, mode, case) in enumerate(cases):
+        one = ones[(tag == "31c", arch, mode)]
+        got = [r[i] for r in ranks]
+        cfg = dataclasses.replace(get_config(arch), **case["cfg_overrides"])
+        engine = case["kind"] == "engine"
+        scale = max(float(t.abs().max()) for t in one["logits"])
+        errs = []
+        for r, g in enumerate(got):
+            what = f"{tag} {arch} {mode} rank {r}"
+            check(rmc.same_tokens(g, one), f"{what}: tokens != one rank's")
+            check(len(g["logits"]) == len(one["logits"]),
+                  f"{what}: {len(g['logits'])} steps' logits")
+            for step, (a, b) in enumerate(zip(g["logits"], one["logits"])):
+                check(bool(torch.isfinite(a).all()),
+                      f"{what} step {step}: non-finite logits")
+                e_ = float((a - b).abs().max())
+                errs.append(e_)
+                if mode in ("int", "w8a8"):
+                    check(torch.equal(a, b), f"{what} step {step}: logits "
+                          f"!= one rank's (max |diff| {e_})")
+                elif mode == "fp":
+                    check(e_ <= RM_FP_REL * scale, f"{what} step {step}: "
+                          f"logits {e_} apart, over {RM_FP_REL} x {scale}")
+                else:
+                    check(e_ <= RM_FP32_REL * scale, f"{what} step {step}: "
+                          f"logits {e_} apart, over {RM_FP32_REL} x "
+                          f"{scale}")
+            check(g["table"] == one["table"],
+                  f"{what}: calibrated table != one rank's")
+            steps = (g["report"]["recurrent_steps"] if engine
+                     else RM_GEN)
+            split = (_rm_row_cut(cfg, steps) if case["model_axis"] == 2
+                     and mode in ("int", "w8a8") else 0)
+            want = dict(one["launches"])
+            want["int8_matmul"] += split
+            want["int8_matmul_partial"] = want["int8_matmul_finish"] = split
+            check(g["launches"] == want, f"{what}: launches "
+                  f"{ {k: v for k, v in g['launches'].items() if v} }, want "
+                  f"{ {k: v for k, v in want.items() if v} }")
+            if engine:
+                check(g["steps"] == one["steps"]
+                      and g["decisions"] == one["decisions"],
+                      f"{what}: admissions or decisions != one rank's")
+        if engine:
+            n_tok = sum(len(t) for t in one["outputs"].values())
+            rate = n_tok / got[0]["wall_s"]
+            one_rate = n_tok / one["wall_s"]
+            speed = (f"{n_tok} tokens in {got[0]['wall_s']:.2f} s, "
+                     f"{rate:.1f} tokens/s on the ranks (one rank "
+                     f"{one['wall_s']:.2f} s, {one_rate:.1f} tokens/s), "
+                     f"{got[0]['report']['recurrent_steps']} dispatches")
+            dec = dict(tokens=n_tok, tokens_per_s=rate,
+                       one_rank_tokens_per_s=one_rate)
+        else:
+            tps = SERVE_BATCH / got[0]["decode_s_per_tok"]
+            one_tps = SERVE_BATCH / one["decode_s_per_tok"]
+            speed = (f"decode {1e3 * got[0]['decode_s_per_tok']:.1f} ms a "
+                     f"step, {tps:.1f} tokens/s on the ranks (one rank "
+                     + ("in the mesh's order " if mode == "fp" else "")
+                     + f"{1e3 * one['decode_s_per_tok']:.1f} ms, "
+                     f"{one_tps:.1f}); prefill {got[0]['prefill_s']:.3f} s "
+                     f"(one rank {one['prefill_s']:.3f})")
+            dec = dict(decode_s_per_tok=got[0]["decode_s_per_tok"],
+                       one_rank_decode_s_per_tok=one["decode_s_per_tok"],
+                       tokens_per_s=tps, one_rank_tokens_per_s=one_tps,
+                       prefill_s=got[0]["prefill_s"])
+        shape = "(1, 2)" if case["model_axis"] == 2 else "(2, 1)"
+        log(f"[{tag}] {arch} ({cfg.n_layers} layers) {mode} on {shape}: "
+            f"ranks token-identical to one rank"
+            + (" in the mesh's order" if mode == "fp" else "")
+            + ", " + ("every step's logits bit-identical" if mode in
+                      ("int", "w8a8") else
+                      f"logits apart by up to {max(errs):.3g} "
+                      f"(|logit| up to {scale:.4g})")
+            + f"; {speed}; peak {got[0]['peak_gib']:.2f} / "
+            f"{got[1]['peak_gib']:.2f} GiB a rank; rank 0 launches "
+            f"{ {k: v for k, v in got[0]['launches'].items() if v} } "
+            f"(rank 1's the same; one rank "
+            f"{ {k: v for k, v in one['launches'].items() if v} })")
+        res.setdefault(tag, {})[f"{arch} {mode}"] = dict(
+            max_abs_diff=max(errs), logits_scale=scale,
+            launches=[g["launches"] for g in got],
+            one_rank_launches=one["launches"],
+            peak_gib=[g["peak_gib"] for g in got],
+            wall_s=[g["wall_s"] for g in got], one_rank_wall_s=one["wall_s"],
+            **dec)
+
+
+def phase_recurrent_mesh(torch, out):
+    """Phase 31: the recurrent (rwkv6-3b, zamba2-2.7b) and audio
+    (whisper-large-v3) families served over a (data, model) mesh of two
+    ranks sharing the card over gloo, at full width (``RM_LAYERS``): (a)
+    classic ``serve`` on (1, 2), calibrated INT, bf16 FP and fp32 FP, (b)
+    whisper INT and rwkv6 W8A8 on (2, 1) (the batch and the encoder frames
+    cut), (c) the slab engine on (1, 2), rwkv6 INT, zamba2 INT and W8A8,
+    on phase 20's workload in chunks of 16; each against one rank
+    (``_rm_held``)."""
+    t0 = time.perf_counter()
+    res = {"part_s": {}}
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(ROOT / "tests"))
+    import recurrent_mesh_cases as rmc
+    cases = _rm_cases()
+    t1 = time.perf_counter()
+    ones = _rm_one_rank(torch, cases)
+    res["part_s"]["one rank"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    ranks = run_ranks(rmc.run_cases, (1, 2), device="cuda", backend="gloo",
+                      kwargs={"cases": [c for *_, c in cases]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["part_s"]["ranks"] = time.perf_counter() - t1
+    res["case_s"] = {f"{tag} {arch} {mode}": (
+        ranks[0][i]["wall_s"], ones[(tag == "31c", arch, mode)]["wall_s"])
+        for i, (tag, arch, mode, _) in enumerate(cases)}
+    log(f"[31] the ranks: {res['part_s']['ranks']:.1f} s, spawned once, "
+        f"each model built whole on each rank in turn and cut, every case "
+        f"of a, b and c ((2, 1) over the same ranks); each case's seconds, "
+        f"rank 0 / one rank: "
+        f"{ {k: (round(a, 1), round(b, 1)) for k, (a, b) in res['case_s'].items()} }")
+    _rm_held(torch, res, cases, ones, ranks)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[31] recurrent and audio serving over a mesh {res['seconds']:.1f}"
+        f" s (parts { {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["recurrent_mesh"] = res
+    return res
+
+
 # the phases that time nothing (no CUDA-event time, no profile, no
 # training step), which may run beside the background thread; before any
 # other phase ``_run_phase`` waits for that thread to be idle
@@ -8617,7 +8910,7 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30); "
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -8657,7 +8950,7 @@ def _run(torch, args, out, t_start) -> int:
                  22: phase_configs, 23: phase_recurrent_classic,
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
                  27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh,
-                 30: phase_train_families}
+                 30: phase_train_families, 31: phase_recurrent_mesh}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -8736,6 +9029,8 @@ def _run(torch, args, out, t_start) -> int:
         torch.cuda.empty_cache()
         fam = _run_phase(out, phase_train_families, torch, out, fam_card)
         del fam_card
+        torch.cuda.empty_cache()
+        rm = _run_phase(out, phase_recurrent_mesh, torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -9114,6 +9409,26 @@ def _run(torch, args, out, t_start) -> int:
             f"30b's {FAM_STEPS} steps",
         **{k: v for k, v in k5_fam[FAM_K5_CASES[0][0]].items()
            if k != "name"})
+    # the recurrent and audio families over a mesh (phase 31): every
+    # kernel's launches on each rank of 31a's calibrated INT serve runs
+    # and 31c's INT engine runs on (1, 2)
+    for k_name, key in (("int8_matmul_requant", "int8_matmul"),
+                        ("quantize", "quantize"),
+                        ("flash_prefill", "flash_prefill"),
+                        ("flash_prefill_noncausal", "flash_prefill_noncausal"),
+                        ("flash_decode", "flash_decode"),
+                        ("paged_attention", "paged_attention")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["recurrent_mesh_launches"] = {
+            f"{tag} {run}": [r[key] for r in rm[tag][run]["launches"]]
+            for tag in ("31a", "31c") for run in rm[tag]
+            if run.endswith(" int")}
+    entry = next(e for e in kernels if e["name"] == "int8_matmul_requant")
+    entry["recurrent_mesh_launches"].update(
+        {f"{tag} {run} {form}": [r[f"int8_matmul_{form}"]
+                                 for r in rm[tag][run]["launches"]]
+         for tag in ("31a", "31c") for run in rm[tag]
+         if run.endswith(" int") for form in ("partial", "finish")})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -52,6 +52,7 @@ from repro_torch.core import integer_ops
 from repro_torch.core.baselines import abs_max, scale_quant
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import (copy_to_model,
+                                                 gather_from_model,
                                                  reduce_from_model)
 from repro_torch.core.qscheme import fake_quant, quant, storage_dtype
 
@@ -143,8 +144,9 @@ def capture_activations():
 
 
 def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
-            b: Optional[torch.Tensor] = None, *,
-            reduce: bool = False) -> torch.Tensor:
+            b: Optional[torch.Tensor] = None, *, reduce: bool = False,
+            split_input: bool = False, gather: bool = False
+            ) -> torch.Tensor:
     """One unified-module linear op under the active quantization mode.
 
     ``x`` is a float activation at the module boundary; the result is a
@@ -159,11 +161,32 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     (``x`` whole, ``w`` this rank's columns): in training its input's
     gradient, each rank's partial, is summed over the model axis
     (``copy_to_model``).
+
+    Two forms the recurrent families' rules ask for (serving only; no
+    mesh in scope, they change nothing):
+
+    * ``split_input`` (with ``reduce``): the rules cut the module's
+      contract dim but ``x`` is whole on every rank (RWKV6's ``w[rkvgo]``,
+      mamba2's ``w_in``): the rank takes its block of x's last dim, then
+      the row-cut sum.  Elementwise quantization makes the block's codes
+      the whole x's codes of the block, so INT stays one rank's bit for
+      bit.
+    * ``gather``: a column-cut module whose output a norm or a residual
+      reads whole (mamba2's ``w_out``, zamba2's ``shared/in_proj``,
+      RWKV6's ``wr_ffn``): the ranks' output columns are gathered over the
+      model axis.  Each column is computed over the whole K, so this is
+      exact in every mode.
     """
     mesh = shd.tp_mesh()
+    if mesh is not None and split_input:
+        k = x.shape[-1] // mesh.shape["model"]
+        x = x.narrow(-1, mesh.coords["model"] * k, k)
     if mesh is not None and not reduce:
         x = copy_to_model(x, mesh)
-    return _qlinear(ctx, name, x, w, b, mesh, mesh if reduce else None)
+    y = _qlinear(ctx, name, x, w, b, mesh, mesh if reduce else None)
+    if mesh is not None and gather:
+        y = gather_from_model(y, mesh, -1)
+    return y
 
 
 def _qlinear(ctx: QuantContext, name: str, x: torch.Tensor,

@@ -34,10 +34,11 @@ model code adds the collectives itself; the scope
 blocks run unchanged (under serving's rules and training's alike: the
 dense families' cuts are the same; FSDP's data cut is gathered before a
 block runs; the moe family's expert cuts are serving's, its layer
-exchanging token rows itself, ``models.mlp.moe``).  :func:`shard_params` cuts a full tree down to one rank's
-leaves by these rules, :func:`shard_tree` any state tree by a spec tree
-(the optimizer's by :func:`_opt_spec_like`), and :func:`unshard_params`
-gathers a rank's tree back to the whole one.
+exchanging token rows itself, ``models.mlp.moe``; the recurrent and audio
+families are served only).  :func:`shard_params` cuts a full tree down
+to one rank's leaves by these rules, :func:`shard_tree` any state tree
+by a spec tree (the optimizer's by :func:`_opt_spec_like`), and
+:func:`unshard_params` gathers a rank's tree back to the whole one.
 """
 from __future__ import annotations
 
@@ -288,8 +289,7 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
     reference's do: (L, B, S, H, D) KV -> batch over data when it divides,
     plus a kernel-dependent second axis; the engine's (L, NB, BS, KVH, D)
     pool KV heads over ``attn_shard_axis`` (block tables replicated: the
-    blocks of one sequence land on every rank's pool at the same indices);
-    recurrent states by the reference's rank rules.
+    blocks of one sequence land on every rank's pool at the same indices).
 
     ``attn_kernel='chunked'`` keeps a dense cache SEQUENCE-cut over model
     (the reference's context-parallel decode), ``'flash'`` HEAD-cut when
@@ -297,9 +297,28 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
     heads (``models.model.init_cache``), so the sequence cut is ROADMAP
     Queue 1 item 8's.  MLA's (L, B, S, lat) latents and rope keys are cut
     by batch and kept WHOLE over ``model`` (the reference cuts them by
-    sequence there; ROADMAP Queue 3)."""
+    sequence there; ROADMAP Queue 3).
+
+    The recurrent states (RWKV6's ``state``: (L, B, 1, d) token shifts and
+    the (L, B, H, 64, 64) wkv; the hybrid's ``ssm``: (G, g, B, ...) conv
+    windows and SSD states) are cut by batch over data and kept WHOLE over
+    ``model``: every rank runs the scans on the whole state (their
+    projections' outputs are whole on every rank), where the reference's
+    rule reads any 5-d leaf as a stacked KV (ROADMAP Queue 3).  The
+    engine's state slabs (a tree with the slabs' grid ``exp``) have no
+    batch axis and are whole on every rank: the data ranks are replicas.
+    whisper's encoder ``memory`` (B, T, d) is cut by batch and kept whole
+    over ``model`` (the cross-attention's column-cut ``wk`` / ``wv`` read
+    whole rows; the reference cuts ``d``; ROADMAP Queue 3)."""
     dp = _dp(mesh)
     dsize = _axis_size(mesh, dp) if dp else 1
+    slabs = isinstance(cache, dict) and "exp" in cache
+
+    def batch_only(shape: tuple, bdim: int) -> tuple:
+        entries = [None] * len(shape)
+        if not slabs and shape[bdim] % dsize == 0:
+            entries[bdim] = dp
+        return tuple(entries)
 
     def spec(ps: str, leaf) -> tuple:
         shape = tuple(leaf.shape)
@@ -312,10 +331,12 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
                     and shape[3] % mesh.shape[attn_shard_axis] == 0
                     else None)
             return (None, None, None, hdim, None)
+        if ps.startswith("state/"):            # RWKV6: (L, B, ...)
+            return batch_only(shape, 1)
+        if ps.startswith("ssm/"):              # the hybrid: (G, g, B, ...)
+            return batch_only(shape, 2)
         if "memory" in ps:                     # (B, T, d)
-            mdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
-            return (bdim if shape[0] % max(dsize, 1) == 0 else None,
-                    None, mdim)
+            return batch_only(shape, 0)
         if nd == 5:                            # (L, B, S, H, D) stacked KV
             if (attn_kernel == "flash"
                     and attn_shard_axis in mesh.axis_names
@@ -327,9 +348,6 @@ def cache_sharding_rules(cache: Any, mesh, attn_kernel: str = "chunked",
             # whole over model: a rank's absorbed decode reads every
             # latent row for its own heads
             return (None, bdim, None, None)
-        if nd == 4:                            # (L, B, 1, d) token shifts
-            sdim = "model" if shape[2] % mesh.shape["model"] == 0 else None
-            return (None, bdim, sdim, None)
         return (None,) * nd
 
     return unflatten(cache, [spec(p, leaf)
@@ -400,31 +418,40 @@ def tp_mesh():
 def _refuse(what: str):
     raise NotImplementedError(
         f"{what} is ROADMAP Queue 1 item 8's (serving over a mesh covers "
-        f"the dense, vlm and moe families, training the dense ones)")
+        f"the dense, vlm, moe, ssm, hybrid and audio families, training "
+        f"the dense ones)")
+
+
+_LM_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def local_config(cfg, mesh, *, train: bool = False):
     """The per-rank view of ``cfg`` on ``mesh``, under which a block runs
     unchanged on its rank's weights: heads and KV heads (under MLA the
-    nominal KV heads, ``n_heads``) divided by the model axis (the head dim
-    pinned), and d_ff where the config has dense layers; for the moe
-    family (serving only) the expert stacks over ``model`` and, where
-    serving's 2-D rule cuts it, each expert's hidden over ``data``
-    (``MoEConfig.expert_shards`` / ``hidden_shards``; the router's
-    experts, top-k and the capacity stay the whole model's).  The vocab
-    stays whole: the head gathers its logits.  Refuses what the port does
-    not cut: the ssm, hybrid and audio families, the moe family in
-    training (``train``), a shard axis other than ``model``, and a model
-    axis that does not divide the KV heads, d_ff, the padded vocab or the
-    experts (where the rules fall back to another layout).  Without a
-    mesh, or on a mesh of one rank, ``cfg`` itself."""
+    nominal KV heads, ``n_heads``; the hybrid's: its shared attention
+    block's) divided by the model axis (the head dim pinned), and d_ff
+    where the rules cut an MLP hidden (the dense layers', whisper's, the
+    hybrid's shared MLP, RWKV6's channel mix); for the moe family the
+    expert stacks over ``model`` and, where serving's 2-D rule cuts it,
+    each expert's hidden over ``data`` (``MoEConfig.expert_shards`` /
+    ``hidden_shards``; the router's experts, top-k and the capacity stay
+    the whole model's).  The vocab and d_model stay whole: the head
+    gathers its logits, and the recurrent families' projections give
+    whole outputs (RWKV6's heads, which its time mix reads from d_model,
+    and the recurrent states stay whole on every rank).  Refuses what the
+    port does not cut: training any family but the dense ones (``train``),
+    a shard axis other than ``model``, and a model axis that does not
+    divide the KV heads, d_ff, the padded vocab, the experts or (the ssm
+    and hybrid families) d_model, where the rules fall back to another
+    layout.  Without a mesh, or on a mesh of one rank, ``cfg`` itself."""
     if mesh is None or math.prod(mesh.shape.values()) == 1:
         return cfg
-    if cfg.family not in ("dense", "vlm", "moe"):
+    if cfg.family not in _LM_FAMILIES:
         _refuse(f"the {cfg.family!r} family under a mesh of more than one "
                 f"rank")
-    if cfg.family == "moe" and train:
-        _refuse("training the moe family on a mesh of more than one rank")
+    if train and cfg.family not in ("dense", "vlm"):
+        _refuse(f"training the {cfg.family} family on a mesh of more than "
+                f"one rank")
     tp = model_shards(mesh)
     view = {}
     if cfg.moe is not None:
@@ -434,18 +461,26 @@ def local_config(cfg, mesh, *, train: bool = False):
             raise NotImplementedError(
                 f"attn_shard_axis={cfg.attn_shard_axis!r} is not wired; "
                 f"only 'model' is supported on a mesh of more than one rank")
-        from repro_torch.kernels.ops import _check_head_divisibility
-        _check_head_divisibility(cfg.n_kv_heads, tp)
+        heads = cfg.family != "ssm"         # RWKV6 has no attention
+        if heads:
+            from repro_torch.kernels.ops import _check_head_divisibility
+            _check_head_divisibility(cfg.n_kv_heads, tp)
         dense = cfg.moe is None or cfg.moe.n_dense_layers > 0
-        for what, n in (("d_ff", cfg.d_ff if dense else 0),
-                        ("padded vocab", cfg.vocab_padded)):
+        cuts = [("d_ff", cfg.d_ff if dense else 0),
+                ("padded vocab", cfg.vocab_padded)]
+        if cfg.family in ("ssm", "hybrid"):
+            # RWKV6's w[rkvgo] rows and wr_ffn columns; mamba2's w_in rows,
+            # its w_out and the shared block's in_proj columns
+            cuts.append(("d_model", cfg.d_model))
+        for what, n in cuts:
             if n % tp:
                 _refuse(f"a model axis ({tp}) that does not divide the "
                         f"{what} ({n}) (its fall-back layout)")
-        view.update(n_heads=cfg.n_heads // tp,
-                    n_kv_heads=cfg.n_kv_heads // tp,
-                    d_ff=cfg.d_ff // tp if dense else cfg.d_ff,
-                    head_dim=cfg.resolved_head_dim)
+        view["d_ff"] = cfg.d_ff // tp if dense else cfg.d_ff
+        if heads:
+            view.update(n_heads=cfg.n_heads // tp,
+                        n_kv_heads=cfg.n_kv_heads // tp,
+                        head_dim=cfg.resolved_head_dim)
     return dataclasses.replace(cfg, **view) if view else cfg
 
 

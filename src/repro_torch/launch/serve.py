@@ -58,15 +58,19 @@ versions.  ``--prefix-cache`` / ``--no-prefix-cache`` force the engine's
 prefix cache on or off (default: the engine decides).  The JAX CLI's
 ``--profile-cost`` option is not ported yet.
 
-Tensor-parallel serving (the dense families on either path; the moe
-family, granite-moe-3b and deepseek-v3 with MLA, through classic
+Tensor-parallel serving (the dense families and the recurrent ones,
+RWKV6 and zamba2, on either path; the moe family, granite-moe-3b and
+deepseek-v3 with MLA, and the audio family, whisper, through classic
 ``serve``): ``--mesh DxM`` serves on a (data, model) mesh of D x M ranks
 (``launch.mesh``), the attention heads (whole GQA groups and their KV;
-MLA's heads, its latent cache whole on each rank), the MLP hidden, the
-experts and the vocab cut over ``model``, the classic batch over
-``data`` (serving's 2-D rule cuts each expert's hidden over it too),
-every step eager.  The ranks are spawned here, or joined when ``torchrun`` started
-the process (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve
+MLA's heads, its latent cache whole on each rank; zamba2's shared block;
+whisper's self- and cross-attention, its encoder memory whole on each
+rank), the MLP hidden, the experts and the vocab cut over ``model``, the
+recurrent blocks' projections cut by the reference's rules with their
+states whole on each rank, the classic batch (and whisper's encoder
+frames) over ``data`` (serving's 2-D rule cuts each expert's hidden over
+it too), every step eager.  The ranks are spawned here, or joined when
+``torchrun`` started the process (``torchrun --nproc-per-node D*M -m repro_torch.launch.serve
 ... --mesh DxM``); rank 0 prints.  ``--dist-backend`` names their
 backend: nccl (the default on the card, one card a rank) or gloo (the
 CPU's default; also ranks that share one card):
@@ -75,6 +79,9 @@ CPU's default; also ranks that share one card):
         [--engine] --mesh 1x2 [--device cpu | --dist-backend gloo]
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch granite_moe_3b_a800m --mesh 1x2 [--device cpu | --dist-backend gloo]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch rwkv6_3b|zamba2_2_7b|whisper_large_v3 [--engine] --mesh 1x2 \
+        [--device cpu | --dist-backend gloo]     (no --engine for whisper)
 """
 from __future__ import annotations
 
@@ -118,8 +125,8 @@ def _resolve_cfg_mesh(arch: str, *, smoke: bool,
     ``attn_kernel`` and ``cfg_overrides`` patch the config; ``mesh_shape``
     (data, model) is checked against it here, before any rank starts, by
     the step builders' refusals (``launch.steps._resolve_attn_kernel``:
-    the model axis must divide the KV heads, and the family must be a
-    dense one).  Returns (cfg, the (data, model) shape or None)."""
+    the model axis must divide the KV heads and what the rules cut).
+    Returns (cfg, the (data, model) shape or None)."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.launch import steps as S
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
@@ -216,12 +223,14 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16,
     ``mesh_shape`` (data, model) serves on a mesh of D x M ranks
     (``launch.mesh``; spawned here unless ``torchrun`` started this
     process) over ``dist_backend`` (default nccl on the card, gloo on the
-    CPU; ranks sharing one card take gloo): the dense and moe families,
+    CPU; ranks sharing one card take gloo): every language-model family,
     the whole model built (or ``params`` moved to the card), calibrated
     (rank 0) and cut by one rank at a time, so the ranks sharing a card
     never hold two whole models, then quantized on the rank's slices
     (heads, d_ff, the experts and vocab over ``model``; an expert's
-    hidden over ``data``), the batch cut over ``data`` when it divides
+    hidden over ``data``; the recurrent projections by the rules, their
+    states whole), the batch (and the audio family's encoder features)
+    cut over ``data`` when it divides
     (else every data rank serves it all; the moe family refuses that),
     every step eager.  Returns rank
     0's result (its tokens the whole batch's) with ``mesh`` and
@@ -496,9 +505,10 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     ``SLObjective``).
 
     ``mesh_shape`` (data, model) serves on a mesh of D x M ranks, as
-    :func:`serve`'s (the dense families; ``dist_backend``): the weights
-    calibrated and quantized whole, then cut; every rank runs the engine
-    over the same requests with its slices and its pool of its KV heads,
+    :func:`serve`'s (the dense and recurrent families; ``dist_backend``):
+    the weights calibrated and quantized whole, then cut; every rank runs
+    the engine over the same requests with its slices and its pool of its
+    KV heads (the recurrent families' state slabs whole on every rank),
     eagerly; the data ranks are replicas.  Rank 0 reports and exports
     (trace, metrics, record); the result is rank 0's ("engine" None,
     "quantized" its converted paths only) with ``mesh`` and ``ranks``,
@@ -719,8 +729,9 @@ def main(argv=None):
                          "burn-rate alerting")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="serve on a (data, model) mesh of ranks, e.g. "
-                         "'1x2': heads, MLP hidden and vocab cut over "
-                         "model, the classic batch over data")
+                         "'1x2': heads, MLP hidden, vocab and the "
+                         "recurrent projections cut over model, the "
+                         "classic batch over data")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="[--mesh] the ranks' torch.distributed backend "
                          "(default nccl on the card, gloo on the CPU; ranks "

@@ -320,7 +320,7 @@ def _resolve_attn_kernel(cfg: ModelConfig, mesh=None, *,
                 f"'model' is supported on a mesh of more than one rank")
         tp = kops.attn_shard_size(mesh)
         kvh = cfg.n_heads if cfg.mla is not None else cfg.n_kv_heads
-        if kvh % tp:
+        if kvh % tp and cfg.family != "ssm":     # RWKV6 has no attention
             raise NotImplementedError(
                 f"attention shards KV heads over mesh axis "
                 f"'{cfg.attn_shard_axis}' (size {tp}), which must divide "
@@ -425,7 +425,8 @@ def build_ragged_step(cfg: ModelConfig, ctx: QuantContext, *, mesh=None):
     return ragged_step
 
 
-def build_recurrent_step(cfg: ModelConfig, ctx: QuantContext):
+def build_recurrent_step(cfg: ModelConfig, ctx: QuantContext, *,
+                         mesh=None):
     """One serving step on the fixed-slab recurrent substrate:
     ``recurrent_step(params, tokens (B, C), cache, slab_ids (B,), q_len
     (B,), positions, block_tables, work=None) -> (logits (B, V), cache)``,
@@ -435,14 +436,18 @@ def build_recurrent_step(cfg: ModelConfig, ctx: QuantContext):
     engine captures it once per sampling key, as the JAX engine jits it
     once.  ``positions`` / ``block_tables`` are None for the pure
     recurrent family; the hybrid threads them, and K4's ``work`` list for
-    the positions, into the shared attention block."""
+    the positions, into the shared attention block.  On ``mesh``: this
+    rank's params and pool (its KV heads), the slabs and every staged
+    array every rank's, every rank's logits."""
+    cfg = _resolve_attn_kernel(cfg, mesh)
     check_matmul_kernel(cfg, ctx)
 
     def recurrent_step(params, tokens, cache, slab_ids, q_len,
                        positions=None, block_tables=None, work=None):
-        return M.paged_recurrent_step(params, tokens, cache, slab_ids, q_len,
-                                      positions, block_tables, cfg, ctx,
-                                      work=work)
+        with _mesh_scope(mesh):
+            return M.paged_recurrent_step(params, tokens, cache, slab_ids,
+                                          q_len, positions, block_tables,
+                                          cfg, ctx, work=work)
 
     return recurrent_step
 

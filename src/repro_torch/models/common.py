@@ -101,11 +101,11 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
-           b: Optional[torch.Tensor] = None, *,
-           reduce: bool = False) -> torch.Tensor:
-    """Unified-module linear — alias keeping model code terse
-    (``reduce``: a row-cut module, ``qlinear``'s)."""
-    return qlinear(ctx, name, x, w, b, reduce=reduce)
+           b: Optional[torch.Tensor] = None, **cut) -> torch.Tensor:
+    """Unified-module linear — alias keeping model code terse (``cut``:
+    ``qlinear``'s mesh keywords, ``reduce``, ``split_input``,
+    ``gather``)."""
+    return qlinear(ctx, name, x, w, b, **cut)
 
 
 def linears(ctx: QuantContext, names, x: torch.Tensor, ws,

@@ -219,7 +219,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     dtype, which prefill writes in place.  The reference's dtypes,
     component by component.  On a tensor-parallel mesh (``mesh``, default
     the scope's) the KV pairs hold this rank's KV heads, (L, B, S_max,
-    KVH / M, D), ``batch`` being this rank's rows."""
+    KVH / M, D), ``batch`` being this rank's rows; the recurrent states
+    and the audio family's memory are whole over the model axis."""
     _check_family(cfg, "init_cache")
     cfg = _rank_view(cfg, mesh)
     dev = resolve_device(device)
@@ -477,9 +478,10 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     its 2-D products ('dots'); no value changes.
 
     Under a tensor-parallel scope (``distributed.sharding.
-    activation_sharding``; the dense families, and in serving the moe
-    family) ``params`` and ``cache``
-    are one rank's slices and the blocks run on the rank's view of
+    activation_sharding``; the dense families, and in serving every
+    family) ``params`` and ``cache`` are one rank's slices (the recurrent
+    states and whisper's memory whole, ``distributed.sharding.
+    cache_sharding_rules``) and the blocks run on the rank's view of
     ``cfg``; the logits are every rank's, whole."""
     _check_family(cfg, "forward")
     cfg = _rank_view(cfg)
@@ -700,7 +702,7 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
 def init_paged_state(cfg: ModelConfig, num_slabs: int, *,
                      num_blocks: Optional[int] = None,
                      block_size: Optional[int] = None,
-                     device: Device = None) -> dict:
+                     device: Device = None, mesh=None) -> dict:
     """STATE SLAB arenas of the fixed-slab recurrent substrate: one
     (L, S, ...) arena per state component, S = ``num_slabs``, which the
     host-side ``serving.state_pool.StateSlabPool`` hands out one slab per
@@ -715,8 +717,11 @@ def init_paged_state(cfg: ModelConfig, num_slabs: int, *,
     arenas (G groups of g Mamba blocks), and the shared attention block's
     KV pool ``paged_kv`` (G, NB, bs, KVH, D), sized by ``num_blocks`` /
     ``block_size`` as :func:`init_paged_cache` (int8 codes when
-    ``cfg.kv_cache_bits == 8``)."""
+    ``cfg.kv_cache_bits == 8``).  On a tensor-parallel mesh (``mesh``,
+    default the scope's) the slabs are whole (every rank runs the scans
+    on the whole state) and the pool holds this rank's KV heads."""
     _check_family(cfg, "init_paged_state", _RECURRENT)
+    cfg = _rank_view(cfg, mesh)
     if num_slabs < 2:
         raise ValueError("state pool needs >= 2 slabs (slab 0 is the trash "
                          "slab idle lanes read and write)")
@@ -805,8 +810,13 @@ def paged_recurrent_step(params: dict, tokens: torch.Tensor, cache: dict,
     KV pool as :func:`paged_step`'s do, on K4's ``work`` list for these
     positions (planned once a step, shared by every group) where given;
     the pure recurrent family ignores all three.  Returns (logits (B, V)
-    in the activation dtype at each row's last real token, cache)."""
+    in the activation dtype at each row's last real token, cache).
+
+    Under a tensor-parallel scope ``params`` and the pool are one rank's
+    slices (``init_paged_state(mesh=)``), the slabs whole; every rank
+    advances the same rows and its logits are whole."""
     _check_family(cfg, "paged_recurrent_step", _RECURRENT)
+    cfg = _rank_view(cfg)
     b, c = tokens.shape
     dt = model_dtype(cfg)
     dev = tokens.device

@@ -16,6 +16,13 @@ stay fp32 (a power-of-two rounded decay applied every step diverges).
 Their products are fp32 matmuls: they must not run in TF32 or bf16 (the
 port keeps PyTorch's default, ``torch.backends.cuda.matmul.allow_tf32 =
 False``), since the chunked form multiplies by exponentials up to e^53.
+
+On a (data, model) mesh (serving) the r/k/v/g/o projections are cut on
+their contract dim over a whole input, each rank taking its block of it
+(``_ROWS``: ``qlinear``'s ``split_input``), and give whole outputs, so
+the heads, the scan, the ``ln_x`` statistic and the state are whole on
+every rank, as one rank's; the channel mix cuts its hidden (``wk_ffn``
+columns, ``wv_ffn`` rows) and gathers ``wr_ffn``'s columns.
 """
 from __future__ import annotations
 
@@ -32,6 +39,8 @@ __all__ = ["RWKVState", "HEAD_DIM", "zero_state", "init_rwkv6",
            "rwkv6_block", "rwkv6_channel_mix", "rwkv6_decode"]
 
 HEAD_DIM = 64  # rwkv6 fixed head size
+# the time mix's projections: contract-cut over a whole input on a mesh
+_ROWS = dict(reduce=True, split_input=True)
 
 
 class RWKVState(NamedTuple):
@@ -178,10 +187,13 @@ def rwkv6_block(ctx: QuantContext, p: dict, x: torch.Tensor,
     mixed = _ddlerp(x, xp, p["mu"], p["lora_mix_a"], p["lora_mix_b"])
     xr, xk, xv, xw, xg = (mixed[i] for i in range(5))
 
-    r = linear(ctx, f"{name}/wr", xr, p["wr"]).reshape(b, s, h, HEAD_DIM)
-    k = linear(ctx, f"{name}/wk", xk, p["wk"]).reshape(b, s, h, HEAD_DIM)
-    v = linear(ctx, f"{name}/wv", xv, p["wv"]).reshape(b, s, h, HEAD_DIM)
-    g = _silu(linear(ctx, f"{name}/wg", xg, p["wg"]))
+    r = linear(ctx, f"{name}/wr", xr, p["wr"], **_ROWS).reshape(
+        b, s, h, HEAD_DIM)
+    k = linear(ctx, f"{name}/wk", xk, p["wk"], **_ROWS).reshape(
+        b, s, h, HEAD_DIM)
+    v = linear(ctx, f"{name}/wv", xv, p["wv"], **_ROWS).reshape(
+        b, s, h, HEAD_DIM)
+    g = _silu(linear(ctx, f"{name}/wg", xg, p["wg"], **_ROWS))
 
     # data-dependent decay (fp32): w_log = -exp(w0 + lora_w(xw)), the logit
     # clipped to <= 0.5, so the per-token decay stays >= exp(-1.65)
@@ -204,7 +216,7 @@ def rwkv6_block(ctx: QuantContext, p: dict, x: torch.Tensor,
         state.wkv if state else None)
     out = out.reshape(b, s, d).to(x.dtype)
     out = rmsnorm(out, p["ln_x"], cfg.norm_eps) * g
-    att_out = linear(ctx, f"{name}/wo", out, p["wo"])
+    att_out = linear(ctx, f"{name}/wo", out, p["wo"], **_ROWS)
     new_state = RWKVState(x_prev_att=x[:, -1:], x_prev_ffn=x[:, -1:],
                           wkv=wkv)
     return att_out, None, new_state
@@ -221,8 +233,11 @@ def rwkv6_channel_mix(ctx: QuantContext, p: dict, x: torch.Tensor,
     xr = x + (xp - x) * mu[1][None, None]
     k = linear(ctx, f"{name}/wk", xk, p["wk_ffn"])
     k = torch.square(torch.relu(k))
-    kv = linear(ctx, f"{name}/wv", k, p["wv_ffn"])
-    return torch.sigmoid(linear(ctx, f"{name}/wr", xr, p["wr_ffn"])) * kv
+    # on a mesh: k is the rank's d_ff columns, wv_ffn its rows (the
+    # row-cut sum gives kv whole), and wr_ffn's columns are gathered
+    kv = linear(ctx, f"{name}/wv", k, p["wv_ffn"], reduce=True)
+    return torch.sigmoid(linear(ctx, f"{name}/wr", xr, p["wr_ffn"],
+                                gather=True)) * kv
 
 
 def rwkv6_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
@@ -239,10 +254,13 @@ def rwkv6_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
     mixed = _ddlerp(x, state.x_prev_att, p["mu"], p["lora_mix_a"],
                     p["lora_mix_b"])
     xr, xk, xv, xw, xg = (mixed[i] for i in range(5))
-    r = linear(ctx, f"{name}/wr", xr, p["wr"]).reshape(b, h, HEAD_DIM)
-    k = linear(ctx, f"{name}/wk", xk, p["wk"]).reshape(b, h, HEAD_DIM)
-    v = linear(ctx, f"{name}/wv", xv, p["wv"]).reshape(b, h, HEAD_DIM)
-    g = _silu(linear(ctx, f"{name}/wg", xg, p["wg"]))
+    r = linear(ctx, f"{name}/wr", xr, p["wr"], **_ROWS).reshape(
+        b, h, HEAD_DIM)
+    k = linear(ctx, f"{name}/wk", xk, p["wk"], **_ROWS).reshape(
+        b, h, HEAD_DIM)
+    v = linear(ctx, f"{name}/wv", xv, p["wv"], **_ROWS).reshape(
+        b, h, HEAD_DIM)
+    g = _silu(linear(ctx, f"{name}/wg", xg, p["wg"], **_ROWS))
 
     w_dd = torch.tanh(xw @ p["lora_w_a"].to(x.dtype)) \
         @ p["lora_w_b"].to(x.dtype)
@@ -258,6 +276,6 @@ def rwkv6_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
     new_wkv = w[..., None] * s_prev + kv
     out = out.reshape(b, 1, d).to(x.dtype)
     out = rmsnorm(out, p["ln_x"], cfg.norm_eps) * g
-    att_out = linear(ctx, f"{name}/wo", out, p["wo"])
+    att_out = linear(ctx, f"{name}/wo", out, p["wo"], **_ROWS)
     return att_out, RWKVState(x_prev_att=x, x_prev_ffn=state.x_prev_ffn,
                               wkv=new_wkv)

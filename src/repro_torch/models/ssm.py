@@ -9,6 +9,11 @@ projections go through ``qlinear``; the recurrence stays fp32 (a
 power-of-two rounded decay applied every step diverges).  Its products
 are fp32 matmuls and must not run in TF32 or bf16 (the port keeps
 PyTorch's default, ``allow_tf32 = False``).
+
+On a (data, model) mesh (serving) ``w_in`` is cut on its contract dim
+over a whole input (``qlinear``'s ``split_input``: the packed z / xBC /
+dt output whole on every rank) and ``w_out``'s columns are gathered, so
+the conv, the scan and the state are whole on every rank, as one rank's.
 """
 from __future__ import annotations
 
@@ -174,7 +179,8 @@ def mamba2(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     valid token returns its window unchanged)."""
     s, d_inner, n_heads, d_conv_in = _dims(cfg)
     b, seq, d = x.shape
-    zxbcdt = linear(ctx, f"{name}/w_in", x, p["w_in"])
+    zxbcdt = linear(ctx, f"{name}/w_in", x, p["w_in"], reduce=True,
+                    split_input=True)
     z, xbc_raw, dt = _split_in(cfg, zxbcdt)
     prev = init_state.conv if init_state is not None else None
     xbc = _silu(_causal_conv_train(xbc_raw, p["conv_w"], p["conv_b"],
@@ -197,7 +203,7 @@ def mamba2(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     y = y + xh * p["d_skip"][None, None, :, None]
     y = y.reshape(b, seq, d_inner).to(x.dtype)
     y = rmsnorm(y * _silu(z), p["norm"], cfg.norm_eps)
-    out = linear(ctx, f"{name}/w_out", y, p["w_out"])
+    out = linear(ctx, f"{name}/w_out", y, p["w_out"], gather=True)
     # conv state = the last d_conv - 1 PRE-conv inputs
     if valid is None:
         conv_tail = xbc_raw[:, -(s.d_conv - 1):, :]
@@ -223,7 +229,8 @@ def mamba2_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
     state)."""
     s, d_inner, n_heads, d_conv_in = _dims(cfg)
     b = x.shape[0]
-    zxbcdt = linear(ctx, f"{name}/w_in", x, p["w_in"])
+    zxbcdt = linear(ctx, f"{name}/w_in", x, p["w_in"], reduce=True,
+                    split_input=True)
     z, xbc, dt = _split_in(cfg, zxbcdt)
 
     window = torch.cat([state.conv, xbc], dim=1)           # (B, K, C)
@@ -254,5 +261,5 @@ def mamba2_decode(ctx: QuantContext, p: dict, x: torch.Tensor,
     y = y + xh * p["d_skip"][None, :, None]
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = rmsnorm(y * _silu(z), p["norm"], cfg.norm_eps)
-    out = linear(ctx, f"{name}/w_out", y, p["w_out"])
+    out = linear(ctx, f"{name}/w_out", y, p["w_out"], gather=True)
     return out, SSMState(conv=new_conv, ssm=new_ssm)

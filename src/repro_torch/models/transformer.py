@@ -276,8 +276,9 @@ def _shared_block(ctx: QuantContext, shared_p: dict, x: torch.Tensor,
     """The shared attention block on concat(h, embedding) (zamba2's
     dataflow), its cache and positions in ``attn_kw``
     (``attention.gqa_attention``'s); returns ``x + z``."""
+    # column-cut on a mesh: z is read whole (its norm, the residual)
     z = linear(ctx, "shared/in_proj", torch.cat([x, x_embed], dim=-1),
-               shared_p["in_proj"])
+               shared_p["in_proj"], gather=True)
     h, _ = att.gqa_attention(
         ctx, shared_p["attn"], rmsnorm(z, shared_p["ln1"], cfg.norm_eps),
         cfg, rope=rope, name="shared/attn", **attn_kw)

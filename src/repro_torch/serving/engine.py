@@ -70,8 +70,12 @@ gathered whole on every rank, and a sampling generator seeded alike;
 rank 0's clock says which arrivals join before each step (the other
 ranks take its word), so every rank makes the same decisions and samples
 the same tokens; the data ranks are replicas of one schedule (the
-reference's ragged step has no batch axis to cut).  Its steps run eagerly (``StepGraphs`` refuses to
-capture the collectives).
+reference's ragged step has no batch axis to cut).  The recurrent
+substrates serve so too: every rank's slabs are whole (its projections'
+outputs are, so each rank runs the scans on the whole state, and a
+preemption snapshot is each rank's own copy of the same slab), the
+hybrid's pool holds its KV heads.  Its steps run eagerly (``StepGraphs``
+refuses to capture the collectives).
 
 Not ported yet, and raising ``NotImplementedError``: ``profile_cost``
 (XLA's cost analysis).
@@ -295,7 +299,7 @@ class ServingEngine:
                 cfg, self.state_pool.num_slabs,
                 num_blocks=num_blocks if sub.grows else None,
                 block_size=block_size if sub.grows else None,
-                device=self.device)
+                device=self.device, mesh=mesh)
         self.seed = seed
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
@@ -307,7 +311,9 @@ class ServingEngine:
             self._paged_fn = build_paged_step(cfg, ctx, mesh=mesh)
             self._ragged_fn = build_ragged_step(cfg, ctx, mesh=mesh)
         else:
-            self._rec_fn = build_recurrent_step(cfg, ctx)
+            # off a mesh built as stand-ins of it are, without the keyword
+            self._rec_fn = build_recurrent_step(
+                cfg, ctx, **({} if mesh is None else {"mesh": mesh}))
         self._groups = cfg.n_heads // cfg.n_kv_heads
         # the compiled step: on by default on a CUDA device, off a mesh
         if graphs is None:

@@ -92,16 +92,17 @@ def route_choices(into: list):
 def split_sums(m: int):
     """Inside this block every FP row-cut module (``qlinear(...,
     reduce=True)``: attention's and MLA's ``wo``, a dense MLP's and a
-    shared expert's ``w2``) takes its product as a (1, m) mesh does
+    shared expert's ``w2``, RWKV6's time-mix projections and channel-mix
+    ``wv``, mamba2's ``w_in``) takes its product as a (1, m) mesh does
     (``core.qmodel._fp_linear`` over the model axis): the m blocks of K's
     fp32 products summed in rank order, rounded once, then the bias.  One
     process then gives the mesh's summation order, which a bf16 model's
     tokens may follow where one rank's do not."""
     base = tcommon.qlinear
 
-    def row_cut(ctx, name, x, w, b=None, *, reduce=False):
+    def row_cut(ctx, name, x, w, b=None, *, reduce=False, **cut):
         if not reduce or ctx.mode is not QuantMode.FP:
-            return base(ctx, name, x, w, b, reduce=reduce)
+            return base(ctx, name, x, w, b, reduce=reduce, **cut)
         k = w.shape[0] // m
         f32 = torch.float32
         acc = None

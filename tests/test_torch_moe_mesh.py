@@ -28,9 +28,10 @@ ranks against one rank, on the smoke configs in fp32:
   (E, D) count grid of the exchanged layout) against per-expert int64
   products, and a rank's int8 expert slices equal to the slices of the
   whole tree's codes;
-* the refusals: the ssm, hybrid and audio families on a mesh, the moe
-  family's training on one, a moe batch the data axis does not cut, and
-  deepseek-v3 at full depth where the reference would turn FSDP on.
+* the refusals: training the ssm, hybrid and audio families on a mesh
+  (their serving rank view beside), the moe family's training on one, a
+  moe batch the data axis does not cut, and deepseek-v3 at full depth
+  where the reference would turn FSDP on.
 
 One spawn of two ranks and one of four (the cases of both mesh shapes on
 the same ranks, ``tests/moe_mesh_cases.py``); this process runs the
@@ -440,9 +441,19 @@ def test_mesh_four_ranks(one_rank, tmp_path):
 
 
 def test_refusals():
+    # the ssm, hybrid and audio families serve on (1, 2) (their rank view:
+    # the attention's heads and the MLP hidden halved, d_model whole;
+    # RWKV6 has no attention), and still refuse training there
     for arch in ("rwkv6_3b", "zamba2_2_7b", "whisper_large_v3"):
+        cfg, shape = tserve._resolve_cfg_mesh(arch, smoke=True,
+                                              mesh_shape=(1, 2))
+        loc = shd.local_config(cfg, tmesh.RankMesh(*shape))
+        cut = 1 if arch == "rwkv6_3b" else 2
+        assert (loc.n_heads, loc.n_kv_heads, loc.d_ff, loc.d_model) == (
+            cfg.n_heads // cut, cfg.n_kv_heads // cut, cfg.d_ff // 2,
+            cfg.d_model)
         with pytest.raises(NotImplementedError, match="item 8"):
-            tserve._resolve_cfg_mesh(arch, smoke=True, mesh_shape=(1, 2))
+            ttrain.train(arch, 1, mesh_shape=(1, 2), device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         ttrain.train(GRANITE, 1, mesh_shape=(1, 2), device="cpu")
     cfg = tsmoke(DEEPSEEK)

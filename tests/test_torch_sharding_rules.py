@@ -8,7 +8,9 @@ against the JAX package's (``repro.distributed.sharding``).
   shape it also reproduces), and the per-layer spec is that spec minus
   its stacking entries.  Every reference leaf is covered.
 * Optimizer moments, the batch, and the caches (classic dense under
-  'chunked' and 'flash', the engine's block pool) alike.
+  'chunked' and 'flash', the engine's block pool) alike; the recurrent
+  states and whisper's memory depart (whole over ``model``, ROADMAP
+  Queue 3), the engine's state slabs are whole.
 * ``shard_params`` cuts each leaf into pieces whose concatenation is the
   leaf, float weights and int8 codes alike; ``local_config`` divides the
   heads, KV heads and d_ff.
@@ -226,6 +228,11 @@ def test_cache_rules_equal_reference(sizes, names):
                 tshd.cache_sharding_rules(tcache, smesh, attn_kernel=kernel))
             if cfg.mla is not None:
                 jg = _latents_whole(jg)
+            # the recurrent states and whisper's memory depart
+            # (test_recurrent_and_audio_cache_rules); the rest is equal
+            for part in STATE_PARTS:
+                jg.pop(part, None)
+                tg.pop(part, None)
             assert jg == tg, (arch, kernel)
         if cfg.family in ("dense", "vlm"):
             tpool = TM.init_paged_cache(cfg, 6, 16, device="cpu")
@@ -236,6 +243,82 @@ def test_cache_rules_equal_reference(sizes, names):
             kv = tg["paged_kv"][0]
             assert kv[3] == ("model" if cfg.n_kv_heads % smesh.shape["model"]
                              == 0 else None)
+
+
+# the caches' parts the port lays out apart from the reference's rule
+STATE_PARTS = ("state", "ssm", "memory")
+# each part's batch dim: RWKV6's (L, B, ...), the hybrid's (G, g, B, ...),
+# whisper's (B, T, d)
+_BATCH_DIM = {"state": 1, "ssm": 2, "memory": 0}
+
+
+def _recurrent_cfg(arch):
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    if cfg.hybrid is not None:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.hybrid.attn_every)
+    jcfg = dataclasses.replace(jget(arch), **{
+        f.name: getattr(cfg, f.name)
+        for f in dataclasses.fields(ModelConfig)})
+    return cfg, jcfg
+
+
+@pytest.mark.parametrize("sizes,names", MESHES,
+                         ids=["x".join(map(str, s)) for s, _ in MESHES])
+def test_recurrent_and_audio_cache_rules(sizes, names):
+    """The recurrent states (RWKV6's token shifts and wkv, the hybrid's
+    conv windows and SSD states) and whisper's encoder memory: cut by
+    batch over the data axes where they divide it, WHOLE over ``model``
+    (every rank runs the scans on the whole state; the cross attention's
+    column-cut wk / wv read whole memory rows).  The reference's rule
+    departs on the meshes of up to 4 model ranks (on 16 its cuts divide
+    none of rwkv6's dims and fall back to whole): it reads a 5-d state as a
+    stacked KV (``model`` on the wkv's heads or its dk, on the hybrid's
+    conv arena ``data`` on the group's blocks and ``model`` on the batch)
+    and cuts the memory's d over ``model`` (ROADMAP Queue 3, "recurrent
+    and audio caches on a mesh").  The engine's state slabs are whole (the
+    data ranks are replicas), the hybrid's pool holds its KV heads."""
+    amesh, smesh = _abstract_mesh(sizes, names), StandIn(sizes, names)
+    dp = tuple(a for a in ("pod", "data") if a in names)
+    dsize = 1
+    for a in dp:
+        dsize *= smesh.shape[a]
+    entry = dp[0] if len(dp) == 1 else dp
+    for arch in ("rwkv6_3b", "zamba2_2_7b", "whisper_large_v3"):
+        cfg, jcfg = _recurrent_cfg(arch)
+        tcache = TM.init_cache(cfg, 4, 32, device="cpu")
+        jcache = JS.abstract_cache(jcfg, 4, 32)
+        tspecs = tshd.cache_sharding_rules(tcache, smesh)
+        _, tg = _cache_groups(jshd.cache_sharding_rules(jcache, amesh),
+                              tspecs)
+        jg, _ = _cache_groups(jshd.cache_sharding_rules(jcache, amesh),
+                              tspecs)
+        leaves = {p.split("/")[0]: [] for p, _ in _spec_walk(tspecs)}
+        for p, leaf in leaves_with_paths(tcache):
+            leaves[p.split("/")[0]].append(tuple(leaf.shape))
+        departs = False
+        for part in STATE_PARTS:
+            if part not in tg:
+                continue
+            b = _BATCH_DIM[part]
+            for spec, shape, ref in zip(tg[part], leaves[part], jg[part]):
+                want = [None] * len(shape)
+                if shape[b] % dsize == 0:
+                    want[b] = entry
+                assert spec == tuple(want), (arch, part, shape)
+                departs |= spec != ref
+        if smesh.shape["model"] <= 4:
+            assert departs, (arch, "the reference's rule is the port's")
+        if cfg.family in ("ssm", "hybrid"):
+            slabs = TM.init_paged_state(cfg, 3, num_blocks=4, block_size=16,
+                                        device="cpu")
+            for path, spec in _spec_walk(tshd.cache_sharding_rules(slabs,
+                                                                   smesh)):
+                if path.startswith("paged_kv"):
+                    assert spec[3] == ("model" if cfg.n_kv_heads
+                                       % smesh.shape["model"] == 0
+                                       else None), path
+                else:
+                    assert all(e is None for e in spec), (arch, path)
 
 
 @pytest.mark.parametrize("sizes", [(1, 2), (2, 2), (1, 4)])

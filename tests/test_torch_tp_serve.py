@@ -33,8 +33,8 @@ Queue 3), which no mesh changes.  While a mesh's ranks run, this process
 runs the one-rank cases (each case's one-rank result is made once).
 
 The refusals (a model axis that does not divide the KV heads, a shard
-axis other than ``model``, MLA's head count, a non-dense family, graphs
-on a mesh, nccl on the CPU) run without processes.
+axis other than ``model``, MLA's head count, training a non-dense family,
+graphs on a mesh, nccl on the CPU) run without processes.
 """
 import concurrent.futures
 import copy
@@ -54,9 +54,11 @@ from repro.models import model as JM  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import ModelConfig  # noqa: E402
 from repro_torch.core.qmodel import QuantContext  # noqa: E402
+from repro_torch.distributed import sharding as tshd  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models.model import from_jax_params  # noqa: E402
 from tests import tp_cases  # noqa: E402
 from tests.torch_threads import one_torch_thread  # noqa: E402,F401
@@ -228,10 +230,19 @@ def test_refusals_without_processes(tmp_path):
     with pytest.raises(NotImplementedError, match="n_heads for MLA"):
         tserve._resolve_cfg_mesh("deepseek_v3_671b", smoke=False,
                                  mesh_shape=(1, 3))
+    # whisper on (1, 2) and RWKV6 on (2, 1) serve (their rank views: the
+    # heads and d_ff halved; the batch alone cut) and refuse training
     for arch, shape in (("whisper_large_v3", (1, 2)),
                         ("rwkv6_3b", (2, 1))):
+        cfg, got = tserve._resolve_cfg_mesh(arch, smoke=True,
+                                            mesh_shape=shape)
+        assert got == shape
+        loc = tshd.local_config(cfg, tmesh.RankMesh(*shape))
+        m = shape[1]
+        assert (loc.n_heads, loc.n_kv_heads, loc.d_ff) == (
+            cfg.n_heads // m, cfg.n_kv_heads // m, cfg.d_ff // m)
         with pytest.raises(NotImplementedError, match="item 8"):
-            tserve._resolve_cfg_mesh(arch, smoke=True, mesh_shape=shape)
+            ttrain.train(arch, 1, mesh_shape=shape, device="cpu")
     with pytest.raises(ValueError, match="eagerly"):
         tserve.serve("qwen3_1_7b", mesh_shape=(1, 2), graphs=True,
                      device="cpu")

@@ -34,7 +34,7 @@ def watched_engines():
         def __init__(self, *args, **kwargs):
             super().__init__(*args, **kwargs)
             self.first_logits, self.steps = None, []
-            for name in ("_ragged_fn", "_paged_fn"):
+            for name in ("_ragged_fn", "_paged_fn", "_rec_fn"):
                 if hasattr(self, name):
                     setattr(self, name, self._first(getattr(self, name)))
             built.append(self)
