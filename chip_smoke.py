@@ -375,8 +375,8 @@ the CUDA toolkit.  Phases, one line each (or a few):
     EXACT with its legacy A/B, the inspect twin on the port engine's
     trace.
 31. the recurrent and audio families over a (data, model) mesh of two
-    ranks sharing the card over gloo, at full width (rwkv6-3b on 8 of 32
-    layers, zamba2-2.7b on 12 of 54, whisper-large-v3 on 4 + 4 of 32 + 32
+    ranks sharing the card over gloo, at full width (rwkv6-3b on 4 of 32
+    layers, zamba2-2.7b on 6 of 54, whisper-large-v3 on 2 + 2 of 32 + 32
     over 1500 frames; ``RM_LAYERS``), the cases of
     ``tests/recurrent_mesh_cases.py``: (a) classic ``serve`` on (1, 2),
     calibrated INT, bf16 FP and fp32 FP (2 layers, zamba2 one group; an
@@ -391,6 +391,22 @@ the CUDA toolkit.  Phases, one line each (or a few):
     one rank's with K2's rank-split form (a partial and a finish) at each
     row-cut module (``_rm_row_cut``), decode ms a step and tokens/s of
     the ranks beside one rank's.
+32. training the recurrent (rwkv6-3b, zamba2-2.7b), audio
+    (whisper-large-v3) and MoE (granite-moe-3b, deepseek-v3 with MLA)
+    families over a (data, model) mesh (``launch.steps.jit_train_step``
+    on two spawned ranks sharing the card over gloo, the configurations of
+    ``tests/train_mesh_family_cases.py``): full width, cut in depth
+    (rwkv6 4 of 32 layers, zamba2 one group of 6, whisper 2 + 2 over
+    1500 frames, granite 4 of 32, deepseek-v3 its first, dense MLA
+    layer), 2 x 128 tokens a step against one rank alone on the card:
+    (a) fp32, 2 steps on (1, 2) and (2, 1) (deepseek-v3 on (1, 2) alone),
+    the ranks' metrics identical, the loss and grad_norm within
+    ``TRAIN_LOSS_RTOL`` of one rank's (the second step, after an update,
+    ``TMF_UPDATED_LOSS_REL`` / ``TMF_UPDATED_GNORM_REL``), K5 once an
+    attention layer a step and no other kernel; (b) one INT step on (1, 2): the loss one rank's bit for bit,
+    grad_norm 0, K2 (single, rank-split and, for the MoE family,
+    grouped), K3 and K5 launched on each rank; (c) bf16, 3 steps on (1,
+    2): step ms a rank and tokens/s beside one rank's.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -419,7 +435,8 @@ of phase 27's mesh; K5's, K2's and K3's launches on each rank of phase
 layout, and every kernel's launches on each rank of phase 29's mesh;
 K5's training launches in every family's steps and its recompute
 backward at MLA's and whisper's shapes, from phase 30; every kernel's
-launches on each rank of phase 31's mesh), and
+launches on each rank of phase 31's mesh; K5's, K2's and K3's launches
+on each rank of phase 32's training meshes), and
 as its last line ``{"ok": true, "device": {...}}``.  Any failed check exits
 non-zero before that line; without a CUDA device, or outside a checkout,
 it exits non-zero at once.  It imports nothing of JAX or of the JAX
@@ -8605,13 +8622,14 @@ def phase_train_families(torch, out, card=None):
 # ---------------------------------------------------------------------------
 
 # each family at full width on two ranks sharing the card over gloo, cut in
-# depth (the script's time): rwkv6-3b on 8 of its 32 layers, zamba2-2.7b
-# on 12 of its 54 (two groups of 6 Mamba blocks and the shared block),
-# whisper-large-v3 on 4 + 4 of its 32 + 32 layers over its 1500 stub
-# frames; fp32 FP on 2 layers (zamba2: one group of 6; whisper: 2 + 2)
+# depth (the script's time; 8, 12 and 4 + 4 layers until phase 32):
+# rwkv6-3b on 4 of its 32 layers, zamba2-2.7b on 6 of its 54 (one group
+# of 6 Mamba blocks and the shared block), whisper-large-v3 on 2 + 2 of
+# its 32 + 32 layers over its 1500 stub frames; fp32 FP on 2 layers
+# (zamba2: one group of 6; whisper: 2 + 2)
 RM_ARCHS = ("rwkv6_3b", "zamba2_2_7b", "whisper_large_v3")
-RM_LAYERS = {"rwkv6_3b": (8, 2), "zamba2_2_7b": (12, 6),
-             "whisper_large_v3": (4, 2)}
+RM_LAYERS = {"rwkv6_3b": (4, 2), "zamba2_2_7b": (6, 6),
+             "whisper_large_v3": (2, 2)}
 # bf16 FP on the mesh sums each row-cut module's fp32 partials and rounds
 # once where one rank's bf16 product rounds its own sum, and a column-cut
 # module's bf16 product over half the columns may round otherwise (the
@@ -8874,6 +8892,231 @@ def phase_recurrent_mesh(torch, out):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 32: training the recurrent, audio and MoE families over a (data,
+# model) mesh
+# ---------------------------------------------------------------------------
+
+# each family at full width cut in depth (``tests/train_mesh_family_cases.
+# py``'s CHIP_LAYERS: rwkv6-3b 4 of 32 layers, zamba2-2.7b one group, 6 of
+# 54, whisper-large-v3 2 + 2 of 32 + 32 over its 1500 stub frames,
+# granite-moe-3b 4 of 32, deepseek-v3 its first, dense MLA layer) on two
+# ranks sharing the card over gloo, the reference's ``jit_train_step``
+# over them, TMF_B x TMF_S tokens a step from weights and a stream
+# seeded 0, against one rank alone on the card: (a) fp32, TMF_STEPS steps
+# at a peak rate of FAM_LR with no warmup (the second step sees the
+# first's update) on (1, 2) and (2, 1), the first step's loss and
+# grad_norm within TRAIN_LOSS_RTOL (28b's) of one rank's, the second's
+# within TMF_UPDATED_LOSS_REL / TMF_UPDATED_GNORM_REL: AdamW's first
+# update moves each param by about lr sign(g), and where g is near 0 the
+# mesh's summation order and one rank's give it either sign, so those
+# params part by up to 2 lr and the second step's gradients follow them
+# (at a peak of 3e-3 zamba2's second grad_norm parted by 1.6e-2, its loss
+# by 8.6e-5, on an H100 80GB HBM3 at 700 W; the first step's by 2.8e-7);
+# deepseek-v3 on (1, 2) alone: on (2, 1) each rank holds
+# the whole 2.4 B parameters, whose fp32 params, gradients and AdamW
+# moments (38 GB a rank) two ranks cannot hold on one card; (b) one INT
+# step on (1, 2), the loss one rank's bit for bit, grad_norm 0; (c) bf16,
+# TMF_BF16_STEPS steps on (1, 2): step ms a rank and tokens/s beside one
+# rank's, printed and not gated.  The moe family on (2, 1) ranks each data
+# shard's pairs against its slice of the capacity (the reference's
+# per-shard dispatch; synthetic Zipf tokens repeat, so an expert may
+# overflow a shard's 64 rows), so its one rank runs that dispatch in one
+# process (``moe(data_shards=2)``)
+TMF_B, TMF_S, TMF_STEPS, TMF_BF16_STEPS = 2, 128, 2, 3
+TMF_UPDATED_LOSS_REL, TMF_UPDATED_GNORM_REL = 1e-4, 1e-2
+
+
+def _tmf_cases():
+    """32a-c's cases in the ranks' order: (tag, arch, case)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import train_mesh_family_cases as fam
+    out = []
+    for arch in fam.ARCHS:
+        base = dict(kind="train", arch=arch, smoke=False, batch=TMF_B,
+                    seq=TMF_S, keep=False, warmup=0, lr=FAM_LR,
+                    cfg=fam.chip_cfg(arch))
+        out += [("32a (1, 2)", arch, dict(base, steps=TMF_STEPS,
+                                          model_axis=2)),
+                ("32b", arch, dict(base, steps=1, mode="int",
+                                   model_axis=2))]
+        if arch != fam.DEEPSEEK:
+            out.append(("32a (2, 1)", arch, dict(base, steps=TMF_STEPS,
+                                                 model_axis=1)))
+        out.append(("32c", arch, dict(base, steps=TMF_BF16_STEPS,
+                                      model_axis=2,
+                                      cfg=fam.chip_cfg(arch, "bfloat16"))))
+    return out
+
+
+def _tmf_one_rank(torch, cases) -> dict:
+    """Each case on one rank alone on the card: {_tmf_key: result}.  A
+    (2, 1) case is its (1, 2) case's one rank, but for the moe family,
+    whose mesh dispatches per data shard (each shard's pairs ranked
+    against its slice of the capacity, the reference's): there the one
+    rank runs ``models.mlp.moe(data_shards=2)``, the one-process form of
+    the same dispatch (``tests/test_torch_moe_mesh.py`` holds it to the
+    reference's)."""
+    from unittest import mock
+    import train_mesh_cases as tmc
+    from repro_torch.models import mlp as tmlp
+    ones = {}
+    for tag, arch, case in cases:
+        key = _tmf_key(tag, case)
+        if key in ones:
+            continue
+        one = {k: v for k, v in case.items() if k != "model_axis"}
+        torch.cuda.reset_peak_memory_stats()
+        shards = key[2]
+        with (mock.patch.object(tmlp, "moe", functools.partial(
+                tmlp.moe, data_shards=shards)) if shards > 1
+              else contextlib.nullcontext()):
+            ones[key] = tmc.run(one, device="cuda")
+        ones[key]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ones
+
+
+def _tmf_kind(tag: str) -> str:
+    return {"32a": "fp32", "32b": "int", "32c": "bf16"}[tag[:3]]
+
+
+def _tmf_key(tag: str, case: dict) -> tuple:
+    """(kind, arch, the data shards of the moe family's dispatch) of a
+    case's one-rank run."""
+    import train_mesh_cases as tmc
+    moe = tmc.config(case).moe is not None
+    shards = 3 - case["model_axis"] if moe else 1
+    return _tmf_kind(tag), case["arch"], shards
+
+
+def _tmf_held(torch, res, cases, ones, ranks):
+    """Every case on the two ranks against its one-rank run (32a-c's
+    rules); each rank's launches: K5 once an attention layer a step (the
+    non-causal form at whisper's encoder and cross-attention), in INT also
+    K3, K2 and its rank-split form at each row-cut module and, for the
+    moe family, its grouped form; the same on both ranks."""
+    import train_mesh_cases as tmc
+    failed = []
+    res["cases"] = {}
+    for i, (tag, arch, case) in enumerate(cases):
+        kind = _tmf_kind(tag)
+        got = [r[i] for r in ranks]
+        one = ones[_tmf_key(tag, case)]
+        m0 = got[0]["metrics"]
+        name = f"{tag} {arch}"
+        for r, g in enumerate(got):
+            if g["metrics"] != m0 or g["launches"] != got[0]["launches"]:
+                failed.append(f"{name} rank {r}: metrics or launches differ "
+                              f"from rank 0's")
+        ms, om = [m["loss"] for m in m0], [m["loss"] for m in one["metrics"]]
+        gs = [m["grad_norm"] for m in m0]
+        ogs = [m["grad_norm"] for m in one["metrics"]]
+        if not all(math.isfinite(x) for x in ms + gs):
+            failed.append(f"{name}: non-finite metrics {m0}")
+        cfg = tmc.config(case)
+        per, per_nc = _fam_attention_layers(cfg)
+        lz = got[0]["launches"]
+        steps = case["steps"]
+        errs = None
+        if kind == "int":
+            if ms != om or gs != [0.0] or ogs != [0.0]:
+                failed.append(f"{name}: INT loss {ms} (one rank {om}), "
+                              f"grad_norm {gs} (one rank {ogs})")
+            need = ["int8_matmul", "quantize", "int8_matmul_partial",
+                    "int8_matmul_finish"]
+            if cfg.moe is not None and cfg.n_layers > cfg.moe.n_dense_layers:
+                need.append("int8_matmul_grouped")      # a MoE layer's
+            if any(not lz.get(k) for k in need) or \
+                    lz["flash_prefill"] != per * steps:
+                failed.append(f"{name}: launches {lz}, want {need} and K5 "
+                              f"{per * steps}")
+        else:
+            want = {k: 0 for k in lz}
+            want.update(flash_prefill=per * steps,
+                        flash_prefill_noncausal=per_nc * steps)
+            if lz != want:
+                failed.append(f"{name}: launches {lz}, want {want}")
+        if kind == "fp32":
+            errs = {k: [abs(a - b) / abs(b) for a, b in zip(
+                [m[k] for m in m0], [m[k] for m in one["metrics"]])]
+                for k in ("loss", "grad_norm")}
+            lims = {"loss": [TRAIN_LOSS_RTOL]
+                    + [TMF_UPDATED_LOSS_REL] * (steps - 1),
+                    "grad_norm": [TRAIN_LOSS_RTOL]
+                    + [TMF_UPDATED_GNORM_REL] * (steps - 1)}
+            if len(m0) != steps or any(
+                    e > lim for k in errs
+                    for e, lim in zip(errs[k], lims[k])):
+                failed.append(f"{name}: loss {ms} grad_norm {gs} against "
+                              f"one rank's {om} / {ogs}: gaps {errs}, "
+                              f"limits {lims}")
+        med = sorted(got[0]["step_s"][1:] or got[0]["step_s"])
+        one_med = sorted(one["step_s"][1:] or one["step_s"])
+        step_ms = 1e3 * med[len(med) // 2]
+        one_ms = 1e3 * one_med[len(one_med) // 2]
+        res["cases"][name] = dict(
+            metrics=m0, one_rank=one["metrics"], rel_err=errs, launches=[
+                g["launches"] for g in got],
+            one_rank_launches=one["launches"], step_ms=step_ms,
+            one_rank_step_ms=one_ms,
+            tokens_per_s=TMF_B * TMF_S / step_ms * 1e3,
+            one_rank_tokens_per_s=TMF_B * TMF_S / one_ms * 1e3,
+            peak_gib=[g["peak_gib"] for g in got],
+            one_rank_peak_gib=one["peak_gib"], wall_s=got[0]["wall_s"])
+        c = res["cases"][name]
+        mode = "INT" if kind == "int" else "FP"
+        log(f"[{tag[:3]}] {arch} {cfg.dtype} {mode} on "
+            f"{tag[4:] or '(1, 2)'} ({cfg.n_layers} layers"
+            + (f" + {cfg.encdec.n_encoder_layers} encoder layers over "
+               f"{cfg.encdec.encoder_seq} frames" if cfg.encdec else "")
+            + f"), {steps} steps of {TMF_B} x {TMF_S} tokens: losses "
+            f"{ms} grad_norm {gs}; one rank {om} / {ogs}"
+            + (f"; relative gaps {errs}" if errs else "")
+            + f"; step {step_ms:.1f} ms a rank ({c['tokens_per_s']:.0f} "
+            f"tokens/s; one rank {one_ms:.1f} ms, "
+            f"{c['one_rank_tokens_per_s']:.0f} tokens/s), peak "
+            f"{[round(x, 2) for x in c['peak_gib']]} GiB a rank (one rank "
+            f"{one['peak_gib']:.2f}); launches a rank {lz} (one rank "
+            f"{ {k: v for k, v in one['launches'].items() if v} }); "
+            f"{got[0]['wall_s']:.1f} s on the ranks")
+    check(not failed, "; ".join(failed))
+
+
+def phase_train_mesh_families(torch, out):
+    """Phase 32: training the recurrent (rwkv6-3b, zamba2-2.7b), audio
+    (whisper-large-v3) and MoE (granite-moe-3b, deepseek-v3 with MLA)
+    families over a (data, model) mesh of two ranks sharing the card over
+    gloo, at full width cut in depth: 32a-c (``_tmf_cases``) against one
+    rank alone on the card (``_tmf_held``)."""
+    t0 = time.perf_counter()
+    res = {"part_s": {}}
+    from repro_torch.launch.mesh import run_ranks
+    sys.path.insert(0, str(ROOT / "tests"))
+    import train_mesh_family_cases as fam
+    cases = _tmf_cases()
+    t1 = time.perf_counter()
+    ones = _tmf_one_rank(torch, cases)
+    res["part_s"]["one rank"] = time.perf_counter() - t1
+    free, total = torch.cuda.mem_get_info()
+    log(f"[32] {free / 2**30:.1f} of {total / 2**30:.1f} GiB free on the "
+        f"card before the ranks")
+    t1 = time.perf_counter()
+    ranks = run_ranks(fam.run_cases, (1, 2), device="cuda", backend="gloo",
+                      kwargs={"cases": [c for *_, c in cases]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["part_s"]["ranks"] = time.perf_counter() - t1
+    _tmf_held(torch, res, cases, ones, ranks)
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[32] training the recurrent, audio and MoE families over a mesh "
+        f"{res['seconds']:.1f} s (parts "
+        f"{ {k: round(v, 1) for k, v in res['part_s'].items()} })")
+    out["train_mesh_families"] = res
+    return res
+
+
 # the phases that time nothing (no CUDA-event time, no profile, no
 # training step), which may run beside the background thread; before any
 # other phase ``_run_phase`` waits for that thread to be idle
@@ -8910,7 +9153,8 @@ def main(argv=None) -> int:
                          "build and launch floor, always runs), "
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
-                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31); "
+                         "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, "
+                         "32); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -8950,7 +9194,8 @@ def _run(torch, args, out, t_start) -> int:
                  22: phase_configs, 23: phase_recurrent_classic,
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
                  27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh,
-                 30: phase_train_families, 31: phase_recurrent_mesh}
+                 30: phase_train_families, 31: phase_recurrent_mesh,
+                 32: phase_train_mesh_families}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -9031,6 +9276,8 @@ def _run(torch, args, out, t_start) -> int:
         del fam_card
         torch.cuda.empty_cache()
         rm = _run_phase(out, phase_recurrent_mesh, torch, out)
+        torch.cuda.empty_cache()
+        tmf = _run_phase(out, phase_train_mesh_families, torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -9429,6 +9676,23 @@ def _run(torch, args, out, t_start) -> int:
                                  for r in rm[tag][run]["launches"]]
          for tag in ("31a", "31c") for run in rm[tag]
          if run.endswith(" int") for form in ("partial", "finish")})
+    # training the recurrent, audio and MoE families over a mesh (phase
+    # 32): each kernel's launches on each rank of 32a's fp32 and 32b's INT
+    # steps
+    for k_name, key in (("flash_prefill", "flash_prefill"),
+                        ("flash_prefill_noncausal", "flash_prefill_noncausal"),
+                        ("int8_matmul_requant", "int8_matmul"),
+                        ("int8_matmul_grouped", "int8_matmul_grouped"),
+                        ("quantize", "quantize")):
+        entry = next(e for e in kernels if e["name"] == k_name)
+        entry["train_mesh_family_launches"] = {
+            run: [r[key] for r in c["launches"]]
+            for run, c in tmf["cases"].items() if not run.startswith("32c")}
+    entry = next(e for e in kernels if e["name"] == "int8_matmul_requant")
+    entry["train_mesh_family_launches"].update(
+        {f"{run} {form}": [r[f"int8_matmul_{form}"] for r in c["launches"]]
+         for run, c in tmf["cases"].items() if run.startswith("32b")
+         for form in ("partial", "finish")})
     out.update(card=smi, build_s=build_s, kernels=kernels,
                seconds=time.perf_counter() - t_start)
     if args.out:

@@ -145,8 +145,8 @@ def capture_activations():
 
 def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
             b: Optional[torch.Tensor] = None, *, reduce: bool = False,
-            split_input: bool = False, gather: bool = False
-            ) -> torch.Tensor:
+            split_input: bool = False, gather: bool = False,
+            whole: bool = False) -> torch.Tensor:
     """One unified-module linear op under the active quantization mode.
 
     ``x`` is a float activation at the module boundary; the result is a
@@ -162,27 +162,31 @@ def qlinear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
     gradient, each rank's partial, is summed over the model axis
     (``copy_to_model``).
 
-    Two forms the recurrent families' rules ask for (serving only; no
-    mesh in scope, they change nothing):
+    Three forms the other families' rules ask for (no mesh in scope,
+    they change nothing):
 
     * ``split_input`` (with ``reduce``): the rules cut the module's
       contract dim but ``x`` is whole on every rank (RWKV6's ``w[rkvgo]``,
       mamba2's ``w_in``): the rank takes its block of x's last dim, then
       the row-cut sum.  Elementwise quantization makes the block's codes
       the whole x's codes of the block, so INT stays one rank's bit for
-      bit.
+      bit.  In training x's gradient, each rank's block (zeros elsewhere),
+      is summed over the model axis.
     * ``gather``: a column-cut module whose output a norm or a residual
       reads whole (mamba2's ``w_out``, zamba2's ``shared/in_proj``,
       RWKV6's ``wr_ffn``): the ranks' output columns are gathered over the
       model axis.  Each column is computed over the whole K, so this is
       exact in every mode.
+    * ``whole``: the rules leave the weight whole (MLA's ``wq_a`` and
+      ``wkv_a``): x, w and the output are every rank's, and so is x's
+      gradient, which is not summed.
     """
     mesh = shd.tp_mesh()
+    if mesh is not None and not whole and (split_input or not reduce):
+        x = copy_to_model(x, mesh)
     if mesh is not None and split_input:
         k = x.shape[-1] // mesh.shape["model"]
         x = x.narrow(-1, mesh.coords["model"] * k, k)
-    if mesh is not None and not reduce:
-        x = copy_to_model(x, mesh)
     y = _qlinear(ctx, name, x, w, b, mesh, mesh if reduce else None)
     if mesh is not None and gather:
         y = gather_from_model(y, mesh, -1)

@@ -16,6 +16,9 @@ bit; the backward is what training adds:
   partials (a row-cut module's output); the backward is the identity.
 * :func:`gather_from_model` -- the ranks' blocks of ``dim`` concatenated
   (the vocab-cut head's logits); the backward keeps the rank's block.
+* :func:`gather_rows_from_model` -- the ranks' rows concatenated, rank
+  i's ``sizes[i]`` of them (the MoE layer's expert output rows); the
+  backward keeps the rank's rows.
 * :func:`vocab_embed` -- the lookup in a vocab-cut table, the ranks'
   lookups summed as integers over their bit patterns (one rank holds each
   row); the backward adds the output gradient into the rows this rank
@@ -34,7 +37,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["copy_to_model", "reduce_from_model", "gather_from_model",
-           "vocab_embed", "fsdp_gather", "sum_over_data"]
+           "gather_rows_from_model", "vocab_embed", "fsdp_gather",
+           "sum_over_data"]
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -68,6 +72,18 @@ class _GatherFromModel(torch.autograd.Function):
     def backward(ctx, g):
         start = ctx.mesh.coords["model"] * ctx.size
         return g.narrow(ctx.dim, start, ctx.size), None, None
+
+
+class _GatherRowsFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, sizes):
+        me = mesh.coords["model"]
+        ctx.start, ctx.n = sum(sizes[:me]), sizes[me]
+        return torch.cat(mesh.all_gather_rows(x, "model", sizes))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(0, ctx.start, ctx.n), None, None
 
 
 def _lookup(table, tokens, mesh, dtype):
@@ -159,6 +175,19 @@ def gather_from_model(x: torch.Tensor, mesh, dim: int = -1
     if not _grad(x):
         return mesh.all_gather(x, "model", dim)
     return _GatherFromModel.apply(x, mesh, dim % x.ndim)
+
+
+def gather_rows_from_model(x: torch.Tensor, mesh, sizes
+                           ) -> torch.Tensor:
+    """The ranks' ``x`` concatenated along dim 0 in rank order, rank i's
+    holding ``sizes[i]`` rows (``launch.mesh.RankMesh.all_gather_rows``);
+    the backward keeps the rank's rows (every rank of the model axis
+    reads the same whole result)."""
+    if mesh.shape["model"] == 1:
+        return x
+    if not _grad(x):
+        return torch.cat(mesh.all_gather_rows(x, "model", sizes))
+    return _GatherRowsFromModel.apply(x, mesh, list(sizes))
 
 
 def vocab_embed(table: torch.Tensor, tokens: torch.Tensor, mesh,

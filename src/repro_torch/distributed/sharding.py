@@ -32,11 +32,11 @@ model code adds the collectives itself; the scope
 (:func:`activation_sharding`) tells it the mesh, and
 :func:`local_config` gives the per-rank view of a config under which the
 blocks run unchanged (under serving's rules and training's alike: the
-dense families' cuts are the same; FSDP's data cut is gathered before a
-block runs; the moe family's expert cuts are serving's, its layer
-exchanging token rows itself, ``models.mlp.moe``; the recurrent and audio
-families are served only).  :func:`shard_params` cuts a full tree down
-to one rank's leaves by these rules, :func:`shard_tree` any state tree
+dense, recurrent and audio families' cuts are the same; FSDP's data cut
+is gathered before a block runs; the moe family's expert cuts are
+serving's or training's, as the scope says, its layer exchanging token
+rows itself, ``models.mlp.moe``).  :func:`shard_params` cuts a full tree
+down to one rank's leaves by these rules, :func:`shard_tree` any state tree
 by a spec tree (the optimizer's by :func:`_opt_spec_like`), and
 :func:`unshard_params` gathers a rank's tree back to the whole one.
 """
@@ -56,7 +56,7 @@ from repro_torch.core.tree import leaves_with_paths, unflatten
 __all__ = ["DATA_AXES", "param_sharding_rules", "opt_sharding_rules",
            "batch_sharding", "cache_sharding_rules", "activation_sharding",
            "current_mesh", "data_shards", "batch_shards", "model_shards",
-           "tp_mesh",
+           "tp_mesh", "training",
            "local_config", "shard_params", "leaf_spec", "reference_leaf",
            "spec_axes", "spec_list", "data_dim", "shard_leaf", "unshard_leaf",
            "shard_tree", "unshard_params", "rank_zeros"]
@@ -362,13 +362,16 @@ _TLS = threading.local()
 
 
 @contextlib.contextmanager
-def activation_sharding(mesh, *, batch_split: bool = False):
+def activation_sharding(mesh, *, batch_split: bool = False,
+                        train: bool = False):
     """The mesh the model code in this scope runs on (one rank's slice of
     every cut tensor; collectives where the reference's GSPMD would
     reshard).  ``batch_split``: the data axis holds one slice of the
-    batch each (classic ``serve``), not replicas (the engine)."""
+    batch each (classic ``serve``, training), not replicas (the engine).
+    ``train``: the params are cut by training's rules (the moe family's
+    experts whole in their hidden, :func:`local_config`)."""
     prev = getattr(_TLS, "scope", None)
-    _TLS.scope = (mesh, batch_split)
+    _TLS.scope = (mesh, batch_split, train)
     try:
         yield
     finally:
@@ -390,6 +393,12 @@ def data_shards(mesh=None) -> int:
         return 1
     dp = _dp(mesh)
     return _axis_size(mesh, dp) if dp else 1
+
+
+def training() -> bool:
+    """Whether the active scope cuts the params by training's rules."""
+    scope = getattr(_TLS, "scope", None)
+    return scope is not None and scope[2]
 
 
 def batch_shards() -> int:
@@ -417,9 +426,8 @@ def tp_mesh():
 
 def _refuse(what: str):
     raise NotImplementedError(
-        f"{what} is ROADMAP Queue 1 item 8's (serving over a mesh covers "
-        f"the dense, vlm, moe, ssm, hybrid and audio families, training "
-        f"the dense ones)")
+        f"{what} is ROADMAP Queue 1 item 8's (serving and training over a "
+        f"mesh cover the dense, vlm, moe, ssm, hybrid and audio families)")
 
 
 _LM_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
@@ -435,27 +443,26 @@ def local_config(cfg, mesh, *, train: bool = False):
     expert stacks over ``model`` and, where serving's 2-D rule cuts it,
     each expert's hidden over ``data`` (``MoEConfig.expert_shards`` /
     ``hidden_shards``; the router's experts, top-k and the capacity stay
-    the whole model's).  The vocab and d_model stay whole: the head
-    gathers its logits, and the recurrent families' projections give
+    the whole model's).  ``train``: training's rules, under which each
+    expert's hidden stays whole (``hidden_shards == 1``); the other
+    families' views are serving's.  The vocab and d_model stay whole: the
+    head gathers its logits, and the recurrent families' projections give
     whole outputs (RWKV6's heads, which its time mix reads from d_model,
     and the recurrent states stay whole on every rank).  Refuses what the
-    port does not cut: training any family but the dense ones (``train``),
-    a shard axis other than ``model``, and a model axis that does not
-    divide the KV heads, d_ff, the padded vocab, the experts or (the ssm
-    and hybrid families) d_model, where the rules fall back to another
-    layout.  Without a mesh, or on a mesh of one rank, ``cfg`` itself."""
+    port does not cut: a shard axis other than ``model``, and a model axis
+    that does not divide the KV heads, d_ff, the padded vocab, the experts
+    or (the ssm and hybrid families) d_model, where the rules fall back to
+    another layout.  Without a mesh, or on a mesh of one rank, ``cfg``
+    itself."""
     if mesh is None or math.prod(mesh.shape.values()) == 1:
         return cfg
     if cfg.family not in _LM_FAMILIES:
         _refuse(f"the {cfg.family!r} family under a mesh of more than one "
                 f"rank")
-    if train and cfg.family not in ("dense", "vlm"):
-        _refuse(f"training the {cfg.family} family on a mesh of more than "
-                f"one rank")
     tp = model_shards(mesh)
     view = {}
     if cfg.moe is not None:
-        view["moe"] = _moe_view(cfg, mesh)
+        view["moe"] = _moe_view(cfg, mesh, train)
     if tp > 1:
         if cfg.attn_shard_axis != "model":
             raise NotImplementedError(
@@ -484,20 +491,23 @@ def local_config(cfg, mesh, *, train: bool = False):
     return dataclasses.replace(cfg, **view) if view else cfg
 
 
-def _moe_view(cfg, mesh):
-    """The rank's ``MoEConfig``: the cuts serving's rules give an expert
-    stack (``moe/w1``, ``moe/w2``: the experts over ``model``, each one's
-    hidden over ``data`` when the axis divides it), refusing the rules'
-    fall-back (experts the model axis does not divide) and a shared
-    expert whose hidden the model axis does not divide."""
+def _moe_view(cfg, mesh, train: bool = False):
+    """The rank's ``MoEConfig``: the cuts serving's rules (or with
+    ``train`` training's) give an expert stack (``moe/w1``, ``moe/w2``:
+    the experts over ``model``; serving's also each one's hidden over
+    ``data`` when the axis divides it), refusing the rules' fall-back
+    (experts the model axis does not divide) and a shared expert whose
+    hidden the model axis does not divide.  FSDP's data cut of a
+    training leaf is gathered before the layer runs, so it takes no part
+    in the view."""
     m = cfg.moe
     lead = (cfg.n_layers - m.n_dense_layers,)
     w1 = leaf_spec("blocks/moe/w1", lead + (m.e_padded, cfg.d_model,
                                             m.d_expert),
-                   mesh, fsdp=False, serve=True)[1:]
+                   mesh, fsdp=False, serve=not train)[1:]
     w2 = leaf_spec("blocks/moe/w2", lead + (m.e_padded, m.d_expert,
                                             cfg.d_model),
-                   mesh, fsdp=False, serve=True)[1:]
+                   mesh, fsdp=False, serve=not train)[1:]
     tp = model_shards(mesh)
     if w1[0] != "model" or (w2[0], w2[1]) != (w1[0], w1[2]):
         _refuse(f"{m.e_padded} experts the model axis ({tp}) does not "

@@ -193,7 +193,7 @@ def build_train_step(cfg: ModelConfig, ctx: QuantContext, opt: Optimizer,
                               fsdp_dims=fsdp_dims)
 
     def train_step(params, opt_state: OptState, batch):
-        with _mesh_scope(mesh, batch_split=True):
+        with _mesh_scope(mesh, batch_split=True, train=True):
             if accum_steps == 1:
                 loss, metrics, grads = grads_of(params, batch)
             else:
@@ -309,9 +309,8 @@ def _resolve_attn_kernel(cfg: ModelConfig, mesh=None, *,
     attention of the port cuts heads, so it refuses for either kernel (the
     sequence cut is ROADMAP Queue 1 item 8's).  Then the family's and the
     layout's refusals (``distributed.sharding.local_config``; ``train``:
-    a training step's, which refuses the moe family); and, serving the moe
-    family, a mesh on which the reference would turn FSDP on
-    (:func:`serve_needs_fsdp`)."""
+    under training's rules); and, serving the moe family, a mesh on which
+    the reference would turn FSDP on (:func:`serve_needs_fsdp`)."""
     if _mesh_size(mesh) > 1:
         if cfg.attn_shard_axis != "model":
             raise NotImplementedError(
@@ -343,9 +342,10 @@ def _resolve_attn_kernel(cfg: ModelConfig, mesh=None, *,
     return cfg
 
 
-def _mesh_scope(mesh, batch_split: bool = False):
+def _mesh_scope(mesh, batch_split: bool = False, train: bool = False):
     """The mesh's scope for a step body (a null context without one)."""
-    return (shd.activation_sharding(mesh, batch_split=batch_split)
+    return (shd.activation_sharding(mesh, batch_split=batch_split,
+                                    train=train)
             if mesh is not None else contextlib.nullcontext())
 
 

@@ -8,8 +8,10 @@ asynchronous checkpoints and the heartbeat monitor.
         [--mesh 1x2 [--dist-backend gloo]]
 
 Runs on the CUDA device unless ``--device cpu``.  ``--mesh DxM`` trains
-on a (data, model) mesh of D x M ranks (the dense families; the batch
-over data, heads, d_ff and vocab over model), spawned here, or joined
+on a (data, model) mesh of D x M ranks (every language-model family;
+the batch, and the audio family's stub frames, over data; heads, d_ff,
+vocab, the experts and the recurrent projections over model), spawned
+here, or joined
 when ``torchrun`` started the process (``torchrun --nproc-per-node D*M
 -m repro_torch.launch.train ... --mesh DxM``); rank 0 prints.  The
 restart loop (restore the latest commit, re-plan, continue) is
@@ -66,11 +68,12 @@ def train(arch: str, steps: int, *, batch: int = 8, seq: int = 128,
     x M ranks (``launch.mesh``: spawned here unless ``torchrun`` started
     this process) over ``dist_backend`` (default nccl on the card, gloo
     on the CPU): the reference's ``jit_train_step`` with ``fsdp=False``,
-    its batch over ``data`` (``batch`` a multiple of D x ``accum``), heads,
-    d_ff and vocab over ``model``; checkpoints hold the whole state, so a
-    run resumes on any mesh.  The dense families only.  A caller that is
-    already a rank passes its ``mesh`` (``launch.mesh.RankMesh``)
-    instead.
+    its batch (and the audio family's ``encoder_features``) over ``data``
+    (``batch`` a multiple of D x ``accum``), heads, d_ff, vocab, the
+    experts and the recurrent families' projections over ``model``;
+    checkpoints hold the whole state, so a run resumes on any mesh.  A
+    caller that is already a rank passes its ``mesh`` (``launch.mesh.
+    RankMesh``) instead.
 
     Returns {"params", "losses" (one a step run), "step_s" (host seconds
     a step, the device synchronized), "wall_s", "cfg"}; on a mesh rank
@@ -201,8 +204,8 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                     help="train on a (data, model) mesh of ranks, e.g. "
-                         "'1x2': the batch over data; heads, MLP hidden "
-                         "and vocab over model")
+                         "'1x2': the batch over data; heads, MLP hidden, "
+                         "experts and vocab over model")
     ap.add_argument("--dist-backend", default=None, choices=["gloo", "nccl"],
                     help="[--mesh] the ranks' torch.distributed backend "
                          "(default nccl on the card, gloo on the CPU; ranks "

@@ -122,13 +122,14 @@ def last_row(n_rows: int, device: torch.device) -> torch.Tensor:
     return torch.full((), n_rows - 1, dtype=torch.int32, device=device)
 
 
-def _whole_gain(gain: torch.Tensor) -> torch.Tensor:
-    """A leaf the rules leave whole that acts on the rank's own heads: on
-    a tensor-parallel mesh its gradient is summed over the model axis
-    (``distributed.collectives.copy_to_model``), so every rank holds the
-    whole gradient; the value is ``gain`` itself."""
+def _whole_on_heads(t: torch.Tensor) -> torch.Tensor:
+    """A tensor whole on every rank that acts on the rank's own heads (a
+    gain the rules leave whole, MLA's rope key): on a tensor-parallel mesh
+    its gradient is summed over the model axis (``distributed.
+    collectives.copy_to_model``), so every rank holds the whole gradient;
+    the value is ``t`` itself."""
     mesh = shd.tp_mesh()
-    return gain if mesh is None else copy_to_model(gain, mesh)
+    return t if mesh is None else copy_to_model(t, mesh)
 
 
 def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
@@ -205,8 +206,8 @@ def gqa_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     if cfg.qk_norm:
         # whole gains over the rank's own heads on a mesh: each rank's
         # gradient is partial, summed over the model axis
-        q = rmsnorm(q, _whole_gain(p["q_norm"]), cfg.norm_eps)
-        k = rmsnorm(k, _whole_gain(p["k_norm"]), cfg.norm_eps)
+        q = rmsnorm(q, _whole_on_heads(p["q_norm"]), cfg.norm_eps)
+        k = rmsnorm(k, _whole_on_heads(p["k_norm"]), cfg.norm_eps)
     if rope is not None:
         q, k = rotate(q, *rope), rotate(k, *rope)
 
@@ -345,21 +346,30 @@ def mla_attention(ctx: QuantContext, p: dict, x: torch.Tensor,
     ``wkv_a`` whole, ``wq_b`` and ``wkv_b`` column-cut by head (the rank's
     ``n_heads``), both forms over the rank's heads, ``wo`` row-cut (its
     ranks' partials summed: K2's rank-split form in INT); the latent
-    cache is whole on every rank (``sharding.cache_sharding_rules``)."""
+    cache is whole on every rank (``sharding.cache_sharding_rules``).  In
+    training the latents' gradients come whole to every rank (``wq_b``'s
+    and ``wkv_b``'s inputs summed over the model axis, as the rope key's,
+    which the rank's heads share), so ``wq_a``'s and ``wkv_a``'s are
+    every rank's own, not summed."""
     m: MLAConfig = cfg.mla
     b, s, _ = x.shape
     h = cfg.n_heads
     nope, rope_d, vdim = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
 
-    cq = rmsnorm(linear(ctx, f"{name}/wq_a", x, p["wq_a"]), p["q_norm"],
-                 cfg.norm_eps)
+    # the latent down-projections are whole on every rank
+    cq = rmsnorm(linear(ctx, f"{name}/wq_a", x, p["wq_a"], whole=True),
+                 p["q_norm"], cfg.norm_eps)
     q = linear(ctx, f"{name}/wq_b", cq, p["wq_b"]).reshape(
         b, s, h, nope + rope_d)
     q_nope, q_pe = q[..., :nope], rotate(q[..., nope:], *rope)
 
-    kv_a = linear(ctx, f"{name}/wkv_a", x, p["wkv_a"])
+    kv_a = linear(ctx, f"{name}/wkv_a", x, p["wkv_a"], whole=True)
     c_kv = rmsnorm(kv_a[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
     k_pe = rotate(kv_a[..., m.kv_lora_rank:][:, :, None, :], *rope)[:, :, 0]
+    if cache is None:
+        # the rope key goes to the rank's own heads: its gradient, each
+        # rank's partial, summed over the model axis
+        k_pe = _whole_on_heads(k_pe)
 
     if cache is None:
         kv = linear(ctx, f"{name}/wkv_b", c_kv, p["wkv_b"]).reshape(

@@ -104,7 +104,7 @@ def linear(ctx: QuantContext, name: str, x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor] = None, **cut) -> torch.Tensor:
     """Unified-module linear — alias keeping model code terse (``cut``:
     ``qlinear``'s mesh keywords, ``reduce``, ``split_input``,
-    ``gather``)."""
+    ``gather``, ``whole``)."""
     return qlinear(ctx, name, x, w, b, **cut)
 
 

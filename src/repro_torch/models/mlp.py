@@ -37,6 +37,8 @@ from repro_torch.core.integer_ops import LinearQuantSpec
 from repro_torch.core.qmodel import ModuleBits, QuantContext, QuantMode
 from repro_torch.core.qscheme import fake_quant
 from repro_torch.distributed import sharding as shd
+from repro_torch.distributed.collectives import (copy_to_model,
+                                                 gather_rows_from_model)
 from repro_torch.kernels import ops as kops
 from repro_torch.models import common
 from repro_torch.models.common import linear
@@ -415,7 +417,14 @@ def _moe_mesh(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     bit.  Each kept pair's output row then goes back over ``model`` to
     its token's rank (the column's rows of this shard, gathered in expert
     order), which combines in k order as one rank does: no float sum over
-    ``model``.  Reads the counts on the host (a mesh runs eagerly)."""
+    ``model``.  Reads the counts on the host (a mesh runs eagerly).
+
+    In training (``sharding.local_config(train=True)``: each expert's
+    hidden whole, so nothing crosses ``data``) the gather's backward keeps
+    the column's rows of the gradient, and the token rows' gradient is
+    summed over ``model``; the router and ``top_p``, which read the whole
+    shard on every rank, take every rank's whole gradient.  The shared
+    expert is a column-cut, then row-cut MLP."""
     m = cfg.moe             # the rank's view (``sharding.local_config``)
     ds = shd.batch_shards()
     if shd.data_shards(mesh) > 1 and ds == 1:
@@ -477,7 +486,10 @@ def _moe_mesh(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
         buf.index_copy_(0, idx, packed)
         return buf.view(el, segs * cap_l, d)
 
-    bufs = [exchange(r) for r in _token_rows(ctx, xt, name)]
+    # the rows the column's experts read: in training the tokens'
+    # gradient, each column's experts' part, is summed over model
+    bufs = [exchange(r) for r in _token_rows(ctx, copy_to_model(xt, mesh),
+                                             name)]
     grid = grid_h.T.contiguous().to(dev)            # (E / M, segs) int32
     out_buf = _expert_ffn(ctx, p, name, bufs,
                           grid if segs > 1 else grid[:, 0], rows_cap,
@@ -492,7 +504,7 @@ def _moe_mesh(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     # every column's rows of this shard, in expert order
     sizes = [int(counts_h[c * el:(c + 1) * el].sum())
              for c in range(mesh.shape["model"])]
-    rows = torch.cat(mesh.all_gather_rows(rows, "model", sizes))
+    rows = gather_rows_from_model(rows, mesh, sizes)
     off_all = torch.cumsum(counts.to(torch.int64), 0) - counts
     index = torch.where(keep, off_all[flat_e] + rank, 0)
     out = _combine(rows, index, keep, top_p, x.dtype)

@@ -70,7 +70,8 @@ def _check_family(cfg: ModelConfig, what: str,
                   families: tuple = _DENSE + (_MOE, _AUDIO) + _RECURRENT
                   ) -> None:
     if cfg.family in families:
-        shd.local_config(cfg, shd.current_mesh())   # the mesh's refusals
+        # the mesh's refusals
+        shd.local_config(cfg, shd.current_mesh(), train=shd.training())
         return
     if cfg.family in (_MOE, _AUDIO):
         raise NotImplementedError(
@@ -95,9 +96,10 @@ def _check_family(cfg: ModelConfig, what: str,
 def _rank_view(cfg: ModelConfig, mesh=None) -> ModelConfig:
     """``cfg`` as one rank of the mesh (``mesh``, default the scope's)
     sees it: heads, KV heads and d_ff divided by the model axis
-    (``distributed.sharding.local_config``); ``cfg`` itself off a mesh."""
+    (``distributed.sharding.local_config``, under training's rules in a
+    training scope); ``cfg`` itself off a mesh."""
     return shd.local_config(cfg, shd.current_mesh() if mesh is None
-                            else mesh)
+                            else mesh, train=shd.training())
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, *,
@@ -478,8 +480,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     its 2-D products ('dots'); no value changes.
 
     Under a tensor-parallel scope (``distributed.sharding.
-    activation_sharding``; the dense families, and in serving every
-    family) ``params`` and ``cache`` are one rank's slices (the recurrent
+    activation_sharding``) ``params`` and ``cache`` are one rank's slices (the recurrent
     states and whisper's memory whole, ``distributed.sharding.
     cache_sharding_rules``) and the blocks run on the rank's view of
     ``cfg``; the logits are every rank's, whole."""
@@ -539,8 +540,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig, ctx: QuantContext,
     the same, without a (B, S, V) one-hot.
 
     Under a scope whose data axis cuts the batch (training on a mesh,
-    ``activation_sharding(mesh, batch_split=True)``) ``batch`` is this
-    rank's block of rows and the loss is the global one, as the
+    ``activation_sharding(mesh, batch_split=True, train=True)``) ``batch``
+    is this rank's block of rows and the loss is the global one, as the
     reference's over its data-cut batch: the masked sum and the mask
     count (the z-loss's sum and count) summed over the data axis, then
     divided (``distributed.collectives.sum_over_data``), the same value

@@ -17,12 +17,16 @@ Their products are fp32 matmuls: they must not run in TF32 or bf16 (the
 port keeps PyTorch's default, ``torch.backends.cuda.matmul.allow_tf32 =
 False``), since the chunked form multiplies by exponentials up to e^53.
 
-On a (data, model) mesh (serving) the r/k/v/g/o projections are cut on
-their contract dim over a whole input, each rank taking its block of it
+On a (data, model) mesh the r/k/v/g/o projections are cut on their
+contract dim over a whole input, each rank taking its block of it
 (``_ROWS``: ``qlinear``'s ``split_input``), and give whole outputs, so
 the heads, the scan, the ``ln_x`` statistic and the state are whole on
 every rank, as one rank's; the channel mix cuts its hidden (``wk_ffn``
-columns, ``wv_ffn`` rows) and gathers ``wr_ffn``'s columns.
+columns, ``wv_ffn`` rows) and gathers ``wr_ffn``'s columns.  In training
+every projection's input gradient is summed over the model axis, so the
+leaves that act on whole tensors (the token-shift mixes and their LoRA,
+the decay, the bonus ``u``, ``ln_x``) take every rank's whole gradient,
+which is not summed.
 """
 from __future__ import annotations
 

@@ -10,10 +10,13 @@ power-of-two rounded decay applied every step diverges).  Its products
 are fp32 matmuls and must not run in TF32 or bf16 (the port keeps
 PyTorch's default, ``allow_tf32 = False``).
 
-On a (data, model) mesh (serving) ``w_in`` is cut on its contract dim
-over a whole input (``qlinear``'s ``split_input``: the packed z / xBC /
-dt output whole on every rank) and ``w_out``'s columns are gathered, so
-the conv, the scan and the state are whole on every rank, as one rank's.
+On a (data, model) mesh ``w_in`` is cut on its contract dim over a
+whole input (``qlinear``'s ``split_input``: the packed z / xBC / dt
+output whole on every rank) and ``w_out``'s columns are gathered, so the
+conv, the scan and the state are whole on every rank, as one rank's.  In
+training both projections' input gradients are summed over the model
+axis, so ``a_log``, ``d_skip``, ``dt_bias``, ``conv_w`` / ``conv_b`` and
+the gated norm take every rank's whole gradient, which is not summed.
 """
 from __future__ import annotations
 

@@ -28,8 +28,9 @@ ranks against one rank, on the smoke configs in fp32:
   (E, D) count grid of the exchanged layout) against per-expert int64
   products, and a rank's int8 expert slices equal to the slices of the
   whole tree's codes;
-* the refusals: training the ssm, hybrid and audio families on a mesh
-  (their serving rank view beside), the moe family's training on one, a
+* the training rank views of the ssm, hybrid, audio and moe families
+  (their serving ones beside: the moe family's experts whole in their
+  hidden), and the refusals: experts the model axis does not divide, a
   moe batch the data axis does not cut, and deepseek-v3 at full depth
   where the reference would turn FSDP on.
 
@@ -68,7 +69,6 @@ from repro_torch.kernels import ref as tref  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import mlp as tmlp  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from tests import moe_mesh_cases as cases_lib  # noqa: E402
@@ -443,7 +443,7 @@ def test_mesh_four_ranks(one_rank, tmp_path):
 def test_refusals():
     # the ssm, hybrid and audio families serve on (1, 2) (their rank view:
     # the attention's heads and the MLP hidden halved, d_model whole;
-    # RWKV6 has no attention), and still refuse training there
+    # RWKV6 has no attention), and train there on the same view
     for arch in ("rwkv6_3b", "zamba2_2_7b", "whisper_large_v3"):
         cfg, shape = tserve._resolve_cfg_mesh(arch, smoke=True,
                                               mesh_shape=(1, 2))
@@ -452,24 +452,33 @@ def test_refusals():
         assert (loc.n_heads, loc.n_kv_heads, loc.d_ff, loc.d_model) == (
             cfg.n_heads // cut, cfg.n_kv_heads // cut, cfg.d_ff // 2,
             cfg.d_model)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttrain.train(arch, 1, mesh_shape=(1, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.train(GRANITE, 1, mesh_shape=(1, 2), device="cpu")
+        assert shd.local_config(cfg, tmesh.RankMesh(*shape),
+                                train=True) == loc
+    # the moe family trains under training's rules: on (1, 2) the experts
+    # over model, on (2, 1) every expert whole on each rank, where
+    # serving's 2-D rule cuts each one's hidden over data
+    view = shd.local_config(tsmoke(GRANITE), tmesh.RankMesh(1, 2),
+                            train=True)
+    assert (view.moe.expert_shards, view.moe.hidden_shards) == (2, 1)
     cfg = tsmoke(DEEPSEEK)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tsteps.build_train_step(cfg, QuantContext(),
-                                tsteps.pick_optimizer(cfg), lambda s: 1e-3,
-                                mesh=tmesh.RankMesh(2, 1))
+    tsteps.build_train_step(cfg, QuantContext(), tsteps.pick_optimizer(cfg),
+                            lambda s: 1e-3, mesh=tmesh.RankMesh(2, 1))
+    view = shd.local_config(cfg, tmesh.RankMesh(2, 1), train=True)
+    assert (view.moe.expert_shards, view.moe.hidden_shards) == (1, 1)
+    assert shd.local_config(cfg, tmesh.RankMesh(2, 1)).moe.hidden_shards \
+        == 2
     # the reference serves deepseek-v3's 61 layers on (1, 2) with FSDP
     with pytest.raises(NotImplementedError, match="item 8"):
         tserve._resolve_cfg_mesh(DEEPSEEK, smoke=False, mesh_shape=(1, 2))
     cut = dataclasses.replace(get_config(DEEPSEEK), n_layers=4)
     tsteps._resolve_attn_kernel(cut, tmesh.RankMesh(1, 2))
-    # experts the model axis does not divide (the rules' fall-back)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        shd.local_config(dataclasses.replace(
-            cfg, n_heads=6, n_kv_heads=6), tmesh.RankMesh(1, 3))
+    # experts the model axis does not divide (the rules' fall-back), under
+    # serving's rules and training's
+    for train in (False, True):
+        with pytest.raises(NotImplementedError, match="item 8"):
+            shd.local_config(dataclasses.replace(
+                cfg, n_heads=6, n_kv_heads=6), tmesh.RankMesh(1, 3),
+                train=train)
     # a data axis that does not cut the moe batch (3 rows on 2 ranks)
     mcfg = shd.local_config(tsmoke(GRANITE),
                             tmesh.RankMesh(2, 1))

@@ -58,7 +58,6 @@ from repro_torch.distributed import sharding as tshd  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.launch import steps as tsteps  # noqa: E402
-from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models.model import from_jax_params  # noqa: E402
 from tests import tp_cases  # noqa: E402
 from tests.torch_threads import one_torch_thread  # noqa: E402,F401
@@ -231,7 +230,8 @@ def test_refusals_without_processes(tmp_path):
         tserve._resolve_cfg_mesh("deepseek_v3_671b", smoke=False,
                                  mesh_shape=(1, 3))
     # whisper on (1, 2) and RWKV6 on (2, 1) serve (their rank views: the
-    # heads and d_ff halved; the batch alone cut) and refuse training
+    # heads and d_ff halved; the batch alone cut) and train on the same
+    # rank views
     for arch, shape in (("whisper_large_v3", (1, 2)),
                         ("rwkv6_3b", (2, 1))):
         cfg, got = tserve._resolve_cfg_mesh(arch, smoke=True,
@@ -241,8 +241,8 @@ def test_refusals_without_processes(tmp_path):
         m = shape[1]
         assert (loc.n_heads, loc.n_kv_heads, loc.d_ff) == (
             cfg.n_heads // m, cfg.n_kv_heads // m, cfg.d_ff // m)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            ttrain.train(arch, 1, mesh_shape=shape, device="cpu")
+        assert tshd.local_config(cfg, tmesh.RankMesh(*shape),
+                                 train=True) == loc
     with pytest.raises(ValueError, match="eagerly"):
         tserve.serve("qwen3_1_7b", mesh_shape=(1, 2), graphs=True,
                      device="cpu")

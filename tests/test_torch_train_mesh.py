@@ -36,9 +36,9 @@ JAX package's initial weights, 3 steps of 4 x 32 tokens (``accum_steps``
   (2, 1) and on one rank to the same bits; the resumed losses on (2, 1)
   and one rank agree with the (1, 2) run's;
 * the CLI ``train --mesh 1x2 --device cpu --dist-backend gloo``; the
-  refusals (a non-dense family, a batch the data axis does not divide,
-  fake_sf over a cut model) name ROADMAP Queue 1 item 8, and a mesh
-  without a GPU raises unless the CPU is asked for.
+  moe family's training rank view; the refusals (a batch the data axis
+  does not divide, fake_sf over a cut model) name ROADMAP Queue 1 item
+  8, and a mesh without a GPU raises unless the CPU is asked for.
 
 Tolerances (``test_torch_train.py::test_train_step_matches_jax``'s): the
 loss, ``grad_norm``, ``lr`` and the gathered params within 2e-6 of the
@@ -403,9 +403,13 @@ def test_cli_trains_on_a_mesh(capsys):
 
 
 def test_refusals_without_processes(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ttrain.train("granite_moe_3b_a800m", 1, mesh_shape=(1, 2),
-                     device="cpu")
+    # the moe family trains on (1, 2) under training's rules: the experts
+    # over model, each expert's hidden whole
+    granite = cases_lib.config(dict(arch="granite_moe_3b_a800m"))
+    view = tshd.local_config(granite, tmesh.RankMesh(1, 2), train=True)
+    assert (view.n_heads, view.moe.expert_shards, view.moe.hidden_shards,
+            view.moe.e_local) == (granite.n_heads // 2, 2, 1,
+                                  granite.moe.e_padded // 2)
     with pytest.raises(NotImplementedError, match="item 8"):
         ttrain.train("llama3_2_1b", 1, batch=6, accum=2, mesh_shape=(2, 1),
                      device="cpu")

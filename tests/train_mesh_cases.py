@@ -26,12 +26,15 @@ is a dict with a ``kind``:
   ``ckpt_dir``, restored as the rank's pieces and gathered back.
 
 A case names its config as ``arch`` plus ``cfg`` overrides (the dtype
-among them), its optimizer ``opt`` ('adamw' or 'adafactor'), ``accum``,
-``fsdp`` and ``mode``; the weights' ``seed`` (default 0) and the
-stream's ``data_seed`` (default ``SEED``); the rate's ``warmup`` steps
-(default 1: the first step at rate 0); in :func:`run_cases`, the
-mesh's ``model_axis`` (default the spawned mesh's).  A train case keeps
-the rank's seconds a step (``step_s``).
+among them; a dict for a sub-config's fields), its optimizer ``opt``
+('adamw' or 'adafactor'), ``accum``, ``fsdp``, ``remat`` and ``mode``;
+the weights' ``seed`` (default 0) and the stream's ``data_seed``
+(default ``SEED``), ``batch`` and ``seq``; the rate's ``warmup`` steps
+(default 1: the first step at rate 0) and peak ``lr`` (3e-3); in
+:func:`run_cases`, the mesh's ``model_axis`` (default the spawned
+mesh's).  A train case keeps
+the rank's seconds a step (``step_s``).  The audio family's batches
+carry their stub frames (:func:`stream`).
 """
 import contextlib
 import dataclasses
@@ -58,22 +61,35 @@ BATCH, SEQ, SEED = 4, 32, 3
 OPTS = {"adamw": adamw, "adafactor": adafactor}
 
 
+def replaced(cfg, over: dict):
+    """``cfg`` with the overrides ``over``; a dict given for a field that
+    holds a config (``moe``, ``encdec``) overrides that config's fields
+    (either package's configs)."""
+    return dataclasses.replace(cfg, **{
+        k: replaced(getattr(cfg, k), v) if isinstance(v, dict) else v
+        for k, v in over.items()})
+
+
 def config(case: dict):
     """The case's config: ``arch``'s smoke one (``smoke`` False: its
-    published one) with ``cfg`` overrides."""
+    published one) with ``cfg`` overrides (:func:`replaced`)."""
     base = (get_smoke_config if case.get("smoke", True) else get_config)(
         case.get("arch", "llama3_2_1b"))
-    return dataclasses.replace(base, **case.get("cfg", {}))
+    return replaced(base, case.get("cfg", {}))
 
 
 def stream(cfg, case: dict) -> SyntheticLMStream:
-    return SyntheticLMStream(cfg.vocab_size, case.get("seq", SEQ),
-                             case.get("batch", BATCH),
-                             seed=case.get("data_seed", SEED))
+    """The case's stream (the audio family's with its stub frames)."""
+    audio = cfg.family == "audio"
+    return SyntheticLMStream(
+        cfg.vocab_size, case.get("seq", SEQ), case.get("batch", BATCH),
+        seed=case.get("data_seed", SEED),
+        encoder_seq=cfg.encdec.encoder_seq if audio else None,
+        d_model=cfg.d_model if audio else None)
 
 
-def lr_fn(warmup=1):
-    return warmup_cosine(3e-3, warmup, 10)
+def lr_fn(warmup=1, peak=3e-3):
+    return warmup_cosine(peak, warmup, 10)
 
 
 def _sync(dev):
@@ -126,30 +142,26 @@ def _timed_collectives(mesh, dev):
             delattr(mesh, n)
 
 
-def train_case(mesh, case: dict, device="cpu", inits=None) -> dict:
+def train_case(mesh, case: dict, device="cpu") -> dict:
     cfg = config(case)
     ctx = QuantContext(mode=QuantMode(case.get("mode", "fp")))
     opt = OPTS[case.get("opt", "adamw")]()
     accum, warmup = case.get("accum", 1), case.get("warmup", 1)
+    peak = case.get("lr", 3e-3)
     dev = device if mesh is None else mesh.device
     params = case.get("params")
     if params is None:      # the seeded weights, built on the device
-        where = case.get("init_device", dev)
-        key = (cfg, case.get("seed", 0), str(where))
-        inits = {} if inits is None else inits
-        if key not in inits:
-            inits[key] = M.init_params(cfg, case.get("seed", 0),
-                                       device=where)
-        params = inits[key]
+        params = M.init_params(cfg, case.get("seed", 0),
+                               device=case.get("init_device", dev))
     if mesh is None:
-        step = S.build_train_step(cfg, ctx, opt, lr_fn(warmup),
+        step = S.build_train_step(cfg, ctx, opt, lr_fn(warmup, peak),
                                   remat=False, accum_steps=accum)
         params = _to(params, dev)
         state = opt.init(params)
         loader = ShardedLoader(stream(cfg, case), dev)
     else:
         step, (_, o_abs, p_spec, o_spec) = S.jit_train_step(
-            cfg, ctx, mesh, opt, lr_fn(warmup),
+            cfg, ctx, mesh, opt, lr_fn(warmup, peak),
             remat=case.get("remat", False),
             fsdp=case.get("fsdp", False), accum_steps=accum)
         params = _to(shd.shard_params(params, mesh, mesh.coords, cfg=cfg,
@@ -205,7 +217,7 @@ def train_case(mesh, case: dict, device="cpu", inits=None) -> dict:
     return out
 
 
-def grads_case(mesh, case: dict, device="cpu", inits=None) -> dict:
+def grads_case(mesh, case: dict, device="cpu") -> dict:
     cfg = config(case)
     ctx = QuantContext(mode=QuantMode(case.get("mode", "fp")))
     batch = {k: torch.from_numpy(v) for k, v in
@@ -222,7 +234,7 @@ def grads_case(mesh, case: dict, device="cpu", inits=None) -> dict:
     d = mesh.coords["data"]
     batch = {k: v[d * per:(d + 1) * per] for k, v in batch.items()}
     specs = shd.spec_list(rank, p_spec)
-    with shd.activation_sharding(mesh, batch_split=True):
+    with shd.activation_sharding(mesh, batch_split=True, train=True):
         loss, m, g = S.loss_and_grads(
             rank, batch, cfg, ctx, mesh=mesh,
             fsdp_dims=[shd.data_dim(sp) for sp in specs])
@@ -231,7 +243,7 @@ def grads_case(mesh, case: dict, device="cpu", inits=None) -> dict:
     return {"loss": loss, "metrics": _metrics(m), "grads": whole}
 
 
-def resume_case(mesh, case: dict, device="cpu", inits=None) -> dict:
+def resume_case(mesh, case: dict, device="cpu") -> dict:
     if "drop" in case:      # the commit at step ``drop`` removed first
         if mesh is None or mesh.rank == 0:
             shutil.rmtree(os.path.join(case["ckpt_dir"],
@@ -246,7 +258,7 @@ def resume_case(mesh, case: dict, device="cpu", inits=None) -> dict:
     return {"losses": o["losses"]}
 
 
-def restored_case(mesh, case: dict, device="cpu", inits=None) -> dict:
+def restored_case(mesh, case: dict, device="cpu") -> dict:
     cfg = config(case)
     opt = S.pick_optimizer(cfg)
     template = {"params": S.abstract_params(cfg),
@@ -278,11 +290,11 @@ KINDS = {"train": train_case, "grads": grads_case, "resume": resume_case,
          "restored": restored_case}
 
 
-def run(case: dict, mesh=None, device="cpu", inits=None) -> dict:
-    """One case; ``inits`` keeps the seeded weights built for earlier
-    cases of the same config (they are cut or copied, never changed)."""
+def run(case: dict, mesh=None, device="cpu") -> dict:
+    """One case (the seeded weights built anew for each: a rank keeps no
+    whole copy of them while it trains its pieces)."""
     t0 = time.perf_counter()
-    out = KINDS[case["kind"]](mesh, case, device, inits)
+    out = KINDS[case["kind"]](mesh, case, device)
     out["wall_s"] = time.perf_counter() - t0
     return out
 
@@ -291,7 +303,6 @@ def run_cases(mesh, cases: list) -> list:
     """Every case on this rank, in order (the ranks' collectives meet in
     that order); a case with ``model_axis`` runs on the (world /
     model_axis, model_axis) mesh over the same ranks."""
-    inits: dict = {}
     meshes = {mesh.shape["model"]: mesh}
     out = []
     for c in cases:
@@ -299,5 +310,5 @@ def run_cases(mesh, cases: list) -> list:
         if m not in meshes:
             meshes[m] = make_local_mesh(m, device=mesh.device.type,
                                         backend=mesh.backend)
-        out.append(run(c, meshes[m], inits=inits))
+        out.append(run(c, meshes[m]))
     return out
