@@ -57,11 +57,13 @@ the CUDA toolkit.  Phases, one line each (or a few):
 8. Algorithm-1 calibration of qwen3-1.7B at full width and 2 layers on
    the card and on the CPU: the tables must agree, apart from declared
    near-ties (the run order is 1-3, 6, 7, 10, 15, 4, 5, 11, 16-18, 8,
-   9, 12-14, 30a's card side, 20, 22, 19, 21, 23-29, 30, 31: the CPU's
+   9, 30a's card side, 20, 22, 12-14, 19, 21, 23-33: the CPU's
    calibration runs on a background thread beside 4, 5, 11 and 16-18, as
-   30a's CPU side and 26b's CPU steps do beside 20 and 22, phases that
-   time nothing; every other phase waits for that thread to be idle, so
-   no kernel, step or profile is timed beside it);
+   30a's CPU side and 26b's CPU steps do beside 20 and 22, and phase
+   33's two dry runs in processes of their own beside 4, 5, 11, 16-18,
+   8, 9, 30a's card side, 20 and 22, phases that time nothing; every
+   other phase waits for that thread to be idle and the dry runs to end,
+   so no kernel, step or profile is timed beside them);
 9. the 2-layer dense model (prefill + 3 decode steps, flash attention)
    on the card against the CPU: INT with an int8 cache (identical), FP
    with an fp32 cache (phase 4's FP rule) and FP with an int8 cache, with
@@ -407,6 +409,27 @@ the CUDA toolkit.  Phases, one line each (or a few):
     grad_norm 0, K2 (single, rank-split and, for the MoE family,
     grouped), K3 and K5 launched on each rank; (c) bf16, 3 steps on (1,
     2): step ms a rank and tokens/s beside one rank's.
+33. the per-step cost analysis (``launch.analysis.CostMode``: each
+    kernel charged by its reckoning, ``kernels.cost``, every other aten op
+    by its operands) and the dry run (``launch.dryrun``): (a) qwen3-1.7B's
+    classic prefill and decode step at phase 10's shape at full depth
+    (INT calibrated over an int8 cache, then FP over a bf16 one) counted
+    on the card and traced on the meta device: FLOPs and bytes equal,
+    launches a counted call's = an uncounted call's = phase 10's, the
+    card's allocation peak within ``COST_PEAK_FACTOR`` of the trace's
+    peak live bytes, the decode step's replay (CUDA events) beside
+    max(t_compute, t_memory); (b) phase 5's INT engine workload at
+    ``ENGINE_LAYERS`` with ``profile_cost=True``: tokens and launches
+    those of the run without, one cost entry a step shape; (c) rank 0 of
+    rwkv6-3b x decode_32k on the production (16, 16) mesh for real on the
+    card (zeros of its slices, ``CountingMesh``'s collectives recorded,
+    not made): its allocated arguments the dry run's
+    ``arg_bytes_per_device``, its collectives, FLOPs and bytes the meta
+    trace's, its step's device time beside the three terms; (d) ``dryrun
+    --all`` and ``--all --multi-pod`` (``DRYRUN_JOBS`` workers each,
+    within ``DRYRUN_LIMIT_S``): exactly the 21 refused cells of
+    ``DRYRUN_REFUSED_ARCHS`` fail, for item 8's reason, and each other
+    cell prints its dominant term and its three terms.
 
 Since the compiled step (phase 19), every engine phase runs with graphs,
 as the engines do by default on the card, and phases 3 and 15 also
@@ -452,6 +475,7 @@ import functools
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
@@ -9120,6 +9144,375 @@ def phase_train_mesh_families(torch, out):
 # the phases that time nothing (no CUDA-event time, no profile, no
 # training step), which may run beside the background thread; before any
 # other phase ``_run_phase`` waits for that thread to be idle
+# ---------------------------------------------------------------------------
+# phase 33: the per-step cost analysis and the dry run
+# ---------------------------------------------------------------------------
+
+# (a): the card's allocation peak during a counted step, over what was
+# allocated before it, within this factor of the trace's peak live bytes
+# either way (the trace counts the step's own tensors; the caching
+# allocator rounds blocks up, and the kernels' scratch is not traced)
+COST_PEAK_FACTOR = 2.0
+# (c): the production cell rank 0 of which runs for real on the card
+COST_CELL = ("rwkv6_3b", "decode_32k")
+# (d): each dry run's time limit, from its start, and its worker processes
+# (deepseek-v3's train cell, 16 microsteps, takes one worker most of the
+# run; the other cells fit the second)
+DRYRUN_LIMIT_S, DRYRUN_JOBS = 720, 2
+# (d): the archs whose production cells the port refuses: a model axis of
+# 16 does not divide their KV heads (ROADMAP Queue 1 item 8, part 4)
+DRYRUN_REFUSED_ARCHS = ("qwen3_1_7b", "llama3_2_1b", "qwen3_32b",
+                        "deepseek_67b", "chameleon_34b",
+                        "granite_moe_3b_a800m", "whisper_large_v3")
+DRYRUN_DIR = ROOT / "build" / "dryrun"
+# (d)'s two dry runs: tag -> (process, json, log, log file, start)
+_DRYRUNS: dict = {}
+
+
+def start_dryruns() -> None:
+    """(d)'s two dry runs (``--all`` and ``--all --multi-pod``, each over
+    DRYRUN_JOBS worker processes) as processes of their own, once: host
+    work on the meta device, one torch thread a process, no CUDA device.
+    The whole script starts them beside phases 4, 5, 11, 16-18, 8, 9,
+    30a's card side, 20 and 22, which time nothing; every other phase
+    waits for them first (``_run_phase``)."""
+    if _DRYRUNS:
+        return
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   [str(SRC)] + [x for x in [os.environ.get("PYTHONPATH")]
+                                 if x]))
+    for tag, extra in (("16x16", []), ("2x16x16", ["--multi-pod"])):
+        js, lg = DRYRUN_DIR / f"{tag}.json", DRYRUN_DIR / f"{tag}.log"
+        js.unlink(missing_ok=True)
+        fh = open(lg, "w")
+        # a session of its own: stopping it stops its worker processes
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--jobs", str(DRYRUN_JOBS), "--json", str(js)] + extra,
+            cwd=ROOT, env=env, stdout=fh, stderr=subprocess.STDOUT,
+            start_new_session=True)
+        _DRYRUNS[tag] = (proc, js, lg, fh, time.perf_counter())
+
+
+def dryruns_idle() -> float:
+    """Wait for the dry runs to end (each up to its limit): the seconds
+    waited."""
+    t0 = time.perf_counter()
+    for proc, _, _, _, start in _DRYRUNS.values():
+        left = DRYRUN_LIMIT_S - (time.perf_counter() - start)
+        try:
+            proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            pass            # killed and reported by phase 33
+    return time.perf_counter() - t0
+
+
+def _kill(proc) -> None:
+    """``proc`` and the rest of its session (the dry run's workers)."""
+    import signal
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def stop_dryruns() -> None:
+    for proc, _, _, fh, _ in _DRYRUNS.values():
+        _kill(proc)
+        fh.close()
+
+
+def _cost_counted(torch, fn, *args):
+    """``fn(*args)`` counted on the card: (the trace, the output, each
+    kernel's launches, the allocation peak over what was allocated
+    before)."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.analysis import CostMode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start = dict(ops.LAUNCHES)
+    with torch.no_grad(), CostMode() as mode:
+        got = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return mode, got, _launch_delta(start), peak
+
+
+def _launch_delta(start: dict) -> dict:
+    from repro_torch.kernels import ops
+    return {k: n - start[k] for k, n in ops.LAUNCHES.items()
+            if n != start[k]}
+
+
+def _uncounted_launches(torch, fn, *args) -> dict:
+    from repro_torch.kernels import ops
+    start = dict(ops.LAUNCHES)
+    with torch.no_grad():
+        fn(*args)
+    torch.cuda.synchronize()
+    return _launch_delta(start)
+
+
+def _meta_trace(torch, fn, *args):
+    from repro_torch.launch.analysis import CostMode
+    with torch.no_grad(), CostMode() as mode:
+        got = fn(*args)
+    return mode, got
+
+
+def _cost_card_vs_meta(torch, res):
+    """(a) qwen3-1.7B's classic prefill and decode step at phase 10's
+    shape (batch 4, the 32-token prompt, S_max 48, bf16, flash attention;
+    INT calibrated over an int8 cache, then FP over a bf16 one), counted
+    on the card and traced on the meta device: FLOPs and bytes equal,
+    launches a counted call's = an uncounted call's = phase 10's a
+    forward, the allocation peak within COST_PEAK_FACTOR of the trace's,
+    and the decode step's replay (CUDA events) beside its roofline."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.qmodel import (QuantContext, QuantMode,
+                                         quantize_weight_tree)
+    from repro_torch.core.tree import leaves, unflatten
+    from repro_torch.launch import analysis as A
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import steps as S
+    from repro_torch.models import model as M
+    s_max = SERVE_PROMPT + SERVE_GEN
+    pos = s_max - 1             # the meta trace counts the cache's last row
+    res["a"] = {}
+    for mode, kv_bits in (("int", 8), ("fp", None)):
+        cfg = dataclasses.replace(get_config("qwen3_1_7b"),
+                                  attn_kernel="flash", kv_cache_bits=kv_bits)
+        params = M.init_params(cfg, 0, device="cuda")
+        tokens = torch.from_numpy(_serve_tokens(cfg.vocab_size))
+        prompt = {"tokens": tokens.cuda()}
+        ctx = QuantContext(mode=QuantMode.FP)
+        if mode == "int":
+            ctx, _ = serve_mod._calibrated(cfg, params, "int", prompt)
+            params = quantize_weight_tree(params, ctx)
+        meta_params = unflatten(params, [t.to("meta") for t in
+                                         leaves(params)])
+        pre = S.build_prefill_step(cfg, ctx, max_seq=s_max)
+        dec = S.build_serve_step(cfg, ctx)
+        one = _serve_want(cfg, mode, kv_bits is not None, gen=1)
+        two = _serve_want(cfg, mode, kv_bits is not None, gen=2)
+        want = {"prefill": {k: v for k, v in dict(
+                    one, flash_prefill=cfg.n_layers).items() if v},
+                "decode": {k: two[k] - one[k] for k in two
+                           if two[k] != one[k]}}
+        plain = _uncounted_launches(torch, pre, params, prompt)
+        card, (logits, cache), launched, peak = _cost_counted(
+            torch, pre, params, prompt)
+        meta, (_, meta_cache) = _meta_trace(
+            torch, pre, meta_params, {"tokens": tokens.to("meta")})
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        pos_t = torch.tensor(pos, dtype=torch.int32, device="cuda")
+        dec_args = (params, tok, cache, pos_t)
+        d_plain = _uncounted_launches(torch, dec, *dec_args)
+        d_card, _, d_launched, d_peak = _cost_counted(torch, dec, *dec_args)
+        d_meta, _ = _meta_trace(torch, dec, meta_params, tok.to("meta"),
+                                meta_cache, pos_t.to("meta"))
+        rows = {}
+        for step, c, m, got, base, pk in (
+                ("prefill", card, meta, launched, plain, peak),
+                ("decode", d_card, d_meta, d_launched, d_plain, d_peak)):
+            tag = f"{mode} {step}"
+            check((c.flops, c.bytes) == (m.flops, m.bytes),
+                  f"33a {tag}: counted on the card {c.flops} FLOP / "
+                  f"{c.bytes} B, traced on meta {m.flops} / {m.bytes}")
+            check(got == base == want[step],
+                  f"33a {tag}: launches counted {got}, uncounted {base}, "
+                  f"phase 10's {want[step]}")
+            check(c.peak / COST_PEAK_FACTOR <= pk <= c.peak
+                  * COST_PEAK_FACTOR,
+                  f"33a {tag}: allocation peak {pk} B against the trace's "
+                  f"{c.peak} B, outside a factor {COST_PEAK_FACTOR}")
+            terms = A.roofline_terms(c.sample())
+            rows[step] = dict(flops=c.flops, bytes=c.bytes, peak=c.peak,
+                              alloc_peak=pk, launches=got,
+                              kernels={k: v[0] for k, v in c.kernels.items()},
+                              t_compute_ms=terms["t_compute_s"] * 1e3,
+                              t_memory_ms=terms["t_memory_s"] * 1e3)
+            log(f"[33a] qwen3-1.7B {tag}: {c.flops / 1e9:.3f} GFLOP, "
+                f"{c.bytes / 1e6:.3f} MB on the card = the meta trace's; "
+                f"launches {got} (= uncounted = phase 10's); peak live "
+                f"{c.peak / 1e6:.3f} MB traced, {pk / 1e6:.3f} MB allocated; "
+                f"roofline compute {terms['t_compute_s'] * 1e3:.4f} ms, "
+                f"memory {terms['t_memory_s'] * 1e3:.4f} ms")
+        graphs = S.StepGraphs("cuda", capture=True)
+        tok_np = tok.cpu().numpy()
+        for _ in range(3):          # eager, capture, replay
+            S.run_serve_step(graphs, dec, params, tok_np, cache, pos)
+        check(graphs.last == "replay", f"33a {mode}: decode not replayed")
+        ms = time_ms(torch, lambda: S.run_serve_step(
+            graphs, dec, params, tok_np, cache, pos), 20)
+        bound = max(rows["decode"]["t_compute_ms"],
+                    rows["decode"]["t_memory_ms"])
+        rows["decode"].update(replay_ms=ms, roofline_ms=bound)
+        log(f"[33a] qwen3-1.7B {mode} decode step replayed: {ms:.4f} ms of "
+            f"device time against max(t_compute, t_memory) = {bound:.4f} "
+            f"ms ({ms / bound:.1f}x)")
+        res["a"][mode] = rows
+        del params, meta_params, cache, meta_cache, graphs, logits
+        torch.cuda.empty_cache()
+
+
+def _cost_engine(torch, res):
+    """(b) phase 5's INT engine workload at ENGINE_LAYERS with
+    ``profile_cost=True``: tokens and launches those of the run without
+    costs, one cost entry for each step shape."""
+    plain = _obs_run(torch, mode="int")
+    costed = _obs_run(torch, mode="int", profile_cost=True)
+    check(_same_tokens(plain["outputs"], costed["outputs"]),
+          "33b: the engine with costs on gave other tokens")
+    check(plain["launches"] == costed["launches"],
+          f"33b: launches {costed['launches']} with costs, "
+          f"{plain['launches']} without")
+    table = costed["report"]["profile"]["cost_analysis"]
+    shapes = {str(k) for k in costed["engine"]._step_times}
+    check(set(table) == shapes,
+          f"33b: cost entries {sorted(table)} for step shapes "
+          f"{sorted(shapes)}")
+    for key, c in sorted(table.items()):
+        log(f"[33b] engine INT step {key}: {c['flops'] / 1e9:.4f} GFLOP, "
+            f"{c['bytes_accessed'] / 1e6:.3f} MB, peak live "
+            f"{c['peak_bytes'] / 1e6:.3f} MB, kernels "
+            f"{ {k: v['calls'] for k, v in c['kernels'].items()} }")
+    log(f"[33b] engine INT on {ENGINE_LAYERS} layers with profile_cost: "
+        f"tokens and launches identical to the run without, "
+        f"{len(table)} step shapes each with its entry")
+    res["b"] = dict(shapes=table, launches=costed["launches"])
+    del plain, costed
+    torch.cuda.empty_cache()
+
+
+def _cost_production_rank(torch, res):
+    """(c) rank 0 of COST_CELL on the production (16, 16) mesh for real
+    on the card (zeros of its slices, the stand-in mesh's collectives):
+    its allocated argument bytes = the dry run's arg_bytes_per_device, its
+    collectives, FLOPs and bytes = the meta trace's, next tokens in the
+    vocabulary; its step's device time beside the three terms."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import analysis as A
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import make_production_mesh
+    arch, shape = COST_CELL
+    mesh = make_production_mesh()
+    _, meta, _ = D.lower_cell(arch, shape, mesh)
+    def requested() -> int:
+        # the bytes the caching allocator was asked for (its blocks round
+        # them up, by up to a block's split threshold)
+        torch.cuda.synchronize()
+        return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+    req0, mem0 = requested(), torch.cuda.memory_allocated()
+    step, args, _ = D.rank_step(arch, shape, mesh, device="cuda")
+    asked, alloc = requested() - req0, torch.cuda.memory_allocated() - mem0
+    n_bytes, n_tensors = D.tree_bytes(args), len(leaves(args))
+    check(n_bytes == asked == meta.arg_bytes,
+          f"33c: the rank's arguments {n_bytes} B, {asked} B asked of the "
+          f"card's allocator, the dry run's arg_bytes_per_device "
+          f"{meta.arg_bytes}")
+    with torch.no_grad(), A.CostMode() as card:
+        nxt, _ = step(*args)
+    torch.cuda.synchronize()
+    check(card.records == meta.records,
+          f"33c: {len(card.records)} collectives on the card, "
+          f"{len(meta.records)} traced on meta")
+    check((card.flops, card.bytes) == (meta.flops, meta.bytes),
+          f"33c: card {card.flops} FLOP / {card.bytes} B, meta "
+          f"{meta.flops} / {meta.bytes}")
+    vocab = get_config(arch).vocab_size
+    check(tuple(nxt.shape) == tuple(args[1].shape)
+          and 0 <= int(nxt.min()) and int(nxt.max()) < vocab,
+          f"33c: next tokens {tuple(nxt.shape)} {nxt.flatten()[:8]}")
+    with torch.no_grad():
+        ms = time_ms(torch, lambda: step(*args), 10)
+    terms = A.roofline_terms(card.sample())
+    log(f"[33c] {arch} x {shape}, rank 0 of (16, 16) on the card: "
+        f"arguments {n_bytes} B (= the dry run's = asked of the allocator; "
+        f"{alloc} B in its blocks, {n_tensors} tensors), "
+        f"{len(card.records)} collectives recorded (= the meta "
+        f"trace's), step {ms:.3f} ms of device time (eager, collectives "
+        f"not made) against compute {terms['t_compute_s'] * 1e3:.4f} ms, "
+        f"memory {terms['t_memory_s'] * 1e3:.4f} ms, collective "
+        f"{terms['t_collective_s'] * 1e3:.4f} ms -> {terms['dominant']}")
+    res["c"] = dict(arg_bytes=n_bytes, alloc=alloc, ms=ms,
+                    collectives=len(card.records), flops=card.flops,
+                    bytes=card.bytes,
+                    **{k: v for k, v in terms.items()})
+    del args, step, nxt
+    torch.cuda.empty_cache()
+
+
+def _dryrun_results(res):
+    """(d) both dry runs ended within DRYRUN_LIMIT_S, exit 1 with exactly
+    the expected refused cells, each for item 8's reason, and every
+    other cell analysed: one line each, the dominant term and the three
+    terms."""
+    from repro_torch.configs import ARCH_IDS, get_config, supported_shapes
+    cells = {(a, s) for a in ARCH_IDS if a != "resnet_paper"
+             for s in supported_shapes(get_config(a))}
+    refused = {(a, s) for a, s in cells if a in DRYRUN_REFUSED_ARCHS}
+    res["d"] = {}
+    for tag, (proc, js, lg, _, start) in _DRYRUNS.items():
+        dryruns_idle()
+        if proc.poll() is None:
+            _kill(proc)
+            check(False, f"33d: the {tag} dry run passed its "
+                         f"{DRYRUN_LIMIT_S} s limit (log {lg})")
+        check(proc.returncode == 1 and js.exists(),
+              f"33d: the {tag} dry run exited {proc.returncode} (log {lg})")
+        data = json.loads(js.read_text())
+        failed = {(f["arch"], f["shape"]): f["error"]
+                  for f in data["failures"]}
+        check(set(failed) == refused,
+              f"33d: {tag} failed {sorted(set(failed) - refused)} beyond the "
+              f"refused cells, or traced {sorted(refused - set(failed))}")
+        check(all("item 8" in e for e in failed.values()),
+              f"33d: {tag}: a refusal without item 8's reason")
+        recs = data["records"]
+        check(len(recs) == len(cells) - len(refused),
+              f"33d: {tag}: {len(recs)} cells analysed")
+        for r in recs:
+            check(all(math.isfinite(r[k]) and r[k] >= 0 for k in (
+                "t_compute_s", "t_memory_s", "t_collective_s",
+                "hlo_flops_per_device", "arg_bytes_per_device",
+                "temp_bytes_per_device")),
+                f"33d: {tag} {r['arch']} x {r['shape']}: {r}")
+            log(f"[33d] {tag} {r['arch']} x {r['shape']}: {r['dominant']} "
+                f"| compute {r['t_compute_s'] * 1e3:.3f} ms, memory "
+                f"{r['t_memory_s'] * 1e3:.3f} ms, collective "
+                f"{r['t_collective_s'] * 1e3:.3f} ms (args "
+                f"{r['arg_bytes_per_device'] / 1e9:.2f} GB, temp "
+                f"{r['temp_bytes_per_device'] / 1e9:.2f} GB a rank; traced "
+                f"in {r['lower_compile_s']:.1f} s)")
+        secs = time.perf_counter() - start
+        log(f"[33d] dry run {tag}: {len(recs)} cells analysed, "
+            f"{len(failed)} refused (item 8), ended within {secs:.1f} s of "
+            f"its start")
+        res["d"][tag] = dict(records=recs, refused=sorted(failed),
+                             seconds_since_start=secs)
+
+
+def phase_cost(torch, out):
+    start_dryruns()
+    res = {}
+    try:
+        _cost_card_vs_meta(torch, res)
+        _cost_engine(torch, res)
+        _cost_production_rank(torch, res)
+        _dryrun_results(res)
+    finally:
+        stop_dryruns()
+    out["cost"] = res
+    return res
+
+
 BESIDE_CPU_THREAD = {"phase_model", "phase_engine", "phase_w8a8",
                      "phase_paged_model", "phase_legacy_engine",
                      "phase_calibrate", "phase_dense_model",
@@ -9130,16 +9523,18 @@ BESIDE_CPU_THREAD = {"phase_model", "phase_engine", "phase_w8a8",
 def _run_phase(out, fn, *args):
     """``fn(*args)``, its seconds logged and kept under ``phase_s``; first,
     unless it is one of BESIDE_CPU_THREAD, the wait for the background
-    thread to be idle, kept under ``cpu_wait_s``."""
+    thread to be idle and for phase 33's dry runs to end, kept under
+    ``cpu_wait_s``."""
     name = fn.__name__
-    wait = 0.0 if name in BESIDE_CPU_THREAD else cpu_thread_idle()
+    wait = 0.0 if name in BESIDE_CPU_THREAD \
+        else cpu_thread_idle() + dryruns_idle()
     t0 = time.perf_counter()
     res = fn(*args)
     secs = time.perf_counter() - t0
     out.setdefault("phase_s", {})[name] = secs
     out.setdefault("cpu_wait_s", {})[name] = wait
     log(f"[time] {name}: {secs:.1f} s"
-        + (f" (after {wait:.1f} s waiting for the background thread)"
+        + (f" (after {wait:.1f} s waiting for the background work)"
            if wait >= 0.05 else ""))
     return res
 
@@ -9154,7 +9549,7 @@ def main(argv=None) -> int:
                          "comma-separated (1, 2, 3, 5, 6, 7, 10, 11, 12, "
                          "13, 14 (after 13's calibration), 15, 17, 18, 19, "
                          "20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 30, 31, "
-                         "32); "
+                         "32, 33); "
                          "prints no kernels or ok line")
     args = ap.parse_args(argv)
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -9176,6 +9571,7 @@ def main(argv=None) -> int:
     finally:
         for pool in _CPU_POOL:
             pool.shutdown(wait=False, cancel_futures=True)
+        stop_dryruns()
 
 
 def _run(torch, args, out, t_start) -> int:
@@ -9195,7 +9591,7 @@ def _run(torch, args, out, t_start) -> int:
                  24: phase_moe, 25: phase_whisper, 26: phase_train,
                  27: phase_tp, 28: phase_train_mesh, 29: phase_moe_mesh,
                  30: phase_train_families, 31: phase_recurrent_mesh,
-                 32: phase_train_mesh_families}
+                 32: phase_train_mesh_families, 33: phase_cost}
         try:
             picked = [alone[int(n)] for n in args.only.split(",")]
         except (KeyError, ValueError) as e:
@@ -9228,6 +9624,8 @@ def _run(torch, args, out, t_start) -> int:
         # time nothing (BESIDE_CPU_THREAD); phase 13, itself a CPU
         # calibration, comes after 8 so that the two do not share the cores
         cal_cpu = on_cpu_thread(_calibrate_cpu)
+        # phase 33's dry runs, host work beside the same phases
+        start_dryruns()
         _run_phase(out, phase_model, torch, out)
         eng = _run_phase(out, phase_engine, torch, out)
         _run_phase(out, phase_w8a8, torch, out)
@@ -9240,18 +9638,18 @@ def _run(torch, args, out, t_start) -> int:
         _run_phase(out, phase_dense_model, torch, out, *cal)
         del cal, cal_cpu
         torch.cuda.empty_cache()
-        cnn = _run_phase(out, phase_cnn_kernels, torch, out)
-        q_resnet = _run_phase(out, phase_resnet_calibrate, torch, out)
-        rfwd = _run_phase(out, phase_resnet_forward, torch, out, q_resnet)
-        del q_resnet
-        torch.cuda.empty_cache()
-        # 30a's card side alone, then its CPU side and phase 26b's beside
-        # phases 20 and 22
+        # 30a's card side, then its CPU side and phase 26b's beside phases
+        # 20 and 22 (the dry runs go on beside all three)
         fam_card = _run_phase(out, phase_train_families_card, torch, out)
         train_cpu = on_cpu_thread(_train_cpu_steps)
         rec = _run_phase(out, phase_recurrent, torch, out)
         torch.cuda.empty_cache()
         _run_phase(out, phase_configs, torch, out)
+        torch.cuda.empty_cache()
+        cnn = _run_phase(out, phase_cnn_kernels, torch, out)
+        q_resnet = _run_phase(out, phase_resnet_calibrate, torch, out)
+        rfwd = _run_phase(out, phase_resnet_forward, torch, out, q_resnet)
+        del q_resnet
         torch.cuda.empty_cache()
         _run_phase(out, phase_graphs, torch, out)
         torch.cuda.empty_cache()
@@ -9278,6 +9676,8 @@ def _run(torch, args, out, t_start) -> int:
         rm = _run_phase(out, phase_recurrent_mesh, torch, out)
         torch.cuda.empty_cache()
         tmf = _run_phase(out, phase_train_mesh_families, torch, out)
+        torch.cuda.empty_cache()
+        _run_phase(out, phase_cost, torch, out)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -19,7 +19,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.resnet_paper import ResNetConfig
 
 __all__ = ["ARCH_IDS", "ModelConfig", "ResNetConfig", "get_config",
-           "get_smoke_config"]
+           "get_smoke_config", "supported_shapes"]
 
 ARCH_IDS = ["qwen3_1_7b", "llama3_2_1b", "qwen3_32b", "deepseek_67b",
             "chameleon_34b", "granite_moe_3b_a800m", "deepseek_v3_671b",
@@ -44,3 +44,12 @@ def get_config(arch: str) -> Union[ModelConfig, ResNetConfig]:
 
 def get_smoke_config(arch: str) -> Union[ModelConfig, ResNetConfig]:
     return _module(arch).SMOKE_CONFIG
+
+
+def supported_shapes(cfg: ModelConfig) -> list[str]:
+    """Which assigned shape cells apply to this arch (``base.SHAPES``):
+    every one but ``long_500k``, which only a sub-quadratic arch takes."""
+    names = ["train_4k", "prefill_32k", "decode_32k", "long_500k"]
+    if not cfg.sub_quadratic:
+        names.remove("long_500k")
+    return names

@@ -117,6 +117,8 @@ class ModelConfig:
     encdec: Optional[EncDecConfig] = None
     hybrid: Optional[HybridConfig] = None
     dtype: str = "bfloat16"
+    # which shapes this arch supports (long_500k only for sub-quadratic)
+    sub_quadratic: bool = False
     # int8 KV cache: Eq. 1 applied to the cache with a static fractional
     # bit (post-rope/qk-norm K and V are O(1)-ranged; n=4 keeps |x|<8).
     kv_cache_bits: Optional[int] = None

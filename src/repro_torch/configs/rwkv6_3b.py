@@ -6,6 +6,7 @@ CONFIG = ModelConfig(
     name="rwkv6-3b", family="ssm",
     n_layers=32, d_model=2560, n_heads=40, n_kv_heads=40, d_ff=8960,
     vocab_size=65536, head_dim=64, act="relu_sq",
+    sub_quadratic=True,
     # chunk 32: the chunked linear-attention form exponentiates the within-
     # chunk cumulative log-decay; with the per-token decay floor exp(-1.65)
     # this keeps every exp() < e^53 (finite in fp32).  See models/rwkv.py.

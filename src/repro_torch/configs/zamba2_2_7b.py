@@ -7,6 +7,7 @@ CONFIG = ModelConfig(
     name="zamba2-2.7b", family="hybrid",
     n_layers=54, d_model=2560, n_heads=32, n_kv_heads=32, d_ff=10240,
     vocab_size=32000, head_dim=80, rope_theta=1e4,
+    sub_quadratic=True,
     ssm=SSMConfig(kind="mamba2", d_state=64, d_conv=4, expand=2,
                   head_dim=64, chunk=256),
     hybrid=HybridConfig(attn_every=6, n_shared_blocks=1,

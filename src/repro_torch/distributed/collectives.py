@@ -116,9 +116,13 @@ class _VocabEmbed(torch.autograd.Function):
         grad = torch.zeros(ctx.rows, dtype=ctx.table_dtype, device=g.device)
         # the sum one rank's ``table[tokens]`` backward makes (on the card
         # a sorted, deterministic accumulation; ``index_add_`` adds by
-        # atomics in no fixed order)
-        grad.index_put_((local[mine],), g[mine].to(ctx.table_dtype),
-                        accumulate=True)
+        # atomics in no fixed order); another rank's tokens add zeros to
+        # a row of this one's, which keeps the shapes data-independent (a
+        # traced step on the meta device has no mask to count)
+        g = torch.where(mine[..., None], g, torch.zeros((), dtype=g.dtype,
+                                                        device=g.device))
+        grad.index_put_((local.clamp(0, ctx.rows[0] - 1),),
+                        g.to(ctx.table_dtype), accumulate=True)
         return grad, None, None, None
 
 

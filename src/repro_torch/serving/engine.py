@@ -77,8 +77,10 @@ preemption snapshot is each rank's own copy of the same slab), the
 hybrid's pool holds its KV heads.  Its steps run eagerly (``StepGraphs``
 refuses to capture the collectives).
 
-Not ported yet, and raising ``NotImplementedError``: ``profile_cost``
-(XLA's cost analysis).
+``profile_cost`` counts each step shape's first call, the eager one,
+under the cost counter (``obs.profile.Profiler.cost_for``; FLOPs, bytes,
+peak live bytes and each kernel's charge a shape), where the reference
+reads XLA's cost analysis of each compiled shape.
 """
 from __future__ import annotations
 
@@ -723,10 +725,11 @@ class ServingEngine:
                         rows=self.sched.nbmax * self.pool.block_size))
                 arrays["work"] = work.table
             sampling = self._sampling(temps, topks)
-            res = self.graphs.run(
-                shape_key + tuple(sampling.values()),
-                lambda inp: self._ragged_sampled(inp, work, **sampling),
-                arrays)
+            with self.profiler.cost_for(shape_key):
+                res = self.graphs.run(
+                    shape_key + tuple(sampling.values()),
+                    lambda inp: self._ragged_sampled(inp, work, **sampling),
+                    arrays)
             out, n_acc = self._host(res)
         dt = time.perf_counter() - t0
         self._step_times.setdefault(shape_key, []).append(dt)
@@ -845,11 +848,12 @@ class ServingEngine:
                         block_size=self.pool.block_size))
                 arrays["work"] = work.table
             sampling = self._sampling(temps, topks)
-            res = self.graphs.run(
-                shape_key + (verify,) + tuple(sampling.values()),
-                lambda inp: self._paged_sampled(inp, work, verify,
-                                                **sampling),
-                arrays)
+            with self.profiler.cost_for(shape_key):
+                res = self.graphs.run(
+                    shape_key + (verify,) + tuple(sampling.values()),
+                    lambda inp: self._paged_sampled(inp, work, verify,
+                                                    **sampling),
+                    arrays)
             out, n_acc = self._host(res)
         dt = time.perf_counter() - t0
         self._step_times.setdefault(shape_key, []).append(dt)
@@ -1243,10 +1247,12 @@ class ServingEngine:
                             block_size=self.pool.block_size))
                     arrays["work"] = work.table
             sampling = self._sampling(temps, topks)
-            res = self.graphs.run(
-                shape_key + tuple(sampling.values()),
-                lambda inp: self._recurrent_sampled(inp, work, **sampling),
-                arrays)
+            with self.profiler.cost_for(shape_key):
+                res = self.graphs.run(
+                    shape_key + tuple(sampling.values()),
+                    lambda inp: self._recurrent_sampled(inp, work,
+                                                        **sampling),
+                    arrays)
             out, _ = self._host(res)
         dt = time.perf_counter() - t0
         self._step_times.setdefault(shape_key, []).append(dt)
@@ -1542,8 +1548,8 @@ class ServingEngine:
         if self.slo is not None:
             self._register_slo_metrics()
         if self.profiler.enabled:
-            f("profile", "torch.profiler capture (dynamic keys; present "
-              "only when profiling is on)",
+            f("profile", "torch.profiler capture and per-shape cost "
+              "analysis (dynamic keys; present only when profiling is on)",
               lambda: self.profiler.report(), typ=dict, optional=True)
         m.check_aliases()
 

@@ -137,10 +137,11 @@ def test_unported_paths_raise():
         ServingEngine(rcfg, {}, QuantContext(), device="cpu")
         with pytest.raises(ValueError, match="speculative decoding"):
             ServingEngine(rcfg, {}, QuantContext(), device="cpu", spec_k=2)
-    # XLA's per-shape cost analysis is not ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(cfg, {}, QuantContext(), device="cpu",
-                      profile_cost=True)
+    # the per-shape cost analysis is ported: an engine with profile_cost
+    # constructs, its profiler counting
+    eng = ServingEngine(cfg, {}, QuantContext(), device="cpu",
+                        profile_cost=True)
+    assert eng.profiler.cost and eng.profiler.enabled
     # the scaling-factor baseline is ported: a fake_sf engine serves,
     # uncalibrated (the reference calibrates only fake and int)
     out = serve_engine("qwen3_1_7b", device="cpu", n_requests=1,

@@ -9,7 +9,8 @@ events and compares their Prometheus text and Chrome traces byte for
 byte.  The port-only cases drive the port's engine on the CPU: turning
 observability on changes no token and no counter, ``torch.profiler``
 capture annotates every dispatch, ``reset_metrics`` re-seeds sampling so
-a sampled record replays exactly, and ``profile_cost`` raises.
+a sampled record replays exactly, and ``profile_cost`` keeps one cost
+entry a step shape, equal to a meta trace of its first step.
 """
 import dataclasses
 import importlib
@@ -680,12 +681,71 @@ def test_profile_dir_annotates_every_dispatch(tmp_path, ragged):
     assert "profile" not in plain["report"]
 
 
-def test_profile_cost_raises_naming_its_roadmap_item():
-    from repro_torch.obs.profile import Profiler
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 8"):
-        Profiler(cost=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _engine(profile_cost=True)
+def _meta_tree(tree):
+    """``tree`` (dicts, lists, named tuples of tensors) on the meta
+    device."""
+    if isinstance(tree, dict):
+        return {k: _meta_tree(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_meta_tree(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_meta_tree(v) for v in tree)
+    return tree.to("meta") if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.parametrize("ragged,spec_k", [(True, 0), (True, 2), (False, 0),
+                                           (False, 2)])
+def test_profile_cost_entries_equal_meta_traces(monkeypatch, ragged, spec_k):
+    """``profile_cost=True``: one cost entry a step shape, the tokens of
+    the run without costs, and each entry equal to a trace of that
+    shape's first step on the meta device, fed the staged arrays the
+    engine staged (their values handed to the reckonings that read data:
+    K1's descriptors, K4's positions)."""
+    from repro_torch.kernels import cost
+    from repro_torch.launch.analysis import CostMode
+    plain = _engine(ragged, spec_k)
+    _run(plain, _requests(plain.cfg.vocab_size))
+    eng = _engine(ragged, spec_k, profile_cost=True)
+    calls, run = [], eng.graphs.run
+
+    def recording(key, fn, arrays):
+        calls.append((key, fn, {k: np.array(a) for k, a in arrays.items()}))
+        return run(key, fn, arrays)
+
+    monkeypatch.setattr(eng.graphs, "run", recording)
+    rep = _run(eng, _requests(eng.cfg.vocab_size))
+    for rid, toks in plain.outputs().items():
+        assert np.array_equal(toks, eng.outputs()[rid]), rid
+    entries = eng.profiler.shape_costs
+    shapes = {k if ragged else tuple(k) for k in eng._step_times}
+    assert set(entries) == shapes and len(shapes) > 1
+    assert set(rep["profile"]["cost_analysis"]) == {str(k) for k in shapes}
+    # the meta traces: the engine's state on the meta device
+    eng.params, eng.cache = _meta_tree(eng.params), _meta_tree(eng.cache)
+    eng.device = torch.device("meta")
+    values = {}
+
+    def host(t):
+        return t.detach().cpu() if t.device.type != "meta" \
+            else values[id(t)]
+    monkeypatch.setattr(cost, "_host", host)
+    for shape, entry in entries.items():
+        key, fn, arrays = next(c for c in calls
+                               if tuple(c[0][:len(shape)]) == tuple(shape))
+        inputs = {}
+        for name, a in arrays.items():
+            inputs[name] = torch.from_numpy(a).to("meta")
+            values[id(inputs[name])] = torch.from_numpy(a)
+        with torch.no_grad(), CostMode() as mode:
+            fn(inputs)
+        assert entry["flops"] == mode.flops > 0, shape
+        assert entry["bytes_accessed"] == mode.bytes, shape
+        assert entry["kernels"] == {
+            k: {"calls": v[0], "flops": v[1], "bytes": v[2]}
+            for k, v in mode.kernels.items()}, shape
+        assert entry["peak_bytes"] >= mode.peak > 0
+        want = "ragged_attention" if ragged else "paged_attention"
+        assert entry["kernels"][want]["calls"] == eng.cfg.n_layers
 
 
 @pytest.mark.parametrize("ragged,spec_k", [(True, 2), (False, 2)])

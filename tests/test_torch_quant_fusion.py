@@ -24,6 +24,8 @@ numpy inputs:
 * the CPU wrappers count no kernel launches, and the CUDA bindings refuse
   CPU tensors.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -312,8 +314,14 @@ def test_cuda_bindings_refuse_cpu_tensors():
         int8_matmul_cuda(x.to(torch.int8), k_rows, None, shift=0,
                          bias_shift=0, relu=False, lo=-128, hi=127,
                          out_dtype=torch.bfloat16, n_o=4)
-    with pytest.raises(ValueError):
-        tops.quantize_multi(x.to("meta"), [4])
+    # a wrapper launches on a CUDA tensor, runs its plain version on a
+    # CPU or meta one (there only the output's shape), and refuses any
+    # other device
+    with pytest.raises(ValueError, match="no kernel for device"):
+        tops._on_cuda(types.SimpleNamespace(device=torch.device("xpu")),
+                      "quantize_multi")
+    (codes,) = tops.quantize_multi(x.to("meta"), [4])
+    assert codes.device.type == "meta" and codes.shape == x.shape
 
 
 def test_quantize_act_emits_8_bit_codes_only_on_the_card(monkeypatch):
